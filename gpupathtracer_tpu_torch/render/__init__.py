@@ -1,0 +1,3 @@
+from gpupathtracer_tpu_torch.render.renderer import Renderer
+
+__all__ = ["Renderer"]

@@ -1,0 +1,155 @@
+"""The CUDA traversal kernel's wrapper (ops/kernel_traverse.py) and the
+exact arithmetic it shares with its plain version.
+
+This module imports no JAX, so its `cuda` tests also run on the machine
+with the card, which has none (tests/conftest.py imports jax, hence
+--noconftest there):
+
+    python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -q
+"""
+
+import math
+import os
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+
+from gpupathtracer_tpu.bvh import build_wide_bvh
+from gpupathtracer_tpu.bvh.wide import pack_for_packets
+from gpupathtracer_tpu.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+from gpupathtracer_tpu_torch.ops.intersect import fma32, pack_tri_geom
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+
+
+def _soup_case(seed, leaf=4, n_tris=400, n_rays=512):
+    """The random-soup recipe of tests/test_pallas.py, with rays, a random
+    occlusion distance and a random active mask."""
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(-5, 5, (n_tris, 1, 3))
+    offs = rng.uniform(-0.6, 0.6, (n_tris, 3, 3))
+    tri = (base + offs).astype(np.float32)
+    p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=leaf, builder="numpy",
+                                 force_leaf=True)
+    wide = pack_for_packets(wide, p0, p1 - p0, p2 - p0, leaf)
+    o = rng.uniform(-8, 8, (n_rays, 3)).astype(np.float32)
+    tgt = rng.uniform(-4, 4, (n_rays, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return dict(
+        wide=wide, geom=pack_tri_geom(p0, p1 - p0, p2 - p0),
+        depth=min(stats.max_depth * 7 + 2, kt.MAX_STACK), leaf=leaf, o=o, d=d,
+        far=np.full((n_rays,), 1e20, np.float32),
+        t_occ=rng.uniform(0.5, 8.0, n_rays).astype(np.float32),
+        act=rng.rand(n_rays) < 0.9)
+
+
+def _port(case, t_max, device="cpu"):
+    """Rays o, d, t_max, active as tensors on `device`."""
+    return [torch.tensor(x, device=device)
+            for x in (case["o"], case["d"], t_max, case["act"])]
+
+
+def _rows(case, device="cpu"):
+    return torch.tensor(case["wide"].node_rows, device=device)
+
+
+def _nearest_f32(v: Fraction) -> np.float32:
+    """The float32 nearest to v, ties to even."""
+    f = np.float32(float(v))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    err = [abs(Fraction(float(x)) - v) for x in cands]
+    best = [x for x, e in zip(cands, err) if e == min(err)]
+    return min(best, key=lambda x: int(np.float32(x).view(np.int32)) & 1)
+
+
+def test_fma32_rounds_once():
+    """fma32 equals the exactly rounded a*b + c, including products that
+    nearly cancel c, where a float64 sum rounds twice."""
+    rng = np.random.RandomState(1)
+    n = 4000
+    a = (rng.randn(n) * np.exp2(rng.randint(-20, 20, n))).astype(np.float32)
+    b = (rng.randn(n) * np.exp2(rng.randint(-20, 20, n))).astype(np.float32)
+    c = (rng.randn(n) * np.exp2(rng.randint(-60, 60, n))).astype(np.float32)
+    c[: n // 2] = -(a[: n // 2].astype(np.float64) * b[: n // 2]).astype(
+        np.float32)
+    got = fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    for i in range(n):
+        want = _nearest_f32(Fraction(float(a[i])) * Fraction(float(b[i]))
+                            + Fraction(float(c[i])))
+        assert got[i] == want, (a[i], b[i], c[i])
+
+
+def test_wrapper_rejects_bad_inputs():
+    case = _soup_case(3, n_rays=128)
+    rows = _rows(case)
+    o, d, t, act = _port(case, case["far"])
+    kw = dict(stack_depth=case["depth"], leaf_size=4)
+    with pytest.raises(ValueError):
+        kt.closest(rows, o.double(), d, t, act, **kw)
+    with pytest.raises(ValueError):
+        kt.closest(rows, o[:, :2], d, t, act, **kw)
+    with pytest.raises(ValueError):
+        kt.closest(rows, o.t().contiguous().t(), d, t, act, **kw)
+    with pytest.raises(ValueError):
+        kt.anyhit(rows, o, d, t, act, stack_depth=kt.MAX_STACK + 1,
+                  leaf_size=4)
+    # Neither a CPU nor a CUDA tensor: raise, never the plain path.
+    with pytest.raises(ValueError):
+        kt.closest(rows.to("meta"), o.to("meta"), d.to("meta"),
+                   t.to("meta"), act.to("meta"), **kw)
+    before = dict(kt.LAUNCHES)
+    kt.closest(rows, o, d, t, act, **kw)  # CPU: the plain version
+    assert kt.LAUNCHES == before
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_cuda():
+    _need_cuda()
+    launches = dict(kt.LAUNCHES)
+    for leaf in (4, 10, 15):
+        case = _soup_case(7, leaf=leaf, n_tris=4000, n_rays=65536)
+        kw = dict(stack_depth=case["depth"], leaf_size=leaf)
+        rows = _rows(case, "cuda")
+        rays = _port(case, case["far"], "cuda")
+        got = kt.closest(rows, *rays, **kw)
+        want = kt.closest_plain(rows, *rays, **kw)
+        for g, w in zip(got, want):
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w)
+        occ_rays = _port(case, case["t_occ"], "cuda")
+        assert torch.equal(kt.anyhit(rows, *occ_rays, **kw),
+                           kt.anyhit_plain(rows, *occ_rays, **kw))
+    assert kt.LAUNCHES["trace_closest"] == launches["trace_closest"] + 3
+    assert kt.LAUNCHES["trace_anyhit"] == launches["trace_anyhit"] + 3
+
+
+@pytest.mark.cuda
+def test_render_on_cuda_matches_golden():
+    """tests/test_golden.py's cornell recipe, rendered on the card."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    cfg = RenderConfig(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
+                       width=32, height=32, ray_chunk=1024, max_bounces=8)
+    cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
+                              fov=math.radians(45), aspect=1.0)
+    r = Renderer(cfg, "cuda")
+    for _ in range(8):
+        r.render_frame()
+    img = r.film_hdr()
+    gold = np.load(os.path.join(GOLDEN_DIR, "cornell_32_8spp.npz"))["hdr"]
+    # The golden's own tolerance; CUDA's sin/cos/log/exp differ from XLA's
+    # in the last place (chip_smoke.py measured max |diff| 1.3e-5).
+    np.testing.assert_allclose(img, gold, rtol=2e-3, atol=2e-3)
