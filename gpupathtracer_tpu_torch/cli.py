@@ -62,6 +62,7 @@ def build_config(args):
     cfg.sampler = args.sampler
     cfg.frame_batch = args.frame_batch
     cfg.megakernel = args.megakernel
+    cfg.mega_fused_nee = args.mega_fused_nee
     cfg.shadow_rev = args.shadow_rev
     cfg.bounce_traversal = args.bounce_traversal
     cfg.mip_levels = args.mip_levels
@@ -76,8 +77,6 @@ def build_config(args):
 _UNPORTED = (
     ("integrator", ("wavefront", "direct"),
      "the reference and AO integrators"),
-    ("megakernel", ("off", "auto"), "the megakernel (B2)"),
-    ("mega_fused_nee", (False,), "the megakernel (B2)"),
     ("shadow_rev", (False,), "light-end shadow rays"),
     ("bounce_traversal", ("auto", "same"), "tsort bounce traversal"),
     ("cluster_tris", (0,), "dense cluster leaves (B4)"),
@@ -94,7 +93,9 @@ _UNPORTED = (
 )
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
+    """The CLI's arguments; flags of unported features exit with an
+    error."""
     p = argparse.ArgumentParser(
         prog="gpupathtracer_tpu_torch",
         description="Progressive path tracer on PyTorch and CUDA")
@@ -156,7 +157,11 @@ def main(argv=None) -> int:
         if getattr(args, attr) not in fine:
             p.error(f"--{attr.replace('_', '-')}={getattr(args, attr)}: "
                     f"{what} is not ported yet (see ROADMAP.md)")
+    return args
 
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     import numpy as np
     import torch
 

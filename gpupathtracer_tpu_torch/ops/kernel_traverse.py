@@ -4,9 +4,9 @@ torch version.
 The kernel replaces the JAX package's Pallas kernels ``_kernel`` and
 ``_kernel_pair`` (ops/pallas_traverse.py): closest-hit for camera and
 bounce rays, any-hit for shadow rays, over the merged 128-float row table
-of bvh/wide.py. It is built with nvcc on first use into ``_build/`` (keyed
-by the hash of source and flags) and bound through a plain C interface
-with ctypes.
+of bvh/wide.py. It is built with nvcc on first use (ops/cuda_build.py) and
+bound through a plain C interface with ctypes. The walk itself lives in
+csrc/bvh_walk.cuh, which the megakernel (csrc/megakernel.cu) shares.
 
 ``closest`` / ``anyhit`` launch the kernel for CUDA tensors and run
 ``closest_plain`` / ``anyhit_plain`` for CPU tensors. The plain versions
@@ -17,28 +17,18 @@ and with its arithmetic, so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
+from gpupathtracer_tpu_torch.ops import cuda_build
 from gpupathtracer_tpu_torch.ops.intersect import fma32, mt_intersect
 
 ROW_WIDTH = 128
 ARITY = 8
 TRIS_PER_ROW = ROW_WIDTH // 12
-MAX_STACK = 192  # kMaxStack in csrc/traverse.cu
+MAX_STACK = 192  # kMaxStack in csrc/bvh_walk.cuh
 INVALID_ENTRY = 0x7FFFFFFF
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "traverse.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
 
 # Kernel launches since the last reset, by entry point. Each wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -47,39 +37,10 @@ LAUNCHES = {"trace_closest": 0, "trace_anyhit": 0}
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA traversal kernel is "
-                           "built from csrc/traverse.cu at first use")
-    return path
-
-
-def build() -> Tuple[str, str]:
-    """Compile csrc/traverse.cu unless a library for this source and these
-    flags exists. Returns (library path, ptxas report of that build)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.join(BUILD_DIR, f"traverse-{digest.hexdigest()[:16]}")
-    so_path, log_path = stem + ".so", stem + ".log"
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{stem}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        with open(log_path, "w") as f:
-            f.write(proc.stderr)
-        os.replace(tmp, so_path)
-    with open(log_path) as f:
-        return so_path, f.read()
-
-
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()[0])
+        lib = ctypes.CDLL(cuda_build.build("traverse")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpt_max_stack.argtypes = []
         lib.gpt_max_stack.restype = i
@@ -88,7 +49,7 @@ def _library() -> ctypes.CDLL:
         lib.gpt_trace_anyhit.argtypes = [p, p, p, p, p, i, i, p, p]
         lib.gpt_trace_anyhit.restype = i
         if lib.gpt_max_stack() != MAX_STACK:
-            raise RuntimeError("csrc/traverse.cu and kernel_traverse.py "
+            raise RuntimeError("csrc/bvh_walk.cuh and kernel_traverse.py "
                                "disagree on the stack size")
         _lib = lib
     return _lib
@@ -179,7 +140,12 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
     one entry per live ray. Same visit order and arithmetic as the kernel:
     node pops push the entered children so that they pop in ascending
     (t_near, slot) order (slot order for any-hit); leaf pops run
-    Moller-Trumbore on the block's slots."""
+    Moller-Trumbore on the block's slots.
+
+    Returns (t, prim, u, v, at): ``at`` [N] int64 is the flat index into
+    ``rows`` of the winning triangle's 12-float slot (-1 on a miss), whose
+    floats 3:9 are e1, e2, 10 the material id bits and 11 the normal sign
+    (the kernel's hit slot pointer)."""
     n, dev = o.shape[0], o.device
     eps = torch.tensor(1e-12, dtype=torch.float32, device=dev)
     inv = torch.where(d >= 0, 1.0, -1.0) / torch.maximum(d.abs(), eps)
@@ -189,6 +155,7 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
     prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
     u = torch.zeros(n, dtype=torch.float32, device=dev)
     v = torch.zeros(n, dtype=torch.float32, device=dev)
+    at = torch.full((n,), -1, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # stack[:, 0] = 0, the root row
     while True:
@@ -257,16 +224,19 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
             prim[lw] = tri[..., 9].view(torch.int32).gather(1, best)[win, 0]
             u[lw] = uu.gather(1, best)[win, 0]
             v[lw] = vv.gather(1, best)[win, 0]
+            k = best[win, 0]
+            at[lw] = ((first[win] + k // TRIS_PER_ROW) * ROW_WIDTH
+                      + k % TRIS_PER_ROW * 12)
             if any_hit:
                 sp[lw] = 0
-    return t, prim, u, v
+    return t, prim, u, v, at
 
 
 def closest_plain(rows, o, d, t_max, active, *, stack_depth: int,
                   leaf_size: int):
     """Plain torch version of ``closest`` (same results, bit for bit)."""
     return _walk_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
-                       any_hit=False)
+                       any_hit=False)[:4]
 
 
 def anyhit_plain(rows, o, d, t_max, active, *, stack_depth: int,

@@ -62,16 +62,48 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2])
 
 
+def _random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element (``_threefry_random_bits_partitionable``):
+    the XOR of the two hash words of the flat element index."""
+    n = math.prod(shape)
+    if n >= 1 << 32:
+        raise ValueError(f"{n} draws exceed the 32-bit counter")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
+def mul32(a, b):
+    """a * b mod 2**32 for uint32 values carried in int64 (tensors or
+    ints): the product is split so that no partial product overflows."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _MASK
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: float32 in [0, 1).
 
-    Random bits are the XOR of the two hash words of the flat element
-    index; the top 23 bits become the mantissa of a float in [1, 2)."""
-    n = math.prod(shape)
-    if n >= 1 << 32:
-        raise ValueError(f"uniform: {n} draws exceed the 32-bit counter")
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    b1, b2 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    The top 23 random bits become the mantissa of a float in [1, 2)."""
+    bits = (_random_bits(key, shape) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats, 0.0).reshape(tuple(shape))
+    return torch.clamp_min(floats, 0.0)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``:
+    int32 in [minval, maxval), bit for bit (``jax/_src/random.py``
+    ``_randint``). Two 32-bit draws from the halves of ``split(key)`` are
+    folded into the span with uint32 arithmetic; ``maxval <= minval`` gives
+    minval. Both bounds are int32 values, as JAX requires without x64."""
+    minval, maxval = int(minval), int(maxval)
+    for bound in (minval, maxval):
+        if not -(1 << 31) <= bound < (1 << 31):
+            raise ValueError(f"randint bound {bound} is not an int32")
+    k1, k2 = split(key)
+    higher, lower = _random_bits(k1, shape), _random_bits(k2, shape)
+    span = (maxval - minval) if maxval > minval else 1
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & _MASK) % span
+    offset = ((mul32(higher % span, multiplier) + lower % span) & _MASK) % span
+    value = (minval + offset) & _MASK
+    return (value - ((value >> 31) << 32)).to(torch.int32)

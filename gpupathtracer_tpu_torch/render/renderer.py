@@ -6,6 +6,11 @@ unpermuted at present time. The film is padded to 8x8-aligned dimensions
 and cropped on present, and traced in equal chunks of at most
 ``cfg.ray_chunk`` rays. Keys are folded exactly as the JAX package folds
 them (seed -> sample count -> chunk), so the two draw the same numbers.
+
+With ``cfg.megakernel == "on"`` an eligible scene (ops/megakernel.py
+``mega_eligible``) renders its wavefront and direct frames through the
+megakernel; any other scene takes the wavefront integrator, as in the JAX
+package. ``"auto"`` resolves to off there too.
 """
 
 from __future__ import annotations
@@ -21,6 +26,10 @@ from gpupathtracer_tpu_torch.config import RenderConfig
 from gpupathtracer_tpu_torch.math.camera import generate_image_plane
 from gpupathtracer_tpu_torch.models.wavefront import (render_sample_batch,
                                                       render_sample_impl)
+from gpupathtracer_tpu_torch.ops.megakernel import (mega_eligible,
+                                                    pack_mega_tables,
+                                                    render_sample_mega,
+                                                    render_sample_mega_batch)
 from gpupathtracer_tpu_torch.ops.tonemap import present as present_op
 from gpupathtracer_tpu_torch.ops.traverse import check_traversal
 from gpupathtracer_tpu_torch.utils.io import save_png
@@ -35,9 +44,6 @@ def _align8(x: int) -> int:
 class Renderer:
     def __init__(self, cfg: RenderConfig, device, scene=None,
                  meta=None) -> None:
-        if cfg.megakernel == "on":
-            raise NotImplementedError("megakernel='on' is not ported yet "
-                                      "(ROADMAP.md, queue A: megakernel)")
         if int(np.prod(cfg.mesh_shape)) > 1 or cfg.partition_chips > 0:
             raise NotImplementedError("multi-device rendering is not ported "
                                       "yet (ROADMAP.md, queue A)")
@@ -53,6 +59,14 @@ class Renderer:
             scene, meta = load_scene(cfg, self.device)
         self.scene = scene
         self.meta = meta
+        # The megakernel's deferred-shadow option (cfg.mega_fused_nee) only
+        # reschedules the TPU kernel's walks; the CUDA kernel has one
+        # schedule, so the option changes nothing here.
+        self.use_mega = (cfg.megakernel == "on" and mega_eligible(
+            scene, meta, textured=False, delta=meta.has_delta,
+            sun=cfg.sun_enabled, sampler=cfg.sampler))
+        if self.use_mega:
+            self.mega_tables = pack_mega_tables(scene)
         self.width, self.height = cfg.width, cfg.height
         self.pad_w, self.pad_h = _align8(cfg.width), _align8(cfg.height)
         n = self.pad_w * self.pad_h
@@ -99,13 +113,12 @@ class Renderer:
                 f"integrator {integrator!r} is not ported yet "
                 f"(ROADMAP.md, queue A: reference/AO)")
         t0 = time.perf_counter()
-        sample_key = random.fold_in(self.base_key, self.num_samples)
         batch = self.cfg.frame_batch
         out, rays = [], 0
         for c0 in range(0, self.n_rays, self.chunk):
-            key = random.fold_in(sample_key, c0 // self.chunk)
             contribution, r = self._render_chunk(
-                integrator, slice(c0, c0 + self.chunk), key, batch)
+                integrator, slice(c0, c0 + self.chunk),
+                self.chunk_key(c0 // self.chunk), batch)
             out.append(contribution)
             rays = rays + r
         self.accum = self.accum + torch.cat(out, dim=0)
@@ -119,10 +132,40 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def chunk_key(self, chunk: int):
+        """The key of chunk ``chunk`` of the next frame."""
+        return random.fold_in(random.fold_in(self.base_key, self.num_samples),
+                              chunk)
+
+    def mega_statics(self, integrator: str) -> dict:
+        """Keyword arguments of this renderer's megakernel calls, apart from
+        spp and the sample index."""
+        cfg = self.cfg
+        direct = integrator == "direct"
+        return dict(width=self.pad_w, height=self.pad_h,
+                    stack_depth=self.meta.stack_depth,
+                    leaf_size=self.meta.leaf_size,
+                    max_bounces=0 if direct else cfg.max_bounces,
+                    nee=True if direct else cfg.nee_enabled,
+                    model=cfg.microfacet,
+                    n_mats=self.meta.num_materials,
+                    n_lights=int(self.scene.light_rows.shape[0]),
+                    packet_size=cfg.pallas_packet_size)
+
     def _render_chunk(self, integrator: str, sl: slice, key, batch: int = 1):
         """Returns ([C, 3] contribution, rays traced)."""
         cfg = self.cfg
         direct = integrator == "direct"
+        px, py = self.pixel_x[sl], self.pixel_y[sl]
+        if self.use_mega:
+            mk = self.mega_statics(integrator)
+            if batch > 1:
+                return render_sample_mega_batch(
+                    self.scene, self.mega_tables, self.camera, px, py, key,
+                    spp=batch, sample_idx=self.num_samples, **mk)
+            return render_sample_mega(
+                self.scene, self.mega_tables, self.camera, px, py, key,
+                sample_idx=self.num_samples, **mk)
         kwargs = dict(width=self.pad_w, height=self.pad_h,
                       max_bounces=0 if direct else cfg.max_bounces,
                       nee=True if direct else cfg.nee_enabled,
@@ -137,7 +180,6 @@ class Renderer:
                       sort_rays=False if direct else cfg.sort_rays,
                       sampler=cfg.sampler,
                       delta=self.meta.has_delta)
-        px, py = self.pixel_x[sl], self.pixel_y[sl]
         if batch > 1:
             return render_sample_batch(self.scene, self.camera, px, py, key,
                                        spp=batch, **kwargs)

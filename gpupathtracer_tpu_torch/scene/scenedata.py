@@ -39,6 +39,9 @@ class SceneData(NamedTuple):
     light_rows: torch.Tensor   # [L, 16] f32
     light_cdf: torch.Tensor    # [L] cumulative areas (ascending)
     total_light_area: torch.Tensor  # scalar f32 (0 => env-only lighting)
+    # Per-material row: 0:3 albedo, 3 roughness, 4 metallic, 5:8 emission,
+    # 8:11 texture ids and type bits, 11 ior (the megakernel's table).
+    mat_rows: torch.Tensor     # [M, 16] f32
     env: EnvMap
     # Merged BVH table (bvh/wide.py pack_for_packets): node rows, then
     # leaf rows of 10 MT-ready triangle slots.
@@ -68,6 +71,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         light_rows=t(fields["light_rows"]),
         light_cdf=t(fields["light_cdf"]),
         total_light_area=t(np.float32(fields["total_light_area"])),
+        mat_rows=t(fields["mat_rows"]),
         env=EnvMap(image=t(fields["env"])),
         node_rows=t(fields["node_rows"]))
 
@@ -186,7 +190,8 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
 
     data = scene_from_numpy(dict(tri_shade=shade, light_rows=lrows,
                                  light_cdf=cdf, total_light_area=total_area,
-                                 env=env, node_rows=wide.node_rows), device)
+                                 mat_rows=mrows, env=env,
+                                 node_rows=wide.node_rows), device)
     meta = SceneMeta(
         num_triangles=T,
         num_materials=M,

@@ -1,5 +1,5 @@
-"""The CUDA traversal kernel's wrapper (ops/kernel_traverse.py) and the
-exact arithmetic it shares with its plain version.
+"""The CUDA kernels' wrappers (ops/kernel_traverse.py, ops/megakernel.py)
+and the exact arithmetic they share with their plain versions.
 
 This module imports no JAX, so its `cuda` tests also run on the machine
 with the card, which has none (tests/conftest.py imports jax, hence
@@ -20,6 +20,7 @@ from gpupathtracer_tpu.bvh import build_wide_bvh
 from gpupathtracer_tpu.bvh.wide import pack_for_packets
 from gpupathtracer_tpu.config import CameraConfig, RenderConfig
 from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+from gpupathtracer_tpu_torch.ops import megakernel as mk
 from gpupathtracer_tpu_torch.ops.intersect import fma32, pack_tri_geom
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
@@ -153,3 +154,41 @@ def test_render_on_cuda_matches_golden():
     # The golden's own tolerance; CUDA's sin/cos/log/exp differ from XLA's
     # in the last place (chip_smoke.py measured max |diff| 1.3e-5).
     np.testing.assert_allclose(img, gold, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_megakernel_matches_plain_on_cuda():
+    """trace_mega against trace_mega_plain on the card, cornell and
+    bathroom: one sample, and four with in-kernel regeneration. Ray counts
+    equal, contributions bitwise equal."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.math.camera import generate_image_plane
+    from gpupathtracer_tpu_torch.scene import load_scene
+    from gpupathtracer_tpu_torch.scene.procedural import default_camera
+
+    launches = mk.LAUNCHES["trace_mega"]
+    for name, model in (("cornell", "trowbridge_reitz"),
+                        ("bathroom", "beckmann")):
+        cfg = RenderConfig(scene_path=f"proc:{name}", width=64, height=48,
+                           skybox="GENERATE COLOR BLACK")
+        pos, yaw, pitch, fov, aperture, focus = default_camera(name)
+        cfg.camera = CameraConfig(position=pos, yaw=yaw, pitch=pitch,
+                                  fov=math.radians(fov), aspect=64 / 48,
+                                  aperture=aperture, focal_distance=focus)
+        scene, meta = load_scene(cfg, "cuda")
+        lane = torch.arange(64 * 48, device="cuda")
+        for spp in (1, 4):
+            args, kw = mk.prepare_mega(
+                scene, mk.pack_mega_tables(scene),
+                generate_image_plane(cfg.camera, "cuda"),
+                (lane % 64).float(), (lane // 64).float(),
+                random.PRNGKey(3, "cuda"), width=64, height=48,
+                stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+                max_bounces=16, model=model, n_mats=meta.num_materials,
+                n_lights=int(scene.light_rows.shape[0]), spp=spp)
+            got, rays = mk.trace_mega(*args, **kw)
+            want, rays_plain = mk.trace_mega_plain(*args, **kw)
+            assert int(rays) == int(rays_plain)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert mk.LAUNCHES["trace_mega"] == launches + 4

@@ -150,6 +150,7 @@ def test_generate_light_sample():
         light_rows=np.asarray(jscene.light_rows),
         light_cdf=np.asarray(jscene.light_cdf),
         total_light_area=np.asarray(jscene.total_light_area),
+        mat_rows=np.asarray(jscene.mat_rows),
         env=np.asarray(jscene.env.image),
         node_rows=np.asarray(jscene.bvh.node_rows)), "cpu")
     rng = np.random.RandomState(5)

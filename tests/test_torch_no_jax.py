@@ -1,6 +1,7 @@
 """The port runs where neither JAX nor Pillow is installed: a subprocess
-that refuses both imports renders proc:cornell on the CPU to a PNG, which
-is decoded here with zlib alone."""
+that refuses both imports renders proc:cornell on the CPU to a PNG, with
+the wavefront integrator and with the megakernel, and the PNGs are decoded
+here with zlib alone."""
 
 import os
 import struct
@@ -30,6 +31,9 @@ from gpupathtracer_tpu_torch import cli
 
 rc = cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
                "--width", "16", "--height", "16", "--out", sys.argv[2]])
+rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
+                     "--width", "16", "--height", "16", "--megakernel", "on",
+                     "--frame-batch", "4", "--out", sys.argv[3]])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "PIL"))
 print("LOADED", loaded)
@@ -59,11 +63,12 @@ def _read_png(path):
 
 
 def test_port_renders_without_jax_or_pil(tmp_path):
-    out = str(tmp_path / "cornell.png")
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, out],
+    outs = [str(tmp_path / "cornell.png"), str(tmp_path / "mega.png")]
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, *outs],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout
-    img = _read_png(out)
-    assert img.shape == (16, 16, 3)
-    assert img.max() > 0
+    for out in outs:
+        img = _read_png(out)
+        assert img.shape == (16, 16, 3)
+        assert img.max() > 0

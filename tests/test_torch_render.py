@@ -122,7 +122,7 @@ def test_cli_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--integrator", "ao"],
-                                  ["--megakernel", "on"],
+                                  ["--shadow-rev"],
                                   ["--sampler", "ld"]])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as exc:

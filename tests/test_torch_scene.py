@@ -32,6 +32,7 @@ def _jax_fields(scene):
                 light_rows=np.asarray(scene.light_rows),
                 light_cdf=np.asarray(scene.light_cdf),
                 total_light_area=np.asarray(scene.total_light_area),
+                mat_rows=np.asarray(scene.mat_rows),
                 env=np.asarray(scene.env.image),
                 node_rows=np.asarray(scene.bvh.node_rows))
 
@@ -41,6 +42,7 @@ def _port_fields(scene):
                 light_rows=scene.light_rows.numpy(),
                 light_cdf=scene.light_cdf.numpy(),
                 total_light_area=scene.total_light_area.numpy(),
+                mat_rows=scene.mat_rows.numpy(),
                 env=scene.env.image.numpy(),
                 node_rows=scene.node_rows.numpy())
 
