@@ -7,42 +7,59 @@ Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
 nvcc and g++. Phases, each of which raises on failure:
 
   1. versions and the card's name and power limit; CUDA must be present;
-  2. build the traversal kernel (csrc/traverse.cu) and the megakernel
-     (csrc/megakernel.cu) with nvcc, both at once; ptxas registers, stack
+  2. build the MT-leaf traversal kernel (csrc/traverse.cu), the cluster
+     traversal kernel (csrc/cluster_traverse.cu) and the megakernel
+     (csrc/megakernel.cu) with nvcc, all at once; ptxas registers, stack
      frame and spills of every instantiation;
-  3. each kernel entry point against its plain torch version on the card,
-     on the sponza and bathroom tables, with 65,536 camera rays plus
+  3. each MT-leaf entry point against its plain torch version on the
+     card, on the sponza and bathroom tables, with 65,536 camera rays plus
      65,536 random-direction rays from surface points, about 10% of lanes
      inactive: prim and occluded equal, t/u/v bitwise equal; kernel and
      plain times by CUDA events;
-  4. the golden recipe of tests/test_golden.py (cornell, 32x32, 8 spp) on
+  4. each cluster entry point against its plain version on the sponza and
+     bathroom cluster tables (cluster_tris = 128) with phase 3's rays:
+     t/prim/u/v and occluded bitwise equal; times beside phase 3's;
+  5. the golden recipe of tests/test_golden.py (cornell, 32x32, 8 spp) on
      the card against tests/golden/cornell_32_8spp.npz;
-  5. the main path through the CLI: proc:sponza 1920x1080 with 64 bounces
+  6. the main path through the CLI: proc:sponza 1920x1080 with 64 bounces
      and proc:bathroom 1280x720 (Beckmann, default DoF camera), 4 spp
      each, with the C++ SBVH; films finite and nonzero, PNGs written, and
-     both kernel entry points launched by these renders;
-  6. the megakernel against its plain torch version on the card: bathroom
+     both MT entry points launched by these renders;
+  7. the cluster path through the CLI, the JAX bench's cluster rows:
+     bathroom 1280x720 (Beckmann, DoF) at 4 spp and sponza 1920x1080 with
+     64 bounces at 1 spp, --cluster-tris 128; both cluster entry points
+     launched and neither MT entry point;
+  8. the megakernel against its plain torch version on the card: bathroom
      256x144 (Beckmann, default DoF camera, 64 bounces) at 1 spp and with
-     in-kernel regeneration at 4 spp, table 200x150 direct at 8 spp: ray
-     counts equal, contributions bitwise equal (at most 0.1% of lanes
-     may differ, and those are printed); kernel and plain times;
-  7. the megakernel against its plain version at the arguments of phase
-     8's rows: the first chunk of each row's first frame, built as the
-     Renderer builds it, runs through the kernel on all its lanes; its
-     first two packets run through the kernel alone (the same lanes must
-     come out) and through the plain version (held as in phase 6);
-  8. the megakernel path through the CLI, the JAX bench's megakernel rows
+     in-kernel regeneration at 4 spp, table 200x150 direct at 8 spp, on
+     MT leaves and on cluster leaves (cluster_tris = 128): ray counts
+     equal, contributions bitwise equal (at most 0.1% of lanes may
+     differ, and those are printed); kernel and plain times;
+  9. the megakernel against its plain version at the arguments of the
+     rows of phases 10 and 11: the first chunk of each row's first frame,
+     built as the Renderer builds it, runs through the kernel on all its
+     lanes; its first two packets run through the kernel alone (the same
+     lanes must come out) and through the plain version (held as in
+     phase 8);
+ 10. the megakernel path through the CLI, the JAX bench's megakernel rows
      at their published sizes: bathroom 1280x720 Beckmann DoF (frame batch
      64), table 800x600 with 64 bounces (frame batch 128) and table
      800x600 direct (frame batch 8), black sky, one chunk; films finite
-     and nonzero, PNGs written, the megakernel launched and the traversal
-     kernel not;
-  9. the megakernel against the wavefront integrator on the card: table
-     200x150, 64 bounces, 64 spp, film means within 2%.
+     and nonzero, PNGs written, the megakernel launched and no traversal
+     kernel;
+ 11. the megakernel's cluster walks through the CLI, the bench's
+     megacluster rows: bathroom 1280x720 Beckmann DoF and table 800x600
+     with 64 bounces, --cluster-tris 128, at frame batch 1 and at 64 / 128;
+     the cluster megakernel launched and no other kernel;
+ 12. the megakernel against the wavefront integrator on the card: table
+     200x150, 64 bounces, 64 spp, film means within 2%;
+ 13. cluster leaves against MT leaves through the megakernel, the same
+     render: film means within 2% (in exact arithmetic both trace the
+     same hits).
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel; the last line is {"ok": true, "device": {...}}. Any failure exits
-nonzero before that line. Nothing here imports JAX.
+kernel entry point; the last line is {"ok": true, "device": {...}}. Any
+failure exits nonzero before that line. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -57,14 +74,44 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_RAYS = 65536
-SOURCES = {"trace_closest": "gpupathtracer_tpu_torch/csrc/traverse.cu",
-           "trace_anyhit": "gpupathtracer_tpu_torch/csrc/traverse.cu",
-           "trace_mega": "gpupathtracer_tpu_torch/csrc/megakernel.cu"}
+CSRC = "gpupathtracer_tpu_torch/csrc/"
+SOURCES = {"trace_closest": CSRC + "traverse.cu",
+           "trace_anyhit": CSRC + "traverse.cu",
+           "trace_mega": CSRC + "megakernel.cu",
+           "trace_cluster_closest": CSRC + "cluster_traverse.cu",
+           "trace_cluster_anyhit": CSRC + "cluster_traverse.cu",
+           "trace_mega_cluster": CSRC + "megakernel.cu"}
 REPLACES = {"trace_closest": "gpupathtracer_tpu/ops/pallas_traverse.py:72",
             "trace_anyhit": "gpupathtracer_tpu/ops/pallas_traverse.py:72 "
                             "(any-hit mode), "
                             "gpupathtracer_tpu/ops/pallas_traverse.py:1036",
-            "trace_mega": "gpupathtracer_tpu/ops/megakernel.py:188"}
+            "trace_mega": "gpupathtracer_tpu/ops/megakernel.py:188",
+            "trace_cluster_closest":
+                "gpupathtracer_tpu/ops/pallas_traverse.py:307",
+            "trace_cluster_anyhit":
+                "gpupathtracer_tpu/ops/pallas_traverse.py:307 (any-hit mode)",
+            "trace_mega_cluster": "gpupathtracer_tpu/ops/megakernel.py:188 "
+                                  "(cluster=True: :416-482, :609-645, "
+                                  ":1098-1104)"}
+# The least time the card could take for a kernel's work (its bound): the
+# larger of the FP32 operations this run's rays need over the H100's 67
+# TFLOP/s outside the tensor cores and the bytes they must move over its
+# 3.35 TB/s of HBM (NVIDIA's SXM data sheet, at 700 W). Operations are
+# counted from the plain versions' pops (kernel_traverse.count_pops): a
+# node pop slab-tests 8 children (6 FMAs, counted as 2 operations each, and
+# 6 min/max per child); a Moller-Trumbore slot is about 50 operations, a
+# cluster slot about 40 (6 three-term dot products, 3 adds, a division,
+# 2 FMAs, the compares); the megakernel adds about 400 operations of
+# shading per traced ray. Bytes, each once: of each distinct node row the
+# 56 floats the walk reads (8 children's bounds and entries, 224 B; the
+# rest of the 128-float row is padding), of each distinct MT leaf its used
+# 48-byte slots (mt_leaf_bytes), of each distinct cluster block the 7 rows
+# the leaf reads (84 * tc B), the rays in (29 B) and the results out (16 B
+# closest, 1 B any-hit, 12 B per megakernel lane).
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+NODE_OPS, MT_SLOT_OPS, CLUSTER_SLOT_OPS, SHADE_OPS = 8 * 18, 50, 40, 400
+NODE_ROW_BYTES = 7 * 8 * 4
+SECTOR = 32
 # At most this share of lanes may differ between the megakernel and its
 # plain version (exact ties or a last-place difference of a libdevice
 # function can turn one path); every other lane must be bitwise equal.
@@ -131,8 +178,41 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
+def mt_leaf_bytes(packed: int) -> int:
+    """Bytes an MT leaf's walk reads: its used 12-float slots (packed & 15
+    of them, 10 to a 512-byte row), rounded up to 32-byte sectors per
+    row."""
+    count, nbytes = packed & 15, 0
+    for first in range(0, count, 10):
+        nbytes += -(-min(10, count - first) * 48 // SECTOR) * SECTOR
+    return nbytes
+
+
+def leaf_bytes_of(cluster_tris: int):
+    """The bytes a leaf's pops read, by leaf id: mt_leaf_bytes on MT
+    leaves, the 7 rows of a cluster block (84 * tc B) on cluster leaves."""
+    if cluster_tris:
+        return lambda _: 84 * cluster_tris
+    return mt_leaf_bytes
+
+
+def bound(pops: dict, *, leaf_bytes, slot_ops: int, io_bytes: int,
+          extra_ops: int = 0):
+    """(bound in ms, "bytes" or "operations") of a kernel's work from its
+    plain version's pop counts (see PEAK_FLOPS); ``leaf_bytes`` maps a
+    distinct leaf id of the counts to the bytes its pops read."""
+    ops = (pops.get("node", 0) * NODE_OPS + pops.get("slots", 0) * slot_ops
+           + extra_ops)
+    nbytes = (len(pops.get("node_ids", ())) * NODE_ROW_BYTES
+              + sum(map(leaf_bytes, pops.get("leaf_ids", ()))) + io_bytes)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def compare_kernels(name: str, width: int, height: int, device, results):
-    """Phase 3 for one scene: each entry point against its plain version."""
+    """Phase 3 for one scene: each entry point against its plain version.
+    Returns the rays (o, d, t_occ, active) for phase 4."""
     import torch
 
     from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -157,26 +237,14 @@ def compare_kernels(name: str, width: int, height: int, device, results):
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
     rows = scene.node_rows
 
+    pops_c, pops_a = {}, {}
     got = kt.closest(rows, o, d, far, on, **kw)
-    want = kt.closest_plain(rows, o, d, far, on, **kw)
-    torch.cuda.synchronize()
-    for field, a, b in zip("t prim u v".split(), got, want):
-        if not torch.equal(_bits(a), _bits(b)):
-            bad = int((_bits(a) != _bits(b)).sum())
-            raise AssertionError(f"[{name}] trace_closest {field} differs "
-                                 f"from closest_plain in {bad} lanes")
+    want = kt.closest_plain(rows, o, d, far, on, pops=pops_c, **kw)
+    err_c = _hold_hits(f"[{name}] trace_closest", got, want)
     hit = want[1] >= 0
-    err_c = max(float((a - b)[hit].abs().max()) if hit.any() else 0.0
-                for a, b in (zip((got[0], got[2], got[3]),
-                                 (want[0], want[2], want[3]))))
     occ = kt.anyhit(rows, o, d, t_occ, on, **kw)
-    occ_want = kt.anyhit_plain(rows, o, d, t_occ, on, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(occ, occ_want):
-        raise AssertionError(f"[{name}] trace_anyhit differs from "
-                             f"anyhit_plain in {int((occ != occ_want).sum())} "
-                             f"lanes")
-    err_a = float((occ.float() - occ_want.float()).abs().max())
+    occ_want = kt.anyhit_plain(rows, o, d, t_occ, on, pops=pops_a, **kw)
+    err_a = _hold_occluded(f"[{name}] trace_anyhit", occ, occ_want)
 
     ms_c = _events_ms(lambda: kt.closest(rows, o, d, far, on, **kw), 10)
     plain_c = _events_ms(lambda: kt.closest_plain(rows, o, d, far, on, **kw),
@@ -193,19 +261,125 @@ def compare_kernels(name: str, width: int, height: int, device, results):
           f"Mrays/s), closest_plain {plain_c:.1f} ms")
     print(f"[{name}] trace_anyhit  {ms_a:.3f} ms ({n / ms_a / 1e3:.1f} "
           f"Mrays/s), anyhit_plain  {plain_a:.1f} ms")
-    results[name] = {"trace_closest": (err_c, ms_c, plain_c),
-                     "trace_anyhit": (err_a, ms_a, plain_a)}
+    results[name] = {
+        "trace_closest": (err_c, ms_c, plain_c, *bound(
+            pops_c, leaf_bytes=mt_leaf_bytes, slot_ops=MT_SLOT_OPS,
+            io_bytes=n * 45)),
+        "trace_anyhit": (err_a, ms_a, plain_a, *bound(
+            pops_a, leaf_bytes=mt_leaf_bytes, slot_ops=MT_SLOT_OPS,
+            io_bytes=n * 30))}
+    _print_bounds(name, results[name])
+    return o, d, t_occ, on
+
+
+def _print_bounds(name, entries):
+    for k, (_, ms, _, b_ms, by) in entries.items():
+        print(f"[{name}] {k} bound {b_ms:.4f} ms ({by}), kernel at "
+              f"{b_ms / ms:.1%} of it")
+
+
+def _hold_hits(label, got, want) -> float:
+    """Closest-hit results (t, prim, u, v) bitwise equal; returns the max
+    |diff| of t, u, v over the hits."""
+    import torch
+
+    torch.cuda.synchronize()
+    for field, a, b in zip("t prim u v".split(), got, want):
+        if not torch.equal(_bits(a), _bits(b)):
+            bad = int((_bits(a) != _bits(b)).sum())
+            raise AssertionError(f"{label} {field} differs from the plain "
+                                 f"version in {bad} lanes")
+    hit = want[1] >= 0
+    return max(float((a - b)[hit].abs().max()) if hit.any() else 0.0
+               for a, b in zip((got[0], got[2], got[3]),
+                               (want[0], want[2], want[3])))
+
+
+def _hold_occluded(label, occ, want) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(occ, want):
+        raise AssertionError(f"{label} differs from the plain version in "
+                             f"{int((occ != want).sum())} lanes")
+    return float((occ.float() - want.float()).abs().max())
+
+
+def compare_cluster(name: str, width: int, height: int, rays, device,
+                    results):
+    """Phase 4 for one scene: the cluster entry points against their plain
+    versions on the scene's cluster table, with phase 3's rays."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    cfg = _scene_cfg(name, width, height, cluster_tris=128)
+    t0 = time.perf_counter()
+    scene, meta = load_scene(cfg, device)
+    tc = scene.cluster_rows.shape[1] // 3
+    print(f"[{name} cluster] ingest {time.perf_counter() - t0:.2f} s: "
+          f"{scene.cluster_rows.shape[0] // 8} clusters of {tc} "
+          f"({scene.cluster_rows.numel() * 4 / 1e6:.1f} MB), "
+          f"{scene.node_rows.shape[0]} top-tree rows, stack depth "
+          f"{meta.stack_depth}")
+    o, d, t_occ, on = rays
+    far = torch.full((o.shape[0],), 1e20, device=device)
+    tabs = (scene.node_rows, scene.cluster_rows)
+    refs = scene.cluster_refs
+    kw = dict(stack_depth=meta.stack_depth)
+    pops_c, pops_a = {}, {}
+    got = kc.closest_cluster(*tabs, refs, o, d, far, on, **kw)
+    want = kc.closest_cluster_plain(*tabs, refs, o, d, far, on, pops=pops_c,
+                                    **kw)
+    err_c = _hold_hits(f"[{name} cluster] trace_cluster_closest", got, want)
+    occ = kc.anyhit_cluster(*tabs, o, d, t_occ, on, **kw)
+    occ_want = kc.anyhit_cluster_plain(*tabs, o, d, t_occ, on, pops=pops_a,
+                                       **kw)
+    err_a = _hold_occluded(f"[{name} cluster] trace_cluster_anyhit", occ,
+                           occ_want)
+    ms_c = _events_ms(lambda: kc.closest_cluster(*tabs, refs, o, d, far, on,
+                                                 **kw), 10)
+    plain_c = _events_ms(lambda: kc.closest_cluster_plain(
+        *tabs, refs, o, d, far, on, **kw), 1)
+    ms_a = _events_ms(lambda: kc.anyhit_cluster(*tabs, o, d, t_occ, on, **kw),
+                      10)
+    plain_a = _events_ms(lambda: kc.anyhit_cluster_plain(
+        *tabs, o, d, t_occ, on, **kw), 1)
+    n = o.shape[0]
+    mt = results[name]
+    print(f"[{name} cluster] {n} rays: bitwise equal to the plain versions; "
+          f"hit rate {float((want[1] >= 0).float().mean()):.3f}, occluded "
+          f"{float(occ.float().mean()):.3f}; pops per ray: closest "
+          f"{pops_c.get('node', 0) / n:.2f} node, "
+          f"{pops_c.get('leaf', 0) / n:.2f} cluster")
+    print(f"[{name} cluster] trace_cluster_closest {ms_c:.3f} ms "
+          f"({n / ms_c / 1e3:.1f} Mrays/s; MT trace_closest "
+          f"{mt['trace_closest'][1]:.3f} ms), plain {plain_c:.1f} ms")
+    print(f"[{name} cluster] trace_cluster_anyhit  {ms_a:.3f} ms "
+          f"({n / ms_a / 1e3:.1f} Mrays/s; MT trace_anyhit "
+          f"{mt['trace_anyhit'][1]:.3f} ms), plain {plain_a:.1f} ms")
+    leaf = leaf_bytes_of(tc)
+    results[name + "_cluster"] = {
+        "trace_cluster_closest": (err_c, ms_c, plain_c, *bound(
+            pops_c, leaf_bytes=leaf, slot_ops=CLUSTER_SLOT_OPS,
+            io_bytes=n * 45)),
+        "trace_cluster_anyhit": (err_a, ms_a, plain_a, *bound(
+            pops_a, leaf_bytes=leaf, slot_ops=CLUSTER_SLOT_OPS,
+            io_bytes=n * 30))}
+    _print_bounds(name + " cluster", results[name + "_cluster"])
 
 
 def golden_check(device) -> None:
-    """Phase 4: tests/test_golden.py's cornell recipe on the card."""
+    """Phase 5: tests/test_golden.py's cornell recipe on the card."""
     import numpy as np
 
     from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
     from gpupathtracer_tpu_torch.render import Renderer
 
     cfg = RenderConfig(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
-                       width=32, height=32, ray_chunk=1024, max_bounces=8)
+                       width=32, height=32, ray_chunk=1024, max_bounces=8,
+                       bvh_builder="cpp")
     cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
                               fov=math.radians(45), aspect=1.0)
     r = Renderer(cfg, device)
@@ -223,24 +397,36 @@ def golden_check(device) -> None:
         raise AssertionError("cornell golden: more than 1% of pixels differ")
 
 
-def render_main_path(tmp: str):
-    """Phase 5: the CLI on sponza and bathroom. Returns per-scene stats."""
+# The wavefront rows (phase 6) and the cluster rows (phase 7): name ->
+# CLI arguments, spp.
+MAIN_RUNS = {
+    "sponza": (["proc:sponza", "--width", "1920", "--height", "1080",
+                "--max-bounces", "64"], 4),
+    "bathroom": (["proc:bathroom", "--width", "1280", "--height", "720",
+                  "--microfacet", "beckmann"], 4),
+}
+CLUSTER_RUNS = {
+    "bathroom_cluster": (["proc:bathroom", "--width", "1280", "--height",
+                          "720", "--microfacet", "beckmann",
+                          "--cluster-tris", "128"], 4),
+    "sponza_cluster": (["proc:sponza", "--width", "1920", "--height", "1080",
+                        "--max-bounces", "64", "--cluster-tris", "128"], 1),
+}
+
+
+def render_main_path(tmp: str, runs):
+    """Phases 6 and 7: the wavefront CLI on each run. Returns per-run
+    stats."""
     import numpy as np
 
     from gpupathtracer_tpu_torch import cli
 
-    runs = {
-        "sponza": ["proc:sponza", "--width", "1920", "--height", "1080",
-                   "--max-bounces", "64"],
-        "bathroom": ["proc:bathroom", "--width", "1280", "--height", "720",
-                     "--microfacet", "beckmann"],
-    }
     stats = {}
-    for name, args in runs.items():
+    for name, (args, spp) in runs.items():
         png = os.path.join(tmp, f"{name}.png")
         hdr = os.path.join(tmp, f"{name}.npy")
         sj = os.path.join(tmp, f"{name}.json")
-        rc = cli.main(args + ["--device", "cuda", "--spp", "4",
+        rc = cli.main(args + ["--device", "cuda", "--spp", str(spp),
                               "--bvh-builder", "cpp", "--out", png,
                               "--hdr-out", hdr, "--stats-json", sj])
         if rc != 0:
@@ -257,7 +443,7 @@ def render_main_path(tmp: str):
         with open(sj) as f:
             s = json.load(f)
         spf = s["render_seconds"] / s["spp"]
-        print(f"[{name}] {w}x{h}, 4 spp: {spf:.3f} s/frame (frames "
+        print(f"[{name}] {w}x{h}, {spp} spp: {spf:.3f} s/frame (frames "
               f"{', '.join(f'{x:.3f}' for x in s['frame_seconds'])} s), "
               f"{s['mrays_per_sec']:.1f} Mrays/s, {s['rays']} rays, film "
               f"mean {float(film.mean()):.4f}")
@@ -289,11 +475,13 @@ def _ptxas_summary(log: str):
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[-1].strip()
-            m = re.search(r"mega_kernelILi(\d)ELb(\d)ELb(\d)E", name)
+            m = re.search(r"mega_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                          name)
             t = re.search(r"(trace_\w+?_kernel)", name)
             if m:
                 name = (f"mega_kernel<{MODELS[int(m.group(1))]}, "
-                        f"nee={m.group(2)}, regen={m.group(3)}>")
+                        f"nee={m.group(2)}, regen={m.group(3)}, "
+                        f"cluster={m.group(4)}>")
             elif t:
                 name = t.group(1)
         elif "stack frame" in line and name:
@@ -316,7 +504,7 @@ def build_kernels() -> None:
         _, log = cuda_build.build(name)
         return time.perf_counter() - t0, log
 
-    names = ("traverse", "megakernel")
+    names = ("traverse", "cluster_traverse", "megakernel")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, (secs, log) in zip(names, pool.map(one, names)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}: "
@@ -325,8 +513,17 @@ def build_kernels() -> None:
                 print(f"[build]   {line}")
 
 
-def compare_mega(device, results) -> None:
-    """Phase 6: trace_mega against trace_mega_plain on the same inputs."""
+def _mega_bound(pops: dict, rays: int, lanes: int, leaf_bytes: int,
+                slot_ops: int):
+    """The megakernel's bound from its plain version's pops over both walks,
+    plus SHADE_OPS per traced ray; in/out about 21 bytes per lane."""
+    return bound(pops, leaf_bytes=leaf_bytes, slot_ops=slot_ops,
+                 io_bytes=lanes * 21, extra_ops=rays * SHADE_OPS)
+
+
+def compare_mega(device, results, cluster_tris: int = 0) -> None:
+    """Phase 8: trace_mega against trace_mega_plain on the same inputs, on
+    MT leaves or (cluster_tris > 0) on cluster leaves."""
     import torch
 
     from gpupathtracer_tpu_torch import random
@@ -334,13 +531,14 @@ def compare_mega(device, results) -> None:
     from gpupathtracer_tpu_torch.ops import megakernel as mk
     from gpupathtracer_tpu_torch.scene import load_scene
 
+    entry = "trace_mega_cluster" if cluster_tris else "trace_mega"
     cases = [("bathroom", 256, 144, "beckmann", 64, 1),
              ("bathroom", 256, 144, "beckmann", 64, 4),
              ("table", 200, 150, "trowbridge_reitz", 0, 8)]
     scenes, errs = {}, []
     for name, w, h, model, mb, spp in cases:
         cfg = _scene_cfg(name, w, h, skybox="GENERATE COLOR BLACK",
-                         microfacet=model)
+                         microfacet=model, cluster_tris=cluster_tris)
         if name not in scenes:
             scenes[name] = load_scene(cfg, device)
         scene, meta = scenes[name]
@@ -354,22 +552,29 @@ def compare_mega(device, results) -> None:
             n_mats=meta.num_materials,
             n_lights=int(scene.light_rows.shape[0]),
             packet_size=cfg.pallas_packet_size, spp=spp)
-        label = f"[mega {name} {w}x{h} {model} max_bounces={mb} spp={spp}]"
+        label = (f"[{entry} {name} {w}x{h} {model} max_bounces={mb} "
+                 f"spp={spp}]")
         got, rays = mk.trace_mega(*args, **kw)
+        pops = {}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want, rays_plain = mk.trace_mega_plain(*args, **kw)
+        want, rays_plain = mk.trace_mega_plain(*args, pops=pops, **kw)
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
         errs.append(_hold_mega(label, got, want, rays, rays_plain))
         ms = _events_ms(lambda: mk.trace_mega(*args, **kw), 3)
-        print(f"{label} trace_mega {ms:.2f} ms ({int(rays) / ms / 1e3:.1f} "
-              f"Mrays/s), trace_mega_plain {plain_ms:.1f} ms")
+        slot_ops = CLUSTER_SLOT_OPS if cluster_tris else MT_SLOT_OPS
+        b_ms, by = _mega_bound(pops, int(rays), args[7].shape[0],
+                               leaf_bytes_of(cluster_tris), slot_ops)
+        print(f"{label} {entry} {ms:.2f} ms ({int(rays) / ms / 1e3:.1f} "
+              f"Mrays/s), trace_mega_plain {plain_ms:.1f} ms (with pop "
+              f"counting); bound {b_ms:.4f} ms ({by}), kernel at "
+              f"{b_ms / ms:.1%} of it")
         if (name, spp) == ("bathroom", 4):  # the regenerating path's case
-            timed = (ms, plain_ms)
-    results["mega"] = {"trace_mega": (max(errs), *timed)}
+            timed = (ms, plain_ms, b_ms, by)
+    results["mega"][entry] = (max(errs), *timed)
 
 
 def _hold_mega(label, got, want, rays, rays_plain) -> float:
@@ -412,24 +617,25 @@ def _first_packets(args, kw, packets: int):
             dict(kw, pxn=cut(kw.get("pxn")), pyn=cut(kw.get("pyn"))))
 
 
-def compare_mega_rows(device, results) -> None:
-    """Phase 7: for each row of phase 8, the first chunk of its first frame
-    as the Renderer builds it (same configuration, lanes, key and
-    arguments). The kernel runs on all the chunk's lanes, and on its first
-    MEGA_PACKETS packets alone, which must give the same lanes; the plain
-    version runs on those packets."""
+def compare_mega_rows(device, results, runs) -> None:
+    """Phase 9: for each row of ``runs`` (phase 10's or 11's), the first
+    chunk of its first frame as the Renderer builds it (same
+    configuration, lanes, key and arguments). The kernel runs on all the
+    chunk's lanes, and on its first MEGA_PACKETS packets alone, which must
+    give the same lanes; the plain version runs on those packets."""
     import torch
 
     from gpupathtracer_tpu_torch import cli
     from gpupathtracer_tpu_torch.ops import megakernel as mk
     from gpupathtracer_tpu_torch.render import Renderer
 
-    for name, args, batch, frames in MEGA_RUNS:
+    for name, args, batch, frames in runs:
         cfg = cli.build_config(cli.parse_args(
             _mega_argv(args, batch, frames)))
         r = Renderer(cfg, device)
         if not r.use_mega:
             raise AssertionError(f"[{name}] the scene is not mega-eligible")
+        entry = "trace_mega_cluster" if cfg.cluster_tris else "trace_mega"
         sl = slice(0, r.chunk)
         statics = r.mega_statics(cfg.integrator)
         margs, kw = mk.prepare_mega(
@@ -441,7 +647,7 @@ def compare_mega_rows(device, results) -> None:
         sargs, skw = _first_packets(margs, kw, MEGA_PACKETS)
         m = sargs[7].shape[0]
         got, rays = mk.trace_mega(*sargs, **skw)
-        label = (f"[mega {name} first chunk, {statics['model']}, "
+        label = (f"[{entry} {name} first chunk, {statics['model']}, "
                  f"max_bounces={statics['max_bounces']}, spp={batch}]")
         if not torch.equal(got.view(torch.int32),
                            full[:m].view(torch.int32)):
@@ -453,10 +659,9 @@ def compare_mega_rows(device, results) -> None:
         plain_s = time.perf_counter() - t0
         err = _hold_mega(f"{label} packets 0-{MEGA_PACKETS - 1}", got, want,
                          rays, rays_plain)
-        worst, ms_case, plain_case = results["mega"]["trace_mega"]
-        results["mega"]["trace_mega"] = (max(worst, err), ms_case,
-                                         plain_case)
-        print(f"{label} trace_mega on all {n} lanes: {ms:.1f} ms, "
+        worst, *rest = results["mega"][entry]
+        results["mega"][entry] = (max(worst, err), *rest)
+        print(f"{label} {entry} on all {n} lanes: {ms:.1f} ms, "
               f"{int(rays_full)} rays ({int(rays_full) / ms / 1e3:.1f} "
               f"Mrays/s); trace_mega_plain on {m} lanes: {plain_s:.1f} s")
 
@@ -471,33 +676,48 @@ MEGA_RUNS = (
     ("table_direct_mega", ["proc:table", "--width", "800", "--height", "600",
                            "--integrator", "direct"], 8, 16),
 )
-# Phase 7 holds the kernel to its plain version on this many packets of
+# The bench's megacluster rows (bathroom, bench.py:382-387, frame batch 1)
+# with their frame-batched counterparts, and table's (bench.py:219-221).
+MEGACLUSTER_RUNS = (
+    ("bathroom_megacluster", ["proc:bathroom", "--width", "1280", "--height",
+                              "720", "--microfacet", "beckmann",
+                              "--cluster-tris", "128"], 1, 32),
+    ("bathroom_megacluster64", ["proc:bathroom", "--width", "1280",
+                                "--height", "720", "--microfacet",
+                                "beckmann", "--cluster-tris", "128"], 64, 16),
+    ("table_megacluster", ["proc:table", "--width", "800", "--height", "600",
+                           "--max-bounces", "64", "--cluster-tris", "128"],
+     1, 32),
+    ("table_megacluster128", ["proc:table", "--width", "800", "--height",
+                              "600", "--max-bounces", "64", "--cluster-tris",
+                              "128"], 128, 16),
+)
+# Phase 9 holds the kernel to its plain version on this many packets of
 # each row's first chunk.
 MEGA_PACKETS = 2
 
 
 def _mega_argv(args, batch: int, frames: int):
-    """The CLI arguments of a MEGA_RUNS row: black sky, one chunk."""
+    """The CLI arguments of a megakernel row: black sky, one chunk."""
     return args + ["--device", "cuda", "--megakernel", "on", "--frame-batch",
                    str(batch), "--spp", str(frames), "--skybox",
                    "GENERATE COLOR BLACK", "--bvh-builder", "cpp", "--chunk",
                    "2097152"]
 
 
-def render_mega_path(tmp: str):
-    """Phase 8: the megakernel path through the CLI. Returns per-run stats."""
+def render_mega_path(tmp: str, runs, entry: str):
+    """Phases 10 and 11: the megakernel path through the CLI; ``entry``
+    must launch and no other kernel. Returns per-run stats."""
     import numpy as np
 
     from gpupathtracer_tpu_torch import cli
-    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
-    from gpupathtracer_tpu_torch.ops import megakernel as mk
 
     stats = {}
-    for name, args, batch, frames in MEGA_RUNS:
+    for name, args, batch, frames in runs:
         png = os.path.join(tmp, f"{name}.png")
         hdr = os.path.join(tmp, f"{name}.npy")
         sj = os.path.join(tmp, f"{name}.json")
-        before = mk.LAUNCHES["trace_mega"]
+        before = _launches()[entry]
         rc = cli.main(_mega_argv(args, batch, frames) + [
             "--out", png, "--hdr-out", hdr, "--stats-json", sj])
         if rc != 0:
@@ -511,26 +731,27 @@ def render_mega_path(tmp: str):
             raise AssertionError(f"[{name}] film shape {film.shape}")
         if not np.isfinite(film).all() or not (film > 0).any():
             raise AssertionError(f"[{name}] film is not finite and nonzero")
-        if mk.LAUNCHES["trace_mega"] <= before:
-            raise AssertionError(f"[{name}] never launched the megakernel")
-        if any(kt.LAUNCHES.values()):
-            raise AssertionError(f"[{name}] fell back to the wavefront: "
-                                 f"{kt.LAUNCHES}")
+        counts = _launches()
+        if counts[entry] <= before:
+            raise AssertionError(f"[{name}] never launched {entry}")
+        others = {k: v for k, v in counts.items() if k != entry and v}
+        if others:
+            raise AssertionError(f"[{name}] launched other kernels: {others}")
         with open(sj) as f:
             s = json.load(f)
         samples = frames * batch
         print(f"[{name}] {w}x{h}, {frames} frames x {batch} samples: "
               f"{s['render_seconds'] / samples:.5f} s/sample, "
-              f"{s['render_seconds'] / frames:.3f} s/frame, "
+              f"{s['render_seconds'] / frames:.4f} s/frame, "
               f"{s['mrays_per_sec']:.1f} Mrays/s, {s['rays']} rays, "
-              f"{mk.LAUNCHES['trace_mega'] - before} megakernel launches, "
+              f"{counts[entry] - before} {entry} launches, "
               f"film mean {float(film.mean()):.4f}")
         stats[name] = s
     return stats
 
 
 def mega_vs_wavefront(device) -> None:
-    """Phase 9: the two integrators' films agree in the mean (the random
+    """Phase 12: the two integrators' films agree in the mean (the random
     streams differ, so the agreement is statistical)."""
     from gpupathtracer_tpu_torch.render import Renderer
 
@@ -552,13 +773,66 @@ def mega_vs_wavefront(device) -> None:
                              "than 2%")
 
 
-def _reset_launches() -> None:
+def cluster_vs_mt(device) -> None:
+    """Phase 13: the same megakernel render on cluster and on MT leaves.
+    Both trace the same hits in exact arithmetic and draw the same random
+    numbers; the films' means must agree within 2%."""
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    means = {}
+    for tc in (128, 0):
+        cfg = _scene_cfg("table", 200, 150, skybox="GENERATE COLOR BLACK",
+                         max_bounces=64, frame_batch=64, megakernel="on",
+                         cluster_tris=tc)
+        r = Renderer(cfg, device)
+        if not r.use_mega or (r.scene.cluster_rows is not None) != bool(tc):
+            raise AssertionError(f"cluster_tris={tc}: not the megakernel "
+                                 f"on the expected leaves")
+        r.render_frame(sync=True)
+        means[tc] = float(r.film_hdr().mean())
+    rel = abs(means[128] - means[0]) / means[0]
+    print(f"[cluster vs MT] table 200x150, 64 bounces, 64 spp, megakernel: "
+          f"film mean {means[128]:.6f} (cluster leaves) vs {means[0]:.6f} "
+          f"(MT leaves), {rel:.4%} apart (bound 2%)")
+    if rel > 0.02:
+        raise AssertionError("cluster and MT means differ by more than 2%")
+
+
+def _counters():
+    from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
     from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
     from gpupathtracer_tpu_torch.ops import megakernel as mk
+    return kt.LAUNCHES, kc.LAUNCHES, mk.LAUNCHES
 
-    for counts in (kt.LAUNCHES, mk.LAUNCHES):
+
+def _launches() -> dict:
+    """Every kernel entry point's launch count since the last reset."""
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
+
+
+def _reset_launches() -> None:
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
+
+
+def _drive(label: str, want, fn):
+    """Sets every launch count to 0, runs fn (one path), reads the counts:
+    each entry point in ``want`` must have launched and no other."""
+    _reset_launches()
+    fn()
+    counts = _launches()
+    print(f"[{label}] kernel launches: {counts}")
+    for k in want:
+        if counts[k] <= 0:
+            raise AssertionError(f"the {label} never launched {k}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if others:
+        raise AssertionError(f"the {label} launched {others}")
+    return {k: counts[k] for k in want}
 
 
 def main() -> int:
@@ -567,9 +841,6 @@ def main() -> int:
               "from the root of a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    # The C++ SBVH builder caches its library here, inside the checkout.
-    os.environ.setdefault("GPT_TPU_CACHE", os.path.join(
-        ROOT, "gpupathtracer_tpu_torch", "_build", "sbvh"))
     import torch
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -583,43 +854,53 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     device = torch.device("cuda", 0)
-
-    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
-    from gpupathtracer_tpu_torch.ops import megakernel as mk
+    t_start = time.perf_counter()
 
     build_kernels()
 
-    results = {}
-    compare_kernels("sponza", 1920, 1080, device, results)
-    compare_kernels("bathroom", 1280, 720, device, results)
+    results = {"mega": {}}
+    for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
+        rays = compare_kernels(name, w, h, device, results)
+        compare_cluster(name, w, h, rays, device, results)
+        del rays
     golden_check(device)
 
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        _reset_launches()
-        render_main_path(tmp)
-        launches = dict(kt.LAUNCHES)
-    print(f"[main path] kernel launches: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {k}")
+        launches.update(_drive(
+            "main path", ("trace_closest", "trace_anyhit"),
+            lambda: render_main_path(tmp, MAIN_RUNS)))
+        launches.update(_drive(
+            "cluster path", ("trace_cluster_closest", "trace_cluster_anyhit"),
+            lambda: render_main_path(tmp, CLUSTER_RUNS)))
 
     compare_mega(device, results)
-    compare_mega_rows(device, results)
+    compare_mega(device, results, cluster_tris=128)
+    compare_mega_rows(device, results, MEGA_RUNS + MEGACLUSTER_RUNS)
     with tempfile.TemporaryDirectory() as tmp:
-        _reset_launches()
-        render_mega_path(tmp)
-        launches["trace_mega"] = mk.LAUNCHES["trace_mega"]
-        print(f"[megakernel path] kernel launches: "
-              f"{dict(kt.LAUNCHES, **mk.LAUNCHES)}")
+        launches.update(_drive(
+            "megakernel path", ("trace_mega",),
+            lambda: render_mega_path(tmp, MEGA_RUNS, "trace_mega")))
+        launches.update(_drive(
+            "megacluster path", ("trace_mega_cluster",),
+            lambda: render_mega_path(tmp, MEGACLUSTER_RUNS,
+                                     "trace_mega_cluster")))
     mega_vs_wavefront(device)
+    cluster_vs_mt(device)
 
     kernels = []
     for case, k in (("sponza", "trace_closest"), ("sponza", "trace_anyhit"),
-                    ("mega", "trace_mega")):
-        err, ms, plain_ms = results[case][k]
+                    ("mega", "trace_mega"),
+                    ("sponza_cluster", "trace_cluster_closest"),
+                    ("sponza_cluster", "trace_cluster_anyhit"),
+                    ("mega", "trace_mega_cluster")):
+        err, ms, plain_ms, bound_ms, bound_by = results[case][k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
                         "replaces": REPLACES[k], "launches": launches[k],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

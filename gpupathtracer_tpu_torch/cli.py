@@ -79,7 +79,6 @@ _UNPORTED = (
      "the reference and AO integrators"),
     ("shadow_rev", (False,), "light-end shadow rays"),
     ("bounce_traversal", ("auto", "same"), "tsort bounce traversal"),
-    ("cluster_tris", (0,), "dense cluster leaves (B4)"),
     ("sampler", ("random",), "the ld sampler"),
     ("partition_chips", (0,), "multi-device rendering"),
     ("partition_samples", (1,), "multi-device rendering"),

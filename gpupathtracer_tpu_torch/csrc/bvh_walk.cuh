@@ -1,8 +1,10 @@
 // The wide-BVH walk of one ray by one thread, shared by csrc/traverse.cu
-// (closest-hit and any-hit queries) and csrc/megakernel.cu (the walks
-// inside the whole-path estimator).
+// (closest-hit and any-hit queries on MT-leaf tables), csrc/cluster_traverse.cu
+// (the same on dense cluster-leaf tables) and csrc/megakernel.cu (the walks
+// inside the whole-path estimator). One node phase, `walk`, is generic over
+// its leaf routine: MtLeaf or ClusterLeaf.
 //
-// The table is the merged 128-float row table of bvh/wide.py
+// The MT-leaf table is the merged 128-float row table of bvh/wide.py
 // pack_for_packets:
 //   node row : cols 0:48  = 8 children x (min.xyz, max.xyz)
 //              cols 48:56 = 8 child entries (int32 bit-cast)
@@ -11,14 +13,18 @@
 //              consecutive rows.
 // Entries: INVALID (0x7FFFFFFF) = empty slot, e >= 0 = node row e,
 // e < 0 = leaf, packed = -(e + 1): first row = packed >> 4, count = packed & 15.
+// On a cluster scene (bvh/cluster.py pack_clusters) the rows hold the cluster
+// top tree's nodes alone, and a leaf's packed >> 4 is a cluster index into
+// the [Ncl * 8, 3 * tc] cluster table (see ClusterLeaf).
 //
 // The arithmetic is the Pallas kernels', term by term, as XLA compiles them
 // for the CPU (where the JAX package's tests and goldens run): slab test as
 // fma(lo, inv, -o*inv), Moller-Trumbore with strict inequalities and the
-// fused multiply-adds LLVM forms there (ops/intersect.py). The sources are
-// built with --fmad=false so that nvcc contracts nothing else and 1/det stays
-// an IEEE division; the walk is then bit-identical to its plain torch version
-// (ops/kernel_traverse.py _walk_plain).
+// fused multiply-adds LLVM forms there (ops/intersect.py), the cluster
+// leaves' dot products in the order of XLA's CPU dot. The sources are built
+// with --fmad=false so that nvcc contracts nothing else and every division
+// stays an IEEE division; the walks are then bit-identical to their plain
+// torch versions (ops/kernel_traverse.py walk_plain, ops/kernel_cluster.py).
 
 #pragma once
 
@@ -159,14 +165,130 @@ __device__ __forceinline__ void intersect_leaf(const float* __restrict__ block,
   }
 }
 
-// Walks the tree from the root: closest hit within (0, t) in near-first
-// order, or (kAnyHit) the first hit found. On a miss t, prim, u, v and
-// slot keep the values they came in with.
+// The leaf routine of MT-leaf tables: records the closest hit's prim, u, v
+// and leaf slot (the megakernel's hit-time capture). Returns true once a hit
+// is recorded (the walk reads it only for any-hit, which ends at the first).
 template <bool kAnyHit>
-__device__ __forceinline__ void traverse(const float* __restrict__ rows,
-                                         const Ray& r, int depth, float& t,
-                                         int& prim, float& u, float& v,
-                                         const float*& slot) {
+struct MtLeaf {
+  const float* rows;
+  int prim = -1;
+  float u = 0.0f, v = 0.0f;
+  const float* slot = nullptr;
+
+  __device__ __forceinline__ explicit MtLeaf(const float* r) : rows(r) {}
+
+  __device__ __forceinline__ bool operator()(int packed, const Ray& r,
+                                             float& t) {
+    intersect_leaf(rows + (size_t)(packed >> 4) * kRow, packed & 15, r,
+                   kAnyHit, t, prim, u, v, slot);
+    return prim >= 0;
+  }
+};
+
+// sum_a m[a * w] * x[a] rounded as XLA's CPU dot rounds the cluster kernel's
+// K = 3 contractions: fma(m2, x2, fma(m1, x1, m0 * x0)).
+__device__ __forceinline__ float dot_k3(const float* m, int w, const float* x) {
+  return __fmaf_rn(m[2 * w], x[2], __fmaf_rn(m[w], x[1], m[0] * x[0]));
+}
+
+// The same sum as LLVM contracts the elementwise winner recompute of
+// pallas_traverse.py:544-551: fma(m2, x2, fma(m0, x0, m1 * x1)).
+__device__ __forceinline__ float dot_rc(const float* m, int w, const float* x) {
+  return __fmaf_rn(m[2 * w], x[2], __fmaf_rn(m[0], x[0], m[w] * x[1]));
+}
+
+// One dense cluster block [8, 3 * tc] (bvh/cluster.py), lanes in thirds
+// A | B | C of the inverse matrix per triangle slot: rows 0:3 the direction
+// coefficients (wd), rows 3:7 the origin coefficients with the folded
+// constant in row 6 (wo4), row 7 the signed material float in the first
+// third. For slot j: t = num / dc, u = oa + t * da, v = ob + t * db, valid iff
+// u > 0, v > 0, u + v < 1, t > 0 (padding slots are all zero: t = NaN fails
+// every comparison). Returns the smallest valid t and in `slot` the lowest
+// slot that has it (pallas_traverse.py:507-538), +inf when none is valid.
+// With any_hit, returns at the first valid slot with t < t_cur and +inf when
+// there is none: the occlusion answer is the same.
+__device__ __forceinline__ float cluster_min(const float* __restrict__ blk,
+                                             int tc, const Ray& r,
+                                             bool any_hit, float t_cur,
+                                             int& slot) {
+  const int w = 3 * tc;
+  const float* wo = blk + 3 * w;
+  float best = __int_as_float(0x7f800000);  // +inf
+  slot = 0;
+  for (int j = 0; j < tc; ++j) {
+    float da = dot_k3(blk + j, w, r.d);
+    float db = dot_k3(blk + tc + j, w, r.d);
+    float dc = dot_k3(blk + 2 * tc + j, w, r.d);
+    float oa = dot_k3(wo + j, w, r.o) + wo[3 * w + j];
+    float ob = dot_k3(wo + tc + j, w, r.o) + wo[3 * w + tc + j];
+    float num = dot_k3(wo + 2 * tc + j, w, r.o) + wo[3 * w + 2 * tc + j];
+    float tt = num / dc;
+    float uu = __fmaf_rn(tt, da, oa);
+    float vv = __fmaf_rn(tt, db, ob);
+    if (uu > 0.0f && vv > 0.0f && uu + vv < 1.0f && tt > 0.0f) {
+      if (any_hit) {
+        if (tt < t_cur) {
+          slot = j;
+          return tt;
+        }
+      } else if (tt < best) {
+        best = tt;
+        slot = j;
+      }
+    }
+  }
+  return best;
+}
+
+// u, v of the winning slot at t, recomputed from its A and B origin rows
+// as pallas_traverse.py:544-553 does (not the per-slot values, which can
+// differ in the last place).
+__device__ __forceinline__ void cluster_uv(const float* __restrict__ blk,
+                                           int tc, int slot, const Ray& r,
+                                           float t, float& u, float& v) {
+  const int w = 3 * tc;
+  const float* a = blk + 3 * w + slot;
+  const float* b = a + tc;
+  u = __fmaf_rn(t, dot_rc(a, w, r.d), dot_rc(a, w, r.o) + a[3 * w]);
+  v = __fmaf_rn(t, dot_rc(b, w, r.d), dot_rc(b, w, r.o) + b[3 * w]);
+}
+
+// The leaf routine of cluster tables: the hit counts only if the block's
+// smallest valid t is below the current t (applied to the reduced result,
+// pallas_traverse.py:518-522). Records the winner as cidx * tc + slot, the
+// JAX kernel's cluster-local prim id.
+template <bool kAnyHit>
+struct ClusterLeaf {
+  const float* cl;
+  int tc;
+  int win = -1;
+
+  __device__ __forceinline__ ClusterLeaf(const float* c, int n) : cl(c), tc(n) {}
+
+  __device__ __forceinline__ const float* block(int cidx) const {
+    return cl + (size_t)cidx * 8 * 3 * tc;
+  }
+
+  __device__ __forceinline__ bool operator()(int packed, const Ray& r,
+                                             float& t) {
+    int cidx = packed >> 4, slot;
+    float tmin = cluster_min(block(cidx), tc, r, kAnyHit, t, slot);
+    if (tmin < t) {
+      t = tmin;
+      win = cidx * tc + slot;
+      return true;
+    }
+    return false;
+  }
+};
+
+// Walks the tree from the root: closest hit within (0, t) in near-first
+// order, or (kAnyHit) until the first leaf that reports a hit. On a miss t
+// and the leaf's records keep the values they came in with.
+template <bool kAnyHit, class Leaf>
+__device__ __forceinline__ void walk(const float* __restrict__ rows,
+                                     const Ray& r, int depth, float& t,
+                                     Leaf& leaf) {
   int stack[kMaxStack];
   int sp = 1;
   stack[0] = 0;  // root node row
@@ -175,11 +297,8 @@ __device__ __forceinline__ void traverse(const float* __restrict__ rows,
     if (entry >= 0) {
       expand_node(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack, sp,
                   depth);
-    } else {
-      int packed = -(entry + 1);
-      intersect_leaf(rows + (size_t)(packed >> 4) * kRow, packed & 15, r,
-                     kAnyHit, t, prim, u, v, slot);
-      if (kAnyHit && prim >= 0) return;
+    } else if (leaf(-(entry + 1), r, t) && kAnyHit) {
+      return;
     }
   }
 }

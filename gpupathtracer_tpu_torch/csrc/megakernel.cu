@@ -19,6 +19,14 @@
 // exact ties), so here each thread walks alone (bvh_walk.cuh) and ends its
 // own loop: at most max_bounces + 2 bounces per sample, spp samples.
 //
+// On a cluster scene (kCluster, the TPU kernel's cluster=True) both walks
+// take bvh_walk.cuh's dense cluster leaf (:416-482, :609-645): the closest
+// walk keeps the winner's cluster-local id, and shading reads the winner's
+// C row (parallel to e1 x e2) and its signed material float
+// (mat_id + 1) * nsign from the cluster block (:1098-1104). The TPU kernel's
+// node-row clamp for cluster leaves (:352-358, 556-557) guards a row fetch
+// this walk does not make.
+//
 // Rounding: the walks make the fused multiply-adds of bvh_walk.cuh; every
 // other operation is one IEEE operation in the order of the JAX source
 // (--fmad=false, no fast math: IEEE division, correctly rounded sqrtf,
@@ -27,9 +35,10 @@
 // so on the card the two agree bit for bit.
 //
 // What bounds it on an H100: register pressure (the whole estimator is live
-// in one thread: ptxas gives the NEE variants 95-128 registers without
-// spills, the NEE-less ones 64-72 registers with up to 36 bytes of
-// spills), the 192-entry walk stack in local memory (832-864-byte stack
+// in one thread: of the 24 instantiations (model x NEE x regeneration x
+// leaf), ptxas gives the NEE variants 95-96 registers without spills, the
+// NEE-less ones 64-72 registers with up to 20 bytes of spills), the
+// 192-entry walk stack in local memory (832-848-byte stack
 // frames), the dependent 512-byte row reads of the walks, and divergence as
 // the lanes of a warp end their paths at different bounces and walk
 // different subtrees. This first version does nothing about these (no
@@ -52,6 +61,8 @@ enum { kTrowbridgeReitz = 0, kBeckmann = 1, kBlinnPhong = 2 };
 
 struct MegaArgs {
   const float* rows;
+  const float* cl;      // cluster blocks [Ncl * 8, 3 * tc] (kCluster)
+  int tc;
   const float* mats;    // [>= n_mats, 16]
   const float* lights;  // [>= n_lights, 16]
   const float* cdf;     // [>= n_lights]
@@ -196,7 +207,63 @@ __device__ __forceinline__ void bsdf_eval(const float* alb, float metal,
   }
 }
 
-template <int kModel, bool kNee, bool kRegen>
+// The closest walk with hit-time capture: t and prim (-1 on a miss), the
+// unnormalized geometric normal, the material id and the normal sign.
+template <bool kCluster>
+__device__ __forceinline__ int closest_capture(const MegaArgs& g,
+                                               const float* o, const float* d,
+                                               float& t, float* gn, int& mid,
+                                               float& nsign) {
+  if constexpr (kCluster) {
+    bvh::ClusterLeaf<false> leaf(g.cl, g.tc);
+    bvh::walk<false>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    float sm = 0.0f;
+    gn[0] = 1.0f;
+    gn[1] = gn[2] = 0.0f;
+    if (leaf.win >= 0) {
+      const float* blk = leaf.block(leaf.win / g.tc);
+      const int s = leaf.win % g.tc, w = 3 * g.tc;
+      for (int a = 0; a < 3; ++a) gn[a] = blk[a * w + 2 * g.tc + s];
+      sm = blk[7 * w + s];
+    }
+    nsign = sm < 0.0f ? -1.0f : 1.0f;
+    mid = max((int)fabsf(sm) - 1, -1);
+    return leaf.win;
+  } else {
+    bvh::MtLeaf<false> leaf(g.rows);
+    bvh::walk<false>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    float e1[3] = {1.0f, 0.0f, 0.0f}, e2[3] = {0.0f, 1.0f, 0.0f};
+    mid = 0;
+    nsign = 1.0f;
+    if (leaf.prim >= 0) {
+      for (int a = 0; a < 3; ++a) {
+        e1[a] = leaf.slot[3 + a];
+        e2[a] = leaf.slot[6 + a];
+      }
+      mid = __float_as_int(leaf.slot[10]);
+      nsign = leaf.slot[11];
+    }
+    cross3(e1, e2, gn);
+    return leaf.prim;
+  }
+}
+
+// The any-hit walk: true iff something lies within (0, t) along the ray.
+template <bool kCluster>
+__device__ __forceinline__ bool occluded(const MegaArgs& g, const float* o,
+                                         const float* d, float t) {
+  if constexpr (kCluster) {
+    bvh::ClusterLeaf<true> leaf(g.cl, g.tc);
+    bvh::walk<true>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    return leaf.win >= 0;
+  } else {
+    bvh::MtLeaf<true> leaf(g.rows);
+    bvh::walk<true>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    return leaf.prim >= 0;
+  }
+}
+
+template <int kModel, bool kNee, bool kRegen, bool kCluster>
 __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned int n_rays = 0;
@@ -258,25 +325,11 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
       ++n_rays;
 
       // Closest walk with hit-time capture.
-      float t = 1e20f, hu = 0.0f, hv = 0.0f;
-      int prim = -1;
-      const float* slot = nullptr;
-      bvh::traverse<false>(g.rows, bvh::make_ray(o, d), g.depth, t, prim, hu,
-                           hv, slot);
-      const bool miss = prim < 0;
-      float e1[3] = {1.0f, 0.0f, 0.0f}, e2[3] = {0.0f, 1.0f, 0.0f};
-      int mid = 0;
-      float nsign = 1.0f;
-      if (!miss) {
-        for (int a = 0; a < 3; ++a) {
-          e1[a] = slot[3 + a];
-          e2[a] = slot[6 + a];
-        }
-        mid = __float_as_int(slot[10]);
-        nsign = slot[11];
-      }
-      float n[3], pos[3], view[3], gn[3];
-      cross3(e1, e2, gn);
+      float t = 1e20f, nsign, gn[3];
+      int mid;
+      const bool miss =
+          closest_capture<kCluster>(g, o, d, t, gn, mid, nsign) < 0;
+      float n[3], pos[3], view[3];
       normalize3(gn, n);
       for (int a = 0; a < 3; ++a) {
         n[a] = n[a] * nsign;
@@ -369,12 +422,7 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
           ++n_rays;
           float so[3];
           for (int a = 0; a < 3; ++a) so[a] = pos[a] + 0.001f * n[a];
-          float st = shadow_tmax, su = 0.0f, sv = 0.0f;
-          int sprim = -1;
-          const float* sslot = nullptr;
-          bvh::traverse<true>(g.rows, bvh::make_ray(so, ldir), g.depth, st,
-                              sprim, su, sv, sslot);
-          if (sprim < 0)
+          if (!occluded<kCluster>(g, so, ldir, shadow_tmax))
             for (int a = 0; a < 3; ++a) ct[a] = ct[a] + light[a];
         }
       }
@@ -462,51 +510,62 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
   }
 }
 
-template <int kModel, bool kNee, bool kRegen>
+template <int kModel, bool kNee, bool kRegen, bool kCluster>
 int launch(const MegaArgs& args, cudaStream_t stream) {
   int blocks = (args.n + kThreads - 1) / kThreads;
-  mega_kernel<kModel, kNee, kRegen><<<blocks, kThreads, 0, stream>>>(args);
+  mega_kernel<kModel, kNee, kRegen, kCluster>
+      <<<blocks, kThreads, 0, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-template <int kModel>
-int launch_model(bool nee, bool regen, const MegaArgs& args,
-                 cudaStream_t stream) {
+template <int kModel, bool kCluster>
+int launch_leaf(bool nee, bool regen, const MegaArgs& args,
+                cudaStream_t stream) {
   if (nee) {
-    return regen ? launch<kModel, true, true>(args, stream)
-                 : launch<kModel, true, false>(args, stream);
+    return regen ? launch<kModel, true, true, kCluster>(args, stream)
+                 : launch<kModel, true, false, kCluster>(args, stream);
   }
-  return regen ? launch<kModel, false, true>(args, stream)
-               : launch<kModel, false, false>(args, stream);
+  return regen ? launch<kModel, false, true, kCluster>(args, stream)
+               : launch<kModel, false, false, kCluster>(args, stream);
+}
+
+template <int kModel>
+int launch_model(bool nee, bool regen, bool cluster, const MegaArgs& args,
+                 cudaStream_t stream) {
+  return cluster ? launch_leaf<kModel, true>(nee, regen, args, stream)
+                 : launch_leaf<kModel, false>(nee, regen, args, stream);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Returns cudaGetLastError() after the launch
 // (0 = launched; -1 = an unknown model); the caller checks it. n must be
-// > 0, a multiple of packet; *rays must be 0 (the kernel adds to it).
+// > 0, a multiple of packet; *rays must be 0 (the kernel adds to it). With
+// cluster, rows is the cluster top tree and cl its [Ncl * 8, 3 * tc] blocks.
 extern "C" {
 
 int gpt_mega_max_stack() { return bvh::kMaxStack; }
 
-int gpt_trace_mega(int model, int nee, int regen, const float* rows,
+int gpt_trace_mega(int model, int nee, int regen, int cluster,
+                   const float* rows, const float* cl, int tc,
                    const float* mats, const float* lights, const float* cdf,
                    const float* params, const float* in0, const float* in1,
                    const uint8_t* active, const int* seeds, int n, int packet,
                    int depth, int max_bounces, int n_mats, int n_lights,
                    int spp, float* contrib, unsigned long long* rays,
                    void* stream) {
-  MegaArgs args{rows,   mats,   lights, cdf,    params,      in0,
-                in1,    active, seeds,  n,      packet,      depth,
-                max_bounces, n_mats, n_lights, spp, contrib, rays};
+  MegaArgs args{rows,    cl,          tc,     mats,     lights,   cdf,
+                params,  in0,         in1,    active,   seeds,    n,
+                packet,  depth,       max_bounces, n_mats, n_lights, spp,
+                contrib, rays};
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
     case kTrowbridgeReitz:
-      return launch_model<kTrowbridgeReitz>(nee, regen, args, s);
+      return launch_model<kTrowbridgeReitz>(nee, regen, cluster, args, s);
     case kBeckmann:
-      return launch_model<kBeckmann>(nee, regen, args, s);
+      return launch_model<kBeckmann>(nee, regen, cluster, args, s);
     case kBlinnPhong:
-      return launch_model<kBlinnPhong>(nee, regen, args, s);
+      return launch_model<kBlinnPhong>(nee, regen, cluster, args, s);
   }
   return -1;
 }

@@ -33,17 +33,13 @@ trace_closest_kernel(const float* __restrict__ rows,
                      float* __restrict__ u_out, float* __restrict__ v_out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float t = t_max[i], u = 0.0f, v = 0.0f;
-  int prim = -1;
-  const float* slot = nullptr;
-  if (active[i]) {
-    bvh::Ray r = bvh::load_ray(o, d, i);
-    bvh::traverse<false>(rows, r, depth, t, prim, u, v, slot);
-  }
+  float t = t_max[i];
+  bvh::MtLeaf<false> leaf(rows);
+  if (active[i]) bvh::walk<false>(rows, bvh::load_ray(o, d, i), depth, t, leaf);
   t_out[i] = t;
-  prim_out[i] = prim;
-  u_out[i] = u;
-  v_out[i] = v;
+  prim_out[i] = leaf.prim;
+  u_out[i] = leaf.u;
+  v_out[i] = leaf.v;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -54,14 +50,10 @@ trace_anyhit_kernel(const float* __restrict__ rows,
                     uint8_t* __restrict__ occluded) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float t = t_max[i], u = 0.0f, v = 0.0f;
-  int prim = -1;
-  const float* slot = nullptr;
-  if (active[i]) {
-    bvh::Ray r = bvh::load_ray(o, d, i);
-    bvh::traverse<true>(rows, r, depth, t, prim, u, v, slot);
-  }
-  occluded[i] = prim >= 0 ? 1 : 0;
+  float t = t_max[i];
+  bvh::MtLeaf<true> leaf(rows);
+  if (active[i]) bvh::walk<true>(rows, bvh::load_ray(o, d, i), depth, t, leaf);
+  occluded[i] = leaf.prim >= 0 ? 1 : 0;
 }
 
 }  // namespace

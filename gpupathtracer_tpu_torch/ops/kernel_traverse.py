@@ -55,7 +55,9 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check(rows, o, d, t_max, active, stack_depth: int) -> None:
+def check_rays(rows, o, d, t_max, active, stack_depth: int) -> None:
+    """Raises ValueError unless the wrappers' table and ray arguments are
+    what the kernels take."""
     n = o.shape[0]
     if rows.dim() != 2 or rows.shape[1] != ROW_WIDTH or rows.shape[0] < 1:
         raise ValueError(f"rows must be [M>=1, {ROW_WIDTH}], got "
@@ -78,9 +80,10 @@ def _check(rows, o, d, t_max, active, stack_depth: int) -> None:
                          f"(the kernel's stack)")
 
 
-def _stream(o: torch.Tensor):
+def stream_of(o: torch.Tensor):
+    """The current CUDA stream of o's device; raises for any other device."""
     if o.device.type != "cuda":
-        raise ValueError(f"the traversal kernel takes CUDA or CPU tensors, "
+        raise ValueError(f"the traversal kernels take CUDA or CPU tensors, "
                          f"got {o.device}")
     return torch.cuda.current_stream(o.device).cuda_stream
 
@@ -89,11 +92,11 @@ def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int):
     """Closest hit of rays o, d [N, 3] within (0, t_max) against the merged
     row table rows [M, 128]. Returns (t, prim, u, v), each [N]; t = t_max
     and prim = -1 on a miss or an inactive ray."""
-    _check(rows, o, d, t_max, active, stack_depth)
+    check_rays(rows, o, d, t_max, active, stack_depth)
     if o.device.type == "cpu":
         return closest_plain(rows, o, d, t_max, active,
                              stack_depth=stack_depth, leaf_size=leaf_size)
-    stream = _stream(o)
+    stream = stream_of(o)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -115,11 +118,11 @@ def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int):
 def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int):
     """Occlusion of rays o, d [N, 3] within (0, t_max): [N] bool, True iff
     some triangle is hit. Inactive rays are never occluded."""
-    _check(rows, o, d, t_max, active, stack_depth)
+    check_rays(rows, o, d, t_max, active, stack_depth)
     if o.device.type == "cpu":
         return anyhit_plain(rows, o, d, t_max, active,
                             stack_depth=stack_depth, leaf_size=leaf_size)
-    stream = _stream(o)
+    stream = stream_of(o)
     n = o.shape[0]
     occluded = torch.empty(n, dtype=torch.bool, device=o.device)
     if n:
@@ -134,28 +137,37 @@ def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int):
     return occluded
 
 
-def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
-                any_hit: bool):
-    """Every ray walks the tree with its own stack; each lockstep step pops
-    one entry per live ray. Same visit order and arithmetic as the kernel:
-    node pops push the entered children so that they pop in ascending
-    (t_near, slot) order (slot order for any-hit); leaf pops run
-    Moller-Trumbore on the block's slots.
+def count_pops(pops: Optional[dict], kind: str, ids: torch.Tensor,
+               slots=None) -> None:
+    """Adds a step's pops of one kind ("node" or "leaf") to ``pops``, the
+    node rows, leaf entries or clusters they read to its set
+    ``kind + "_ids"`` and, for leaves, the triangle slots they test to
+    ``"slots"``: the work and the distinct table bytes a run needs
+    (chip_smoke.py's bound). ``pops`` None counts nothing."""
+    if pops is None or not ids.numel():
+        return
+    pops[kind] = pops.get(kind, 0) + ids.numel()
+    pops.setdefault(kind + "_ids", set()).update(torch.unique(ids).tolist())
+    if slots is not None:
+        pops["slots"] = pops.get("slots", 0) + int(slots)
 
-    Returns (t, prim, u, v, at): ``at`` [N] int64 is the flat index into
-    ``rows`` of the winning triangle's 12-float slot (-1 on a miss), whose
-    floats 3:9 are e1, e2, 10 the material id bits and 11 the normal sign
-    (the kernel's hit slot pointer)."""
+
+def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
+               leaf, pops: Optional[dict] = None) -> torch.Tensor:
+    """The node phase of csrc/bvh_walk.cuh ``walk``, for every ray in
+    lockstep with its own stack: each step pops one entry per live ray.
+    Node pops push the entered children so that they pop in ascending
+    (t_near, slot) order (slot order for any-hit). Leaf pops go to
+    ``leaf(lanes, entries, t)``, which intersects them, lowers ``t`` in
+    place where it finds a closer hit, records what its caller needs and
+    returns the lanes that hit; with ``any_hit`` those walks end. Returns
+    t."""
     n, dev = o.shape[0], o.device
     eps = torch.tensor(1e-12, dtype=torch.float32, device=dev)
     inv = torch.where(d >= 0, 1.0, -1.0) / torch.maximum(d.abs(), eps)
     oi = o * inv
     rows_i = rows.view(torch.int32)
     t = t_max.clone()
-    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    u = torch.zeros(n, dtype=torch.float32, device=dev)
-    v = torch.zeros(n, dtype=torch.float32, device=dev)
-    at = torch.full((n,), -1, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # stack[:, 0] = 0, the root row
     while True:
@@ -167,6 +179,7 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
         is_node = entry >= 0
 
         ln, en = live[is_node], entry[is_node]
+        count_pops(pops, "node", en)
         if ln.numel():
             row = rows[en]
             bounds = row[:, :6 * ARITY].reshape(-1, ARITY, 6)
@@ -198,50 +211,76 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
 
         ll, el = live[~is_node], entry[~is_node]
         if ll.numel():
-            # All slots of each leaf block at once: [m, K, 12].
-            packed = -(el + 1)
-            first, count = packed >> 4, packed & 15
-            nrow = -(-leaf_size // TRIS_PER_ROW)
-            block = rows[first[:, None] + torch.arange(nrow, device=dev)]
-            m = ll.numel()
-            tri = block[..., :TRIS_PER_ROW * 12].reshape(
-                m, nrow * TRIS_PER_ROW, 12)[:, :leaf_size]
-            tt, uu, vv, ok = mt_intersect(
-                tri.reshape(-1, 12),
-                o[ll].repeat_interleave(leaf_size, dim=0),
-                d[ll].repeat_interleave(leaf_size, dim=0))
-            tt, uu, vv = (x.reshape(m, leaf_size) for x in (tt, uu, vv))
-            slot = torch.arange(leaf_size, device=dev)
-            ok = (ok.reshape(m, leaf_size) & (tt < t[ll, None])
-                  & (slot < count[:, None]))
-            # Testing the slots in order keeps the nearest hit, the first
-            # slot among equals: the first minimum of t over the hits.
-            best = torch.argmin(torch.where(ok, tt, torch.inf), dim=1,
-                                keepdim=True)
-            win = ok.any(dim=1)
-            lw = ll[win]
-            t[lw] = tt.gather(1, best)[win, 0]
-            prim[lw] = tri[..., 9].view(torch.int32).gather(1, best)[win, 0]
-            u[lw] = uu.gather(1, best)[win, 0]
-            v[lw] = vv.gather(1, best)[win, 0]
-            k = best[win, 0]
-            at[lw] = ((first[win] + k // TRIS_PER_ROW) * ROW_WIDTH
-                      + k % TRIS_PER_ROW * 12)
+            lw = leaf(ll, el, t)
             if any_hit:
                 sp[lw] = 0
+    return t
+
+
+def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
+                any_hit: bool, pops: Optional[dict] = None):
+    """``walk_plain`` over the MT-leaf table: leaf pops run Moller-Trumbore
+    on the block's slots.
+
+    Returns (t, prim, u, v, at): ``at`` [N] int64 is the flat index into
+    ``rows`` of the winning triangle's 12-float slot (-1 on a miss), whose
+    floats 3:9 are e1, e2, 10 the material id bits and 11 the normal sign
+    (the kernel's hit slot pointer)."""
+    n, dev = o.shape[0], o.device
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(n, dtype=torch.float32, device=dev)
+    v = torch.zeros(n, dtype=torch.float32, device=dev)
+    at = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nrow = -(-leaf_size // TRIS_PER_ROW)
+
+    def leaf(ll, el, t):
+        # All slots of each leaf block at once: [m, K, 12].
+        packed = -(el + 1)
+        first, count = packed >> 4, packed & 15
+        count_pops(pops, "leaf", packed, count.sum())
+        block = rows[first[:, None] + torch.arange(nrow, device=dev)]
+        m = ll.numel()
+        tri = block[..., :TRIS_PER_ROW * 12].reshape(
+            m, nrow * TRIS_PER_ROW, 12)[:, :leaf_size]
+        tt, uu, vv, ok = mt_intersect(
+            tri.reshape(-1, 12),
+            o[ll].repeat_interleave(leaf_size, dim=0),
+            d[ll].repeat_interleave(leaf_size, dim=0))
+        tt, uu, vv = (x.reshape(m, leaf_size) for x in (tt, uu, vv))
+        slot = torch.arange(leaf_size, device=dev)
+        ok = (ok.reshape(m, leaf_size) & (tt < t[ll, None])
+              & (slot < count[:, None]))
+        # Testing the slots in order keeps the nearest hit, the first
+        # slot among equals: the first minimum of t over the hits.
+        best = torch.argmin(torch.where(ok, tt, torch.inf), dim=1,
+                            keepdim=True)
+        win = ok.any(dim=1)
+        lw = ll[win]
+        t[lw] = tt.gather(1, best)[win, 0]
+        prim[lw] = tri[..., 9].view(torch.int32).gather(1, best)[win, 0]
+        u[lw] = uu.gather(1, best)[win, 0]
+        v[lw] = vv.gather(1, best)[win, 0]
+        k = best[win, 0]
+        at[lw] = ((first[win] + k // TRIS_PER_ROW) * ROW_WIDTH
+                  + k % TRIS_PER_ROW * 12)
+        return lw
+
+    t = walk_plain(rows, o, d, t_max, active, stack_depth, any_hit, leaf,
+                   pops)
     return t, prim, u, v, at
 
 
 def closest_plain(rows, o, d, t_max, active, *, stack_depth: int,
-                  leaf_size: int):
-    """Plain torch version of ``closest`` (same results, bit for bit)."""
+                  leaf_size: int, pops: Optional[dict] = None):
+    """Plain torch version of ``closest`` (same results, bit for bit).
+    ``pops``, a dict, collects the walk's pop counts (``count_pops``)."""
     return _walk_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
-                       any_hit=False)[:4]
+                       any_hit=False, pops=pops)[:4]
 
 
 def anyhit_plain(rows, o, d, t_max, active, *, stack_depth: int,
-                 leaf_size: int):
+                 leaf_size: int, pops: Optional[dict] = None):
     """Plain torch version of ``anyhit`` (same results)."""
     prim = _walk_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
-                       any_hit=True)[1]
+                       any_hit=True, pops=pops)[1]
     return prim >= 0

@@ -22,9 +22,15 @@ within the packet (``lane32``) and the seed of each packet.
 lockstep with the kernel's arithmetic, operation for operation, so on the
 card the two agree bit for bit.
 
+On a cluster scene (``scene.cluster_rows``) the walks take the dense
+cluster leaf (``trace_mega``'s ``cluster_rows``, the JAX kernel's
+``cluster=True``), and shading reads the winner's normal direction and
+signed material float from its cluster block.
+
 Scope (``mega_eligible``, the JAX gate unchanged): untextured materials,
 a constant-colour sky, no delta materials, no sun, at most 64 materials
-and 64 emitters. Every other scene takes the wavefront integrator.
+and 64 emitters, and tables of at most 100 MB. Every other scene takes the
+wavefront integrator.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import torch
 from gpupathtracer_tpu_torch import random
 from gpupathtracer_tpu_torch.math.camera import gen_rays
 from gpupathtracer_tpu_torch.math.vecmath import sqrt
-from gpupathtracer_tpu_torch.ops import cuda_build, kernel_traverse
+from gpupathtracer_tpu_torch.ops import (cuda_build, kernel_cluster,
+                                         kernel_traverse)
 
 LANES = 128
 PI = math.pi
@@ -52,9 +59,9 @@ MODELS = ("trowbridge_reitz", "beckmann", "blinn_phong")
 TABLE_LIMIT = 100 * 1024 * 1024
 _MASK = 0xFFFFFFFF
 
-# Kernel launches since the last reset. The wrapper adds one where it
-# launches the kernel and nowhere else.
-LAUNCHES = {"trace_mega": 0}
+# Kernel launches since the last reset, by variant: MT leaves, cluster
+# leaves. The wrapper adds one where it launches a kernel and nowhere else.
+LAUNCHES = {"trace_mega": 0, "trace_mega_cluster": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -66,7 +73,9 @@ def mega_eligible(scene, meta, *, textured: bool, delta: bool, sun: bool,
     env = scene.env.image.detach().cpu().numpy()
     const_env = (env.size <= 3 * 64
                  and bool((env == env.reshape(-1, 3)[0]).all()))
-    table_bytes = scene.node_rows.numel() * scene.node_rows.element_size()
+    table_bytes = sum(x.numel() * x.element_size()
+                      for x in (scene.node_rows, scene.cluster_rows)
+                      if x is not None)
     return (not textured and not delta and not sun
             and sampler == "random"
             and const_env
@@ -228,6 +237,51 @@ def _rows_of(table, idx, n_valid: int):
     return torch.where(ok[:, None], row, 0.0)
 
 
+def _closest_capture(g, o, d, t_max, on):
+    """The closest walk with hit-time capture (the kernel's
+    closest_capture): (t, miss, unnormalized geometric normal [3 x m],
+    material id, normal sign)."""
+    if g["cl"] is not None:
+        # Cluster leaves: the winner's C row (parallel to e1 x e2) and its
+        # signed material float (mat_id + 1) * nsign (megakernel.py:1098-1104).
+        t, win = kernel_cluster.walk_cluster_plain(
+            g["rows"], g["cl"], o, d, t_max, on,
+            stack_depth=g["stack_depth"], any_hit=False, pops=g["pops"])
+        miss = win < 0
+        tc = g["cl"].shape[1] // 3
+        c = kernel_cluster.slot_values(g["cl"], win, (0, 1, 2), 2 * tc)
+        sm = kernel_cluster.slot_values(g["cl"], win, (7,), 0)[:, 0]
+        c = torch.where(miss[:, None], g["miss_slot"][3:6], c)
+        sm = torch.where(miss, 0.0, sm)
+        nsign = torch.where(sm < 0.0, -1.0, 1.0)
+        mid = torch.clamp_min(sm.abs().to(torch.int64) - 1, -1)
+        return t, miss, [c[:, a] for a in range(3)], mid, nsign
+    t, prim, _, _, at = kernel_traverse._walk_plain(
+        g["rows"], o, d, t_max, on, g["stack_depth"], g["leaf_size"],
+        any_hit=False, pops=g["pops"])
+    miss = prim < 0
+    # Hit-time capture: the winning slot's e1, e2, material id, sign.
+    slot = g["rows_flat"][at.clamp_min(0)[:, None]
+                          + torch.arange(12, device=o.device)]
+    slot = torch.where(miss[:, None], g["miss_slot"], slot)
+    e1 = [slot[:, 3 + a] for a in range(3)]
+    e2 = [slot[:, 6 + a] for a in range(3)]
+    mid = slot[:, 10].contiguous().view(torch.int32).long()
+    return t, miss, _cross(e1, e2), mid, slot[:, 11]
+
+
+def _occluded(g, o, d, t_max, on):
+    """The any-hit walk (the kernel's occluded): [m] bool."""
+    if g["cl"] is not None:
+        return kernel_cluster.walk_cluster_plain(
+            g["rows"], g["cl"], o, d, t_max, on,
+            stack_depth=g["stack_depth"], any_hit=True,
+            pops=g["pops"])[1] >= 0
+    return kernel_traverse._walk_plain(
+        g["rows"], o, d, t_max, on, g["stack_depth"], g["leaf_size"],
+        any_hit=True, pops=g["pops"])[1] >= 0
+
+
 def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights):
     """One bounce of the lanes in ``st`` (all alive): megakernel.py
     bounce() after the regeneration, term by term. Updates ``st`` in place
@@ -239,19 +293,9 @@ def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights):
 
     far = torch.full((m,), 1e20, dtype=torch.float32, device=b.device)
     on = torch.ones(m, dtype=torch.bool, device=b.device)
-    t, prim, _, _, at = kernel_traverse._walk_plain(
-        g["rows"], torch.stack(o, 1), torch.stack(d, 1), far, on,
-        g["stack_depth"], g["leaf_size"], any_hit=False)
-    miss = prim < 0
-    # Hit-time capture: the winning slot's e1, e2, material id, sign.
-    slot = g["rows_flat"][at.clamp_min(0)[:, None]
-                          + torch.arange(12, device=b.device)]
-    slot = torch.where(miss[:, None], g["miss_slot"], slot)
-    e1 = [slot[:, 3 + a] for a in range(3)]
-    e2 = [slot[:, 6 + a] for a in range(3)]
-    mid = slot[:, 10].contiguous().view(torch.int32).long()
-    nsign = slot[:, 11]
-    n = [c * nsign for c in _normalize(k, _cross(e1, e2))]
+    t, miss, gn, mid, nsign = _closest_capture(g, torch.stack(o, 1),
+                                               torch.stack(d, 1), far, on)
+    n = [c * nsign for c in _normalize(k, gn)]
     pos = [o[a] + d[a] * t + 0.003 * n[a] for a in range(3)]
     view = [-c for c in d]
     ndo = torch.clamp_min(_dot(n, view), 0.0)
@@ -323,12 +367,11 @@ def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights):
         n_shadow = live.numel()
         if n_shadow:
             so = torch.stack([pos[a] + 0.001 * n[a] for a in range(3)], 1)
-            hit = kernel_traverse._walk_plain(
-                g["rows"], so[live], torch.stack(ldir, 1)[live],
-                shadow_tmax[live], torch.ones_like(live, dtype=torch.bool),
-                g["stack_depth"], g["leaf_size"], any_hit=True)[1]
+            occ = _occluded(g, so[live], torch.stack(ldir, 1)[live],
+                            shadow_tmax[live],
+                            torch.ones_like(live, dtype=torch.bool))
             add = torch.zeros_like(shadow_live)
-            add[live] = hit < 0
+            add[live] = ~occ
             for a in range(3):
                 ct[a] = ct[a] + torch.where(add, light[a], 0.0)
 
@@ -440,11 +483,14 @@ def _regenerate(k, st, want, params, pxn, pyn):
 def trace_mega_plain(rows, mats, lights, cdf, params, o, d, active, seeds, *,
                      stack_depth: int, leaf_size: int, max_bounces: int,
                      nee: bool, model: str, n_mats: int, n_lights: int,
-                     packet_size: int, spp: int = 1, pxn=None, pyn=None):
+                     packet_size: int, spp: int = 1, pxn=None, pyn=None,
+                     cluster_rows=None, fused_nee: bool = False,
+                     pops: Optional[dict] = None):
     """Plain torch version of ``trace_mega`` (same arguments and results).
 
     The lanes run in lockstep: each step regenerates the lanes whose path
-    ended (spp > 1), then runs one bounce of every live lane."""
+    ended (spp > 1), then runs one bounce of every live lane. ``pops``, a
+    dict, collects the walks' pop counts (kernel_traverse.count_pops)."""
     n, dev = active.shape[0], active.device
     k = _Const(dev)
     regen = spp > 1
@@ -473,7 +519,7 @@ def trace_mega_plain(rows, mats, lights, cdf, params, o, d, active, seeds, *,
              lights=lights, cdf=cdf, total_area=params[0],
              nee_pdf=params[1], env=[params[2 + a] for a in range(3)],
              miss_slot=miss_slot, stack_depth=stack_depth,
-             leaf_size=leaf_size)
+             leaf_size=leaf_size, cl=cluster_rows, pops=pops)
     rays = 0
     steps = spp * (max_bounces + 2) + 1 if regen else max_bounces + 2
     for _ in range(steps):
@@ -499,8 +545,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(cuda_build.build("megakernel")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gpt_trace_mega.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p,
-                                       i, i, i, i, i, i, i, p, p, p]
+        lib.gpt_trace_mega.argtypes = [i, i, i, i, p, p, i, p, p, p, p, p,
+                                       p, p, p, i, i, i, i, i, i, i, p, p, p]
         lib.gpt_trace_mega.restype = i
         lib.gpt_mega_max_stack.argtypes = []
         lib.gpt_mega_max_stack.restype = i
@@ -513,7 +559,7 @@ def _library() -> ctypes.CDLL:
 
 def _check(rows, mats, lights, cdf, params, o, d, active, seeds, *,
            stack_depth, max_bounces, model, n_mats, n_lights, packet_size,
-           spp, pxn, pyn):
+           spp, pxn, pyn, cluster_rows):
     n = active.shape[0]
     dev = active.device
     if packet_size < 1 or n % packet_size:
@@ -534,6 +580,10 @@ def _check(rows, mats, lights, cdf, params, o, d, active, seeds, *,
             ("params", params, (26 if regen else 5,), f32),
             ("active", active, (n,), torch.bool),
             ("seeds", seeds, (n // packet_size,), torch.int32)]
+    if cluster_rows is not None:
+        kernel_cluster.cluster_width(cluster_rows)
+        want.append(("cluster_rows", cluster_rows, tuple(cluster_rows.shape),
+                     f32))
     if regen:
         want += [("pxn", pxn, (n,), f32), ("pyn", pyn, (n,), f32)]
     else:
@@ -552,7 +602,8 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
                stack_depth: int, leaf_size: int, max_bounces: int, nee: bool,
                model: str, n_mats: int, n_lights: int,
                packet_size: int = 2048, spp: int = 1, pxn=None, pyn=None,
-               cluster_rows=None, with_stats: bool = False):
+               cluster_rows=None, fused_nee: bool = False,
+               with_stats: bool = False):
     """Run the megakernel over N lanes (megakernel.py:1308 ``trace_mega``).
 
     Lane i belongs to packet i // packet_size and draws its random numbers
@@ -562,17 +613,21 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
     normalized pixel coordinates, params holds the camera scalars in
     [5:26], and the contribution is the sum over spp samples.
 
+    With cluster_rows [Ncl*8, 3*tc], rows is the cluster top tree and the
+    walks take the dense cluster leaf. ``fused_nee`` (the TPU kernel's
+    deferred-shadow schedule) changes nothing here: the CUDA kernel has one
+    schedule; as in the JAX package it does not compose with cluster leaves.
+
     Returns ([N, 3] contribution, int64 rays) where rays counts the bounce
     rays and the live shadow rays, as the JAX kernel counts them."""
-    if cluster_rows is not None:
-        raise NotImplementedError("cluster leaves in the megakernel are not "
-                                  "ported yet (ROADMAP.md, queue B: B4)")
+    if cluster_rows is not None and fused_nee:
+        raise ValueError("fused_nee does not compose with cluster leaves")
     if with_stats:
         raise NotImplementedError("megakernel pop counters are not ported "
                                   "yet (ROADMAP.md, queue A: port bench)")
     kw = dict(stack_depth=stack_depth, max_bounces=max_bounces, model=model,
               n_mats=n_mats, n_lights=n_lights, packet_size=packet_size,
-              spp=spp, pxn=pxn, pyn=pyn)
+              spp=spp, pxn=pxn, pyn=pyn, cluster_rows=cluster_rows)
     _check(rows, mats, lights, cdf, params, o, d, active, seeds, **kw)
     if active.device.type == "cpu":
         return trace_mega_plain(rows, mats, lights, cdf, params, o, d, active,
@@ -587,9 +642,12 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
     rays = torch.zeros((), dtype=torch.int64, device=active.device)
     if n:
         in0, in1 = (pxn, pyn) if regen else (o, d)
+        cluster = cluster_rows is not None
         with torch.cuda.device(active.device):
             err = _library().gpt_trace_mega(
-                MODELS.index(model), int(nee), int(regen), rows.data_ptr(),
+                MODELS.index(model), int(nee), int(regen), int(cluster),
+                rows.data_ptr(), cluster_rows.data_ptr() if cluster else None,
+                cluster_rows.shape[1] // 3 if cluster else 0,
                 mats.data_ptr(), lights.data_ptr(), cdf.data_ptr(),
                 params.data_ptr(), in0.data_ptr(), in1.data_ptr(),
                 active.data_ptr(), seeds.data_ptr(), n, packet_size,
@@ -598,7 +656,7 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
                 torch.cuda.current_stream(active.device).cuda_stream)
         if err:
             raise RuntimeError(f"trace_mega launch failed: CUDA error {err}")
-        LAUNCHES["trace_mega"] += 1
+        LAUNCHES["trace_mega_cluster" if cluster else "trace_mega"] += 1
     return contribution, rays
 
 
@@ -609,7 +667,7 @@ def prepare_mega(scene, mega_tables, cam, pixel_x, pixel_y, key, *,
                  max_bounces: int = 64, nee: bool = True,
                  model: str = "trowbridge_reitz", n_mats: int = 1,
                  n_lights: int = 1, packet_size: int = 2048,
-                 sample_idx: int = 0, spp: int = 1):
+                 sample_idx: int = 0, spp: int = 1, fused_nee: bool = False):
     """The raygen of ``render_sample_mega`` (megakernel.py:1454-1500):
     returns (args, kwargs) of its ``trace_mega`` call over the n lanes
     padded to whole packets.
@@ -625,7 +683,8 @@ def prepare_mega(scene, mega_tables, cam, pixel_x, pixel_y, key, *,
     mats, lights, cdf, params = mega_tables
     kw = dict(stack_depth=stack_depth, leaf_size=leaf_size,
               max_bounces=max_bounces, nee=nee, model=model, n_mats=n_mats,
-              n_lights=n_lights, packet_size=K, spp=spp)
+              n_lights=n_lights, packet_size=K, spp=spp,
+              cluster_rows=scene.cluster_rows, fused_nee=fused_nee)
     f32 = dict(dtype=torch.float32, device=dev)
     if spp > 1:
         key = random.fold_in(key, sample_idx)

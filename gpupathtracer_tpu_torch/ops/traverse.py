@@ -1,8 +1,11 @@
 """Ray queries against the scene's merged BVH table (counterpart of the
 JAX package's ops/traverse.py ``trace_closest`` / ``trace_occluded``).
 
-Both go through ops/kernel_traverse.py: the CUDA kernel for tensors on a
-CUDA device, its plain torch version for tensors on the CPU. ``"auto"`` is
+Both go through ops/kernel_traverse.py on MT-leaf scenes and through
+ops/kernel_cluster.py on cluster scenes (``scene.cluster_rows`` set): the
+CUDA kernel for tensors on a CUDA device, its plain torch version for
+tensors on the CPU. Closest hits carry global triangle ids on either
+table (the cluster kernel remaps its cluster-local ids). ``"auto"`` is
 the one traversal name: the JAX package's other traversals (packet,
 treelet, tsort, perray, dense) schedule the same hits differently and are
 not ported. The fused-pair schedule (``fused_pair`` / ``fused_pair_occl``)
@@ -15,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpupathtracer_tpu_torch.ops import kernel_traverse
+from gpupathtracer_tpu_torch.ops import kernel_cluster, kernel_traverse
 
 
 class Hit(NamedTuple):
@@ -38,9 +41,16 @@ def trace_closest(scene, o, d, t_max, active, *, stack_depth: int,
                   leaf_size: int, traversal: str = "auto") -> Hit:
     """Closest hit of each active ray within (0, t_max)."""
     check_traversal(traversal)
-    t, prim, u, v = kernel_traverse.closest(
-        scene.node_rows, o.contiguous(), d.contiguous(), t_max.contiguous(),
-        active.contiguous(), stack_depth=stack_depth, leaf_size=leaf_size)
+    rays = (o.contiguous(), d.contiguous(), t_max.contiguous(),
+            active.contiguous())
+    if scene.cluster_rows is not None:
+        t, prim, u, v = kernel_cluster.closest_cluster(
+            scene.node_rows, scene.cluster_rows, scene.cluster_refs, *rays,
+            stack_depth=stack_depth)
+    else:
+        t, prim, u, v = kernel_traverse.closest(
+            scene.node_rows, *rays, stack_depth=stack_depth,
+            leaf_size=leaf_size)
     return Hit(t=t, prim=prim, u=u, v=v)
 
 
@@ -48,6 +58,12 @@ def trace_occluded(scene, o, d, t_max, active, *, stack_depth: int,
                    leaf_size: int, traversal: str = "auto") -> torch.Tensor:
     """[N] bool: True iff something lies within (0, t_max) of an active ray."""
     check_traversal(traversal)
-    return kernel_traverse.anyhit(
-        scene.node_rows, o.contiguous(), d.contiguous(), t_max.contiguous(),
-        active.contiguous(), stack_depth=stack_depth, leaf_size=leaf_size)
+    rays = (o.contiguous(), d.contiguous(), t_max.contiguous(),
+            active.contiguous())
+    if scene.cluster_rows is not None:
+        return kernel_cluster.anyhit_cluster(
+            scene.node_rows, scene.cluster_rows, *rays,
+            stack_depth=stack_depth)
+    return kernel_traverse.anyhit(scene.node_rows, *rays,
+                                  stack_depth=stack_depth,
+                                  leaf_size=leaf_size)

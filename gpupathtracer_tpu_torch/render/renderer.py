@@ -44,6 +44,10 @@ def _align8(x: int) -> int:
 class Renderer:
     def __init__(self, cfg: RenderConfig, device, scene=None,
                  meta=None) -> None:
+        if cfg.cluster_tris and cfg.partition_chips:
+            raise ValueError("cluster_tris and partition_chips are mutually "
+                             "exclusive (the partition builds its own "
+                             "per-chip tables)")
         if int(np.prod(cfg.mesh_shape)) > 1 or cfg.partition_chips > 0:
             raise NotImplementedError("multi-device rendering is not ported "
                                       "yet (ROADMAP.md, queue A)")
@@ -61,7 +65,8 @@ class Renderer:
         self.meta = meta
         # The megakernel's deferred-shadow option (cfg.mega_fused_nee) only
         # reschedules the TPU kernel's walks; the CUDA kernel has one
-        # schedule, so the option changes nothing here.
+        # schedule, so the option changes nothing here but, as in the JAX
+        # package, is refused on cluster scenes (ops/megakernel.py).
         self.use_mega = (cfg.megakernel == "on" and mega_eligible(
             scene, meta, textured=False, delta=meta.has_delta,
             sun=cfg.sun_enabled, sampler=cfg.sampler))
@@ -150,7 +155,8 @@ class Renderer:
                     model=cfg.microfacet,
                     n_mats=self.meta.num_materials,
                     n_lights=int(self.scene.light_rows.shape[0]),
-                    packet_size=cfg.pallas_packet_size)
+                    packet_size=cfg.pallas_packet_size,
+                    fused_nee=cfg.mega_fused_nee)
 
     def _render_chunk(self, integrator: str, sl: slice, key, batch: int = 1):
         """Returns ([C, 3] contribution, rays traced)."""

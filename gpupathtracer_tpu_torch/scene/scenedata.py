@@ -2,10 +2,12 @@
 and the packed shading tables, as torch tensors on an explicit device
 (counterpart of the JAX package's scene/scenedata.py).
 
-The BVH comes from the JAX package's jax-free ``gpupathtracer_tpu.bvh``
-(C++ SBVH through ctypes, the 8-wide collapse and ``pack_for_packets``),
-so both packages trace the identical 128-float row table. The disk cache
-is not ported (ROADMAP.md, queue A); it changes no output.
+The BVH comes from the port's copy of the JAX package's builders
+(``gpupathtracer_tpu_torch.bvh``: C++ SBVH through ctypes, the 8-wide
+collapse, ``pack_for_packets`` and, with ``cfg.cluster_tris``, the dense
+cluster leaves of ``pack_clusters``), so both packages trace identical
+tables. The disk cache is not ported (ROADMAP.md, queue A); it changes no
+output.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from gpupathtracer_tpu.bvh import BuildStats, build_wide_bvh
-from gpupathtracer_tpu.bvh.wide import pack_for_packets
+from gpupathtracer_tpu_torch.bvh import BuildStats, build_wide_bvh
+from gpupathtracer_tpu_torch.bvh.cluster import pack_clusters
+from gpupathtracer_tpu_torch.bvh.wide import pack_for_packets
 from gpupathtracer_tpu_torch.config import RenderConfig
 from gpupathtracer_tpu_torch.ops.intersect import pack_tri_geom
 from gpupathtracer_tpu_torch.scene.envmap import EnvMap, environment_image
@@ -44,8 +47,14 @@ class SceneData(NamedTuple):
     mat_rows: torch.Tensor     # [M, 16] f32
     env: EnvMap
     # Merged BVH table (bvh/wide.py pack_for_packets): node rows, then
-    # leaf rows of 10 MT-ready triangle slots.
+    # leaf rows of 10 MT-ready triangle slots. On a cluster scene
+    # (cfg.cluster_tris > 0), the cluster top tree's node rows alone.
     node_rows: torch.Tensor    # [W + L, 128] f32
+    # Dense cluster leaves (bvh/cluster.py pack_clusters), None on MT-leaf
+    # scenes: per cluster an [8, 3*tc] block of inverse-matrix rows, and
+    # the global triangle id of each of its tc slots.
+    cluster_rows: Optional[torch.Tensor] = None  # [Ncl*8, 3*tc] f32
+    cluster_refs: Optional[torch.Tensor] = None  # [Ncl*tc] i32
 
 
 @dataclass
@@ -65,7 +74,8 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     """SceneData from arrays keyed by field name (``env`` is the lat-long
     image), e.g. the JAX package's SceneData converted with np.asarray."""
     def t(x):
-        return torch.tensor(np.asarray(x), device=device)
+        return None if x is None else torch.tensor(np.asarray(x),
+                                                   device=device)
     return SceneData(
         tri_shade=t(fields["tri_shade"]),
         light_rows=t(fields["light_rows"]),
@@ -73,7 +83,9 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         total_light_area=t(np.float32(fields["total_light_area"])),
         mat_rows=t(fields["mat_rows"]),
         env=EnvMap(image=t(fields["env"])),
-        node_rows=t(fields["node_rows"]))
+        node_rows=t(fields["node_rows"]),
+        cluster_rows=t(fields.get("cluster_rows")),
+        cluster_refs=t(fields.get("cluster_refs")))
 
 
 def build_emitter_cdf(soup: TriangleSoup, emissive_mask: np.ndarray):
@@ -115,10 +127,9 @@ def _reject_textures(materials: List[MaterialDesc], base_dir: str) -> None:
 def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
     """Full ingest: dispatch on scene_path ("proc:<name>" or .obj), load the
     environment, build the BVH, pack the tables onto `device`."""
-    if cfg.wide_arity != 8 or cfg.cluster_tris:
+    if cfg.wide_arity != 8:
         raise NotImplementedError(
-            "the port traverses 8-wide MT-leaf tables only (wide_arity=8, "
-            "cluster_tris=0); ROADMAP.md queue B holds the cluster kernel")
+            "the port traverses 8-wide tables only (wide_arity=8)")
     path = cfg.scene_path
     base_dir = os.path.dirname(os.path.abspath(path)) if os.path.sep in path else "."
     env = environment_image(cfg.skybox, base_dir=base_dir)
@@ -151,9 +162,16 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
     gn = np.cross(soup.e1, soup.e2)
     nsign = np.where(np.einsum("ij,ij->i", gn, soup.normal) < 0.0,
                      -1.0, 1.0).astype(np.float32)
-    wide = pack_for_packets(wide, soup.p0, soup.e1, soup.e2,
-                            leaf_size=cfg.leaf_size,
-                            tri_mat=soup.mat, tri_nsign=nsign)
+    if cfg.cluster_tris:
+        # Dense cluster leaves: node_rows becomes the cluster top tree
+        # (the JAX package's scenedata.py:154-165).
+        wide = pack_clusters(wide, soup.p0, soup.e1, soup.e2,
+                             tc=cfg.cluster_tris, arity=cfg.wide_arity,
+                             tri_mat=soup.mat, tri_nsign=nsign)
+    else:
+        wide = pack_for_packets(wide, soup.p0, soup.e1, soup.e2,
+                                leaf_size=cfg.leaf_size,
+                                tri_mat=soup.mat, tri_nsign=nsign)
 
     M = int(table.albedo.shape[0])
     mrows = np.zeros((max(M, 1), 16), np.float32)
@@ -191,7 +209,9 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
     data = scene_from_numpy(dict(tri_shade=shade, light_rows=lrows,
                                  light_cdf=cdf, total_light_area=total_area,
                                  mat_rows=mrows, env=env,
-                                 node_rows=wide.node_rows), device)
+                                 node_rows=wide.node_rows,
+                                 cluster_rows=wide.cluster_rows,
+                                 cluster_refs=wide.cluster_refs), device)
     meta = SceneMeta(
         num_triangles=T,
         num_materials=M,

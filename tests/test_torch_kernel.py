@@ -1,5 +1,6 @@
-"""The CUDA kernels' wrappers (ops/kernel_traverse.py, ops/megakernel.py)
-and the exact arithmetic they share with their plain versions.
+"""The CUDA kernels' wrappers (ops/kernel_traverse.py, ops/kernel_cluster.py,
+ops/megakernel.py) and the exact arithmetic they share with their plain
+versions.
 
 This module imports no JAX, so its `cuda` tests also run on the machine
 with the card, which has none (tests/conftest.py imports jax, hence
@@ -16,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from gpupathtracer_tpu.bvh import build_wide_bvh
-from gpupathtracer_tpu.bvh.wide import pack_for_packets
-from gpupathtracer_tpu.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu_torch.bvh import build_wide_bvh
+from gpupathtracer_tpu_torch.bvh.wide import pack_for_packets
+from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
 from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
 from gpupathtracer_tpu_torch.ops import megakernel as mk
 from gpupathtracer_tpu_torch.ops.intersect import fma32, pack_tri_geom
@@ -192,3 +194,80 @@ def test_megakernel_matches_plain_on_cuda():
             assert int(rays) == int(rays_plain)
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert mk.LAUNCHES["trace_mega"] == launches + 4
+
+
+@pytest.mark.cuda
+def test_cluster_kernel_matches_plain_on_cuda():
+    """The cluster traversal kernel (csrc/cluster_traverse.cu) against its
+    plain version on the card, the table and bathroom cluster tables at
+    tc = 128 and 256: t, prim, u, v and occluded bitwise equal."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    launches = dict(kc.LAUNCHES)
+    rng = np.random.RandomState(2)
+    n = 16384
+    for name in ("table", "bathroom"):
+        for tc in (128, 256):
+            scene, meta = load_scene(RenderConfig(scene_path=f"proc:{name}",
+                                                  cluster_tris=tc), "cuda")
+            o = rng.uniform(-1, 1, (n, 3)) * 2 + [0, 1, 0]
+            d = rng.normal(size=(n, 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            o, d, far, t_occ = (
+                torch.tensor(x.astype(np.float32), device="cuda")
+                for x in (o, d, np.full(n, 1e20), rng.uniform(0.05, 6, n)))
+            act = torch.tensor(rng.rand(n) < 0.9, device="cuda")
+            tabs = (scene.node_rows, scene.cluster_rows)
+            kw = dict(stack_depth=meta.stack_depth)
+            got = kc.closest_cluster(*tabs, scene.cluster_refs, o, d, far,
+                                     act, **kw)
+            want = kc.closest_cluster_plain(*tabs, scene.cluster_refs, o, d,
+                                            far, act, **kw)
+            for g, w in zip(got, want):
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                assert torch.equal(g, w)
+            assert torch.equal(
+                kc.anyhit_cluster(*tabs, o, d, t_occ, act, **kw),
+                kc.anyhit_cluster_plain(*tabs, o, d, t_occ, act, **kw))
+    assert kc.LAUNCHES["trace_cluster_closest"] == \
+        launches["trace_cluster_closest"] + 4
+    assert kc.LAUNCHES["trace_cluster_anyhit"] == \
+        launches["trace_cluster_anyhit"] + 4
+
+
+@pytest.mark.cuda
+def test_cluster_megakernel_matches_plain_on_cuda():
+    """The megakernel's cluster variant against trace_mega_plain on the
+    card, bathroom 64x48 at cluster_tris = 128: one sample, and four with
+    in-kernel regeneration. Ray counts equal, contributions bitwise
+    equal."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.math.camera import generate_image_plane
+    from gpupathtracer_tpu_torch.scene import load_scene
+    from gpupathtracer_tpu_torch.scene.procedural import default_camera
+
+    launches = mk.LAUNCHES["trace_mega_cluster"]
+    cfg = RenderConfig(scene_path="proc:bathroom", width=64, height=48,
+                       skybox="GENERATE COLOR BLACK", cluster_tris=128)
+    pos, yaw, pitch, fov, aperture, focus = default_camera("bathroom")
+    cfg.camera = CameraConfig(position=pos, yaw=yaw, pitch=pitch,
+                              fov=math.radians(fov), aspect=64 / 48,
+                              aperture=aperture, focal_distance=focus)
+    scene, meta = load_scene(cfg, "cuda")
+    lane = torch.arange(64 * 48, device="cuda")
+    for spp in (1, 4):
+        args, kw = mk.prepare_mega(
+            scene, mk.pack_mega_tables(scene),
+            generate_image_plane(cfg.camera, "cuda"), (lane % 64).float(),
+            (lane // 64).float(), random.PRNGKey(3, "cuda"), width=64,
+            height=48, stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+            max_bounces=16, model="beckmann", n_mats=meta.num_materials,
+            n_lights=int(scene.light_rows.shape[0]), spp=spp)
+        got, rays = mk.trace_mega(*args, **kw)
+        want, rays_plain = mk.trace_mega_plain(*args, **kw)
+        assert int(rays) == int(rays_plain)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert mk.LAUNCHES["trace_mega_cluster"] == launches + 2

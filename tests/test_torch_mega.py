@@ -12,11 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from gpupathtracer_tpu.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu.config import RenderConfig as JaxRenderConfig
 from gpupathtracer_tpu.ops import megakernel as jmega
 from gpupathtracer_tpu.scene import load_scene as jax_load_scene
 from gpupathtracer_tpu_torch import cli
 from gpupathtracer_tpu_torch import random as trandom
+from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from gpupathtracer_tpu_torch.ops import megakernel as mega
 from gpupathtracer_tpu_torch.render import Renderer
 from gpupathtracer_tpu_torch.scene import load_scene
@@ -86,10 +87,9 @@ def test_uni_hash_bitwise():
 
 @pytest.mark.parametrize("name", ["cornell", "table", "bathroom"])
 def test_tables_and_gate_match_jax(name):
-    cfg = RenderConfig(scene_path=f"proc:{name}",
-                       skybox="GENERATE COLOR BLACK")
-    jscene, jmeta = jax_load_scene(cfg)
-    scene, meta = load_scene(cfg, "cpu")
+    kw = dict(scene_path=f"proc:{name}", skybox="GENERATE COLOR BLACK")
+    jscene, jmeta = jax_load_scene(JaxRenderConfig(**kw))
+    scene, meta = load_scene(RenderConfig(**kw), "cpu")
     want = [np.asarray(x) for x in jmega.pack_mega_tables(jscene)]
     got = [x.numpy() for x in mega.pack_mega_tables(scene)]
     # The JAX rows are padded to 128 lanes for VMEM; the values are the
@@ -148,7 +148,20 @@ def test_trace_mega_checks_its_inputs():
                         d.to("meta"), act.to("meta"), seeds.to("meta"), **kw)
     with pytest.raises(NotImplementedError):
         mega.trace_mega(*args, o, d, act, seeds, with_stats=True, **kw)
-    with pytest.raises(NotImplementedError):
+    # Cluster leaves run (tests/test_torch_cluster_mega.py holds their
+    # lanes to the JAX package's); a table that is not [Ncl*8, 3*tc] is
+    # refused.
+    cscene, cmeta = load_scene(_cornell_cfg(cluster_tris=128), "cpu")
+    c, rays = mega.trace_mega(
+        cscene.node_rows, *mega.pack_mega_tables(cscene), o, d, act, seeds,
+        cluster_rows=cscene.cluster_rows,
+        **dict(kw, stack_depth=cmeta.stack_depth))
+    assert c.shape == (n, 3) and int(rays) >= n
+    # The same hits as the MT-leaf table; the normal comes from the C row.
+    np.testing.assert_allclose(
+        c.numpy(), mega.trace_mega(*args, o, d, act, seeds, **kw)[0].numpy(),
+        rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
         mega.trace_mega(*args, o, d, act, seeds, cluster_rows=scene.node_rows,
                         **kw)
 

@@ -29,6 +29,7 @@ from gpupathtracer_tpu.math.camera import generate_image_plane
 from gpupathtracer_tpu.ops import megakernel as jmega
 from gpupathtracer_tpu.render import Renderer as JaxRenderer
 from gpupathtracer_tpu.scene import load_scene as jax_load_scene
+from gpupathtracer_tpu_torch import config as tconfig
 from gpupathtracer_tpu_torch import random as trandom
 from gpupathtracer_tpu_torch.math.camera import camera_from_numpy
 from gpupathtracer_tpu_torch.ops import megakernel as mega
@@ -198,7 +199,8 @@ def test_renderer_matches_jax():
         jr = JaxRenderer(jcfg, scene=js, meta=jmeta)
         tcfg = _cfg("cornell", max_bounces=6, frame_batch=batch,
                     megakernel="on")
-        tr = Renderer(tcfg, "cpu", scene=_scene("cornell")[3], meta=jmeta)
+        tr = Renderer(tconfig.RenderConfig.from_json(tcfg.to_json()), "cpu",
+                      scene=_scene("cornell")[3], meta=jmeta)
         assert jr.use_mega and tr.use_mega
         jr.render_frame(integrator, sync=True)
         tr.render_frame(integrator)

@@ -26,6 +26,7 @@ from gpupathtracer_tpu.models import nee as jnee
 from gpupathtracer_tpu.ops import tonemap as jtone
 from gpupathtracer_tpu.scene import envmap as jenv
 from gpupathtracer_tpu.scene import load_scene as jax_load_scene
+from gpupathtracer_tpu_torch import config as tconfig
 from gpupathtracer_tpu_torch.math import camera as tcam
 from gpupathtracer_tpu_torch.models import bsdf as tbsdf
 from gpupathtracer_tpu_torch.models import interaction as tint
@@ -122,14 +123,15 @@ def test_compute_bsdf(model):
 
 def test_gen_rays_with_depth_of_field():
     rng = np.random.RandomState(4)
-    cc = CameraConfig(position=(0.0, 4.0, -7.2), yaw=math.pi, pitch=-0.18,
-                      fov=math.radians(55), aspect=1.5, aperture=0.12,
-                      focal_distance=7.5)
+    lens_cfg = dict(position=(0.0, 4.0, -7.2), yaw=math.pi, pitch=-0.18,
+                    fov=math.radians(55), aspect=1.5, aperture=0.12,
+                    focal_distance=7.5)
+    cc = CameraConfig(**lens_cfg)
     interp = rng.uniform(0, 1, (N, 2)).astype(np.float32)
     lens = rng.uniform(0, 1, (N, 2)).astype(np.float32)
     jcp = jcam.generate_image_plane(cc)
     jo, jd = jcam.gen_rays(jcp, jnp.asarray(interp), jnp.asarray(lens))
-    cam = tcam.generate_image_plane(cc, "cpu")
+    cam = tcam.generate_image_plane(tconfig.CameraConfig(**lens_cfg), "cpu")
     for a, b in zip(cam, jcp):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     # The JAX camera carried across gives the same rays.

@@ -1,8 +1,12 @@
-"""The port runs where neither JAX nor Pillow is installed: a subprocess
-that refuses both imports renders proc:cornell on the CPU to a PNG, with
-the wavefront integrator and with the megakernel, and the PNGs are decoded
-here with zlib alone."""
+"""The port runs where neither JAX nor Pillow nor the JAX package is
+installed: a subprocess that refuses jax, PIL and ``gpupathtracer_tpu``
+renders proc:cornell on the CPU to a PNG, with the wavefront integrator,
+with the megakernel and on cluster leaves, and the PNGs are decoded here
+with zlib alone. No module of the port, and not chip_smoke.py, names the
+JAX package in an import."""
 
+import ast
+import glob
 import os
 import struct
 import subprocess
@@ -18,9 +22,12 @@ import importlib.abc
 import sys
 
 
+BLOCKED = ("jax", "jaxlib", "PIL", "gpupathtracer_tpu")
+
+
 class _Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "PIL"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"{name} is blocked")
         return None
 
@@ -34,8 +41,10 @@ rc = cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
 rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
                      "--width", "16", "--height", "16", "--megakernel", "on",
                      "--frame-batch", "4", "--out", sys.argv[3]])
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "PIL"))
+rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
+                     "--width", "16", "--height", "16", "--cluster-tris",
+                     "128", "--out", sys.argv[4]])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 sys.exit(rc)
 """
@@ -63,7 +72,8 @@ def _read_png(path):
 
 
 def test_port_renders_without_jax_or_pil(tmp_path):
-    outs = [str(tmp_path / "cornell.png"), str(tmp_path / "mega.png")]
+    outs = [str(tmp_path / f"{name}.png")
+            for name in ("cornell", "mega", "cluster")]
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, *outs],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -72,3 +82,23 @@ def test_port_renders_without_jax_or_pil(tmp_path):
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
         assert img.max() > 0
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_never_import_the_jax_package():
+    paths = sorted(glob.glob(os.path.join(REPO, "gpupathtracer_tpu_torch",
+                                          "**", "*.py"), recursive=True))
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(paths) > 30
+    bad = [(os.path.relpath(p, REPO), m) for p in paths
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("gpupathtracer_tpu", "jax", "jaxlib")]
+    assert not bad

@@ -9,9 +9,10 @@ import os
 import numpy as np
 import pytest
 
-from gpupathtracer_tpu.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu.config import RenderConfig as JaxRenderConfig
 from gpupathtracer_tpu.render import Renderer as JaxRenderer
 from gpupathtracer_tpu_torch import cli
+from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from gpupathtracer_tpu_torch.render import Renderer
 from gpupathtracer_tpu_torch.scene.procedural import default_camera
 
@@ -28,6 +29,11 @@ CORPUS = {
 def _cornell_camera():
     return CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
                         fov=math.radians(45), aspect=1.0)
+
+
+def _jax_cfg(cfg):
+    """The JAX package's RenderConfig with the same fields as the port's."""
+    return JaxRenderConfig.from_json(cfg.to_json())
 
 
 def _outside(img, ref, tol=2e-3):
@@ -71,7 +77,7 @@ def test_matches_jax_renderer_with_compaction():
     cfg = RenderConfig(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
                        width=96, height=96, max_bounces=8)
     cfg.camera = _cornell_camera()
-    jr = JaxRenderer(cfg)
+    jr = JaxRenderer(_jax_cfg(cfg))
     jr.render_frame("wavefront")
     want = np.asarray(jr.film_hdr())
     r = Renderer(cfg, "cpu")
@@ -93,7 +99,7 @@ def test_frame_batch_and_set_camera_match_jax():
     cfg = RenderConfig(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
                        width=16, height=16, max_bounces=4, frame_batch=2)
     cfg.camera = _cornell_camera()
-    jr = JaxRenderer(cfg)
+    jr = JaxRenderer(_jax_cfg(cfg))
     jr.render_frame()
     r = Renderer(cfg, "cpu")
     r.render_frame()

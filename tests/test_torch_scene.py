@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from gpupathtracer_tpu.config import RenderConfig
+from gpupathtracer_tpu.config import RenderConfig as JaxRenderConfig
 from gpupathtracer_tpu.scene import load_scene as jax_load_scene
 from gpupathtracer_tpu.scene import envmap as jax_envmap
 from gpupathtracer_tpu.scene import mesh as jax_mesh
@@ -18,6 +18,7 @@ from gpupathtracer_tpu.scene import procedural as jax_proc
 from gpupathtracer_tpu.scene.materials import pack_materials as jax_pack
 from gpupathtracer_tpu.utils import io as jax_io
 from gpupathtracer_tpu.utils import morton as jax_morton
+from gpupathtracer_tpu_torch.config import RenderConfig
 from gpupathtracer_tpu_torch.scene import load_scene, scene_from_numpy
 from gpupathtracer_tpu_torch.scene import envmap, mesh, objloader, procedural
 from gpupathtracer_tpu_torch.scene.materials import pack_materials
@@ -49,9 +50,8 @@ def _port_fields(scene):
 
 @pytest.mark.parametrize("name", ["cornell", "table", "bathroom"])
 def test_load_scene_tables_byte_equal(name):
-    cfg = RenderConfig(scene_path=f"proc:{name}")
-    jscene, jmeta = jax_load_scene(cfg)
-    scene, meta = load_scene(cfg, "cpu")
+    jscene, jmeta = jax_load_scene(JaxRenderConfig(scene_path=f"proc:{name}"))
+    scene, meta = load_scene(RenderConfig(scene_path=f"proc:{name}"), "cpu")
     want = _jax_fields(jscene)
     for field, got in _port_fields(scene).items():
         assert got.dtype == want[field].dtype, field
@@ -60,10 +60,40 @@ def test_load_scene_tables_byte_equal(name):
     for attr in ("num_triangles", "num_materials", "num_lights",
                  "stack_depth", "leaf_size", "has_delta"):
         assert getattr(meta, attr) == getattr(jmeta, attr), attr
+    assert scene.cluster_rows is None and scene.cluster_refs is None
     # The JAX tables carried across give the same port SceneData.
     again = _port_fields(scene_from_numpy(want, "cpu"))
     for field, got in again.items():
         assert got.tobytes() == want[field].tobytes(), field
+
+
+@pytest.mark.parametrize("name,tc", [("table", 128), ("table", 256),
+                                     ("bathroom", 128)])
+def test_cluster_scene_tables_byte_equal(name, tc):
+    """cluster_tris > 0: the cluster top tree, the cluster blocks and their
+    slot-to-triangle ids equal the JAX load_scene's byte for byte (two
+    independent builds: the port's bvh/ copy and the JAX package's), and
+    scene_from_numpy carries them across."""
+    jscene, jmeta = jax_load_scene(JaxRenderConfig(scene_path=f"proc:{name}",
+                                                   cluster_tris=tc))
+    scene, meta = load_scene(RenderConfig(scene_path=f"proc:{name}",
+                                          cluster_tris=tc), "cpu")
+    want = dict(_jax_fields(jscene), **{
+        f: np.asarray(getattr(jscene.bvh, f))
+        for f in ("cluster_rows", "cluster_refs")})
+    got = dict(_port_fields(scene), cluster_rows=scene.cluster_rows.numpy(),
+               cluster_refs=scene.cluster_refs.numpy())
+    for field, w in want.items():
+        assert got[field].dtype == w.dtype, field
+        assert got[field].shape == w.shape, field
+        assert got[field].tobytes() == w.tobytes(), field
+    assert want["cluster_rows"].shape[1] == 3 * tc
+    assert meta.stack_depth == jmeta.stack_depth  # the full tree's
+    again = scene_from_numpy(want, "cpu")
+    assert again.cluster_rows.numpy().tobytes() == \
+        want["cluster_rows"].tobytes()
+    assert again.cluster_refs.numpy().tobytes() == \
+        want["cluster_refs"].tobytes()
 
 
 def _mesh_equal(a, b):

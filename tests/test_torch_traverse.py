@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from gpupathtracer_tpu.bvh import WideBVH
-from gpupathtracer_tpu.config import CameraConfig, RenderConfig
 from gpupathtracer_tpu.ops.pallas_traverse import traverse_pallas
 from gpupathtracer_tpu.ops.traverse import any_hit, closest_hit
+from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from gpupathtracer_tpu_torch.math.camera import gen_rays, generate_image_plane
 from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
 from gpupathtracer_tpu_torch.ops.intersect import mt_intersect

@@ -217,8 +217,6 @@ def main(argv=None) -> int:
                    help="write a Chrome trace per scene here")
     args = p.parse_args(argv)
     sys.path.insert(0, ROOT)
-    os.environ.setdefault("GPT_TPU_CACHE", os.path.join(
-        ROOT, "gpupathtracer_tpu_torch", "_build", "sbvh"))
     import torch
 
     if not torch.cuda.is_available():
