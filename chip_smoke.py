@@ -7,24 +7,50 @@ Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
 nvcc and g++. Phases, each of which raises on failure:
 
   1. versions and the card's name and power limit; CUDA must be present;
-  2. build the MT-leaf traversal kernel (csrc/traverse.cu), the cluster
-     traversal kernel (csrc/cluster_traverse.cu) and the megakernel
-     (csrc/megakernel.cu) with nvcc, all at once; ptxas registers, stack
-     frame and spills of every instantiation;
+  2. build the MT-leaf traversal kernels (csrc/traverse.cu, with its
+     interleave and multi-pop schedules), the cluster traversal kernel
+     (csrc/cluster_traverse.cu), the megakernel (csrc/megakernel.cu), the
+     dense intersection (csrc/dense_intersect.cu) and the sub-packet
+     traversal (csrc/subpacket_traverse.cu) with nvcc, all at once; ptxas
+     registers, stack frame and spills of every instantiation;
   3. each MT-leaf entry point against its plain torch version on the
      card, on the sponza and bathroom tables, with 65,536 camera rays plus
      65,536 random-direction rays from surface points, about 10% of lanes
      inactive: prim and occluded equal, t/u/v bitwise equal; kernel and
      plain times by CUDA events;
+  3b. on the same tables and rays, the interleave schedule (2 and 4 rays a
+     thread), the multi-pop schedule (2 pops an iteration) and the
+     sub-packet kernel (2048-ray packets), closest and any-hit, each
+     against its plain version (every field bitwise equal) and against
+     phase 3's kernel output (t and occluded bitwise equal; lanes where
+     another triangle at bitwise the same t won are counted and printed);
+     the multi-pop overflow latch must read 0; the dense intersection
+     against its plain version, both roundings, on all 131,072 rays of
+     bathroom and on the first 8,192 of sponza (the plain version's cost
+     sets that cut); times beside phase 3's, each with its bound;
+  3c. treelet-sorted dispatch on sponza: 131,072 random-direction rays from
+     the primaries' hit points (tools/torch_kernel_bench.py's incoherent
+     set), hits of traversal="tsort" bitwise equal to the unsorted
+     traversal's; kernel time on sorted against unsorted rays, and the
+     sort's own time, for the top1 and top2 keys;
   4. each cluster entry point against its plain version on the sponza and
      bathroom cluster tables (cluster_tris = 128) with phase 3's rays:
      t/prim/u/v and occluded bitwise equal; times beside phase 3's;
   5. the golden recipe of tests/test_golden.py (cornell, 32x32, 8 spp) on
      the card against tests/golden/cornell_32_8spp.npz;
   6. the main path through the CLI: proc:sponza 1920x1080 with 64 bounces
-     and proc:bathroom 1280x720 (Beckmann, default DoF camera), 4 spp
-     each, with the C++ SBVH; films finite and nonzero, PNGs written, and
-     both MT entry points launched by these renders;
+     at 3 spp, twice with --bounce-traversal auto (treelet-sorted bounce
+     rays: the table has 8192 rows or more) and twice with same, in the
+     order auto, same, same, auto, the four films bitwise equal; and
+     proc:bathroom 1280x720 (Beckmann, default DoF camera) at 4 spp, with
+     the C++ SBVH; films finite and nonzero,
+     PNGs written, and both MT entry points, and no other, launched by
+     these renders;
+  6b. the kernel A/B entry point, tools/torch_kernel_bench.py main, on
+     proc:sponza over packet, tsort, subpacket and tsort-sub with
+     --interleave 1,2 and --multi-pop 2, closest and any-hit, and on
+     proc:bathroom over dense and dense-vpu: every entry point of phase
+     3b launched, every tree-walk variant bitwise equal to the first;
   7. the cluster path through the CLI, the JAX bench's cluster rows:
      bathroom 1280x720 (Beckmann, DoF) at 4 spp and sponza 1920x1080 with
      64 bounces at 1 spp, --cluster-tris 128; both cluster entry points
@@ -80,7 +106,15 @@ SOURCES = {"trace_closest": CSRC + "traverse.cu",
            "trace_mega": CSRC + "megakernel.cu",
            "trace_cluster_closest": CSRC + "cluster_traverse.cu",
            "trace_cluster_anyhit": CSRC + "cluster_traverse.cu",
-           "trace_mega_cluster": CSRC + "megakernel.cu"}
+           "trace_mega_cluster": CSRC + "megakernel.cu",
+           "trace_closest_ilv": CSRC + "traverse.cu",
+           "trace_anyhit_ilv": CSRC + "traverse.cu",
+           "trace_closest_multi": CSRC + "traverse.cu",
+           "trace_anyhit_multi": CSRC + "traverse.cu",
+           "subpacket_closest": CSRC + "subpacket_traverse.cu",
+           "subpacket_anyhit": CSRC + "subpacket_traverse.cu",
+           "dense_closest": CSRC + "dense_intersect.cu",
+           "dense_anyhit": CSRC + "dense_intersect.cu"}
 REPLACES = {"trace_closest": "gpupathtracer_tpu/ops/pallas_traverse.py:72",
             "trace_anyhit": "gpupathtracer_tpu/ops/pallas_traverse.py:72 "
                             "(any-hit mode), "
@@ -92,7 +126,23 @@ REPLACES = {"trace_closest": "gpupathtracer_tpu/ops/pallas_traverse.py:72",
                 "gpupathtracer_tpu/ops/pallas_traverse.py:307 (any-hit mode)",
             "trace_mega_cluster": "gpupathtracer_tpu/ops/megakernel.py:188 "
                                   "(cluster=True: :416-482, :609-645, "
-                                  ":1098-1104)"}
+                                  ":1098-1104)",
+            "trace_closest_ilv":
+                "gpupathtracer_tpu/ops/pallas_traverse.py:809",
+            "trace_anyhit_ilv":
+                "gpupathtracer_tpu/ops/pallas_traverse.py:809 (any-hit mode)",
+            "trace_closest_multi":
+                "gpupathtracer_tpu/ops/pallas_traverse.py:584",
+            "trace_anyhit_multi":
+                "gpupathtracer_tpu/ops/pallas_traverse.py:584 (any-hit mode)",
+            "subpacket_closest":
+                "gpupathtracer_tpu/ops/subpacket_traverse.py:58",
+            "subpacket_anyhit":
+                "gpupathtracer_tpu/ops/subpacket_traverse.py:58 (any-hit "
+                "mode)",
+            "dense_closest": "gpupathtracer_tpu/ops/dense_intersect.py:105",
+            "dense_anyhit": "gpupathtracer_tpu/ops/dense_intersect.py:105 "
+                            "(any-hit mode)"}
 # The least time the card could take for a kernel's work (its bound): the
 # larger of the FP32 operations this run's rays need over the H100's 67
 # TFLOP/s outside the tensor cores and the bytes they must move over its
@@ -107,10 +157,24 @@ REPLACES = {"trace_closest": "gpupathtracer_tpu/ops/pallas_traverse.py:72",
 # rest of the 128-float row is padding), of each distinct MT leaf its used
 # 48-byte slots (mt_leaf_bytes), of each distinct cluster block the 7 rows
 # the leaf reads (84 * tc B), the rays in (29 B) and the results out (16 B
-# closest, 1 B any-hit, 12 B per megakernel lane).
+# closest, 1 B any-hit, 12 B per megakernel lane). A schedule of the walk
+# (interleave, multi-pop, sub-packets) computes the per-ray walk's function
+# of the same rays, so its bound is trace_closest's / trace_anyhit's on
+# those rays, whatever work the schedule itself adds (the sub-packet
+# kernel's slab tests per ray still walking are printed as a reading of
+# their own). A pair of the dense intersection is a cluster slot's test on
+# the same operands and is counted as one (40; the kernel's body has 6
+# three-term dots of a multiply and 2 FMAs, 3 adds, a division, 2 FMAs, an
+# add and 5 compares: 44 with an FMA as two); its bytes are the table once
+# and the rays.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 NODE_OPS, MT_SLOT_OPS, CLUSTER_SLOT_OPS, SHADE_OPS = 8 * 18, 50, 40, 400
+DENSE_PAIR_OPS = CLUSTER_SLOT_OPS
 NODE_ROW_BYTES = 7 * 8 * 4
+# Rays of the sponza dense check (259,762 triangles): the plain version's
+# [rays, tile] temporaries over 508 tiles set the cut.
+DENSE_SPONZA_RAYS = 8192
+SUBPACKET_K = 2048
 SECTOR = 32
 # At most this share of lanes may differ between the megakernel and its
 # plain version (exact ties or a last-place difference of a libdevice
@@ -201,8 +265,8 @@ def bound(pops: dict, *, leaf_bytes, slot_ops: int, io_bytes: int,
     """(bound in ms, "bytes" or "operations") of a kernel's work from its
     plain version's pop counts (see PEAK_FLOPS); ``leaf_bytes`` maps a
     distinct leaf id of the counts to the bytes its pops read."""
-    ops = (pops.get("node", 0) * NODE_OPS + pops.get("slots", 0) * slot_ops
-           + extra_ops)
+    ops = (pops.get("node", 0) * NODE_OPS
+           + pops.get("slots", 0) * slot_ops + extra_ops)
     nbytes = (len(pops.get("node_ids", ())) * NODE_ROW_BYTES
               + sum(map(leaf_bytes, pops.get("leaf_ids", ()))) + io_bytes)
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
@@ -212,7 +276,8 @@ def bound(pops: dict, *, leaf_bytes, slot_ops: int, io_bytes: int,
 
 def compare_kernels(name: str, width: int, height: int, device, results):
     """Phase 3 for one scene: each entry point against its plain version.
-    Returns the rays (o, d, t_occ, active) for phase 4."""
+    Returns the rays (o, d, t_occ, active) for the later phases, the scene
+    and its meta, and the kernel's outputs {"closest", "occ"}."""
     import torch
 
     from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -269,7 +334,7 @@ def compare_kernels(name: str, width: int, height: int, device, results):
             pops_a, leaf_bytes=mt_leaf_bytes, slot_ops=MT_SLOT_OPS,
             io_bytes=n * 30))}
     _print_bounds(name, results[name])
-    return o, d, t_occ, on
+    return (o, d, t_occ, on), scene, meta, {"closest": got, "occ": occ}
 
 
 def _print_bounds(name, entries):
@@ -303,6 +368,286 @@ def _hold_occluded(label, occ, want) -> float:
         raise AssertionError(f"{label} differs from the plain version in "
                              f"{int((occ != want).sum())} lanes")
     return float((occ.float() - want.float()).abs().max())
+
+
+def _hold_to_b1(label, got, b1) -> int:
+    """A schedule's closest hits against the plain schedule's kernel output
+    on the same rays: t bitwise equal in every lane, and u, v wherever the
+    same triangle won. Returns the lanes where another triangle won at
+    bitwise the same t (the visit order decides such ties)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(got[0]), _bits(b1[0])):
+        bad = int((_bits(got[0]) != _bits(b1[0])).sum())
+        raise AssertionError(f"{label} t differs from trace_closest's in "
+                             f"{bad} lanes")
+    same = got[1] == b1[1]
+    for field, a, b in (("u", got[2], b1[2]), ("v", got[3], b1[3])):
+        if not torch.equal(_bits(a)[same], _bits(b)[same]):
+            raise AssertionError(f"{label} {field} differs from "
+                                 f"trace_closest's on the same triangle")
+    return int((~same).sum())
+
+
+def compare_schedules(name: str, scene, meta, rays, b1, device, results):
+    """Phase 3b, the tree walks: the interleave and multi-pop schedules and
+    the sub-packet kernel on phase 3's table and rays."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
+
+    o, d, t_occ, on = rays
+    n = o.shape[0]
+    far = torch.full((n,), 1e20, device=device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    rows = scene.node_rows
+    b1_ms = results[name]["trace_closest"][1], results[name]["trace_anyhit"][1]
+    # A schedule's bound is the per-ray walk's on the same rays.
+    b1_bound = (results[name]["trace_closest"][3:5],
+                results[name]["trace_anyhit"][3:5])
+    out = {}
+    for tag, suffix, sched in (("W=2", "ilv", dict(interleave=2)),
+                               ("W=4", "ilv_w4", dict(interleave=4)),
+                               ("Q=2", "multi", dict(multi_pop=2))):
+        stats = "multi_pop" in sched
+        label = f"[{name}] trace_closest_{suffix}"
+        pops_c = {}
+        got = kt.closest(rows, o, d, far, on, with_stats=stats, **sched, **kw)
+        want = kt.closest_plain(rows, o, d, far, on, pops=pops_c,
+                                with_stats=stats, **sched, **kw)
+        err_c = _hold_hits(label, got[:4], want[:4])
+        ties = _hold_to_b1(label, got, b1["closest"])
+        occ = kt.anyhit(rows, o, d, t_occ, on, with_stats=stats, **sched,
+                        **kw)
+        occ_want = kt.anyhit_plain(rows, o, d, t_occ, on, with_stats=stats,
+                                   **sched, **kw)
+        latch = ""
+        if stats:
+            latches = [int(x) for x in (got[4], want[4], occ[1], occ_want[1])]
+            if any(latches):
+                raise AssertionError(f"{label} overflow latch {latches} at a "
+                                     f"stack of {meta.stack_depth} x 2")
+            occ, occ_want = occ[0], occ_want[0]
+            latch = "; overflow latch 0 (kernel and plain, both queries)"
+        err_a = _hold_occluded(f"[{name}] trace_anyhit_{suffix}", occ,
+                               occ_want)
+        if not torch.equal(occ, b1["occ"]):
+            raise AssertionError(f"[{name}] trace_anyhit_{suffix} differs "
+                                 f"from trace_anyhit")
+        ms_c = _events_ms(lambda: kt.closest(rows, o, d, far, on, **sched,
+                                             **kw), 10)
+        ms_a = _events_ms(lambda: kt.anyhit(rows, o, d, t_occ, on, **sched,
+                                            **kw), 10)
+        plain_c = _events_ms(lambda: kt.closest_plain(
+            rows, o, d, far, on, **sched, **kw), 1)
+        plain_a = _events_ms(lambda: kt.anyhit_plain(
+            rows, o, d, t_occ, on, **sched, **kw), 1)
+        print(f"[{name}] {tag}: bitwise equal to the plain version; t and "
+              f"occluded bitwise equal to trace_closest / trace_anyhit, "
+              f"{ties} tie lanes of {n} (another triangle at the same t)"
+              f"{latch}; node pops per ray {pops_c.get('node', 0) / n:.2f}")
+        print(f"[{name}] {tag}: closest {ms_c:.3f} ms (trace_closest "
+              f"{b1_ms[0]:.3f}), plain {plain_c:.1f} ms; any-hit {ms_a:.3f} "
+              f"ms (trace_anyhit {b1_ms[1]:.3f}), plain {plain_a:.1f} ms")
+        out[f"trace_closest_{suffix}"] = (err_c, ms_c, plain_c, *b1_bound[0])
+        out[f"trace_anyhit_{suffix}"] = (err_a, ms_a, plain_a, *b1_bound[1])
+
+    # The sub-packet kernel on K-ray packets of the same rays.
+    K = SUBPACKET_K
+    P = n // K
+
+    def packets(t_max):
+        return (rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
+                t_max.reshape(P, K), on.reshape(P, K))
+
+    for any_hit, t_max, entry in ((False, far, "subpacket_closest"),
+                                  (True, t_occ, "subpacket_anyhit")):
+        label = f"[{name}] {entry}"
+        args = packets(t_max)
+        flags = dict(any_hit=any_hit, with_stats=True, **kw)
+        got = sp.traverse_subpacket(*args, **flags)
+        pops = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = sp.traverse_subpacket_plain(*args, pops=pops, **flags)
+        end.record()
+        err = _hold_hits(label, got[:4], want[:4])
+        plain_ms = start.elapsed_time(end)
+        if not torch.equal(got[4], want[4]):
+            raise AssertionError(f"{label} pop counts differ from the plain "
+                                 f"version's")
+        flat = [x.reshape(-1) for x in got[:4]]
+        if any_hit:
+            ties = None
+            if not torch.equal(flat[1] >= 0, b1["occ"]):
+                raise AssertionError(f"{label} differs from trace_anyhit")
+        else:
+            ties = _hold_to_b1(label, flat, b1["closest"])
+            # The unordered push schedule: held, not timed.
+            for a, b in zip(
+                    sp.traverse_subpacket(*args, ordered=False, **flags),
+                    sp.traverse_subpacket_plain(*args, ordered=False,
+                                                **flags)):
+                if not torch.equal(_bits(a), _bits(b)):
+                    raise AssertionError(f"{label} ordered=False differs "
+                                         f"from the plain version")
+        ms = _events_ms(lambda: sp.traverse_subpacket(
+            *args, any_hit=any_hit, **kw), 5)
+        node, leaf = (int(x) for x in got[4].sum(dim=0))
+        print(f"{label} K={K}: bitwise equal to the plain version (pop "
+              f"counts too); "
+              + (f"t bitwise equal to trace_closest, {ties} tie lanes of {n}"
+                 if ties is not None else "occluded equal to trace_anyhit")
+              + f"; {node / (n // 128):.1f} node and {leaf / (n // 128):.1f} "
+              f"leaf pops per sub-packet; {ms:.3f} ms "
+              f"({b1_ms[any_hit]:.3f} per ray), plain {plain_ms:.1f} ms "
+              f"(with pop counting); the schedule's own work: "
+              f"{pops['slabs']} slab tests of 8 children (a node pop times "
+              f"the sub-packet's rays still walking), "
+              f"{1e3 * pops['slabs'] * NODE_OPS / PEAK_FLOPS:.4f} ms at the "
+              f"card's peak, not its bound")
+        out[entry] = (err, ms, plain_ms, *b1_bound[any_hit])
+    results[name].update(out)
+    _print_bounds(name, out)
+
+
+def compare_dense(name: str, scene, rays, b1, device, results,
+                  n_rays=None) -> None:
+    """Phase 3b, the dense intersection: both roundings against the plain
+    version on the first ``n_rays`` of phase 3's rays (all when None)."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import dense_intersect as pd
+
+    n = n_rays or rays[0].shape[0]
+    o, d, t_occ, on = (x[:n].contiguous() for x in rays)
+    far = torch.full((n,), 1e20, device=device)
+    wd, wo = (torch.as_tensor(x, device=device)
+              for x in pd.pack_dense_tris(scene.tri_geom.cpu().numpy()))
+    tp = wd.shape[1] // 3
+    cut = (f"{n} of {rays[0].shape[0]} rays (the plain version's cost sets "
+           f"the cut)" if n_rays else f"{n} rays")
+    out = {}
+    for any_hit, t_max, entry in ((False, far, "dense_closest"),
+                                  (True, t_occ, "dense_anyhit")):
+        for use_mxu in (True, False):
+            label = f"[{name}] {entry} use_mxu={use_mxu}"
+            kw = dict(any_hit=any_hit, use_mxu=use_mxu)
+            got = pd.dense_intersect(wd, wo, o, d, t_max, on, **kw)
+            counts = {}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = pd.dense_intersect_plain(wd, wo, o, d, t_max, on,
+                                            counts=counts, **kw)
+            end.record()
+            err = _hold_hits(label, got, want)
+            plain_ms = start.elapsed_time(end)
+            ms = _events_ms(lambda: pd.dense_intersect(
+                wd, wo, o, d, t_max, on, **kw), 5)
+            t_ops = counts["pairs"] * DENSE_PAIR_OPS / PEAK_FLOPS
+            t_bytes = ((wd.numel() + wo.numel()) * 4 + n * 45) / PEAK_BYTES
+            b_ms, by = (1e3 * max(t_ops, t_bytes),
+                        "operations" if t_ops >= t_bytes else "bytes")
+            print(f"{label}: {cut} x {tp} padded triangles, "
+                  f"{counts['pairs']:.3g} pairs; bitwise equal to the plain "
+                  f"version; {ms:.3f} ms, plain {plain_ms:.1f} ms; bound "
+                  f"{b_ms:.4f} ms ({by}), kernel at {b_ms / ms:.1%} of it")
+            if use_mxu:
+                out[entry] = (err, ms, plain_ms, b_ms, by)
+        if any_hit:
+            late = pd.dense_intersect(wd, wo, o, d, t_max, on, any_hit=True,
+                                      early_exit=False)
+            _hold_hits(f"[{name}] {entry} early_exit=False", late, got)
+            if not torch.equal(got[1] >= 0, b1["occ"][:n]):
+                flips = int(((got[1] >= 0) != b1["occ"][:n]).sum())
+                print(f"[{name}] {entry}: {flips} of {n} lanes occluded "
+                      f"otherwise than trace_anyhit (the inverse-matrix "
+                      f"test rounds otherwise than Moller-Trumbore)")
+        else:
+            other = int((got[1] != b1["closest"][1][:n]).sum())
+            hit = got[1] >= 0
+            rel = ((got[0] - b1["closest"][0][:n]).abs()
+                   / b1["closest"][0][:n].abs())[hit & (got[1] ==
+                                                        b1["closest"][1][:n])]
+            print(f"[{name}] {entry}: {other} of {n} lanes hit another "
+                  f"triangle than trace_closest, t within "
+                  f"{float(rel.max()):.2g} relative on the others (other "
+                  f"rounding; not a bitwise check)")
+    results[name + "_dense"] = out
+
+
+def _bench_module():
+    """tools/torch_kernel_bench.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_bench",
+        os.path.join(ROOT, "tools", "torch_kernel_bench.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_tsort(name: str, scene, meta, device) -> None:
+    """Phase 3c: treelet-sorted dispatch on a scene's incoherent rays."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.ops import tsort
+    from gpupathtracer_tpu_torch.ops.traverse import (trace_closest,
+                                                      trace_occluded)
+
+    n = 2 * N_RAYS
+    o, d = _bench_module().make_rays(f"proc:{name}", scene, meta, n,
+                                     device)["incoherent"]
+    rng = np.random.RandomState(4321)
+    far = torch.full((n,), 1e20, device=device)
+    t_occ = torch.as_tensor(rng.uniform(0.05, 20.0, n).astype(np.float32),
+                            device=device)
+    on = torch.as_tensor(rng.rand(n) < 0.9, device=device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    base = trace_closest(scene, o, d, far, on, **kw)
+    occ = trace_occluded(scene, o, d, t_occ, on, **kw)
+    _hold_hits("[tsort] trace_closest(traversal='tsort')",
+               trace_closest(scene, o, d, far, on, traversal="tsort", **kw),
+               base)
+    _hold_occluded("[tsort] trace_occluded(traversal='tsort')",
+                   trace_occluded(scene, o, d, t_occ, on, traversal="tsort",
+                                  **kw), occ)
+    rows = scene.node_rows
+    ms_c = _events_ms(lambda: kt.closest(rows, o, d, far, on, **kw), 10)
+    ms_a = _events_ms(lambda: kt.anyhit(rows, o, d, t_occ, on, **kw), 10)
+    print(f"[tsort] {name}, {n} incoherent rays, "
+          f"{int(scene.cut_bounds.shape[0])} treelets: closest and occluded "
+          f"bitwise equal to the unsorted traversal; unsorted trace_closest "
+          f"{ms_c:.3f} ms, trace_anyhit {ms_a:.3f} ms")
+    for key_mode in ("top1", "top2"):
+        def sort():
+            perm = tsort._sort_perm(scene.cut_bounds, o, d, far, on,
+                                    key_mode=key_mode, scene=scene)
+            return perm, torch.argsort(perm)
+
+        perm, _ = sort()
+        sort_ms = _events_ms(sort, 10)
+        os_, ds_, fs_, ts_, ons_ = (x[perm].contiguous()
+                                    for x in (o, d, far, t_occ, on))
+        sorted_c = _events_ms(lambda: kt.closest(rows, os_, ds_, fs_, ons_,
+                                                 **kw), 10)
+        sorted_a = _events_ms(lambda: kt.anyhit(rows, os_, ds_, ts_, ons_,
+                                                **kw), 10)
+        whole_c = _events_ms(lambda: tsort.trace_closest_tsort(
+            scene, o, d, far, on, key_mode=key_mode, **kw), 10)
+        print(f"[tsort] key {key_mode}: sort (key, argsort, inverse) "
+              f"{sort_ms:.3f} ms; kernels on sorted rays: trace_closest "
+              f"{sorted_c:.3f} ms ({sorted_c / ms_c:.2f}x unsorted), "
+              f"trace_anyhit {sorted_a:.3f} ms ({sorted_a / ms_a:.2f}x); "
+              f"trace_closest_tsort whole (sort, gathers, kernel, "
+              f"unpermute) {whole_c:.3f} ms ({whole_c / ms_c:.2f}x)")
 
 
 def compare_cluster(name: str, width: int, height: int, rays, device,
@@ -401,7 +746,16 @@ def golden_check(device) -> None:
 # CLI arguments, spp.
 MAIN_RUNS = {
     "sponza": (["proc:sponza", "--width", "1920", "--height", "1080",
-                "--max-bounces", "64"], 4),
+                "--max-bounces", "64", "--bounce-traversal", "auto"], 3),
+    "sponza_same": (["proc:sponza", "--width", "1920", "--height", "1080",
+                     "--max-bounces", "64", "--bounce-traversal", "same"], 3),
+    # Once more in the other order (auto, same, same, auto): a host-bound
+    # frame drifts within a call.
+    "sponza_same_b": (["proc:sponza", "--width", "1920", "--height", "1080",
+                       "--max-bounces", "64", "--bounce-traversal", "same"],
+                      3),
+    "sponza_b": (["proc:sponza", "--width", "1920", "--height", "1080",
+                  "--max-bounces", "64", "--bounce-traversal", "auto"], 3),
     "bathroom": (["proc:bathroom", "--width", "1280", "--height", "720",
                   "--microfacet", "beckmann"], 4),
 }
@@ -451,6 +805,99 @@ def render_main_path(tmp: str, runs):
     return stats
 
 
+def render_wavefront_path(tmp: str):
+    """Phase 6: the wavefront rows, and the sponza film with treelet-sorted
+    bounce rays against the film without them."""
+    import numpy as np
+
+    stats = render_main_path(tmp, MAIN_RUNS)
+    sorted_runs, same_runs = ("sponza", "sponza_b"), ("sponza_same",
+                                                      "sponza_same_b")
+    for k, s in stats.items():
+        want = "tsort" if k in sorted_runs else "same"
+        if s["bounce_traversal"] != want:
+            raise AssertionError(f"[{k}] bounce traversal resolved to "
+                                 f"{s['bounce_traversal']}, not {want}")
+        # The sorted branch really ran (wide phases only), and only there.
+        ran = s["sorted"]
+        if (min(ran.values()) <= 0) if k in sorted_runs else any(
+                ran.values()):
+            raise AssertionError(f"[{k}] sorts and sorted traces {ran} "
+                                 f"under bounce traversal {want}")
+    ref = np.load(os.path.join(tmp, "sponza_same.npy")).view(np.int32)
+    for k in sorted_runs + same_runs[1:]:
+        film = np.load(os.path.join(tmp, f"{k}.npy")).view(np.int32)
+        differ = int((film != ref).any(-1).sum())
+        if differ or stats[k]["rays"] != stats["sponza_same"]["rays"]:
+            raise AssertionError(f"[{k}] {differ} pixels differ from the "
+                                 f"unsorted film's")
+
+    def spf(keys):
+        return " and ".join(
+            f"{stats[k]['render_seconds'] / stats[k]['spp']:.3f}"
+            for k in keys)
+
+    def mrays(keys):
+        return " and ".join(f"{stats[k]['mrays_per_sec']:.2f}" for k in keys)
+
+    print(f"[sponza] --bounce-traversal auto (tsort) against same, runs in "
+          f"the order auto, same, same, auto: films bitwise equal "
+          f"({ref.shape[0] * ref.shape[1]} pixels, "
+          f"{stats['sponza']['rays']} rays each); tsort {spf(sorted_runs)} "
+          f"s/frame ({mrays(sorted_runs)} Mrays/s), same {spf(same_runs)} "
+          f"s/frame ({mrays(same_runs)} Mrays/s); sorts and sorted traces "
+          f"a run: {stats['sponza']['sorted']} (auto), "
+          f"{stats['sponza_same']['sorted']} (same)")
+    return stats
+
+
+# Rays of each of the tool's sets on which it holds every variant against
+# the kernel's plain version (its sets are all active: phase 3's have 10%
+# inactive lanes).
+BENCH_CHECK = 8192
+# The kernel A/B entry point's sweeps (phase 6b): arguments, and the entry
+# points each must launch (make_rays traces the primaries with
+# trace_closest in every sweep).
+BENCH_ARGS = ["--device", "cuda", "--reps", "3", "--check", str(BENCH_CHECK)]
+BENCH_RUNS = (
+    ("sponza", ["--mode", "packet,tsort,subpacket,tsort-sub",
+                "--interleave", "1,2", "--multi-pop", "2"],
+     ("trace_closest", "trace_closest_ilv", "trace_closest_multi",
+      "subpacket_closest")),
+    ("sponza", ["--mode", "packet,tsort,subpacket,tsort-sub",
+                "--interleave", "1,2", "--multi-pop", "2", "--any-hit"],
+     ("trace_closest", "trace_anyhit", "trace_anyhit_ilv",
+      "trace_anyhit_multi", "subpacket_anyhit")),
+    ("bathroom", ["--mode", "dense,dense-vpu", "--k", "1024"],
+     ("trace_closest", "dense_closest")),
+    ("bathroom", ["--mode", "dense,dense-vpu", "--k", "1024", "--any-hit"],
+     ("trace_closest", "dense_anyhit")),
+)
+
+
+def run_kernel_bench(scenes) -> dict:
+    """Phase 6b: tools/torch_kernel_bench.py main over BENCH_RUNS, each a
+    driven path of its own. Returns the launches by entry point."""
+    bench = _bench_module()
+    launches = {}
+    for name, argv, want in BENCH_RUNS:
+        label = f"kernel bench {name} {' '.join(argv)}"
+        got = {}
+        counts = _drive(label, want, lambda: got.update(bench.main(
+            ["--scene", f"proc:{name}"] + BENCH_ARGS + argv,
+            loaded=scenes[name])))
+        if any(v["plain_equal"] != 1.0 for v in got.values()):
+            raise AssertionError(f"[{label}] a variant differs from its "
+                                 f"kernel's plain version: {got}")
+        worst = min(v["equal"] for v in got.values())
+        if "dense" not in argv[1] and worst != 1.0:
+            raise AssertionError(f"[{label}] a variant differs from the "
+                                 f"first: {got}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def _scene_cfg(name: str, width: int, height: int, **kw):
     """RenderConfig of a procedural scene at its default camera, C++ SBVH."""
     from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -477,13 +924,16 @@ def _ptxas_summary(log: str):
             name = line.split("Function properties for")[-1].strip()
             m = re.search(r"mega_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
                           name)
-            t = re.search(r"(trace_\w+?_kernel)", name)
+            t = re.search(r"(trace_\w+?_kernel|dense_kernel|"
+                          r"subpacket_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
             if m:
                 name = (f"mega_kernel<{MODELS[int(m.group(1))]}, "
                         f"nee={m.group(2)}, regen={m.group(3)}, "
                         f"cluster={m.group(4)}>")
             elif t:
-                name = t.group(1)
+                # Template arguments as mangled: Li2E = 2, Lb1E = true.
+                targs = re.findall(r"L[ib](\d+)E", t.group(2) or "")
+                name = t.group(1) + (f"<{', '.join(targs)}>" if targs else "")
         elif "stack frame" in line and name:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -504,7 +954,8 @@ def build_kernels() -> None:
         _, log = cuda_build.build(name)
         return time.perf_counter() - t0, log
 
-    names = ("traverse", "cluster_traverse", "megakernel")
+    names = ("traverse", "cluster_traverse", "megakernel", "dense_intersect",
+             "subpacket_traverse")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, (secs, log) in zip(names, pool.map(one, names)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}: "
@@ -799,10 +1250,12 @@ def cluster_vs_mt(device) -> None:
 
 
 def _counters():
+    from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
     from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
     from gpupathtracer_tpu_torch.ops import megakernel as mk
-    return kt.LAUNCHES, kc.LAUNCHES, mk.LAUNCHES
+    from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
+    return kt.LAUNCHES, kc.LAUNCHES, mk.LAUNCHES, pd.LAUNCHES, sp.LAUNCHES
 
 
 def _launches() -> dict:
@@ -859,17 +1312,26 @@ def main() -> int:
     build_kernels()
 
     results = {"mega": {}}
+    scenes = {}
     for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
-        rays = compare_kernels(name, w, h, device, results)
+        rays, scene, meta, b1 = compare_kernels(name, w, h, device, results)
+        scenes[name] = (scene, meta)
+        compare_schedules(name, scene, meta, rays, b1, device, results)
+        compare_dense(name, scene, rays, b1, device, results,
+                      n_rays=DENSE_SPONZA_RAYS if name == "sponza" else None)
+        if name == "sponza":
+            compare_tsort(name, scene, meta, device)
         compare_cluster(name, w, h, rays, device, results)
-        del rays
+        del rays, b1
     golden_check(device)
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(_drive(
             "main path", ("trace_closest", "trace_anyhit"),
-            lambda: render_main_path(tmp, MAIN_RUNS)))
+            lambda: render_wavefront_path(tmp)))
+        bench_launches = run_kernel_bench(scenes)
+        del scenes
         launches.update(_drive(
             "cluster path", ("trace_cluster_closest", "trace_cluster_anyhit"),
             lambda: render_main_path(tmp, CLUSTER_RUNS)))
@@ -893,7 +1355,18 @@ def main() -> int:
                     ("mega", "trace_mega"),
                     ("sponza_cluster", "trace_cluster_closest"),
                     ("sponza_cluster", "trace_cluster_anyhit"),
-                    ("mega", "trace_mega_cluster")):
+                    ("mega", "trace_mega_cluster"),
+                    ("bathroom_dense", "dense_closest"),
+                    ("bathroom_dense", "dense_anyhit"),
+                    ("sponza", "subpacket_closest"),
+                    ("sponza", "subpacket_anyhit"),
+                    ("sponza", "trace_closest_ilv"),
+                    ("sponza", "trace_anyhit_ilv"),
+                    ("sponza", "trace_closest_multi"),
+                    ("sponza", "trace_anyhit_multi")):
+        # Launches: of the path that drives the entry point (the renders
+        # for the first six, the kernel A/B entry point for the others).
+        launches.setdefault(k, bench_launches.get(k, 0))
         err, ms, plain_ms, bound_ms, bound_by = results[case][k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
                         "replaces": REPLACES[k], "launches": launches[k],

@@ -78,7 +78,8 @@ _UNPORTED = (
     ("integrator", ("wavefront", "direct"),
      "the reference and AO integrators"),
     ("shadow_rev", (False,), "light-end shadow rays"),
-    ("bounce_traversal", ("auto", "same"), "tsort bounce traversal"),
+    ("bounce_traversal", ("auto", "same", "tsort"),
+     "the treelet bounce traversal"),
     ("sampler", ("random",), "the ld sampler"),
     ("partition_chips", (0,), "multi-device rendering"),
     ("partition_samples", (1,), "multi-device rendering"),
@@ -124,7 +125,9 @@ def parse_args(argv=None):
     p.add_argument("--frame-batch", type=int, default=1,
                    help="samples accumulated per frame")
     p.add_argument("--shadow-rev", action="store_true")
-    p.add_argument("--bounce-traversal", default="auto")
+    p.add_argument("--bounce-traversal", default="auto",
+                   help="bounce-ray traversal override: auto|same|tsort "
+                        "(auto = tsort on tables of 8192 rows or more)")
     p.add_argument("--mip-levels", type=int, default=1)
     p.add_argument("--cluster-tris", type=int, default=0)
     p.add_argument("--sampler", default="random", choices=["random", "ld"])
@@ -164,6 +167,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    from gpupathtracer_tpu_torch.ops.tsort import SORTED
     from gpupathtracer_tpu_torch.render import Renderer
     from gpupathtracer_tpu_torch.utils.io import timestamped_name
 
@@ -183,6 +187,7 @@ def main(argv=None) -> int:
 
     out = args.out or timestamped_name(
         os.path.splitext(os.path.basename(args.scene))[0].replace(":", "_"))
+    sorted_before = dict(SORTED)
     for s in range(args.spp):
         r.render_frame(sync=True)
         if args.save_every and (s + 1) % args.save_every == 0:
@@ -209,6 +214,9 @@ def main(argv=None) -> int:
                 "rays": r.stats.rays_traced,
                 "triangles": r.meta.num_triangles,
                 "device": str(device),
+                "bounce_traversal": r.bounce_traversal,
+                # Treelet sorts and traces of sorted rays in this render.
+                "sorted": {k: SORTED[k] - sorted_before[k] for k in SORTED},
                 "config": json.loads(cfg.to_json()),
             }, f, indent=2)
     return 0

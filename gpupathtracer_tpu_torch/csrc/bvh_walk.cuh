@@ -2,7 +2,10 @@
 // (closest-hit and any-hit queries on MT-leaf tables), csrc/cluster_traverse.cu
 // (the same on dense cluster-leaf tables) and csrc/megakernel.cu (the walks
 // inside the whole-path estimator). One node phase, `walk`, is generic over
-// its leaf routine: MtLeaf or ClusterLeaf.
+// its leaf routine: MtLeaf or ClusterLeaf; `walk_ilv` and `walk_multi` are
+// two more schedules of it. csrc/subpacket_traverse.cu (one stack per 128
+// rays) takes the slab test and the leaf test from here, and
+// csrc/dense_intersect.cu the dot products.
 //
 // The MT-leaf table is the merged 128-float row table of bvh/wide.py
 // pack_for_packets:
@@ -78,30 +81,38 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return make_ray(oo, dd);
 }
 
+// Slab test of child j of one node row: true iff the ray enters the child's
+// box before t and the slot is used; tmin is its entry distance.
+__device__ __forceinline__ bool child_hit(const float* __restrict__ row, int j,
+                                          const Ray& r, float t, float& tmin) {
+  float tmax = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float t0 = __fmaf_rn(row[j * 6 + a], r.inv[a], -r.oi[a]);
+    float t1 = __fmaf_rn(row[j * 6 + 3 + a], r.inv[a], -r.oi[a]);
+    float lo = nan_min(t0, t1);
+    float hi = nan_max(t0, t1);
+    tmin = a == 0 ? lo : nan_max(tmin, lo);
+    tmax = a == 0 ? hi : nan_min(tmax, hi);
+  }
+  int entry = __float_as_int(row[6 * kArity + j]);
+  return tmin <= tmax && tmax > 0.0f && tmin < t && entry != kInvalid;
+}
+
 // Expands one node row: pushes the children the ray enters before t, so
 // that they pop in ascending (t_near, slot) order when `ordered`, in slot
-// order otherwise. Pushes past `depth` are dropped.
-__device__ __forceinline__ void expand_node(const float* __restrict__ row,
-                                            const Ray& r, float t,
-                                            bool ordered, int* stack, int& sp,
-                                            int depth) {
+// order otherwise. Pushes past `depth` are dropped; returns how many were.
+__device__ __forceinline__ int expand_node(const float* __restrict__ row,
+                                           const Ray& r, float t,
+                                           bool ordered, int* stack, int& sp,
+                                           int depth) {
   float key[kArity];
   int slot[kArity];
   int total = 0;
 #pragma unroll
   for (int j = 0; j < kArity; ++j) {
-    float tmin = 0.0f, tmax = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float t0 = __fmaf_rn(row[j * 6 + a], r.inv[a], -r.oi[a]);
-      float t1 = __fmaf_rn(row[j * 6 + 3 + a], r.inv[a], -r.oi[a]);
-      float lo = nan_min(t0, t1);
-      float hi = nan_max(t0, t1);
-      tmin = a == 0 ? lo : nan_max(tmin, lo);
-      tmax = a == 0 ? hi : nan_min(tmax, hi);
-    }
-    int entry = __float_as_int(row[6 * kArity + j]);
-    if (tmin <= tmax && tmax > 0.0f && tmin < t && entry != kInvalid) {
+    float tmin = 0.0f;
+    if (child_hit(row, j, r, t, tmin)) {
       // Insertion by (key, slot): slots arrive ascending, so a strict
       // comparison keeps equal keys in slot order.
       int k = total++;
@@ -121,7 +132,9 @@ __device__ __forceinline__ void expand_node(const float* __restrict__ row,
     int pos = sp + (total - 1 - k);
     if (pos < depth) stack[pos] = __float_as_int(row[6 * kArity + slot[k]]);
   }
+  int dropped = max(sp + total - depth, 0);
   sp = min(sp + total, depth);
+  return dropped;
 }
 
 // Moller-Trumbore against the `count` slots of one leaf block, in the
@@ -170,11 +183,12 @@ __device__ __forceinline__ void intersect_leaf(const float* __restrict__ block,
 // is recorded (the walk reads it only for any-hit, which ends at the first).
 template <bool kAnyHit>
 struct MtLeaf {
-  const float* rows;
+  const float* rows = nullptr;
   int prim = -1;
   float u = 0.0f, v = 0.0f;
   const float* slot = nullptr;
 
+  MtLeaf() = default;
   __device__ __forceinline__ explicit MtLeaf(const float* r) : rows(r) {}
 
   __device__ __forceinline__ bool operator()(int packed, const Ray& r,
@@ -301,6 +315,111 @@ __device__ __forceinline__ void walk(const float* __restrict__ rows,
       return;
     }
   }
+}
+
+// Asks for the 128-byte lines of a popped entry's row to be brought near
+// the SM before the walk reads them: the 8 children's bounds and entries of
+// a node row (224 bytes), the used 48-byte slots of a leaf's first row.
+__device__ __forceinline__ void prefetch_entry(const float* __restrict__ rows,
+                                               int entry) {
+  const char* p;
+  int nbytes;
+  if (entry >= 0) {
+    p = (const char*)(rows + (size_t)entry * kRow);
+    nbytes = 7 * kArity * 4;
+  } else {
+    int packed = -(entry + 1);
+    p = (const char*)(rows + (size_t)(packed >> 4) * kRow);
+    nbytes = min(packed & 15, kTrisPerRow) * 48;
+  }
+  for (int b = 0; b < nbytes; b += 128)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(p + b));
+}
+
+// W walks in flight in one thread (the interleave schedule): every
+// iteration pops one entry of each ray that still has one, asks for all
+// their rows, then processes them in turn, so that the W dependent row
+// reads overlap. Each ray's own visit order is `walk`'s, so its results are
+// too, bit for bit. Slots with on[w] false never start.
+template <int W, bool kAnyHit, class Leaf>
+__device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
+                                         const Ray (&r)[W], const bool (&on)[W],
+                                         int depth, float (&t)[W],
+                                         Leaf (&leaf)[W]) {
+  int stack[W][kMaxStack];
+  int sp[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    stack[w][0] = 0;  // root node row
+    sp[w] = on[w] ? 1 : 0;
+  }
+  for (;;) {
+    int entry[W];
+    bool any = false;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      entry[w] = kInvalid;
+      if (sp[w] > 0) {
+        entry[w] = stack[w][--sp[w]];
+        prefetch_entry(rows, entry[w]);
+        any = true;
+      }
+    }
+    if (!any) return;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      int e = entry[w];
+      if (e == kInvalid) continue;
+      if (e >= 0) {
+        expand_node(rows + (size_t)e * kRow, r[w], t[w], !kAnyHit, stack[w],
+                    sp[w], depth);
+      } else if (leaf[w](-(e + 1), r[w], t[w]) && kAnyHit) {
+        sp[w] = 0;
+      }
+    }
+  }
+}
+
+// Up to Q pops of the ray's stack per iteration (the multi-pop schedule):
+// the popped node rows are all expanded against the t held when the
+// iteration began, in pop order, then the popped leaves are intersected in
+// pop order. The closest t is `walk`'s (stale-t pruning only enters more
+// children); the visit order is not, so among triangles at bitwise-equal t
+// another one may win. `depth` is the caller's stack bound times Q. Returns
+// the number of pushes dropped at the top of the stack (the overflow latch:
+// nonzero means hits may have been lost).
+template <int Q, bool kAnyHit, class Leaf>
+__device__ __forceinline__ int walk_multi(const float* __restrict__ rows,
+                                          const Ray& r, int depth, float& t,
+                                          Leaf& leaf) {
+  int stack[kMaxStack];
+  int sp = 1, dropped = 0;
+  stack[0] = 0;  // root node row
+  while (sp > 0) {
+    int entry[Q];
+    int n = 0;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (sp > 0) {
+        entry[q] = stack[--sp];
+        prefetch_entry(rows, entry[q]);
+        n = q + 1;
+      }
+    }
+    const float t_entry = t;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (q < n && entry[q] >= 0)
+        dropped += expand_node(rows + (size_t)entry[q] * kRow, r, t_entry,
+                               !kAnyHit, stack, sp, depth);
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (q < n && entry[q] < 0 && leaf(-(entry[q] + 1), r, t) && kAnyHit)
+        return dropped;
+    }
+  }
+  return dropped;
 }
 
 }  // namespace bvh

@@ -17,6 +17,19 @@
 // warp diverges as its 32 rays walk different paths. This first version
 // does nothing about either (no packet sharing, no ray sorting, no
 // persistent threads); the stack lives in local memory.
+//
+// Two more schedules of the same walk, each with B1's results:
+//   gpupathtracer_tpu/ops/pallas_traverse.py:809 _kernel_ilv   (interleave = W)
+//   gpupathtracer_tpu/ops/pallas_traverse.py:584 _kernel_multi (multi_pop = Q)
+// The TPU kernels keep W packets, or Q pops of one packet's stack, in
+// flight per loop iteration to hide the pop -> fetch -> push chain. A thread
+// has the same chain (a pop is a dependent row read, mostly from L2), so
+// here a thread carries W rays, each with its own stack (bvh::walk_ilv), or
+// pops up to Q entries of its ray's stack at once (bvh::walk_multi), and
+// asks for all their rows before it works on the first. What bounds them is
+// what bounds B1, plus W stacks of local memory and the registers of W rays
+// (interleave) or the extra children that pruning against a stale t lets in
+// (multi-pop).
 
 #include "bvh_walk.cuh"
 
@@ -56,6 +69,123 @@ trace_anyhit_kernel(const float* __restrict__ rows,
   occluded[i] = leaf.prim >= 0 ? 1 : 0;
 }
 
+// Thread j of T = ceil(n / W) carries rays j, T + j, ..., (W - 1) T + j, so
+// that neighbouring threads read neighbouring rays in every slot.
+template <int W, bool kAnyHit>
+__device__ __forceinline__ void ilv_body(
+    const float* __restrict__ rows, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ t_max,
+    const uint8_t* __restrict__ active, int n, int depth, int (&ray)[W],
+    float (&t)[W], bvh::MtLeaf<kAnyHit> (&leaf)[W]) {
+  int threads = (n + W - 1) / W;
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  bvh::Ray r[W];
+  bool on[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    int i = w * threads + j;
+    bool in = j < threads && i < n;
+    ray[w] = in ? i : -1;
+    on[w] = in && active[i];
+    i = in ? i : 0;
+    t[w] = t_max[i];
+    r[w] = bvh::load_ray(o, d, i);
+    leaf[w].rows = rows;
+  }
+  bvh::walk_ilv<W, kAnyHit>(rows, r, on, depth, t, leaf);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+trace_closest_ilv_kernel(const float* __restrict__ rows,
+                         const float* __restrict__ o,
+                         const float* __restrict__ d,
+                         const float* __restrict__ t_max,
+                         const uint8_t* __restrict__ active, int n, int depth,
+                         float* __restrict__ t_out, int* __restrict__ prim_out,
+                         float* __restrict__ u_out, float* __restrict__ v_out) {
+  int ray[W];
+  float t[W];
+  bvh::MtLeaf<false> leaf[W];
+  ilv_body<W, false>(rows, o, d, t_max, active, n, depth, ray, t, leaf);
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    if (ray[w] < 0) continue;
+    t_out[ray[w]] = t[w];
+    prim_out[ray[w]] = leaf[w].prim;
+    u_out[ray[w]] = leaf[w].u;
+    v_out[ray[w]] = leaf[w].v;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+trace_anyhit_ilv_kernel(const float* __restrict__ rows,
+                        const float* __restrict__ o,
+                        const float* __restrict__ d,
+                        const float* __restrict__ t_max,
+                        const uint8_t* __restrict__ active, int n, int depth,
+                        uint8_t* __restrict__ occluded) {
+  int ray[W];
+  float t[W];
+  bvh::MtLeaf<true> leaf[W];
+  ilv_body<W, true>(rows, o, d, t_max, active, n, depth, ray, t, leaf);
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+    if (ray[w] >= 0) occluded[ray[w]] = leaf[w].prim >= 0 ? 1 : 0;
+}
+
+// `depth` is the stack bound times Q; `overflow`, if not null, gathers the
+// launch's dropped pushes.
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+trace_closest_multi_kernel(const float* __restrict__ rows,
+                           const float* __restrict__ o,
+                           const float* __restrict__ d,
+                           const float* __restrict__ t_max,
+                           const uint8_t* __restrict__ active, int n, int depth,
+                           float* __restrict__ t_out,
+                           int* __restrict__ prim_out,
+                           float* __restrict__ u_out, float* __restrict__ v_out,
+                           int* __restrict__ overflow) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = t_max[i];
+  bvh::MtLeaf<false> leaf(rows);
+  int dropped = 0;
+  if (active[i])
+    dropped = bvh::walk_multi<Q, false>(rows, bvh::load_ray(o, d, i), depth, t,
+                                        leaf);
+  t_out[i] = t;
+  prim_out[i] = leaf.prim;
+  u_out[i] = leaf.u;
+  v_out[i] = leaf.v;
+  if (overflow && dropped) atomicAdd(overflow, dropped);
+}
+
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+trace_anyhit_multi_kernel(const float* __restrict__ rows,
+                          const float* __restrict__ o,
+                          const float* __restrict__ d,
+                          const float* __restrict__ t_max,
+                          const uint8_t* __restrict__ active, int n, int depth,
+                          uint8_t* __restrict__ occluded,
+                          int* __restrict__ overflow) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = t_max[i];
+  bvh::MtLeaf<true> leaf(rows);
+  int dropped = 0;
+  if (active[i])
+    dropped = bvh::walk_multi<Q, true>(rows, bvh::load_ray(o, d, i), depth, t,
+                                       leaf);
+  occluded[i] = leaf.prim >= 0 ? 1 : 0;
+  if (overflow && dropped) atomicAdd(overflow, dropped);
+}
+
+constexpr int kBadVariant = -1;  // a W or Q with no compiled kernel
+
 }  // namespace
 
 // Plain C interface for ctypes. Each returns cudaGetLastError() after its
@@ -80,6 +210,76 @@ int gpt_trace_anyhit(const float* rows, const float* o, const float* d,
   int blocks = (n + kThreads - 1) / kThreads;
   trace_anyhit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       rows, o, d, t_max, active, n, depth, occluded);
+  return (int)cudaGetLastError();
+}
+
+// The interleave schedule, w = 2 or 4 rays per thread (-1 for any other w).
+int gpt_trace_closest_ilv(const float* rows, const float* o, const float* d,
+                          const float* t_max, const uint8_t* active, int n,
+                          int depth, int w, float* t, int* prim, float* u,
+                          float* v, void* stream) {
+  int blocks = ((n + w - 1) / w + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w == 2)
+    trace_closest_ilv_kernel<2><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, t, prim, u, v);
+  else if (w == 4)
+    trace_closest_ilv_kernel<4><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, t, prim, u, v);
+  else
+    return kBadVariant;
+  return (int)cudaGetLastError();
+}
+
+int gpt_trace_anyhit_ilv(const float* rows, const float* o, const float* d,
+                         const float* t_max, const uint8_t* active, int n,
+                         int depth, int w, uint8_t* occluded, void* stream) {
+  int blocks = ((n + w - 1) / w + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w == 2)
+    trace_anyhit_ilv_kernel<2><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, occluded);
+  else if (w == 4)
+    trace_anyhit_ilv_kernel<4><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, occluded);
+  else
+    return kBadVariant;
+  return (int)cudaGetLastError();
+}
+
+// The multi-pop schedule, q = 2 or 4 pops per iteration (-1 for any other
+// q); depth = stack bound * q <= gpt_max_stack(); overflow may be null.
+int gpt_trace_closest_multi(const float* rows, const float* o, const float* d,
+                            const float* t_max, const uint8_t* active, int n,
+                            int depth, int q, float* t, int* prim, float* u,
+                            float* v, int* overflow, void* stream) {
+  int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (q == 2)
+    trace_closest_multi_kernel<2><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, t, prim, u, v, overflow);
+  else if (q == 4)
+    trace_closest_multi_kernel<4><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, t, prim, u, v, overflow);
+  else
+    return kBadVariant;
+  return (int)cudaGetLastError();
+}
+
+int gpt_trace_anyhit_multi(const float* rows, const float* o, const float* d,
+                           const float* t_max, const uint8_t* active, int n,
+                           int depth, int q, uint8_t* occluded, int* overflow,
+                           void* stream) {
+  int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (q == 2)
+    trace_anyhit_multi_kernel<2><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, occluded, overflow);
+  else if (q == 4)
+    trace_anyhit_multi_kernel<4><<<blocks, kThreads, 0, s>>>(
+        rows, o, d, t_max, active, n, depth, occluded, overflow);
+  else
+    return kBadVariant;
   return (int)cudaGetLastError();
 }
 

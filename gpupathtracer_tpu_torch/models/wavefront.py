@@ -21,7 +21,7 @@ same numbers for the same pixel lanes.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,6 +34,9 @@ from gpupathtracer_tpu_torch.models.materials import make_material_instance
 from gpupathtracer_tpu_torch.models.microfacet import generate_importance_sample
 from gpupathtracer_tpu_torch.models.nee import generate_light_sample
 from gpupathtracer_tpu_torch.ops.traverse import trace_closest, trace_occluded
+from gpupathtracer_tpu_torch.ops.tsort import (_sort_perm,
+                                               trace_closest_tsort,
+                                               trace_occluded_tsort)
 from gpupathtracer_tpu_torch.scene.envmap import sample_env
 
 T_MAX = 1e20
@@ -51,6 +54,8 @@ class Carry(NamedTuple):
     last_pos: torch.Tensor
     alive: torch.Tensor
     rays: torch.Tensor
+    # The last bounce's treelet-sort permutation (tsort_alternate), else None.
+    perm: Optional[torch.Tensor] = None
 
 
 def _reject_unported(**flags) -> None:
@@ -68,11 +73,15 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        leaf_size: int = 4,
                        nee: bool = True,
                        traversal: str = "auto",
+                       bounce_traversal: str = "same",
+                       treelet_min: int = 1 << 15,
                        textured: bool = False,
                        mips: bool = False,
                        sun: bool = False,
                        sort_rays: bool = False,
                        shadow_rev: bool = False,
+                       shadow_sort: bool = False,
+                       tsort_alternate: bool = False,
                        delta: bool = False,
                        compaction: bool = True,
                        compaction_divs: tuple = (2, 4, 8, 16, 32, 64, 128),
@@ -88,6 +97,14 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
       key: [2] threefry key for this (sample, chunk).
     Shadow rays all go to the one any-hit kernel: the JAX package's
     fused-pair schedule gives the same hits, so it has no option here.
+    ``bounce_traversal`` names the traversal of the bounce rays (bounce 0,
+    the coherent primaries, always takes ``traversal``) at wavefront
+    widths of ``treelet_min`` or more; "same" keeps ``traversal``. With
+    "tsort", NEE and ``shadow_sort``, one treelet sort per bounce serves
+    the closest-hit and the shadow trace (shadow origins are the bounce
+    rays' hit points, which the key already groups); ``tsort_alternate``
+    sorts on even bounces only and reuses the permutation on odd ones.
+    These are schedules: the hits, and so the film, do not depend on them.
     Returns ([N, 3] radiance contributions, int64 scalar rays traced).
     """
     _reject_unported(textured=textured, mips=mips, sun=sun,
@@ -98,8 +115,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         raise ValueError(f"unknown sampler {sampler!r}")
     n = pixel_x.shape[0]
     dev = pixel_x.device
-    trace = dict(stack_depth=stack_depth, leaf_size=leaf_size,
-                 traversal=traversal)
+    depth = dict(stack_depth=stack_depth, leaf_size=leaf_size)
 
     key, k_jitter, k_lens = random.split(key, 3)
     jitter = random.uniform(k_jitter, (n, 2))
@@ -110,14 +126,29 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
 
     nee_pdf = 0.5 / scene.total_light_area  # InitRay, Iterative.comp:203
 
-    def body(c: Carry) -> Carry:
+    def body(c: Carry, trav: str = traversal) -> Carry:
         nw = c.o.shape[0]  # current (phase) wavefront width
         key, k = random.split(c.key)
         rnd = random.uniform(k, (nw, 9))
         rays = c.rays + torch.sum(c.alive)
 
         t_max_full = torch.full((nw,), T_MAX, dtype=torch.float32, device=dev)
-        hit = trace_closest(scene, c.o, c.d, t_max_full, c.alive, **trace)
+        shared = None  # (perm, inv) shared by this bounce's two traces
+        if trav == "tsort" and shadow_sort and nee:
+            if tsort_alternate and c.i % 2:
+                # Rays stay in their lanes between bounces, so the last
+                # bounce's permutation is still a valid grouping.
+                perm = c.perm
+            else:
+                perm = _sort_perm(scene.cut_bounds, c.o, c.d, t_max_full,
+                                  c.alive, scene=scene)
+            shared = dict(perm=perm, inv=torch.argsort(perm))
+            hit = trace_closest_tsort(scene, c.o, c.d, t_max_full, c.alive,
+                                      **depth, **shared)
+        else:
+            hit = trace_closest(scene, c.o, c.d, t_max_full, c.alive,
+                                traversal=trav, **depth)
+        next_perm = shared["perm"] if tsort_alternate and shared else c.perm
         miss = hit.prim < 0
         # Miss lanes read triangle 0's row; every use is masked below.
         shade = scene.tri_shade[torch.clamp_min(hit.prim, 0).long()]
@@ -155,8 +186,17 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             light = ls.throughput * ls.emission
             shadow_live = alive & torch.any(light != 0.0, dim=-1)
             rays = rays + torch.sum(shadow_live)
-            occluded = trace_occluded(scene, ls.shadow_origin, ls.shadow_dir,
-                                      ls.shadow_tmax, shadow_live, **trace)
+            # Without a shared permutation shadow rays keep the primary
+            # traversal even under a bounce override (the JAX package
+            # measured a fresh sort for them as a loss).
+            if shared is not None:
+                occluded = trace_occluded_tsort(
+                    scene, ls.shadow_origin, ls.shadow_dir, ls.shadow_tmax,
+                    shadow_live, **depth, **shared)
+            else:
+                occluded = trace_occluded(
+                    scene, ls.shadow_origin, ls.shadow_dir, ls.shadow_tmax,
+                    shadow_live, traversal=traversal, **depth)
             contribution = contribution + torch.where(
                 (shadow_live & ~occluded)[..., None], light, 0.0)
 
@@ -164,7 +204,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             # Pure direct lighting: no path continues past this bounce.
             return c._replace(i=c.i + 1, key=key, o=pos,
                               contribution=contribution, last_pos=pos,
-                              alive=torch.zeros_like(alive), rays=rays)
+                              alive=torch.zeros_like(alive), rays=rays,
+                              perm=next_perm)
 
         # --- BSDF sampling + throughput update (Iterative.comp:282-284) ---
         inter_b, pdf0, pdf1 = generate_importance_sample(
@@ -180,7 +221,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         return Carry(i=c.i + 1, key=key, o=pos, d=inter_b.incoming,
                      throughput=throughput, contribution=contribution,
                      pdf0=pdf0, pdf1=pdf1, last_pos=pos, alive=alive & ~kill,
-                     rays=rays)
+                     rays=rays, perm=next_perm)
 
     # --- Bounce-epoch live-path compaction --------------------------------
     # Run at full width while many paths live, then gather survivors into
@@ -193,8 +234,19 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             if wn < widths[-1]:
                 widths.append(wn)
 
+    def trav_for(width: int) -> str:
+        """The bounce rays' traversal at a phase width: the override only
+        where its sort amortizes (>= treelet_min)."""
+        if bounce_traversal == "same" or width < treelet_min:
+            return traversal
+        return bounce_traversal
+
+    def identity(width: int):
+        return (torch.arange(width, device=dev) if tsort_alternate else None)
+
     total = None
     src = None  # compacted lane -> film lane; None while at full width
+    # Bounce 0 peeled: primary rays are coherent and take `traversal`.
     c = body(Carry(
         i=0, key=key, o=ray_o, d=ray_d,
         throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
@@ -202,14 +254,16 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         pdf0=torch.ones((n,), dtype=torch.float32, device=dev),
         pdf1=torch.ones((n,), dtype=torch.float32, device=dev),
         last_pos=ray_o, alive=torch.ones((n,), dtype=torch.bool, device=dev),
-        rays=torch.zeros((), dtype=torch.int64, device=dev)))
+        rays=torch.zeros((), dtype=torch.int64, device=dev),
+        perm=identity(n)))
     for j in range(len(widths)):
         nxt = widths[j + 1] if j + 1 < len(widths) else None
+        trav = trav_for(widths[j])
         while c.i <= max_bounces + 1:
             live = int(torch.sum(c.alive))
             if live == 0 or (nxt is not None and live <= nxt):
                 break
-            c = body(c)
+            c = body(c, trav)
         # Fold this phase's contributions back into film-lane space.
         if src is None:
             total = c.contribution
@@ -225,7 +279,10 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                                                device=dev),
                       pdf0=c.pdf0[order], pdf1=c.pdf1[order],
                       last_pos=c.last_pos[order], alive=c.alive[order],
-                      rays=c.rays)
+                      rays=c.rays,
+                      # A carried permutation indexes the lanes before the
+                      # gather: start over at the new width.
+                      perm=identity(nxt))
     return total, c.rays
 
 

@@ -1,15 +1,17 @@
 """Ray queries against the scene's merged BVH table (counterpart of the
 JAX package's ops/traverse.py ``trace_closest`` / ``trace_occluded``).
 
-Both go through ops/kernel_traverse.py on MT-leaf scenes and through
-ops/kernel_cluster.py on cluster scenes (``scene.cluster_rows`` set): the
-CUDA kernel for tensors on a CUDA device, its plain torch version for
-tensors on the CPU. Closest hits carry global triangle ids on either
-table (the cluster kernel remaps its cluster-local ids). ``"auto"`` is
-the one traversal name: the JAX package's other traversals (packet,
-treelet, tsort, perray, dense) schedule the same hits differently and are
-not ported. The fused-pair schedule (``fused_pair`` / ``fused_pair_occl``)
-maps to the same any-hit kernel.
+``"auto"`` goes through ops/kernel_traverse.py on MT-leaf scenes and
+through ops/kernel_cluster.py on cluster scenes (``scene.cluster_rows``
+set): the CUDA kernel for tensors on a CUDA device, its plain torch
+version for tensors on the CPU. ``"tsort"`` sorts the rays by treelet
+first (ops/tsort.py) and traces them with the same kernels. Closest hits
+carry global triangle ids on either table (the cluster kernel remaps its
+cluster-local ids). ``interleave`` is the kernel's rays per thread (MT
+leaves only; cluster scenes have one kernel). The JAX package's other
+traversals (packet, treelet, perray) schedule the same hits differently
+and are not ported. The fused-pair schedule (``fused_pair`` /
+``fused_pair_occl``) maps to the same any-hit kernel.
 """
 
 from __future__ import annotations
@@ -30,17 +32,28 @@ class Hit(NamedTuple):
     v: torch.Tensor     # [N] f32 barycentric
 
 
+TRAVERSALS = ("auto", "tsort")
+
+
 def check_traversal(name: str) -> None:
-    if name != "auto":
+    if name not in TRAVERSALS:
         raise NotImplementedError(
-            f"traversal {name!r}: the port has one traversal, 'auto' (the "
-            f"CUDA kernel on CUDA tensors, its plain version on the CPU)")
+            f"traversal {name!r}: the port has {TRAVERSALS} ('auto': the "
+            f"CUDA kernel on CUDA tensors, its plain version on the CPU; "
+            f"'tsort': the same on treelet-sorted rays); treelet, packet "
+            f"and perray are not ported yet (ROADMAP.md, queue A)")
 
 
 def trace_closest(scene, o, d, t_max, active, *, stack_depth: int,
-                  leaf_size: int, traversal: str = "auto") -> Hit:
+                  leaf_size: int, traversal: str = "auto",
+                  interleave: int = 1) -> Hit:
     """Closest hit of each active ray within (0, t_max)."""
     check_traversal(traversal)
+    if traversal == "tsort":
+        from gpupathtracer_tpu_torch.ops.tsort import trace_closest_tsort
+        return trace_closest_tsort(scene, o, d, t_max, active,
+                                   stack_depth=stack_depth,
+                                   leaf_size=leaf_size, interleave=interleave)
     rays = (o.contiguous(), d.contiguous(), t_max.contiguous(),
             active.contiguous())
     if scene.cluster_rows is not None:
@@ -50,14 +63,21 @@ def trace_closest(scene, o, d, t_max, active, *, stack_depth: int,
     else:
         t, prim, u, v = kernel_traverse.closest(
             scene.node_rows, *rays, stack_depth=stack_depth,
-            leaf_size=leaf_size)
+            leaf_size=leaf_size, interleave=interleave)
     return Hit(t=t, prim=prim, u=u, v=v)
 
 
 def trace_occluded(scene, o, d, t_max, active, *, stack_depth: int,
-                   leaf_size: int, traversal: str = "auto") -> torch.Tensor:
+                   leaf_size: int, traversal: str = "auto",
+                   interleave: int = 1) -> torch.Tensor:
     """[N] bool: True iff something lies within (0, t_max) of an active ray."""
     check_traversal(traversal)
+    if traversal == "tsort":
+        from gpupathtracer_tpu_torch.ops.tsort import trace_occluded_tsort
+        return trace_occluded_tsort(scene, o, d, t_max, active,
+                                    stack_depth=stack_depth,
+                                    leaf_size=leaf_size,
+                                    interleave=interleave)
     rays = (o.contiguous(), d.contiguous(), t_max.contiguous(),
             active.contiguous())
     if scene.cluster_rows is not None:
@@ -66,4 +86,4 @@ def trace_occluded(scene, o, d, t_max, active, *, stack_depth: int,
             stack_depth=stack_depth)
     return kernel_traverse.anyhit(scene.node_rows, *rays,
                                   stack_depth=stack_depth,
-                                  leaf_size=leaf_size)
+                                  leaf_size=leaf_size, interleave=interleave)

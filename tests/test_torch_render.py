@@ -3,6 +3,7 @@ corpus, the JAX Renderer on a film wide enough for bounce-epoch
 compaction, and the port's CLI end to end (all on the CPU, where the
 traversal runs its plain torch version)."""
 
+import json
 import math
 import os
 
@@ -13,6 +14,7 @@ from gpupathtracer_tpu.config import RenderConfig as JaxRenderConfig
 from gpupathtracer_tpu.render import Renderer as JaxRenderer
 from gpupathtracer_tpu_torch import cli
 from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+from gpupathtracer_tpu_torch.ops.tsort import SORTED
 from gpupathtracer_tpu_torch.render import Renderer
 from gpupathtracer_tpu_torch.scene.procedural import default_camera
 
@@ -134,3 +136,131 @@ def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as exc:
         cli.main(["proc:cornell", "--device", "cpu", *flag])
     assert exc.value.code != 0
+
+
+def _tsort_cfg(bounce_traversal, **kw):
+    cfg = RenderConfig(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
+                       width=16, height=16, max_bounces=4,
+                       bounce_traversal=bounce_traversal, treelet_min=1, **kw)
+    cfg.camera = _cornell_camera()
+    return cfg
+
+
+def test_tsort_bounces_bitwise_equal_same_and_match_jax():
+    """bounce_traversal="tsort" with treelet_min lowered so that the sort
+    runs at 16x16 (one permutation per bounce, reused by the shadow rays):
+    a schedule, so the film is bitwise the film of "same"; with
+    shadow_sort off (a fresh sort through the dispatch, shadow rays
+    unsorted) too. Against the JAX Renderer on the Pallas path with the
+    same override: measured max |diff| 3e-6, held to the file's bound."""
+    films = {}
+    for name, cfg in (("same", _tsort_cfg("same")),
+                      ("tsort", _tsort_cfg("tsort")),
+                      ("fresh", _tsort_cfg("tsort", shadow_sort=False))):
+        r = Renderer(cfg, "cpu")
+        assert r.bounce_traversal == ("same" if name == "same" else "tsort")
+        for k in SORTED:
+            SORTED[k] = 0
+        r.render_frame("wavefront")
+        r.render_frame("wavefront")
+        films[name] = r.film_hdr()
+        # The sorted branch ran where it should and nowhere else: never
+        # under "same"; one sort a bounce serving both traces; without
+        # shadow_sort a fresh sort a closest trace, shadow rays unsorted.
+        if name == "same":
+            assert SORTED == {"sorts": 0, "closest": 0, "occluded": 0}
+        elif name == "tsort":
+            assert SORTED["sorts"] == SORTED["closest"] == \
+                SORTED["occluded"] > 0
+        else:
+            assert SORTED["sorts"] == SORTED["closest"] > 0
+            assert SORTED["occluded"] == 0
+        r.stats.finalize()
+        films[name + "_rays"] = r.stats.rays_traced
+    assert films["same"].max() > 0
+    for name in ("tsort", "fresh"):
+        np.testing.assert_array_equal(films[name].view(np.int32),
+                                      films["same"].view(np.int32))
+        assert films[name + "_rays"] == films["same_rays"]
+    jcfg = _jax_cfg(_tsort_cfg("tsort"))
+    jcfg.traversal = "pallas"
+    jr = JaxRenderer(jcfg)
+    assert jr.bounce_traversal == "tsort"
+    jr.render_frame("wavefront")
+    jr.render_frame("wavefront")
+    want = np.asarray(jr.film_hdr())
+    assert _outside(films["tsort"], want).mean() <= 0.01
+    np.testing.assert_allclose(films["tsort"].mean(axis=(0, 1)),
+                               want.mean(axis=(0, 1)), rtol=5e-3)
+    jr.stats.finalize()
+    assert films["tsort_rays"] == jr.stats.rays_traced
+
+
+@pytest.mark.parametrize("rows,want", [(563, "same"), (8191, "same"),
+                                       (8192, "tsort"), (49863, "tsort")])
+def test_auto_gate_resolves_as_jax(rows, want):
+    """bounce_traversal="auto" becomes "tsort" on tables of 8192 rows or
+    more, as in the JAX Renderer on its Pallas path (no render needed: the
+    table is a stand-in of the wanted height)."""
+    import jax.numpy as jnp
+    import torch
+
+    cfg = RenderConfig(scene_path="proc:cornell", width=16, height=16)
+    small = Renderer(cfg, "cpu")
+    assert small.bounce_traversal == "same"
+    scene = small.scene._replace(node_rows=torch.zeros((rows, 128)))
+    r = Renderer(cfg, "cpu", scene=scene, meta=small.meta)
+    assert r.bounce_traversal == want
+    for explicit in ("same", "tsort"):
+        cfg_e = RenderConfig(scene_path="proc:cornell", width=16, height=16,
+                             bounce_traversal=explicit)
+        assert Renderer(cfg_e, "cpu", scene=scene,
+                        meta=small.meta).bounce_traversal == explicit
+    jcfg = _jax_cfg(cfg)
+    jcfg.traversal = "pallas"
+    jsmall = JaxRenderer(jcfg)
+    jscene = jsmall.scene._replace(bvh=jsmall.scene.bvh._replace(
+        node_rows=jnp.zeros((rows, 128), jnp.float32)))
+    assert JaxRenderer(jcfg, scene=jscene,
+                       meta=jsmall.meta).bounce_traversal == want
+
+
+def test_auto_gate_on_cluster_scene_counts_the_full_tree():
+    """On a cluster scene the gate keys on the tree the clusters replaced:
+    wide nodes + references / leaf_size, the same count in both packages."""
+    cfg = RenderConfig(scene_path="proc:table", width=16, height=16,
+                       cluster_tris=128)
+    r = Renderer(cfg, "cpu")
+    jcfg = _jax_cfg(cfg)
+    jcfg.traversal = "pallas"
+    jr = JaxRenderer(jcfg)
+    assert r.bounce_traversal == jr.bounce_traversal == "same"
+    bvh = jr.scene.bvh
+    assert r.meta.tree_nodes == int(bvh.child_entry.shape[0])
+    assert r.meta.tree_refs == int(bvh.refs.shape[0])
+    big = r.meta.__class__(**{**r.meta.__dict__, "tree_refs": 8192 * cfg.leaf_size})
+    assert Renderer(cfg, "cpu", scene=r.scene,
+                    meta=big).bounce_traversal == "tsort"
+
+
+def test_cli_takes_bounce_traversal(tmp_path):
+    hdr = {}
+    for mode in ("same", "tsort", "auto"):
+        out = tmp_path / f"{mode}.npy"
+        rc = cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
+                       "--width", "16", "--height", "16", "--bounce-traversal",
+                       mode, "--out", str(tmp_path / f"{mode}.png"),
+                       "--hdr-out", str(out), "--stats-json",
+                       str(tmp_path / f"{mode}.json")])
+        assert rc == 0
+        # 256 lanes are below treelet_min: nothing runs sorted, and the
+        # stats say so.
+        with open(tmp_path / f"{mode}.json") as f:
+            assert json.load(f)["sorted"] == {"sorts": 0, "closest": 0,
+                                              "occluded": 0}
+        hdr[mode] = np.load(out)
+    np.testing.assert_array_equal(hdr["tsort"], hdr["same"])
+    np.testing.assert_array_equal(hdr["auto"], hdr["same"])
+    with pytest.raises(SystemExit):
+        cli.main(["proc:cornell", "--device", "cpu", "--bounce-traversal",
+                  "treelet"])

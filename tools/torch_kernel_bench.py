@@ -1,0 +1,357 @@
+#!/usr/bin/env python3
+"""Traversal-kernel A/B harness of the PyTorch/CUDA port (the counterpart
+of tools/kernel_bench.py for the kernels the port has).
+
+    python3 tools/torch_kernel_bench.py --scene proc:sponza \
+        --mode packet,tsort,subpacket --interleave 1,2
+
+Run from the root of a checkout on a machine with one CUDA card. Every
+variant traces the same two ray sets and is timed with CUDA events over
+--reps runs after a warm-up; compare variants only within one run (one
+card, one power limit: both are printed).
+
+Ray sets (tools/kernel_bench.py's):
+  coherent    Morton-tiled camera primaries on the scene's default view.
+  incoherent  random-direction rays from the primaries' hit points,
+              randomly permuted (the diffuse-bounce worst case).
+
+Modes:
+  packet      the per-ray walk (csrc/traverse.cu); --interleave W carries W
+              rays a thread, --multi-pop Q pops Q entries an iteration
+  subpacket   128-ray sub-packets on shared stacks, --k rays a packet
+  tsort, tsort2, tsort3   treelet-sorted rays (key top1, top2, deep) through
+              the per-ray walk; the time includes the sort and the gathers
+  tsort-sub   treelet-sorted rays (top1) through the sub-packet kernel
+  dense       every ray against every triangle, rounding of the matrix
+              form (--k rays a block, at most 1024; small scenes only)
+  dense-vpu   the same with the multiply chain's rounding
+  treelet     not ported: raises
+
+--check N also holds every variant's result on the first N rays of each set
+against the plain PyTorch version of its kernel on the same rays (the
+per-ray walk's plain version for the tree modes, the dense intersection's in
+the variant's rounding for the dense modes), bitwise, and raises if any lane
+differs. The plain versions are slow: keep N in the thousands.
+
+--device cpu runs the plain versions at a small --n as a rehearsal; its
+times are host times of torch's CPU ops and say nothing about the card.
+Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+TSORT_KEYS = {"tsort": "top1", "tsort2": "top2", "tsort3": "deep",
+              "tsort-sub": "top1"}
+MODES = ("packet", "subpacket", "dense", "dense-vpu") + tuple(TSORT_KEYS)
+MAX_DENSE_BLOCK = 1024
+
+
+def mode_of(key: str) -> str:
+    """The mode of a variant key "mode@..."."""
+    return key.split("@")[0]
+
+
+def time_ms(fn, reps: int, device):
+    """(median, spread) of fn()'s milliseconds over reps runs after one
+    warm-up: CUDA events on a card, the host clock on the CPU."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+    med = statistics.median(times)
+    return med, (max(times) - min(times)) / med if med > 0 else 0.0
+
+
+def load(scene_path: str, device):
+    """(scene, meta) of a scene at its default settings (C++ SBVH where a
+    compiler is present)."""
+    from gpupathtracer_tpu_torch.config import RenderConfig
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    return load_scene(RenderConfig(scene_path=scene_path, width=64,
+                                   height=64,
+                                   skybox="GENERATE COLOR BLACK"), device)
+
+
+def make_rays(scene_path: str, scene, meta, n: int, device):
+    """The two ray sets, each (o, d) [n, 3]: "coherent" and "incoherent"
+    (module docstring)."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.config import CameraConfig
+    from gpupathtracer_tpu_torch.math.camera import (gen_rays,
+                                                     generate_image_plane)
+    from gpupathtracer_tpu_torch.ops.traverse import trace_closest
+    from gpupathtracer_tpu_torch.scene.procedural import default_camera
+    from gpupathtracer_tpu_torch.utils.morton import ray_order
+
+    # Morton-tiled primaries at a resolution that covers n rays.
+    w = 1 << math.ceil(math.log2(math.sqrt(n * 16 / 9)))
+    h = max(-(-n // w), 1)
+    pos, yaw, pitch, fov, _, _ = default_camera(scene_path)
+    cam = generate_image_plane(
+        CameraConfig(position=pos, yaw=yaw, pitch=pitch,
+                     fov=math.radians(fov), aspect=w / h), device)
+    order = ray_order(w, h, "morton")[:n]
+    interp = np.stack([(order % w).astype(np.float32) / w,
+                       (order // w).astype(np.float32) / h], axis=-1)
+    o_coh, d_coh = gen_rays(cam, torch.as_tensor(interp, device=device),
+                            torch.full((n, 2), 0.5, device=device))
+    o_coh, d_coh = o_coh.contiguous(), d_coh.contiguous()
+    hit = trace_closest(scene, o_coh, d_coh,
+                        torch.full((n,), 1e20, device=device),
+                        torch.ones(n, dtype=torch.bool, device=device),
+                        stack_depth=meta.stack_depth,
+                        leaf_size=meta.leaf_size)
+    hitp = torch.where((hit.prim >= 0)[:, None],
+                       o_coh + d_coh * (hit.t[:, None] * 0.999), o_coh)
+    rng = np.random.RandomState(11)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    perm = torch.as_tensor(rng.permutation(n), device=device)
+    return {"coherent": (o_coh, d_coh),
+            "incoherent": (hitp[perm].contiguous(),
+                           torch.as_tensor(dirs, device=device))}
+
+
+def make_run(mode: str, scene, meta, *, any_hit: bool = False,
+             multi_pop: int = 1):
+    """run(o, d, K, ilv) -> a tensor of the variant's results (t, or
+    occluded with any_hit) for rays o, d [n, 3], all active, t_max 1e20."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import (dense_intersect, kernel_traverse,
+                                             subpacket_traverse, tsort)
+
+    if mode == "treelet":
+        raise NotImplementedError(
+            "mode 'treelet': ops/treelet.py is not ported yet (ROADMAP.md, "
+            "queue A)")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    if mode != "packet" and scene.cluster_rows is not None:
+        raise ValueError("cluster scenes have one kernel: use "
+                         "ops/kernel_cluster.py through trace_closest")
+    rows = scene.node_rows
+
+    def full(o):
+        n = o.shape[0]
+        return (torch.full((n,), 1e20, device=o.device),
+                torch.ones(n, dtype=torch.bool, device=o.device))
+
+    if mode in ("dense", "dense-vpu"):
+        wd, wo = (torch.as_tensor(x, device=rows.device)
+                  for x in dense_intersect.pack_dense_tris(
+                      scene.tri_geom.cpu().numpy()))
+
+        def run(o, d, K, ilv=1):
+            out = dense_intersect.dense_intersect(
+                wd, wo, o, d, *full(o), any_hit=any_hit,
+                use_mxu=(mode == "dense"), block=min(K, MAX_DENSE_BLOCK))
+            return out[1] >= 0 if any_hit else out[0]
+    elif mode in TSORT_KEYS:
+        inner = "subpacket" if mode == "tsort-sub" else "packet"
+        fn = tsort.trace_occluded_tsort if any_hit else \
+            tsort.trace_closest_tsort
+
+        def run(o, d, K, ilv=1):
+            out = fn(scene, o, d, *full(o), packet_size=K, interleave=ilv,
+                     kernel=inner, key_mode=TSORT_KEYS[mode], **kw)
+            return out if any_hit else out.t
+    elif mode == "subpacket":
+        def run(o, d, K, ilv=1):
+            P = o.shape[0] // K
+            tm, act = full(o)
+            out = subpacket_traverse.traverse_subpacket(
+                rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
+                tm.reshape(P, K), act.reshape(P, K), any_hit=any_hit, **kw)
+            return (out[1] >= 0 if any_hit else out[0]).reshape(-1)
+    else:
+        fn = kernel_traverse.anyhit if any_hit else kernel_traverse.closest
+
+        def run(o, d, K, ilv=1):
+            out = fn(rows, o, d, *full(o), interleave=ilv,
+                     multi_pop=multi_pop if ilv == 1 else 1, **kw)
+            return out if any_hit else out[0]
+    return run
+
+
+def make_plain(mode: str, scene, meta, *, any_hit: bool = False):
+    """plain(o, d) -> what make_run's variants of ``mode`` must return on
+    rays o, d, from the kernel's plain version: t (occluded with any_hit).
+    Every tree mode is a schedule of the per-ray walk, whose t and occlusion
+    do not depend on the schedule."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import dense_intersect, kernel_traverse
+
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    rows = scene.node_rows
+
+    def full(o):
+        n = o.shape[0]
+        return (torch.full((n,), 1e20, device=o.device),
+                torch.ones(n, dtype=torch.bool, device=o.device))
+
+    if mode in ("dense", "dense-vpu"):
+        wd, wo = (torch.as_tensor(x, device=rows.device)
+                  for x in dense_intersect.pack_dense_tris(
+                      scene.tri_geom.cpu().numpy()))
+
+        def plain(o, d):
+            out = dense_intersect.dense_intersect_plain(
+                wd, wo, o, d, *full(o), any_hit=any_hit,
+                use_mxu=(mode == "dense"),
+                block=math.gcd(o.shape[0], MAX_DENSE_BLOCK))
+            return out[1] >= 0 if any_hit else out[0]
+    elif any_hit:
+        def plain(o, d):
+            return kernel_traverse.anyhit_plain(rows, o, d, *full(o), **kw)
+    else:
+        def plain(o, d):
+            return kernel_traverse.closest_plain(rows, o, d, *full(o),
+                                                 **kw)[0]
+    return plain
+
+
+def main(argv=None, loaded=None) -> dict:
+    """Runs the sweep the arguments name and prints a line per variant and
+    ray set. ``loaded``, a (scene, meta) of --scene already on --device,
+    saves the ingest. Returns {variant: {"ms", "mrays_per_s", "equal",
+    "plain_equal"}} (plain_equal None without --check)."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", default="proc:sponza")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--n", type=int, default=1 << 19, help="rays per set")
+    ap.add_argument("--k", default="2048",
+                    help="rays per packet (subpacket, tsort-sub; a multiple "
+                         "of 128) or per block (dense, at most "
+                         f"{MAX_DENSE_BLOCK}); comma-separated list to sweep")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--sets", default="coherent,incoherent")
+    ap.add_argument("--any-hit", action="store_true")
+    ap.add_argument("--mode", default="packet",
+                    help="comma-separated sweep over: " + ", ".join(MODES))
+    ap.add_argument("--multi-pop", type=int, default=1,
+                    help="packet mode: a further variant that pops this "
+                         "many entries an iteration (2 or 4)")
+    ap.add_argument("--interleave", default="1",
+                    help="packet and tsort modes: rays a thread (1, 2 or 4); "
+                         "comma-separated list to sweep")
+    ap.add_argument("--check", type=int, default=0,
+                    help="hold every variant on the first N rays of each "
+                         "set against its kernel's plain version")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is false; "
+                               "--device cpu rehearses the plain versions")
+        print("# " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+    else:
+        print("# cpu rehearsal: plain versions, host times, not the card's")
+    modes = args.mode.split(",")
+    k_list = [int(s) for s in args.k.split(",")]
+    ilv_list = [int(s) for s in args.interleave.split(",")]
+    scene, meta = loaded or load(args.scene, device)
+    rows = scene.node_rows
+    print(f"# {args.scene} leaf={meta.leaf_size}: rows={tuple(rows.shape)} "
+          f"({rows.numel() * 4 / 1e6:.1f} MB) stack={meta.stack_depth} "
+          f"K={k_list} N={args.n}")
+    runs = {m: make_run(m, scene, meta, any_hit=args.any_hit) for m in modes}
+    rays = make_rays(args.scene, scene, meta, args.n, device)
+
+    # (tag, key, run, K, ilv)
+    variants = []
+    for mode in modes:
+        uses_k = mode in ("subpacket", "tsort-sub", "dense", "dense-vpu")
+        uses_ilv = mode == "packet" or (mode in TSORT_KEYS
+                                        and mode != "tsort-sub")
+        for K in (k_list if uses_k else k_list[:1]):
+            for ilv in (ilv_list if uses_ilv else [1]):
+                tag = mode + (f" K={K}" if uses_k else "") \
+                    + (f" W={ilv}" if uses_ilv and len(ilv_list) > 1 else "")
+                variants.append((tag, f"{mode}@{K}w{ilv}", runs[mode], K,
+                                 ilv))
+        if mode == "packet" and args.multi_pop > 1:
+            variants.append((f"packet Q={args.multi_pop}",
+                             f"packet@q{args.multi_pop}",
+                             make_run("packet", scene, meta,
+                                      any_hit=args.any_hit,
+                                      multi_pop=args.multi_pop), k_list[0], 1))
+
+    out, first, wanted = {}, {}, {}
+    for tag, key, run, K, ilv in variants:
+        for name in args.sets.split(","):
+            o, d = rays[name]
+            res = run(o, d, K, ilv)
+            # Every variant computes the same hits: the share of lanes
+            # bitwise equal to the first variant's (all of them for the
+            # tree walks; the dense test rounds otherwise).
+            ref = first.setdefault(name, res)
+            if res.dtype != torch.bool:
+                res, ref = res.view(torch.int32), ref.view(torch.int32)
+            same = float((res == ref).float().mean())
+            held = None
+            if args.check:
+                family = mode_of(key) if "dense" in key else "tree"
+                if (family, name) not in wanted:
+                    plain = make_plain(mode_of(key), scene, meta,
+                                       any_hit=args.any_hit)
+                    want = plain(o[:args.check], d[:args.check])
+                    if want.dtype != torch.bool:
+                        want = want.view(torch.int32)
+                    wanted[family, name] = want
+                want = wanted[family, name]
+                held = float((res[:args.check] == want).float().mean())
+                if held != 1.0:
+                    raise AssertionError(
+                        f"{tag} {name}: {int((res[:args.check] != want).sum())}"
+                        f" of {want.shape[0]} lanes differ from the plain "
+                        f"version")
+            med, spread = time_ms(lambda: run(o, d, K, ilv), args.reps,
+                                  device)
+            mrays = args.n / med / 1e3
+            print(f"{tag} {name}: {mrays:.2f} Mrays/s ({med:.3f} ms, spread "
+                  f"{spread:.1%}; {same:.4%} of lanes equal to the first "
+                  f"variant's"
+                  + (f"; first {args.check} bitwise equal to the plain "
+                     f"version" if args.check else "") + ")", flush=True)
+            out[f"{key}:{name}"] = {"ms": med, "mrays_per_s": mrays,
+                                    "equal": same, "plain_equal": held}
+    return out
+
+
+if __name__ == "__main__":
+    main()
