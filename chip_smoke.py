@@ -8,11 +8,20 @@ nvcc and g++. Phases, each of which raises on failure:
 
   1. versions and the card's name and power limit; CUDA must be present;
   2. build the MT-leaf traversal kernels (csrc/traverse.cu, with its
-     interleave and multi-pop schedules), the cluster traversal kernel
-     (csrc/cluster_traverse.cu), the megakernel (csrc/megakernel.cu), the
-     dense intersection (csrc/dense_intersect.cu) and the sub-packet
-     traversal (csrc/subpacket_traverse.cu) with nvcc, all at once; ptxas
-     registers, stack frame and spills of every instantiation;
+     interleave and multi-pop schedules and their pop-counting variants),
+     the cluster traversal kernel (csrc/cluster_traverse.cu, with its
+     counting and pop_skip variants), the megakernel (csrc/megakernel.cu),
+     the dense intersection (csrc/dense_intersect.cu), the sub-packet
+     traversal (csrc/subpacket_traverse.cu) and the roofline probes
+     (csrc/roofline.cu) with nvcc, all at once; ptxas registers, stack
+     frame and spills of every instantiation;
+  R. the roofline probes: each against its plain version at a small
+     iteration count in every copy (bitwise; the bf16 product within a
+     stated bound, its maximum printed), at every shape, tile, tc and mode
+     that tools/torch_roofline.py run_compact launches; the first of each
+     timed with its plain version and, for the products, torch.matmul on
+     the same shapes; then run_compact itself, every probe launched, its
+     rates printed;
   3. each MT-leaf entry point against its plain torch version on the
      card, on the sponza and bathroom tables, with 65,536 camera rays plus
      65,536 random-direction rays from surface points, about 10% of lanes
@@ -24,7 +33,12 @@ nvcc and g++. Phases, each of which raises on failure:
      against its plain version (every field bitwise equal) and against
      phase 3's kernel output (t and occluded bitwise equal; lanes where
      another triangle at bitwise the same t won are counted and printed);
-     the multi-pop overflow latch must read 0; the dense intersection
+     S: the pop counters of every schedule (B1, W = 2 and 4, Q = 2),
+     closest and any-hit, per ray bitwise equal to the plain version's,
+     the interleave's equal to B1's, the multi-pop's dropped pushes 0, the
+     hits with counters bitwise those without; the pop account of B1
+     (kernel time over its pops against the probes' floors); the dense
+     intersection
      against its plain version, both roundings, on all 131,072 rays of
      bathroom and on the first 8,192 of sponza (the plain version's cost
      sets that cut); times beside phase 3's, each with its bound;
@@ -35,13 +49,17 @@ nvcc and g++. Phases, each of which raises on failure:
      sort's own time, for the top1 and top2 keys;
   4. each cluster entry point against its plain version on the sponza and
      bathroom cluster tables (cluster_tris = 128) with phase 3's rays:
-     t/prim/u/v and occluded bitwise equal; times beside phase 3's;
+     t/prim/u/v and occluded bitwise equal; times beside phase 3's; the
+     counters and pop_skip (closest) against the plain version's, bitwise,
+     the hits bitwise those without; the pop account of B1 and B4 (kernel
+     time over pops against the probes' per-pop floors);
   5. the golden recipe of tests/test_golden.py (cornell, 32x32, 8 spp) on
      the card against tests/golden/cornell_32_8spp.npz;
   6. the main path through the CLI: proc:sponza 1920x1080 with 64 bounces
-     at 3 spp, twice with --bounce-traversal auto (treelet-sorted bounce
-     rays: the table has 8192 rows or more) and twice with same, in the
-     order auto, same, same, auto, the four films bitwise equal; and
+     at 3 spp, twice with --bounce-traversal tsort (treelet-sorted bounce
+     rays) and twice with auto (which is same on the card), in the order
+     tsort, auto, auto, tsort, the four films bitwise equal, sorts only in
+     the tsort runs; and
      proc:bathroom 1280x720 (Beckmann, default DoF camera) at 4 spp, with
      the C++ SBVH; films finite and nonzero,
      PNGs written, and both MT entry points, and no other, launched by
@@ -50,7 +68,13 @@ nvcc and g++. Phases, each of which raises on failure:
      proc:sponza over packet, tsort, subpacket and tsort-sub with
      --interleave 1,2 and --multi-pop 2, closest and any-hit, and on
      proc:bathroom over dense and dense-vpu: every entry point of phase
-     3b launched, every tree-walk variant bitwise equal to the first;
+     3b launched, every tree-walk variant bitwise equal to the first; and
+     the kernel-accounting entry points: tools/torch_kernel_bench.py
+     --stats on proc:sponza (2^19 rays a set; packet W 1, 2, Q 2,
+     subpacket, and --cluster-tc 128 --pop-skip), every counting kernel
+     launched, and tools/torch_mega_profile.py --time at its defaults
+     (bathroom 1280x720, 64 bounces): the megakernel's counting variant
+     launched, the frame's pops printed;
   7. the cluster path through the CLI, the JAX bench's cluster rows:
      bathroom 1280x720 (Beckmann, DoF) at 4 spp and sponza 1920x1080 with
      64 bounces at 1 spp, --cluster-tris 128; both cluster entry points
@@ -60,13 +84,16 @@ nvcc and g++. Phases, each of which raises on failure:
      in-kernel regeneration at 4 spp, table 200x150 direct at 8 spp, on
      MT leaves and on cluster leaves (cluster_tris = 128): ray counts
      equal, contributions bitwise equal (at most 0.1% of lanes may
-     differ, and those are printed); kernel and plain times;
+     differ, and those are printed); kernel and plain times; the counting
+     variant's contributions bitwise the kernel's, its [P, 9] counters
+     equal to the plain version's in every packet whose lanes all agree;
+     the pop account of B2;
   9. the megakernel against its plain version at the arguments of the
      rows of phases 10 and 11: the first chunk of each row's first frame,
-     built as the Renderer builds it, runs through the kernel on all its
-     lanes; its first two packets run through the kernel alone (the same
-     lanes must come out) and through the plain version (held as in
-     phase 8);
+     built as the Renderer builds it (the row's own samples a lane), runs
+     through the kernel on all its lanes; its first two packets run
+     through the kernel alone (the same lanes must come out) and through
+     the plain version (held as in phase 8; phase 8 holds the counters);
  10. the megakernel path through the CLI, the JAX bench's megakernel rows
      at their published sizes: bathroom 1280x720 Beckmann DoF (frame batch
      64), table 800x600 with 64 bounces (frame batch 128) and table
@@ -84,8 +111,9 @@ nvcc and g++. Phases, each of which raises on failure:
      same hits).
 
 The second-to-last line of stdout is a JSON object with one entry per
-kernel entry point; the last line is {"ok": true, "device": {...}}. Any
-failure exits nonzero before that line. Nothing here imports JAX.
+kernel entry point (the counting variants are instantiations of theirs and
+have none of their own); the last line is {"ok": true, "device": {...}}.
+Any failure exits nonzero before that line. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -114,7 +142,13 @@ SOURCES = {"trace_closest": CSRC + "traverse.cu",
            "subpacket_closest": CSRC + "subpacket_traverse.cu",
            "subpacket_anyhit": CSRC + "subpacket_traverse.cu",
            "dense_closest": CSRC + "dense_intersect.cu",
-           "dense_anyhit": CSRC + "dense_intersect.cu"}
+           "dense_anyhit": CSRC + "dense_intersect.cu",
+           "roofline_vpu": CSRC + "roofline.cu",
+           "roofline_mxu_f32": CSRC + "roofline.cu",
+           "roofline_mxu_bf16": CSRC + "roofline.cu",
+           "roofline_node_slab": CSRC + "roofline.cu",
+           "roofline_leaf_mt": CSRC + "roofline.cu",
+           "roofline_cluster_dense": CSRC + "roofline.cu"}
 REPLACES = {"trace_closest": "gpupathtracer_tpu/ops/pallas_traverse.py:72",
             "trace_anyhit": "gpupathtracer_tpu/ops/pallas_traverse.py:72 "
                             "(any-hit mode), "
@@ -142,7 +176,13 @@ REPLACES = {"trace_closest": "gpupathtracer_tpu/ops/pallas_traverse.py:72",
                 "mode)",
             "dense_closest": "gpupathtracer_tpu/ops/dense_intersect.py:105",
             "dense_anyhit": "gpupathtracer_tpu/ops/dense_intersect.py:105 "
-                            "(any-hit mode)"}
+                            "(any-hit mode)",
+            "roofline_vpu": "tools/roofline.py:129",
+            "roofline_mxu_f32": "tools/roofline.py:177 (f32)",
+            "roofline_mxu_bf16": "tools/roofline.py:177 (bf16)",
+            "roofline_node_slab": "tools/roofline.py:253",
+            "roofline_leaf_mt": "tools/roofline.py:289",
+            "roofline_cluster_dense": "tools/roofline.py:332"}
 # The least time the card could take for a kernel's work (its bound): the
 # larger of the FP32 operations this run's rays need over the H100's 67
 # TFLOP/s outside the tensor cores and the bytes they must move over its
@@ -326,6 +366,7 @@ def compare_kernels(name: str, width: int, height: int, device, results):
           f"Mrays/s), closest_plain {plain_c:.1f} ms")
     print(f"[{name}] trace_anyhit  {ms_a:.3f} ms ({n / ms_a / 1e3:.1f} "
           f"Mrays/s), anyhit_plain  {plain_a:.1f} ms")
+    results[name + "_pops"] = (pops_c, pops_a)
     results[name] = {
         "trace_closest": (err_c, ms_c, plain_c, *bound(
             pops_c, leaf_bytes=mt_leaf_bytes, slot_ops=MT_SLOT_OPS,
@@ -411,26 +452,17 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
     for tag, suffix, sched in (("W=2", "ilv", dict(interleave=2)),
                                ("W=4", "ilv_w4", dict(interleave=4)),
                                ("Q=2", "multi", dict(multi_pop=2))):
-        stats = "multi_pop" in sched
+        # The multi-pop overflow latch is held to 0 with the counters
+        # (compare_stats).
         label = f"[{name}] trace_closest_{suffix}"
         pops_c = {}
-        got = kt.closest(rows, o, d, far, on, with_stats=stats, **sched, **kw)
-        want = kt.closest_plain(rows, o, d, far, on, pops=pops_c,
-                                with_stats=stats, **sched, **kw)
-        err_c = _hold_hits(label, got[:4], want[:4])
+        got = kt.closest(rows, o, d, far, on, **sched, **kw)
+        want = kt.closest_plain(rows, o, d, far, on, pops=pops_c, **sched,
+                                **kw)
+        err_c = _hold_hits(label, got, want)
         ties = _hold_to_b1(label, got, b1["closest"])
-        occ = kt.anyhit(rows, o, d, t_occ, on, with_stats=stats, **sched,
-                        **kw)
-        occ_want = kt.anyhit_plain(rows, o, d, t_occ, on, with_stats=stats,
-                                   **sched, **kw)
-        latch = ""
-        if stats:
-            latches = [int(x) for x in (got[4], want[4], occ[1], occ_want[1])]
-            if any(latches):
-                raise AssertionError(f"{label} overflow latch {latches} at a "
-                                     f"stack of {meta.stack_depth} x 2")
-            occ, occ_want = occ[0], occ_want[0]
-            latch = "; overflow latch 0 (kernel and plain, both queries)"
+        occ = kt.anyhit(rows, o, d, t_occ, on, **sched, **kw)
+        occ_want = kt.anyhit_plain(rows, o, d, t_occ, on, **sched, **kw)
         err_a = _hold_occluded(f"[{name}] trace_anyhit_{suffix}", occ,
                                occ_want)
         if not torch.equal(occ, b1["occ"]):
@@ -446,8 +478,8 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
             rows, o, d, t_occ, on, **sched, **kw), 1)
         print(f"[{name}] {tag}: bitwise equal to the plain version; t and "
               f"occluded bitwise equal to trace_closest / trace_anyhit, "
-              f"{ties} tie lanes of {n} (another triangle at the same t)"
-              f"{latch}; node pops per ray {pops_c.get('node', 0) / n:.2f}")
+              f"{ties} tie lanes of {n} (another triangle at the same t); "
+              f"node pops per ray {pops_c.get('node', 0) / n:.2f}")
         print(f"[{name}] {tag}: closest {ms_c:.3f} ms (trace_closest "
               f"{b1_ms[0]:.3f}), plain {plain_c:.1f} ms; any-hit {ms_a:.3f} "
               f"ms (trace_anyhit {b1_ms[1]:.3f}), plain {plain_a:.1f} ms")
@@ -512,6 +544,95 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
         out[entry] = (err, ms, plain_ms, *b1_bound[any_hit])
     results[name].update(out)
     _print_bounds(name, out)
+
+
+def _hold_stats(label, got, want) -> None:
+    """Pop counters (and the results beside them) bitwise equal."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(_bits(a), _bits(b)):
+            bad = int((_bits(a) != _bits(b)).reshape(a.shape[0], -1)
+                      .any(1).sum())
+            raise AssertionError(f"{label} output {k} differs from the plain "
+                                 f"version's in {bad} rays")
+
+
+def compare_stats(name: str, scene, meta, rays, b1, device, results):
+    """Phase S on the MT-leaf table: the pop counters of every schedule,
+    closest and any-hit, against the plain version's, ray by ray; the hits
+    with counters bitwise those without; the interleave's counts B1's.
+    Records B1's pops for the pop account."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    o, d, t_occ, on = rays
+    far = torch.full((o.shape[0],), 1e20, device=device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    rows = scene.node_rows
+    counts = {}
+    for tag, sched in (("B1", {}), ("W=2", dict(interleave=2)),
+                       ("W=4", dict(interleave=4)),
+                       ("Q=2", dict(multi_pop=2))):
+        for any_hit, t_max in ((False, far), (True, t_occ)):
+            fn, plain = ((kt.anyhit, kt.anyhit_plain) if any_hit
+                         else (kt.closest, kt.closest_plain))
+            label = f"[{name}] {tag} {'any-hit' if any_hit else 'closest'}"
+            got = fn(rows, o, d, t_max, on, with_stats=True, **sched, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            _hold_stats(label, got, plain(rows, o, d, t_max, on,
+                                          with_stats=True, **sched, **kw))
+            bare = fn(rows, o, d, t_max, on, **sched, **kw)
+            _hold_stats(f"{label} (hits without counters)", got[:-1],
+                        bare if isinstance(bare, tuple) else (bare,))
+            counts[tag, any_hit] = got[-1]
+    for any_hit in (False, True):
+        for tag in ("W=2", "W=4"):
+            if not torch.equal(counts[tag, any_hit], counts["B1", any_hit]):
+                raise AssertionError(f"[{name}] {tag} pop counts differ from "
+                                     f"B1's")
+        if int(counts["Q=2", any_hit][:, 2].sum()):
+            raise AssertionError(f"[{name}] Q=2 dropped pushes")
+    n = o.shape[0]
+    line = []
+    for (tag, any_hit), st in counts.items():
+        if tag in ("B1", "Q=2"):
+            node, leaf = (int(x) for x in st[:, :2].sum(dim=0))
+            line.append(f"{tag} {'any-hit' if any_hit else 'closest'} "
+                        f"{node / n:.2f} node + {leaf / n:.2f} leaf")
+    print(f"[{name}] pop counters of B1, W = 2, 4 and Q = 2, closest and "
+          f"any-hit: every ray bitwise equal to the plain version, hits "
+          f"bitwise those without counters, W's counts B1's; pops per ray: "
+          + "; ".join(line))
+    results[name + "_counts"] = {
+        q: [int(x) for x in counts["B1", q].sum(dim=0)] for q in (False, True)}
+    pops = results[name + "_pops"]
+    for any_hit in (False, True):
+        node, leaf = results[name + "_counts"][any_hit]
+        entry = "trace_anyhit" if any_hit else "trace_closest"
+        pop_account(f"B1 {name} {entry} (leaf pops at the slots they test)",
+                    results[name][entry][1], node, leaf, results["rates"],
+                    "leaf_pop_ray_ps",
+                    pops[any_hit].get("slots", 0) / max(leaf, 1) / 10)
+
+
+def pop_account(label, ms, node, leaf, rates, leaf_key, leaf_scale=1.0):
+    """Prints a walk's ns per pop against the probes' floors: its node pops
+    at the node body's time a ray-pop and its leaf pops at the leaf body's
+    (scaled by ``leaf_scale``, the tested slots over the probe's ten), all
+    at the card's throughput. Returns the floor's share of the time."""
+    pops = node + leaf
+    floor_ms = (node * rates["node_pop_ray_ps"]
+                + leaf * rates[leaf_key] * leaf_scale) * 1e-9
+    print(f"[pop account] {label}: {ms:.3f} ms over {pops} pops ({node} node,"
+          f" {leaf} leaf) = {ms * 1e6 / max(pops, 1):.4f} ns a pop; the "
+          f"probes' floors (node body {rates['node_pop_ray_ps']:.3f} ps, "
+          f"leaf body {rates[leaf_key] * leaf_scale:.3f} ps a ray-pop) give "
+          f"{floor_ms:.4f} ms, {floor_ms / ms:.1%} of the time; the rest is "
+          f"latency, divergence and stack traffic")
+    return floor_ms / ms
 
 
 def compare_dense(name: str, scene, rays, b1, device, results,
@@ -580,16 +701,20 @@ def compare_dense(name: str, scene, rays, b1, device, results,
     results[name + "_dense"] = out
 
 
-def _bench_module():
-    """tools/torch_kernel_bench.py as a module."""
+def _tool_module(name: str):
+    """tools/<name>.py as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "torch_kernel_bench",
-        os.path.join(ROOT, "tools", "torch_kernel_bench.py"))
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _bench_module():
+    """tools/torch_kernel_bench.py as a module."""
+    return _tool_module("torch_kernel_bench")
 
 
 def compare_tsort(name: str, scene, meta, device) -> None:
@@ -704,6 +829,35 @@ def compare_cluster(name: str, width: int, height: int, rays, device,
     print(f"[{name} cluster] trace_cluster_anyhit  {ms_a:.3f} ms "
           f"({n / ms_a / 1e3:.1f} Mrays/s; MT trace_anyhit "
           f"{mt['trace_anyhit'][1]:.3f} ms), plain {plain_a:.1f} ms")
+    # Phase S on the cluster table: the counters, and pop_skip (closest).
+    for skip in (False, True):
+        label = f"[{name} cluster] closest" + (" pop_skip" if skip else "")
+        st = kc.closest_cluster(*tabs, refs, o, d, far, on, with_stats=True,
+                                pop_skip=skip, **kw)
+        _hold_stats(label, st, kc.closest_cluster_plain(
+            *tabs, refs, o, d, far, on, with_stats=True, pop_skip=skip, **kw))
+        _hold_stats(f"{label} (hits without counters)", st[:4], got)
+        _hold_stats(f"{label} (pop_skip alone)", kc.closest_cluster(
+            *tabs, refs, o, d, far, on, pop_skip=skip, **kw), got)
+        if skip:
+            ms_skip = _events_ms(lambda: kc.closest_cluster(
+                *tabs, refs, o, d, far, on, pop_skip=True, **kw), 10)
+            skipped = int(st[4][:, 2].sum())
+        else:
+            counts = st[4]
+    occ_st = kc.anyhit_cluster(*tabs, o, d, t_occ, on, with_stats=True, **kw)
+    _hold_stats(f"[{name} cluster] any-hit", occ_st, kc.anyhit_cluster_plain(
+        *tabs, o, d, t_occ, on, with_stats=True, **kw))
+    _hold_stats(f"[{name} cluster] any-hit (without counters)", occ_st[:1],
+                (occ,))
+    node, cl = (int(x) for x in counts[:, :2].sum(dim=0))
+    print(f"[{name} cluster] counters: closest and any-hit, with and without "
+          f"pop_skip, every ray bitwise equal to the plain version, hits "
+          f"bitwise those without; closest {node / n:.2f} node and "
+          f"{cl / n:.2f} cluster pops a ray; pop_skip skips {skipped} of "
+          f"{cl} cluster pops ({skipped / max(cl, 1):.2%}), closest "
+          f"{ms_skip:.3f} ms with it against {ms_c:.3f} without")
+    results[name + "_cluster_pops"] = (node, cl)
     leaf = leaf_bytes_of(tc)
     results[name + "_cluster"] = {
         "trace_cluster_closest": (err_c, ms_c, plain_c, *bound(
@@ -746,16 +900,16 @@ def golden_check(device) -> None:
 # CLI arguments, spp.
 MAIN_RUNS = {
     "sponza": (["proc:sponza", "--width", "1920", "--height", "1080",
-                "--max-bounces", "64", "--bounce-traversal", "auto"], 3),
-    "sponza_same": (["proc:sponza", "--width", "1920", "--height", "1080",
-                     "--max-bounces", "64", "--bounce-traversal", "same"], 3),
-    # Once more in the other order (auto, same, same, auto): a host-bound
+                "--max-bounces", "64", "--bounce-traversal", "tsort"], 3),
+    "sponza_auto": (["proc:sponza", "--width", "1920", "--height", "1080",
+                     "--max-bounces", "64", "--bounce-traversal", "auto"], 3),
+    # Once more in the other order (tsort, auto, auto, tsort): a host-bound
     # frame drifts within a call.
-    "sponza_same_b": (["proc:sponza", "--width", "1920", "--height", "1080",
-                       "--max-bounces", "64", "--bounce-traversal", "same"],
+    "sponza_auto_b": (["proc:sponza", "--width", "1920", "--height", "1080",
+                       "--max-bounces", "64", "--bounce-traversal", "auto"],
                       3),
     "sponza_b": (["proc:sponza", "--width", "1920", "--height", "1080",
-                  "--max-bounces", "64", "--bounce-traversal", "auto"], 3),
+                  "--max-bounces", "64", "--bounce-traversal", "tsort"], 3),
     "bathroom": (["proc:bathroom", "--width", "1280", "--height", "720",
                   "--microfacet", "beckmann"], 4),
 }
@@ -806,13 +960,14 @@ def render_main_path(tmp: str, runs):
 
 
 def render_wavefront_path(tmp: str):
-    """Phase 6: the wavefront rows, and the sponza film with treelet-sorted
-    bounce rays against the film without them."""
+    """Phase 6: the wavefront rows; and the sponza film with treelet-sorted
+    bounce rays (named: "auto" is "same" on the card) against the film of
+    "auto"."""
     import numpy as np
 
     stats = render_main_path(tmp, MAIN_RUNS)
-    sorted_runs, same_runs = ("sponza", "sponza_b"), ("sponza_same",
-                                                      "sponza_same_b")
+    sorted_runs, auto_runs = ("sponza", "sponza_b"), ("sponza_auto",
+                                                      "sponza_auto_b")
     for k, s in stats.items():
         want = "tsort" if k in sorted_runs else "same"
         if s["bounce_traversal"] != want:
@@ -824,11 +979,11 @@ def render_wavefront_path(tmp: str):
                 ran.values()):
             raise AssertionError(f"[{k}] sorts and sorted traces {ran} "
                                  f"under bounce traversal {want}")
-    ref = np.load(os.path.join(tmp, "sponza_same.npy")).view(np.int32)
-    for k in sorted_runs + same_runs[1:]:
+    ref = np.load(os.path.join(tmp, "sponza_auto.npy")).view(np.int32)
+    for k in sorted_runs + auto_runs[1:]:
         film = np.load(os.path.join(tmp, f"{k}.npy")).view(np.int32)
         differ = int((film != ref).any(-1).sum())
-        if differ or stats[k]["rays"] != stats["sponza_same"]["rays"]:
+        if differ or stats[k]["rays"] != stats["sponza_auto"]["rays"]:
             raise AssertionError(f"[{k}] {differ} pixels differ from the "
                                  f"unsorted film's")
 
@@ -840,14 +995,14 @@ def render_wavefront_path(tmp: str):
     def mrays(keys):
         return " and ".join(f"{stats[k]['mrays_per_sec']:.2f}" for k in keys)
 
-    print(f"[sponza] --bounce-traversal auto (tsort) against same, runs in "
-          f"the order auto, same, same, auto: films bitwise equal "
-          f"({ref.shape[0] * ref.shape[1]} pixels, "
+    print(f"[sponza] --bounce-traversal tsort against auto (same on the "
+          f"card), runs in the order tsort, auto, auto, tsort: films bitwise "
+          f"equal ({ref.shape[0] * ref.shape[1]} pixels, "
           f"{stats['sponza']['rays']} rays each); tsort {spf(sorted_runs)} "
-          f"s/frame ({mrays(sorted_runs)} Mrays/s), same {spf(same_runs)} "
-          f"s/frame ({mrays(same_runs)} Mrays/s); sorts and sorted traces "
-          f"a run: {stats['sponza']['sorted']} (auto), "
-          f"{stats['sponza_same']['sorted']} (same)")
+          f"s/frame ({mrays(sorted_runs)} Mrays/s), auto {spf(auto_runs)} "
+          f"s/frame ({mrays(auto_runs)} Mrays/s); sorts and sorted traces "
+          f"a run: {stats['sponza']['sorted']} (tsort), "
+          f"{stats['sponza_auto']['sorted']} (auto)")
     return stats
 
 
@@ -873,14 +1028,25 @@ BENCH_RUNS = (
     ("bathroom", ["--mode", "dense,dense-vpu", "--k", "1024", "--any-hit"],
      ("trace_closest", "dense_anyhit")),
 )
+# The kernel-accounting entry point (tools/kernel_bench.py --stats and
+# tools/cluster_pops.py's A/B): the pop counters of the per-ray walks, the
+# sub-packet stacks and the cluster walk with and without pop_skip, on
+# sponza at the tool's 2^19 rays a set.
+STATS_RUN = ("sponza", ["--mode", "packet,subpacket", "--interleave", "1,2",
+                        "--multi-pop", "2", "--stats", "--cluster-tc", "128",
+                        "--pop-skip"],
+             ("trace_closest", "trace_closest_ilv", "trace_closest_multi",
+              "subpacket_closest", "trace_closest_stats",
+              "trace_cluster_closest", "trace_cluster_closest_stats"))
 
 
 def run_kernel_bench(scenes) -> dict:
-    """Phase 6b: tools/torch_kernel_bench.py main over BENCH_RUNS, each a
-    driven path of its own. Returns the launches by entry point."""
+    """Phase 6b: tools/torch_kernel_bench.py main over BENCH_RUNS and
+    STATS_RUN, each a driven path of its own. Returns the launches by entry
+    point."""
     bench = _bench_module()
     launches = {}
-    for name, argv, want in BENCH_RUNS:
+    for name, argv, want in BENCH_RUNS + (STATS_RUN,):
         label = f"kernel bench {name} {' '.join(argv)}"
         got = {}
         counts = _drive(label, want, lambda: got.update(bench.main(
@@ -893,6 +1059,8 @@ def run_kernel_bench(scenes) -> dict:
         if "dense" not in argv[1] and worst != 1.0:
             raise AssertionError(f"[{label}] a variant differs from the "
                                  f"first: {got}")
+        if "--stats" in argv and any("pops" not in v for v in got.values()):
+            raise AssertionError(f"[{label}] a variant printed no counters")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     return launches
@@ -912,6 +1080,24 @@ def _scene_cfg(name: str, width: int, height: int, **kw):
     return cfg
 
 
+def _kernel_name(mangled: str):
+    """A kernel's name and template arguments (Li2E = 2, Lb1E = true) from
+    its mangled name, where the name follows its length after the source's
+    hashed anonymous namespace; None if there is none."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        for a in range(len(m.group())):
+            n = int(m.group()[a:])
+            ident = mangled[m.end():m.end() + n]
+            if len(ident) == n and ident.endswith("kernel") and \
+                    re.fullmatch(r"[A-Za-z_]\w*", ident):
+                t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[m.end() + n:])
+                targs = re.findall(r"L[ib](\d+)E", t.group(1) if t else "")
+                return ident + (f"<{', '.join(targs)}>" if targs else "")
+    return None
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel: registers, stack frame and spills."""
     import re
@@ -922,18 +1108,16 @@ def _ptxas_summary(log: str):
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[-1].strip()
-            m = re.search(r"mega_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                          name)
-            t = re.search(r"(trace_\w+?_kernel|dense_kernel|"
-                          r"subpacket_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
+            m = re.search(r"mega_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E"
+                          r"(?:Lb(\d)E)?", name)
+            t = _kernel_name(name)
             if m:
                 name = (f"mega_kernel<{MODELS[int(m.group(1))]}, "
                         f"nee={m.group(2)}, regen={m.group(3)}, "
-                        f"cluster={m.group(4)}>")
+                        f"cluster={m.group(4)}"
+                        + (f", stats={m.group(5)}>" if m.group(5) else ">"))
             elif t:
-                # Template arguments as mangled: Li2E = 2, Lb1E = true.
-                targs = re.findall(r"L[ib](\d+)E", t.group(2) or "")
-                name = t.group(1) + (f"<{', '.join(targs)}>" if targs else "")
+                name = t
         elif "stack frame" in line and name:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -955,13 +1139,165 @@ def build_kernels() -> None:
         return time.perf_counter() - t0, log
 
     names = ("traverse", "cluster_traverse", "megakernel", "dense_intersect",
-             "subpacket_traverse")
+             "subpacket_traverse", "roofline")
     with ThreadPoolExecutor(len(names)) as pool:
         for name, (secs, log) in zip(names, pool.map(one, names)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}: "
                   f"{secs:.2f} s")
             for line in _ptxas_summary(log):
                 print(f"[build]   {line}")
+
+
+# The roofline probes (phase R): FP32 instructions issue at half the 67
+# TFLOP/s of the data sheet (an FMA is two operations); bf16 products run at
+# its 989 TFLOP/s on the tensor cores. A probe's bound is its own
+# instructions (ops/roofline.py counts them) or its bf16 operations at that
+# rate: it moves no bytes but its tile's.
+PEAK_FP32_INSTR = PEAK_FLOPS / 2
+PEAK_BF16_FLOPS = 989e12
+# Iterations of the timed launch, per probe, and of every check.
+PROBE_ITERS = {"roofline_vpu": 2048, "roofline_mxu_f32": 32,
+               "roofline_mxu_bf16": 32, "roofline_node_slab": 256,
+               "roofline_leaf_mt": 128, "roofline_cluster_dense": 64}
+PROBE_CHECK_ITERS = 5
+# Largest |kernel - plain| of the bf16 product, as a share of
+# max_i sum_k |a_ik| max |b| * iters (tests/test_torch_roofline.py).
+BF16_BOUND = 1e-6
+
+
+def _probe_cases(device, tool):
+    """Every probe launch of tools/torch_roofline.py run_compact, at its
+    shapes and copies, on seeded random inputs: a list of (name, case,
+    kernel(iters, copies), plain(iters), blocks a copy, FP32 instructions
+    or bf16 operations an iteration a copy, torch.matmul yardstick or None,
+    bf16 tolerance scale an iteration or None for bitwise). The first case
+    of each name is the one timed."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import roofline as rl
+
+    rng = np.random.RandomState(11)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    def matmul(a_, b_):
+        def run(iters, copies):
+            big = a_.expand(copies, *a_.shape).reshape(-1, a_.shape[1])
+            for _ in range(iters):
+                torch.matmul(big, b_)
+        return run
+
+    x = t(rng.uniform(0.1, 1, tool.COMPACT_VPU))
+    cases = [("roofline_vpu", f"{tuple(x.shape)} ilp 8",
+              lambda it, c: rl.vpu(x, iters=it, ilp=8, copies=c),
+              lambda it: rl.vpu_plain(x, iters=it, ilp=8),
+              x.numel() // rl.THREADS, x.numel() * 8 * rl.VPU_STEP, None,
+              None)]
+    for _, m, k, n, dtype, _, _ in tool.COMPACT_MXU:
+        a, b = t(rng.uniform(-1, 1, (m, k))), t(rng.uniform(-1, 1, (k, n)))
+        bf16 = dtype == "bfloat16"
+        if bf16:
+            a, b = a.bfloat16(), b.bfloat16()
+        scale = (float(a.float().abs().sum(1).max() * b.float().abs().max())
+                 if bf16 else None)
+        cases.append((
+            "roofline_mxu_bf16" if bf16 else "roofline_mxu_f32",
+            f"[{m},{k}]x[{k},{n}] {dtype}",
+            lambda it, c, a=a, b=b: rl.mxu(a, b, iters=it, copies=c),
+            lambda it, a=a, b=b: rl.mxu_plain(a, b, iters=it),
+            -(-m // 64) * -(-n // 64), (2 if bf16 else 1) * m * k * n,
+            matmul(a, b), scale))
+    g = tool.COMPACT_G
+    rows = t(rng.uniform(0, 1, (64, 128)))
+    o = t(rng.uniform(-0.5, 1.5, (3, g, 128)))
+    d = torch.nn.functional.normalize(t(rng.normal(size=(3, g, 128))), dim=0)
+    inv = 1.0 / d
+    lanes = g * 128
+    cases += [
+        ("roofline_node_slab", f"G={g}",
+         lambda it, c: rl.node_slab(rows, o, d, inv, iters=it, copies=c),
+         lambda it: rl.node_slab_plain(rows, o, d, inv, iters=it),
+         lanes // rl.THREADS, lanes * rl.NODE_POP, None, None),
+        ("roofline_leaf_mt", f"G={g}",
+         lambda it, c: rl.leaf_mt(rows, o, d, inv, iters=it, copies=c),
+         lambda it: rl.leaf_mt_plain(rows, o, d, inv, iters=it),
+         lanes // rl.THREADS, lanes * rl.LEAF_SIZE * rl.MT_SLOT, None,
+         None)]
+    for tc, any_hit in tool.COMPACT_CLUSTER:
+        blk = t(rng.uniform(-1, 1, (16, 3 * tc)))
+        cases.append((
+            "roofline_cluster_dense",
+            f"G={g} tc={tc}" + (" any-hit" if any_hit else ""),
+            lambda it, c, blk=blk, ah=any_hit: rl.cluster_dense(
+                blk, o, d, inv, iters=it, any_hit=ah, copies=c),
+            lambda it, blk=blk, ah=any_hit: rl.cluster_dense_plain(
+                blk, o, d, inv, iters=it, any_hit=ah),
+            lanes // rl.THREADS,
+            lanes * (tc * rl.CLUSTER_SLOT + rl.CLUSTER_EPILOGUE), None,
+            None))
+    return cases
+
+
+def roofline_phase(device, results) -> dict:
+    """Phase R: every probe launch of run_compact against its plain version
+    (every copy), the first of each probe timed beside it; then
+    tools/torch_roofline.py run_compact, a driven path of its own. Returns
+    run_compact's rates."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import roofline as rl
+
+    tool = _tool_module("torch_roofline")
+    tool.set_device(device)
+    for name, case, kernel, plain, blocks, work, lib, scale in _probe_cases(
+            device, tool):
+        copies = tool.copies_for(blocks)
+        got = kernel(PROBE_CHECK_ITERS, copies)
+        want = plain(PROBE_CHECK_ITERS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        label = f"[roofline] {name} {case}, {copies} copies"
+        if scale is not None:
+            bound = BF16_BOUND * scale * PROBE_CHECK_ITERS
+            if err > bound or not all(torch.equal(got[0], c) for c in got):
+                raise AssertionError(f"{label}: max |diff| {err:.3g} (bound "
+                                     f"{bound:.3g}), or copies differ")
+            held = (f"every copy equal, within {bound:.3g} of the plain "
+                    f"version (max |diff| {err:.3g})")
+        else:
+            bad = [c for c in range(copies) if not torch.equal(
+                got[c].view(torch.int32), want.view(torch.int32))]
+            if bad:
+                raise AssertionError(f"{label}: copies {bad[:5]} differ from "
+                                     f"the plain version")
+            held = "every copy bitwise equal to the plain version"
+        if name in results["roofline"]:
+            worst, *rest = results["roofline"][name]
+            results["roofline"][name] = (max(worst, err), *rest)
+            print(f"{label}: {held}")
+            continue
+        iters = PROBE_ITERS[name]
+        ms = _events_ms(lambda: kernel(iters, copies), 3)
+        plain_ms = _events_ms(lambda: plain(iters), 1)
+        peak = PEAK_BF16_FLOPS if scale is not None else PEAK_FP32_INSTR
+        bound_ms = 1e3 * work * iters * copies / peak
+        lib_ms = _events_ms(lambda: lib(iters, copies), 3) if lib else None
+        print(f"{label}: {held}; {iters} iterations {ms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms (one copy), bound {bound_ms:.4f} ms "
+              f"(operations), kernel at {bound_ms / ms:.1%} of it"
+              + (f"; torch.matmul on the same work {lib_ms:.3f} ms"
+                 if lib else ""))
+        results["roofline"][name] = (err, ms, plain_ms, bound_ms,
+                                     "operations", lib_ms)
+    rates = {}
+    results["roofline_launches"] = _drive(
+        "roofline path", tuple(rl.LAUNCHES), lambda: rates.update(
+            tool.run_compact(reps=3, to_stderr=False, device=device,
+                             strict=True)))
+    print(f"[roofline] run_compact: {json.dumps(rates)}")
+    return rates
 
 
 def _mega_bound(pops: dict, rays: int, lanes: int, leaf_bytes: int,
@@ -1010,11 +1346,15 @@ def compare_mega(device, results, cluster_tris: int = 0) -> None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want, rays_plain = mk.trace_mega_plain(*args, pops=pops, **kw)
+        want, rays_plain, st_plain = mk.trace_mega_plain(
+            *args, pops=pops, with_stats=True, **kw)
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
         errs.append(_hold_mega(label, got, want, rays, rays_plain))
+        st = _hold_mega_stats(label, mk.trace_mega(*args, with_stats=True,
+                                                   **kw),
+                              got, want, st_plain, kw["packet_size"])
         ms = _events_ms(lambda: mk.trace_mega(*args, **kw), 3)
         slot_ops = CLUSTER_SLOT_OPS if cluster_tris else MT_SLOT_OPS
         b_ms, by = _mega_bound(pops, int(rays), args[7].shape[0],
@@ -1025,7 +1365,49 @@ def compare_mega(device, results, cluster_tris: int = 0) -> None:
               f"{b_ms / ms:.1%} of it")
         if (name, spp) == ("bathroom", 4):  # the regenerating path's case
             timed = (ms, plain_ms, b_ms, by)
+            node = int(st[:, 2].sum() + st[:, 4].sum())
+            leaf = int(st[:, 3].sum() + st[:, 5].sum())
+            rates = results["rates"]
+            if cluster_tris:
+                pop_account(f"B2 {label} (cluster pops at the tc = 128 "
+                            f"body)", ms, node, leaf, rates,
+                            "cluster_pop_ray_ps_tc128")
+            else:
+                pop_account(f"B2 {label} (leaf pops at the slots they "
+                            f"test)", ms, node, leaf, rates,
+                            "leaf_pop_ray_ps",
+                            pops.get("slots", 0) / max(leaf, 1) / 10)
     results["mega"][entry] = (max(errs), *timed)
+
+
+def _hold_mega_stats(label, out, got, want, st_plain, packet: int):
+    """The counting variant against the kernel and the plain version: its
+    contributions bitwise the kernel's, its counters the plain version's in
+    every packet whose lanes the kernel and the plain version computed
+    bitwise alike (_hold_mega bounds the others). Returns the counters."""
+    import torch
+
+    c, rays, st = out
+    torch.cuda.synchronize()
+    if not torch.equal(c.view(torch.int32), got.view(torch.int32)):
+        raise AssertionError(f"{label} the counting variant's contributions "
+                             f"differ from the kernel's")
+    same = ~(got.view(torch.int32) != want.view(torch.int32)).any(1)
+    whole = same.reshape(-1, packet).all(1)
+    bad = whole & (st != st_plain).any(1)
+    if bad.any():
+        raise AssertionError(f"{label} counters of {int(bad.sum())} packets "
+                             f"differ from the plain version's")
+    if int(st[:, 0:2].sum()) != int(rays):
+        raise AssertionError(f"{label} counters' rays {int(st[:, 0:2].sum())}"
+                             f" against {int(rays)}")
+    tot = st.sum(dim=0).tolist()
+    print(f"{label} counters equal to the plain version's in {int(whole.sum())}"
+          f" of {whole.numel()} packets (the rest hold a lane that differs): "
+          f"closest {tot[2]} node + {tot[3]} leaf pops, any-hit {tot[4]} + "
+          f"{tot[5]}, tail {tot[6]} + {tot[7]}, iterations p50 "
+          f"{int(st[:, 8].median())}")
+    return st
 
 
 def _hold_mega(label, got, want, rays, rays_plain) -> float:
@@ -1121,9 +1503,9 @@ def compare_mega_rows(device, results, runs) -> None:
 # published sizes: (name, CLI arguments, frame batch, frames).
 MEGA_RUNS = (
     ("bathroom_mega", ["proc:bathroom", "--width", "1280", "--height", "720",
-                       "--microfacet", "beckmann"], 64, 128),
+                       "--microfacet", "beckmann"], 64, 64),
     ("table_mega", ["proc:table", "--width", "800", "--height", "600",
-                    "--max-bounces", "64"], 128, 128),
+                    "--max-bounces", "64"], 128, 64),
     ("table_direct_mega", ["proc:table", "--width", "800", "--height", "600",
                            "--integrator", "direct"], 8, 16),
 )
@@ -1135,16 +1517,16 @@ MEGACLUSTER_RUNS = (
                               "--cluster-tris", "128"], 1, 32),
     ("bathroom_megacluster64", ["proc:bathroom", "--width", "1280",
                                 "--height", "720", "--microfacet",
-                                "beckmann", "--cluster-tris", "128"], 64, 16),
+                                "beckmann", "--cluster-tris", "128"], 64, 8),
     ("table_megacluster", ["proc:table", "--width", "800", "--height", "600",
                            "--max-bounces", "64", "--cluster-tris", "128"],
      1, 32),
     ("table_megacluster128", ["proc:table", "--width", "800", "--height",
                               "600", "--max-bounces", "64", "--cluster-tris",
-                              "128"], 128, 16),
+                              "128"], 128, 8),
 )
 # Phase 9 holds the kernel to its plain version on this many packets of
-# each row's first chunk.
+# each row's first chunk, at the row's own samples per lane.
 MEGA_PACKETS = 2
 
 
@@ -1254,8 +1636,10 @@ def _counters():
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
     from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
     from gpupathtracer_tpu_torch.ops import megakernel as mk
+    from gpupathtracer_tpu_torch.ops import roofline as rl
     from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
-    return kt.LAUNCHES, kc.LAUNCHES, mk.LAUNCHES, pd.LAUNCHES, sp.LAUNCHES
+    return (kt.LAUNCHES, kc.LAUNCHES, mk.LAUNCHES, pd.LAUNCHES, sp.LAUNCHES,
+            rl.LAUNCHES)
 
 
 def _launches() -> dict:
@@ -1309,20 +1693,34 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    build_kernels()
+    def stamp(phase):
+        print(f"[smoke] {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
-    results = {"mega": {}}
+    build_kernels()
+    stamp("build")
+
+    results = {"mega": {}, "roofline": {}}
+    results["rates"] = roofline_phase(device, results)
+    stamp("phase R")
     scenes = {}
     for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
         rays, scene, meta, b1 = compare_kernels(name, w, h, device, results)
         scenes[name] = (scene, meta)
         compare_schedules(name, scene, meta, rays, b1, device, results)
+        compare_stats(name, scene, meta, rays, b1, device, results)
         compare_dense(name, scene, rays, b1, device, results,
                       n_rays=DENSE_SPONZA_RAYS if name == "sponza" else None)
         if name == "sponza":
             compare_tsort(name, scene, meta, device)
         compare_cluster(name, w, h, rays, device, results)
+        node, cl = results[name + "_cluster_pops"]
+        pop_account(f"B4 {name} trace_cluster_closest (cluster pops at the "
+                    f"tc = 128 body)",
+                    results[name + "_cluster"]["trace_cluster_closest"][1],
+                    node, cl, results["rates"], "cluster_pop_ray_ps_tc128")
         del rays, b1
+        stamp(f"phases 3-4 on {name}")
     golden_check(device)
 
     launches = {}
@@ -1330,15 +1728,23 @@ def main() -> int:
         launches.update(_drive(
             "main path", ("trace_closest", "trace_anyhit"),
             lambda: render_wavefront_path(tmp)))
+        stamp("phase 6")
         bench_launches = run_kernel_bench(scenes)
         del scenes
+        profile = _tool_module("torch_mega_profile")
+        _drive("mega profile", ("trace_mega", "trace_mega_stats"),
+               lambda: profile.main(["--time"]))
+        stamp("phase 6b")
         launches.update(_drive(
             "cluster path", ("trace_cluster_closest", "trace_cluster_anyhit"),
             lambda: render_main_path(tmp, CLUSTER_RUNS)))
+        stamp("phase 7")
 
     compare_mega(device, results)
     compare_mega(device, results, cluster_tris=128)
+    stamp("phase 8")
     compare_mega_rows(device, results, MEGA_RUNS + MEGACLUSTER_RUNS)
+    stamp("phase 9")
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(_drive(
             "megakernel path", ("trace_mega",),
@@ -1347,6 +1753,7 @@ def main() -> int:
             "megacluster path", ("trace_mega_cluster",),
             lambda: render_mega_path(tmp, MEGACLUSTER_RUNS,
                                      "trace_mega_cluster")))
+    stamp("phases 10-11")
     mega_vs_wavefront(device)
     cluster_vs_mt(device)
 
@@ -1363,16 +1770,19 @@ def main() -> int:
                     ("sponza", "trace_closest_ilv"),
                     ("sponza", "trace_anyhit_ilv"),
                     ("sponza", "trace_closest_multi"),
-                    ("sponza", "trace_anyhit_multi")):
+                    ("sponza", "trace_anyhit_multi"),
+                    *(("roofline", k) for k in results["roofline"])):
         # Launches: of the path that drives the entry point (the renders
-        # for the first six, the kernel A/B entry point for the others).
-        launches.setdefault(k, bench_launches.get(k, 0))
-        err, ms, plain_ms, bound_ms, bound_by = results[case][k]
+        # for the first six, the kernel A/B entry point for the schedules,
+        # run_compact for the probes).
+        launches.setdefault(k, bench_launches.get(
+            k, results["roofline_launches"].get(k, 0)))
+        err, ms, plain_ms, bound_ms, bound_by, *lib = results[case][k]
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
                         "replaces": REPLACES[k], "launches": launches[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": lib[0] if lib else None})
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -127,7 +127,7 @@ def parse_args(argv=None):
     p.add_argument("--shadow-rev", action="store_true")
     p.add_argument("--bounce-traversal", default="auto",
                    help="bounce-ray traversal override: auto|same|tsort "
-                        "(auto = tsort on tables of 8192 rows or more)")
+                        "(auto = same; tsort sorts by treelet when named)")
     p.add_argument("--mip-levels", type=int, default=1)
     p.add_argument("--cluster-tris", type=int, default=0)
     p.add_argument("--sampler", default="random", choices=["random", "ld"])

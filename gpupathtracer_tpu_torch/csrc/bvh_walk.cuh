@@ -41,6 +41,7 @@ constexpr int kArity = 8;
 constexpr int kTrisPerRow = kRow / 12;  // 10
 constexpr int kMaxStack = 192;          // cfg.stack_depth * 4
 constexpr int kInvalid = 0x7FFFFFFF;
+constexpr float kSkipMargin = 1.0f / 4096.0f;  // pop_skip (walk)
 
 struct Ray {
   float o[3], d[3], inv[3], oi[3];
@@ -81,10 +82,12 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return make_ray(oo, dd);
 }
 
-// Slab test of child j of one node row: true iff the ray enters the child's
-// box before t and the slot is used; tmin is its entry distance.
-__device__ __forceinline__ bool child_hit(const float* __restrict__ row, int j,
-                                          const Ray& r, float t, float& tmin) {
+// Slab test of child j of one node row: true iff the ray's interval through
+// the child's box is not empty and ends ahead of the origin and its entry
+// distance tmin is below t (the TPU kernel's slab body, which the roofline
+// probe csrc/roofline.cu iterates on its own).
+__device__ __forceinline__ bool slab(const float* __restrict__ row, int j,
+                                     const Ray& r, float t, float& tmin) {
   float tmax = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -95,17 +98,46 @@ __device__ __forceinline__ bool child_hit(const float* __restrict__ row, int j,
     tmin = a == 0 ? lo : nan_max(tmin, lo);
     tmax = a == 0 ? hi : nan_min(tmax, hi);
   }
+  return tmin <= tmax && tmax > 0.0f && tmin < t;
+}
+
+// Slab test of child j of one node row: true iff the ray enters the child's
+// box before t and the slot is used; tmin is its entry distance.
+__device__ __forceinline__ bool child_hit(const float* __restrict__ row, int j,
+                                          const Ray& r, float t, float& tmin) {
+  bool hit = slab(row, j, r, t, tmin);
   int entry = __float_as_int(row[6 * kArity + j]);
-  return tmin <= tmax && tmax > 0.0f && tmin < t && entry != kInvalid;
+  return hit && entry != kInvalid;
+}
+
+// The pop_skip key of child j of a node row, entered at tmin: tmin less
+// kSkipMargin (|tmin| + |o_a inv_a|), a the axis whose slab entry is tmin.
+// The entry fma(bound, inv, -o inv) exceeds the exact (bound - o) / d by at
+// most about 2^-24 (2 |tmin| + |o_a inv_a|): absolute, not relative to t,
+// for rays that start far from the world origin. The margin is 2^11 times
+// that; the rest covers a triangle's t, which is computed otherwise than
+// its box's entry and can round below it (ROADMAP.md section C).
+__device__ __forceinline__ float skip_key(const float* __restrict__ row, int j,
+                                          const Ray& r, float tmin) {
+  float scale = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float lo = nan_min(__fmaf_rn(row[j * 6 + a], r.inv[a], -r.oi[a]),
+                       __fmaf_rn(row[j * 6 + 3 + a], r.inv[a], -r.oi[a]));
+    if (lo == tmin) scale = fmaxf(scale, fabsf(r.oi[a]));
+  }
+  return tmin - kSkipMargin * (fabsf(tmin) + scale);
 }
 
 // Expands one node row: pushes the children the ray enters before t, so
 // that they pop in ascending (t_near, slot) order when `ordered`, in slot
 // order otherwise. Pushes past `depth` are dropped; returns how many were.
+// With kKeys each pushed child's skip_key goes to `keys` at its stack slot.
+template <bool kKeys = false>
 __device__ __forceinline__ int expand_node(const float* __restrict__ row,
                                            const Ray& r, float t,
                                            bool ordered, int* stack, int& sp,
-                                           int depth) {
+                                           int depth, float* keys = nullptr) {
   float key[kArity];
   int slot[kArity];
   int total = 0;
@@ -130,7 +162,10 @@ __device__ __forceinline__ int expand_node(const float* __restrict__ row,
   // Farthest first, so the nearest child ends on top of the stack.
   for (int k = total - 1; k >= 0; --k) {
     int pos = sp + (total - 1 - k);
-    if (pos < depth) stack[pos] = __float_as_int(row[6 * kArity + slot[k]]);
+    if (pos < depth) {
+      stack[pos] = __float_as_int(row[6 * kArity + slot[k]]);
+      if constexpr (kKeys) keys[pos] = skip_key(row, slot[k], r, key[k]);
+    }
   }
   int dropped = max(sp + total - depth, 0);
   sp = min(sp + total, depth);
@@ -296,23 +331,48 @@ struct ClusterLeaf {
   }
 };
 
+// Pop counters of one ray's walk (the kStats instantiations; the TPU
+// kernels' with_stats counts the pops of a packet's shared stack, these
+// count one ray's): node pops, leaf pops run (MT leaves or clusters) and,
+// with kSkip, leaf pops skipped. The multi-pop schedule counts every node
+// it pops (all are expanded, even those its stale t lets through) and
+// every leaf it intersects.
+struct Pops {
+  int node = 0, leaf = 0, skip = 0;
+};
+
 // Walks the tree from the root: closest hit within (0, t) in near-first
 // order, or (kAnyHit) until the first leaf that reports a hit. On a miss t
-// and the leaf's records keep the values they came in with.
-template <bool kAnyHit, class Leaf>
+// and the leaf's records keep the values they came in with. kStats counts
+// the pops into *pops. kSkip (closest walks, pop_skip of the TPU cluster
+// kernel) keeps each pushed entry's skip_key on a parallel key stack and
+// skips a leaf pop whose key is not below the current t: no triangle
+// inside its box can be closer.
+template <bool kAnyHit, class Leaf, bool kStats = false, bool kSkip = false>
 __device__ __forceinline__ void walk(const float* __restrict__ rows,
                                      const Ray& r, int depth, float& t,
-                                     Leaf& leaf) {
+                                     Leaf& leaf, Pops* pops = nullptr) {
+  static_assert(!(kSkip && kAnyHit), "pop_skip orders by t_near: closest only");
   int stack[kMaxStack];
+  float keys[kSkip ? kMaxStack : 1];
   int sp = 1;
   stack[0] = 0;  // root node row
+  if constexpr (kSkip) keys[0] = -__int_as_float(0x7f800000);
   while (sp > 0) {
     int entry = stack[--sp];
     if (entry >= 0) {
-      expand_node(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack, sp,
-                  depth);
-    } else if (leaf(-(entry + 1), r, t) && kAnyHit) {
-      return;
+      if constexpr (kStats) ++pops->node;
+      expand_node<kSkip>(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack,
+                         sp, depth, keys);
+    } else {
+      if constexpr (kSkip) {
+        if (keys[sp] >= t) {
+          if constexpr (kStats) ++pops->skip;
+          continue;
+        }
+      }
+      if constexpr (kStats) ++pops->leaf;
+      if (leaf(-(entry + 1), r, t) && kAnyHit) return;
     }
   }
 }
@@ -341,11 +401,12 @@ __device__ __forceinline__ void prefetch_entry(const float* __restrict__ rows,
 // their rows, then processes them in turn, so that the W dependent row
 // reads overlap. Each ray's own visit order is `walk`'s, so its results are
 // too, bit for bit. Slots with on[w] false never start.
-template <int W, bool kAnyHit, class Leaf>
+template <int W, bool kAnyHit, class Leaf, bool kStats = false>
 __device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
                                          const Ray (&r)[W], const bool (&on)[W],
                                          int depth, float (&t)[W],
-                                         Leaf (&leaf)[W]) {
+                                         Leaf (&leaf)[W],
+                                         Pops* pops = nullptr) {
   int stack[W][kMaxStack];
   int sp[W];
 #pragma unroll
@@ -371,10 +432,12 @@ __device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
       int e = entry[w];
       if (e == kInvalid) continue;
       if (e >= 0) {
+        if constexpr (kStats) ++pops[w].node;
         expand_node(rows + (size_t)e * kRow, r[w], t[w], !kAnyHit, stack[w],
                     sp[w], depth);
-      } else if (leaf[w](-(e + 1), r[w], t[w]) && kAnyHit) {
-        sp[w] = 0;
+      } else {
+        if constexpr (kStats) ++pops[w].leaf;
+        if (leaf[w](-(e + 1), r[w], t[w]) && kAnyHit) sp[w] = 0;
       }
     }
   }
@@ -388,10 +451,10 @@ __device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
 // another one may win. `depth` is the caller's stack bound times Q. Returns
 // the number of pushes dropped at the top of the stack (the overflow latch:
 // nonzero means hits may have been lost).
-template <int Q, bool kAnyHit, class Leaf>
+template <int Q, bool kAnyHit, class Leaf, bool kStats = false>
 __device__ __forceinline__ int walk_multi(const float* __restrict__ rows,
                                           const Ray& r, int depth, float& t,
-                                          Leaf& leaf) {
+                                          Leaf& leaf, Pops* pops = nullptr) {
   int stack[kMaxStack];
   int sp = 1, dropped = 0;
   stack[0] = 0;  // root node row
@@ -409,14 +472,18 @@ __device__ __forceinline__ int walk_multi(const float* __restrict__ rows,
     const float t_entry = t;
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
-      if (q < n && entry[q] >= 0)
+      if (q < n && entry[q] >= 0) {
+        if constexpr (kStats) ++pops->node;
         dropped += expand_node(rows + (size_t)entry[q] * kRow, r, t_entry,
                                !kAnyHit, stack, sp, depth);
+      }
     }
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
-      if (q < n && entry[q] < 0 && leaf(-(entry[q] + 1), r, t) && kAnyHit)
-        return dropped;
+      if (q < n && entry[q] < 0) {
+        if constexpr (kStats) ++pops->leaf;
+        if (leaf(-(entry[q] + 1), r, t) && kAnyHit) return dropped;
+      }
     }
   }
   return dropped;

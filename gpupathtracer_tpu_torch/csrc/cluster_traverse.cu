@@ -26,6 +26,15 @@
 // This first version reads the block from global memory in every thread;
 // staging a block in shared memory per warp, spreading its slots over the
 // warp's lanes, or the dot products on tensor cores, is later work.
+//
+// Both kernels have kStats instantiations, launched when the caller passes
+// a stats array: the TPU kernel's with_stats counters, per ray ([n, 3]: node
+// pops, cluster pops run, cluster pops skipped). Closest hits also take
+// pop_skip (kSkip; bvh_walk.cuh walk: a parallel stack of each pushed
+// entry's t_near, and a cluster pop whose key is beyond the ray's t by more
+// than a margin is skipped). The TPU kernel keys on the packet's nearest
+// entry and skips against its farthest ray's t; per ray the key and t are
+// the ray's own. With kStats and kSkip false both compile away.
 
 #include "bvh_walk.cuh"
 
@@ -33,6 +42,18 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// Ray i's pop counts to stats[3 * i ...] (kStats).
+template <bool kStats>
+__device__ __forceinline__ void store_pops(int* __restrict__ stats, int i,
+                                           const bvh::Pops& pops) {
+  if constexpr (kStats) {
+    stats[3 * i] = pops.node;
+    stats[3 * i + 1] = pops.leaf;
+    stats[3 * i + 2] = pops.skip;
+  }
+}
+
+template <bool kStats, bool kSkip>
 __global__ void __launch_bounds__(kThreads)
 trace_cluster_closest_kernel(const float* __restrict__ rows,
                              const float* __restrict__ cl,
@@ -44,14 +65,17 @@ trace_cluster_closest_kernel(const float* __restrict__ rows,
                              int depth, float* __restrict__ t_out,
                              int* __restrict__ prim_out,
                              float* __restrict__ u_out,
-                             float* __restrict__ v_out) {
+                             float* __restrict__ v_out,
+                             int* __restrict__ stats) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i], u = 0.0f, v = 0.0f;
   bvh::ClusterLeaf<false> leaf(cl, tc);
+  bvh::Pops pops;
   if (active[i]) {
     bvh::Ray r = bvh::load_ray(o, d, i);
-    bvh::walk<false>(rows, r, depth, t, leaf);
+    bvh::walk<false, bvh::ClusterLeaf<false>, kStats, kSkip>(rows, r, depth, t,
+                                                             leaf, &pops);
     if (leaf.win >= 0)
       bvh::cluster_uv(leaf.block(leaf.win / tc), tc, leaf.win % tc, r, t, u,
                       v);
@@ -60,8 +84,10 @@ trace_cluster_closest_kernel(const float* __restrict__ rows,
   prim_out[i] = leaf.win >= 0 ? refs[leaf.win] : -1;
   u_out[i] = u;
   v_out[i] = v;
+  store_pops<kStats>(stats, i, pops);
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_cluster_anyhit_kernel(const float* __restrict__ rows,
                             const float* __restrict__ cl, int tc,
@@ -69,42 +95,58 @@ trace_cluster_anyhit_kernel(const float* __restrict__ rows,
                             const float* __restrict__ d,
                             const float* __restrict__ t_max,
                             const uint8_t* __restrict__ active, int n,
-                            int depth, uint8_t* __restrict__ occluded) {
+                            int depth, uint8_t* __restrict__ occluded,
+                            int* __restrict__ stats) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
   bvh::ClusterLeaf<true> leaf(cl, tc);
-  if (active[i]) bvh::walk<true>(rows, bvh::load_ray(o, d, i), depth, t, leaf);
+  bvh::Pops pops;
+  if (active[i])
+    bvh::walk<true, bvh::ClusterLeaf<true>, kStats>(
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
   occluded[i] = leaf.win >= 0 ? 1 : 0;
+  store_pops<kStats>(stats, i, pops);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Each returns cudaGetLastError() after its
-// launch (0 = launched); the caller checks it. n must be > 0.
+// launch (0 = launched); the caller checks it. n must be > 0. `stats` null
+// launches the kernel without counters, else its kStats instantiation,
+// which also writes the per-ray pop counts there.
 extern "C" {
 
 int gpt_cluster_max_stack() { return bvh::kMaxStack; }
 
+// pop_skip != 0 takes the skipping schedule.
 int gpt_trace_cluster_closest(const float* rows, const float* cl,
                               const int* refs, int tc, const float* o,
                               const float* d, const float* t_max,
                               const uint8_t* active, int n, int depth,
                               float* t, int* prim, float* u, float* v,
-                              void* stream) {
+                              int pop_skip, int* stats, void* stream) {
+  auto kernel =
+      pop_skip ? (stats ? trace_cluster_closest_kernel<true, true>
+                        : trace_cluster_closest_kernel<false, true>)
+               : (stats ? trace_cluster_closest_kernel<true, false>
+                        : trace_cluster_closest_kernel<false, false>);
   int blocks = (n + kThreads - 1) / kThreads;
-  trace_cluster_closest_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, cl, refs, tc, o, d, t_max, active, n, depth, t, prim, u, v);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      rows, cl, refs, tc, o, d, t_max, active, n, depth, t, prim, u, v, stats);
   return (int)cudaGetLastError();
 }
 
 int gpt_trace_cluster_anyhit(const float* rows, const float* cl, int tc,
                              const float* o, const float* d,
                              const float* t_max, const uint8_t* active, int n,
-                             int depth, uint8_t* occluded, void* stream) {
+                             int depth, uint8_t* occluded, int* stats,
+                             void* stream) {
+  auto kernel = stats ? trace_cluster_anyhit_kernel<true>
+                      : trace_cluster_anyhit_kernel<false>;
   int blocks = (n + kThreads - 1) / kThreads;
-  trace_cluster_anyhit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, cl, tc, o, d, t_max, active, n, depth, occluded);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      rows, cl, tc, o, d, t_max, active, n, depth, occluded, stats);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,17 @@
 // different subtrees. This first version does nothing about these (no
 // persistent threads or path pool, no ray sorting, no shared-memory
 // tables).
+//
+// With kStats (the TPU kernel's with_stats, :364-368, 566-570, 1295-1297)
+// each packet also gets its counters [9]: bounce rays, live shadow rays,
+// closest node and leaf pops, any-hit node and leaf pops, closest and
+// any-hit pops of walks at bounce >= tail_start, and the bounce-loop
+// iterations. The TPU kernel counts its packet's shared-stack pops and its
+// loop's iterations; here each lane walks and loops alone, so a packet's
+// counters are sums over its lanes of each lane's own pops (a tail pop is
+// one of a lane at bounce >= tail_start; the TPU kernel takes the packet's
+// least live bounce), and slot 8 is the largest lane's iteration count.
+// The stats variants are instantiated with NEE only (every bench row).
 
 #include "bvh_walk.cuh"
 
@@ -74,6 +85,8 @@ struct MegaArgs {
   int n, packet, depth, max_bounces, n_mats, n_lights, spp;
   float* contrib;            // [n, 3]
   unsigned long long* rays;  // bounce rays + live shadow rays
+  int* stats;                // [n / packet, 9] (kStats), zeroed
+  int tail_start;            // kStats: first bounce whose pops are the tail's
 };
 
 // The lowbias32 uniform of megakernel.py:267-286.
@@ -209,14 +222,17 @@ __device__ __forceinline__ void bsdf_eval(const float* alb, float metal,
 
 // The closest walk with hit-time capture: t and prim (-1 on a miss), the
 // unnormalized geometric normal, the material id and the normal sign.
-template <bool kCluster>
+// kStats counts the walk's pops into *pops.
+template <bool kCluster, bool kStats = false>
 __device__ __forceinline__ int closest_capture(const MegaArgs& g,
                                                const float* o, const float* d,
                                                float& t, float* gn, int& mid,
-                                               float& nsign) {
+                                               float& nsign,
+                                               bvh::Pops* pops = nullptr) {
   if constexpr (kCluster) {
     bvh::ClusterLeaf<false> leaf(g.cl, g.tc);
-    bvh::walk<false>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    bvh::walk<false, bvh::ClusterLeaf<false>, kStats>(
+        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops);
     float sm = 0.0f;
     gn[0] = 1.0f;
     gn[1] = gn[2] = 0.0f;
@@ -231,7 +247,8 @@ __device__ __forceinline__ int closest_capture(const MegaArgs& g,
     return leaf.win;
   } else {
     bvh::MtLeaf<false> leaf(g.rows);
-    bvh::walk<false>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    bvh::walk<false, bvh::MtLeaf<false>, kStats>(
+        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops);
     float e1[3] = {1.0f, 0.0f, 0.0f}, e2[3] = {0.0f, 1.0f, 0.0f};
     mid = 0;
     nsign = 1.0f;
@@ -249,24 +266,44 @@ __device__ __forceinline__ int closest_capture(const MegaArgs& g,
 }
 
 // The any-hit walk: true iff something lies within (0, t) along the ray.
-template <bool kCluster>
+template <bool kCluster, bool kStats = false>
 __device__ __forceinline__ bool occluded(const MegaArgs& g, const float* o,
-                                         const float* d, float t) {
+                                         const float* d, float t,
+                                         bvh::Pops* pops = nullptr) {
   if constexpr (kCluster) {
     bvh::ClusterLeaf<true> leaf(g.cl, g.tc);
-    bvh::walk<true>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    bvh::walk<true, bvh::ClusterLeaf<true>, kStats>(
+        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops);
     return leaf.win >= 0;
   } else {
     bvh::MtLeaf<true> leaf(g.rows);
-    bvh::walk<true>(g.rows, bvh::make_ray(o, d), g.depth, t, leaf);
+    bvh::walk<true, bvh::MtLeaf<true>, kStats>(g.rows, bvh::make_ray(o, d),
+                                               g.depth, t, leaf, pops);
     return leaf.prim >= 0;
   }
 }
 
-template <int kModel, bool kNee, bool kRegen, bool kCluster>
+// A lane's counters (kStats), in the layout of a packet's stats row.
+struct LaneStats {
+  int ctr[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+
+  // Adds one walk's pops: slots 2-3 (closest) or 4-5 (any-hit), and the
+  // tail slot 6 or 7 when the walk is at bounce >= tail_start.
+  __device__ __forceinline__ void add(const bvh::Pops& p, bool any_hit,
+                                      bool tail) {
+    int k = any_hit ? 4 : 2;
+    ctr[k] += p.node;
+    ctr[k + 1] += p.leaf;
+    if (tail) ctr[any_hit ? 7 : 6] += p.node + p.leaf;
+  }
+};
+
+template <int kModel, bool kNee, bool kRegen, bool kCluster,
+          bool kStats = false>
 __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned int n_rays = 0;
+  LaneStats ls;
   if (i < g.n) {
     const float* P = g.params;
     const uint32_t seed = (uint32_t)g.seeds[i / g.packet];
@@ -327,8 +364,14 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
       // Closest walk with hit-time capture.
       float t = 1e20f, nsign, gn[3];
       int mid;
+      bvh::Pops pops_c;
       const bool miss =
-          closest_capture<kCluster>(g, o, d, t, gn, mid, nsign) < 0;
+          closest_capture<kCluster, kStats>(g, o, d, t, gn, mid, nsign,
+                                            &pops_c) < 0;
+      if constexpr (kStats) {
+        ++ls.ctr[0];
+        ls.add(pops_c, false, b >= g.tail_start);
+      }
       float n[3], pos[3], view[3];
       normalize3(gn, n);
       for (int a = 0; a < 3; ++a) {
@@ -422,7 +465,14 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
           ++n_rays;
           float so[3];
           for (int a = 0; a < 3; ++a) so[a] = pos[a] + 0.001f * n[a];
-          if (!occluded<kCluster>(g, so, ldir, shadow_tmax))
+          bvh::Pops pops_a;
+          bool occ = occluded<kCluster, kStats>(g, so, ldir, shadow_tmax,
+                                                &pops_a);
+          if constexpr (kStats) {
+            ++ls.ctr[1];
+            ls.add(pops_a, true, b >= g.tail_start);
+          }
+          if (!occ)
             for (int a = 0; a < 3; ++a) ct[a] = ct[a] + light[a];
         }
       }
@@ -495,6 +545,13 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
       b = b + 1;
     }
     for (int a = 0; a < 3; ++a) g.contrib[3 * i + a] = ct[a];
+    if constexpr (kStats) {
+      // A lane's loop iterations are its bounce rays (slot 0).
+      int* row = g.stats + (size_t)(i / g.packet) * 9;
+      for (int k = 0; k < 8; ++k)
+        if (ls.ctr[k]) atomicAdd(row + k, ls.ctr[k]);
+      atomicMax(row + 8, ls.ctr[0]);
+    }
   }
 
   // Ray count: a warp sum, a block sum, one 64-bit atomic per block.
@@ -510,10 +567,11 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
   }
 }
 
-template <int kModel, bool kNee, bool kRegen, bool kCluster>
+template <int kModel, bool kNee, bool kRegen, bool kCluster,
+          bool kStats = false>
 int launch(const MegaArgs& args, cudaStream_t stream) {
   int blocks = (args.n + kThreads - 1) / kThreads;
-  mega_kernel<kModel, kNee, kRegen, kCluster>
+  mega_kernel<kModel, kNee, kRegen, kCluster, kStats>
       <<<blocks, kThreads, 0, stream>>>(args);
   return (int)cudaGetLastError();
 }
@@ -521,6 +579,11 @@ int launch(const MegaArgs& args, cudaStream_t stream) {
 template <int kModel, bool kCluster>
 int launch_leaf(bool nee, bool regen, const MegaArgs& args,
                 cudaStream_t stream) {
+  if (args.stats) {
+    if (!nee) return -1;  // no stats variant without NEE
+    return regen ? launch<kModel, true, true, kCluster, true>(args, stream)
+                 : launch<kModel, true, false, kCluster, true>(args, stream);
+  }
   if (nee) {
     return regen ? launch<kModel, true, true, kCluster>(args, stream)
                  : launch<kModel, true, false, kCluster>(args, stream);
@@ -539,9 +602,11 @@ int launch_model(bool nee, bool regen, bool cluster, const MegaArgs& args,
 }  // namespace
 
 // Plain C interface for ctypes. Returns cudaGetLastError() after the launch
-// (0 = launched; -1 = an unknown model); the caller checks it. n must be
-// > 0, a multiple of packet; *rays must be 0 (the kernel adds to it). With
-// cluster, rows is the cluster top tree and cl its [Ncl * 8, 3 * tc] blocks.
+// (0 = launched; -1 = an unknown model, or stats without NEE); the caller
+// checks it. n must be > 0, a multiple of packet; *rays must be 0 (the
+// kernel adds to it). With cluster, rows is the cluster top tree and cl its
+// [Ncl * 8, 3 * tc] blocks. stats, if not null, is the zeroed [n / packet,
+// 9] int32 counters (kStats above).
 extern "C" {
 
 int gpt_mega_max_stack() { return bvh::kMaxStack; }
@@ -553,11 +618,11 @@ int gpt_trace_mega(int model, int nee, int regen, int cluster,
                    const uint8_t* active, const int* seeds, int n, int packet,
                    int depth, int max_bounces, int n_mats, int n_lights,
                    int spp, float* contrib, unsigned long long* rays,
-                   void* stream) {
+                   int* stats, int tail_start, void* stream) {
   MegaArgs args{rows,    cl,          tc,     mats,     lights,   cdf,
                 params,  in0,         in1,    active,   seeds,    n,
                 packet,  depth,       max_bounces, n_mats, n_lights, spp,
-                contrib, rays};
+                contrib, rays,        stats,  tail_start};
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
     case kTrowbridgeReitz:

@@ -1,0 +1,409 @@
+// The roofline probes on Hopper: what the card does with no memory traffic,
+// and what each phase of a tree walk costs without the stack machinery.
+//
+// Replaces the TPU's Pallas probes of tools/roofline.py:
+//   :129 vpu_kernel            ilp chains of max((a * s + 0.25) * 0.9998, 0.125)
+//   :177 mxu_kernel            acc += dot(a + acc[:, :1] * 1e-30, b)
+//   :253 node_slab_kernel      the 8-child slab test of a node pop
+//   :289 leaf_mt_kernel        the Moller-Trumbore test of a 10-triangle leaf
+//   :332 cluster_dense_kernel  a dense cluster pop and its winner's u, v
+// with the same arithmetic, term for term, in the rounding XLA gives the JAX
+// probes on the CPU (ops/roofline.py holds the plain versions; both agree
+// bit for bit, but for the bf16 tensor-core sums).
+//
+// A TPU probe is one [64, 128] or [16, 128] tile on one core: 2,048-8,192
+// lanes, about 1% of what fills an H100 (132 SMs). Every probe here does
+// the same tile's work `copies` times over, one block per 128 lanes of a
+// copy, and writes [copies, *tile]; the rate counts every copy.
+//
+// What bounds each: the VPU, node, leaf and cluster probes are FP32
+// instruction streams on registers and on 32-48 KB of rows or blocks that
+// L1 holds after the first pass (it stands in for the TPU's VMEM slice), so
+// the card's FP32 issue rate bounds them. The f32 product runs fused
+// multiply-adds on the CUDA cores (the H100's tensor cores have no full
+// FP32 mode), 64 x 64 output tiles of 4 x 4 per thread staged through
+// shared memory; the bf16 product runs mma.sync m16n8k16 on the tensor
+// cores, one 16-row band of a 64 x 64 tile per warp, its operands read from
+// global memory (L1 / L2). Both are simple first versions: no wgmma, no TMA,
+// no pipelining. The feedback term acc[:, :1] means every iteration of a
+// row band needs column 0 of the last one, which another block may own:
+// each block (f32) or warp (bf16) computes its rows' column 0 itself as
+// well, in the same order, so the copies agree bit for bit.
+
+#include <cuda_bf16.h>
+
+#include "bvh_walk.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kLanes = 128;
+constexpr int kRows = 64;      // rows the node and leaf probes rotate over
+constexpr int kLeafSize = 10;  // triangles of the leaf probe's row
+
+// --- 1. VPU ------------------------------------------------------------------
+
+// One thread per element of x [rows, 128] in each copy. XLA contracts the
+// scale row and a * scale + 0.25 into fused multiply-adds; a * 0.9998 stays
+// a multiply.
+template <int kIlp>
+__global__ void __launch_bounds__(kThreads)
+vpu_kernel(const float* __restrict__ x, int per_copy, int total, int iters,
+           float* __restrict__ out) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  int e = g % per_copy;
+  float xe = x[e];
+  float scale = __fmaf_rn(x[e % kLanes], 1e-6f, 0.9999f);
+  float acc[kIlp];
+#pragma unroll
+  for (int k = 0; k < kIlp; ++k) acc[k] = xe * (float)(1.0 + 1e-4 * k);
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k)
+      acc[k] = bvh::nan_max(__fmaf_rn(acc[k], scale, 0.25f) * 0.9998f, 0.125f);
+  }
+  float r = acc[0];
+#pragma unroll
+  for (int k = 1; k < kIlp; ++k) r = r + acc[k];
+  out[g] = r;
+}
+
+// --- 2. matrix products ------------------------------------------------------
+
+constexpr int kTile = 64;  // output tile of a block, both products
+constexpr int kKt = 16;    // depth of an f32 k step
+
+// f32: 256 threads, each 4 x 4 outputs of the 64 x 64 tile, plus (threads
+// 0-63) column 0 of the tile's row t. Per iteration and output, the sum
+// over k is a chain of fused multiply-adds in k order from +0, then added
+// to acc.
+__global__ void __launch_bounds__(256)
+mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               int m, int k, int n, int iters, float* __restrict__ out) {
+  __shared__ float as[kTile][kKt + 1];
+  __shared__ float bs[kKt][kTile];
+  __shared__ float b0[kKt];
+  __shared__ float fb[kTile];
+  const int tiles_m = (m + kTile - 1) / kTile, tiles_n = (n + kTile - 1) / kTile;
+  const int per_copy = tiles_m * tiles_n;
+  const int copy = blockIdx.x / per_copy, tile = blockIdx.x % per_copy;
+  const int row0 = (tile / tiles_n) * kTile, col0 = (tile % tiles_n) * kTile;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {}, acc0 = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    if (tid < kTile) fb[tid] = acc0 * 1e-30f;
+    float s[4][4] = {}, s0 = 0.0f;
+    for (int k0 = 0; k0 < k; k0 += kKt) {
+      const int kv = min(kKt, k - k0);
+      __syncthreads();  // fb written; the last step's tiles consumed
+      for (int e = tid; e < kTile * kKt; e += 256) {
+        int r = e / kKt, c = e % kKt, gr = row0 + r;
+        as[r][c] = (gr < m && c < kv) ? a[(size_t)gr * k + k0 + c] + fb[r]
+                                      : 0.0f;
+      }
+      for (int e = tid; e < kKt * kTile; e += 256) {
+        int r = e / kTile, c = e % kTile, gc = col0 + c;
+        bs[r][c] = (gc < n && r < kv) ? b[(size_t)(k0 + r) * n + gc] : 0.0f;
+      }
+      if (tid < kKt) b0[tid] = tid < kv ? b[(size_t)(k0 + tid) * n] : 0.0f;
+      __syncthreads();
+      for (int kk = 0; kk < kv; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float av = as[ty * 4 + i][kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[i][j] = __fmaf_rn(av, bs[kk][tx * 4 + j], s[i][j]);
+        }
+        if (tid < kTile) s0 = __fmaf_rn(as[tid][kk], b0[kk], s0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] + s[i][j];
+    acc0 = acc0 + s0;
+    __syncthreads();  // every thread has read fb
+  }
+  float* o = out + (size_t)copy * m * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int gr = row0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int gc = col0 + tx * 4 + j;
+      if (gr < m && gc < n) o[(size_t)gr * n + gc] = acc[i][j];
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// a[r, c] + f rounded to bf16, as JAX adds two bf16 arrays.
+__device__ __forceinline__ __nv_bfloat16 fed(const __nv_bfloat16* a, int k,
+                                             int r, int c, __nv_bfloat16 f) {
+  return __float2bfloat16_rn(__bfloat162float(a[(size_t)r * k + c]) +
+                             __bfloat162float(f));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int kNt = kTile / 8;  // n tiles of 8 per warp
+
+// bf16: 4 warps, warp w the rows 16w..16w+15 of the 64 x 64 tile in 8
+// n-tiles of m16n8k16, plus a ninth for columns 0-7 of its rows (the
+// feedback). Fragment layouts are PTX's: lane = 4 * group + t holds A rows
+// group and group + 8, columns 2t, 2t + 1 (+ 8); B rows 2t, 2t + 1 (+ 8) of
+// column group; C rows group and group + 8, columns 2t and 2t + 1.
+// Requires m % 64 == 0, k % 16 == 0, n % 8 == 0.
+__global__ void __launch_bounds__(kThreads)
+mxu_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                const __nv_bfloat16* __restrict__ b, int m, int k, int n,
+                int iters, float* __restrict__ out) {
+  const int tiles_m = m / kTile, tiles_n = (n + kTile - 1) / kTile;
+  const int per_copy = tiles_m * tiles_n;
+  const int copy = blockIdx.x / per_copy, tile = blockIdx.x % per_copy;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, t = lane % 4;
+  const int r_lo = (tile / tiles_n) * kTile + warp * 16 + grp, r_hi = r_lo + 8;
+  const int col0 = (tile % tiles_n) * kTile;
+  float acc[kNt + 1][4] = {};
+  for (int it = 0; it < iters; ++it) {
+    // acc[r, 0] of rows r_lo, r_hi sits in lane 4 * grp of the ninth tile.
+    float c_lo = __shfl_sync(0xFFFFFFFFu, acc[kNt][0], lane & ~3);
+    float c_hi = __shfl_sync(0xFFFFFFFFu, acc[kNt][2], lane & ~3);
+    __nv_bfloat16 f_lo = __float2bfloat16_rn(c_lo * 1e-30f);
+    __nv_bfloat16 f_hi = __float2bfloat16_rn(c_hi * 1e-30f);
+    float s[kNt + 1][4] = {};
+    for (int k0 = 0; k0 < k; k0 += 16) {
+      const int c = k0 + 2 * t;
+      uint32_t af[4] = {
+          pack_bf16(fed(a, k, r_lo, c, f_lo), fed(a, k, r_lo, c + 1, f_lo)),
+          pack_bf16(fed(a, k, r_hi, c, f_hi), fed(a, k, r_hi, c + 1, f_hi)),
+          pack_bf16(fed(a, k, r_lo, c + 8, f_lo),
+                    fed(a, k, r_lo, c + 9, f_lo)),
+          pack_bf16(fed(a, k, r_hi, c + 8, f_hi),
+                    fed(a, k, r_hi, c + 9, f_hi))};
+#pragma unroll
+      for (int j = 0; j <= kNt; ++j) {
+        const int nc = (j < kNt ? col0 + 8 * j : 0) + grp;
+        if (j < kNt && col0 + 8 * j >= n) continue;
+        uint32_t b0 = pack_bf16(b[(size_t)c * n + nc], b[(size_t)(c + 1) * n + nc]);
+        uint32_t b1 = pack_bf16(b[(size_t)(c + 8) * n + nc],
+                                b[(size_t)(c + 9) * n + nc]);
+        mma_bf16(s[j], af, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j <= kNt; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = acc[j][q] + s[j][q];
+  }
+  float* o = out + (size_t)copy * m * n;
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) {
+    int c = col0 + 8 * j + 2 * t;
+    if (c >= n) continue;
+    o[(size_t)r_lo * n + c] = acc[j][0];
+    o[(size_t)r_lo * n + c + 1] = acc[j][1];
+    o[(size_t)r_hi * n + c] = acc[j][2];
+    o[(size_t)r_hi * n + c + 1] = acc[j][3];
+  }
+}
+
+// --- 4. traversal-phase floors -------------------------------------------------
+
+// Lane l of a [3, G, 128] ray tile: a ray with the given inverse direction
+// (the JAX probes take inv = 1 / d as an input; oi = o * inv as they do).
+__device__ __forceinline__ bvh::Ray tile_ray(const float* __restrict__ o,
+                                             const float* __restrict__ d,
+                                             const float* __restrict__ inv,
+                                             int lanes, int l) {
+  bvh::Ray r;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = o[a * lanes + l];
+    r.d[a] = d ? d[a * lanes + l] : 0.0f;
+    r.inv[a] = inv ? inv[a * lanes + l] : 0.0f;
+    r.oi[a] = r.o[a] * r.inv[a];
+  }
+  return r;
+}
+
+// The node pop's slab body (bvh_walk.cuh slab, the walk's own) against row
+// i % 64; acc sums the entry distances of the entered children.
+__global__ void __launch_bounds__(kThreads)
+node_slab_kernel(const float* __restrict__ rows, const float* __restrict__ o,
+                 const float* __restrict__ inv, int lanes, int total,
+                 int iters, float* __restrict__ out) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const bvh::Ray r = tile_ray(o, nullptr, inv, lanes, g % lanes);
+  float acc = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const float* row = rows + (i % kRows) * bvh::kRow;
+    const float t_cur = acc + 1e20f;
+#pragma unroll
+    for (int j = 0; j < bvh::kArity; ++j) {
+      float tmin;
+      bool hit = bvh::slab(row, j, r, t_cur, tmin);
+      acc = acc + (hit ? tmin : 0.0f);
+    }
+  }
+  out[g] = acc;
+}
+
+// The leaf pop's Moller-Trumbore body over the 10 triangles of row i % 64:
+// bvh_walk.cuh intersect_leaf's instructions, with the determinant rounded
+// as XLA rounds the JAX probe's, fma(e1z, pz, fma(e1x, px, e1y * py)).
+__global__ void __launch_bounds__(kThreads)
+leaf_mt_kernel(const float* __restrict__ rows, const float* __restrict__ o,
+               const float* __restrict__ d, int lanes, int total, int iters,
+               float* __restrict__ out) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const bvh::Ray r = tile_ray(o, d, nullptr, lanes, g % lanes);
+  float t_c = 1e20f;
+  for (int i = 0; i < iters; ++i) {
+    const float* row = rows + (i % kRows) * bvh::kRow;
+#pragma unroll
+    for (int k = 0; k < kLeafSize; ++k) {
+      const float* s = row + k * 12;
+      float p0x = s[0], p0y = s[1], p0z = s[2];
+      float e1x = s[3], e1y = s[4], e1z = s[5];
+      float e2x = s[6], e2y = s[7], e2z = s[8];
+      float px = __fmaf_rn(r.d[1], e2z, -(r.d[2] * e2y));
+      float py = __fmaf_rn(r.d[2], e2x, -(r.d[0] * e2z));
+      float pz = __fmaf_rn(r.d[0], e2y, -(r.d[1] * e2x));
+      float det = __fmaf_rn(e1z, pz, __fmaf_rn(e1x, px, e1y * py));
+      float idet = 1.0f / det;
+      float tx = r.o[0] - p0x;
+      float ty = r.o[1] - p0y;
+      float tz = r.o[2] - p0z;
+      float uu = __fmaf_rn(tz, pz, __fmaf_rn(tx, px, ty * py)) * idet;
+      float qx = __fmaf_rn(ty, e1z, -(tz * e1y));
+      float qy = __fmaf_rn(tz, e1x, -(tx * e1z));
+      float qz = __fmaf_rn(tx, e1y, -(ty * e1x));
+      float vv = __fmaf_rn(r.d[2], qz, __fmaf_rn(r.d[0], qx, r.d[1] * qy)) *
+                 idet;
+      float tt = __fmaf_rn(e2z, qz, __fmaf_rn(e2x, qx, e2y * qy)) * idet;
+      if (uu > 0.0f && uu < 1.0f && vv > 0.0f && uu + vv < 1.0f &&
+          tt > 0.0f && tt < t_c)
+        t_c = tt;
+    }
+  }
+  out[g] = t_c;
+}
+
+// The cluster pop's body (bvh_walk.cuh cluster_min and cluster_uv, the
+// walk's own) on the two blocks of blk [16, 3 * tc] in turn. The JAX
+// probe's one-hot capture matmul is exact: it gathers the winner's
+// coefficients, which cluster_uv reads directly.
+__global__ void __launch_bounds__(kThreads)
+cluster_kernel(const float* __restrict__ blk, const float* __restrict__ o,
+               const float* __restrict__ d, int tc, int lanes, int total,
+               int iters, int any_hit, float* __restrict__ out) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const bvh::Ray r = tile_ray(o, d, nullptr, lanes, g % lanes);
+  float t_state = 1e20f;
+  for (int i = 0; i < iters; ++i) {
+    const float* block = blk + (size_t)(i % 2) * 8 * 3 * tc;
+    int slot;
+    float tmin = bvh::cluster_min(block, tc, r, false, 0.0f, slot);
+    bool improved = tmin < t_state;
+    if (any_hit) {
+      t_state = improved ? tmin * 0.999f : t_state;
+    } else {
+      float u, v;
+      bvh::cluster_uv(block, tc, slot, r, tmin, u, v);
+      // tmin * 0.999 + u * 1e-9 + v * 1e-9 as XLA contracts it.
+      float res = __fmaf_rn(v, 1e-9f, __fmaf_rn(tmin, 0.999f, u * 1e-9f));
+      t_state = improved ? res : t_state;
+    }
+  }
+  out[g] = t_state;
+}
+
+int blocks_for(long long total) {
+  return (int)((total + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each returns cudaGetLastError() after its
+// launch (0 = launched, -1 = arguments no kernel takes); the caller checks
+// it. Ray tiles are [3, g, 128], outputs [copies, *tile].
+extern "C" {
+
+int gpt_roofline_vpu(const float* x, int rows, int iters, int ilp, int copies,
+                     float* out, void* stream) {
+  int per = rows * kLanes, total = per * copies;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ilp == 1)
+    vpu_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(x, per, total, iters,
+                                                         out);
+  else if (ilp == 8)
+    vpu_kernel<8><<<blocks_for(total), kThreads, 0, s>>>(x, per, total, iters,
+                                                         out);
+  else
+    return -1;
+  return (int)cudaGetLastError();
+}
+
+int gpt_roofline_mxu(int bf16, const void* a, const void* b, int m, int k,
+                     int n, int iters, int copies, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int tiles = ((m + kTile - 1) / kTile) * ((n + kTile - 1) / kTile);
+  if (bf16) {
+    if (m % kTile || k % 16 || n % 8) return -1;
+    mxu_bf16_kernel<<<tiles * copies, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, m, k, n, iters, out);
+  } else {
+    mxu_f32_kernel<<<tiles * copies, 256, 0, s>>>(
+        (const float*)a, (const float*)b, m, k, n, iters, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int gpt_roofline_node_slab(const float* rows, const float* o,
+                           const float* inv, int g, int iters, int copies,
+                           float* out, void* stream) {
+  int lanes = g * kLanes, total = lanes * copies;
+  node_slab_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, inv, lanes, total, iters, out);
+  return (int)cudaGetLastError();
+}
+
+int gpt_roofline_leaf_mt(const float* rows, const float* o, const float* d,
+                         int g, int iters, int copies, float* out,
+                         void* stream) {
+  int lanes = g * kLanes, total = lanes * copies;
+  leaf_mt_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, lanes, total, iters, out);
+  return (int)cudaGetLastError();
+}
+
+int gpt_roofline_cluster(const float* blk, const float* o, const float* d,
+                         const float* inv, int tc, int g, int iters,
+                         int any_hit, int copies, float* out, void* stream) {
+  (void)inv;  // unused, as in the JAX probe
+  int lanes = g * kLanes, total = lanes * copies;
+  cluster_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+      blk, o, d, tc, lanes, total, iters, any_hit, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

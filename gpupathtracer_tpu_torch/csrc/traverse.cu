@@ -30,6 +30,12 @@
 // what bounds B1, plus W stacks of local memory and the registers of W rays
 // (interleave) or the extra children that pruning against a stale t lets in
 // (multi-pop).
+//
+// Every kernel has a kStats instantiation, launched when the caller passes
+// a stats array: the pop counters of the TPU kernels' with_stats, per ray,
+// [n, 2] node and leaf pops, [n, 3] for the multi-pop schedule, whose third
+// column is the ray's pushes dropped at the top of its stack (the TPU
+// kernel's overflow lane). With kStats false the counters compile away.
 
 #include "bvh_walk.cuh"
 
@@ -37,46 +43,70 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// Ray i's pop counts to stats[cols * i ...] (kStats): node, leaf and, with
+// three columns, the pushes dropped at the top of its stack.
+template <bool kStats>
+__device__ __forceinline__ void store_pops(int* __restrict__ stats, int cols,
+                                           int i, const bvh::Pops& pops,
+                                           int dropped = 0) {
+  if constexpr (kStats) {
+    stats[cols * i] = pops.node;
+    stats[cols * i + 1] = pops.leaf;
+    if (cols == 3) stats[cols * i + 2] = dropped;
+  }
+}
+
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_closest_kernel(const float* __restrict__ rows,
                      const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t_max,
                      const uint8_t* __restrict__ active, int n, int depth,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
-                     float* __restrict__ u_out, float* __restrict__ v_out) {
+                     float* __restrict__ u_out, float* __restrict__ v_out,
+                     int* __restrict__ stats) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
   bvh::MtLeaf<false> leaf(rows);
-  if (active[i]) bvh::walk<false>(rows, bvh::load_ray(o, d, i), depth, t, leaf);
+  bvh::Pops pops;
+  if (active[i])
+    bvh::walk<false, bvh::MtLeaf<false>, kStats>(
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
   t_out[i] = t;
   prim_out[i] = leaf.prim;
   u_out[i] = leaf.u;
   v_out[i] = leaf.v;
+  store_pops<kStats>(stats, 2, i, pops);
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_anyhit_kernel(const float* __restrict__ rows,
                     const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_max,
                     const uint8_t* __restrict__ active, int n, int depth,
-                    uint8_t* __restrict__ occluded) {
+                    uint8_t* __restrict__ occluded, int* __restrict__ stats) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
   bvh::MtLeaf<true> leaf(rows);
-  if (active[i]) bvh::walk<true>(rows, bvh::load_ray(o, d, i), depth, t, leaf);
+  bvh::Pops pops;
+  if (active[i])
+    bvh::walk<true, bvh::MtLeaf<true>, kStats>(
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
   occluded[i] = leaf.prim >= 0 ? 1 : 0;
+  store_pops<kStats>(stats, 2, i, pops);
 }
 
 // Thread j of T = ceil(n / W) carries rays j, T + j, ..., (W - 1) T + j, so
 // that neighbouring threads read neighbouring rays in every slot.
-template <int W, bool kAnyHit>
+template <int W, bool kAnyHit, bool kStats>
 __device__ __forceinline__ void ilv_body(
     const float* __restrict__ rows, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ t_max,
     const uint8_t* __restrict__ active, int n, int depth, int (&ray)[W],
-    float (&t)[W], bvh::MtLeaf<kAnyHit> (&leaf)[W]) {
+    float (&t)[W], bvh::MtLeaf<kAnyHit> (&leaf)[W], bvh::Pops (&pops)[W]) {
   int threads = (n + W - 1) / W;
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   bvh::Ray r[W];
@@ -92,10 +122,11 @@ __device__ __forceinline__ void ilv_body(
     r[w] = bvh::load_ray(o, d, i);
     leaf[w].rows = rows;
   }
-  bvh::walk_ilv<W, kAnyHit>(rows, r, on, depth, t, leaf);
+  bvh::walk_ilv<W, kAnyHit, bvh::MtLeaf<kAnyHit>, kStats>(rows, r, on, depth,
+                                                          t, leaf, pops);
 }
 
-template <int W>
+template <int W, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_closest_ilv_kernel(const float* __restrict__ rows,
                          const float* __restrict__ o,
@@ -103,11 +134,14 @@ trace_closest_ilv_kernel(const float* __restrict__ rows,
                          const float* __restrict__ t_max,
                          const uint8_t* __restrict__ active, int n, int depth,
                          float* __restrict__ t_out, int* __restrict__ prim_out,
-                         float* __restrict__ u_out, float* __restrict__ v_out) {
+                         float* __restrict__ u_out, float* __restrict__ v_out,
+                         int* __restrict__ stats) {
   int ray[W];
   float t[W];
   bvh::MtLeaf<false> leaf[W];
-  ilv_body<W, false>(rows, o, d, t_max, active, n, depth, ray, t, leaf);
+  bvh::Pops pops[W];
+  ilv_body<W, false, kStats>(rows, o, d, t_max, active, n, depth, ray, t, leaf,
+                             pops);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     if (ray[w] < 0) continue;
@@ -115,29 +149,35 @@ trace_closest_ilv_kernel(const float* __restrict__ rows,
     prim_out[ray[w]] = leaf[w].prim;
     u_out[ray[w]] = leaf[w].u;
     v_out[ray[w]] = leaf[w].v;
+    store_pops<kStats>(stats, 2, ray[w], pops[w]);
   }
 }
 
-template <int W>
+template <int W, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_anyhit_ilv_kernel(const float* __restrict__ rows,
                         const float* __restrict__ o,
                         const float* __restrict__ d,
                         const float* __restrict__ t_max,
                         const uint8_t* __restrict__ active, int n, int depth,
-                        uint8_t* __restrict__ occluded) {
+                        uint8_t* __restrict__ occluded,
+                        int* __restrict__ stats) {
   int ray[W];
   float t[W];
   bvh::MtLeaf<true> leaf[W];
-  ilv_body<W, true>(rows, o, d, t_max, active, n, depth, ray, t, leaf);
+  bvh::Pops pops[W];
+  ilv_body<W, true, kStats>(rows, o, d, t_max, active, n, depth, ray, t, leaf,
+                            pops);
 #pragma unroll
-  for (int w = 0; w < W; ++w)
-    if (ray[w] >= 0) occluded[ray[w]] = leaf[w].prim >= 0 ? 1 : 0;
+  for (int w = 0; w < W; ++w) {
+    if (ray[w] < 0) continue;
+    occluded[ray[w]] = leaf[w].prim >= 0 ? 1 : 0;
+    store_pops<kStats>(stats, 2, ray[w], pops[w]);
+  }
 }
 
-// `depth` is the stack bound times Q; `overflow`, if not null, gathers the
-// launch's dropped pushes.
-template <int Q>
+// `depth` is the stack bound times Q.
+template <int Q, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_closest_multi_kernel(const float* __restrict__ rows,
                            const float* __restrict__ o,
@@ -147,23 +187,24 @@ trace_closest_multi_kernel(const float* __restrict__ rows,
                            float* __restrict__ t_out,
                            int* __restrict__ prim_out,
                            float* __restrict__ u_out, float* __restrict__ v_out,
-                           int* __restrict__ overflow) {
+                           int* __restrict__ stats) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
   bvh::MtLeaf<false> leaf(rows);
+  bvh::Pops pops;
   int dropped = 0;
   if (active[i])
-    dropped = bvh::walk_multi<Q, false>(rows, bvh::load_ray(o, d, i), depth, t,
-                                        leaf);
+    dropped = bvh::walk_multi<Q, false, bvh::MtLeaf<false>, kStats>(
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
   t_out[i] = t;
   prim_out[i] = leaf.prim;
   u_out[i] = leaf.u;
   v_out[i] = leaf.v;
-  if (overflow && dropped) atomicAdd(overflow, dropped);
+  store_pops<kStats>(stats, 3, i, pops, dropped);
 }
 
-template <int Q>
+template <int Q, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_anyhit_multi_kernel(const float* __restrict__ rows,
                           const float* __restrict__ o,
@@ -171,25 +212,30 @@ trace_anyhit_multi_kernel(const float* __restrict__ rows,
                           const float* __restrict__ t_max,
                           const uint8_t* __restrict__ active, int n, int depth,
                           uint8_t* __restrict__ occluded,
-                          int* __restrict__ overflow) {
+                          int* __restrict__ stats) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
   bvh::MtLeaf<true> leaf(rows);
+  bvh::Pops pops;
   int dropped = 0;
   if (active[i])
-    dropped = bvh::walk_multi<Q, true>(rows, bvh::load_ray(o, d, i), depth, t,
-                                       leaf);
+    dropped = bvh::walk_multi<Q, true, bvh::MtLeaf<true>, kStats>(
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
   occluded[i] = leaf.prim >= 0 ? 1 : 0;
-  if (overflow && dropped) atomicAdd(overflow, dropped);
+  store_pops<kStats>(stats, 3, i, pops, dropped);
 }
 
 constexpr int kBadVariant = -1;  // a W or Q with no compiled kernel
 
+int blocks_for(int threads) { return (threads + kThreads - 1) / kThreads; }
+
 }  // namespace
 
 // Plain C interface for ctypes. Each returns cudaGetLastError() after its
-// launch (0 = launched); the caller checks it. n must be > 0.
+// launch (0 = launched); the caller checks it. n must be > 0. `stats` null
+// launches the kernel without counters, else its kStats instantiation,
+// which also writes the per-ray pop counts there.
 extern "C" {
 
 int gpt_max_stack() { return bvh::kMaxStack; }
@@ -197,19 +243,21 @@ int gpt_max_stack() { return bvh::kMaxStack; }
 int gpt_trace_closest(const float* rows, const float* o, const float* d,
                       const float* t_max, const uint8_t* active, int n,
                       int depth, float* t, int* prim, float* u, float* v,
-                      void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  trace_closest_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, t, prim, u, v);
+                      int* stats, void* stream) {
+  auto kernel =
+      stats ? trace_closest_kernel<true> : trace_closest_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
   return (int)cudaGetLastError();
 }
 
 int gpt_trace_anyhit(const float* rows, const float* o, const float* d,
                      const float* t_max, const uint8_t* active, int n,
-                     int depth, uint8_t* occluded, void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  trace_anyhit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, occluded);
+                     int depth, uint8_t* occluded, int* stats, void* stream) {
+  auto kernel =
+      stats ? trace_anyhit_kernel<true> : trace_anyhit_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, occluded, stats);
   return (int)cudaGetLastError();
 }
 
@@ -217,69 +265,66 @@ int gpt_trace_anyhit(const float* rows, const float* o, const float* d,
 int gpt_trace_closest_ilv(const float* rows, const float* o, const float* d,
                           const float* t_max, const uint8_t* active, int n,
                           int depth, int w, float* t, int* prim, float* u,
-                          float* v, void* stream) {
-  int blocks = ((n + w - 1) / w + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (w == 2)
-    trace_closest_ilv_kernel<2><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, t, prim, u, v);
-  else if (w == 4)
-    trace_closest_ilv_kernel<4><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, t, prim, u, v);
-  else
-    return kBadVariant;
+                          float* v, int* stats, void* stream) {
+  auto kernel =
+      w == 2 ? (stats ? trace_closest_ilv_kernel<2, true>
+                      : trace_closest_ilv_kernel<2, false>)
+      : w == 4 ? (stats ? trace_closest_ilv_kernel<4, true>
+                        : trace_closest_ilv_kernel<4, false>)
+               : nullptr;
+  if (!kernel) return kBadVariant;
+  kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
   return (int)cudaGetLastError();
 }
 
 int gpt_trace_anyhit_ilv(const float* rows, const float* o, const float* d,
                          const float* t_max, const uint8_t* active, int n,
-                         int depth, int w, uint8_t* occluded, void* stream) {
-  int blocks = ((n + w - 1) / w + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (w == 2)
-    trace_anyhit_ilv_kernel<2><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, occluded);
-  else if (w == 4)
-    trace_anyhit_ilv_kernel<4><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, occluded);
-  else
-    return kBadVariant;
+                         int depth, int w, uint8_t* occluded, int* stats,
+                         void* stream) {
+  auto kernel =
+      w == 2 ? (stats ? trace_anyhit_ilv_kernel<2, true>
+                      : trace_anyhit_ilv_kernel<2, false>)
+      : w == 4 ? (stats ? trace_anyhit_ilv_kernel<4, true>
+                        : trace_anyhit_ilv_kernel<4, false>)
+               : nullptr;
+  if (!kernel) return kBadVariant;
+  kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, occluded, stats);
   return (int)cudaGetLastError();
 }
 
 // The multi-pop schedule, q = 2 or 4 pops per iteration (-1 for any other
-// q); depth = stack bound * q <= gpt_max_stack(); overflow may be null.
+// q); depth = stack bound * q <= gpt_max_stack(); stats [n, 3].
 int gpt_trace_closest_multi(const float* rows, const float* o, const float* d,
                             const float* t_max, const uint8_t* active, int n,
                             int depth, int q, float* t, int* prim, float* u,
-                            float* v, int* overflow, void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (q == 2)
-    trace_closest_multi_kernel<2><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, t, prim, u, v, overflow);
-  else if (q == 4)
-    trace_closest_multi_kernel<4><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, t, prim, u, v, overflow);
-  else
-    return kBadVariant;
+                            float* v, int* stats, void* stream) {
+  auto kernel =
+      q == 2 ? (stats ? trace_closest_multi_kernel<2, true>
+                      : trace_closest_multi_kernel<2, false>)
+      : q == 4 ? (stats ? trace_closest_multi_kernel<4, true>
+                        : trace_closest_multi_kernel<4, false>)
+               : nullptr;
+  if (!kernel) return kBadVariant;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
   return (int)cudaGetLastError();
 }
 
 int gpt_trace_anyhit_multi(const float* rows, const float* o, const float* d,
                            const float* t_max, const uint8_t* active, int n,
-                           int depth, int q, uint8_t* occluded, int* overflow,
+                           int depth, int q, uint8_t* occluded, int* stats,
                            void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (q == 2)
-    trace_anyhit_multi_kernel<2><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, occluded, overflow);
-  else if (q == 4)
-    trace_anyhit_multi_kernel<4><<<blocks, kThreads, 0, s>>>(
-        rows, o, d, t_max, active, n, depth, occluded, overflow);
-  else
-    return kBadVariant;
+  auto kernel =
+      q == 2 ? (stats ? trace_anyhit_multi_kernel<2, true>
+                      : trace_anyhit_multi_kernel<2, false>)
+      : q == 4 ? (stats ? trace_anyhit_multi_kernel<4, true>
+                        : trace_anyhit_multi_kernel<4, false>)
+               : nullptr;
+  if (!kernel) return kBadVariant;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, occluded, stats);
   return (int)cudaGetLastError();
 }
 

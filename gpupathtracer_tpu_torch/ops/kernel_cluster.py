@@ -16,6 +16,18 @@ kernel's visit order and arithmetic (the dot products in the order of
 XLA's CPU dot, written out with ``fma32``, never ``torch.matmul``), so the
 two agree bit for bit. Closest hits come back as global triangle ids,
 remapped through ``cluster_refs``.
+
+``with_stats=True`` adds the TPU kernel's pop counters per ray, [N, 3]
+int32: node pops, cluster pops run, cluster pops skipped. ``pop_skip=True``
+(closest only, as in the JAX kernel) skips a cluster pop whose entry
+distance, kept on a parallel key stack at its push, is beyond the ray's
+current t by more than a margin: 2^-12 of the key's size plus the ray's
+largest |o_a / d_a|, the scale of the key's rounding
+(kernel_traverse.walk_plain; the bound is in ROADMAP.md section C). The
+results are those without it. The JAX kernel keys on the packet's nearest
+entry and compares with its farthest ray; here key and t are the ray's
+own. Both launch the kernels' kStats / kSkip instantiations
+(csrc/cluster_traverse.cu).
 """
 
 from __future__ import annotations
@@ -35,7 +47,8 @@ _PLAIN_LEAF_CHUNK = 8192
 
 # Kernel launches since the last reset, by entry point. Each wrapper adds
 # one where it launches its kernel and nowhere else.
-LAUNCHES = {"trace_cluster_closest": 0, "trace_cluster_anyhit": 0}
+LAUNCHES = {"trace_cluster_closest": 0, "trace_cluster_anyhit": 0,
+            "trace_cluster_closest_stats": 0, "trace_cluster_anyhit_stats": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -48,10 +61,10 @@ def _library() -> ctypes.CDLL:
         lib.gpt_cluster_max_stack.argtypes = []
         lib.gpt_cluster_max_stack.restype = i
         lib.gpt_trace_cluster_closest.argtypes = [p, p, p, i, p, p, p, p, i,
-                                                  i, p, p, p, p, p]
+                                                  i, p, p, p, p, i, p, p]
         lib.gpt_trace_cluster_closest.restype = i
         lib.gpt_trace_cluster_anyhit.argtypes = [p, p, i, p, p, p, p, i, i,
-                                                 p, p]
+                                                 p, p, p]
         lib.gpt_trace_cluster_anyhit.restype = i
         if lib.gpt_cluster_max_stack() != kernel_traverse.MAX_STACK:
             raise RuntimeError("csrc/bvh_walk.cuh and kernel_traverse.py "
@@ -88,23 +101,40 @@ def _check(rows, cluster_rows, cluster_refs, o, d, t_max, active,
     return tc
 
 
+def _stats(n: int, device, with_stats: bool):
+    """Zeroed [n, 3] int32 pop counts for the kernel, or None."""
+    return (torch.zeros((n, 3), dtype=torch.int32, device=device)
+            if with_stats else None)
+
+
+def _launched(entry: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    LAUNCHES[entry] += 1
+
+
 def closest_cluster(rows, cluster_rows, cluster_refs, o, d, t_max, active,
-                    *, stack_depth: int):
+                    *, stack_depth: int, with_stats: bool = False,
+                    pop_skip: bool = False):
     """Closest hit of rays o, d [N, 3] within (0, t_max) against the
     cluster top tree ``rows`` [W, 128] and its blocks ``cluster_rows``.
     Returns (t, prim, u, v), each [N], prim the global triangle id; t =
-    t_max and prim = -1 on a miss or an inactive ray."""
+    t_max and prim = -1 on a miss or an inactive ray. ``with_stats``
+    appends the per-ray pop counts [N, 3] int32 (node, cluster run, cluster
+    skipped); ``pop_skip`` takes the skipping schedule (module docstring)."""
     tc = _check(rows, cluster_rows, cluster_refs, o, d, t_max, active,
                 stack_depth)
     if o.device.type == "cpu":
         return closest_cluster_plain(rows, cluster_rows, cluster_refs, o, d,
-                                     t_max, active, stack_depth=stack_depth)
+                                     t_max, active, stack_depth=stack_depth,
+                                     with_stats=with_stats, pop_skip=pop_skip)
     stream = kernel_traverse.stream_of(o)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
+    stats = _stats(n, o.device, with_stats)
     if n:
         with torch.cuda.device(o.device):
             err = _library().gpt_trace_cluster_closest(
@@ -112,36 +142,37 @@ def closest_cluster(rows, cluster_rows, cluster_refs, o, d, t_max, active,
                 cluster_refs.data_ptr(), tc, o.data_ptr(), d.data_ptr(),
                 t_max.data_ptr(), active.data_ptr(), n, stack_depth,
                 t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+                int(pop_skip), None if stats is None else stats.data_ptr(),
                 stream)
-        if err:
-            raise RuntimeError(f"trace_cluster_closest launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES["trace_cluster_closest"] += 1
-    return t, prim, u, v
+        _launched("trace_cluster_closest_stats" if with_stats or pop_skip
+                  else "trace_cluster_closest", err)
+    return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit_cluster(rows, cluster_rows, o, d, t_max, active, *,
-                   stack_depth: int):
+                   stack_depth: int, with_stats: bool = False):
     """Occlusion of rays o, d [N, 3] within (0, t_max) on a cluster scene:
-    [N] bool. Inactive rays are never occluded."""
+    [N] bool. Inactive rays are never occluded. ``with_stats`` returns
+    (occluded, [N, 3] pop counts); the skip column stays 0."""
     tc = _check(rows, cluster_rows, None, o, d, t_max, active, stack_depth)
     if o.device.type == "cpu":
         return anyhit_cluster_plain(rows, cluster_rows, o, d, t_max, active,
-                                    stack_depth=stack_depth)
+                                    stack_depth=stack_depth,
+                                    with_stats=with_stats)
     stream = kernel_traverse.stream_of(o)
     n = o.shape[0]
     occluded = torch.empty(n, dtype=torch.bool, device=o.device)
+    stats = _stats(n, o.device, with_stats)
     if n:
         with torch.cuda.device(o.device):
             err = _library().gpt_trace_cluster_anyhit(
                 rows.data_ptr(), cluster_rows.data_ptr(), tc, o.data_ptr(),
                 d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
-                stack_depth, occluded.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"trace_cluster_anyhit launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES["trace_cluster_anyhit"] += 1
-    return occluded
+                stack_depth, occluded.data_ptr(),
+                None if stats is None else stats.data_ptr(), stream)
+        _launched("trace_cluster_anyhit_stats" if with_stats
+                  else "trace_cluster_anyhit", err)
+    return (occluded, stats) if with_stats else occluded
 
 
 # --- the plain version ---------------------------------------------------------
@@ -185,11 +216,13 @@ def _cluster_min(blk, o, d, t_cur, any_hit: bool):
 
 def walk_cluster_plain(rows, cluster_rows, o, d, t_max, active, *,
                        stack_depth: int, any_hit: bool,
-                       pops: Optional[dict] = None):
-    """``kernel_traverse.walk_plain`` with the cluster leaf. Returns (t,
-    win): win [N] int64 is the winner's cluster-local id cidx * tc + slot
-    (the JAX kernel's prim), -1 on a miss; with any_hit, win >= 0 iff
-    occluded."""
+                       pops: Optional[dict] = None,
+                       tally: Optional[torch.Tensor] = None,
+                       pop_skip: bool = False):
+    """``kernel_traverse.walk_plain`` with the cluster leaf (``tally`` and
+    ``pop_skip`` as there). Returns (t, win): win [N] int64 is the winner's
+    cluster-local id cidx * tc + slot (the JAX kernel's prim), -1 on a
+    miss; with any_hit, win >= 0 iff occluded."""
     tc = cluster_width(cluster_rows)
     blocks = cluster_rows.view(-1, 8, 3 * tc)
     win = torch.full((o.shape[0],), -1, dtype=torch.int64, device=o.device)
@@ -211,7 +244,8 @@ def walk_cluster_plain(rows, cluster_rows, o, d, t_max, active, *,
         return torch.cat(hit)
 
     t = kernel_traverse.walk_plain(rows, o, d, t_max, active, stack_depth,
-                                   any_hit, leaf, pops)
+                                   any_hit, leaf, pops, tally=tally,
+                                   pop_skip=pop_skip)
     return t, win
 
 
@@ -237,22 +271,36 @@ def cluster_uv(cluster_rows, win, o, d, t):
     return out
 
 
+def _cluster_stats(tally) -> torch.Tensor:
+    cols = [kernel_traverse.POP_COLUMNS[k] for k in ("node", "leaf", "skip")]
+    return tally[:, cols].to(torch.int32)
+
+
 def closest_cluster_plain(rows, cluster_rows, cluster_refs, o, d, t_max,
                           active, *, stack_depth: int,
-                          pops: Optional[dict] = None):
+                          pops: Optional[dict] = None,
+                          with_stats: bool = False, pop_skip: bool = False):
     """Plain torch version of ``closest_cluster`` (same results, bit for
-    bit). ``pops``, a dict, collects the walk's pop counts."""
+    bit, pop counts too). ``pops``, a dict, collects the walk's pop totals
+    and the table entries they read."""
+    tally = (kernel_traverse.new_tally(o.shape[0], o.device) if with_stats
+             else None)
     t, win = walk_cluster_plain(rows, cluster_rows, o, d, t_max, active,
                                 stack_depth=stack_depth, any_hit=False,
-                                pops=pops)
+                                pops=pops, tally=tally, pop_skip=pop_skip)
     u, v = cluster_uv(cluster_rows, win, o, d, t)
     prim = torch.where(win >= 0, cluster_refs[win.clamp_min(0)], -1)
-    return t, prim.to(torch.int32), u, v
+    out = (t, prim.to(torch.int32), u, v)
+    return out + (_cluster_stats(tally),) if with_stats else out
 
 
 def anyhit_cluster_plain(rows, cluster_rows, o, d, t_max, active, *,
-                         stack_depth: int, pops: Optional[dict] = None):
+                         stack_depth: int, pops: Optional[dict] = None,
+                         with_stats: bool = False):
     """Plain torch version of ``anyhit_cluster`` (same results)."""
-    return walk_cluster_plain(rows, cluster_rows, o, d, t_max, active,
-                              stack_depth=stack_depth, any_hit=True,
-                              pops=pops)[1] >= 0
+    tally = (kernel_traverse.new_tally(o.shape[0], o.device) if with_stats
+             else None)
+    occ = walk_cluster_plain(rows, cluster_rows, o, d, t_max, active,
+                             stack_depth=stack_depth, any_hit=True,
+                             pops=pops, tally=tally)[1] >= 0
+    return (occ, _cluster_stats(tally)) if with_stats else occ

@@ -19,6 +19,17 @@ rays) and ``_kernel_multi`` (``multi_pop=Q``: up to Q pops of a ray's stack
 per iteration, node pruning against the t the iteration began with). Both
 give the hits of the plain schedule; multi-pop visits in another order, so
 among triangles at bitwise-equal t another one may win.
+
+``with_stats=True`` (every schedule) adds the pop counters of the TPU
+kernels' ``with_stats``, counted per ray: [N, 2] int32 node and leaf pops,
+[N, 3] under multi-pop, whose third column is the ray's pushes dropped at
+the top of its stack (the overflow latch: nonzero means hits may have been
+lost). The TPU kernels count the pops of a packet's shared stack; summed
+over a packet's rays these per-ray counts are what a walk of each ray
+alone costs, not those pops. The kernel side is each entry point's
+kStats instantiation (csrc/traverse.cu), launched when a stats array is
+passed; the plain side counts the same pops lane by lane
+(``count_pops``).
 """
 
 from __future__ import annotations
@@ -36,12 +47,18 @@ ARITY = 8
 TRIS_PER_ROW = ROW_WIDTH // 12
 MAX_STACK = 192  # kMaxStack in csrc/bvh_walk.cuh
 INVALID_ENTRY = 0x7FFFFFFF
+SKIP_MARGIN = 2.0 ** -12  # kSkipMargin in csrc/bvh_walk.cuh
 
 # Kernel launches since the last reset, by entry point. Each wrapper adds
 # one where it launches its kernel and nowhere else.
 LAUNCHES = {"trace_closest": 0, "trace_anyhit": 0,
             "trace_closest_ilv": 0, "trace_anyhit_ilv": 0,
-            "trace_closest_multi": 0, "trace_anyhit_multi": 0}
+            "trace_closest_multi": 0, "trace_anyhit_multi": 0,
+            "trace_closest_stats": 0, "trace_anyhit_stats": 0}
+# Columns of a per-ray pop tally (count_pops): node pops, leaf (or cluster)
+# pops run, cluster pops skipped (pop_skip), pushes dropped at the top of
+# the stack.
+POP_COLUMNS = {"node": 0, "leaf": 1, "skip": 2, "dropped": 3}
 # Rays per thread of the interleave schedule and pops per iteration of the
 # multi-pop schedule for which csrc/traverse.cu holds a kernel.
 VARIANTS = (2, 4)
@@ -56,21 +73,17 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpt_max_stack.argtypes = []
         lib.gpt_max_stack.restype = i
-        lib.gpt_trace_closest.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p]
-        lib.gpt_trace_closest.restype = i
-        lib.gpt_trace_anyhit.argtypes = [p, p, p, p, p, i, i, p, p]
-        lib.gpt_trace_anyhit.restype = i
-        lib.gpt_trace_closest_ilv.argtypes = [p, p, p, p, p, i, i, i, p, p, p,
-                                              p, p]
-        lib.gpt_trace_closest_ilv.restype = i
-        lib.gpt_trace_anyhit_ilv.argtypes = [p, p, p, p, p, i, i, i, p, p]
-        lib.gpt_trace_anyhit_ilv.restype = i
-        lib.gpt_trace_closest_multi.argtypes = [p, p, p, p, p, i, i, i, p, p,
-                                                p, p, p, p]
-        lib.gpt_trace_closest_multi.restype = i
-        lib.gpt_trace_anyhit_multi.argtypes = [p, p, p, p, p, i, i, i, p, p,
-                                               p]
-        lib.gpt_trace_anyhit_multi.restype = i
+        # rows, o, d, t_max, active, n, depth[, w or q], results..., stats,
+        # stream
+        rays = [p, p, p, p, p, i, i]
+        for name, sched, res in (("closest", [], 4), ("anyhit", [], 1),
+                                 ("closest_ilv", [i], 4),
+                                 ("anyhit_ilv", [i], 1),
+                                 ("closest_multi", [i], 4),
+                                 ("anyhit_multi", [i], 1)):
+            fn = getattr(lib, "gpt_trace_" + name)
+            fn.argtypes = rays + sched + [p] * (res + 2)
+            fn.restype = i
         if lib.gpt_max_stack() != MAX_STACK:
             raise RuntimeError("csrc/bvh_walk.cuh and kernel_traverse.py "
                                "disagree on the stack size")
@@ -111,8 +124,7 @@ def stream_of(o: torch.Tensor):
     return torch.cuda.current_stream(o.device).cuda_stream
 
 
-def check_schedule(stack_depth: int, interleave: int, multi_pop: int,
-                   with_stats: bool) -> int:
+def check_schedule(stack_depth: int, interleave: int, multi_pop: int) -> int:
     """Raises unless the schedule arguments name a kernel; returns the
     stack bound the walk runs with (``stack_depth * multi_pop``: Q pops at
     once keep up to Q subtrees open, so the depth-first bound scales)."""
@@ -123,10 +135,6 @@ def check_schedule(stack_depth: int, interleave: int, multi_pop: int,
         if x != 1 and x not in VARIANTS:
             raise ValueError(f"{name} must be 1 or one of {VARIANTS}, "
                              f"got {x}")
-    if with_stats and multi_pop == 1:
-        raise NotImplementedError(
-            "with_stats reports the multi-pop schedule's overflow latch "
-            "only; the pop counters are not ported yet (ROADMAP.md, A19)")
     if stack_depth * multi_pop > MAX_STACK:
         raise ValueError(
             f"multi_pop={multi_pop} needs a stack of stack_depth * "
@@ -135,11 +143,33 @@ def check_schedule(stack_depth: int, interleave: int, multi_pop: int,
     return stack_depth * multi_pop
 
 
-def _launch(entry: str, fn, *args) -> None:
-    err = fn(*args)
+def _launch(rows, o, d, t_max, active, depth: int, any_hit: bool,
+            interleave: int, multi_pop: int, out, with_stats: bool):
+    """The kernel of a query and schedule; ``out`` its result tensors (t,
+    prim, u, v for closest, occluded for any-hit). Returns the per-ray pop
+    counts of its kStats instantiation with ``with_stats``, else None."""
+    stream = stream_of(o)
+    n = o.shape[0]
+    stats = (torch.zeros((n, 3 if multi_pop > 1 else 2), dtype=torch.int32,
+                         device=o.device) if with_stats else None)
+    if not n:
+        return stats
+    query = "anyhit" if any_hit else "closest"
+    name = query + ("_ilv" if interleave > 1 else
+                    "_multi" if multi_pop > 1 else "")
+    sched = ((interleave,) if interleave > 1 else
+             (multi_pop,) if multi_pop > 1 else ())
+    with torch.cuda.device(o.device):
+        err = getattr(_library(), "gpt_trace_" + name)(
+            rows.data_ptr(), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+            active.data_ptr(), n, depth, *sched,
+            *(x.data_ptr() for x in out),
+            None if stats is None else stats.data_ptr(), stream)
+    entry = f"trace_{query}_stats" if with_stats else "trace_" + name
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[entry] += 1
+    return stats
 
 
 def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
@@ -148,41 +178,24 @@ def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
     """Closest hit of rays o, d [N, 3] within (0, t_max) against the merged
     row table rows [M, 128]. Returns (t, prim, u, v), each [N]; t = t_max
     and prim = -1 on a miss or an inactive ray. ``interleave`` / ``multi_pop``
-    choose a schedule (module docstring); ``with_stats`` (multi-pop only)
-    appends the launch's count of pushes dropped at the top of the stack, a
-    0-dim int32 tensor: nonzero means hits may have been lost."""
+    choose a schedule (module docstring); ``with_stats`` appends the per-ray
+    pop counts [N, 2] (node, leaf) int32, [N, 3] under multi-pop (and the
+    pushes dropped at the top of the stack)."""
     check_rays(rows, o, d, t_max, active, stack_depth)
-    depth = check_schedule(stack_depth, interleave, multi_pop, with_stats)
+    depth = check_schedule(stack_depth, interleave, multi_pop)
     if o.device.type == "cpu":
         return closest_plain(rows, o, d, t_max, active,
                              stack_depth=stack_depth, leaf_size=leaf_size,
                              interleave=interleave, multi_pop=multi_pop,
                              with_stats=with_stats)
-    stream = stream_of(o)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    overflow = (torch.zeros((), dtype=torch.int32, device=o.device)
-                if with_stats else None)
-    if n:
-        lib = _library()
-        rays = (rows.data_ptr(), o.data_ptr(), d.data_ptr(),
-                t_max.data_ptr(), active.data_ptr(), n, depth)
-        out = (t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr())
-        with torch.cuda.device(o.device):
-            if interleave > 1:
-                _launch("trace_closest_ilv", lib.gpt_trace_closest_ilv, *rays,
-                        interleave, *out, stream)
-            elif multi_pop > 1:
-                _launch("trace_closest_multi", lib.gpt_trace_closest_multi,
-                        *rays, multi_pop, *out,
-                        overflow.data_ptr() if with_stats else None, stream)
-            else:
-                _launch("trace_closest", lib.gpt_trace_closest, *rays, *out,
-                        stream)
-    return (t, prim, u, v, overflow) if with_stats else (t, prim, u, v)
+    stats = _launch(rows, o, d, t_max, active, depth, False, interleave,
+                    multi_pop, (t, prim, u, v), with_stats)
+    return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
@@ -190,44 +203,33 @@ def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
     """Occlusion of rays o, d [N, 3] within (0, t_max): [N] bool, True iff
     some triangle is hit. Inactive rays are never occluded. The schedule
     arguments are ``closest``'s; with ``with_stats`` returns (occluded,
-    overflow)."""
+    stats)."""
     check_rays(rows, o, d, t_max, active, stack_depth)
-    depth = check_schedule(stack_depth, interleave, multi_pop, with_stats)
+    depth = check_schedule(stack_depth, interleave, multi_pop)
     if o.device.type == "cpu":
         return anyhit_plain(rows, o, d, t_max, active,
                             stack_depth=stack_depth, leaf_size=leaf_size,
                             interleave=interleave, multi_pop=multi_pop,
                             with_stats=with_stats)
-    stream = stream_of(o)
-    n = o.shape[0]
-    occluded = torch.empty(n, dtype=torch.bool, device=o.device)
-    overflow = (torch.zeros((), dtype=torch.int32, device=o.device)
-                if with_stats else None)
-    if n:
-        lib = _library()
-        rays = (rows.data_ptr(), o.data_ptr(), d.data_ptr(),
-                t_max.data_ptr(), active.data_ptr(), n, depth)
-        with torch.cuda.device(o.device):
-            if interleave > 1:
-                _launch("trace_anyhit_ilv", lib.gpt_trace_anyhit_ilv, *rays,
-                        interleave, occluded.data_ptr(), stream)
-            elif multi_pop > 1:
-                _launch("trace_anyhit_multi", lib.gpt_trace_anyhit_multi,
-                        *rays, multi_pop, occluded.data_ptr(),
-                        overflow.data_ptr() if with_stats else None, stream)
-            else:
-                _launch("trace_anyhit", lib.gpt_trace_anyhit, *rays,
-                        occluded.data_ptr(), stream)
-    return (occluded, overflow) if with_stats else occluded
+    occluded = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+    stats = _launch(rows, o, d, t_max, active, depth, True, interleave,
+                    multi_pop, (occluded,), with_stats)
+    return (occluded, stats) if with_stats else occluded
 
 
 def count_pops(pops: Optional[dict], kind: str, ids: torch.Tensor,
-               slots=None) -> None:
+               slots=None, tally: Optional[torch.Tensor] = None,
+               lanes: Optional[torch.Tensor] = None) -> None:
     """Adds a step's pops of one kind ("node" or "leaf") to ``pops``, the
     node rows, leaf entries or clusters they read to its set
     ``kind + "_ids"`` and, for leaves, the triangle slots they test to
     ``"slots"``: the work and the distinct table bytes a run needs
-    (chip_smoke.py's bound). ``pops`` None counts nothing."""
+    (chip_smoke.py's bound). ``pops`` None counts nothing there. ``tally``
+    [N, 4] int64, the per-ray counters, gains one in column
+    ``POP_COLUMNS[kind]`` for each lane in ``lanes`` (each pop's ray)."""
+    if tally is not None and lanes.numel():
+        tally[:, POP_COLUMNS[kind]].index_add_(0, lanes,
+                                               torch.ones_like(lanes))
     if pops is None or not ids.numel():
         return
     pops[kind] = pops.get(kind, 0) + ids.numel()
@@ -237,8 +239,9 @@ def count_pops(pops: Optional[dict], kind: str, ids: torch.Tensor,
 
 
 def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
-               leaf, pops: Optional[dict] = None,
-               multi_pop: int = 1) -> torch.Tensor:
+               leaf, pops: Optional[dict] = None, multi_pop: int = 1,
+               tally: Optional[torch.Tensor] = None,
+               pop_skip: bool = False) -> torch.Tensor:
     """The node phase of csrc/bvh_walk.cuh ``walk`` (``walk_multi`` with
     ``multi_pop`` > 1), for every ray in lockstep with its own stack: each
     step pops one entry per live ray (up to ``multi_pop``). Node pops push
@@ -250,8 +253,20 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
     place where it finds a closer hit, records what its caller needs and
     returns the lanes that hit; with ``any_hit`` those walks end.
     ``stack_depth`` is the bound the walk runs with (already scaled by
-    ``multi_pop``); ``pops["overflow"]`` counts the pushes dropped at it.
-    Returns t."""
+    ``multi_pop``); ``pops["overflow"]`` counts the pushes dropped at it,
+    and ``tally`` [N, 4] (``count_pops``), if given, the pops of each ray:
+    every popped node (all are expanded) and every intersected leaf, the
+    leaf pops that ``pop_skip`` skips and the ray's dropped pushes.
+    ``pop_skip`` (closest, single pop) keeps a key for each pushed entry on
+    a parallel stack, as csrc/bvh_walk.cuh ``walk`` with kSkip does: its
+    t_near less SKIP_MARGIN (|t_near| + |oi_a|), a the axis whose slab
+    entry is t_near (``skip_key`` there: the margin covers the entry's
+    rounding, which grows with the origin's distance, and a triangle's t
+    rounding below its box's entry). A leaf pop whose key is not below its
+    ray's t is skipped. Returns t."""
+    if pop_skip and (any_hit or multi_pop > 1):
+        raise ValueError("pop_skip orders pops by t_near: closest walks of "
+                         "one pop a step only")
     n, dev = o.shape[0], o.device
     eps = torch.tensor(1e-12, dtype=torch.float32, device=dev)
     inv = torch.where(d >= 0, 1.0, -1.0) / torch.maximum(d.abs(), eps)
@@ -260,9 +275,11 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
     t = t_max.clone()
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     sp = active.to(torch.int64)  # stack[:, 0] = 0, the root row
+    keys = (torch.full((n, stack_depth), -torch.inf, device=dev)
+            if pop_skip else None)
 
     def expand(ln, en, t_entry):
-        count_pops(pops, "node", en)
+        count_pops(pops, "node", en, tally=tally, lanes=ln)
         if not ln.numel():
             return
         row = rows[en]
@@ -279,11 +296,17 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
         child = rows_i[en, 6 * ARITY:7 * ARITY].to(torch.int64)
         hit = ((tmin <= tmax) & (tmax > 0.0) & (tmin < t_entry[ln, None])
                & (child != INVALID_ENTRY))
+        key = torch.where(hit, tmin, torch.inf)
+        if keys is not None:  # csrc/bvh_walk.cuh skip_key
+            scale = torch.where(lo == tmin[..., None], oi_l.abs(),
+                                0.0).amax(dim=2)
+            skey = tmin - SKIP_MARGIN * (tmin.abs() + scale)
         if not any_hit:
-            key = torch.where(hit, tmin, torch.inf)
             order = torch.argsort(key, dim=1, stable=True)
             child = torch.gather(child, 1, order)
             hit = torch.gather(hit, 1, order)
+            if keys is not None:
+                skey = torch.gather(skey, 1, order)
         # The k-th pushed child (in pop order) sits k below the top.
         rank = torch.cumsum(hit.to(torch.int64), dim=1) - 1
         total = hit.sum(dim=1)
@@ -292,8 +315,13 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
         if pops is not None:
             pops["overflow"] = pops.get("overflow", 0) + int(
                 (hit & ~keep).sum())
+        if tally is not None:
+            tally[:, POP_COLUMNS["dropped"]].index_add_(
+                0, ln, (hit & ~keep).sum(dim=1))
         lane = ln[:, None].expand(-1, ARITY)
         stack[lane[keep], pos[keep]] = child[keep]
+        if keys is not None:
+            keys[lane[keep], pos[keep]] = skey[keep]
         sp[ln] = torch.clamp_max(sp[ln] + total, stack_depth)
 
     while True:
@@ -314,7 +342,13 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
         for lanes, entry in popped:
             # A walk that an earlier leaf of this step ended pops no more.
             is_leaf = (entry < 0) & (sp[lanes] >= 0)
+            if keys is not None:
+                skip = is_leaf & (keys[lanes, sp[lanes]] >= t[lanes])
+                count_pops(None, "skip", lanes[skip], tally=tally,
+                           lanes=lanes[skip])
+                is_leaf &= ~skip
             ll, el = lanes[is_leaf], entry[is_leaf]
+            count_pops(None, "leaf", el, tally=tally, lanes=ll)
             if ll.numel():
                 lw = leaf(ll, el, t)
                 if any_hit:
@@ -324,9 +358,9 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
 
 def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
                 any_hit: bool, pops: Optional[dict] = None,
-                multi_pop: int = 1):
+                multi_pop: int = 1, tally: Optional[torch.Tensor] = None):
     """``walk_plain`` over the MT-leaf table: leaf pops run Moller-Trumbore
-    on the block's slots.
+    on the block's slots; ``tally`` as there.
 
     Returns (t, prim, u, v, at): ``at`` [N] int64 is the flat index into
     ``rows`` of the winning triangle's 12-float slot (-1 on a miss), whose
@@ -372,8 +406,23 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
         return lw
 
     t = walk_plain(rows, o, d, t_max, active, stack_depth, any_hit, leaf,
-                   pops, multi_pop)
+                   pops, multi_pop, tally)
     return t, prim, u, v, at
+
+
+def new_tally(n: int, device) -> torch.Tensor:
+    """Zeroed per-ray pop counters for ``count_pops``: [n, 4] int64."""
+    return torch.zeros((n, len(POP_COLUMNS)), dtype=torch.int64,
+                       device=device)
+
+
+def stats_of(tally: torch.Tensor, multi_pop: int = 1) -> torch.Tensor:
+    """The kernels' per-ray stats from a tally: [N, 2] int32 (node, leaf),
+    [N, 3] under multi-pop (and dropped pushes)."""
+    cols = [POP_COLUMNS["node"], POP_COLUMNS["leaf"]]
+    if multi_pop > 1:
+        cols.append(POP_COLUMNS["dropped"])
+    return tally[:, cols].to(torch.int32)
 
 
 def _scheduled_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
@@ -381,35 +430,32 @@ def _scheduled_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
     """``_walk_plain`` under a schedule. Interleave: the rays split as the
     kernel's threads carry them (slot w of the T = ceil(N / W) threads
     holds rays w*T ... w*T + T - 1), one walk per slot; a ray's walk does
-    not depend on its thread, so the results are the plain schedule's.
-    Returns (t, prim, u, v, at, overflow)."""
-    depth = check_schedule(stack_depth, interleave, multi_pop, with_stats)
+    not depend on its thread, so the results are the plain schedule's, and
+    so are its pop counts. Returns (t, prim, u, v, at, stats or None)."""
+    depth = check_schedule(stack_depth, interleave, multi_pop)
     n = o.shape[0]
-    if with_stats and pops is None:
-        pops = {}
+    tally = new_tally(n, o.device) if with_stats else None
     per = -(-n // interleave) if n else 1
     parts = [_walk_plain(rows, o[a:a + per], d[a:a + per], t_max[a:a + per],
                          active[a:a + per], depth, leaf_size, any_hit, pops,
-                         multi_pop)
+                         multi_pop,
+                         None if tally is None else tally[a:a + per])
              for a in range(0, max(n, 1), per)]
     out = tuple(torch.cat(x) for x in zip(*parts))
-    overflow = None
-    if with_stats:
-        overflow = torch.tensor(pops.get("overflow", 0), dtype=torch.int32,
-                                device=o.device)
-    return out + (overflow,)
+    return out + (stats_of(tally, multi_pop) if with_stats else None,)
 
 
 def closest_plain(rows, o, d, t_max, active, *, stack_depth: int,
                   leaf_size: int, pops: Optional[dict] = None,
                   interleave: int = 1, multi_pop: int = 1,
                   with_stats: bool = False):
-    """Plain torch version of ``closest`` (same results, bit for bit).
-    ``pops``, a dict, collects the walk's pop counts (``count_pops``)."""
-    t, prim, u, v, _, overflow = _scheduled_plain(
+    """Plain torch version of ``closest`` (same results, bit for bit, pop
+    counts too). ``pops``, a dict, collects the walk's pop totals and
+    the table rows they read (``count_pops``)."""
+    t, prim, u, v, _, stats = _scheduled_plain(
         rows, o, d, t_max, active, stack_depth, leaf_size, False, pops,
         interleave, multi_pop, with_stats)
-    return (t, prim, u, v, overflow) if with_stats else (t, prim, u, v)
+    return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit_plain(rows, o, d, t_max, active, *, stack_depth: int,

@@ -27,6 +27,16 @@ cluster leaf (``trace_mega``'s ``cluster_rows``, the JAX kernel's
 ``cluster=True``), and shading reads the winner's normal direction and
 signed material float from its cluster block.
 
+``with_stats=True`` adds the JAX kernel's counters, [P, 9] int32 per packet
+of ``packet_size`` lanes: bounce rays, live shadow rays, closest node and
+leaf pops, any-hit node and leaf pops, the closest and any-hit pops of
+walks at bounce >= ``tail_start`` (8), and the bounce-loop iterations. The
+TPU kernel counts its packet's shared-stack pops; here they are sums over
+the packet's lanes of each lane's own walks (a tail pop: its lane is at
+bounce >= tail_start), and slot 8 is the packet's largest lane iteration
+count (a lane's iterations are its bounce rays). The kernel side is a
+separate set of instantiations, with NEE only.
+
 Scope (``mega_eligible``, the JAX gate unchanged): untextured materials,
 a constant-colour sky, no delta materials, no sun, at most 64 materials
 and 64 emitters, and tables of at most 100 MB. Every other scene takes the
@@ -61,7 +71,10 @@ _MASK = 0xFFFFFFFF
 
 # Kernel launches since the last reset, by variant: MT leaves, cluster
 # leaves. The wrapper adds one where it launches a kernel and nowhere else.
-LAUNCHES = {"trace_mega": 0, "trace_mega_cluster": 0}
+LAUNCHES = {"trace_mega": 0, "trace_mega_cluster": 0,
+            "trace_mega_stats": 0, "trace_mega_cluster_stats": 0}
+STATS = 9  # counters per packet (module docstring)
+TAIL_START = 8
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -237,16 +250,18 @@ def _rows_of(table, idx, n_valid: int):
     return torch.where(ok[:, None], row, 0.0)
 
 
-def _closest_capture(g, o, d, t_max, on):
+def _closest_capture(g, o, d, t_max, on, tally=None):
     """The closest walk with hit-time capture (the kernel's
     closest_capture): (t, miss, unnormalized geometric normal [3 x m],
-    material id, normal sign)."""
+    material id, normal sign). ``tally`` counts each lane's pops
+    (kernel_traverse.count_pops)."""
     if g["cl"] is not None:
         # Cluster leaves: the winner's C row (parallel to e1 x e2) and its
         # signed material float (mat_id + 1) * nsign (megakernel.py:1098-1104).
         t, win = kernel_cluster.walk_cluster_plain(
             g["rows"], g["cl"], o, d, t_max, on,
-            stack_depth=g["stack_depth"], any_hit=False, pops=g["pops"])
+            stack_depth=g["stack_depth"], any_hit=False, pops=g["pops"],
+            tally=tally)
         miss = win < 0
         tc = g["cl"].shape[1] // 3
         c = kernel_cluster.slot_values(g["cl"], win, (0, 1, 2), 2 * tc)
@@ -258,7 +273,7 @@ def _closest_capture(g, o, d, t_max, on):
         return t, miss, [c[:, a] for a in range(3)], mid, nsign
     t, prim, _, _, at = kernel_traverse._walk_plain(
         g["rows"], o, d, t_max, on, g["stack_depth"], g["leaf_size"],
-        any_hit=False, pops=g["pops"])
+        any_hit=False, pops=g["pops"], tally=tally)
     miss = prim < 0
     # Hit-time capture: the winning slot's e1, e2, material id, sign.
     slot = g["rows_flat"][at.clamp_min(0)[:, None]
@@ -270,22 +285,34 @@ def _closest_capture(g, o, d, t_max, on):
     return t, miss, _cross(e1, e2), mid, slot[:, 11]
 
 
-def _occluded(g, o, d, t_max, on):
+def _occluded(g, o, d, t_max, on, tally=None):
     """The any-hit walk (the kernel's occluded): [m] bool."""
     if g["cl"] is not None:
         return kernel_cluster.walk_cluster_plain(
             g["rows"], g["cl"], o, d, t_max, on,
             stack_depth=g["stack_depth"], any_hit=True,
-            pops=g["pops"])[1] >= 0
+            pops=g["pops"], tally=tally)[1] >= 0
     return kernel_traverse._walk_plain(
         g["rows"], o, d, t_max, on, g["stack_depth"], g["leaf_size"],
-        any_hit=True, pops=g["pops"])[1] >= 0
+        any_hit=True, pops=g["pops"], tally=tally)[1] >= 0
 
 
-def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights):
+def _add_walk(ctr, lanes, tally, any_hit: bool, tail):
+    """A walk's pops per lane into the lanes' counters ``ctr`` [n, 9]:
+    slots 2-3 (closest) or 4-5 (any-hit) and, where ``tail``, 6 or 7."""
+    col = kernel_traverse.POP_COLUMNS
+    node, leaf = tally[:, col["node"]], tally[:, col["leaf"]]
+    k = 4 if any_hit else 2
+    ctr[lanes, k] += node
+    ctr[lanes, k + 1] += leaf
+    ctr[lanes, 7 if any_hit else 6] += torch.where(tail, node + leaf, 0)
+
+
+def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights, ctr=None):
     """One bounce of the lanes in ``st`` (all alive): megakernel.py
     bounce() after the regeneration, term by term. Updates ``st`` in place
-    and returns the number of live shadow rays."""
+    and returns the number of live shadow rays. ``ctr`` [m, 9] int64, if
+    given, gains the lanes' counters of this bounce (module docstring)."""
     o, d, tp, ct = st["o"], st["d"], st["tp"], st["ct"]
     b, smp = st["bounce"], st["sample"]
     m = b.shape[0]
@@ -293,8 +320,14 @@ def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights):
 
     far = torch.full((m,), 1e20, dtype=torch.float32, device=b.device)
     on = torch.ones(m, dtype=torch.bool, device=b.device)
+    tally = None if ctr is None else kernel_traverse.new_tally(m, b.device)
     t, miss, gn, mid, nsign = _closest_capture(g, torch.stack(o, 1),
-                                               torch.stack(d, 1), far, on)
+                                               torch.stack(d, 1), far, on,
+                                               tally)
+    tail = b >= g["tail_start"]
+    if ctr is not None:
+        ctr[:, 0] += 1
+        _add_walk(ctr, slice(None), tally, False, tail)
     n = [c * nsign for c in _normalize(k, gn)]
     pos = [o[a] + d[a] * t + 0.003 * n[a] for a in range(3)]
     view = [-c for c in d]
@@ -367,9 +400,14 @@ def _bounce(k, g, st, model, nee, max_bounces, n_mats, n_lights):
         n_shadow = live.numel()
         if n_shadow:
             so = torch.stack([pos[a] + 0.001 * n[a] for a in range(3)], 1)
+            tally = (None if ctr is None
+                     else kernel_traverse.new_tally(n_shadow, b.device))
             occ = _occluded(g, so[live], torch.stack(ldir, 1)[live],
                             shadow_tmax[live],
-                            torch.ones_like(live, dtype=torch.bool))
+                            torch.ones_like(live, dtype=torch.bool), tally)
+            if ctr is not None:
+                ctr[live, 1] += 1
+                _add_walk(ctr, live, tally, True, tail[live])
             add = torch.zeros_like(shadow_live)
             add[live] = ~occ
             for a in range(3):
@@ -485,7 +523,8 @@ def trace_mega_plain(rows, mats, lights, cdf, params, o, d, active, seeds, *,
                      nee: bool, model: str, n_mats: int, n_lights: int,
                      packet_size: int, spp: int = 1, pxn=None, pyn=None,
                      cluster_rows=None, fused_nee: bool = False,
-                     pops: Optional[dict] = None):
+                     pops: Optional[dict] = None, with_stats: bool = False,
+                     tail_start: int = TAIL_START):
     """Plain torch version of ``trace_mega`` (same arguments and results).
 
     The lanes run in lockstep: each step regenerates the lanes whose path
@@ -519,7 +558,10 @@ def trace_mega_plain(rows, mats, lights, cdf, params, o, d, active, seeds, *,
              lights=lights, cdf=cdf, total_area=params[0],
              nee_pdf=params[1], env=[params[2 + a] for a in range(3)],
              miss_slot=miss_slot, stack_depth=stack_depth,
-             leaf_size=leaf_size, cl=cluster_rows, pops=pops)
+             leaf_size=leaf_size, cl=cluster_rows, pops=pops,
+             tail_start=tail_start)
+    ctr = (torch.zeros((n, STATS), dtype=torch.int64, device=dev)
+           if with_stats else None)
     rays = 0
     steps = spp * (max_bounces + 2) + 1 if regen else max_bounces + 2
     for _ in range(steps):
@@ -531,11 +573,23 @@ def trace_mega_plain(rows, mats, lights, cdf, params, o, d, active, seeds, *,
         if idx.numel() == 0:
             break
         sub = _take(st, idx)
+        sub_ctr = None if ctr is None else torch.zeros(
+            (idx.numel(), STATS), dtype=torch.int64, device=dev)
         rays += idx.numel() + _bounce(k, g, sub, model, nee, max_bounces,
-                                      n_mats, n_lights)
+                                      n_mats, n_lights, sub_ctr)
         _put(st, idx, sub)
-    return (torch.stack(st["ct"], 1),
-            torch.tensor(rays, dtype=torch.int64, device=dev))
+        if ctr is not None:
+            ctr[idx] += sub_ctr
+    out = (torch.stack(st["ct"], 1),
+           torch.tensor(rays, dtype=torch.int64, device=dev))
+    if with_stats:
+        # Per packet: sums of the lanes' counters, the largest lane's
+        # iterations (its bounce rays) in slot 8.
+        per = ctr.reshape(n // packet_size, packet_size, STATS)
+        stats = per.sum(dim=1)
+        stats[:, 8] = per[:, :, 0].max(dim=1).values
+        out += (stats.to(torch.int32),)
+    return out
 
 
 # --- the kernel --------------------------------------------------------------
@@ -546,7 +600,8 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(cuda_build.build("megakernel")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpt_trace_mega.argtypes = [i, i, i, i, p, p, i, p, p, p, p, p,
-                                       p, p, p, i, i, i, i, i, i, i, p, p, p]
+                                       p, p, p, i, i, i, i, i, i, i, p, p, p,
+                                       i, p]
         lib.gpt_trace_mega.restype = i
         lib.gpt_mega_max_stack.argtypes = []
         lib.gpt_mega_max_stack.restype = i
@@ -603,7 +658,7 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
                model: str, n_mats: int, n_lights: int,
                packet_size: int = 2048, spp: int = 1, pxn=None, pyn=None,
                cluster_rows=None, fused_nee: bool = False,
-               with_stats: bool = False):
+               with_stats: bool = False, tail_start: int = TAIL_START):
     """Run the megakernel over N lanes (megakernel.py:1308 ``trace_mega``).
 
     Lane i belongs to packet i // packet_size and draws its random numbers
@@ -619,19 +674,23 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
     schedule; as in the JAX package it does not compose with cluster leaves.
 
     Returns ([N, 3] contribution, int64 rays) where rays counts the bounce
-    rays and the live shadow rays, as the JAX kernel counts them."""
+    rays and the live shadow rays, as the JAX kernel counts them; with
+    ``with_stats`` (NEE only) also the [N / packet_size, 9] int32 counters
+    of the module docstring."""
     if cluster_rows is not None and fused_nee:
         raise ValueError("fused_nee does not compose with cluster leaves")
-    if with_stats:
-        raise NotImplementedError("megakernel pop counters are not ported "
-                                  "yet (ROADMAP.md, queue A: port bench)")
+    if with_stats and not nee:
+        raise ValueError("the megakernel's counters are instantiated with "
+                         "NEE only")
     kw = dict(stack_depth=stack_depth, max_bounces=max_bounces, model=model,
               n_mats=n_mats, n_lights=n_lights, packet_size=packet_size,
               spp=spp, pxn=pxn, pyn=pyn, cluster_rows=cluster_rows)
     _check(rows, mats, lights, cdf, params, o, d, active, seeds, **kw)
     if active.device.type == "cpu":
         return trace_mega_plain(rows, mats, lights, cdf, params, o, d, active,
-                                seeds, leaf_size=leaf_size, nee=nee, **kw)
+                                seeds, leaf_size=leaf_size, nee=nee,
+                                with_stats=with_stats, tail_start=tail_start,
+                                **kw)
     if active.device.type != "cuda":
         raise ValueError(f"the megakernel takes CUDA or CPU tensors, got "
                          f"{active.device}")
@@ -640,6 +699,8 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
     contribution = torch.empty((n, 3), dtype=torch.float32,
                                device=active.device)
     rays = torch.zeros((), dtype=torch.int64, device=active.device)
+    stats = (torch.zeros((n // packet_size, STATS), dtype=torch.int32,
+                         device=active.device) if with_stats else None)
     if n:
         in0, in1 = (pxn, pyn) if regen else (o, d)
         cluster = cluster_rows is not None
@@ -653,11 +714,14 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
                 active.data_ptr(), seeds.data_ptr(), n, packet_size,
                 stack_depth, max_bounces, n_mats, n_lights, spp,
                 contribution.data_ptr(), rays.data_ptr(),
+                None if stats is None else stats.data_ptr(), tail_start,
                 torch.cuda.current_stream(active.device).cuda_stream)
+        entry = (("trace_mega_cluster" if cluster else "trace_mega")
+                 + ("_stats" if with_stats else ""))
         if err:
-            raise RuntimeError(f"trace_mega launch failed: CUDA error {err}")
-        LAUNCHES["trace_mega_cluster" if cluster else "trace_mega"] += 1
-    return contribution, rays
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        LAUNCHES[entry] += 1
+    return (contribution, rays, stats) if with_stats else (contribution, rays)
 
 
 # --- raygen and the render entry points ----------------------------------------
@@ -720,14 +784,14 @@ def prepare_mega(scene, mega_tables, cam, pixel_x, pixel_y, key, *,
 def render_sample_mega(scene, mega_tables, cam, pixel_x, pixel_y, key, *,
                        with_stats: bool = False, **statics):
     """Raygen and the megakernel for [n] pixel lanes (megakernel.py:1433):
-    ([n, 3] contributions, rays). With spp > 1 (a keyword of
-    ``prepare_mega``, as are the other statics) the kernel renders spp
-    samples in one launch with in-kernel regeneration and the contribution
-    is their sum."""
+    ([n, 3] contributions, rays), and with ``with_stats`` the [P, 9]
+    counters. With spp > 1 (a keyword of ``prepare_mega``, as are the other
+    statics) the kernel renders spp samples in one launch with in-kernel
+    regeneration and the contribution is their sum."""
     args, kw = prepare_mega(scene, mega_tables, cam, pixel_x, pixel_y, key,
                             **statics)
-    c, rays = trace_mega(*args, with_stats=with_stats, **kw)
-    return c[:pixel_x.shape[0]], rays
+    out = trace_mega(*args, with_stats=with_stats, **kw)
+    return (out[0][:pixel_x.shape[0]],) + tuple(out[1:])
 
 
 def render_sample_mega_batch(scene, mega_tables, cam, pixel_x, pixel_y, key,
@@ -735,7 +799,10 @@ def render_sample_mega_batch(scene, mega_tables, cam, pixel_x, pixel_y, key,
                              fori: bool = False, **statics):
     """spp megakernel samples per lane (megakernel.py:1508-1530): one
     launch with in-kernel regeneration, or with ``fori`` one launch per
-    sample, sample i drawn with fold_in(key, i)."""
+    sample, sample i drawn with fold_in(key, i). ``with_stats`` (a static)
+    takes the one launch."""
+    if fori and statics.get("with_stats"):
+        raise ValueError("with_stats counts one launch: fori=False")
     if not fori:
         return render_sample_mega(scene, mega_tables, cam, pixel_x, pixel_y,
                                   key, sample_idx=sample_idx, spp=spp,

@@ -61,19 +61,14 @@ class Renderer:
             scene, meta = load_scene(cfg, self.device)
         self.scene = scene
         self.meta = meta
-        # Bounce-ray override, resolved as the JAX Renderer resolves it:
-        # "auto" is treelet-sorted dispatch (ops/tsort.py) on big trees, of
-        # 8192 table rows or more, and "same" below. On a cluster scene the
-        # gate keys on the full tree the clusters replaced (same workload,
-        # another leaf encoding): its wide nodes plus refs / leaf_size MT
-        # leaf rows. Whether the sort pays on the card is a measurement
-        # (PERF.md); the gate is the JAX package's.
-        n_rows = int(scene.node_rows.shape[0])
-        if scene.cluster_rows is not None:
-            n_rows = meta.tree_nodes + meta.tree_refs // max(cfg.leaf_size, 1)
+        # Bounce-ray override, resolved as the JAX Renderer resolves it for
+        # every traversal but its TPU kernel ("pallas", which the port does
+        # not have): "auto" is "same". The JAX gate takes treelet-sorted
+        # dispatch (ops/tsort.py) only for that kernel, on tables of 8192
+        # rows or more; on the card the sort costs ten times the kernel it
+        # speeds up (PERF.md, section 7), so it runs only when named.
         if cfg.bounce_traversal == "auto":
-            self.bounce_traversal = ("tsort" if cfg.traversal == "auto"
-                                     and n_rows >= 8192 else "same")
+            self.bounce_traversal = "same"
         else:
             self.bounce_traversal = cfg.bounce_traversal
         # The megakernel's deferred-shadow option (cfg.mega_fused_nee) only

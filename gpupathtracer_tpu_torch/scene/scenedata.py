@@ -77,11 +77,6 @@ class SceneMeta:
     leaf_size: int
     has_delta: bool = False    # any mirror/refractive materials
     bvh_stats: Optional[BuildStats] = None
-    # Wide nodes and leaf references of the full tree (on a cluster scene
-    # node_rows holds the cluster top tree alone; the Renderer's tsort gate
-    # keys on the tree the clusters replaced).
-    tree_nodes: int = 0
-    tree_refs: int = 0
 
 
 def scene_from_numpy(fields: dict, device) -> SceneData:
@@ -241,7 +236,5 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
         leaf_size=cfg.leaf_size,
         has_delta=bool((table.mtype != 1).any()),
         bvh_stats=stats,
-        tree_nodes=int(wide.child_entry.shape[0]),
-        tree_refs=int(wide.refs.shape[0]),
     )
     return data, meta

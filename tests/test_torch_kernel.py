@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from gpupathtracer_tpu_torch.bvh import build_wide_bvh
+from gpupathtracer_tpu_torch.bvh.cluster import pack_clusters
 from gpupathtracer_tpu_torch.bvh.wide import pack_for_packets
 from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -59,6 +60,54 @@ def _port(case, t_max, device="cpu"):
 
 def _rows(case, device="cpu"):
     return torch.tensor(case["wide"].node_rows, device=device)
+
+
+def _sheet(point, n=8, size=10.0):
+    """A square sheet of 2 n^2 triangles: point(u, v) for u, v in [0,
+    size], [T, 3, 3]."""
+    xs = np.linspace(0.0, size, n + 1)
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            a, b, c, e = xs[i], xs[i + 1], xs[j], xs[j + 1]
+            for q in (((a, c), (b, c), (b, e)), ((a, c), (b, e), (a, e))):
+                tris.append([point(u, v) for u, v in q])
+    return np.asarray(tris)
+
+
+def far_cluster_case(offset=(3000.0, -1500.0, 2000.0), n_rays=4096, seed=5):
+    """Two crossing sheets of 128 triangles, a floor (y = 0) and a wall
+    (z = 5), thousands of units from the world origin, one cluster each
+    (tc = 128): both boxes are flat, so a ray enters each at the sheet it
+    hits. Half the rays aim at the line where the sheets cross, the rest
+    at random points of the sheets, from 10^-3 to 10^1.5 units before the
+    point in random directions. At the line both clusters hit at about the
+    same t, and the slab entries round by about 2^-24 |o / d|, which is
+    not small against t - t' there; elsewhere a ray may enter the other
+    cluster well beyond its hit. Returns (tables, o, d, active, stack
+    depth) on the CPU."""
+    off = np.asarray(offset)
+    tri = (np.concatenate([_sheet(lambda u, v: (u, 0.0, v)),
+                           _sheet(lambda u, v: (u, v - 5.0, 5.0))])
+           + off).astype(np.float32)
+    p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=10, builder="numpy")
+    wide = pack_clusters(wide, p0, p1 - p0, p2 - p0, tc=128)
+    rng = np.random.RandomState(seed)
+    u, v = rng.uniform(0.5, 9.5, (2, n_rays))
+    line = np.arange(n_rays) < n_rays // 2
+    wall = rng.rand(n_rays) < 0.5
+    tgt = off + np.stack([u, np.where(line, 0.0, np.where(wall, v - 5, 0.0)),
+                          np.where(line | wall, 5.0, v)], 1)
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    s = 10.0 ** rng.uniform(-3, 1.5, n_rays)
+    o = (tgt - d * s[:, None]).astype(np.float32)
+    tabs = tuple(torch.tensor(x) for x in (wide.node_rows, wide.cluster_rows,
+                                           wide.cluster_refs))
+    return (tabs, torch.tensor(o), torch.tensor(d.astype(np.float32)),
+            torch.tensor(rng.rand(n_rays) < 0.95),
+            min(stats.max_depth * 7 + 2, kt.MAX_STACK))
 
 
 def _nearest_f32(v: Fraction) -> np.float32:
@@ -308,21 +357,29 @@ def test_schedule_kernels_match_plain_on_cuda():
         assert int((got[1] != base[1]).sum()) <= 4
         occ = kt.anyhit(rows, *occ_rays, with_stats=stats, **sched, **kw)
         if stats:
-            assert int(got[4]) == 0 and int(occ[1]) == 0
+            assert int(got[4][:, 2].sum()) == 0 and int(occ[1][:, 2].sum()) == 0
             occ = occ[0]
+            # The schedule's own kernel, without counters: the same hits.
+            _equal_bits(kt.closest(rows, *rays, **sched, **kw), got[:4])
+            assert torch.equal(kt.anyhit(rows, *occ_rays, **sched, **kw), occ)
         assert torch.equal(occ, occ_base)
     small = kt.closest(rows, *rays, stack_depth=2, leaf_size=10, multi_pop=2,
                        with_stats=True)
     small_plain = kt.closest_plain(rows, *rays, stack_depth=2, leaf_size=10,
                                    multi_pop=2, with_stats=True)
-    assert int(small[4]) == int(small_plain[4]) > 0
+    assert torch.equal(small[4], small_plain[4])
+    assert int(small[4][:, 2].sum()) > 0
     for k in ("trace_closest_ilv", "trace_anyhit_ilv"):
         assert kt.LAUNCHES[k] == launches[k] + 2
     multi = len(scheds) - 2
     assert kt.LAUNCHES["trace_closest_multi"] == \
-        launches["trace_closest_multi"] + multi + 1
+        launches["trace_closest_multi"] + multi
     assert kt.LAUNCHES["trace_anyhit_multi"] == \
         launches["trace_anyhit_multi"] + multi
+    assert kt.LAUNCHES["trace_closest_stats"] == \
+        launches["trace_closest_stats"] + multi + 1
+    assert kt.LAUNCHES["trace_anyhit_stats"] == \
+        launches["trace_anyhit_stats"] + multi
 
 
 @pytest.mark.cuda
@@ -385,3 +442,127 @@ def test_dense_kernel_matches_plain_on_cuda():
     assert pd.LAUNCHES["dense_anyhit"] == launches["dense_anyhit"] + 6
     with pytest.raises(ValueError):  # more shared memory than a block has
         pd.dense_intersect(wd, wo, *rays, tile=4096)
+
+
+@pytest.mark.cuda
+def test_roofline_probes_match_plain_on_cuda():
+    """Every probe's kernel against its plain version on the card, every
+    copy bitwise (bf16: within the bound above), and a launch counted for
+    each."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch.ops import roofline as rl
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    launches = dict(rl.LAUNCHES)
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    x = t(rng.uniform(0.1, 1, (64, 128)).astype(np.float32))
+    for ilp in (1, 8):
+        got = rl.vpu(x, iters=5, ilp=ilp, copies=3)
+        want = rl.vpu_plain(x, iters=5, ilp=ilp)
+        assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
+                   for g in got)
+    rows = t(rng.uniform(0, 1, (64, 128)).astype(np.float32))
+    o = t(rng.uniform(-0.5, 1.5, (3, 16, 128)).astype(np.float32))
+    d = torch.nn.functional.normalize(t(rng.normal(size=(3, 16, 128))
+                                        .astype(np.float32)), dim=0)
+    inv = 1.0 / d
+    for probe, plain in ((rl.node_slab, rl.node_slab_plain),
+                         (rl.leaf_mt, rl.leaf_mt_plain)):
+        got = probe(rows, o, d, inv, iters=7, copies=3)
+        want = plain(rows, o, d, inv, iters=7)
+        assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
+                   for g in got)
+    for tc, any_hit in ((128, False), (128, True), (256, False)):
+        blk = t(rng.uniform(-1, 1, (16, 3 * tc)).astype(np.float32))
+        got = rl.cluster_dense(blk, o, d, inv, iters=5, any_hit=any_hit,
+                               copies=3)
+        want = rl.cluster_dense_plain(blk, o, d, inv, iters=5,
+                                      any_hit=any_hit)
+        assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
+                   for g in got)
+    # The f32 product at tools/torch_roofline.py's shapes: K below and
+    # past the 16-deep k step (partial steps zero-filled), N below the
+    # 64-wide tile (the column bounds), several tiles a copy.
+    for m, kk, n in ((128, 128, 128), (384, 3, 128), (384, 3, 2048),
+                     (2048, 128, 32), (2048, 3, 384), (768, 7, 1024)):
+        a = t(rng.uniform(-1, 1, (m, kk)).astype(np.float32))
+        b = t(rng.uniform(-1, 1, (kk, n)).astype(np.float32))
+        got = rl.mxu(a, b, iters=3, copies=2)
+        want = rl.mxu_plain(a, b, iters=3).view(torch.int32)
+        assert all(torch.equal(g.view(torch.int32), want) for g in got)
+    for m in (128, 512):
+        ab = t(rng.uniform(-1, 1, (m, m)).astype(np.float32)).bfloat16()
+        bb = t(rng.uniform(-1, 1, (m, m)).astype(np.float32)).bfloat16()
+        got = rl.mxu(ab, bb, iters=3, copies=2)
+        scale = float(ab.float().abs().sum(1).max() * bb.float().abs().max()
+                      * 3)
+        assert float((got[1] - rl.mxu_plain(ab, bb, iters=3)).abs().max()) \
+            <= 1e-6 * scale
+        assert torch.equal(got[0], got[1])
+    for k in rl.LAUNCHES:
+        assert rl.LAUNCHES[k] > launches[k]
+
+
+@pytest.mark.cuda
+def test_stats_kernels_match_plain_on_cuda():
+    """The counting variants (every schedule, closest and any-hit; the
+    cluster walk with and without pop_skip; the megakernel) against their
+    plain versions on the card: counts and hits bitwise; hits those of the
+    kernels without counters."""
+    _need_cuda()
+    case = _soup_case(7, leaf=10, n_tris=4000, n_rays=16384)
+    kw = dict(stack_depth=case["depth"], leaf_size=10)
+    rows = _rows(case, "cuda")
+    for t_max, fn, plain in ((case["far"], kt.closest, kt.closest_plain),
+                             (case["t_occ"], kt.anyhit, kt.anyhit_plain)):
+        rays = _port(case, t_max, "cuda")
+        b1 = None
+        for sched in ({}, dict(interleave=2), dict(interleave=4),
+                      dict(multi_pop=2)):
+            got = fn(rows, *rays, with_stats=True, **sched, **kw)
+            _equal_bits(got, plain(rows, *rays, with_stats=True, **sched,
+                                   **kw))
+            bare = fn(rows, *rays, **sched, **kw)
+            _equal_bits(got[:-1], bare if isinstance(bare, tuple)
+                        else (bare,))
+            if b1 is None:
+                b1 = got[-1]
+            elif "interleave" in sched:
+                assert torch.equal(got[-1], b1)
+    cfg = RenderConfig(scene_path="proc:table", width=16, height=16,
+                       cluster_tris=128)
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    scene, meta = load_scene(cfg, "cuda")
+    rays = _port(case, case["far"], "cuda")
+    tabs = (scene.node_rows, scene.cluster_rows, scene.cluster_refs)
+    bare = kc.closest_cluster(*tabs, *rays, stack_depth=meta.stack_depth)
+    for skip in (False, True):
+        got = kc.closest_cluster(*tabs, *rays, stack_depth=meta.stack_depth,
+                                 with_stats=True, pop_skip=skip)
+        _equal_bits(got, kc.closest_cluster_plain(
+            *tabs, *rays, stack_depth=meta.stack_depth, with_stats=True,
+            pop_skip=skip))
+        _equal_bits(got[:4], bare)
+    occ = kc.anyhit_cluster(*tabs[:2], *_port(case, case["t_occ"], "cuda"),
+                            stack_depth=meta.stack_depth, with_stats=True)
+    _equal_bits(occ, kc.anyhit_cluster_plain(
+        *tabs[:2], *_port(case, case["t_occ"], "cuda"),
+        stack_depth=meta.stack_depth, with_stats=True))
+    # pop_skip far from the world origin, at two clusters' common hits.
+    tabs, o, d, act, depth = far_cluster_case()
+    tabs, o, d, act = ([x.cuda() for x in tabs], o.cuda(), d.cuda(),
+                       act.cuda())
+    far = torch.full((o.shape[0],), 1e20, device="cuda")
+    got = kc.closest_cluster(*tabs, o, d, far, act, stack_depth=depth,
+                             with_stats=True, pop_skip=True)
+    _equal_bits(got, kc.closest_cluster_plain(
+        *tabs, o, d, far, act, stack_depth=depth, with_stats=True,
+        pop_skip=True))
+    _equal_bits(got[:4], kc.closest_cluster(*tabs, o, d, far, act,
+                                            stack_depth=depth))
+    assert int(got[4][:, 2].sum()) > 0

@@ -146,8 +146,12 @@ def test_trace_mega_checks_its_inputs():
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no plain path
         mega.trace_mega(*(x.to("meta") for x in args), o.to("meta"),
                         d.to("meta"), act.to("meta"), seeds.to("meta"), **kw)
-    with pytest.raises(NotImplementedError):
-        mega.trace_mega(*args, o, d, act, seeds, with_stats=True, **kw)
+    # The counters: [packets, 9], built with NEE only.
+    _, _, st = mega.trace_mega(*args, o, d, act, seeds, with_stats=True, **kw)
+    assert st.shape == (1, 9) and int(st[0, :2].sum()) == int(rays)
+    with pytest.raises(ValueError):
+        mega.trace_mega(*args, o, d, act, seeds, with_stats=True,
+                        **{**kw, "nee": False})
     # Cluster leaves run (tests/test_torch_cluster_mega.py holds their
     # lanes to the JAX package's); a table that is not [Ncl*8, 3*tc] is
     # refused.

@@ -112,9 +112,80 @@ def test_port_sources_never_import_the_jax_package():
     paths += sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
     names = {os.path.basename(p) for p in paths}
     assert {"tsort.py", "dense_intersect.py", "subpacket_traverse.py",
-            "torch_kernel_bench.py"} <= names
+            "torch_kernel_bench.py", "roofline.py", "torch_roofline.py",
+            "torch_mega_profile.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
            if m.split(".")[0] in ("gpupathtracer_tpu", "jax", "jaxlib")]
     assert not bad
+
+
+TOOLS = r"""
+import importlib.abc
+import importlib.util
+import os
+import sys
+
+
+BLOCKED = ("jax", "jaxlib", "PIL", "gpupathtracer_tpu")
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+sys.path.insert(0, sys.argv[1])
+
+
+def tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(sys.argv[1], "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+rates = tool("torch_roofline").run_compact(reps=1, quick=True, device="cpu")
+print("RATES", sorted(k for k, v in rates.items() if v is not None))
+out = tool("torch_kernel_bench").main(
+    ["--device", "cpu", "--scene", "proc:cornell", "--n", "256", "--k", "128",
+     "--mode", "packet,subpacket", "--multi-pop", "2", "--reps", "1",
+     "--stats", "--cluster-tc", "128", "--pop-skip"])
+print("STATS", sorted(k for k, v in out.items() if "pops" in v))
+prof = tool("torch_mega_profile").main(
+    ["--device", "cpu", "--width", "16", "--height", "16", "--max-bounces",
+     "4", "--time", "--frames", "1"])
+print("PROFILE", prof["rays"] > 0, prof["ns_per_pop"] > 0)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("LOADED", loaded)
+"""
+
+
+def test_accounting_tools_run_without_jax():
+    """tools/torch_roofline.py (run_compact), tools/torch_kernel_bench.py
+    --stats --cluster-tc --pop-skip and tools/torch_mega_profile.py --time
+    rehearse on the CPU, at a tiny size, with jax, PIL and the JAX package
+    refused; run_compact returns tools/roofline.py's keys (but the memory
+    sweep, which needs a card)."""
+    proc = subprocess.run([sys.executable, "-c", TOOLS, REPO],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout
+    rates = eval(proc.stdout.split("RATES ")[1].splitlines()[0])
+    assert {"rtt_ms", "vpu_ilp8_teops_s", "mxu_128_f32_tflops_s",
+            "mxu_128_bf16_tflops_s", "mxu_512_bf16_tflops_s",
+            "mxu_cluster_shape_tflops_s", "node_pop_body_ns",
+            "node_body_vpu_teops_s", "leaf_pop_body_ns",
+            "leaf_body_vpu_teops_s", "cluster_body_ns_tc128",
+            "cluster_body_ns_tc256", "cluster_anyhit_body_ns_tc128"} \
+        <= set(rates)
+    stats = eval(proc.stdout.split("STATS ")[1].splitlines()[0])
+    assert {"packet@128w1:coherent", "packet@q2:incoherent",
+            "subpacket@128w1:coherent", "cluster128@128w1:incoherent",
+            "cluster128s@128w1:incoherent"} <= set(stats)
+    assert "PROFILE True True" in proc.stdout

@@ -199,9 +199,12 @@ def test_tsort_bounces_bitwise_equal_same_and_match_jax():
 @pytest.mark.parametrize("rows,want", [(563, "same"), (8191, "same"),
                                        (8192, "tsort"), (49863, "tsort")])
 def test_auto_gate_resolves_as_jax(rows, want):
-    """bounce_traversal="auto" becomes "tsort" on tables of 8192 rows or
-    more, as in the JAX Renderer on its Pallas path (no render needed: the
-    table is a stand-in of the wanted height)."""
+    """bounce_traversal="auto" resolves as the JAX Renderer resolves it for
+    every traversal that is not its TPU kernel: "same", whatever the table.
+    The JAX gate takes "tsort" (``want``) on tables of 8192 rows or more
+    only on its Pallas path, which the port does not have (no render
+    needed: the table is a stand-in of the wanted height). Named
+    explicitly, either schedule is taken."""
     import jax.numpy as jnp
     import torch
 
@@ -210,24 +213,28 @@ def test_auto_gate_resolves_as_jax(rows, want):
     assert small.bounce_traversal == "same"
     scene = small.scene._replace(node_rows=torch.zeros((rows, 128)))
     r = Renderer(cfg, "cpu", scene=scene, meta=small.meta)
-    assert r.bounce_traversal == want
+    assert r.bounce_traversal == "same"
     for explicit in ("same", "tsort"):
         cfg_e = RenderConfig(scene_path="proc:cornell", width=16, height=16,
                              bounce_traversal=explicit)
         assert Renderer(cfg_e, "cpu", scene=scene,
                         meta=small.meta).bounce_traversal == explicit
     jcfg = _jax_cfg(cfg)
-    jcfg.traversal = "pallas"
     jsmall = JaxRenderer(jcfg)
     jscene = jsmall.scene._replace(bvh=jsmall.scene.bvh._replace(
         node_rows=jnp.zeros((rows, 128), jnp.float32)))
+    assert JaxRenderer(jcfg, scene=jscene,
+                       meta=jsmall.meta).bounce_traversal == "same"
+    jcfg.traversal = "pallas"
     assert JaxRenderer(jcfg, scene=jscene,
                        meta=jsmall.meta).bounce_traversal == want
 
 
 def test_auto_gate_on_cluster_scene_counts_the_full_tree():
-    """On a cluster scene the gate keys on the tree the clusters replaced:
-    wide nodes + references / leaf_size, the same count in both packages."""
+    """On a cluster scene the JAX gate keys on the tree the clusters
+    replaced (wide nodes + references / leaf_size) and only for its Pallas
+    path; the port has no such path and needs no count of that tree: its
+    "auto" is "same" on every scene, and "tsort" runs when named."""
     cfg = RenderConfig(scene_path="proc:table", width=16, height=16,
                        cluster_tris=128)
     r = Renderer(cfg, "cpu")
@@ -235,12 +242,10 @@ def test_auto_gate_on_cluster_scene_counts_the_full_tree():
     jcfg.traversal = "pallas"
     jr = JaxRenderer(jcfg)
     assert r.bounce_traversal == jr.bounce_traversal == "same"
-    bvh = jr.scene.bvh
-    assert r.meta.tree_nodes == int(bvh.child_entry.shape[0])
-    assert r.meta.tree_refs == int(bvh.refs.shape[0])
-    big = r.meta.__class__(**{**r.meta.__dict__, "tree_refs": 8192 * cfg.leaf_size})
-    assert Renderer(cfg, "cpu", scene=r.scene,
-                    meta=big).bounce_traversal == "tsort"
+    named = RenderConfig(scene_path="proc:table", width=16, height=16,
+                         cluster_tris=128, bounce_traversal="tsort")
+    assert Renderer(named, "cpu", scene=r.scene,
+                    meta=r.meta).bounce_traversal == "tsort"
 
 
 def test_cli_takes_bounce_traversal(tmp_path):

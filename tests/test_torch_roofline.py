@@ -1,0 +1,179 @@
+"""The roofline probes of the port (ops/roofline.py, csrc/roofline.cu)
+against the JAX package's Pallas probes (tools/roofline.py) run in
+interpret mode, as the JAX package runs its kernels on the CPU.
+
+Inputs are made from a seed with numpy: random origins and unit directions
+per lane (the JAX tool's own rays are constant), random rows, blocks and
+matrices. Tolerance: bitwise for every probe but the bf16 product, whose
+sums the tensor cores and XLA round each their own way: within 1e-6 of
+max_i sum_k |a_ik| max |b| * iters (measured on the CPU: 1.9e-6 absolute
+at a scale of 60-70, 3e-8 of it). The f32 product is bitwise at depths 3
+and 128 (the probes' shapes but one): there XLA's CPU dot sums each output
+in k order with fused multiply-adds, as the port does; at depth 7 it sums
+in another order and is held to the bf16 bound.
+
+tools/roofline.py enables the JAX compile cache when it is imported; it is
+loaded by path here with that cache switched off.
+"""
+
+import functools
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from gpupathtracer_tpu_torch.ops import roofline as rl
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+G, ITERS = 2, 4
+BF16_BOUND = 1e-6
+
+
+@pytest.fixture(scope="module")
+def jroof():
+    """tools/roofline.py as a module, without its compile cache."""
+    env = os.environ.get("GPT_TPU_COMPILE_CACHE")
+    os.environ["GPT_TPU_COMPILE_CACHE"] = "off"
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "jax_roofline", os.path.join(REPO, "tools", "roofline.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        if env is None:
+            del os.environ["GPT_TPU_COMPILE_CACHE"]
+        else:
+            os.environ["GPT_TPU_COMPILE_CACHE"] = env
+    return mod
+
+
+def _pallas(kernel, out_shape, *inputs, **kw):
+    """A probe kernel under pl.pallas_call in interpret mode."""
+    return np.asarray(pl.pallas_call(
+        functools.partial(kernel, **kw),
+        out_shape=jax.ShapeDtypeStruct(out_shape, jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(inputs),
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True)(*inputs))
+
+
+def _bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.int32)
+
+
+@pytest.fixture(scope="module")
+def rays():
+    """Rows [64, 128] in [0, 1), origins in [-0.5, 1.5), unit directions
+    and inv = 1 / d, [3, G, 128]; numpy arrays."""
+    rng = np.random.RandomState(9)
+    rows = rng.uniform(0, 1, (64, 128)).astype(np.float32)
+    o = rng.uniform(-0.5, 1.5, (3, G, 128)).astype(np.float32)
+    d = rng.normal(size=(3, G, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return rows, o, d, (1.0 / d).astype(np.float32)
+
+
+@pytest.mark.parametrize("ilp,shape", [(1, (64, 128)), (8, (64, 128)),
+                                       (8, (16, 128))])
+def test_vpu_probe_matches_jax(jroof, ilp, shape):
+    x = np.random.RandomState(3).uniform(0.1, 1.0, shape).astype(np.float32)
+    want = _pallas(jroof.vpu_kernel, shape, jnp.asarray(x), iters=ITERS,
+                   ilp=ilp)
+    got = rl.vpu(torch.from_numpy(x), iters=ITERS, ilp=ilp, copies=2)
+    assert got.shape == (2,) + shape
+    for c in range(2):
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(128, 128, 128, "f32"),
+                                         (384, 3, 128, "f32"),
+                                         (64, 7, 40, "f32 depth 7"),
+                                         (64, 16, 8, "bf16"),
+                                         (128, 32, 64, "bf16")])
+def test_mxu_probe_matches_jax(jroof, m, k, n, dtype):
+    rng = np.random.RandomState(m + k + n)
+    a = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    b = rng.uniform(-1, 1, (k, n)).astype(np.float32)
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    ja, jb = jnp.asarray(a).astype(jdt), jnp.asarray(b).astype(jdt)
+    want = np.asarray(pl.pallas_call(
+        functools.partial(jroof.mxu_kernel, iters=ITERS,
+                          out_dtype=jnp.float32,
+                          precision=jax.lax.Precision.HIGHEST),
+        out_shape=jax.ShapeDtypeStruct((m, n), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True)(ja, jb))
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    ta = torch.tensor(np.asarray(ja.astype(jnp.float32))).to(tdt)
+    tb = torch.tensor(np.asarray(jb.astype(jnp.float32))).to(tdt)
+    got = rl.mxu(ta, tb, iters=ITERS)[0].numpy()
+    if dtype == "f32":
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    else:
+        scale = float(ta.float().abs().sum(1).max() * tb.float().abs().max()
+                      * ITERS)
+        assert np.abs(got - want).max() <= BF16_BOUND * scale
+
+
+def test_node_slab_probe_matches_jax(jroof, rays):
+    want = _pallas(jroof.node_slab_kernel, (G, 128),
+                   *map(jnp.asarray, rays), iters=ITERS, G=G)
+    got = rl.node_slab(*map(torch.from_numpy, rays), iters=ITERS, copies=3)
+    assert (want != 0).mean() > 0.2  # the rays enter boxes
+    for c in range(3):
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+
+
+def test_leaf_mt_probe_matches_jax(jroof, rays):
+    want = _pallas(functools.partial(jroof.leaf_mt_kernel, leaf_size=10),
+                   (G, 128), *map(jnp.asarray, rays), iters=ITERS, G=G)
+    got = rl.leaf_mt(*map(torch.from_numpy, rays), iters=ITERS)
+    assert (want < 1e19).mean() > 0.1  # the rays hit triangles
+    np.testing.assert_array_equal(_bits(got[0].numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("tc", [128, 256])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster_probe_matches_jax(jroof, rays, tc, any_hit):
+    blk = np.random.RandomState(tc).uniform(-1, 1, (16, 3 * tc)).astype(
+        np.float32)
+    _, o, d, inv = rays
+    want = _pallas(jroof.cluster_dense_kernel, (G, 128), jnp.asarray(blk),
+                   *map(jnp.asarray, (o, d, inv)), iters=ITERS, G=G, tc=tc,
+                   precision=jax.lax.Precision.HIGHEST, any_hit=any_hit)
+    got = rl.cluster_dense(*map(torch.from_numpy, (blk, o, d, inv)),
+                           iters=ITERS, any_hit=any_hit, copies=2)
+    assert (want < 1e19).mean() > 0.5
+    for c in range(2):
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+
+
+def test_probes_check_their_arguments():
+    x = torch.zeros((64, 128))
+    with pytest.raises(ValueError):
+        rl.vpu(x, iters=4, ilp=4)
+    with pytest.raises(ValueError):
+        rl.vpu(x.double(), iters=4, ilp=8)
+    with pytest.raises(ValueError):
+        rl.vpu(x, iters=0, ilp=8)
+    with pytest.raises(ValueError):  # bf16 needs k % 16 == 0
+        rl.mxu(torch.zeros((64, 3), dtype=torch.bfloat16),
+               torch.zeros((3, 8), dtype=torch.bfloat16), iters=1)
+    with pytest.raises(ValueError):
+        rl.mxu(torch.zeros((64, 16)), torch.zeros((8, 8)), iters=1)
+    ray = torch.zeros((3, 2, 128))
+    with pytest.raises(ValueError):
+        rl.node_slab(torch.zeros((32, 128)), ray, ray, ray, iters=1)
+    with pytest.raises(ValueError):
+        rl.cluster_dense(torch.zeros((16, 300)), ray, ray, ray, iters=1)
+    with pytest.raises(ValueError):  # neither CPU nor CUDA
+        rl.vpu(x.to("meta"), iters=1, ilp=1)
+    assert all(v == 0 for v in rl.LAUNCHES.values())  # the CPU launches none

@@ -52,8 +52,8 @@ def _jax_scene(wide):
 
 
 def _big_soup():
-    """A table of 8192 rows or more (the Renderer's tsort gate): 20,000
-    small triangles, leaf size 4."""
+    """A table of 8192 rows or more (the JAX Renderer's tsort gate on its
+    TPU kernel): 20,000 small triangles, leaf size 4."""
     rng = np.random.RandomState(3)
     n = 20000
     tri = (rng.uniform(-5, 5, (n, 1, 3))

@@ -27,6 +27,21 @@ Modes:
   dense-vpu   the same with the multiply chain's rounding
   treelet     not ported: raises
 
+--cluster-tc TC adds, for each TC of a comma-separated list, the cluster
+leaf walk (csrc/cluster_traverse.cu) on the scene cut into clusters of TC
+triangles, and --pop-skip (closest) a variant of it that skips cluster
+pops whose entry distance is not below the ray's t: tools/cluster_pops.py's
+A/B, on the card.
+
+--stats prints each variant's pop counters (the kernels' with_stats) after
+its time: pops per ray, node and leaf (cluster), p50 and mean, their sums
+per --k-ray packet (the TPU kernels count the pops of a packet's shared
+stack; these sums are of per-ray walks, what each ray costs alone) and ns
+per pop (the variant's time over all its pops); skipped pops under
+--pop-skip, dropped pushes under --multi-pop. The sub-packet mode counts
+the pops of its 128-ray shared stacks. Only the per-ray walks (packet, W,
+Q, cluster) and the sub-packet mode count.
+
 --check N also holds every variant's result on the first N rays of each set
 against the plain PyTorch version of its kernel on the same rays (the
 per-ray walk's plain version for the tree modes, the dense intersection's in
@@ -85,15 +100,16 @@ def time_ms(fn, reps: int, device):
     return med, (max(times) - min(times)) / med if med > 0 else 0.0
 
 
-def load(scene_path: str, device):
+def load(scene_path: str, device, cluster_tris: int = 0):
     """(scene, meta) of a scene at its default settings (C++ SBVH where a
-    compiler is present)."""
+    compiler is present), cut into clusters of ``cluster_tris`` triangles
+    when that is not 0."""
     from gpupathtracer_tpu_torch.config import RenderConfig
     from gpupathtracer_tpu_torch.scene import load_scene
 
     return load_scene(RenderConfig(scene_path=scene_path, width=64,
-                                   height=64,
-                                   skybox="GENERATE COLOR BLACK"), device)
+                                   height=64, skybox="GENERATE COLOR BLACK",
+                                   cluster_tris=cluster_tris), device)
 
 
 def make_rays(scene_path: str, scene, meta, n: int, device):
@@ -139,24 +155,29 @@ def make_rays(scene_path: str, scene, meta, n: int, device):
 
 
 def make_run(mode: str, scene, meta, *, any_hit: bool = False,
-             multi_pop: int = 1):
-    """run(o, d, K, ilv) -> a tensor of the variant's results (t, or
-    occluded with any_hit) for rays o, d [n, 3], all active, t_max 1e20."""
+             multi_pop: int = 1, pop_skip: bool = False):
+    """run(o, d, K, ilv, stats=False) -> a tensor of the variant's results
+    (t, or occluded with any_hit) for rays o, d [n, 3], all active, t_max
+    1e20; with ``stats`` its pop counters instead (per ray for the per-ray
+    walks, per packet for the sub-packet mode, None where a mode has
+    none). Mode "cluster" is the per-ray walk of a cluster scene, with
+    ``pop_skip`` its skipping schedule."""
     import torch
 
-    from gpupathtracer_tpu_torch.ops import (dense_intersect, kernel_traverse,
+    from gpupathtracer_tpu_torch.ops import (dense_intersect, kernel_cluster,
+                                             kernel_traverse,
                                              subpacket_traverse, tsort)
 
     if mode == "treelet":
         raise NotImplementedError(
             "mode 'treelet': ops/treelet.py is not ported yet (ROADMAP.md, "
             "queue A)")
-    if mode not in MODES:
+    if mode not in MODES + ("cluster",):
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
-    if mode != "packet" and scene.cluster_rows is not None:
-        raise ValueError("cluster scenes have one kernel: use "
-                         "ops/kernel_cluster.py through trace_closest")
+    if (mode == "cluster") != (scene.cluster_rows is not None):
+        raise ValueError("mode 'cluster' runs on a cluster scene and only "
+                         "there (--cluster-tc)")
     rows = scene.node_rows
 
     def full(o):
@@ -169,7 +190,9 @@ def make_run(mode: str, scene, meta, *, any_hit: bool = False,
                   for x in dense_intersect.pack_dense_tris(
                       scene.tri_geom.cpu().numpy()))
 
-        def run(o, d, K, ilv=1):
+        def run(o, d, K, ilv=1, stats=False):
+            if stats:
+                return None
             out = dense_intersect.dense_intersect(
                 wd, wo, o, d, *full(o), any_hit=any_hit,
                 use_mxu=(mode == "dense"), block=min(K, MAX_DENSE_BLOCK))
@@ -179,24 +202,45 @@ def make_run(mode: str, scene, meta, *, any_hit: bool = False,
         fn = tsort.trace_occluded_tsort if any_hit else \
             tsort.trace_closest_tsort
 
-        def run(o, d, K, ilv=1):
+        def run(o, d, K, ilv=1, stats=False):
+            if stats:
+                return None
             out = fn(scene, o, d, *full(o), packet_size=K, interleave=ilv,
                      kernel=inner, key_mode=TSORT_KEYS[mode], **kw)
             return out if any_hit else out.t
     elif mode == "subpacket":
-        def run(o, d, K, ilv=1):
+        def run(o, d, K, ilv=1, stats=False):
             P = o.shape[0] // K
             tm, act = full(o)
             out = subpacket_traverse.traverse_subpacket(
                 rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
-                tm.reshape(P, K), act.reshape(P, K), any_hit=any_hit, **kw)
+                tm.reshape(P, K), act.reshape(P, K), any_hit=any_hit,
+                with_stats=stats, **kw)
+            if stats:
+                return out[4]
             return (out[1] >= 0 if any_hit else out[0]).reshape(-1)
+    elif mode == "cluster":
+        tabs = (rows, scene.cluster_rows)
+        sd = dict(stack_depth=meta.stack_depth)
+
+        def run(o, d, K, ilv=1, stats=False):
+            if any_hit:
+                out = kernel_cluster.anyhit_cluster(*tabs, o, d, *full(o),
+                                                    with_stats=stats, **sd)
+                return out[1] if stats else out
+            out = kernel_cluster.closest_cluster(
+                *tabs, scene.cluster_refs, o, d, *full(o), with_stats=stats,
+                pop_skip=pop_skip, **sd)
+            return out[4] if stats else out[0]
     else:
         fn = kernel_traverse.anyhit if any_hit else kernel_traverse.closest
 
-        def run(o, d, K, ilv=1):
+        def run(o, d, K, ilv=1, stats=False):
             out = fn(rows, o, d, *full(o), interleave=ilv,
-                     multi_pop=multi_pop if ilv == 1 else 1, **kw)
+                     multi_pop=multi_pop if ilv == 1 else 1,
+                     with_stats=stats, **kw)
+            if stats:
+                return out[-1]
             return out if any_hit else out[0]
     return run
 
@@ -205,10 +249,12 @@ def make_plain(mode: str, scene, meta, *, any_hit: bool = False):
     """plain(o, d) -> what make_run's variants of ``mode`` must return on
     rays o, d, from the kernel's plain version: t (occluded with any_hit).
     Every tree mode is a schedule of the per-ray walk, whose t and occlusion
-    do not depend on the schedule."""
+    do not depend on the schedule; "cluster" (on a cluster scene) is the
+    cluster walk's, with or without pop_skip."""
     import torch
 
-    from gpupathtracer_tpu_torch.ops import dense_intersect, kernel_traverse
+    from gpupathtracer_tpu_torch.ops import (dense_intersect, kernel_cluster,
+                                             kernel_traverse)
 
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
     rows = scene.node_rows
@@ -218,7 +264,17 @@ def make_plain(mode: str, scene, meta, *, any_hit: bool = False):
         return (torch.full((n,), 1e20, device=o.device),
                 torch.ones(n, dtype=torch.bool, device=o.device))
 
-    if mode in ("dense", "dense-vpu"):
+    if mode == "cluster":
+        tabs = (rows, scene.cluster_rows)
+        sd = dict(stack_depth=meta.stack_depth)
+
+        def plain(o, d):
+            if any_hit:
+                return kernel_cluster.anyhit_cluster_plain(*tabs, o, d,
+                                                           *full(o), **sd)
+            return kernel_cluster.closest_cluster_plain(
+                *tabs, scene.cluster_refs, o, d, *full(o), **sd)[0]
+    elif mode in ("dense", "dense-vpu"):
         wd, wo = (torch.as_tensor(x, device=rows.device)
                   for x in dense_intersect.pack_dense_tris(
                       scene.tri_geom.cpu().numpy()))
@@ -266,6 +322,16 @@ def main(argv=None, loaded=None) -> dict:
     ap.add_argument("--check", type=int, default=0,
                     help="hold every variant on the first N rays of each "
                          "set against its kernel's plain version")
+    ap.add_argument("--stats", action="store_true",
+                    help="print each variant's pop counters (module "
+                         "docstring)")
+    ap.add_argument("--cluster-tc", default="",
+                    help="comma-separated cluster sizes: the cluster walk "
+                         "on the scene cut into clusters of that many "
+                         "triangles")
+    ap.add_argument("--pop-skip", action="store_true",
+                    help="with --cluster-tc, closest: also the pop-skipping "
+                         "schedule")
     args = ap.parse_args(argv)
 
     import torch
@@ -291,6 +357,7 @@ def main(argv=None, loaded=None) -> dict:
           f"K={k_list} N={args.n}")
     runs = {m: make_run(m, scene, meta, any_hit=args.any_hit) for m in modes}
     rays = make_rays(args.scene, scene, meta, args.n, device)
+    plain_of = {m: (scene, meta) for m in modes}
 
     # (tag, key, run, K, ilv)
     variants = []
@@ -310,25 +377,44 @@ def main(argv=None, loaded=None) -> dict:
                              make_run("packet", scene, meta,
                                       any_hit=args.any_hit,
                                       multi_pop=args.multi_pop), k_list[0], 1))
+    for tc in (int(x) for x in args.cluster_tc.split(",") if x):
+        cscene, cmeta = load(args.scene, device, cluster_tris=tc)
+        skips = (False, True) if args.pop_skip and not args.any_hit else \
+            (False,)
+        for skip in skips:
+            mode = f"cluster{tc}" + ("s" if skip else "")
+            plain_of[mode] = (cscene, cmeta)
+            variants.append((f"cluster tc={tc}" + (" pop_skip" if skip
+                                                   else ""),
+                             f"{mode}@{k_list[0]}w1",
+                             make_run("cluster", cscene, cmeta,
+                                      any_hit=args.any_hit, pop_skip=skip),
+                             k_list[0], 1))
 
     out, first, wanted = {}, {}, {}
     for tag, key, run, K, ilv in variants:
+        # Every variant of a family computes the same hits: the tree walks'
+        # schedules, a cluster size's walks; the dense test rounds otherwise.
+        mode = mode_of(key)
+        family = (mode if "dense" in key
+                  else mode.rstrip("s") if mode.startswith("cluster")
+                  else "tree")
         for name in args.sets.split(","):
             o, d = rays[name]
             res = run(o, d, K, ilv)
-            # Every variant computes the same hits: the share of lanes
-            # bitwise equal to the first variant's (all of them for the
-            # tree walks; the dense test rounds otherwise).
-            ref = first.setdefault(name, res)
+            # The share of lanes bitwise equal to the family's first
+            # variant's.
+            ref = first.setdefault((family if family.startswith("cluster")
+                                    else "tree", name), res)
             if res.dtype != torch.bool:
                 res, ref = res.view(torch.int32), ref.view(torch.int32)
             same = float((res == ref).float().mean())
             held = None
             if args.check:
-                family = mode_of(key) if "dense" in key else "tree"
                 if (family, name) not in wanted:
-                    plain = make_plain(mode_of(key), scene, meta,
-                                       any_hit=args.any_hit)
+                    plain = make_plain("cluster" if family.startswith(
+                        "cluster") else mode, *plain_of[mode],
+                        any_hit=args.any_hit)
                     want = plain(o[:args.check], d[:args.check])
                     if want.dtype != torch.bool:
                         want = want.view(torch.int32)
@@ -343,14 +429,62 @@ def main(argv=None, loaded=None) -> dict:
             med, spread = time_ms(lambda: run(o, d, K, ilv), args.reps,
                                   device)
             mrays = args.n / med / 1e3
+            entry = {"ms": med, "mrays_per_s": mrays, "equal": same,
+                     "plain_equal": held}
+            suffix = ""
+            if args.stats:
+                st = run(o, d, K, ilv, stats=True)
+                if st is not None:
+                    entry["pops"], suffix = pop_summary(st, med, K, mode)
             print(f"{tag} {name}: {mrays:.2f} Mrays/s ({med:.3f} ms, spread "
                   f"{spread:.1%}; {same:.4%} of lanes equal to the first "
                   f"variant's"
                   + (f"; first {args.check} bitwise equal to the plain "
-                     f"version" if args.check else "") + ")", flush=True)
-            out[f"{key}:{name}"] = {"ms": med, "mrays_per_s": mrays,
-                                    "equal": same, "plain_equal": held}
+                     f"version" if args.check else "") + ")" + suffix,
+                  flush=True)
+            out[f"{key}:{name}"] = entry
     return out
+
+
+def pop_summary(st, ms: float, K: int, mode: str):
+    """({"node", "leaf", "skip", "dropped", "ns_per_pop"}, the line's
+    suffix) of a variant's pop counters ``st``: [N, 2 or 3] per ray, or
+    [P, 2] per sub-packet stack for the sub-packet mode. Means are per ray
+    (per packet for the sub-packet mode)."""
+    import torch
+
+    st = st.to(torch.int64).cpu()
+    node, leaf = st[:, 0].double(), st[:, 1].double()
+    total = int(node.sum() + leaf.sum())
+    ns = ms * 1e6 / max(total, 1)
+    pops = {"node": float(node.mean()), "leaf": float(leaf.mean()),
+            "ns_per_pop": ns}
+    leaf_name = "cluster" if mode.startswith("cluster") else "leaf"
+    if mode == "subpacket":
+        line = (f" | pops per packet (its 128-ray stacks): node p50="
+                f"{float(node.median()):.0f} mean={float(node.mean()):.1f}, "
+                f"leaf p50={float(leaf.median()):.0f} "
+                f"mean={float(leaf.mean()):.1f}; ns/pop={ns:.3f}")
+        return pops, line
+    n = st.shape[0]
+    per_k = st[:n - n % K].reshape(-1, K, st.shape[1]).sum(dim=1).double()
+    line = (f" | pops per ray: node p50={float(node.median()):.0f} "
+            f"mean={float(node.mean()):.2f}, {leaf_name} "
+            f"p50={float(leaf.median()):.0f} mean={float(leaf.mean()):.2f}; "
+            f"per {K}-ray packet, sums of per-ray walks (not a shared "
+            f"stack's pops): node p50={float(per_k[:, 0].median()):.0f}, "
+            f"{leaf_name} p50={float(per_k[:, 1].median()):.0f}; "
+            f"ns/pop={ns:.4f}")
+    if st.shape[1] > 2:
+        extra = int(st[:, 2].sum())
+        key = "skip" if mode.startswith("cluster") else "dropped"
+        pops[key] = float(st[:, 2].double().mean())
+        if key == "skip":
+            line += (f"; skipped per ray mean={pops['skip']:.2f} "
+                     f"({extra} in all)")
+        elif extra:
+            line += f"; STACK OVERFLOWS={extra}"
+    return pops, line
 
 
 if __name__ == "__main__":
