@@ -18,10 +18,12 @@ nvcc and g++. Phases, each of which raises on failure:
   R. the roofline probes: each against its plain version at a small
      iteration count in every copy (bitwise; the bf16 product within a
      stated bound, its maximum printed), at every shape, tile, tc and mode
-     that tools/torch_roofline.py run_compact launches; the first of each
-     timed with its plain version and, for the products, torch.matmul on
-     the same shapes; then run_compact itself, every probe launched, its
-     rates printed;
+     that tools/torch_roofline.py run_compact launches, and the f32
+     product at the other shapes of its main(); the first of each timed
+     with its plain version and, for the products, torch.matmul on the
+     same shapes, with the float32 matmul precision it ran at (cuBLAS in
+     full FP32, not TF32); then run_compact itself, every probe launched,
+     its rates printed;
   3. each MT-leaf entry point against its plain torch version on the
      card, on the sponza and bathroom tables, with 65,536 camera rays plus
      65,536 random-direction rays from surface points, about 10% of lanes
@@ -49,10 +51,13 @@ nvcc and g++. Phases, each of which raises on failure:
      sort's own time, for the top1 and top2 keys;
   4. each cluster entry point against its plain version on the sponza and
      bathroom cluster tables (cluster_tris = 128) with phase 3's rays:
-     t/prim/u/v and occluded bitwise equal; times beside phase 3's; the
-     counters and pop_skip (closest) against the plain version's, bitwise,
-     the hits bitwise those without; the pop account of B1 and B4 (kernel
-     time over pops against the probes' per-pop floors);
+     t/prim/u/v and occluded bitwise equal; times beside phase 3's, with
+     their bounds; the counters and pop_skip (closest) against the plain
+     version's, bitwise, the hits bitwise those without; the pop account
+     of B1 and of B4 closest and any-hit (kernel time over pops, ns a
+     pop, against the probes' per-pop floors); then the same checks on
+     the tie case of tests/test_torch_kernel.py (every triangle of a soup
+     twice, the twins in one block: each hit a tie the lower slot wins);
   5. the golden recipe of tests/test_golden.py (cornell, 32x32, 8 spp) on
      the card against tests/golden/cornell_32_8spp.npz;
   6. the main path through the CLI: proc:sponza 1920x1080 with 64 bounces
@@ -701,12 +706,12 @@ def compare_dense(name: str, scene, rays, b1, device, results,
     results[name + "_dense"] = out
 
 
-def _tool_module(name: str):
-    """tools/<name>.py as a module."""
+def _tool_module(name: str, folder: str = "tools"):
+    """<folder>/<name>.py as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        name, os.path.join(ROOT, "tools", f"{name}.py"))
+        name, os.path.join(ROOT, folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -850,6 +855,8 @@ def compare_cluster(name: str, width: int, height: int, rays, device,
         *tabs, o, d, t_occ, on, with_stats=True, **kw))
     _hold_stats(f"[{name} cluster] any-hit (without counters)", occ_st[:1],
                 (occ,))
+    results[name + "_cluster_pops_anyhit"] = tuple(
+        int(x) for x in occ_st[1][:, :2].sum(dim=0))
     node, cl = (int(x) for x in counts[:, :2].sum(dim=0))
     print(f"[{name} cluster] counters: closest and any-hit, with and without "
           f"pop_skip, every ray bitwise equal to the plain version, hits "
@@ -867,6 +874,59 @@ def compare_cluster(name: str, width: int, height: int, rays, device,
             pops_a, leaf_bytes=leaf, slot_ops=CLUSTER_SLOT_OPS,
             io_bytes=n * 30))}
     _print_bounds(name + " cluster", results[name + "_cluster"])
+
+
+def compare_cluster_ties(device) -> None:
+    """Phase 4 on the tie case of tests/test_torch_kernel.py: a soup whose
+    every triangle appears twice, the twins in one block (checked), so
+    each hit ties on two slots and the lower slot must win. 131,072 rays;
+    closest and any-hit, with and without counters and pop_skip, every
+    output bitwise the plain version's."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
+
+    tests = _tool_module("test_torch_kernel", "tests")
+    case = tests.cluster_soup_case(tc=128, n_tris=600, n_rays=2 * N_RAYS,
+                                   duplicate=True)
+    blk0, blk1, slot0, slot1 = tests.twin_slots(case)
+    if not (blk0 == blk1).all():
+        raise AssertionError("tie case: twins in different blocks")
+    tabs = [torch.as_tensor(case["tables"][k], device=device)
+            for k in ("node_rows", "cluster_rows", "cluster_refs")]
+    o, d, far, t_occ, on = (torch.as_tensor(case[k], device=device)
+                            for k in ("o", "d", "far", "t_occ", "act"))
+    kw = dict(stack_depth=case["depth"])
+    label = "[ties] trace_cluster_closest"
+    got = kc.closest_cluster(*tabs, o, d, far, on, **kw)
+    _hold_hits(label, got, kc.closest_cluster_plain(*tabs, o, d, far, on,
+                                                    **kw))
+    won = got[1][got[1] >= 0].cpu().numpy()
+    lower = np.where(slot0 < slot1, 0, 1)
+    if not (won % 2 == lower[won // 2]).all():
+        raise AssertionError(f"{label}: a tie went to the higher slot")
+    for skip in (False, True):
+        st = kc.closest_cluster(*tabs, o, d, far, on, with_stats=True,
+                                pop_skip=skip, **kw)
+        _hold_stats(f"{label} counters, pop_skip {skip}", st,
+                    kc.closest_cluster_plain(*tabs, o, d, far, on,
+                                             with_stats=True, pop_skip=skip,
+                                             **kw))
+        _hold_stats(f"{label} (hits without counters)", st[:4], got)
+    occ = kc.anyhit_cluster(*tabs[:2], o, d, t_occ, on, **kw)
+    _hold_occluded("[ties] trace_cluster_anyhit", occ, kc.anyhit_cluster_plain(
+        *tabs[:2], o, d, t_occ, on, **kw))
+    st = kc.anyhit_cluster(*tabs[:2], o, d, t_occ, on, with_stats=True, **kw)
+    _hold_stats("[ties] trace_cluster_anyhit counters", st,
+                kc.anyhit_cluster_plain(*tabs[:2], o, d, t_occ, on,
+                                        with_stats=True, **kw))
+    print(f"[ties] {len(blk0) * 2} triangles as twins in "
+          f"{case['tables']['cluster_rows'].shape[0] // 8} blocks, "
+          f"{o.shape[0]} rays: {len(won)} closest hits, each a tie won by "
+          f"the lower slot; closest (counters, pop_skip) and any-hit "
+          f"(counters) bitwise equal to the plain versions; occluded "
+          f"{float(occ.float().mean()):.3f}")
 
 
 def golden_check(device) -> None:
@@ -1167,7 +1227,8 @@ BF16_BOUND = 1e-6
 
 def _probe_cases(device, tool):
     """Every probe launch of tools/torch_roofline.py run_compact, at its
-    shapes and copies, on seeded random inputs: a list of (name, case,
+    shapes and copies, then the f32 product at the other shapes of its
+    main(), on seeded random inputs: a list of (name, case,
     kernel(iters, copies), plain(iters), blocks a copy, FP32 instructions
     or bf16 operations an iteration a copy, torch.matmul yardstick or None,
     bf16 tolerance scale an iteration or None for bitwise). The first case
@@ -1195,7 +1256,11 @@ def _probe_cases(device, tool):
               lambda it: rl.vpu_plain(x, iters=it, ilp=8),
               x.numel() // rl.THREADS, x.numel() * 8 * rl.VPU_STEP, None,
               None)]
-    for _, m, k, n, dtype, _, _ in tool.COMPACT_MXU:
+    compact = [(m, k, n, dtype) for _, m, k, n, dtype, _, _ in
+               tool.COMPACT_MXU]
+    for m, k, n, dtype in compact + [
+            (m, k, n, dtype) for m, k, n, dtype, _ in tool.MAIN_MXU
+            if dtype == "float32" and (m, k, n, dtype) not in compact]:
         a, b = t(rng.uniform(-1, 1, (m, k))), t(rng.uniform(-1, 1, (k, n)))
         bf16 = dtype == "bfloat16"
         if bf16:
@@ -1283,11 +1348,17 @@ def roofline_phase(device, results) -> dict:
         plain_ms = _events_ms(lambda: plain(iters), 1)
         peak = PEAK_BF16_FLOPS if scale is not None else PEAK_FP32_INSTR
         bound_ms = 1e3 * work * iters * copies / peak
+        if lib and torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("torch.matmul would run TF32: not the "
+                                 "probe's work")
         lib_ms = _events_ms(lambda: lib(iters, copies), 3) if lib else None
         print(f"{label}: {held}; {iters} iterations {ms:.3f} ms, plain "
               f"{plain_ms:.1f} ms (one copy), bound {bound_ms:.4f} ms "
               f"(operations), kernel at {bound_ms / ms:.1%} of it"
-              + (f"; torch.matmul on the same work {lib_ms:.3f} ms"
+              + (f"; torch.matmul on the same work {lib_ms:.3f} ms "
+                 f"({ms / lib_ms:.2f}x; float32 matmul precision "
+                 f"{torch.get_float32_matmul_precision()!r}, allow_tf32 "
+                 f"{torch.backends.cuda.matmul.allow_tf32})"
                  if lib else ""))
         results["roofline"][name] = (err, ms, plain_ms, bound_ms,
                                      "operations", lib_ms)
@@ -1714,13 +1785,18 @@ def main() -> int:
         if name == "sponza":
             compare_tsort(name, scene, meta, device)
         compare_cluster(name, w, h, rays, device, results)
-        node, cl = results[name + "_cluster_pops"]
-        pop_account(f"B4 {name} trace_cluster_closest (cluster pops at the "
-                    f"tc = 128 body)",
-                    results[name + "_cluster"]["trace_cluster_closest"][1],
-                    node, cl, results["rates"], "cluster_pop_ray_ps_tc128")
+        for entry, key, floor in (
+                ("trace_cluster_closest", "_cluster_pops",
+                 "cluster_pop_ray_ps_tc128"),
+                ("trace_cluster_anyhit", "_cluster_pops_anyhit",
+                 "cluster_anyhit_pop_ray_ps_tc128")):
+            node, cl = results[name + key]
+            pop_account(f"B4 {name} {entry} (cluster pops at the tc = 128 "
+                        f"body)", results[name + "_cluster"][entry][1], node,
+                        cl, results["rates"], floor)
         del rays, b1
         stamp(f"phases 3-4 on {name}")
+    compare_cluster_ties(device)
     golden_check(device)
 
     launches = {}

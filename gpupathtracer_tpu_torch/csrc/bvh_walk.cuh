@@ -1,11 +1,12 @@
 // The wide-BVH walk of one ray by one thread, shared by csrc/traverse.cu
-// (closest-hit and any-hit queries on MT-leaf tables), csrc/cluster_traverse.cu
-// (the same on dense cluster-leaf tables) and csrc/megakernel.cu (the walks
-// inside the whole-path estimator). One node phase, `walk`, is generic over
-// its leaf routine: MtLeaf or ClusterLeaf; `walk_ilv` and `walk_multi` are
-// two more schedules of it. csrc/subpacket_traverse.cu (one stack per 128
-// rays) takes the slab test and the leaf test from here, and
-// csrc/dense_intersect.cu the dot products.
+// (closest-hit and any-hit queries on MT-leaf tables) and csrc/megakernel.cu
+// (the walks inside the whole-path estimator). One node phase, `walk`, is
+// generic over its leaf routine: MtLeaf or ClusterLeaf; `walk_ilv` and
+// `walk_multi` are two more schedules of it. csrc/cluster_traverse.cu (the
+// same queries on dense cluster-leaf tables, each cluster run by a warp)
+// takes the node expansion and the cluster dot products from here,
+// csrc/subpacket_traverse.cu (one stack per 128 rays) the slab test and
+// the leaf test, and csrc/dense_intersect.cu the dot products.
 //
 // The MT-leaf table is the merged 128-float row table of bvh/wide.py
 // pack_for_packets:

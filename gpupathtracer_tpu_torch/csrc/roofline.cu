@@ -19,16 +19,18 @@
 // What bounds each: the VPU, node, leaf and cluster probes are FP32
 // instruction streams on registers and on 32-48 KB of rows or blocks that
 // L1 holds after the first pass (it stands in for the TPU's VMEM slice), so
-// the card's FP32 issue rate bounds them. The f32 product runs fused
-// multiply-adds on the CUDA cores (the H100's tensor cores have no full
-// FP32 mode), 64 x 64 output tiles of 4 x 4 per thread staged through
-// shared memory; the bf16 product runs mma.sync m16n8k16 on the tensor
-// cores, one 16-row band of a 64 x 64 tile per warp, its operands read from
-// global memory (L1 / L2). Both are simple first versions: no wgmma, no TMA,
-// no pipelining. The feedback term acc[:, :1] means every iteration of a
-// row band needs column 0 of the last one, which another block may own:
-// each block (f32) or warp (bf16) computes its rows' column 0 itself as
-// well, in the same order, so the copies agree bit for bit.
+// the card's FP32 issue rate bounds them, and the f32 product's fused
+// multiply-adds too (the H100's tensor cores have no full FP32 mode): its
+// blocks stage their operands in shared memory once and hold 8 x 8
+// outputs a thread, so a k step is four 16-byte shared loads for 64 FFMA
+// (section 2). The bf16 product runs mma.sync m16n8k16 on the tensor
+// cores, one 16-row band of a 64 x 64 tile per warp, its operands read
+// from global memory (L1 / L2): a simple first version, no ldmatrix, no
+// wgmma, no TMA. The feedback term acc[:, :1] means every iteration of a
+// row band needs column 0 of the last one: an f32 block owns whole rows
+// (only an N wider than 2048 splits them), a bf16 warp computes its rows'
+// column 0 itself as well, in the same order, so the copies agree bit for
+// bit.
 
 #include <cuda_bf16.h>
 
@@ -71,68 +73,139 @@ vpu_kernel(const float* __restrict__ x, int per_copy, int total, int iters,
 
 // --- 2. matrix products ------------------------------------------------------
 
-constexpr int kTile = 64;  // output tile of a block, both products
-constexpr int kKt = 16;    // depth of an f32 k step
+constexpr int kTile = 64;  // output tile of a bf16 block
 
-// f32: 256 threads, each 4 x 4 outputs of the 64 x 64 tile, plus (threads
-// 0-63) column 0 of the tile's row t. Per iteration and output, the sum
-// over k is a chain of fused multiply-adds in k order from +0, then added
-// to acc.
-__global__ void __launch_bounds__(256)
+// f32, staged once for Hopper. A block owns a band of bm rows and a slab of
+// bn columns of one copy, bn = N whenever N <= kMaxBn, so column 0 (the
+// feedback) is the block's own; only a shape with N wider than that has
+// other column slabs, whose blocks recompute column 0 of their rows (one
+// thread a row, the same chain in the same order; nt is 256 there, so a
+// block has more threads than rows). Before the iteration
+// loop the block stages its band of a and b's slab in shared memory,
+// k-major (a0[k][r], bs[k][c]); each iteration rebuilds only ap = a0 + fb
+// there, with no global traffic. Thread (tx, ty) of nt x mt holds 8 x 8
+// outputs in registers: rows ty * 4 + i and bm / 2 + ty * 4 + i, columns
+// tx * 4 + j and bn / 2 + tx * 4 + j (i, j < 4), so a k step is four
+// 16-byte shared loads (the lanes of a warp read few distinct words: a
+// broadcast) for 64 FFMA. Per iteration and output, the sum over k is a
+// chain of fused multiply-adds in k order from +0, then added to acc.
+constexpr int kMaxBn = 2048;     // widest column slab a block owns
+constexpr int kF32Threads = 256;  // most threads of a block
+
+struct MxuPlan {
+  int nt, mt, col_tiles, bands;
+  size_t smem;
+};
+
+// Floats of shared memory a block of mt thread rows uses: a0 and ap
+// (bm * k each), bs (k * bn), fb (bm) and, with several column slabs,
+// b's column 0 (k).
+size_t mxu_f32_smem(int mt, int k, int bn, int col_tiles) {
+  size_t bm = 8 * (size_t)mt;
+  return 4 * (2 * bm * k + (size_t)k * bn + bm + (col_tiles > 1 ? k : 0));
+}
+
+// The tiling of one shape: nt column threads cover min(N, kMaxBn) columns,
+// and as many thread rows as fit 256 threads, the rows of a copy and the
+// shared memory a block can have. nt = 0 when no block fits.
+MxuPlan mxu_f32_plan(int m, int k, int n, size_t smem_max) {
+  MxuPlan p{};
+  p.nt = (min(n, kMaxBn) + 7) / 8;
+  const int bn = 8 * p.nt;
+  p.col_tiles = (n + bn - 1) / bn;
+  p.mt = min(kF32Threads / p.nt, (m + 7) / 8);
+  while (p.mt > 0 && mxu_f32_smem(p.mt, k, bn, p.col_tiles) > smem_max)
+    --p.mt;
+  if (p.mt == 0) {
+    p.nt = 0;
+    return p;
+  }
+  p.smem = mxu_f32_smem(p.mt, k, bn, p.col_tiles);
+  p.bands = (m + 8 * p.mt - 1) / (8 * p.mt);
+  return p;
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
 mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               int m, int k, int n, int iters, float* __restrict__ out) {
-  __shared__ float as[kTile][kKt + 1];
-  __shared__ float bs[kKt][kTile];
-  __shared__ float b0[kKt];
-  __shared__ float fb[kTile];
-  const int tiles_m = (m + kTile - 1) / kTile, tiles_n = (n + kTile - 1) / kTile;
-  const int per_copy = tiles_m * tiles_n;
-  const int copy = blockIdx.x / per_copy, tile = blockIdx.x % per_copy;
-  const int row0 = (tile / tiles_n) * kTile, col0 = (tile % tiles_n) * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {}, acc0 = 0.0f;
+               int m, int k, int n, int iters, int nt, int mt,
+               int col_tiles, int bands, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int bm = 8 * mt, bn = 8 * nt, threads = nt * mt;
+  float* a0 = reinterpret_cast<float*>(smem4);
+  float* ap = a0 + (size_t)bm * k;
+  float* bs = ap + (size_t)bm * k;
+  float* fb = bs + (size_t)k * bn;
+  float* b0 = fb + bm;
+  const int per_copy = bands * col_tiles;
+  const int copy = blockIdx.x / per_copy, rest = blockIdx.x % per_copy;
+  const int row0 = (rest / col_tiles) * bm;
+  const int slab = rest % col_tiles, col0 = slab * bn;
+  const int tid = threadIdx.x, tx = tid % nt, ty = tid / nt;
+  const bool recompute = slab > 0;
+
+  for (int e = tid; e < bm * k; e += threads) {
+    const int r = e / k, kk = e % k;
+    a0[kk * bm + r] = row0 + r < m ? a[(size_t)(row0 + r) * k + kk] : 0.0f;
+  }
+  for (int e = tid; e < k * bn; e += threads) {
+    const int kk = e / bn, c = e % bn;
+    bs[e] = col0 + c < n ? b[(size_t)kk * n + col0 + c] : 0.0f;
+  }
+  if (recompute)
+    for (int kk = tid; kk < k; kk += threads) b0[kk] = b[(size_t)kk * n];
+
+  // Row i of the thread's 8: local row ty * 4 + i (i < 4), bm / 2 + ...
+  auto row_of = [&](int i) { return (i < 4 ? 0 : bm / 2) + ty * 4 + (i & 3); };
+  float acc[8][8] = {}, acc0 = 0.0f;
   for (int it = 0; it < iters; ++it) {
-    if (tid < kTile) fb[tid] = acc0 * 1e-30f;
-    float s[4][4] = {}, s0 = 0.0f;
-    for (int k0 = 0; k0 < k; k0 += kKt) {
-      const int kv = min(kKt, k - k0);
-      __syncthreads();  // fb written; the last step's tiles consumed
-      for (int e = tid; e < kTile * kKt; e += 256) {
-        int r = e / kKt, c = e % kKt, gr = row0 + r;
-        as[r][c] = (gr < m && c < kv) ? a[(size_t)gr * k + k0 + c] + fb[r]
-                                      : 0.0f;
-      }
-      for (int e = tid; e < kKt * kTile; e += 256) {
-        int r = e / kTile, c = e % kTile, gc = col0 + c;
-        bs[r][c] = (gc < n && r < kv) ? b[(size_t)(k0 + r) * n + gc] : 0.0f;
-      }
-      if (tid < kKt) b0[tid] = tid < kv ? b[(size_t)(k0 + tid) * n] : 0.0f;
-      __syncthreads();
-      for (int kk = 0; kk < kv; ++kk) {
+    if (!recompute) {
+      if (tx == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float av = as[ty * 4 + i][kk];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            s[i][j] = __fmaf_rn(av, bs[kk][tx * 4 + j], s[i][j]);
-        }
-        if (tid < kTile) s0 = __fmaf_rn(as[tid][kk], b0[kk], s0);
+        for (int i = 0; i < 8; ++i) fb[row_of(i)] = acc[i][0] * 1e-30f;
       }
+    } else if (tid < bm) {
+      fb[tid] = acc0 * 1e-30f;
+    }
+    __syncthreads();  // fb written; every thread is done with ap
+    for (int e = tid; e < bm * k; e += threads) ap[e] = a0[e] + fb[e % bm];
+    __syncthreads();
+    float s[8][8] = {};
+    const float* pa = ap + ty * 4;
+    const float* pb = bs + tx * 4;
+#pragma unroll 2
+    for (int kk = 0; kk < k; ++kk) {
+      const float4 alo = *reinterpret_cast<const float4*>(pa);
+      const float4 ahi = *reinterpret_cast<const float4*>(pa + bm / 2);
+      const float4 blo = *reinterpret_cast<const float4*>(pb);
+      const float4 bhi = *reinterpret_cast<const float4*>(pb + bn / 2);
+      const float av[8] = {alo.x, alo.y, alo.z, alo.w,
+                           ahi.x, ahi.y, ahi.z, ahi.w};
+      const float bv[8] = {blo.x, blo.y, blo.z, blo.w,
+                           bhi.x, bhi.y, bhi.z, bhi.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = __fmaf_rn(av[i], bv[j], s[i][j]);
+      pa += bm;
+      pb += bn;
+    }
+    if (recompute && tid < bm) {
+      float s0 = 0.0f;
+      for (int kk = 0; kk < k; ++kk) s0 = __fmaf_rn(ap[kk * bm + tid], b0[kk], s0);
+      acc0 = acc0 + s0;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] + s[i][j];
-    acc0 = acc0 + s0;
-    __syncthreads();  // every thread has read fb
+      for (int j = 0; j < 8; ++j) acc[i][j] = acc[i][j] + s[i][j];
   }
   float* o = out + (size_t)copy * m * n;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int gr = row0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int gr = row0 + row_of(i);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gc = col0 + tx * 4 + j;
+    for (int j = 0; j < 8; ++j) {
+      const int gc = col0 + (j < 4 ? 0 : bn / 2) + tx * 4 + (j & 3);
       if (gr < m && gc < n) o[(size_t)gr * n + gc] = acc[i][j];
     }
   }
@@ -366,15 +439,26 @@ int gpt_roofline_vpu(const float* x, int rows, int iters, int ilp, int copies,
 int gpt_roofline_mxu(int bf16, const void* a, const void* b, int m, int k,
                      int n, int iters, int copies, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int tiles = ((m + kTile - 1) / kTile) * ((n + kTile - 1) / kTile);
   if (bf16) {
     if (m % kTile || k % 16 || n % 8) return -1;
+    int tiles = (m / kTile) * ((n + kTile - 1) / kTile);
     mxu_bf16_kernel<<<tiles * copies, kThreads, 0, s>>>(
         (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, m, k, n, iters, out);
-  } else {
-    mxu_f32_kernel<<<tiles * copies, 256, 0, s>>>(
-        (const float*)a, (const float*)b, m, k, n, iters, out);
+    return (int)cudaGetLastError();
   }
+  int dev = 0, smem_max = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const MxuPlan p = mxu_f32_plan(m, k, n, (size_t)smem_max);
+  if (p.nt == 0) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      mxu_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  mxu_f32_kernel<<<p.bands * p.col_tiles * copies, p.nt * p.mt, p.smem, s>>>(
+      (const float*)a, (const float*)b, m, k, n, iters, p.nt, p.mt,
+      p.col_tiles, p.bands, out);
   return (int)cudaGetLastError();
 }
 

@@ -3,15 +3,38 @@ package's math/vecmath.py; Util.glsl nndot/avdot/luminance roles)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
 def sqrt(x):
     """Correctly rounded float32 square root, as XLA and CUDA give it.
     torch's float32 sqrt on the CPU is one ulp off for about 0.7% of
-    inputs; the float64 root rounded to float32 is exact (53 >= 2*24 + 2
-    bits)."""
-    return torch.sqrt(x.double()).to(x.dtype)
+    inputs. The float64 root rounded to float32 is exact where both steps
+    round correctly (53 >= 2*24 + 2 bits), as they do on CUDA. On the CPU,
+    in about one process of 40 that also runs jax, torch gave roots one
+    ulp off there, for inputs whose root lies within 1e-4 ulp of a
+    rounding midpoint (ROADMAP.md C1), so on the CPU the root is settled
+    exactly (``round_root``)."""
+    r = torch.sqrt(x.double()).to(x.dtype)
+    return round_root(x, r) if x.device.type == "cpu" else r
+
+
+def round_root(x, r):
+    """The correctly rounded float32 square root of x [..] from an
+    estimate r within one ulp of it: r's neighbour where x lies beyond the
+    square of the midpoint between them. A midpoint of two float32 values
+    has 25 significant bits, so its square, and the comparison with x,
+    are exact in float64. NaN, zero and negative x keep r."""
+    xd, rd = x.double(), r.double()
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    hi = (rd + up.double()) * 0.5
+    lo = (rd + down.double()) * 0.5
+    pos = x > 0.0
+    return torch.where(pos & (xd > hi * hi), up,
+                       torch.where(pos & (xd < lo * lo), down, r))
 
 
 def dot(a, b, keepdim: bool = False):

@@ -7,7 +7,11 @@ bvh/cluster.py) the node rows hold the cluster top tree and a leaf is one
 [8, 3*tc] block of inverse-matrix rows whose tc triangles a pop intersects
 all at once. It is built with nvcc on first use (ops/cuda_build.py) and
 bound through a plain C interface with ctypes; the node phase is
-csrc/bvh_walk.cuh's, shared with the MT-leaf kernel and the megakernel.
+csrc/bvh_walk.cuh's, shared with the MT-leaf kernel and the megakernel,
+one ray a thread, and each cluster pop is run by the whole warp (lane L
+tests slots L, L + 32, ...; a warp reduction keeps the lowest slot among
+equal t), which leaves every ray's visit order and results those of a
+walk by one thread.
 
 ``closest_cluster`` / ``anyhit_cluster`` launch the kernel for CUDA
 tensors and run ``closest_cluster_plain`` / ``anyhit_cluster_plain`` for

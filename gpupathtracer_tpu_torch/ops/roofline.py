@@ -94,6 +94,8 @@ def _library() -> ctypes.CDLL:
 
 def _launch(entry: str, fn, *args) -> None:
     err = fn(*args)
+    if err == -1:
+        raise ValueError(f"{entry}: no kernel takes these arguments")
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[entry] += 1
@@ -168,8 +170,11 @@ def vpu_plain(x, *, iters: int, ilp: int) -> torch.Tensor:
 def mxu(a, b, *, iters: int, copies: int = 1) -> torch.Tensor:
     """``mxu_kernel``: a [M, K], b [K, N], both f32 or both bf16; returns
     acc [copies, M, N] f32. f32 runs FP32 fused multiply-adds on the CUDA
-    cores (H100 tensor cores have no full-f32 mode), bf16 the tensor cores
-    (mma.sync m16n8k16, K a multiple of 16, M of 64, N of 8)."""
+    cores (H100 tensor cores have no full-f32 mode), its operands staged
+    in shared memory once: a block's band of at least 8 rows of a (twice)
+    and b's columns must fit a block's shared memory, or it raises. bf16
+    runs the tensor cores (mma.sync m16n8k16, K a multiple of 16, M of 64,
+    N of 8)."""
     _positive(iters=iters, copies=copies)
     m, k = a.shape
     n = b.shape[1]

@@ -40,6 +40,7 @@ from gpupathtracer_tpu_torch.scene import load_scene
 from gpupathtracer_tpu_torch.scene.mesh import build_triangle_soup
 from gpupathtracer_tpu_torch.scene.procedural import (default_camera,
                                                       load_procedural)
+from test_torch_kernel import cluster_soup_case, twin_slots
 
 CLUSTER_FIELDS = ("node_rows", "cluster_rows", "cluster_refs", "cut_entry",
                   "cut_bounds")
@@ -167,6 +168,41 @@ def test_plain_matches_cluster_kernel(source, tc, n_rays):
     np.testing.assert_array_equal(occ.numpy(), occ_prim >= 0)
     assert 0.05 < occ.numpy().mean() < 0.95
     assert not occ.numpy()[off].any()
+
+
+def test_plain_cluster_ties_match_cluster_kernel():
+    """B4 where equal t falls on different slots of one block: every
+    triangle of a soup twice (cluster_soup_case). The twins share a block,
+    and a ray that hits one ties with the other. The plain version keeps
+    the lowest slot, as _kernel_cluster does (pallas_traverse.py:507-538):
+    closest t, prim, u, v bitwise; any-hit occluded equal."""
+    case = cluster_soup_case(n_tris=300, n_rays=256, duplicate=True)
+    blk0, blk1, slot0, slot1 = twin_slots(case)
+    assert (blk0 == blk1).all() and (slot0 != slot1).all()
+    tab = {k: torch.tensor(v) for k, v in case["tables"].items()}
+    rays = [torch.from_numpy(case[k]) for k in ("o", "d")]
+    act = torch.from_numpy(case["act"])
+    t, prim_local, u, v = _pallas(case, case["far"], any_hit=False)
+    refs = case["tables"]["cluster_refs"]
+    prim = np.where(prim_local >= 0, refs[np.clip(prim_local, 0, None)], -1)
+    got = kc.closest_cluster(tab["node_rows"], tab["cluster_rows"],
+                             tab["cluster_refs"], *rays,
+                             torch.from_numpy(case["far"]), act,
+                             stack_depth=case["depth"])
+    for g, w in zip(got, (t, prim, u, v)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    # Every hit is a tie with its twin; the twin in the lower slot won.
+    won = got[1].numpy()
+    hit = won >= 0
+    assert hit.sum() >= 32
+    lower = np.where(slot0 < slot1, 0, 1)
+    assert (won[hit] % 2 == lower[won[hit] // 2]).all()
+    occ_prim = _pallas(case, case["t_occ"], any_hit=True)[1]
+    occ = kc.anyhit_cluster(tab["node_rows"], tab["cluster_rows"], *rays,
+                            torch.from_numpy(case["t_occ"]), act,
+                            stack_depth=case["depth"])
+    np.testing.assert_array_equal(occ.numpy(), occ_prim >= 0)
+    assert 0.05 < occ.numpy().mean() < 0.95
 
 
 def test_wrapper_rejects_bad_cluster_tables():

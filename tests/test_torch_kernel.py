@@ -110,6 +110,52 @@ def far_cluster_case(offset=(3000.0, -1500.0, 2000.0), n_rays=4096, seed=5):
             min(stats.max_depth * 7 + 2, kt.MAX_STACK))
 
 
+def cluster_soup_case(tc=128, n_tris=600, n_rays=4096, seed=11,
+                      duplicate=False):
+    """A random soup of small triangles (tests/test_pallas.py's recipe) on
+    cluster leaves of tc slots, built with the numpy builder. With
+    ``duplicate`` every triangle appears twice (prims 2k and 2k + 1), so a
+    ray that hits one hits its twin at bitwise the same t, u and v: a tie
+    that the lowest slot of the block must win. Rays from a cube around
+    the soup toward points inside it; a random occlusion distance and
+    about 10% of lanes inactive. Returns a dict: tables (node_rows,
+    cluster_rows, cluster_refs as numpy), depth, o, d, far, t_occ, act."""
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(-5, 5, (n_tris, 1, 3))
+    tri = (base + rng.uniform(-0.6, 0.6, (n_tris, 3, 3))).astype(np.float32)
+    if duplicate:
+        tri = np.repeat(tri, 2, axis=0)
+    p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=10, builder="numpy")
+    wide = pack_clusters(wide, p0, p1 - p0, p2 - p0, tc=tc)
+    o = rng.uniform(-8, 8, (n_rays, 3))
+    d = rng.uniform(-4, 4, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return dict(
+        tables={f: np.asarray(getattr(wide, f))
+                for f in ("node_rows", "cluster_rows", "cluster_refs")},
+        depth=min(stats.max_depth * 7 + 2, kt.MAX_STACK),
+        o=o.astype(np.float32), d=d.astype(np.float32),
+        far=np.full(n_rays, 1e20, np.float32),
+        t_occ=rng.uniform(0.5, 8.0, n_rays).astype(np.float32),
+        act=rng.rand(n_rays) < 0.9)
+
+
+def twin_slots(case):
+    """For the duplicated soup: (block of prim 2k, of 2k + 1, slot of 2k,
+    of 2k + 1) per triangle k, from cluster_refs."""
+    refs = case["tables"]["cluster_refs"]
+    rows = case["tables"]["cluster_rows"]
+    tc = rows.shape[1] // 3
+    # A padding slot's rows are all zero (its ref reads 0).
+    live = np.flatnonzero(rows.reshape(-1, 8, 3, tc)[:, :7].any(axis=(1, 2))
+                          .reshape(-1))
+    pos = np.full(refs.max() + 1, -1)
+    pos[refs[live]] = live
+    pos = pos.reshape(-1, 2)
+    return pos[:, 0] // tc, pos[:, 1] // tc, pos[:, 0] % tc, pos[:, 1] % tc
+
+
 def _nearest_f32(v: Fraction) -> np.float32:
     """The float32 nearest to v, ties to even."""
     f = np.float32(float(v))
@@ -284,6 +330,41 @@ def test_cluster_kernel_matches_plain_on_cuda():
         launches["trace_cluster_closest"] + 4
     assert kc.LAUNCHES["trace_cluster_anyhit"] == \
         launches["trace_cluster_anyhit"] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc,duplicate", [(128, True), (256, False)])
+def test_cluster_kernel_ties_and_soup_on_cuda(tc, duplicate):
+    """The warp's cluster leaf on the tie case (every triangle twice: equal
+    t on two slots of one block, the lowest slot must win) and on the
+    tc = 256 soup: closest and any-hit, with and without counters and
+    pop_skip, every output bitwise the plain version's."""
+    _need_cuda()
+    case = cluster_soup_case(tc=tc, n_tris=600, n_rays=65536,
+                             duplicate=duplicate)
+    tabs = [torch.tensor(case["tables"][k], device="cuda")
+            for k in ("node_rows", "cluster_rows", "cluster_refs")]
+    kw = dict(stack_depth=case["depth"])
+    rays = _port(case, case["far"], "cuda")
+    bare = kc.closest_cluster(*tabs, *rays, **kw)
+    _equal_bits(bare, kc.closest_cluster_plain(*tabs, *rays, **kw))
+    assert int((bare[1] >= 0).sum()) > 1000
+    for skip in (False, True):
+        got = kc.closest_cluster(*tabs, *rays, with_stats=True,
+                                 pop_skip=skip, **kw)
+        _equal_bits(got, kc.closest_cluster_plain(
+            *tabs, *rays, with_stats=True, pop_skip=skip, **kw))
+        _equal_bits(got[:4], bare)
+        _equal_bits(kc.closest_cluster(*tabs, *rays, pop_skip=skip, **kw),
+                    bare)
+    occ_rays = _port(case, case["t_occ"], "cuda")
+    occ = kc.anyhit_cluster(*tabs[:2], *occ_rays, **kw)
+    assert torch.equal(occ, kc.anyhit_cluster_plain(*tabs[:2], *occ_rays,
+                                                    **kw))
+    st = kc.anyhit_cluster(*tabs[:2], *occ_rays, with_stats=True, **kw)
+    _equal_bits(st, kc.anyhit_cluster_plain(*tabs[:2], *occ_rays,
+                                            with_stats=True, **kw))
+    assert torch.equal(st[0], occ)
 
 
 @pytest.mark.cuda
@@ -484,15 +565,18 @@ def test_roofline_probes_match_plain_on_cuda():
                                       any_hit=any_hit)
         assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
                    for g in got)
-    # The f32 product at tools/torch_roofline.py's shapes: K below and
-    # past the 16-deep k step (partial steps zero-filled), N below the
-    # 64-wide tile (the column bounds), several tiles a copy.
+    # The f32 product at every shape tools/torch_roofline.py launches,
+    # with the copies it launches (four 64 x 64 output tiles a SM): K = 3
+    # and 7, N = 32 (four column threads) up to 2048 (the widest column
+    # slab a block owns), several row bands a copy.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for m, kk, n in ((128, 128, 128), (384, 3, 128), (384, 3, 2048),
                      (2048, 128, 32), (2048, 3, 384), (768, 7, 1024)):
         a = t(rng.uniform(-1, 1, (m, kk)).astype(np.float32))
         b = t(rng.uniform(-1, 1, (kk, n)).astype(np.float32))
-        got = rl.mxu(a, b, iters=3, copies=2)
-        want = rl.mxu_plain(a, b, iters=3).view(torch.int32)
+        copies = -(-4 * sms // (-(-m // 64) * -(-n // 64)))
+        got = rl.mxu(a, b, iters=5, copies=copies)
+        want = rl.mxu_plain(a, b, iters=5).view(torch.int32)
         assert all(torch.equal(g.view(torch.int32), want) for g in got)
     for m in (128, 512):
         ab = t(rng.uniform(-1, 1, (m, m)).astype(np.float32)).bfloat16()

@@ -15,9 +15,9 @@ without the stack machinery:
      and beside it FP32 instructions/s (3 a step: FFMA, FMUL, FMNMX)
      against the card's issue rate, 67 TFLOP/s / 2 on an H100 SXM;
   2. matrix products: acc += dot(a + acc[:, :1] * 1e-30, b) at the JAX
-     probe's shapes, f32 on the CUDA cores (fused multiply-adds; the
-     tensor cores have no full-f32 mode) and bf16 on the tensor cores
-     (mma.sync);
+     probe's shapes, f32 on the CUDA cores (fused multiply-adds on
+     operands staged in shared memory once; the tensor cores have no
+     full-f32 mode) and bf16 on the tensor cores (mma.sync);
   3. device-memory bandwidth: 512 MB elementwise passes in plain torch,
      each pass one read and one write (torch runs every op as its own pass);
   4. traversal-phase floors: the node pop's slab test, the leaf pop's
@@ -71,6 +71,15 @@ COMPACT_MXU = (("mxu_128_f32_tflops_s", 128, 128, 128, "float32", 8, ""),
                 "(cluster per-g)"))
 COMPACT_G = 16
 COMPACT_CLUSTER = ((128, False), (256, False), (128, True))
+# The products main() measures: (M, K, N, dtype, label).
+MAIN_MXU = ((128, 128, 128, "float32", ""),
+            (128, 128, 128, "bfloat16", ""),
+            (512, 512, 512, "bfloat16", ""),
+            (2048, 3, 384, "float32", "(ray K=3 shape)"),
+            (2048, 128, 32, "float32", "(one-hot gather shape)"),
+            (384, 3, 128, "float32", "(cluster per-g)"),
+            (384, 3, 2048, "float32", "(cluster whole-packet)"),
+            (768, 7, 1024, "float32", "(cluster merged K=7)"))
 
 _OUT = [sys.stdout]  # run_compact(to_stderr=True) prints to stderr
 _DEVICE = [None]
@@ -200,6 +209,9 @@ def run_mxu(reps, M, K, N, dtype, iters=512, label=""):
     f = dict(dtype=dtype, device=_DEVICE[0])
     a = torch.full((M, K), 0.01, **f)
     b = torch.full((K, N), 0.01, **f)
+    # Copies stay a function of the shape, four 64 x 64 output tiles a SM
+    # (the f32 kernel's own blocks are larger): every version of the probe
+    # measures the same work.
     tiles = -(-M // 64) * -(-N // 64)
     copies = copies_for(tiles)
 
@@ -439,18 +451,9 @@ def main(argv=None):
     _safe(run_vpu, reps, iters=it, ilp=8, shape=(16, 128))
 
     print("\n== 2. matrix products ==")
-    f32, bf16 = torch.float32, torch.bfloat16
-    for shape, dtype, label in (((128, 128, 128), f32, ""),
-                                ((128, 128, 128), bf16, ""),
-                                ((512, 512, 512), bf16, ""),
-                                ((2048, 3, 384), f32, "(ray K=3 shape)"),
-                                ((2048, 128, 32), f32,
-                                 "(one-hot gather shape)"),
-                                ((384, 3, 128), f32, "(cluster per-g)"),
-                                ((384, 3, 2048), f32,
-                                 "(cluster whole-packet)"),
-                                ((768, 7, 1024), f32, "(cluster merged K=7)")):
-        _safe(run_mxu, reps, *shape, dtype, iters=mit, label=label)
+    for m, k, n, dtype, label in MAIN_MXU:
+        _safe(run_mxu, reps, m, k, n, getattr(torch, dtype), iters=mit,
+              label=label)
 
     if _DEVICE[0].type == "cuda":
         print("\n== 3. device-memory bandwidth ==")
