@@ -28,7 +28,13 @@ nvcc and g++. Phases, each of which raises on failure:
      card, on the sponza and bathroom tables, with 65,536 camera rays plus
      65,536 random-direction rays from surface points, about 10% of lanes
      inactive: prim and occluded equal, t/u/v bitwise equal; kernel and
-     plain times by CUDA events;
+     plain times by CUDA events; B1 at 64, 128 and 256 threads a block
+     (bitwise, each timed) and at stack depths 48 and 192 (its stack is in
+     shared memory: depth x threads x 4 bytes a block), with and without
+     counters, bitwise the plain version's; then the twin table of
+     tests/test_torch_kernel.py (every triangle twice, one a leaf: sibling
+     boxes tie in t_near, each hit a tie the lower slot must win), 131,072
+     rays, closest and any-hit with and without counters, bitwise;
   3b. on the same tables and rays, the interleave schedule (2 and 4 rays a
      thread), the multi-pop schedule (2 pops an iteration) and the
      sub-packet kernel (2048-ray packets), closest and any-hit, each
@@ -92,7 +98,11 @@ nvcc and g++. Phases, each of which raises on failure:
      differ, and those are printed); kernel and plain times; the counting
      variant's contributions bitwise the kernel's, its [P, 9] counters
      equal to the plain version's in every packet whose lanes all agree;
-     the pop account of B2;
+     the pop account of B2; then the cluster megakernel (each cluster pop
+     run by the whole warp) on the soups of tests/test_torch_kernel.py,
+     the twin-triangle tie case (tc 128) and a tc 256 soup, 97 x 61 lanes
+     (not a multiple of 32), one sample and four with regeneration: lanes,
+     ray counts and [P, 9] counters bitwise the plain version's;
   9. the megakernel against its plain version at the arguments of the
      rows of phases 10 and 11: the first chunk of each row's first frame,
      built as the Renderer builds it (the row's own samples a lane), runs
@@ -380,7 +390,111 @@ def compare_kernels(name: str, width: int, height: int, device, results):
             pops_a, leaf_bytes=mt_leaf_bytes, slot_ops=MT_SLOT_OPS,
             io_bytes=n * 30))}
     _print_bounds(name, results[name])
+    b1_blocks_and_depths(name, rows, (o, d, t_occ, on), meta, got, occ)
     return (o, d, t_occ, on), scene, meta, {"closest": got, "occ": occ}
+
+
+def b1_blocks_and_depths(name, rows, rays, meta, got, occ) -> None:
+    """Phase 3, B1's block sizes and stack depths: closest and any-hit at
+    64, 128 and 256 threads a block, each bitwise the default's and timed;
+    then at stack depths 48 and 192 (the shared stack's size, depth x
+    threads x 4 bytes a block), with and without counters, every output
+    bitwise the plain version's at that depth, and timed."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    o, d, t_occ, on = rays
+    far = torch.full((o.shape[0],), 1e20, device=o.device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    line = []
+    for th in kt.BLOCK_SIZES:
+        _hold_hits(f"[{name}] trace_closest {th} threads", kt.closest(
+            rows, o, d, far, on, threads=th, **kw), got)
+        _hold_occluded(f"[{name}] trace_anyhit {th} threads", kt.anyhit(
+            rows, o, d, t_occ, on, threads=th, **kw), occ)
+        ms_c = _events_ms(lambda: kt.closest(rows, o, d, far, on, threads=th,
+                                             **kw), 20)
+        ms_a = _events_ms(lambda: kt.anyhit(rows, o, d, t_occ, on,
+                                            threads=th, **kw), 20)
+        line.append(f"{th}: closest {ms_c:.4f} ms, any-hit {ms_a:.4f} ms")
+    print(f"[{name}] B1 at stack depth {meta.stack_depth}, bitwise at every "
+          f"block size (default {kt.THREADS}); " + "; ".join(line))
+    line = []
+    for depth in (48, 192):
+        kd = dict(stack_depth=depth, leaf_size=meta.leaf_size)
+        for fn, plain, t_max, label in (
+                (kt.closest, kt.closest_plain, far, "closest"),
+                (kt.anyhit, kt.anyhit_plain, t_occ, "any-hit")):
+            st = fn(rows, o, d, t_max, on, with_stats=True, **kd)
+            _hold_stats(f"[{name}] B1 {label} depth {depth}", st,
+                        plain(rows, o, d, t_max, on, with_stats=True, **kd))
+            bare = fn(rows, o, d, t_max, on, **kd)
+            _hold_stats(f"[{name}] B1 {label} depth {depth} (without "
+                        f"counters)", st[:-1],
+                        bare if isinstance(bare, tuple) else (bare,))
+            ms = _events_ms(lambda: fn(rows, o, d, t_max, on, **kd), 10)
+            line.append(f"{label} {ms:.4f} ms at depth {depth}")
+    print(f"[{name}] B1 at stack depths 48 and 192: closest and any-hit, "
+          f"with and without counters, bitwise the plain version's; "
+          + ", ".join(line))
+
+
+def compare_b1_ties(device) -> None:
+    """Phase 3 on the twin table of tests/test_torch_kernel.py (every
+    triangle of a soup twice, one triangle a leaf: twins are sibling leaves
+    with bitwise equal boxes, so they tie in t_near and in t): 131,072
+    rays, closest and any-hit, with and without counters, every output
+    bitwise the plain version's; each hit on a twin pair of one node is
+    won by the lower slot, which the child order pops first."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    tests = _tool_module("test_torch_kernel", "tests")
+    case = tests.twin_soup_case(n_tris=2000, n_rays=2 * N_RAYS)
+    table = case["wide"].node_rows
+    ties = tests.tied_siblings(table)
+    if not ties:
+        raise AssertionError("twin table: no sibling boxes tie")
+    rows = torch.as_tensor(table, device=device)
+    kw = dict(stack_depth=case["depth"], leaf_size=case["leaf"])
+    o, d, far, t_occ, on = (torch.as_tensor(case[k], device=device)
+                            for k in ("o", "d", "far", "t_occ", "act"))
+    got = kt.closest(rows, o, d, far, on, **kw)
+    _hold_hits("[twins] trace_closest", got, kt.closest_plain(
+        rows, o, d, far, on, **kw))
+    for fn, plain, t_max, label in (
+            (kt.closest, kt.closest_plain, far, "trace_closest"),
+            (kt.anyhit, kt.anyhit_plain, t_occ, "trace_anyhit")):
+        st = fn(rows, o, d, t_max, on, with_stats=True, **kw)
+        _hold_stats(f"[twins] {label} counters", st, plain(
+            rows, o, d, t_max, on, with_stats=True, **kw))
+    occ = kt.anyhit(rows, o, d, t_occ, on, **kw)
+    _hold_occluded("[twins] trace_anyhit", occ, kt.anyhit_plain(
+        rows, o, d, t_occ, on, **kw))
+    # Where each prim's leaf hangs: (node row, slot).
+    entry = table[:, 6 * kt.ARITY:7 * kt.ARITY].view(np.int32)
+    node, slot = np.nonzero((entry < 0) & (entry != kt.INVALID_ENTRY))
+    first = (-(entry[node, slot] + 1)) >> 4
+    prim_of = table[first, 9].view(np.int32)
+    where = {int(p): (int(n), int(s)) for p, n, s in zip(prim_of, node, slot)}
+    won = got[1][got[1] >= 0].cpu().numpy()
+    shared = lower = 0
+    for p in won:
+        (n_p, s_p), (n_q, s_q) = where[int(p)], where[int(p) ^ 1]
+        if n_p == n_q:
+            shared += 1
+            lower += s_p < s_q
+    if lower != shared:
+        raise AssertionError(f"[twins] {shared - lower} ties went to the "
+                             f"higher slot")
+    print(f"[twins] {table.shape[0]} rows, {ties} children tied with a "
+          f"sibling's box, {o.shape[0]} rays: {len(won)} closest hits, "
+          f"{shared} on twins of one node, each won by the lower slot; "
+          f"closest and any-hit (with and without counters) bitwise equal "
+          f"to the plain versions; occluded {float(occ.float().mean()):.3f}")
 
 
 def _print_bounds(name, entries):
@@ -1451,6 +1565,47 @@ def compare_mega(device, results, cluster_tris: int = 0) -> None:
     results["mega"][entry] = (max(errs), *timed)
 
 
+def compare_mega_soups(device, results) -> None:
+    """Phase 8 on the soups of tests/test_torch_kernel.py, through the
+    cluster megakernel (each cluster pop run by the whole warp): the
+    twin-triangle tie case (tc 128) and a tc 256 soup, 97 x 61 lanes in
+    one packet (not a multiple of 32: the last warp has idle lanes), one
+    sample and four with regeneration (lanes end their samples at
+    different bounces). Ray counts, contributions and the [P, 9] counters
+    bitwise the plain version's, and the counting variant's contributions
+    the kernel's."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import megakernel as mk
+
+    tests = _tool_module("test_torch_kernel", "tests")
+    errs = []
+    for tc, duplicate in ((128, True), (256, False)):
+        for spp in (1, 4):
+            args, kw = tests.soup_mega_case(tc, duplicate, 97, 61, spp, 16,
+                                            device)
+            label = (f"[trace_mega_cluster soup tc {tc}"
+                     + (" twins" if duplicate else "") + f" 97x61 spp={spp}]")
+            got, rays = mk.trace_mega(*args, **kw)
+            want, rays_plain, st_plain = mk.trace_mega_plain(
+                *args, with_stats=True, **kw)
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"{label} lanes differ from the plain "
+                                     f"version")
+            errs.append(_hold_mega(label, got, want, rays, rays_plain))
+            c, rays_st, st = mk.trace_mega(*args, with_stats=True, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(c.view(torch.int32), got.view(torch.int32))
+                    and torch.equal(st, st_plain)
+                    and int(rays_st) == int(rays)):
+                raise AssertionError(f"{label} the counting variant differs")
+            print(f"{label} counters bitwise the plain version's: "
+                  f"{st[0].tolist()}")
+    worst, *rest = results["mega"]["trace_mega_cluster"]
+    results["mega"]["trace_mega_cluster"] = (max([worst] + errs), *rest)
+
+
 def _hold_mega_stats(label, out, got, want, st_plain, packet: int):
     """The counting variant against the kernel and the plain version: its
     contributions bitwise the kernel's, its counters the plain version's in
@@ -1796,6 +1951,7 @@ def main() -> int:
                         cl, results["rates"], floor)
         del rays, b1
         stamp(f"phases 3-4 on {name}")
+    compare_b1_ties(device)
     compare_cluster_ties(device)
     golden_check(device)
 
@@ -1818,6 +1974,7 @@ def main() -> int:
 
     compare_mega(device, results)
     compare_mega(device, results, cluster_tris=128)
+    compare_mega_soups(device, results)
     stamp("phase 8")
     compare_mega_rows(device, results, MEGA_RUNS + MEGACLUSTER_RUNS)
     stamp("phase 9")

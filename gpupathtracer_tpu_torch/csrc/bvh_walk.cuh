@@ -1,10 +1,11 @@
 // The wide-BVH walk of one ray by one thread, shared by csrc/traverse.cu
 // (closest-hit and any-hit queries on MT-leaf tables) and csrc/megakernel.cu
-// (the walks inside the whole-path estimator). One node phase, `walk`, is
-// generic over its leaf routine: MtLeaf or ClusterLeaf; `walk_ilv` and
-// `walk_multi` are two more schedules of it. csrc/cluster_traverse.cu (the
-// same queries on dense cluster-leaf tables, each cluster run by a warp)
-// takes the node expansion and the cluster dot products from here,
+// (the walks inside the whole-path estimator on MT leaves). One node phase,
+// `walk`, is generic over its leaf routine (MtLeaf); `walk_ilv` and
+// `walk_multi` are two more schedules of it. csrc/cluster_warp.cuh (the
+// same queries on dense cluster-leaf tables, each cluster run by a warp:
+// csrc/cluster_traverse.cu and the megakernel's cluster walks) takes the
+// node expansion and the cluster dot products from here,
 // csrc/subpacket_traverse.cu (one stack per 128 rays) the slab test and
 // the leaf test, and csrc/dense_intersect.cu the dot products.
 //
@@ -19,7 +20,15 @@
 // e < 0 = leaf, packed = -(e + 1): first row = packed >> 4, count = packed & 15.
 // On a cluster scene (bvh/cluster.py pack_clusters) the rows hold the cluster
 // top tree's nodes alone, and a leaf's packed >> 4 is a cluster index into
-// the [Ncl * 8, 3 * tc] cluster table (see ClusterLeaf).
+// the [Ncl * 8, 3 * tc] cluster table (see cluster_min).
+//
+// A node pop reads its row's 224 used bytes as fourteen 16-byte loads
+// through the read-only path, all issued before the first slab test, and
+// orders the entered children in registers with a fixed compare-exchange
+// network (no array is indexed at run time); a leaf slot is three 16-byte
+// loads. Rows are 512 bytes and slots 48, so every load is aligned when the
+// table is (the wrappers check it). The walk's stack is the caller's: a
+// pointer and a stride, so that B1 keeps it in shared memory.
 //
 // The arithmetic is the Pallas kernels', term by term, as XLA compiles them
 // for the CPU (where the JAX package's tests and goldens run): slab test as
@@ -42,7 +51,7 @@ constexpr int kArity = 8;
 constexpr int kTrisPerRow = kRow / 12;  // 10
 constexpr int kMaxStack = 192;          // cfg.stack_depth * 4
 constexpr int kInvalid = 0x7FFFFFFF;
-constexpr float kSkipMargin = 1.0f / 4096.0f;  // pop_skip (walk)
+constexpr float kSkipMargin = 1.0f / 4096.0f;  // pop_skip (next_cluster)
 
 struct Ray {
   float o[3], d[3], inv[3], oi[3];
@@ -83,23 +92,41 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return make_ray(oo, dd);
 }
 
-// Slab test of child j of one node row: true iff the ray's interval through
-// the child's box is not empty and ends ahead of the origin and its entry
-// distance tmin is below t (the TPU kernel's slab body, which the roofline
-// probe csrc/roofline.cu iterates on its own).
-__device__ __forceinline__ bool slab(const float* __restrict__ row, int j,
-                                     const Ray& r, float t, float& tmin) {
+// 16 bytes of a table: through the read-only data path from global memory
+// (kLdg), or a plain load of a row staged in shared memory.
+template <bool kLdg = true>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if constexpr (kLdg) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    return *reinterpret_cast<const float4*>(p);
+  }
+}
+
+// The slab test of one child's box b = (min.xyz, max.xyz): true iff the
+// ray's interval through it is not empty and ends ahead of the origin and
+// its entry distance tmin is below t (the TPU kernel's slab body).
+__device__ __forceinline__ bool slab_test(const float* b, const Ray& r,
+                                          float t, float& tmin) {
   float tmax = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float t0 = __fmaf_rn(row[j * 6 + a], r.inv[a], -r.oi[a]);
-    float t1 = __fmaf_rn(row[j * 6 + 3 + a], r.inv[a], -r.oi[a]);
+    float t0 = __fmaf_rn(b[a], r.inv[a], -r.oi[a]);
+    float t1 = __fmaf_rn(b[3 + a], r.inv[a], -r.oi[a]);
     float lo = nan_min(t0, t1);
     float hi = nan_max(t0, t1);
     tmin = a == 0 ? lo : nan_max(tmin, lo);
     tmax = a == 0 ? hi : nan_min(tmax, hi);
   }
   return tmin <= tmax && tmax > 0.0f && tmin < t;
+}
+
+// slab_test of child j of a node row read in place (the roofline probe
+// csrc/roofline.cu iterates it on its own; the sub-packet kernel reads a
+// row staged in shared memory).
+__device__ __forceinline__ bool slab(const float* __restrict__ row, int j,
+                                     const Ray& r, float t, float& tmin) {
+  return slab_test(row + j * 6, r, t, tmin);
 }
 
 // Slab test of child j of one node row: true iff the ray enters the child's
@@ -111,72 +138,191 @@ __device__ __forceinline__ bool child_hit(const float* __restrict__ row, int j,
   return hit && entry != kInvalid;
 }
 
-// The pop_skip key of child j of a node row, entered at tmin: tmin less
+// The pop_skip key of a child with box b, entered at tmin: tmin less
 // kSkipMargin (|tmin| + |o_a inv_a|), a the axis whose slab entry is tmin.
 // The entry fma(bound, inv, -o inv) exceeds the exact (bound - o) / d by at
 // most about 2^-24 (2 |tmin| + |o_a inv_a|): absolute, not relative to t,
 // for rays that start far from the world origin. The margin is 2^11 times
 // that; the rest covers a triangle's t, which is computed otherwise than
 // its box's entry and can round below it (ROADMAP.md section C).
-__device__ __forceinline__ float skip_key(const float* __restrict__ row, int j,
-                                          const Ray& r, float tmin) {
+__device__ __forceinline__ float skip_key(const float* b, const Ray& r,
+                                          float tmin) {
   float scale = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float lo = nan_min(__fmaf_rn(row[j * 6 + a], r.inv[a], -r.oi[a]),
-                       __fmaf_rn(row[j * 6 + 3 + a], r.inv[a], -r.oi[a]));
+    float lo = nan_min(__fmaf_rn(b[a], r.inv[a], -r.oi[a]),
+                       __fmaf_rn(b[3 + a], r.inv[a], -r.oi[a]));
     if (lo == tmin) scale = fmaxf(scale, fabsf(r.oi[a]));
   }
   return tmin - kSkipMargin * (fabsf(tmin) + scale);
 }
 
+// A node row's children in registers: 8 boxes and 8 entries, the row's 224
+// used bytes as fourteen 16-byte loads, all in flight at once.
+struct NodeRow {
+  float b[6 * kArity];
+  int e[kArity];
+};
+
+__device__ __forceinline__ void load_node(const float* __restrict__ row,
+                                          NodeRow& n) {
+  float4 v[14];
+#pragma unroll
+  for (int q = 0; q < 14; ++q) v[q] = load4(row + 4 * q);
+#pragma unroll
+  for (int q = 0; q < 12; ++q) {
+    n.b[4 * q] = v[q].x;
+    n.b[4 * q + 1] = v[q].y;
+    n.b[4 * q + 2] = v[q].z;
+    n.b[4 * q + 3] = v[q].w;
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    n.e[4 * q] = __float_as_int(v[12 + q].x);
+    n.e[4 * q + 1] = __float_as_int(v[12 + q].y);
+    n.e[4 * q + 2] = __float_as_int(v[12 + q].z);
+    n.e[4 * q + 3] = __float_as_int(v[12 + q].w);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void swap_if(bool s, T& a, T& b) {
+  const T x = s ? b : a;
+  b = s ? a : b;
+  a = x;
+}
+
+// Sorts the 8 (key, slot) pairs ascending, lexicographically, carrying each
+// child's entry (and, with kKeys, its pop_skip key) along. The slots are
+// distinct, so the order is total and any sorting network gives the stable
+// sort by key: the insertion order of the JAX kernel's port. The pairs are
+// the 19 compare-exchanges of the JAX kernel's _NET8
+// (pallas_traverse.py:48-51), which compares keys alone there;
+// tests/test_torch_walk_order.py reads them from this array.
+template <bool kKeys>
+__device__ __forceinline__ void sort_children(float (&key)[kArity],
+                                              int (&slot)[kArity],
+                                              int (&entry)[kArity],
+                                              float* skey) {
+  // child-order network
+  constexpr int kNet[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2},
+                               {1, 3}, {4, 6}, {5, 7}, {1, 2}, {5, 6},
+                               {0, 4}, {3, 7}, {1, 5}, {2, 6}, {1, 4},
+                               {3, 6}, {2, 4}, {3, 5}, {3, 4}};
+#pragma unroll
+  for (int c = 0; c < 19; ++c) {
+    const int a = kNet[c][0], b = kNet[c][1];
+    const bool s =
+        key[a] > key[b] || (key[a] == key[b] && slot[a] > slot[b]);
+    swap_if(s, key[a], key[b]);
+    swap_if(s, slot[a], slot[b]);
+    swap_if(s, entry[a], entry[b]);
+    if constexpr (kKeys) swap_if(s, skey[a], skey[b]);
+  }
+}
+
+// The two entered children of a node (bits `hits`) to positions 0 and 1 in
+// pop order: one compare, the pair picked by selects, where the network
+// takes 19 (the cost B4, bound by instruction issue, feels: PERF.md). Equal
+// keys keep slot order, as the network's (key, slot) order does.
+template <bool kKeys>
+__device__ __forceinline__ void order_two(unsigned hits, float (&key)[kArity],
+                                          int (&entry)[kArity], float* skey) {
+  const int j0 = __ffs(hits) - 1, j1 = __ffs(hits & (hits - 1u)) - 1;
+  float k0 = key[0], k1 = key[0], s0 = skey[0], s1 = skey[0];
+  int e0 = entry[0], e1 = entry[0];
+#pragma unroll
+  for (int j = 1; j < kArity; ++j) {
+    if (j == j0) {
+      k0 = key[j];
+      e0 = entry[j];
+      if constexpr (kKeys) s0 = skey[j];
+    }
+    if (j == j1) {
+      k1 = key[j];
+      e1 = entry[j];
+      if constexpr (kKeys) s1 = skey[j];
+    }
+  }
+  const bool s = k1 < k0;
+  key[0] = s ? k1 : k0;
+  key[1] = s ? k0 : k1;
+  entry[0] = s ? e1 : e0;
+  entry[1] = s ? e0 : e1;
+  if constexpr (kKeys) {
+    skey[0] = s ? s1 : s0;
+    skey[1] = s ? s0 : s1;
+  }
+}
+
 // Expands one node row: pushes the children the ray enters before t, so
 // that they pop in ascending (t_near, slot) order when `ordered`, in slot
-// order otherwise. Pushes past `depth` are dropped; returns how many were.
-// With kKeys each pushed child's skip_key goes to `keys` at its stack slot.
+// order otherwise (one entered child needs no order, two one compare, more
+// the network). Entry p of the stack is stack[p * stride]. Pushes past
+// `depth` are dropped (the nearest first: it would sit on top); returns how
+// many were. With kKeys each pushed child's skip_key goes to `keys` at its
+// stack position (stride 1).
 template <bool kKeys = false>
 __device__ __forceinline__ int expand_node(const float* __restrict__ row,
                                            const Ray& r, float t,
-                                           bool ordered, int* stack, int& sp,
-                                           int depth, float* keys = nullptr) {
-  float key[kArity];
-  int slot[kArity];
-  int total = 0;
+                                           bool ordered, int* stack,
+                                           int stride, int& sp, int depth,
+                                           float* keys = nullptr) {
+  NodeRow n;
+  load_node(row, n);
+  float key[kArity], skey[kKeys ? kArity : 1];
+  int slot[kArity], entry[kArity];
+  unsigned hits = 0;
 #pragma unroll
   for (int j = 0; j < kArity; ++j) {
     float tmin = 0.0f;
-    if (child_hit(row, j, r, t, tmin)) {
-      // Insertion by (key, slot): slots arrive ascending, so a strict
-      // comparison keeps equal keys in slot order.
-      int k = total++;
-      if (ordered) {
-        while (k > 0 && key[k - 1] > tmin) {
-          key[k] = key[k - 1];
-          slot[k] = slot[k - 1];
-          --k;
-        }
+    const bool hit = slab_test(n.b + 6 * j, r, t, tmin) && n.e[j] != kInvalid;
+    hits |= (hit ? 1u : 0u) << j;
+    // Misses key last: an entered child's tmin is below t, so below +inf.
+    key[j] = hit ? tmin : __int_as_float(0x7f800000);
+    slot[j] = j;
+    entry[j] = n.e[j];
+    if constexpr (kKeys) skey[j] = skip_key(n.b + 6 * j, r, tmin);
+  }
+  const int total = __popc(hits);
+  if (ordered && total == 2) {
+    order_two<kKeys>(hits, key, entry, skey);
+  } else if (ordered && total > 2) {
+    sort_children<kKeys>(key, slot, entry, skey);
+  }
+  if (ordered && total > 1) {
+    // The k-th child in pop order sits k below the top.
+#pragma unroll
+    for (int k = 0; k < kArity; ++k) {
+      const int pos = sp + total - 1 - k;
+      if (k < total && pos < depth) {
+        stack[pos * stride] = entry[k];
+        if constexpr (kKeys) keys[pos] = skey[k];
       }
-      key[k] = tmin;
-      slot[k] = j;
+    }
+  } else {
+    // Slot order (also the order of one entered child, or none).
+#pragma unroll
+    for (int j = 0; j < kArity; ++j) {
+      const int pos = sp + total - 1 - __popc(hits & ((1u << j) - 1u));
+      if (((hits >> j) & 1u) && pos < depth) {
+        stack[pos * stride] = entry[j];
+        if constexpr (kKeys) keys[pos] = skey[j];
+      }
     }
   }
-  // Farthest first, so the nearest child ends on top of the stack.
-  for (int k = total - 1; k >= 0; --k) {
-    int pos = sp + (total - 1 - k);
-    if (pos < depth) {
-      stack[pos] = __float_as_int(row[6 * kArity + slot[k]]);
-      if constexpr (kKeys) keys[pos] = skip_key(row, slot[k], r, key[k]);
-    }
-  }
-  int dropped = max(sp + total - depth, 0);
+  const int dropped = max(sp + total - depth, 0);
   sp = min(sp + total, depth);
   return dropped;
 }
 
 // Moller-Trumbore against the `count` slots of one leaf block, in the
 // operation order of pallas_traverse.py:265-280 and the roundings of
-// ops/intersect.py mt_intersect. A hit records t, prim, u, v and the slot
-// it came from. With `any_hit`, returns at the first hit.
+// ops/intersect.py mt_intersect; a slot is three 16-byte loads (kLdg: from
+// the table in global memory, else from a row staged in shared memory). A
+// hit records t, prim, u, v and the slot it came from. With `any_hit`,
+// returns at the first hit.
+template <bool kLdg = true>
 __device__ __forceinline__ void intersect_leaf(const float* __restrict__ block,
                                                int count, const Ray& r,
                                                bool any_hit, float& t,
@@ -185,9 +331,11 @@ __device__ __forceinline__ void intersect_leaf(const float* __restrict__ block,
   const float* d = r.d;
   for (int k = 0; k < count; ++k) {
     const float* s = block + (k / kTrisPerRow) * kRow + (k % kTrisPerRow) * 12;
-    float p0x = s[0], p0y = s[1], p0z = s[2];
-    float e1x = s[3], e1y = s[4], e1z = s[5];
-    float e2x = s[6], e2y = s[7], e2z = s[8];
+    const float4 s0 = load4<kLdg>(s), s1 = load4<kLdg>(s + 4),
+                 s2 = load4<kLdg>(s + 8);
+    float p0x = s0.x, p0y = s0.y, p0z = s0.z;
+    float e1x = s0.w, e1y = s1.x, e1z = s1.y;
+    float e2x = s1.z, e2y = s1.w, e2z = s2.x;
     float px = __fmaf_rn(d[1], e2z, -(d[2] * e2y));
     float py = __fmaf_rn(d[2], e2x, -(d[0] * e2z));
     float pz = __fmaf_rn(d[0], e2y, -(d[1] * e2x));
@@ -205,7 +353,7 @@ __device__ __forceinline__ void intersect_leaf(const float* __restrict__ block,
     if (uu > 0.0f && uu < 1.0f && vv > 0.0f && uu + vv < 1.0f &&
         tt > 0.0f && tt < t) {
       t = tt;
-      prim = __float_as_int(s[9]);
+      prim = __float_as_int(s2.y);
       u = uu;
       v = vv;
       slot = s;
@@ -256,7 +404,9 @@ __device__ __forceinline__ float dot_rc(const float* m, int w, const float* x) {
 // every comparison). Returns the smallest valid t and in `slot` the lowest
 // slot that has it (pallas_traverse.py:507-538), +inf when none is valid.
 // With any_hit, returns at the first valid slot with t < t_cur and +inf when
-// there is none: the occlusion answer is the same.
+// there is none: the occlusion answer is the same. One thread runs every
+// slot: the roofline probe's body (csrc/roofline.cu); the walks run a
+// block's slots across a warp (cluster_warp.cuh), with this arithmetic.
 __device__ __forceinline__ float cluster_min(const float* __restrict__ blk,
                                              int tc, const Ray& r,
                                              bool any_hit, float t_cur,
@@ -303,35 +453,6 @@ __device__ __forceinline__ void cluster_uv(const float* __restrict__ blk,
   v = __fmaf_rn(t, dot_rc(b, w, r.d), dot_rc(b, w, r.o) + b[3 * w]);
 }
 
-// The leaf routine of cluster tables: the hit counts only if the block's
-// smallest valid t is below the current t (applied to the reduced result,
-// pallas_traverse.py:518-522). Records the winner as cidx * tc + slot, the
-// JAX kernel's cluster-local prim id.
-template <bool kAnyHit>
-struct ClusterLeaf {
-  const float* cl;
-  int tc;
-  int win = -1;
-
-  __device__ __forceinline__ ClusterLeaf(const float* c, int n) : cl(c), tc(n) {}
-
-  __device__ __forceinline__ const float* block(int cidx) const {
-    return cl + (size_t)cidx * 8 * 3 * tc;
-  }
-
-  __device__ __forceinline__ bool operator()(int packed, const Ray& r,
-                                             float& t) {
-    int cidx = packed >> 4, slot;
-    float tmin = cluster_min(block(cidx), tc, r, kAnyHit, t, slot);
-    if (tmin < t) {
-      t = tmin;
-      win = cidx * tc + slot;
-      return true;
-    }
-    return false;
-  }
-};
-
 // Pop counters of one ray's walk (the kStats instantiations; the TPU
 // kernels' with_stats counts the pops of a packet's shared stack, these
 // count one ray's): node pops, leaf pops run (MT leaves or clusters) and,
@@ -345,33 +466,22 @@ struct Pops {
 // Walks the tree from the root: closest hit within (0, t) in near-first
 // order, or (kAnyHit) until the first leaf that reports a hit. On a miss t
 // and the leaf's records keep the values they came in with. kStats counts
-// the pops into *pops. kSkip (closest walks, pop_skip of the TPU cluster
-// kernel) keeps each pushed entry's skip_key on a parallel key stack and
-// skips a leaf pop whose key is not below the current t: no triangle
-// inside its box can be closer.
-template <bool kAnyHit, class Leaf, bool kStats = false, bool kSkip = false>
+// the pops into *pops. The stack is the caller's: entry p at
+// stack[p * stride], `depth` entries.
+template <bool kAnyHit, class Leaf, bool kStats = false>
 __device__ __forceinline__ void walk(const float* __restrict__ rows,
                                      const Ray& r, int depth, float& t,
-                                     Leaf& leaf, Pops* pops = nullptr) {
-  static_assert(!(kSkip && kAnyHit), "pop_skip orders by t_near: closest only");
-  int stack[kMaxStack];
-  float keys[kSkip ? kMaxStack : 1];
+                                     Leaf& leaf, Pops* pops, int* stack,
+                                     int stride) {
   int sp = 1;
   stack[0] = 0;  // root node row
-  if constexpr (kSkip) keys[0] = -__int_as_float(0x7f800000);
   while (sp > 0) {
-    int entry = stack[--sp];
+    const int entry = stack[--sp * stride];
     if (entry >= 0) {
       if constexpr (kStats) ++pops->node;
-      expand_node<kSkip>(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack,
-                         sp, depth, keys);
+      expand_node(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack, stride,
+                  sp, depth);
     } else {
-      if constexpr (kSkip) {
-        if (keys[sp] >= t) {
-          if constexpr (kStats) ++pops->skip;
-          continue;
-        }
-      }
       if constexpr (kStats) ++pops->leaf;
       if (leaf(-(entry + 1), r, t) && kAnyHit) return;
     }
@@ -435,7 +545,7 @@ __device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
       if (e >= 0) {
         if constexpr (kStats) ++pops[w].node;
         expand_node(rows + (size_t)e * kRow, r[w], t[w], !kAnyHit, stack[w],
-                    sp[w], depth);
+                    1, sp[w], depth);
       } else {
         if constexpr (kStats) ++pops[w].leaf;
         if (leaf[w](-(e + 1), r[w], t[w]) && kAnyHit) sp[w] = 0;
@@ -476,7 +586,7 @@ __device__ __forceinline__ int walk_multi(const float* __restrict__ rows,
       if (q < n && entry[q] >= 0) {
         if constexpr (kStats) ++pops->node;
         dropped += expand_node(rows + (size_t)entry[q] * kRow, r, t_entry,
-                               !kAnyHit, stack, sp, depth);
+                               !kAnyHit, stack, 1, sp, depth);
       }
     }
 #pragma unroll

@@ -16,16 +16,19 @@
 //
 // The TPU kernel walks a 2048-lane packet with one shared stack and the
 // lanes in lockstep; a lane's hits depend only on its own ray (apart from
-// exact ties), so here each thread walks alone (bvh_walk.cuh) and ends its
-// own loop: at most max_bounces + 2 bounces per sample, spp samples.
+// exact ties), so here each thread runs its own lane's path: at most
+// max_bounces + 2 bounces per sample, spp samples.
 //
 // On a cluster scene (kCluster, the TPU kernel's cluster=True) both walks
-// take bvh_walk.cuh's dense cluster leaf (:416-482, :609-645): the closest
-// walk keeps the winner's cluster-local id, and shading reads the winner's
-// C row (parallel to e1 x e2) and its signed material float
-// (mat_id + 1) * nsign from the cluster block (:1098-1104). The TPU kernel's
-// node-row clamp for cluster leaves (:352-358, 556-557) guards a row fetch
-// this walk does not make.
+// take the dense cluster leaf (:416-482, :609-645) with each cluster pop
+// run by the whole warp, as B4 runs it (cluster_warp.cuh walk_warp, the
+// same code): so the bounce loop is warp-convergent there, every lane
+// staying in it, and reaching both walks of each step, until no lane of
+// its warp has a ray left. The closest walk keeps the winner's
+// cluster-local id, and shading reads the winner's C row (parallel to
+// e1 x e2) and its signed material float (mat_id + 1) * nsign from the
+// cluster block (:1098-1104). The TPU kernel's node-row clamp for cluster
+// leaves (:352-358, 556-557) guards a row fetch this walk does not make.
 //
 // Rounding: the walks make the fused multiply-adds of bvh_walk.cuh; every
 // other operation is one IEEE operation in the order of the JAX source
@@ -35,15 +38,14 @@
 // so on the card the two agree bit for bit.
 //
 // What bounds it on an H100: register pressure (the whole estimator is live
-// in one thread: of the 24 instantiations (model x NEE x regeneration x
-// leaf), ptxas gives the NEE variants 95-96 registers without spills, the
-// NEE-less ones 64-72 registers with up to 20 bytes of spills), the
-// 192-entry walk stack in local memory (832-848-byte stack
-// frames), the dependent 512-byte row reads of the walks, and divergence as
-// the lanes of a warp end their paths at different bounces and walk
-// different subtrees. This first version does nothing about these (no
-// persistent threads or path pool, no ray sorting, no shared-memory
-// tables).
+// in one thread; PERF.md has each instantiation's ptxas line), the
+// 192-entry walk stacks in local memory, the dependent row reads of the
+// walks, and divergence as the lanes of a warp end their paths at
+// different bounces and walk different subtrees. On cluster leaves the
+// slots of each pop are spread over the warp (coalesced block loads, no
+// lane's serial 128-slot loop); the warp idles its finished lanes. The MT
+// leaves keep one lane a leaf. No persistent threads or path pool, no ray
+// sorting, no shared-memory tables.
 //
 // With kStats (the TPU kernel's with_stats, :364-368, 566-570, 1295-1297)
 // each packet also gets its counters [9]: bounce rays, live shadow rays,
@@ -56,7 +58,7 @@
 // least live bounce), and slot 8 is the largest lane's iteration count.
 // The stats variants are instantiated with NEE only (every bench row).
 
-#include "bvh_walk.cuh"
+#include "cluster_warp.cuh"
 
 namespace {
 
@@ -222,33 +224,37 @@ __device__ __forceinline__ void bsdf_eval(const float* alb, float metal,
 
 // The closest walk with hit-time capture: t and prim (-1 on a miss), the
 // unnormalized geometric normal, the material id and the normal sign.
-// kStats counts the walk's pops into *pops.
+// kStats counts the walk's pops into *pops. On MT leaves a lane walks alone
+// (called only with `on`); on cluster leaves every lane of the warp must
+// call it together, lanes without a ray with `on` false (cluster_warp.cuh).
 template <bool kCluster, bool kStats = false>
 __device__ __forceinline__ int closest_capture(const MegaArgs& g,
                                                const float* o, const float* d,
-                                               float& t, float* gn, int& mid,
-                                               float& nsign,
-                                               bvh::Pops* pops = nullptr) {
+                                               bool on, float& t, float* gn,
+                                               int& mid, float& nsign,
+                                               bvh::Pops* pops) {
   if constexpr (kCluster) {
-    bvh::ClusterLeaf<false> leaf(g.cl, g.tc);
-    bvh::walk<false, bvh::ClusterLeaf<false>, kStats>(
-        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops);
+    int win = -1;
+    bvh::walk_warp<false, kStats, false>(g.rows, g.cl, g.tc,
+                                         bvh::make_ray(o, d), on, g.depth, t,
+                                         win, *pops);
     float sm = 0.0f;
     gn[0] = 1.0f;
     gn[1] = gn[2] = 0.0f;
-    if (leaf.win >= 0) {
-      const float* blk = leaf.block(leaf.win / g.tc);
-      const int s = leaf.win % g.tc, w = 3 * g.tc;
+    if (win >= 0) {
+      const float* blk = g.cl + (size_t)(win / g.tc) * 8 * 3 * g.tc;
+      const int s = win % g.tc, w = 3 * g.tc;
       for (int a = 0; a < 3; ++a) gn[a] = blk[a * w + 2 * g.tc + s];
       sm = blk[7 * w + s];
     }
     nsign = sm < 0.0f ? -1.0f : 1.0f;
     mid = max((int)fabsf(sm) - 1, -1);
-    return leaf.win;
+    return win;
   } else {
+    int stack[bvh::kMaxStack];
     bvh::MtLeaf<false> leaf(g.rows);
     bvh::walk<false, bvh::MtLeaf<false>, kStats>(
-        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops);
+        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops, stack, 1);
     float e1[3] = {1.0f, 0.0f, 0.0f}, e2[3] = {0.0f, 1.0f, 0.0f};
     mid = 0;
     nsign = 1.0f;
@@ -266,19 +272,22 @@ __device__ __forceinline__ int closest_capture(const MegaArgs& g,
 }
 
 // The any-hit walk: true iff something lies within (0, t) along the ray.
+// Called as closest_capture is: on cluster leaves by the whole warp.
 template <bool kCluster, bool kStats = false>
 __device__ __forceinline__ bool occluded(const MegaArgs& g, const float* o,
-                                         const float* d, float t,
-                                         bvh::Pops* pops = nullptr) {
+                                         const float* d, bool on, float t,
+                                         bvh::Pops* pops) {
   if constexpr (kCluster) {
-    bvh::ClusterLeaf<true> leaf(g.cl, g.tc);
-    bvh::walk<true, bvh::ClusterLeaf<true>, kStats>(
-        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops);
-    return leaf.win >= 0;
+    int win = -1;
+    bvh::walk_warp<true, kStats, false>(g.rows, g.cl, g.tc,
+                                        bvh::make_ray(o, d), on, g.depth, t,
+                                        win, *pops);
+    return win >= 0;
   } else {
+    int stack[bvh::kMaxStack];
     bvh::MtLeaf<true> leaf(g.rows);
-    bvh::walk<true, bvh::MtLeaf<true>, kStats>(g.rows, bvh::make_ray(o, d),
-                                               g.depth, t, leaf, pops);
+    bvh::walk<true, bvh::MtLeaf<true>, kStats>(
+        g.rows, bvh::make_ray(o, d), g.depth, t, leaf, pops, stack, 1);
     return leaf.prim >= 0;
   }
 }
@@ -298,40 +307,48 @@ struct LaneStats {
   }
 };
 
+// One thread per lane. A lane that has nothing more to trace is `done`: on
+// MT leaves it leaves the loop, on cluster leaves (kCluster) it stays in it
+// until no lane of its warp is left, joining both walks of every step with
+// no ray, so that each cluster pop is run by the whole warp. Lanes past n
+// are done from the start. Each step is one bounce of each live lane.
 template <int kModel, bool kNee, bool kRegen, bool kCluster,
           bool kStats = false>
 __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < g.n;
   unsigned int n_rays = 0;
   LaneStats ls;
-  if (i < g.n) {
-    const float* P = g.params;
-    const uint32_t seed = (uint32_t)g.seeds[i / g.packet];
-    const uint32_t lane32 = (uint32_t)(i % g.packet);
-    const bool act = g.active[i] != 0;
-    const float total_area = P[0], nee_pdf = P[1];
-    float o[3], d[3], lp[3], tp[3] = {1.0f, 1.0f, 1.0f};
-    float ct[3] = {0.0f, 0.0f, 0.0f};
-    float pdf0 = 1.0f, pdf1 = 1.0f;
-    int b = 0, smp;
-    bool alive;
-    if (kRegen) {
-      for (int a = 0; a < 3; ++a) o[a] = d[a] = lp[a] = 0.0f;
-      alive = false;
-      smp = -1;
-    } else {
-      for (int a = 0; a < 3; ++a) {
-        o[a] = lp[a] = g.in0[3 * i + a];
-        d[a] = g.in1[3 * i + a];
-      }
-      alive = act;
-      smp = 0;
+  const float* P = g.params;
+  const uint32_t seed = in ? (uint32_t)g.seeds[i / g.packet] : 0u;
+  const uint32_t lane32 = (uint32_t)(i % g.packet);
+  const bool act = in && g.active[i] != 0;
+  const float total_area = P[0], nee_pdf = P[1];
+  float o[3], d[3], lp[3], tp[3] = {1.0f, 1.0f, 1.0f};
+  float ct[3] = {0.0f, 0.0f, 0.0f};
+  float pdf0 = 1.0f, pdf1 = 1.0f;
+  int b = 0, smp;
+  bool alive;
+  if (kRegen || !in) {
+    for (int a = 0; a < 3; ++a) o[a] = d[a] = lp[a] = 0.0f;
+    alive = false;
+    smp = -1;
+  } else {
+    for (int a = 0; a < 3; ++a) {
+      o[a] = lp[a] = g.in0[3 * i + a];
+      d[a] = g.in1[3 * i + a];
     }
-    const int steps =
-        kRegen ? g.spp * (g.max_bounces + 2) + 1 : g.max_bounces + 2;
-    for (int step = 0; step < steps; ++step) {
-      if (kRegen && !alive) {
-        if (!act || smp >= g.spp - 1) break;
+    alive = act;
+    smp = 0;
+  }
+  bool done = !in;
+  const int steps =
+      kRegen ? g.spp * (g.max_bounces + 2) + 1 : g.max_bounces + 2;
+  for (int step = 0; step < steps; ++step) {
+    if (kRegen && !done && !alive) {
+      if (!act || smp >= g.spp - 1) {
+        done = true;
+      } else {
         // The pixel's next sample: thin-lens raygen (:1034-1067).
         ++smp;
         float u_j0 = uni(seed, smp, 0, 16, lane32);
@@ -358,72 +375,86 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
         b = 0;
         alive = true;
       }
-      if (!alive) break;
-      ++n_rays;
+    }
+    if (!alive) done = true;
+    if constexpr (kCluster) {
+      if (!__any_sync(bvh::kFull, !done)) break;
+    } else if (done) {
+      break;
+    }
+    const bool trace = !done;
+    if (trace) ++n_rays;
 
-      // Closest walk with hit-time capture.
-      float t = 1e20f, nsign, gn[3];
-      int mid;
-      bvh::Pops pops_c;
-      const bool miss =
-          closest_capture<kCluster, kStats>(g, o, d, t, gn, mid, nsign,
-                                            &pops_c) < 0;
-      if constexpr (kStats) {
+    // Closest walk with hit-time capture.
+    float t = 1e20f, nsign, gn[3];
+    int mid;
+    bvh::Pops pops_c;
+    const bool miss = closest_capture<kCluster, kStats>(
+                          g, o, d, trace, t, gn, mid, nsign, &pops_c) < 0;
+    if constexpr (kStats) {
+      if (trace) {
         ++ls.ctr[0];
         ls.add(pops_c, false, b >= g.tail_start);
       }
-      float n[3], pos[3], view[3];
-      normalize3(gn, n);
+    }
+    float n[3], pos[3], view[3];
+    normalize3(gn, n);
+    for (int a = 0; a < 3; ++a) {
+      n[a] = n[a] * nsign;
+      pos[a] = o[a] + d[a] * t + 0.003f * n[a];
+      view[a] = -d[a];
+    }
+    const float ndo = nan_max(dot3(n, view), 0.0f);
+
+    float alb[3] = {0.0f, 0.0f, 0.0f}, emi[3] = {0.0f, 0.0f, 0.0f};
+    float rough_g = 0.0f, metal = 0.0f;
+    if (mid >= 0 && mid < g.n_mats) {
+      const float* row = g.mats + (size_t)mid * 16;
       for (int a = 0; a < 3; ++a) {
-        n[a] = n[a] * nsign;
-        pos[a] = o[a] + d[a] * t + 0.003f * n[a];
-        view[a] = -d[a];
+        alb[a] = row[a];
+        emi[a] = row[5 + a];
       }
-      const float ndo = nan_max(dot3(n, view), 0.0f);
+      rough_g = row[3];
+      metal = row[4];
+    }
+    const float rough = nan_max(rough_g * rough_g, 1e-4f);
+    const float rough2 = rough * rough;
 
-      float alb[3] = {0.0f, 0.0f, 0.0f}, emi[3] = {0.0f, 0.0f, 0.0f};
-      float rough_g = 0.0f, metal = 0.0f;
-      if (mid >= 0 && mid < g.n_mats) {
-        const float* row = g.mats + (size_t)mid * 16;
-        for (int a = 0; a < 3; ++a) {
-          alb[a] = row[a];
-          emi[a] = row[5 + a];
-        }
-        rough_g = row[3];
-        metal = row[4];
-      }
-      const float rough = nan_max(rough_g * rough_g, 1e-4f);
-      const float rough2 = rough * rough;
-
-      // L_e with the MIS rewrite (wavefront.py:299-317).
-      float dvec[3];
-      for (int a = 0; a < 3; ++a) dvec[a] = lp[a] - pos[a];
-      float dist2 = nan_max(dot3(dvec, dvec), 1e-12f);
-      float old_mis = mis(pdf0, pdf1);
-      float factor = 0.5f * fabsf(dot3(n, view)) / dist2;
-      float p0n = pdf0 * factor;
-      float p1n = pdf1 * factor;
-      float idt_scale = p0n / (p0n + p1n + nee_pdf) / nan_max(old_mis, 1e-30f);
-      float scale = (kNee && !miss && b != 0) ? idt_scale : 1.0f;
+    // L_e with the MIS rewrite (wavefront.py:299-317).
+    float dvec[3];
+    for (int a = 0; a < 3; ++a) dvec[a] = lp[a] - pos[a];
+    float dist2 = nan_max(dot3(dvec, dvec), 1e-12f);
+    float old_mis = mis(pdf0, pdf1);
+    float factor = 0.5f * fabsf(dot3(n, view)) / dist2;
+    float p0n = pdf0 * factor;
+    float p1n = pdf1 * factor;
+    float idt_scale = p0n / (p0n + p1n + nee_pdf) / nan_max(old_mis, 1e-30f);
+    float scale = (kNee && !miss && b != 0) ? idt_scale : 1.0f;
+    if (trace) {
       for (int a = 0; a < 3; ++a) {
         float emission = miss ? P[2 + a] : emi[a];
         ct[a] = ct[a] + tp[a] * scale * emission;
       }
-      if (miss) {
-        alive = false;
-        continue;
-      }
+    }
+    // The rest of the step is the lane's only if it hit something.
+    bool cont = trace && !miss;
+    if (trace && miss) alive = false;
 
-      float f0[3];
-      const float dpmf = diffuse_pmf(alb, metal, ndo, f0);
+    float f0[3];
+    const float dpmf = diffuse_pmf(alb, metal, ndo, f0);
 
-      if (kNee) {
+    if (kNee) {
+      float light[3] = {0.0f, 0.0f, 0.0f};
+      float so[3] = {0.0f, 0.0f, 0.0f}, ldir[3] = {0.0f, 0.0f, 1.0f};
+      float shadow_tmax = 0.0f;
+      if (cont) {
         float u_sel = uni(seed, smp, b, 0, lane32);
         float u_t0 = uni(seed, smp, b, 1, lane32);
         float u_t1 = uni(seed, smp, b, 2, lane32);
         float selected = u_sel * total_area;
         int li = 0;
-        for (int l = 0; l < g.n_lights; ++l) li += g.cdf[l] <= selected ? 1 : 0;
+        for (int l = 0; l < g.n_lights; ++l)
+          li += g.cdf[l] <= selected ? 1 : 0;
         li = min(max(li, 0), max(g.n_lights - 1, 0));
         float lrow[15];
         for (int c = 0; c < 15; ++c)
@@ -441,8 +472,8 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
           delta[a] = lp0[a] + le1[a] * bv + le2[a] * bt - pos[a];
         float radius = sqrtf(nan_max(dot3(delta, delta), 1e-20f));
         float light_pdf = 1.0f / total_area;
-        float shadow_tmax = radius - 0.005f;
-        float ldir[3], hsum[3], m_h[3];
+        shadow_tmax = radius - 0.005f;
+        float hsum[3], m_h[3];
         for (int a = 0; a < 3; ++a) ldir[a] = delta[a] / radius;
         for (int a = 0; a < 3; ++a) hsum[a] = view[a] + ldir[a];
         normalize3(hsum, m_h);
@@ -451,99 +482,110 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
         float idm_l = nan_max(dot3(ldir, m_h), 0.0f);
         float cos_l = fabsf(-dot3(ln, ldir));
         float r2 = radius * radius;
-        float pdf_dir = dpmf * ndi_l / kPi +
-                        (1.0f - dpmf) * pdf_mf<kModel>(rough, rough2, ndm_l, idm_l);
+        float pdf_dir =
+            dpmf * ndi_l / kPi +
+            (1.0f - dpmf) * pdf_mf<kModel>(rough, rough2, ndm_l, idm_l);
         float bounce_pdf = pdf_dir * cos_l / r2;
         float weight = mis(light_pdf, bounce_pdf);
         float bsdf_l[3];
         bsdf_eval<kModel>(alb, metal, f0, rough, rough2, n, view, ldir, ndo,
                           ndi_l, ndm_l, idm_l, bsdf_l);
         float lscale = ndi_l * cos_l * weight / (light_pdf * r2);
-        float light[3];
-        for (int a = 0; a < 3; ++a) light[a] = tp[a] * bsdf_l[a] * lscale * lem[a];
-        if (light[0] != 0.0f || light[1] != 0.0f || light[2] != 0.0f) {
-          ++n_rays;
-          float so[3];
-          for (int a = 0; a < 3; ++a) so[a] = pos[a] + 0.001f * n[a];
-          bvh::Pops pops_a;
-          bool occ = occluded<kCluster, kStats>(g, so, ldir, shadow_tmax,
-                                                &pops_a);
-          if constexpr (kStats) {
-            ++ls.ctr[1];
-            ls.add(pops_a, true, b >= g.tail_start);
-          }
-          if (!occ)
-            for (int a = 0; a < 3; ++a) ct[a] = ct[a] + light[a];
+        for (int a = 0; a < 3; ++a)
+          light[a] = tp[a] * bsdf_l[a] * lscale * lem[a];
+        for (int a = 0; a < 3; ++a) so[a] = pos[a] + 0.001f * n[a];
+      }
+      const bool shadow =
+          cont && (light[0] != 0.0f || light[1] != 0.0f || light[2] != 0.0f);
+      bvh::Pops pops_a;
+      bool occ = false;
+      if constexpr (kCluster) {
+        occ = occluded<true, kStats>(g, so, ldir, shadow, shadow_tmax,
+                                     &pops_a);
+      } else if (shadow) {
+        occ = occluded<false, kStats>(g, so, ldir, true, shadow_tmax,
+                                      &pops_a);
+      }
+      if (shadow) {
+        ++n_rays;
+        if constexpr (kStats) {
+          ++ls.ctr[1];
+          ls.add(pops_a, true, b >= g.tail_start);
         }
+        if (!occ)
+          for (int a = 0; a < 3; ++a) ct[a] = ct[a] + light[a];
       }
-
-      if (g.max_bounces == 0) {
-        // Pure direct lighting: no continuation (wavefront.py:390-399).
-        alive = false;
-        continue;
-      }
-
-      // BSDF importance sample (Microfacet.glsl:172-193).
-      float u_c = uni(seed, smp, b, 3, lane32);
-      float u_s0 = uni(seed, smp, b, 4, lane32);
-      float u_s1 = uni(seed, smp, b, 5, lane32);
-      float u_rr = uni(seed, smp, b, 6, lane32);
-      bool pick_diffuse = u_c < dpmf;
-      // Tangent frame (Material.glsl:71-76): helper +X when |n.y| > 0.99.
-      bool use_x = fabsf(n[1]) > 0.99f;
-      float hx = use_x ? 1.0f : 0.0f;
-      float hy = use_x ? 0.0f : 1.0f;
-      float th[3] = {hy * n[2], -hx * n[2], hx * n[1] - hy * n[0]};
-      float tgt[3], tgb[3];
-      normalize3(th, tgt);
-      cross3(tgt, n, tgb);
-      float radius_d = sqrtf(u_s0);
-      float phi_d = kTwoPi * u_s1;
-      float loc_d[3] = {radius_d * sinf(phi_d), radius_d * cosf(phi_d),
-                        sqrtf(nan_max(1.0f - u_s0, 0.0f))};
-      float loc_m[3];
-      sample_microfacet<kModel>(rough, rough2, u_s0, u_s1, loc_m);
-      float dir_d[3], m_w[3];
-      for (int a = 0; a < 3; ++a) {
-        dir_d[a] = tgt[a] * loc_d[0] + tgb[a] * loc_d[1] + n[a] * loc_d[2];
-        m_w[a] = tgt[a] * loc_m[0] + tgb[a] * loc_m[1] + n[a] * loc_m[2];
-      }
-      float odm = dot3(view, m_w);
-      float inc[3], fsum[3], m_f[3];
-      for (int a = 0; a < 3; ++a) {
-        float dir_s = 2.0f * odm * m_w[a] - view[a];
-        inc[a] = pick_diffuse ? dir_d[a] : dir_s;
-        fsum[a] = view[a] + inc[a];
-      }
-      normalize3(fsum, m_f);
-      float ndi_b = nan_max(dot3(n, inc), 0.0f);
-      float ndm_b = nan_max(dot3(n, m_f), 0.0f);
-      float idm_b = nan_max(dot3(inc, m_f), 0.0f);
-      float pdf_d = dpmf * ndi_b / kPi;
-      float pdf_s = (1.0f - dpmf) * pdf_mf<kModel>(rough, rough2, ndm_b, idm_b);
-      float npdf0 = pick_diffuse ? pdf_d : pdf_s;
-      float npdf1 = pick_diffuse ? pdf_s : pdf_d;
-      float bsdf_b[3];
-      bsdf_eval<kModel>(alb, metal, f0, rough, rough2, n, view, inc, ndo,
-                        ndi_b, ndm_b, idm_b, bsdf_b);
-      float tscale = ndi_b * mis(npdf0, npdf1) / nan_max(npdf0, 1e-30f);
-      float ntp[3];
-      for (int a = 0; a < 3; ++a) ntp[a] = tp[a] * bsdf_b[a] * tscale;
-
-      // Russian roulette (Iterative.comp:291-300).
-      float continuation = nan_min(
-          nan_max(nan_max(ntp[0], nan_max(ntp[1], ntp[2])), 0.0f), 1.0f);
-      float inv_c = 1.0f / nan_max(continuation, 1e-12f);
-      alive = !(u_rr > continuation || b > g.max_bounces);
-      for (int a = 0; a < 3; ++a) {
-        tp[a] = ntp[a] * inv_c;
-        o[a] = lp[a] = pos[a];
-        d[a] = inc[a];
-      }
-      pdf0 = npdf0;
-      pdf1 = npdf1;
-      b = b + 1;
     }
+
+    if (cont && g.max_bounces == 0) {
+      // Pure direct lighting: no continuation (wavefront.py:390-399).
+      alive = false;
+      cont = false;
+    }
+    if (!cont) continue;
+
+    // BSDF importance sample (Microfacet.glsl:172-193).
+    float u_c = uni(seed, smp, b, 3, lane32);
+    float u_s0 = uni(seed, smp, b, 4, lane32);
+    float u_s1 = uni(seed, smp, b, 5, lane32);
+    float u_rr = uni(seed, smp, b, 6, lane32);
+    bool pick_diffuse = u_c < dpmf;
+    // Tangent frame (Material.glsl:71-76): helper +X when |n.y| > 0.99.
+    bool use_x = fabsf(n[1]) > 0.99f;
+    float hx = use_x ? 1.0f : 0.0f;
+    float hy = use_x ? 0.0f : 1.0f;
+    float th[3] = {hy * n[2], -hx * n[2], hx * n[1] - hy * n[0]};
+    float tgt[3], tgb[3];
+    normalize3(th, tgt);
+    cross3(tgt, n, tgb);
+    float radius_d = sqrtf(u_s0);
+    float phi_d = kTwoPi * u_s1;
+    float loc_d[3] = {radius_d * sinf(phi_d), radius_d * cosf(phi_d),
+                      sqrtf(nan_max(1.0f - u_s0, 0.0f))};
+    float loc_m[3];
+    sample_microfacet<kModel>(rough, rough2, u_s0, u_s1, loc_m);
+    float dir_d[3], m_w[3];
+    for (int a = 0; a < 3; ++a) {
+      dir_d[a] = tgt[a] * loc_d[0] + tgb[a] * loc_d[1] + n[a] * loc_d[2];
+      m_w[a] = tgt[a] * loc_m[0] + tgb[a] * loc_m[1] + n[a] * loc_m[2];
+    }
+    float odm = dot3(view, m_w);
+    float inc[3], fsum[3], m_f[3];
+    for (int a = 0; a < 3; ++a) {
+      float dir_s = 2.0f * odm * m_w[a] - view[a];
+      inc[a] = pick_diffuse ? dir_d[a] : dir_s;
+      fsum[a] = view[a] + inc[a];
+    }
+    normalize3(fsum, m_f);
+    float ndi_b = nan_max(dot3(n, inc), 0.0f);
+    float ndm_b = nan_max(dot3(n, m_f), 0.0f);
+    float idm_b = nan_max(dot3(inc, m_f), 0.0f);
+    float pdf_d = dpmf * ndi_b / kPi;
+    float pdf_s = (1.0f - dpmf) * pdf_mf<kModel>(rough, rough2, ndm_b, idm_b);
+    float npdf0 = pick_diffuse ? pdf_d : pdf_s;
+    float npdf1 = pick_diffuse ? pdf_s : pdf_d;
+    float bsdf_b[3];
+    bsdf_eval<kModel>(alb, metal, f0, rough, rough2, n, view, inc, ndo,
+                      ndi_b, ndm_b, idm_b, bsdf_b);
+    float tscale = ndi_b * mis(npdf0, npdf1) / nan_max(npdf0, 1e-30f);
+    float ntp[3];
+    for (int a = 0; a < 3; ++a) ntp[a] = tp[a] * bsdf_b[a] * tscale;
+
+    // Russian roulette (Iterative.comp:291-300).
+    float continuation = nan_min(
+        nan_max(nan_max(ntp[0], nan_max(ntp[1], ntp[2])), 0.0f), 1.0f);
+    float inv_c = 1.0f / nan_max(continuation, 1e-12f);
+    alive = !(u_rr > continuation || b > g.max_bounces);
+    for (int a = 0; a < 3; ++a) {
+      tp[a] = ntp[a] * inv_c;
+      o[a] = lp[a] = pos[a];
+      d[a] = inc[a];
+    }
+    pdf0 = npdf0;
+    pdf1 = npdf1;
+    b = b + 1;
+  }
+  if (in) {
     for (int a = 0; a < 3; ++a) g.contrib[3 * i + a] = ct[a];
     if constexpr (kStats) {
       // A lane's loop iterations are its bounce rays (slot 0).

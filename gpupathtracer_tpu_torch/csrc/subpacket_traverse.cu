@@ -14,7 +14,8 @@
 //   - a popped row is staged in shared memory by one coalesced 512-byte
 //     read, then every thread slab-tests its ray against the 8 children or
 //     runs Moller-Trumbore on the leaf's slots (bvh::child_hit,
-//     bvh::intersect_leaf: B1's arithmetic);
+//     bvh::intersect_leaf, each slot as three 16-byte shared loads: B1's
+//     arithmetic);
 //   - "does any ray enter child j" is a __ballot_sync per warp and an OR of
 //     the 4 warps' bytes through shared memory (the TPU packs these bits
 //     into words for its scalar core); with `ordered`, the child with the
@@ -51,7 +52,7 @@ subpacket_kernel(const float* __restrict__ rows, const float* __restrict__ o,
                  float* __restrict__ v_out, int* __restrict__ stats) {
   __shared__ int nstack[bvh::kMaxStack];
   __shared__ int lstack[kLeafDepth];
-  __shared__ float row[bvh::kRow];
+  __shared__ __align__(16) float row[bvh::kRow];  // 16-byte slot loads
   __shared__ int warp_bits[kWarps];
   __shared__ float warp_key[kWarps][bvh::kArity];
 
@@ -80,8 +81,8 @@ subpacket_kernel(const float* __restrict__ rows, const float* __restrict__ o,
       // Every slot is tested, also for any-hit (the TPU kernel records the
       // leaf's nearest hit there too); the ray then stops walking.
       if (on)
-        bvh::intersect_leaf(row, min(packed & 15, leaf_size), r, false, t,
-                            prim, u, v, slot);
+        bvh::intersect_leaf<false>(row, min(packed & 15, leaf_size), r,
+                                   false, t, prim, u, v, slot);
       // Any-hit: a sub-packet whose active rays are all occluded stops.
       if (kAnyHit) {
         if (__syncthreads_and(!act || prim >= 0)) nsp = lsp = 0;

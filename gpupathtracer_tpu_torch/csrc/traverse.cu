@@ -12,11 +12,21 @@
 // original GLSL traversal did. The results are bit-identical to the plain
 // torch version (ops/kernel_traverse.py closest_plain / anyhit_plain).
 //
-// What bounds it on an H100: each pop is a dependent 512-byte row read
-// (sponza's 25.5 MB table fits the 50 MB L2, so most are L2 hits) and the
-// warp diverges as its 32 rays walk different paths. This first version
-// does nothing about either (no packet sharing, no ray sorting, no
-// persistent threads); the stack lives in local memory.
+// What bounds it on an H100: the main path traces chunks of 131,072 rays,
+// about 31 warps an SM, so nothing hides the latency of each ray's chain of
+// dependent pops (a 224-byte row read, mostly from L2: sponza's 25.5 MB
+// table fits the 50 MB L2), and the slowest warps' chains set the time
+// while their 32 rays diverge. The design cuts the chain's length in
+// instructions and memory round trips: a node pop reads its row as
+// fourteen 16-byte loads all in flight at once, orders the children in
+// registers with a fixed network (bvh_walk.cuh expand_node: no array is
+// indexed at run time, so none lives in local memory), and keeps the stack
+// in shared memory, laid out [depth][blockDim] (entry p of thread x at
+// p * blockDim + x, so a warp's accesses never conflict on a bank at any
+// p): depth * blockDim * 4 bytes a block, 15 KB at sponza's stack bound of
+// 58 and the wrapper's 64 threads, 48 KB at the largest bound, 192 (then
+// four blocks fit an SM, and 131,072 rays take four waves). The block size
+// is the caller's (64, 128 or 256 threads).
 //
 // Two more schedules of the same walk, each with B1's results:
 //   gpupathtracer_tpu/ops/pallas_traverse.py:809 _kernel_ilv   (interleave = W)
@@ -27,9 +37,9 @@
 // here a thread carries W rays, each with its own stack (bvh::walk_ilv), or
 // pops up to Q entries of its ray's stack at once (bvh::walk_multi), and
 // asks for all their rows before it works on the first. What bounds them is
-// what bounds B1, plus W stacks of local memory and the registers of W rays
-// (interleave) or the extra children that pruning against a stale t lets in
-// (multi-pop).
+// what bounds B1, with their stacks in local memory, plus the registers of
+// W rays (interleave) or the extra children that pruning against a stale t
+// lets in (multi-pop).
 //
 // Every kernel has a kStats instantiation, launched when the caller passes
 // a stats array: the pop counters of the TPU kernels' with_stats, per ray,
@@ -41,7 +51,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // the interleave and multi-pop kernels
+constexpr int kMaxThreads = 256;  // B1's largest block
+// Four of B1's largest blocks an SM: ptxas may take 64 registers a thread
+// (1,024 threads an SM, the main path's 131,072 rays in one wave if the
+// shared stacks fit too). Unbounded it takes 60 (48 any-hit) and ran 1-5%
+// slower on sponza (tools/torch_walk_variants.py, PERF.md).
+constexpr int kMinBlocks = 4;
 
 // Ray i's pop counts to stats[cols * i ...] (kStats): node, leaf and, with
 // three columns, the pushes dropped at the top of its stack.
@@ -56,8 +72,9 @@ __device__ __forceinline__ void store_pops(int* __restrict__ stats, int cols,
   }
 }
 
+// B1's kernels: the walk's stack in dynamic shared memory, [depth][blockDim].
 template <bool kStats>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 trace_closest_kernel(const float* __restrict__ rows,
                      const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ t_max,
@@ -65,6 +82,7 @@ trace_closest_kernel(const float* __restrict__ rows,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
                      float* __restrict__ u_out, float* __restrict__ v_out,
                      int* __restrict__ stats) {
+  extern __shared__ int stack[];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
@@ -72,7 +90,8 @@ trace_closest_kernel(const float* __restrict__ rows,
   bvh::Pops pops;
   if (active[i])
     bvh::walk<false, bvh::MtLeaf<false>, kStats>(
-        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
+        stack + threadIdx.x, blockDim.x);
   t_out[i] = t;
   prim_out[i] = leaf.prim;
   u_out[i] = leaf.u;
@@ -81,12 +100,13 @@ trace_closest_kernel(const float* __restrict__ rows,
 }
 
 template <bool kStats>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 trace_anyhit_kernel(const float* __restrict__ rows,
                     const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_max,
                     const uint8_t* __restrict__ active, int n, int depth,
                     uint8_t* __restrict__ occluded, int* __restrict__ stats) {
+  extern __shared__ int stack[];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
@@ -94,7 +114,8 @@ trace_anyhit_kernel(const float* __restrict__ rows,
   bvh::Pops pops;
   if (active[i])
     bvh::walk<true, bvh::MtLeaf<true>, kStats>(
-        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
+        stack + threadIdx.x, blockDim.x);
   occluded[i] = leaf.prim >= 0 ? 1 : 0;
   store_pops<kStats>(stats, 2, i, pops);
 }
@@ -226,9 +247,27 @@ trace_anyhit_multi_kernel(const float* __restrict__ rows,
   store_pops<kStats>(stats, 3, i, pops, dropped);
 }
 
-constexpr int kBadVariant = -1;  // a W or Q with no compiled kernel
+constexpr int kBadVariant = -1;  // a W, Q or block size with no kernel
 
 int blocks_for(int threads) { return (threads + kThreads - 1) / kThreads; }
+
+// Launches one of B1's kernels with `threads` a block and its shared stack,
+// raising the kernel's dynamic shared memory limit above the default 48 KB
+// where the stack needs it (192 entries x 256 threads: 192 KB).
+template <class... Params, class... Args>
+int launch_b1(void (*kernel)(Params...), int n, int depth, int threads,
+              cudaStream_t stream, Args... args) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32)
+    return kBadVariant;
+  const size_t smem = (size_t)depth * threads * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(n + threads - 1) / threads, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -240,25 +279,25 @@ extern "C" {
 
 int gpt_max_stack() { return bvh::kMaxStack; }
 
+// B1, `threads` a block (a multiple of 32 up to 256; -1 otherwise).
 int gpt_trace_closest(const float* rows, const float* o, const float* d,
                       const float* t_max, const uint8_t* active, int n,
-                      int depth, float* t, int* prim, float* u, float* v,
-                      int* stats, void* stream) {
+                      int depth, int threads, float* t, int* prim, float* u,
+                      float* v, int* stats, void* stream) {
   auto kernel =
       stats ? trace_closest_kernel<true> : trace_closest_kernel<false>;
-  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
-  return (int)cudaGetLastError();
+  return launch_b1(kernel, n, depth, threads, (cudaStream_t)stream, rows, o,
+                   d, t_max, active, n, depth, t, prim, u, v, stats);
 }
 
 int gpt_trace_anyhit(const float* rows, const float* o, const float* d,
                      const float* t_max, const uint8_t* active, int n,
-                     int depth, uint8_t* occluded, int* stats, void* stream) {
+                     int depth, int threads, uint8_t* occluded, int* stats,
+                     void* stream) {
   auto kernel =
       stats ? trace_anyhit_kernel<true> : trace_anyhit_kernel<false>;
-  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, occluded, stats);
-  return (int)cudaGetLastError();
+  return launch_b1(kernel, n, depth, threads, (cudaStream_t)stream, rows, o,
+                   d, t_max, active, n, depth, occluded, stats);
 }
 
 // The interleave schedule, w = 2 or 4 rays per thread (-1 for any other w).

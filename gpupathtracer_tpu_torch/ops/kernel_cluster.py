@@ -133,6 +133,7 @@ def closest_cluster(rows, cluster_rows, cluster_refs, o, d, t_max, active,
                                      t_max, active, stack_depth=stack_depth,
                                      with_stats=with_stats, pop_skip=pop_skip)
     stream = kernel_traverse.stream_of(o)
+    kernel_traverse.check_aligned(rows)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -164,6 +165,7 @@ def anyhit_cluster(rows, cluster_rows, o, d, t_max, active, *,
                                     stack_depth=stack_depth,
                                     with_stats=with_stats)
     stream = kernel_traverse.stream_of(o)
+    kernel_traverse.check_aligned(rows)
     n = o.shape[0]
     occluded = torch.empty(n, dtype=torch.bool, device=o.device)
     stats = _stats(n, o.device, with_stats)

@@ -62,6 +62,12 @@ POP_COLUMNS = {"node": 0, "leaf": 1, "skip": 2, "dropped": 3}
 # Rays per thread of the interleave schedule and pops per iteration of the
 # multi-pop schedule for which csrc/traverse.cu holds a kernel.
 VARIANTS = (2, 4)
+# Threads a block of the plain schedule's kernels (csrc/traverse.cu keeps
+# their stacks in shared memory, depth * threads * 4 bytes a block), and
+# the block size they run at unless told otherwise: the fastest of the
+# three on sponza (PERF.md section 6).
+BLOCK_SIZES = (64, 128, 256)
+THREADS = 64
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -73,10 +79,10 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpt_max_stack.argtypes = []
         lib.gpt_max_stack.restype = i
-        # rows, o, d, t_max, active, n, depth[, w or q], results..., stats,
-        # stream
+        # rows, o, d, t_max, active, n, depth, threads (B1) or w or q,
+        # results..., stats, stream
         rays = [p, p, p, p, p, i, i]
-        for name, sched, res in (("closest", [], 4), ("anyhit", [], 1),
+        for name, sched, res in (("closest", [i], 4), ("anyhit", [i], 1),
                                  ("closest_ilv", [i], 4),
                                  ("anyhit_ilv", [i], 1),
                                  ("closest_multi", [i], 4),
@@ -116,6 +122,14 @@ def check_rays(rows, o, d, t_max, active, stack_depth: int) -> None:
                          f"(the kernel's stack)")
 
 
+def check_aligned(rows) -> None:
+    """Raises ValueError unless the row table starts on a 16-byte boundary:
+    the walks read node rows and leaf slots as 16-byte loads."""
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary (the "
+                         "kernels read them as 16-byte loads)")
+
+
 def stream_of(o: torch.Tensor):
     """The current CUDA stream of o's device; raises for any other device."""
     if o.device.type != "cuda":
@@ -144,11 +158,13 @@ def check_schedule(stack_depth: int, interleave: int, multi_pop: int) -> int:
 
 
 def _launch(rows, o, d, t_max, active, depth: int, any_hit: bool,
-            interleave: int, multi_pop: int, out, with_stats: bool):
+            interleave: int, multi_pop: int, out, with_stats: bool,
+            threads: int):
     """The kernel of a query and schedule; ``out`` its result tensors (t,
     prim, u, v for closest, occluded for any-hit). Returns the per-ray pop
     counts of its kStats instantiation with ``with_stats``, else None."""
     stream = stream_of(o)
+    check_aligned(rows)
     n = o.shape[0]
     stats = (torch.zeros((n, 3 if multi_pop > 1 else 2), dtype=torch.int32,
                          device=o.device) if with_stats else None)
@@ -158,7 +174,7 @@ def _launch(rows, o, d, t_max, active, depth: int, any_hit: bool,
     name = query + ("_ilv" if interleave > 1 else
                     "_multi" if multi_pop > 1 else "")
     sched = ((interleave,) if interleave > 1 else
-             (multi_pop,) if multi_pop > 1 else ())
+             (multi_pop,) if multi_pop > 1 else (threads,))
     with torch.cuda.device(o.device):
         err = getattr(_library(), "gpt_trace_" + name)(
             rows.data_ptr(), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
@@ -172,17 +188,29 @@ def _launch(rows, o, d, t_max, active, depth: int, any_hit: bool,
     return stats
 
 
+def check_threads(threads: int, interleave: int, multi_pop: int) -> None:
+    if threads not in BLOCK_SIZES:
+        raise ValueError(f"threads must be one of {BLOCK_SIZES}, got "
+                         f"{threads}")
+    if threads != THREADS and (interleave > 1 or multi_pop > 1):
+        raise ValueError("threads is the plain schedule's block size; the "
+                         "interleave and multi-pop kernels have their own")
+
+
 def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
             interleave: int = 1, multi_pop: int = 1,
-            with_stats: bool = False):
+            with_stats: bool = False, threads: int = THREADS):
     """Closest hit of rays o, d [N, 3] within (0, t_max) against the merged
     row table rows [M, 128]. Returns (t, prim, u, v), each [N]; t = t_max
     and prim = -1 on a miss or an inactive ray. ``interleave`` / ``multi_pop``
     choose a schedule (module docstring); ``with_stats`` appends the per-ray
     pop counts [N, 2] (node, leaf) int32, [N, 3] under multi-pop (and the
-    pushes dropped at the top of the stack)."""
+    pushes dropped at the top of the stack). ``threads`` is the plain
+    schedule's block size on the card (``BLOCK_SIZES``); the results do
+    not depend on it."""
     check_rays(rows, o, d, t_max, active, stack_depth)
     depth = check_schedule(stack_depth, interleave, multi_pop)
+    check_threads(threads, interleave, multi_pop)
     if o.device.type == "cpu":
         return closest_plain(rows, o, d, t_max, active,
                              stack_depth=stack_depth, leaf_size=leaf_size,
@@ -194,18 +222,20 @@ def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     stats = _launch(rows, o, d, t_max, active, depth, False, interleave,
-                    multi_pop, (t, prim, u, v), with_stats)
+                    multi_pop, (t, prim, u, v), with_stats, threads)
     return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
-           interleave: int = 1, multi_pop: int = 1, with_stats: bool = False):
+           interleave: int = 1, multi_pop: int = 1, with_stats: bool = False,
+           threads: int = THREADS):
     """Occlusion of rays o, d [N, 3] within (0, t_max): [N] bool, True iff
     some triangle is hit. Inactive rays are never occluded. The schedule
-    arguments are ``closest``'s; with ``with_stats`` returns (occluded,
-    stats)."""
+    and block arguments are ``closest``'s; with ``with_stats`` returns
+    (occluded, stats)."""
     check_rays(rows, o, d, t_max, active, stack_depth)
     depth = check_schedule(stack_depth, interleave, multi_pop)
+    check_threads(threads, interleave, multi_pop)
     if o.device.type == "cpu":
         return anyhit_plain(rows, o, d, t_max, active,
                             stack_depth=stack_depth, leaf_size=leaf_size,
@@ -213,7 +243,7 @@ def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
                             with_stats=with_stats)
     occluded = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
     stats = _launch(rows, o, d, t_max, active, depth, True, interleave,
-                    multi_pop, (occluded,), with_stats)
+                    multi_pop, (occluded,), with_stats, threads)
     return (occluded, stats) if with_stats else occluded
 
 

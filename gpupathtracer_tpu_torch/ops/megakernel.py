@@ -694,6 +694,7 @@ def trace_mega(rows, mats, lights, cdf, params, o, d, active, seeds, *,
     if active.device.type != "cuda":
         raise ValueError(f"the megakernel takes CUDA or CPU tensors, got "
                          f"{active.device}")
+    kernel_traverse.check_aligned(rows)
     n = active.shape[0]
     regen = spp > 1
     contribution = torch.empty((n, 3), dtype=torch.float32,

@@ -52,6 +52,45 @@ def _soup_case(seed, leaf=4, n_tris=400, n_rays=512):
         act=rng.rand(n_rays) < 0.9)
 
 
+def twin_soup_case(n_tris=300, n_rays=4096, seed=3):
+    """_soup_case's soup with every triangle twice (prims 2k and 2k + 1),
+    built with one triangle a leaf: twins become sibling leaves with
+    bitwise equal boxes, so a ray that enters one enters both at the same
+    t_near (the child order keeps the lower slot first) and hits both at
+    the same t (the first visited keeps the hit). Rays, occlusion distances
+    and about 10% inactive lanes as _soup_case's."""
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(-5, 5, (n_tris, 1, 3))
+    tri = np.repeat((base + rng.uniform(-0.6, 0.6, (n_tris, 3, 3)))
+                    .astype(np.float32), 2, axis=0)
+    p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=1, builder="numpy",
+                                 force_leaf=True)
+    wide = pack_for_packets(wide, p0, p1 - p0, p2 - p0, 1)
+    o = rng.uniform(-8, 8, (n_rays, 3)).astype(np.float32)
+    d = rng.uniform(-4, 4, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return dict(
+        wide=wide, depth=min(stats.max_depth * 7 + 2, kt.MAX_STACK), leaf=1,
+        o=o, d=d.astype(np.float32), far=np.full((n_rays,), 1e20, np.float32),
+        t_occ=rng.uniform(0.5, 8.0, n_rays).astype(np.float32),
+        act=rng.rand(n_rays) < 0.9)
+
+
+def tied_siblings(rows) -> int:
+    """Children of the node rows of a merged row table (numpy) whose box
+    equals an earlier sibling's: each such pair ties in t_near for every
+    ray that enters them."""
+    entry = rows[:, 6 * kt.ARITY:7 * kt.ARITY].view(np.int32)
+    used = entry != kt.INVALID_ENTRY
+    nodes = np.unique(np.concatenate([[0], entry[used & (entry >= 0)]]))
+    ties = 0
+    for r in nodes:
+        boxes = rows[r, :6 * kt.ARITY].reshape(kt.ARITY, 6)[used[r]]
+        ties += len(boxes) - len(np.unique(boxes, axis=0))
+    return ties
+
+
 def _port(case, t_max, device="cpu"):
     """Rays o, d, t_max, active as tensors on `device`."""
     return [torch.tensor(x, device=device)
@@ -111,23 +150,34 @@ def far_cluster_case(offset=(3000.0, -1500.0, 2000.0), n_rays=4096, seed=5):
 
 
 def cluster_soup_case(tc=128, n_tris=600, n_rays=4096, seed=11,
-                      duplicate=False):
+                      duplicate=False, materials=0):
     """A random soup of small triangles (tests/test_pallas.py's recipe) on
     cluster leaves of tc slots, built with the numpy builder. With
     ``duplicate`` every triangle appears twice (prims 2k and 2k + 1), so a
     ray that hits one hits its twin at bitwise the same t, u and v: a tie
     that the lowest slot of the block must win. Rays from a cube around
     the soup toward points inside it; a random occlusion distance and
-    about 10% of lanes inactive. Returns a dict: tables (node_rows,
-    cluster_rows, cluster_refs as numpy), depth, o, d, far, t_occ, act."""
+    about 10% of lanes inactive. With ``materials`` > 0 each triangle
+    (twins alike) gets a material id below it and a normal sign, drawn
+    from a stream of their own, in the blocks' row 7 (the megakernel's
+    capture). Returns a dict: tables (node_rows, cluster_rows,
+    cluster_refs as numpy), depth, o, d, far, t_occ, act."""
     rng = np.random.RandomState(seed)
     base = rng.uniform(-5, 5, (n_tris, 1, 3))
     tri = (base + rng.uniform(-0.6, 0.6, (n_tris, 3, 3))).astype(np.float32)
+    mat = sign = None
+    if materials:
+        mrng = np.random.RandomState(seed + 1)
+        mat = mrng.randint(0, materials, n_tris)
+        sign = np.where(mrng.rand(n_tris) < 0.5, -1.0, 1.0).astype(np.float32)
     if duplicate:
         tri = np.repeat(tri, 2, axis=0)
+        mat, sign = (None if x is None else np.repeat(x, 2)
+                     for x in (mat, sign))
     p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
     wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=10, builder="numpy")
-    wide = pack_clusters(wide, p0, p1 - p0, p2 - p0, tc=tc)
+    wide = pack_clusters(wide, p0, p1 - p0, p2 - p0, tc=tc, tri_mat=mat,
+                         tri_nsign=sign)
     o = rng.uniform(-8, 8, (n_rays, 3))
     d = rng.uniform(-4, 4, (n_rays, 3)) - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -139,6 +189,54 @@ def cluster_soup_case(tc=128, n_tris=600, n_rays=4096, seed=11,
         far=np.full(n_rays, 1e20, np.float32),
         t_occ=rng.uniform(0.5, 8.0, n_rays).astype(np.float32),
         act=rng.rand(n_rays) < 0.9)
+
+
+# The soup megakernel's materials (rows of ops/megakernel.py's mats table:
+# albedo, roughness, metallic, emission) and its one triangle light above
+# the soup (p0, e1, e2, normal, emission), out of the soup's reach.
+SOUP_MATS = np.float32([[0.8, 0.7, 0.6, 0.3, 0.0, 0, 0, 0],
+                        [0.5, 0.6, 0.9, 0.6, 1.0, 0, 0, 0],
+                        [0.9, 0.9, 0.9, 0.9, 0.0, 2.0, 1.5, 1.0]])
+SOUP_LIGHT = np.float32([-4, 9, -4, 8, 0, 0, 0, 0, 8, 0, -1, 0, 6, 6, 5])
+
+
+def soup_mega_case(tc, duplicate, width, height, spp, max_bounces, device,
+                   n_tris=3000):
+    """cluster_soup_case's soup (three materials, SOUP_MATS) through the
+    megakernel: width x height lanes of a camera 15 units before the soup,
+    one packet (width * height lanes: not a multiple of 32 where the film
+    is not), NEE from SOUP_LIGHT, a grey sky; spp > 1 takes the in-kernel
+    regeneration. Returns trace_mega's (args, kwargs)."""
+    from types import SimpleNamespace
+
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.math.camera import generate_image_plane
+
+    case = cluster_soup_case(tc=tc, n_tris=n_tris, n_rays=1, seed=11,
+                             duplicate=duplicate, materials=len(SOUP_MATS))
+    tabs = {k: torch.tensor(v, device=device)
+            for k, v in case["tables"].items()}
+    mats = np.zeros((len(SOUP_MATS), 16), np.float32)
+    mats[:, :8] = SOUP_MATS
+    lights = np.zeros((1, 16), np.float32)
+    lights[0, :15] = SOUP_LIGHT
+    area = 0.5 * float(np.linalg.norm(np.cross(SOUP_LIGHT[3:6],
+                                               SOUP_LIGHT[6:9])))
+    params = np.float32([area, 0.5 / area, 0.2, 0.25, 0.3])
+    tables = tuple(torch.tensor(x, device=device)
+                   for x in (mats, lights, np.float32([area]), params))
+    cam = CameraConfig(position=(0.5, 0.3, -15.0), yaw=math.pi,
+                       fov=math.radians(50), aspect=width / height)
+    lane = torch.arange(width * height, device=device)
+    return mk.prepare_mega(
+        SimpleNamespace(node_rows=tabs["node_rows"],
+                        cluster_rows=tabs["cluster_rows"]),
+        tables, generate_image_plane(cam, device),
+        (lane % width).float(), (lane // width).float(),
+        random.PRNGKey(5, device), width=width, height=height,
+        stack_depth=case["depth"], leaf_size=10, max_bounces=max_bounces,
+        model="beckmann", n_mats=len(SOUP_MATS), n_lights=1,
+        packet_size=width * height, spp=spp)
 
 
 def twin_slots(case):
@@ -197,6 +295,15 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         kt.anyhit(rows, o, d, t, act, stack_depth=kt.MAX_STACK + 1,
                   leaf_size=4)
+    # B1's block sizes; the interleave and multi-pop kernels have one.
+    with pytest.raises(ValueError):
+        kt.closest(rows, o, d, t, act, threads=96, **kw)
+    with pytest.raises(ValueError):
+        kt.anyhit(rows, o, d, t, act, threads=128, interleave=2, **kw)
+    # The walks read rows as 16-byte loads: a table one float off raises.
+    kt.check_aligned(rows)
+    with pytest.raises(ValueError):
+        kt.check_aligned(rows.reshape(-1)[1:])
     # Neither a CPU nor a CUDA tensor: raise, never the plain path.
     with pytest.raises(ValueError):
         kt.closest(rows.to("meta"), o.to("meta"), d.to("meta"),
@@ -400,6 +507,70 @@ def test_cluster_megakernel_matches_plain_on_cuda():
         want, rays_plain = mk.trace_mega_plain(*args, **kw)
         assert int(rays) == int(rays_plain)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert mk.LAUNCHES["trace_mega_cluster"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 48, 192])
+def test_b1_twin_table_and_depths_on_cuda(depth):
+    """B1 closest and any-hit with counters, bitwise the plain version's,
+    on the twin table (sibling boxes tie in t_near: the lower slot pops
+    first) at stack depth 1, 48 and 192 (pushes dropped at the top of the
+    shared stack at depth 1), at every block size, with 4,097 rays (not a
+    multiple of any block); the hits with counters are those without."""
+    _need_cuda()
+    case = twin_soup_case(n_tris=300, n_rays=4097)
+    assert tied_siblings(case["wide"].node_rows) > 0
+    rows = _rows(case, "cuda")
+    kw = dict(stack_depth=depth, leaf_size=case["leaf"])
+    for threads in kt.BLOCK_SIZES:
+        for fn, plain, t_max in ((kt.closest, kt.closest_plain, case["far"]),
+                                 (kt.anyhit, kt.anyhit_plain,
+                                  case["t_occ"])):
+            rays = _port(case, t_max, "cuda")
+            got = fn(rows, *rays, with_stats=True, threads=threads, **kw)
+            _equal_bits(got, plain(rows, *rays, with_stats=True, **kw))
+            bare = fn(rows, *rays, threads=threads, **kw)
+            _equal_bits(got[:-1], bare if isinstance(bare, tuple)
+                        else (bare,))
+
+
+@pytest.mark.cuda
+def test_b1_all_rays_inactive_on_cuda():
+    """With every ray inactive B1 returns t_max, no hit and no pops."""
+    _need_cuda()
+    case = _soup_case(7, n_rays=1000)
+    case["act"] = np.zeros_like(case["act"])
+    rows = _rows(case, "cuda")
+    kw = dict(stack_depth=case["depth"], leaf_size=case["leaf"])
+    t, prim, u, v, st = kt.closest(rows, *_port(case, case["far"], "cuda"),
+                                   with_stats=True, **kw)
+    assert torch.equal(t.cpu(), torch.tensor(case["far"]))
+    assert (prim == -1).all() and (st == 0).all()
+    occ, st = kt.anyhit(rows, *_port(case, case["t_occ"], "cuda"),
+                        with_stats=True, **kw)
+    assert not occ.any() and (st == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc,duplicate", [(128, True), (256, False)])
+def test_cluster_megakernel_soups_on_cuda(tc, duplicate):
+    """The cluster megakernel, whose walks run each cluster by the whole
+    warp, on the twin-triangle tie case (tc 128) and a tc 256 soup: 165
+    lanes (not a multiple of 32), one sample and four with regeneration
+    (lanes end their samples at different bounces). Contributions, ray
+    counts and the [P, 9] counters bitwise the plain version's."""
+    _need_cuda()
+    launches = mk.LAUNCHES["trace_mega_cluster"]
+    for spp in (1, 4):
+        args, kw = soup_mega_case(tc, duplicate, 15, 11, spp, 8, "cuda")
+        got = mk.trace_mega(*args, with_stats=True, **kw)
+        want = mk.trace_mega_plain(*args, with_stats=True, **kw)
+        assert int(got[1]) == int(want[1])
+        _equal_bits((got[0], got[2]), (want[0], want[2]))
+        bare, rays = mk.trace_mega(*args, **kw)
+        _equal_bits((bare,), (got[0],))
+        assert int(rays) == int(want[1])
     assert mk.LAUNCHES["trace_mega_cluster"] == launches + 2
 
 
