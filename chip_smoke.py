@@ -37,10 +37,14 @@ nvcc and g++. Phases, each of which raises on failure:
      rays, closest and any-hit with and without counters, bitwise;
   3b. on the same tables and rays, the interleave schedule (2 and 4 rays a
      thread), the multi-pop schedule (2 pops an iteration) and the
-     sub-packet kernel (2048-ray packets), closest and any-hit, each
-     against its plain version (every field bitwise equal) and against
-     phase 3's kernel output (t and occluded bitwise equal; lanes where
-     another triangle at bitwise the same t won are counted and printed);
+     sub-packet kernel (packets of 128, 256 and 2048 rays; closest ordered
+     and unordered, with the per-packet pop counts), closest and any-hit,
+     each against its plain version (every field bitwise equal) and
+     against phase 3's kernel output (t and occluded bitwise equal; lanes
+     where another triangle at bitwise the same t won are counted and
+     printed); the sub-packet kernel also timed at each K on the kernel
+     A/B tool's 2^19 incoherent rays, t and occluded bitwise the per-ray
+     kernel's;
      S: the pop counters of every schedule (B1, W = 2 and 4, Q = 2),
      closest and any-hit, per ray bitwise equal to the plain version's,
      the interleave's equal to B1's, the multi-pop's dropped pushes 0, the
@@ -98,8 +102,10 @@ nvcc and g++. Phases, each of which raises on failure:
      differ, and those are printed); kernel and plain times; the counting
      variant's contributions bitwise the kernel's, its [P, 9] counters
      equal to the plain version's in every packet whose lanes all agree;
-     the pop account of B2; then the cluster megakernel (each cluster pop
-     run by the whole warp) on the soups of tests/test_torch_kernel.py,
+     the pop account of B2; every MT instantiation's ptxas line
+     (registers, stack frame, spills); then the cluster megakernel (each
+     cluster pop run by the whole warp) on the soups of
+     tests/test_torch_kernel.py,
      the twin-triangle tie case (tc 128) and a tc 256 soup, 97 x 61 lanes
      (not a multiple of 32), one sample and four with regeneration: lanes,
      ray counts and [P, 9] counters bitwise the plain version's;
@@ -230,6 +236,10 @@ NODE_ROW_BYTES = 7 * 8 * 4
 # [rays, tile] temporaries over 508 tiles set the cut.
 DENSE_SPONZA_RAYS = 8192
 SUBPACKET_K = 2048
+# Phase 3b holds the sub-packet kernel at these packet sizes, and times it
+# on phase 3's rays and on the kernel A/B tool's 2^19 rays.
+SUBPACKET_KS = (128, 256, SUBPACKET_K)
+SUBPACKET_SCALE_RAYS = 1 << 19
 SECTOR = 32
 # At most this share of lanes may differ between the megakernel and its
 # plain version (exact ties or a last-place difference of a libdevice
@@ -605,64 +615,116 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
         out[f"trace_closest_{suffix}"] = (err_c, ms_c, plain_c, *b1_bound[0])
         out[f"trace_anyhit_{suffix}"] = (err_a, ms_a, plain_a, *b1_bound[1])
 
-    # The sub-packet kernel on K-ray packets of the same rays.
-    K = SUBPACKET_K
-    P = n // K
+    # The sub-packet kernel on K-ray packets of the same rays, at every K of
+    # SUBPACKET_KS (the kernels line reports K = SUBPACKET_K).
+    for K in SUBPACKET_KS:
+        P = n // K
 
-    def packets(t_max):
-        return (rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
-                t_max.reshape(P, K), on.reshape(P, K))
+        def packets(t_max):
+            return (rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
+                    t_max.reshape(P, K), on.reshape(P, K))
 
-    for any_hit, t_max, entry in ((False, far, "subpacket_closest"),
-                                  (True, t_occ, "subpacket_anyhit")):
-        label = f"[{name}] {entry}"
-        args = packets(t_max)
-        flags = dict(any_hit=any_hit, with_stats=True, **kw)
-        got = sp.traverse_subpacket(*args, **flags)
-        pops = {}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = sp.traverse_subpacket_plain(*args, pops=pops, **flags)
-        end.record()
-        err = _hold_hits(label, got[:4], want[:4])
-        plain_ms = start.elapsed_time(end)
-        if not torch.equal(got[4], want[4]):
-            raise AssertionError(f"{label} pop counts differ from the plain "
-                                 f"version's")
-        flat = [x.reshape(-1) for x in got[:4]]
-        if any_hit:
-            ties = None
-            if not torch.equal(flat[1] >= 0, b1["occ"]):
-                raise AssertionError(f"{label} differs from trace_anyhit")
-        else:
-            ties = _hold_to_b1(label, flat, b1["closest"])
-            # The unordered push schedule: held, not timed.
-            for a, b in zip(
-                    sp.traverse_subpacket(*args, ordered=False, **flags),
-                    sp.traverse_subpacket_plain(*args, ordered=False,
-                                                **flags)):
-                if not torch.equal(_bits(a), _bits(b)):
-                    raise AssertionError(f"{label} ordered=False differs "
-                                         f"from the plain version")
-        ms = _events_ms(lambda: sp.traverse_subpacket(
-            *args, any_hit=any_hit, **kw), 5)
-        node, leaf = (int(x) for x in got[4].sum(dim=0))
-        print(f"{label} K={K}: bitwise equal to the plain version (pop "
-              f"counts too); "
-              + (f"t bitwise equal to trace_closest, {ties} tie lanes of {n}"
-                 if ties is not None else "occluded equal to trace_anyhit")
-              + f"; {node / (n // 128):.1f} node and {leaf / (n // 128):.1f} "
-              f"leaf pops per sub-packet; {ms:.3f} ms "
-              f"({b1_ms[any_hit]:.3f} per ray), plain {plain_ms:.1f} ms "
-              f"(with pop counting); the schedule's own work: "
-              f"{pops['slabs']} slab tests of 8 children (a node pop times "
-              f"the sub-packet's rays still walking), "
-              f"{1e3 * pops['slabs'] * NODE_OPS / PEAK_FLOPS:.4f} ms at the "
-              f"card's peak, not its bound")
-        out[entry] = (err, ms, plain_ms, *b1_bound[any_hit])
+        for any_hit, t_max, entry in ((False, far, "subpacket_closest"),
+                                      (True, t_occ, "subpacket_anyhit")):
+            label = f"[{name}] {entry} K={K}"
+            args = packets(t_max)
+            flags = dict(any_hit=any_hit, with_stats=True, **kw)
+            got = sp.traverse_subpacket(*args, **flags)
+            pops = {}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = sp.traverse_subpacket_plain(*args, pops=pops, **flags)
+            end.record()
+            err = _hold_hits(label, got[:4], want[:4])
+            plain_ms = start.elapsed_time(end)
+            if not torch.equal(got[4], want[4]):
+                raise AssertionError(f"{label} pop counts differ from the "
+                                     f"plain version's")
+            flat = [x.reshape(-1) for x in got[:4]]
+            if any_hit:
+                ties = None
+                if not torch.equal(flat[1] >= 0, b1["occ"]):
+                    raise AssertionError(f"{label} differs from trace_anyhit")
+            else:
+                ties = _hold_to_b1(label, flat, b1["closest"])
+                # The unordered push schedule: held, pop counts too; not
+                # timed.
+                for a, b in zip(
+                        sp.traverse_subpacket(*args, ordered=False, **flags),
+                        sp.traverse_subpacket_plain(*args, ordered=False,
+                                                    **flags)):
+                    if not torch.equal(_bits(a), _bits(b)):
+                        raise AssertionError(f"{label} ordered=False differs "
+                                             f"from the plain version")
+            ms = _events_ms(lambda: sp.traverse_subpacket(
+                *args, any_hit=any_hit, **kw), 5)
+            node, leaf = (int(x) for x in got[4].sum(dim=0))
+            print(f"{label}: bitwise equal to the plain version (pop counts "
+                  f"too"
+                  + ("" if any_hit else ", and ordered=False")
+                  + "); "
+                  + (f"t bitwise equal to trace_closest, {ties} tie lanes of "
+                     f"{n}" if ties is not None
+                     else "occluded equal to trace_anyhit")
+                  + f"; {node / (n // 128):.1f} node and "
+                  f"{leaf / (n // 128):.1f} leaf pops per sub-packet, "
+                  f"{pops['trig']} leaf phases chosen by LEAF_TRIG alone; "
+                  f"{ms:.4f} ms ({b1_ms[any_hit]:.3f} per ray), plain "
+                  f"{plain_ms:.1f} ms (with pop counting); the schedule's "
+                  f"own work: {pops['slabs']} slab tests of 8 children (a "
+                  f"node pop times the sub-packet's rays still walking), "
+                  f"{1e3 * pops['slabs'] * NODE_OPS / PEAK_FLOPS:.4f} ms at "
+                  f"the card's peak, not its bound")
+            if K == SUBPACKET_K:
+                out[entry] = (err, ms, plain_ms, *b1_bound[any_hit])
+    subpacket_at_scale(name, scene, meta, device)
     results[name].update(out)
     _print_bounds(name, out)
+
+
+def subpacket_at_scale(name: str, scene, meta, device) -> None:
+    """Phase 3b at the kernel A/B tool's scale: the sub-packet kernel on its
+    2^19 incoherent rays (all active, t_max 1e20) at every K of
+    SUBPACKET_KS, t and occluded bitwise the per-ray kernel's; times beside
+    the per-ray kernel's."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
+
+    n = SUBPACKET_SCALE_RAYS
+    o, d = _tool_module("torch_kernel_bench").make_rays(
+        f"proc:{name}", scene, meta, n, device)["incoherent"]
+    far = torch.full((n,), 1e20, device=device)
+    on = torch.ones(n, dtype=torch.bool, device=device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    rows = scene.node_rows
+    fns = (kt.closest, kt.anyhit)
+    b1 = [fn(rows, o, d, far, on, **kw) for fn in fns]
+    b1_ms = [_events_ms(lambda: fn(rows, o, d, far, on, **kw), 5)
+             for fn in fns]
+    line = []
+    for K in SUBPACKET_KS:
+        args = (rows, o.reshape(n // K, K, 3), d.reshape(n // K, K, 3),
+                far.reshape(n // K, K), on.reshape(n // K, K))
+        for any_hit in (False, True):
+            got = sp.traverse_subpacket(*args, any_hit=any_hit, **kw)
+            torch.cuda.synchronize()
+            same = (torch.equal(got[1].reshape(-1) >= 0, b1[1]) if any_hit
+                    else torch.equal(_bits(got[0].reshape(-1)),
+                                     _bits(b1[0][0])))
+            if not same:
+                raise AssertionError(f"[{name}] subpacket K={K} on {n} rays "
+                                     f"differs from the per-ray kernel")
+            ms = _events_ms(lambda: sp.traverse_subpacket(
+                *args, any_hit=any_hit, **kw), 5)
+            line.append(f"K={K} {'any-hit' if any_hit else 'closest'} "
+                        f"{ms:.4f}")
+    print(f"[{name}] subpacket on the kernel A/B tool's {n} incoherent rays: "
+          + ", ".join(line) + f" ms (trace_closest {b1_ms[0]:.4f}, "
+          f"trace_anyhit {b1_ms[1]:.4f}); t and occluded bitwise the "
+          f"per-ray kernel's")
 
 
 def _hold_stats(label, got, want) -> None:
@@ -1563,6 +1625,13 @@ def compare_mega(device, results, cluster_tris: int = 0) -> None:
                             "leaf_pop_ray_ps",
                             pops.get("slots", 0) / max(leaf, 1) / 10)
     results["mega"][entry] = (max(errs), *timed)
+    if not cluster_tris:
+        from gpupathtracer_tpu_torch.ops import cuda_build
+
+        # Every MT instantiation (its frame is the walks' local stack).
+        for line in _ptxas_summary(cuda_build.build("megakernel")[1]):
+            if "cluster=0" in line:
+                print(f"[{entry}] ptxas {line}")
 
 
 def compare_mega_soups(device, results) -> None:

@@ -316,42 +316,52 @@ __device__ __forceinline__ int expand_node(const float* __restrict__ row,
   return dropped;
 }
 
-// Moller-Trumbore against the `count` slots of one leaf block, in the
-// operation order of pallas_traverse.py:265-280 and the roundings of
-// ops/intersect.py mt_intersect; a slot is three 16-byte loads (kLdg: from
-// the table in global memory, else from a row staged in shared memory). A
-// hit records t, prim, u, v and the slot it came from. With `any_hit`,
-// returns at the first hit.
+// Moller-Trumbore of one leaf slot, its 12 floats in s0, s1, s2 (p0, e1,
+// e2, ...), in the operation order of pallas_traverse.py:265-280 and the
+// roundings of ops/intersect.py mt_intersect: true iff the ray hits it at
+// tt in (0, t), with its barycentrics uu, vv.
+__device__ __forceinline__ bool mt_slot(const float4& s0, const float4& s1,
+                                        const float4& s2, const Ray& r,
+                                        float t, float& tt, float& uu,
+                                        float& vv) {
+  const float* d = r.d;
+  float p0x = s0.x, p0y = s0.y, p0z = s0.z;
+  float e1x = s0.w, e1y = s1.x, e1z = s1.y;
+  float e2x = s1.z, e2y = s1.w, e2z = s2.x;
+  float px = __fmaf_rn(d[1], e2z, -(d[2] * e2y));
+  float py = __fmaf_rn(d[2], e2x, -(d[0] * e2z));
+  float pz = __fmaf_rn(d[0], e2y, -(d[1] * e2x));
+  float det = __fmaf_rn(e1z, pz, __fmaf_rn(e1y, py, e1x * px));
+  float idet = 1.0f / det;
+  float tx = r.o[0] - p0x;
+  float ty = r.o[1] - p0y;
+  float tz = r.o[2] - p0z;
+  uu = __fmaf_rn(tz, pz, __fmaf_rn(tx, px, ty * py)) * idet;
+  float qx = __fmaf_rn(ty, e1z, -(tz * e1y));
+  float qy = __fmaf_rn(tz, e1x, -(tx * e1z));
+  float qz = __fmaf_rn(tx, e1y, -(ty * e1x));
+  vv = __fmaf_rn(d[2], qz, __fmaf_rn(d[0], qx, d[1] * qy)) * idet;
+  tt = __fmaf_rn(e2z, qz, __fmaf_rn(e2x, qx, e2y * qy)) * idet;
+  return uu > 0.0f && uu < 1.0f && vv > 0.0f && uu + vv < 1.0f &&
+         tt > 0.0f && tt < t;
+}
+
+// Moller-Trumbore (mt_slot) against the `count` slots of one leaf block; a
+// slot is three 16-byte loads (kLdg: from the table in global memory, else
+// from a row staged in shared memory). A hit records t, prim, u, v and the
+// slot it came from. With `any_hit`, returns at the first hit.
 template <bool kLdg = true>
 __device__ __forceinline__ void intersect_leaf(const float* __restrict__ block,
                                                int count, const Ray& r,
                                                bool any_hit, float& t,
                                                int& prim, float& u, float& v,
                                                const float*& slot) {
-  const float* d = r.d;
   for (int k = 0; k < count; ++k) {
     const float* s = block + (k / kTrisPerRow) * kRow + (k % kTrisPerRow) * 12;
     const float4 s0 = load4<kLdg>(s), s1 = load4<kLdg>(s + 4),
                  s2 = load4<kLdg>(s + 8);
-    float p0x = s0.x, p0y = s0.y, p0z = s0.z;
-    float e1x = s0.w, e1y = s1.x, e1z = s1.y;
-    float e2x = s1.z, e2y = s1.w, e2z = s2.x;
-    float px = __fmaf_rn(d[1], e2z, -(d[2] * e2y));
-    float py = __fmaf_rn(d[2], e2x, -(d[0] * e2z));
-    float pz = __fmaf_rn(d[0], e2y, -(d[1] * e2x));
-    float det = __fmaf_rn(e1z, pz, __fmaf_rn(e1y, py, e1x * px));
-    float idet = 1.0f / det;
-    float tx = r.o[0] - p0x;
-    float ty = r.o[1] - p0y;
-    float tz = r.o[2] - p0z;
-    float uu = __fmaf_rn(tz, pz, __fmaf_rn(tx, px, ty * py)) * idet;
-    float qx = __fmaf_rn(ty, e1z, -(tz * e1y));
-    float qy = __fmaf_rn(tz, e1x, -(tx * e1z));
-    float qz = __fmaf_rn(tx, e1y, -(ty * e1x));
-    float vv = __fmaf_rn(d[2], qz, __fmaf_rn(d[0], qx, d[1] * qy)) * idet;
-    float tt = __fmaf_rn(e2z, qz, __fmaf_rn(e2x, qx, e2y * qy)) * idet;
-    if (uu > 0.0f && uu < 1.0f && vv > 0.0f && uu + vv < 1.0f &&
-        tt > 0.0f && tt < t) {
+    float tt, uu, vv;
+    if (mt_slot(s0, s1, s2, r, t, tt, uu, vv)) {
       t = tt;
       prim = __float_as_int(s2.y);
       u = uu;

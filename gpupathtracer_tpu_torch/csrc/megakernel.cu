@@ -39,13 +39,23 @@
 //
 // What bounds it on an H100: register pressure (the whole estimator is live
 // in one thread; PERF.md has each instantiation's ptxas line), the
-// 192-entry walk stacks in local memory, the dependent row reads of the
-// walks, and divergence as the lanes of a warp end their paths at
-// different bounces and walk different subtrees. On cluster leaves the
-// slots of each pop are spread over the warp (coalesced block loads, no
-// lane's serial 128-slot loop); the warp idles its finished lanes. The MT
-// leaves keep one lane a leaf. No persistent threads or path pool, no ray
-// sorting, no shared-memory tables.
+// dependent row reads of the walks, and divergence as the lanes of a warp
+// end their paths at different bounces and walk different subtrees. On
+// cluster leaves the slots of each pop are spread over the warp (coalesced
+// block loads, no lane's serial 128-slot loop); the warp idles its finished
+// lanes. The MT leaves keep one lane a leaf. No persistent threads or path
+// pool, no ray sorting, no shared-memory tables.
+//
+// The MT walks' stack stays a local array (the 768-byte frame of ptxas):
+// local memory is laid out thread-interleaved, as B1's shared stack is, and
+// L1 caches only the lines a walk touches, the top few entries. A shared
+// stack sized by the scene's bound takes its whole depth x threads from the
+// SM's 256 KB of L1 and shared memory (about 95 KB at bathroom's bound of
+// 37 and five blocks an SM), and the rows' L1 hits go with it: on the rows
+// that fill the card it ran 2-3% slower. Threads that pick up the next
+// lane when theirs ends ran 2-7% slower; 64 threads a block and register
+// caps for five or six blocks an SM gained 2% at most on one row and lost
+// up to 5% on others (tools/torch_walk_variants.py, PERF.md section 6).
 //
 // With kStats (the TPU kernel's with_stats, :364-368, 566-570, 1295-1297)
 // each packet also gets its counters [9]: bounce rays, live shadow rays,

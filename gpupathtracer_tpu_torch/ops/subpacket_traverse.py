@@ -2,25 +2,26 @@
 csrc/subpacket_traverse.cu and its plain torch version.
 
 The kernel replaces the JAX package's Pallas kernel ``_kernel``
-(ops/subpacket_traverse.py:58): every 128 consecutive rays form a
-sub-packet that walks the merged row table together, with one node stack
-and one leaf backlog; a node pop pushes every child that any of its rays
-enters (the nearest of them on top when ``ordered``), leaf children onto
-the backlog. Same hit set as ``kernel_traverse.closest`` / ``anyhit``
-(the if-if traversal roles of BVH.glsl:634-767 and 769-854).
+(ops/subpacket_traverse.py:58): a packet of K = G * 128 rays is G
+sub-packets of 128 consecutive rays, each walking the merged row table
+together on one node stack and one leaf backlog; a node pop pushes every
+child that any of its rays enters (the nearest of them on top when
+``ordered``), leaf children onto the backlog. Same hit set as
+``kernel_traverse.closest`` / ``anyhit`` (the if-if traversal roles of
+BVH.glsl:634-767 and 769-854).
 
-The TPU kernel chooses between a node and a leaf iteration once for the
-G = K / 128 sub-packets of a kernel instance; here every sub-packet
-chooses for itself, by the same rule at G = 1: it drains a leaf whenever
-its backlog holds one. At K = 128 the two therefore visit in the same
-order. At K > 128 every closest t is still the same (a ray's candidate
-set does not depend on the order), but which of two triangles at
-bitwise-equal t wins can differ, and so can the pop counts.
+Each iteration the packet runs one phase, chosen by the TPU kernel's rule
+(:107-114): a leaf phase when the backlogs hold a leaf and either no node
+is left, or they hold G leaves or more in sum, or one holds ``LEAF_TRIG``
+or more; a node phase otherwise. In a leaf phase every sub-packet with a
+backlog pops one leaf, in a node phase every sub-packet with a node pops
+one node, and the others idle. So the port visits in the TPU kernel's
+order at every K: every field and both pop counts equal the JAX kernel's.
 
 ``traverse_subpacket`` launches the kernel for CUDA tensors and runs
 ``traverse_subpacket_plain`` for CPU tensors; the plain version steps all
-sub-packets in lockstep, in the kernel's visit order and with its
-arithmetic, so the two agree bit for bit.
+packets in lockstep, in the kernel's visit order and with its arithmetic,
+so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -38,9 +39,11 @@ from gpupathtracer_tpu_torch.ops.kernel_traverse import (ARITY, INVALID_ENTRY,
                                                          count_pops, stream_of)
 
 LANES = 128
-# Leaf backlog depth (kLeafDepth in the source): a node pop adds at most 8
-# leaves and a backlogged leaf is drained before the next node pop.
+# Leaf backlog depth and the drain trigger (kLeafDepth, kLeafTrig in the
+# source): a node pop adds at most 8 leaves, and a backlog of LEAF_TRIG
+# forces a leaf phase, so a backlog never overflows.
 LEAF_DEPTH = 32
+LEAF_TRIG = LEAF_DEPTH - 8
 
 # Kernel launches since the last reset, by entry point. Each wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -154,15 +157,17 @@ def traverse_subpacket_plain(rows, o, d, t_max, active, *,
                              with_stats: bool = False,
                              pops: Optional[dict] = None):
     """Plain torch version of ``traverse_subpacket`` (same results, bit for
-    bit): all sub-packets step in lockstep, each running a leaf iteration
-    if its backlog holds a leaf and a node iteration otherwise. ``pops``, a
+    bit): all packets step in lockstep, each running the leaf or the node
+    phase that the module docstring's rule chooses for it. ``pops``, a
     dict, collects the walk's work (``kernel_traverse.count_pops``): the
     sub-packets' node and leaf pops and the distinct rows they read,
-    ``slots`` the triangle tests and ``slabs`` the 8-child slab tests of
-    the rays still walking."""
+    ``slots`` the triangle tests, ``slabs`` the 8-child slab tests of the
+    rays still walking, and ``trig`` the packet iterations whose leaf phase
+    the LEAF_TRIG rule alone chose (nodes left, fewer than G leaves)."""
     P, K = _check(rows, o, d, t_max, active, stack_depth, leaf_size)
     dev = o.device
-    S = P * K // LANES
+    G = K // LANES
+    S = P * G
     o, d = o.reshape(S, LANES, 3), d.reshape(S, LANES, 3)
     act = active.reshape(S, LANES)
     eps = torch.tensor(1e-12, dtype=torch.float32, device=dev)
@@ -179,14 +184,25 @@ def traverse_subpacket_plain(rows, o, d, t_max, active, *,
     lsp = torch.zeros(S, dtype=torch.int64, device=dev)
     stats = torch.zeros((S, 2), dtype=torch.int32, device=dev)
     slot = torch.arange(leaf_size, device=dev)
+    if pops is not None:
+        pops.setdefault("trig", 0)
 
     while True:
-        leafy = torch.nonzero(lsp > 0).squeeze(1)
-        nodal = torch.nonzero((lsp == 0) & (nsp > 0)).squeeze(1)
-        if leafy.numel() + nodal.numel() == 0:
+        # ---- the phase, once a packet ------------------------------------
+        tot_n = nsp.reshape(P, G).sum(dim=1)
+        tot_l = lsp.reshape(P, G).sum(dim=1)
+        if not bool((tot_n + tot_l).any()):
             break
+        trig = (lsp.reshape(P, G) >= LEAF_TRIG).any(dim=1)
+        leaf_phase = (tot_l > 0) & ((tot_n == 0) | (tot_l >= G) | trig)
+        if pops is not None:
+            pops["trig"] += int((leaf_phase & (tot_n > 0)
+                                 & (tot_l < G)).sum())
+        leaf_sub = leaf_phase.repeat_interleave(G)
+        leafy = torch.nonzero(leaf_sub & (lsp > 0)).squeeze(1)
+        nodal = torch.nonzero(~leaf_sub & (nsp > 0)).squeeze(1)
 
-        # ---- leaf iterations -------------------------------------------
+        # ---- leaf phases -------------------------------------------------
         if leafy.numel():
             m = leafy.numel()
             lsp[leafy] -= 1
@@ -224,12 +240,14 @@ def traverse_subpacket_plain(rows, o, d, t_max, active, *,
                 cur = dst[leafy]
                 cur[win] = src.gather(2, best)[..., 0][win]
                 dst[leafy] = cur
-            if any_hit:
-                done = leafy[~(act[leafy] & (prim[leafy] < 0)).any(dim=1)]
-                nsp[done] = 0
-                lsp[done] = 0
+        if any_hit and bool(leaf_phase.any()):
+            # In a leaf phase, a sub-packet whose active rays are all
+            # occluded stops.
+            done = leaf_sub & ~(act & (prim < 0)).any(dim=1)
+            nsp[done] = 0
+            lsp[done] = 0
 
-        # ---- node iterations -------------------------------------------
+        # ---- node phases -------------------------------------------------
         if nodal.numel():
             nsp[nodal] -= 1
             entry = nstack[nodal, nsp[nodal]]
@@ -277,6 +295,5 @@ def traverse_subpacket_plain(rows, o, d, t_max, active, *,
 
     out = tuple(x.reshape(P, K) for x in (t, prim, u, v))
     if with_stats:
-        return out + (stats.reshape(P, K // LANES, 2).sum(dim=1)
-                      .to(torch.int32),)
+        return out + (stats.reshape(P, G, 2).sum(dim=1).to(torch.int32),)
     return out

@@ -91,6 +91,21 @@ def tied_siblings(rows) -> int:
     return ties
 
 
+def _leaf_trig_case(K=4096):
+    """A soup at one triangle a leaf and one packet of K rays: the first
+    128-ray sub-packet's rays active as the soup's mask has them, each
+    other sub-packet with one active ray. The first leaf backlog reaches
+    LEAF_TRIG while the others stay short, with nodes left, so the trigger
+    alone chooses the leaf phase (B6's rule)."""
+    case = _soup_case(5, leaf=1, n_tris=400, n_rays=K)
+    act = np.zeros(K, bool)
+    act[:128] = case["act"][:128]
+    others = np.random.RandomState(0).randint(0, 128, K // 128 - 1)
+    act[128 * np.arange(1, K // 128) + others] = True
+    case["act"] = act
+    return case
+
+
 def _port(case, t_max, device="cpu"):
     """Rays o, d, t_max, active as tensors on `device`."""
     return [torch.tensor(x, device=device)
@@ -399,6 +414,45 @@ def test_megakernel_matches_plain_on_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", ["scene", 192])
+def test_megakernel_stack_depths_on_cuda(depth):
+    """The MT megakernel at bathroom's own stack bound and at the largest,
+    192: lanes and ray counts bitwise the plain version's, one sample and
+    four with regeneration, 64 bounces."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.math.camera import generate_image_plane
+    from gpupathtracer_tpu_torch.scene import load_scene
+    from gpupathtracer_tpu_torch.scene.procedural import default_camera
+
+    w, h = 96, 64
+    cfg = RenderConfig(scene_path="proc:bathroom", width=w, height=h,
+                       skybox="GENERATE COLOR BLACK", microfacet="beckmann")
+    pos, yaw, pitch, fov, aperture, focus = default_camera("bathroom")
+    cfg.camera = CameraConfig(position=pos, yaw=yaw, pitch=pitch,
+                              fov=math.radians(fov), aspect=w / h,
+                              aperture=aperture, focal_distance=focus)
+    scene, meta = load_scene(cfg, "cuda")
+    lane = torch.arange(w * h, device="cuda")
+    stack_depth = meta.stack_depth if depth == "scene" else depth
+    launches = mk.LAUNCHES["trace_mega"]
+    for spp in (1, 4):
+        args, kw = mk.prepare_mega(
+            scene, mk.pack_mega_tables(scene),
+            generate_image_plane(cfg.camera, "cuda"), (lane % w).float(),
+            (lane // w).float(), random.PRNGKey(5, "cuda"), width=w,
+            height=h, stack_depth=stack_depth, leaf_size=meta.leaf_size,
+            max_bounces=64, model="beckmann", n_mats=meta.num_materials,
+            n_lights=int(scene.light_rows.shape[0]), spp=spp,
+            packet_size=1024)
+        got, rays = mk.trace_mega(*args, **kw)
+        want, rays_plain = mk.trace_mega_plain(*args, **kw)
+        assert int(rays) == int(rays_plain)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert mk.LAUNCHES["trace_mega"] == launches + 2
+
+
+@pytest.mark.cuda
 def test_cluster_kernel_matches_plain_on_cuda():
     """The cluster traversal kernel (csrc/cluster_traverse.cu) against its
     plain version on the card, the table and bathroom cluster tables at
@@ -637,7 +691,9 @@ def test_schedule_kernels_match_plain_on_cuda():
 @pytest.mark.cuda
 def test_subpacket_kernel_matches_plain_on_cuda():
     """csrc/subpacket_traverse.cu against its plain version (hits and pop
-    counts bitwise) and against the per-ray kernel (t, occluded)."""
+    counts bitwise) and against the per-ray kernel (t, occluded), at
+    K = 128, 256, 2048 and 8192 (G = 64: each warp runs four sub-packets in
+    turn)."""
     _need_cuda()
     from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
 
@@ -645,7 +701,8 @@ def test_subpacket_kernel_matches_plain_on_cuda():
     case = _soup_case(7, leaf=10, n_tris=4000, n_rays=16384)
     kw = dict(stack_depth=case["depth"], leaf_size=10)
     rows = _rows(case, "cuda")
-    for K in (128, 2048):
+    sizes = (128, 256, 2048, 8192)
+    for K in sizes:
         P = 16384 // K
         for any_hit, t_max in ((False, case["far"]), (True, case["t_occ"])):
             o, d, tm, act = _port(case, t_max, "cuda")
@@ -663,9 +720,46 @@ def test_subpacket_kernel_matches_plain_on_cuda():
                 base = kt.closest(rows, o, d, tm, act, **kw)
                 assert torch.equal(got[0].reshape(-1).view(torch.int32),
                                    base[0].view(torch.int32))
+    # An odd stack bound (the shared memory's layout), K = 128 and 8192.
+    for K in (128, 8192):
+        P = 16384 // K
+        o, d, tm, act = _port(case, case["far"], "cuda")
+        args = (rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
+                tm.reshape(P, K), act.reshape(P, K))
+        flags = dict(stack_depth=37, leaf_size=10, with_stats=True)
+        _equal_bits(sp.traverse_subpacket(*args, **flags),
+                    sp.traverse_subpacket_plain(*args, **flags))
+    runs = 2 * len(sizes)
     assert sp.LAUNCHES["subpacket_closest"] == \
-        launches["subpacket_closest"] + 4
-    assert sp.LAUNCHES["subpacket_anyhit"] == launches["subpacket_anyhit"] + 4
+        launches["subpacket_closest"] + runs + 2
+    assert sp.LAUNCHES["subpacket_anyhit"] == \
+        launches["subpacket_anyhit"] + runs
+
+
+@pytest.mark.cuda
+def test_subpacket_leaf_trig_on_cuda():
+    """_leaf_trig_case on the card: one packet of K = 4096 (G = 32, so each
+    of the block's 16 warps runs two sub-packets in turn). The plain
+    version counts the leaf phases that LEAF_TRIG alone chose (more than
+    none), and the kernel is held to it bitwise, hits and pop counts,
+    closest and any-hit, ordered and unordered."""
+    _need_cuda()
+    from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
+
+    K = 4096
+    case = _leaf_trig_case(K)
+    rows = _rows(case, "cuda")
+    for any_hit, t_max in ((False, case["far"]), (True, case["t_occ"])):
+        o, d, tm, act = _port(case, t_max, "cuda")
+        args = (rows, o.reshape(1, K, 3), d.reshape(1, K, 3),
+                tm.reshape(1, K), act.reshape(1, K))
+        for ordered in (True, False):
+            flags = dict(any_hit=any_hit, ordered=ordered, with_stats=True,
+                         stack_depth=case["depth"], leaf_size=1)
+            pops = {}
+            want = sp.traverse_subpacket_plain(*args, pops=pops, **flags)
+            assert pops["trig"] > 0
+            _equal_bits(sp.traverse_subpacket(*args, **flags), want)
 
 
 @pytest.mark.cuda

@@ -3,22 +3,42 @@
 tree's own kernels (the experiments behind PERF.md section 6).
 
     python3 tools/torch_walk_variants.py [--variants a,b] [--reps 2]
+        [--checkout NAME=DIR]
+        [--groups walks,mega,mega-rows,mega-profile,subpacket]
 
 Each variant is the tree's csrc/ with a few text edits (VARIANTS), built
 with ops/cuda_build.py's nvcc flags into _build/variants/<name>/ and
-swapped into the wrappers in turn. On chip_smoke.py phase 3's rays
-(131,072 a scene, sponza 1920x1080 and bathroom 1280x720) it times B1
-closest and any-hit at 64 and 128 threads a block and B4 closest and
-any-hit on the scenes' cluster tables (tc 128); on bathroom 256x144, 64
-bounces, 4 spp the MT and cluster megakernels. Every variant runs beside
-the tree's build, in turns, and its outputs must be bitwise the tree's.
-Prints the ptxas line of each kernel a variant changes. Needs the card
-and nvcc; nothing here imports JAX.
+swapped into the wrappers in turn; --checkout NAME=DIR adds the variant
+NAME, the csrc/ of another checkout (DIR is its root, for example a `git
+archive` of the parent commit as "parent") built as it is, so that a
+redesign is timed beside the design it replaces in one call. The
+wrappers' C interfaces must be the same in all. Groups of timings (--groups):
+
+  walks         on chip_smoke.py phase 3's rays (131,072 a scene, sponza
+                1920x1080 and bathroom 1280x720): B1 closest and any-hit at
+                64 and 128 threads a block, B4 closest and any-hit on the
+                scenes' cluster tables (tc 128);
+  mega          bathroom 256x144, 64 bounces, 4 spp (phase 8's
+                regenerating case): the MT and the cluster megakernel;
+  mega-rows     phase 10's MT rows (bathroom 1280x720 frame batch 64,
+                table 800x600 64 bounces frame batch 128, table direct
+                frame batch 8): the first chunk's kernel time a launch, and
+                seconds a sample through the CLI over ROW_FRAMES frames;
+  mega-profile  tools/torch_mega_profile.py --time: ns a pop;
+  subpacket     B6 at K = 128, 256 and 2048 on phase 3's rays and on the
+                A/B tool's 2^19 incoherent rays, closest and any-hit.
+
+Every variant runs beside the tree's build, in turns, and its outputs must
+be bitwise the tree's (B6: t and occlusion, which its visit order does not
+change, bitwise the per-ray kernel's). Prints the ptxas line of each
+kernel a variant changes. Needs the card and nvcc; nothing here imports
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shutil
 import subprocess
@@ -50,6 +70,62 @@ _HELD_WALK = """  int sp = 0, next = 0;  // the root node row, held
       if constexpr (kStats) ++pops->node;
       expand_node(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack, stride,
                   sp, depth, nullptr, &next);"""
+
+_MEGA_BOUNDS = "__launch_bounds__(kThreads) mega_kernel(MegaArgs g) {"
+_MEGA_LAUNCH = """  mega_kernel<kModel, kNee, kRegen, kCluster, kStats>
+      <<<blocks, kThreads, 0, stream>>>(args);"""
+# The lane pick-up: the kernel's body becomes a lane's routine, and the
+# kernel runs lanes until none is left, taking tickets from a counter that
+# the launch zeroes; it launches as many blocks as stay resident.
+_PICKUP = [
+    ("""__global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < g.n;
+  unsigned int n_rays = 0;
+  LaneStats ls;""", """__device__ __forceinline__ void mega_lane(const MegaArgs& g, const int i,
+                                          unsigned int& n_rays) {
+  const bool in = i < g.n;
+  LaneStats ls;"""),
+    ("""      atomicMax(row + 8, ls.ctr[0]);
+    }
+  }
+
+  // Ray count""", """      atomicMax(row + 8, ls.ctr[0]);
+    }
+  }
+}
+
+__device__ unsigned long long mega_tickets;
+
+template <int kModel, bool kNee, bool kRegen, bool kCluster,
+          bool kStats = false>
+__global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g, int threads) {
+  unsigned int n_rays = 0;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  for (;;) {
+    mega_lane<kModel, kNee, kRegen, kCluster, kStats>(g, i, n_rays);
+    if (kCluster) break;
+    i = threads + (int)atomicAdd(&mega_tickets, 1ull);
+    if (i >= g.n) break;
+  }
+
+  // Ray count"""),
+    (_MEGA_LAUNCH, """  auto kernel = mega_kernel<kModel, kNee, kRegen, kCluster, kStats>;
+  if (!kCluster) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    blocks = min(blocks, max(per_sm, 1) * sms);
+  }
+  void* tickets = nullptr;
+  cudaGetSymbolAddress(&tickets, mega_tickets);
+  cudaMemsetAsync(tickets, 0, sizeof(unsigned long long), stream);
+  kernel<<<blocks, kThreads, 0, stream>>>(args, blocks * kThreads);""")]
+# Sources a --checkout build takes, each built as it is.
+CHECKOUT_SOURCES = ("traverse", "cluster_traverse", "megakernel",
+                  "subpacket_traverse")
 
 # name -> (what it changes, sources it rebuilds, {file: [(old, new)]}).
 VARIANTS = {
@@ -96,6 +172,55 @@ VARIANTS = {
   return dropped;""", """  sp = min(sp + total, depth) - (next && *next != kInvalid ? 1 : 0);
   return dropped;"""),
             (_WALK, _HELD_WALK)]}),
+    "mega-shared-stack": (
+        "the MT megakernel's walks on a stack in dynamic shared memory, "
+        "[depth][threads] (B1's layout), sized by the scene's bound",
+        ("megakernel",),
+        {"megakernel.cu": [
+            ("    int stack[bvh::kMaxStack];\n",
+             "    extern __shared__ int mega_stack[];\n"
+             "    int* stack = mega_stack + threadIdx.x;\n"),
+            ("g.depth, t, leaf, pops, stack, 1);",
+             "g.depth, t, leaf, pops, stack, blockDim.x);"),
+            (_MEGA_LAUNCH, """  auto kernel = mega_kernel<kModel, kNee, kRegen, kCluster, kStats>;
+  const int smem = kCluster ? 0 : args.depth * kThreads * (int)sizeof(int);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return (int)cudaGetLastError();
+  kernel<<<blocks, kThreads, smem, stream>>>(args);""")]}),
+    "mega-pickup": (
+        "the MT megakernel with as many threads as stay resident, each "
+        "picking up the next lane when its lane ends",
+        ("megakernel",), {"megakernel.cu": _PICKUP}),
+    "mega-pickup-cap": (
+        "mega-pickup with the registers capped for five blocks of 128 an "
+        "SM (102)", ("megakernel",),
+        {"megakernel.cu": _PICKUP + [(
+            "__launch_bounds__(kThreads) mega_kernel(MegaArgs g, int threads)",
+            "__launch_bounds__(kThreads, kCluster ? 1 : 5)\n"
+            "    mega_kernel(MegaArgs g, int threads)")]}),
+    "mega-threads-64": (
+        "the megakernel at 64 threads a block", ("megakernel",),
+        {"megakernel.cu": [("constexpr int kThreads = 128;",
+                            "constexpr int kThreads = 64;")]}),
+    "mega-min-blocks-5": (
+        "the MT megakernel's registers capped for five blocks of 128 an SM "
+        "(102)", ("megakernel",),
+        {"megakernel.cu": [(_MEGA_BOUNDS, "__launch_bounds__(kThreads, "
+                            "kCluster ? 1 : 5) mega_kernel(MegaArgs g) {")]}),
+    "mega-min-blocks-6": (
+        "the MT megakernel's registers capped for six blocks of 128 an SM "
+        "(85)", ("megakernel",),
+        {"megakernel.cu": [(_MEGA_BOUNDS, "__launch_bounds__(kThreads, "
+                            "kCluster ? 1 : 6) mega_kernel(MegaArgs g) {")]}),
+    "subpacket-multi": (
+        "B6 with every K through the kMulti instantiations (each turn "
+        "loads its sub-packet's rays and stores its results)",
+        ("subpacket_traverse",),
+        {"subpacket_traverse.cu": [("const bool multi = group > kMaxWarps;",
+                                    "const bool multi = true;")]}),
     "b4-four-blocks": (
         "B4 closest with 48 KB of idle shared memory a block (four blocks "
         "an SM)", ("cluster_traverse",),
@@ -105,23 +230,39 @@ VARIANTS = {
             """  kernel<<<blocks, kThreads, 48 * 1024, (cudaStream_t)stream>>>(
       rows, cl, refs,""")]}),
 }
-# The kernels whose ptxas lines a variant's build prints.
+# The kernels whose ptxas lines a variant's build prints: these and every
+# MT megakernel instantiation (cluster=0).
 KERNELS = ("trace_closest_kernel<0>", "trace_anyhit_kernel<0>",
            "trace_cluster_closest_kernel<0, 0>",
            "trace_cluster_anyhit_kernel<0>",
-           "mega_kernel<beckmann, nee=1, regen=1, cluster=0, stats=0>",
-           "mega_kernel<beckmann, nee=1, regen=1, cluster=1, stats=0>")
+           "mega_kernel<beckmann, nee=1, regen=1, cluster=1, stats=0>",
+           "subpacket_kernel<0, 0>", "subpacket_kernel<1, 0>",
+           "subpacket_kernel<0, 1>", "subpacket_kernel<1, 1>",
+           "subpacket_kernel<0>", "subpacket_kernel<1>")
 
 
-def build_variant(name: str) -> dict:
-    """nvcc builds of one variant: {source: library path}."""
+def _printed(line: str) -> bool:
+    name = line.split(":")[0]
+    return name in KERNELS or (name.startswith("mega_kernel<")
+                               and "cluster=0" in name)
+
+
+def build_variant(name: str, checkouts: dict) -> dict:
+    """nvcc builds of one variant, or of a checkout's csrc/ (``checkouts``:
+    name -> root): {source: library path}."""
     import chip_smoke
     from gpupathtracer_tpu_torch.ops import cuda_build
 
-    _, sources, edits = VARIANTS[name]
+    if name in checkouts:
+        csrc = os.path.join(checkouts[name], "gpupathtracer_tpu_torch",
+                            "csrc")
+        sources, edits = CHECKOUT_SOURCES, {}
+    else:
+        csrc = cuda_build.CSRC
+        _, sources, edits = VARIANTS[name]
     d = os.path.join(cuda_build.BUILD_DIR, "variants", name)
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(cuda_build.CSRC, d)
+    shutil.copytree(csrc, d)
     for f, reps in edits.items():
         path = os.path.join(d, f)
         text = open(path).read()
@@ -140,7 +281,7 @@ def build_variant(name: str) -> dict:
             raise RuntimeError(f"variant {name}: nvcc failed on {s}:\n"
                                f"{proc.stderr}")
         for line in chip_smoke._ptxas_summary(proc.stderr):
-            if line.split(":")[0] in KERNELS:
+            if _printed(line):
                 print(f"[{name}] ptxas {line}", flush=True)
         libs[s] = so
     return libs
@@ -274,10 +415,165 @@ def time_mega(libs: dict, reps: int, device) -> None:
                       f"{rep}: {ms:.3f} ms", flush=True)
 
 
+def _mega_row_args(device, name, args, batch, frames):
+    """trace_mega's arguments for the first chunk of a megakernel row's
+    first frame, as the Renderer builds them (chip_smoke.py phase 9)."""
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch import cli
+    from gpupathtracer_tpu_torch.ops import megakernel as mk
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    cfg = cli.build_config(cli.parse_args(cs._mega_argv(args, batch,
+                                                        frames)))
+    r = Renderer(cfg, device)
+    if not r.use_mega:
+        raise AssertionError(f"[{name}] the scene is not mega-eligible")
+    sl = slice(0, r.chunk)
+    return mk.prepare_mega(
+        r.scene, r.mega_tables, r.camera, r.pixel_x[sl], r.pixel_y[sl],
+        r.chunk_key(0), sample_idx=0, spp=batch,
+        **r.mega_statics(cfg.integrator))
+
+
+def time_mega_rows(libs: dict, reps: int, device) -> None:
+    """Phase 10's MT rows: the first chunk's kernel time a launch (CUDA
+    events) and seconds a sample through the CLI over ROW_FRAMES frames
+    (the host clock around each frame, the CLI's render_seconds)."""
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch import cli
+    from gpupathtracer_tpu_torch.ops import megakernel as mk
+
+    for name, args, batch, _ in cs.MEGA_RUNS:
+        margs, kw = _mega_row_args(device, name, args, batch, ROW_FRAMES)
+        ref = mk.trace_mega(*margs, **kw)
+        for rep in range(reps):
+            for label, ctx in runs(libs, "megakernel", mk):
+                with ctx, tempfile.TemporaryDirectory() as tmp:
+                    got = mk.trace_mega(*margs, **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0].view(torch.int32),
+                                        ref[0].view(torch.int32))
+                            and int(got[1]) == int(ref[1])):
+                        raise AssertionError(f"{label}: {name} lanes differ "
+                                             f"from the tree's")
+                    ms = cs._events_ms(lambda: mk.trace_mega(*margs, **kw),
+                                       2)
+                    sj = os.path.join(tmp, "stats.json")
+                    rc = cli.main(cs._mega_argv(args, batch, ROW_FRAMES) + [
+                        "--out", os.path.join(tmp, "f.png"),
+                        "--stats-json", sj])
+                    if rc:
+                        raise AssertionError(f"[{name}] CLI returned {rc}")
+                    with open(sj) as f:
+                        st = json.load(f)
+                print(f"[{name}] MT megakernel {label}, rep {rep}: kernel "
+                      f"{ms:.3f} ms a launch of {batch} samples "
+                      f"({ms / batch:.4f} ms a sample); CLI "
+                      f"{st['render_seconds'] / (ROW_FRAMES * batch):.6f} "
+                      f"s/sample over {ROW_FRAMES} frames, "
+                      f"{st['mrays_per_sec']:.1f} Mrays/s", flush=True)
+
+
+def time_mega_profile(libs: dict, reps: int, device) -> None:
+    """tools/torch_mega_profile.py --time under each megakernel build."""
+    from gpupathtracer_tpu_torch.ops import megakernel as mk
+
+    import chip_smoke as cs
+    prof = cs._tool_module("torch_mega_profile")
+    for rep in range(reps):
+        for label, ctx in runs(libs, "megakernel", mk):
+            with ctx:
+                out = prof.main(["--time"])
+            print(f"[mega profile] {label}, rep {rep}: "
+                  f"{out.get('ns_per_pop', 0):.4f} ns a pop, "
+                  f"{out.get('ms_per_sample', 0):.3f} ms a sample",
+                  flush=True)
+
+
+SUBPACKET_KS = (128, 256, 2048)
+# Frames of each CLI run of the mega-rows group.
+ROW_FRAMES = 8
+
+
+def time_subpacket(libs: dict, reps: int, device) -> None:
+    """B6 at SUBPACKET_KS on phase 3's 131,072 rays and on the A/B tool's
+    2^19 incoherent rays (all active, t_max 1e20), closest and any-hit;
+    t (closest) and occlusion bitwise the per-ray kernel's."""
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.ops import subpacket_traverse as sp
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    bench = cs._tool_module("torch_kernel_bench")
+    for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
+        cfg = cs._scene_cfg(name, w, h)
+        scene, meta = load_scene(cfg, device)
+        kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+        o, d, t_occ, on = cs._test_rays(scene, meta, cfg, device)
+        n = o.shape[0]
+        sets = {"phase 3": (o, d, torch.full((n,), 1e20, device=device),
+                            t_occ, on)}
+        o2, d2 = bench.make_rays(f"proc:{name}", scene, meta, 1 << 19,
+                                 device)["incoherent"]
+        far2 = torch.full((1 << 19,), 1e20, device=device)
+        sets["2^19 incoherent"] = (o2, d2, far2, far2,
+                                   torch.ones_like(far2, dtype=torch.bool))
+        for tag, (o_, d_, far, tocc, act) in sets.items():
+            m = o_.shape[0]
+            ref = (kt.closest(scene.node_rows, o_, d_, far, act, **kw)[0],
+                   kt.anyhit(scene.node_rows, o_, d_, tocc, act, **kw))
+            for rep in range(reps):
+                for label, ctx in runs(libs, "subpacket_traverse", sp):
+                    line = []
+                    with ctx:
+                        for K in SUBPACKET_KS:
+                            for any_hit, tm in ((False, far), (True, tocc)):
+                                args = (scene.node_rows,
+                                        o_.reshape(m // K, K, 3),
+                                        d_.reshape(m // K, K, 3),
+                                        tm.reshape(m // K, K),
+                                        act.reshape(m // K, K))
+                                out = sp.traverse_subpacket(
+                                    *args, any_hit=any_hit, **kw)
+                                torch.cuda.synchronize()
+                                same = (torch.equal(out[1].reshape(-1) >= 0,
+                                                    ref[1]) if any_hit else
+                                        torch.equal(cs._bits(
+                                            out[0].reshape(-1)),
+                                            cs._bits(ref[0])))
+                                if not same:
+                                    raise AssertionError(
+                                        f"{label} B6 K={K} differs from the "
+                                        f"per-ray kernel")
+                                ms = cs._events_ms(
+                                    lambda: sp.traverse_subpacket(
+                                        *args, any_hit=any_hit, **kw), 5)
+                                line.append(f"K={K} "
+                                            f"{'any-hit' if any_hit else 'closest'}"
+                                            f" {ms:.4f}")
+                    print(f"[{name} {tag}, {m} rays] B6 {label}, rep {rep}: "
+                          + ", ".join(line) + " ms", flush=True)
+
+
+GROUPS = ("walks", "mega", "mega-rows", "mega-profile", "subpacket")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help="comma-separated names of VARIANTS")
+    ap.add_argument("--checkout", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="root of another checkout, built as the variant "
+                         "NAME (repeatable)")
+    ap.add_argument("--groups", default="walks,mega",
+                    help=f"comma-separated timing groups of {GROUPS}")
     ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args(argv)
     import torch
@@ -290,17 +586,35 @@ def main(argv=None) -> int:
         if v not in VARIANTS:
             raise SystemExit(f"unknown variant {v!r}; known: "
                              f"{', '.join(VARIANTS)}")
+    groups = [g for g in args.groups.split(",") if g]
+    for g in groups:
+        if g not in GROUPS:
+            raise SystemExit(f"unknown group {g!r}; known: {GROUPS}")
+    checkouts = dict(c.split("=", 1) for c in args.checkout)
+    names += list(checkouts)
     from gpupathtracer_tpu_torch.ops import cuda_build
     device = torch.device("cuda", 0)
-    with ThreadPoolExecutor(len(names) + 3) as pool:
-        tree = pool.map(cuda_build.build,
-                        ("traverse", "cluster_traverse", "megakernel"))
-        built = dict(zip(names, pool.map(build_variant, names)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    with ThreadPoolExecutor(len(names) + 4) as pool:
+        tree = pool.map(cuda_build.build, CHECKOUT_SOURCES)
+        built = dict(zip(names, pool.map(
+            lambda v: build_variant(v, checkouts), names)))
         list(tree)
     for v in names:
-        print(f"[{v}] {VARIANTS[v][0]}")
-    time_walks(built, args.reps, device)
-    time_mega(built, args.reps, device)
+        print(f"[{v}] " + (f"the csrc/ of {checkouts[v]}" if v in checkouts
+                           else VARIANTS[v][0]))
+    if "walks" in groups:
+        time_walks(built, args.reps, device)
+    if "mega" in groups:
+        time_mega(built, args.reps, device)
+    if "mega-rows" in groups:
+        time_mega_rows(built, args.reps, device)
+    if "mega-profile" in groups:
+        time_mega_profile(built, args.reps, device)
+    if "subpacket" in groups:
+        time_subpacket(built, args.reps, device)
     return 0
 
 
