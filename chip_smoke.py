@@ -18,7 +18,9 @@ nvcc and g++. Phases, each of which raises on failure:
   R. the roofline probes: each against its plain version at a small
      iteration count in every copy (bitwise; the bf16 product within a
      stated bound, its maximum printed), at every shape, tile, tc and mode
-     that tools/torch_roofline.py run_compact launches, and the f32
+     that tools/torch_roofline.py run_compact launches (the cluster body
+     also on the tie blocks of tests/test_torch_kernel.py, tc 128 and
+     256: equal t at slots j, j + 32, ..., the lowest slot wins), and the f32
      product at the other shapes of its main(); the first of each timed
      with its plain version and, for the products, torch.matmul on the
      same shapes, with the float32 matmul precision it ran at (cuBLAS in
@@ -1475,6 +1477,20 @@ def _probe_cases(device, tool):
                 blk, o, d, inv, iters=it, any_hit=ah, copies=c),
             lambda it, blk=blk, ah=any_hit: rl.cluster_dense_plain(
                 blk, o, d, inv, iters=it, any_hit=ah),
+            lanes // rl.THREADS,
+            lanes * (tc * rl.CLUSTER_SLOT + rl.CLUSTER_EPILOGUE), None,
+            None))
+    # The tie case of tests/test_torch_kernel.py: slots j, j + 32, ... in
+    # one plane (equal t), the lowest slot must win.
+    tests = _tool_module("test_torch_kernel", "tests")
+    for tc in (128, 256):
+        blk = t(tests.cluster_tie_blocks(tc))
+        cases.append((
+            "roofline_cluster_dense", f"G={g} tc={tc} ties",
+            lambda it, c, blk=blk: rl.cluster_dense(blk, o, d, inv, iters=it,
+                                                    copies=c),
+            lambda it, blk=blk: rl.cluster_dense_plain(blk, o, d, inv,
+                                                       iters=it),
             lanes // rl.THREADS,
             lanes * (tc * rl.CLUSTER_SLOT + rl.CLUSTER_EPILOGUE), None,
             None))

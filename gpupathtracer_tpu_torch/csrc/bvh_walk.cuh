@@ -20,7 +20,7 @@
 // e < 0 = leaf, packed = -(e + 1): first row = packed >> 4, count = packed & 15.
 // On a cluster scene (bvh/cluster.py pack_clusters) the rows hold the cluster
 // top tree's nodes alone, and a leaf's packed >> 4 is a cluster index into
-// the [Ncl * 8, 3 * tc] cluster table (see cluster_min).
+// the [Ncl * 8, 3 * tc] cluster table (see cluster_uv).
 //
 // A node pop reads its row's 224 used bytes as fourteen 16-byte loads
 // through the read-only path, all issued before the first slab test, and
@@ -411,44 +411,12 @@ __device__ __forceinline__ float dot_rc(const float* m, int w, const float* x) {
 // constant in row 6 (wo4), row 7 the signed material float in the first
 // third. For slot j: t = num / dc, u = oa + t * da, v = ob + t * db, valid iff
 // u > 0, v > 0, u + v < 1, t > 0 (padding slots are all zero: t = NaN fails
-// every comparison). Returns the smallest valid t and in `slot` the lowest
-// slot that has it (pallas_traverse.py:507-538), +inf when none is valid.
-// With any_hit, returns at the first valid slot with t < t_cur and +inf when
-// there is none: the occlusion answer is the same. One thread runs every
-// slot: the roofline probe's body (csrc/roofline.cu); the walks run a
-// block's slots across a warp (cluster_warp.cuh), with this arithmetic.
-__device__ __forceinline__ float cluster_min(const float* __restrict__ blk,
-                                             int tc, const Ray& r,
-                                             bool any_hit, float t_cur,
-                                             int& slot) {
-  const int w = 3 * tc;
-  const float* wo = blk + 3 * w;
-  float best = __int_as_float(0x7f800000);  // +inf
-  slot = 0;
-  for (int j = 0; j < tc; ++j) {
-    float da = dot_k3(blk + j, w, r.d);
-    float db = dot_k3(blk + tc + j, w, r.d);
-    float dc = dot_k3(blk + 2 * tc + j, w, r.d);
-    float oa = dot_k3(wo + j, w, r.o) + wo[3 * w + j];
-    float ob = dot_k3(wo + tc + j, w, r.o) + wo[3 * w + tc + j];
-    float num = dot_k3(wo + 2 * tc + j, w, r.o) + wo[3 * w + 2 * tc + j];
-    float tt = num / dc;
-    float uu = __fmaf_rn(tt, da, oa);
-    float vv = __fmaf_rn(tt, db, ob);
-    if (uu > 0.0f && vv > 0.0f && uu + vv < 1.0f && tt > 0.0f) {
-      if (any_hit) {
-        if (tt < t_cur) {
-          slot = j;
-          return tt;
-        }
-      } else if (tt < best) {
-        best = tt;
-        slot = j;
-      }
-    }
-  }
-  return best;
-}
+// every comparison), each sum a dot_k3. A cluster pop's answer is the
+// smallest valid t and the lowest slot that has it (pallas_traverse.py:507-538),
+// +inf when none is valid; an any-hit pop's, whether some valid slot has t
+// below t_cur. The walks run a block's slots across a warp
+// (cluster_warp.cuh slot_t), the roofline probe four slots a thread
+// (csrc/roofline.cu), with this arithmetic.
 
 // u, v of the winning slot at t, recomputed from its A and B origin rows
 // as pallas_traverse.py:544-553 does (not the per-slot values, which can

@@ -23,7 +23,6 @@
 // megakernel's cluster walks share), while each lane runs its own ray's
 // node phase. Every lane stays in the loop until the whole warp is done:
 // lanes past n and inactive rays take part in every ballot and shuffle.
-// bvh::cluster_min, which the roofline probe uses, is not used here.
 //
 // Both kernels have kStats instantiations, launched when the caller passes
 // a stats array: the TPU kernel's with_stats counters, per ray ([n, 3]: node

@@ -3,8 +3,8 @@
 // any-hit queries) and csrc/megakernel.cu (the megakernel's cluster walks).
 //
 // A cluster pop intersects all tc triangles of its block and keeps the
-// smallest valid t, the lowest slot among equal t (bvh_walk.cuh
-// cluster_min's answer). Run by one thread, a pop's 128 slots are a serial
+// smallest valid t, the lowest slot among equal t (the answer that
+// bvh_walk.cuh defines above cluster_uv). Run by one thread, a pop's 128 slots are a serial
 // loop whose loads no other lane shares, while the warp's other lanes wait
 // in their node phase or their own leaves. So the walk is a warp loop in
 // the pattern of Aila and Laine's "while-while" traversal (HPG 2009): each
@@ -12,7 +12,7 @@
 // order, t, pop counts and pop_skip keys) until its next pop is a cluster
 // it must run or its stack is empty; a ballot gathers the pending clusters,
 // and the warp runs them one at a time, lane L taking slots L, L + 32, ...
-// with cluster_min's per-slot arithmetic, so every load of a block row is
+// with the block's per-slot arithmetic (bvh_walk.cuh), so every load of a block row is
 // coalesced across the warp. A warp reduction gives the owner its result.
 //
 // Every lane of the warp must call walk_warp together, and stay in it until
@@ -29,7 +29,7 @@ namespace bvh {
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// Slot j of a block [8, 3 * tc] against ray o, d: cluster_min's per-slot
+// Slot j of a block [8, 3 * tc] against ray o, d: the block's per-slot
 // arithmetic, term for term. Returns t; `valid` says whether the hit lies
 // inside the triangle and ahead of the origin.
 __device__ __forceinline__ float slot_t(const float* __restrict__ blk, int tc,
@@ -62,7 +62,7 @@ __device__ __forceinline__ void shfl_ray(const Ray& r, int src, float (&o)[3],
 
 // A cluster pop of one ray by the whole warp: the smallest valid t of the
 // block and the lowest slot that has it (+inf when none is valid), in
-// every lane; cluster_min's answer.
+// every lane; a cluster pop's answer.
 __device__ __forceinline__ float warp_cluster_min(const float* __restrict__ blk,
                                                   int tc, const float (&o)[3],
                                                   const float (&d)[3],
@@ -91,7 +91,7 @@ __device__ __forceinline__ float warp_cluster_min(const float* __restrict__ blk,
 }
 
 // An any-hit cluster pop by the whole warp: true in every lane iff some
-// slot is valid with t below t_cur, cluster_min's any-hit answer.
+// slot is valid with t below t_cur, an any-hit pop's answer.
 __device__ __forceinline__ bool warp_cluster_any(const float* __restrict__ blk,
                                                  int tc, const float (&o)[3],
                                                  const float (&d)[3],

@@ -18,19 +18,36 @@
 //
 // What bounds each: the VPU, node, leaf and cluster probes are FP32
 // instruction streams on registers and on 32-48 KB of rows or blocks that
-// L1 holds after the first pass (it stands in for the TPU's VMEM slice), so
-// the card's FP32 issue rate bounds them, and the f32 product's fused
-// multiply-adds too (the H100's tensor cores have no full FP32 mode): its
-// blocks stage their operands in shared memory once and hold 8 x 8
-// outputs a thread, so a k step is four 16-byte shared loads for 64 FFMA
-// (section 2). The bf16 product runs mma.sync m16n8k16 on the tensor
-// cores, one 16-row band of a 64 x 64 tile per warp, its operands read
-// from global memory (L1 / L2): a simple first version, no ldmatrix, no
-// wgmma, no TMA. The feedback term acc[:, :1] means every iteration of a
-// row band needs column 0 of the last one: an f32 block owns whole rows
+// L1 or shared memory holds after the first pass (it stands in for the
+// TPU's VMEM slice), so the card's FP32 issue rate bounds them, and the f32
+// product's fused multiply-adds too (the H100's tensor cores have no full
+// FP32 mode): its blocks stage their operands in shared memory once and
+// hold 8 x 8 outputs a thread, so a k step is four 16-byte shared loads for
+// 64 FFMA (section 2). The bf16 product runs mma.sync m16n8k16 on the
+// tensor cores, one 16-row band of a 64 x 64 tile per warp, its operands
+// read from global memory (L1 / L2): a simple first version, no ldmatrix,
+// no wgmma, no TMA. The feedback term acc[:, :1] means every iteration of
+// a row band needs column 0 of the last one: an f32 block owns whole rows
 // (only an N wider than 2048 splits them), a bf16 warp computes its rows'
 // column 0 itself as well, in the same order, so the copies agree bit for
 // bit.
+//
+// The cluster probe (:332 cluster_dense_kernel) is the floor that the
+// cluster walks' pops are read against, so it has to run at the card's
+// rate and not at its own. One thread a lane looping over the slots with
+// scalar loads (the first port) reached 15% of its FP32 bound on an H100
+// (NVIDIA H100 80GB HBM3, 700 W): 21 uniform loads a slot against 31
+// counted operations, 16 warps an SM, and one dependent chain of divisions
+// a warp. Here both blocks sit in shared memory; a slot's coefficients come
+// as 16-byte loads of four neighbouring slots; two threads share a pair of
+// rays, each taking every other group of four slots, so a load serves
+// eight (ray, slot) pairs and eight divisions are in flight a thread; the
+// two halves meet in a lexicographic (t, slot) shuffle. That runs at 48% of
+// the bound (tc 128: 1.065 ms against 0.5152 for 64 pops x 33 copies of
+// G = 16; tools/torch_walk_variants.py --groups cluster-probe). What is
+// left is issue: the compiled slot is about 45 instructions (the IEEE
+// division is seven and a slow-path check, the bound counts it as one;
+// the compares, 5.25 loads) against the 31 counted.
 
 #include <cuda_bf16.h>
 
@@ -380,34 +397,163 @@ leaf_mt_kernel(const float* __restrict__ rows, const float* __restrict__ o,
   out[g] = t_c;
 }
 
-// The cluster pop's body (bvh_walk.cuh cluster_min and cluster_uv, the
-// walk's own) on the two blocks of blk [16, 3 * tc] in turn. The JAX
-// probe's one-hot capture matmul is exact: it gathers the winner's
-// coefficients, which cluster_uv reads directly.
-__global__ void __launch_bounds__(kThreads)
+// The cluster pop's body: every slot's arithmetic term for term as the
+// walks' (cluster_warp.cuh slot_t, bvh_walk.cuh dot_k3), then the winner's
+// u, v recomputed (bvh_walk.cuh cluster_uv), on the two blocks of blk
+// [16, 3 * tc] in turn. The JAX probe's one-hot capture matmul is exact: it
+// gathers the winner's coefficients, which cluster_uv reads directly.
+//
+// kClusterSub threads share kClusterRays rays: thread q takes the groups of
+// four neighbouring slots 4k..4k+3 with k = q, q + kClusterSub, ..., so the
+// threads of a group read neighbouring 16-byte words and the groups of a
+// warp the same ones (a broadcast). A group of slots is 21 16-byte loads
+// from the block's copy in shared memory (7 rows x 3 thirds; row 7 is not
+// read), for four slots and each of the thread's rays, whose divisions are
+// independent. Each thread keeps its lowest slot among equal t (its slots
+// ascend, the test is strict), and the threads of a group combine (t, slot)
+// lexicographically. Timed against one, four and eight threads a ray, one
+// ray a thread and 128 threads a block (PERF.md section 6).
+constexpr int kClusterSub = 2;
+constexpr int kClusterRays = 2;
+constexpr int kClusterThreads = 256;
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Component k of v; k is a constant once the loops that call it unroll.
+__device__ __forceinline__ float at(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Four slots' three-term sums fma(m2, x2, fma(m1, x1, m0 * x0)) (dot_k3)
+// from the rows m[0..2] of one third, plus c, the folded constants of the
+// origin terms, when `plus` is set.
+__device__ __forceinline__ void dot4(const float4 (&m)[3], const float* x,
+                                     const float4& c, bool plus,
+                                     float (&out)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    out[k] = __fmaf_rn(at(m[2], k), x[2],
+                       __fmaf_rn(at(m[1], k), x[1], at(m[0], k) * x[0]));
+    if (plus) out[k] = out[k] + at(c, k);
+  }
+}
+
+// One third's rows of four slots: m[a] = row a at slots j0..j0+3.
+__device__ __forceinline__ void rows4(const float* p, int w, float4 (&m)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) m[a] = ld4(p + a * w);
+}
+
+// The smallest valid t of block `blk` for each of the thread's kClusterRays
+// rays over the slots of thread q of the ray's group, then over the group's
+// kClusterSub threads: (t, lowest slot at it) in every one of them;
+// (+inf, 0) when no slot is valid, as the serial loop gives.
+__device__ __forceinline__ void cluster_min_sub(
+    const float* __restrict__ blk, int tc, const bvh::Ray (&r)[kClusterRays],
+    int q, float (&best)[kClusterRays], int (&slot)[kClusterRays]) {
+  const int w = 3 * tc;
+  const float* wo = blk + 3 * w;
+#pragma unroll
+  for (int i = 0; i < kClusterRays; ++i) {
+    best[i] = __int_as_float(0x7f800000);  // +inf
+    slot[i] = 0;
+  }
+  for (int j0 = 4 * q; j0 < tc; j0 += 4 * kClusterSub) {
+    // md[t], mo[t]: third t's direction and origin rows; c[t] its constants.
+    float4 md[3][3], mo[3][3], c[3];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      rows4(blk + t * tc + j0, w, md[t]);
+      rows4(wo + t * tc + j0, w, mo[t]);
+      c[t] = ld4(wo + 3 * w + t * tc + j0);
+    }
+#pragma unroll
+    for (int i = 0; i < kClusterRays; ++i) {
+      float dc[4], num[4], da[4], oa[4], db[4], ob[4];
+      dot4(md[2], r[i].d, c[2], false, dc);
+      dot4(mo[2], r[i].o, c[2], true, num);
+      dot4(md[0], r[i].d, c[0], false, da);
+      dot4(mo[0], r[i].o, c[0], true, oa);
+      dot4(md[1], r[i].d, c[1], false, db);
+      dot4(mo[1], r[i].o, c[1], true, ob);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float tt = num[k] / dc[k];
+        const float uu = __fmaf_rn(tt, da[k], oa[k]);
+        const float vv = __fmaf_rn(tt, db[k], ob[k]);
+        if (uu > 0.0f && vv > 0.0f && uu + vv < 1.0f && tt > 0.0f &&
+            tt < best[i]) {
+          best[i] = tt;
+          slot[i] = j0 + k;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kClusterRays; ++i) {
+#pragma unroll
+    for (int off = 1; off < kClusterSub; off <<= 1) {
+      const float ot = __shfl_xor_sync(0xFFFFFFFFu, best[i], off);
+      const int os = __shfl_xor_sync(0xFFFFFFFFu, slot[i], off);
+      if (ot < best[i] || (ot == best[i] && os < slot[i])) {
+        best[i] = ot;
+        slot[i] = os;
+      }
+    }
+  }
+}
+
+// Both blocks are staged in dynamic shared memory once a block (192 * tc
+// bytes). A group of kClusterSub neighbouring lanes of a warp shares
+// kClusterRays rays, ray group * kClusterRays + i in its slot i. The
+// threads fill whole blocks (the last block's extra groups trace rays of
+// the tile again and store nothing), so every warp is whole for the
+// shuffles.
+__global__ void __launch_bounds__(kClusterThreads)
 cluster_kernel(const float* __restrict__ blk, const float* __restrict__ o,
                const float* __restrict__ d, int tc, int lanes, int total,
                int iters, int any_hit, float* __restrict__ out) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const bvh::Ray r = tile_ray(o, d, nullptr, lanes, g % lanes);
-  float t_state = 1e20f;
-  for (int i = 0; i < iters; ++i) {
-    const float* block = blk + (size_t)(i % 2) * 8 * 3 * tc;
-    int slot;
-    float tmin = bvh::cluster_min(block, tc, r, false, 0.0f, slot);
-    bool improved = tmin < t_state;
-    if (any_hit) {
-      t_state = improved ? tmin * 0.999f : t_state;
-    } else {
-      float u, v;
-      bvh::cluster_uv(block, tc, slot, r, tmin, u, v);
-      // tmin * 0.999 + u * 1e-9 + v * 1e-9 as XLA contracts it.
-      float res = __fmaf_rn(v, 1e-9f, __fmaf_rn(tmin, 0.999f, u * 1e-9f));
-      t_state = improved ? res : t_state;
+  extern __shared__ float4 cluster_smem4[];
+  float* sblk = reinterpret_cast<float*>(cluster_smem4);
+  for (int e = threadIdx.x; e < 16 * 3 * tc; e += blockDim.x) sblk[e] = blk[e];
+  __syncthreads();
+  const int group = (blockIdx.x * blockDim.x + threadIdx.x) / kClusterSub;
+  const int q = threadIdx.x % kClusterSub;
+  bvh::Ray r[kClusterRays];
+  float t_state[kClusterRays];
+#pragma unroll
+  for (int i = 0; i < kClusterRays; ++i) {
+    r[i] = tile_ray(o, d, nullptr, lanes, (group * kClusterRays + i) % lanes);
+    t_state[i] = 1e20f;
+  }
+  for (int it = 0; it < iters; ++it) {
+    const float* block = sblk + (size_t)(it % 2) * 8 * 3 * tc;
+    float tmin[kClusterRays];
+    int slot[kClusterRays];
+    cluster_min_sub(block, tc, r, q, tmin, slot);
+#pragma unroll
+    for (int i = 0; i < kClusterRays; ++i) {
+      const bool improved = tmin[i] < t_state[i];
+      if (any_hit) {
+        t_state[i] = improved ? tmin[i] * 0.999f : t_state[i];
+      } else {
+        float u, v;
+        bvh::cluster_uv(block, tc, slot[i], r[i], tmin[i], u, v);
+        // tmin * 0.999 + u * 1e-9 + v * 1e-9 as XLA contracts it.
+        const float res =
+            __fmaf_rn(v, 1e-9f, __fmaf_rn(tmin[i], 0.999f, u * 1e-9f));
+        t_state[i] = improved ? res : t_state[i];
+      }
     }
   }
-  out[g] = t_state;
+  if (q == 0) {
+#pragma unroll
+    for (int i = 0; i < kClusterRays; ++i)
+      if (group * kClusterRays + i < total)
+        out[group * kClusterRays + i] = t_state[i];
+  }
 }
 
 int blocks_for(long long total) {
@@ -484,8 +630,21 @@ int gpt_roofline_cluster(const float* blk, const float* o, const float* d,
                          const float* inv, int tc, int g, int iters,
                          int any_hit, int copies, float* out, void* stream) {
   (void)inv;  // unused, as in the JAX probe
-  int lanes = g * kLanes, total = lanes * copies;
-  cluster_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+  if (tc < 4 || tc % 4) return -1;
+  const int smem = 16 * 3 * tc * (int)sizeof(float);
+  int dev = 0, smem_max = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (smem > smem_max) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int lanes = g * kLanes, total = lanes * copies;
+  const long long threads =
+      (long long)(total + kClusterRays - 1) / kClusterRays * kClusterSub;
+  cluster_kernel<<<(int)((threads + kClusterThreads - 1) / kClusterThreads),
+                   kClusterThreads, smem, (cudaStream_t)stream>>>(
       blk, o, d, tc, lanes, total, iters, any_hit, out);
   return (int)cudaGetLastError();
 }

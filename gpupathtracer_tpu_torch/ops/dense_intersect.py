@@ -40,9 +40,6 @@ from gpupathtracer_tpu_torch.ops.kernel_traverse import stream_of
 
 # Triangles are padded to a multiple of this many (pack_dense_tris).
 PAD = 512
-# Shared memory a block of the kernel may use (the H100's 227 KB).
-MAX_SHARED = 232448
-MAX_BLOCK = 1024
 # Rays whose [rays, tile] float64 temporaries the plain version holds at once.
 _PLAIN_RAY_CHUNK = 16384
 
@@ -58,11 +55,11 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(cuda_build.build("dense_intersect")[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gpt_dense_tile_bytes.argtypes = []
-        lib.gpt_dense_tile_bytes.restype = i
         lib.gpt_dense_intersect.argtypes = [p, p, i, p, p, p, p, i, i, i, i,
-                                            i, i, p, p, p, p, p]
+                                            i, p, p, p, p, p, p]
         lib.gpt_dense_intersect.restype = i
+        lib.gpt_dense_stage.argtypes = []
+        lib.gpt_dense_stage.restype = i
         _lib = lib
     return _lib
 
@@ -135,11 +132,14 @@ def dense_intersect(wd, wo, o, d, t_max, active, *, any_hit: bool = False,
     trace_closest contract (prim = -1 on a miss, t = t_max there; the
     lowest triangle index among equal t). Any-hit: prim is the base index
     of the first ``tile`` triangles that hold a hit (-1 when none), t = 0
-    on a hit, u = v = 0. ``block`` rays share a tile of ``tile`` triangles
-    (on the card: a thread block and its shared memory); ``use_mxu``
-    selects the rounding of the six dot products (module docstring);
-    ``early_exit`` lets a block of an any-hit query stop once every active
-    ray of it has a hit. N must be a multiple of ``block``, Tp of ``tile``.
+    on a hit, u = v = 0. ``use_mxu`` selects the rounding of the six dot
+    products (module docstring); ``early_exit`` lets an any-hit query drop
+    each ray once it has a hit (on the card: a block compacts its live
+    rays after every stage of triangles). N must be a multiple of
+    ``block`` and Tp of ``tile``, as the JAX kernel's grid needs; the CUDA
+    kernel has its own layout (csrc/dense_intersect.cu: 128 threads and
+    128-triangle stages a block), so there Tp must also be a multiple of
+    128 (pack_dense_tris pads to 512).
     """
     tp = _check(wd, wo, o, d, t_max, active, block, tile)
     if o.device.type == "cpu":
@@ -149,25 +149,24 @@ def dense_intersect(wd, wo, o, d, t_max, active, *, any_hit: bool = False,
                                      early_exit=early_exit)
     stream = stream_of(o)
     lib = _library()
-    if block > MAX_BLOCK:
-        raise ValueError(f"block={block}: a thread block holds at most "
-                         f"{MAX_BLOCK} rays")
-    if tile * lib.gpt_dense_tile_bytes() > MAX_SHARED:
-        raise ValueError(f"tile={tile} needs "
-                         f"{tile * lib.gpt_dense_tile_bytes()} bytes of "
-                         f"shared memory; a block has {MAX_SHARED}")
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
+    # Scratch: a 64-bit key a ray, the blocks' atomicMin of their best.
+    keys = torch.empty(n, dtype=torch.int64, device=o.device)
     if n:
         with torch.cuda.device(o.device):
             err = lib.gpt_dense_intersect(
                 wd.data_ptr(), wo.data_ptr(), tp, o.data_ptr(), d.data_ptr(),
-                t_max.data_ptr(), active.data_ptr(), n, block, tile,
-                int(any_hit), int(use_mxu), int(early_exit), t.data_ptr(),
-                prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
+                t_max.data_ptr(), active.data_ptr(), n, tile, int(any_hit),
+                int(use_mxu), int(early_exit), t.data_ptr(), prim.data_ptr(),
+                u.data_ptr(), v.data_ptr(), keys.data_ptr(), stream)
+        if err == -1:
+            raise ValueError(f"dense_intersect: the kernel stages "
+                             f"{lib.gpt_dense_stage()} triangles at a time; "
+                             f"padded tris {tp} are not a multiple")
         if err:
             raise RuntimeError(f"dense_intersect launch failed: CUDA error "
                                f"{err}")

@@ -326,7 +326,10 @@ def cluster_dense(blk, o, d, inv, *, iters: int, any_hit: bool = False,
     pops alternate between), rays [3, G, 128]; returns [copies, G, 128]:
     per lane, over ``iters`` pops, t_state = tmin * 0.999 + u * 1e-9 +
     v * 1e-9 where a pop's nearest valid slot tmin is below it (any-hit:
-    tmin * 0.999, no u, v). ``inv`` is unused, as in the JAX probe."""
+    tmin * 0.999, no u, v). ``inv`` is unused, as in the JAX probe. The
+    kernel stages both blocks in shared memory (192 * tc bytes), so on
+    the card a tc whose blocks do not fit a block's shared memory raises
+    (above 1,152 on an H100)."""
     _positive(iters=iters, copies=copies)
     tc = blk.shape[1] // 3
     if tc < 1 or tc % LANES:

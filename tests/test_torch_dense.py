@@ -21,7 +21,8 @@ import torch
 from gpupathtracer_tpu.ops import dense_intersect as jd
 from gpupathtracer_tpu_torch.ops import dense_intersect as pd
 from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
-from test_torch_kernel import _port, _rows, _soup_case
+from test_torch_kernel import (DENSE_TIES, _port, _rows, _soup_case,
+                               dense_edge_case)
 from test_torch_tsort import _bits
 
 SHAPE = dict(block=256, tile=512)
@@ -80,6 +81,43 @@ def test_dense_matches_jax_kernel_bitwise(case, any_hit, use_mxu):
         early_exit=False)
     for g, w in zip(again, got):
         np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+@pytest.fixture(scope="module")
+def edges():
+    return dense_edge_case()
+
+
+@pytest.mark.parametrize("use_mxu", [True, False])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_dense_ties_and_edges_match_jax_kernel_bitwise(edges, any_hit,
+                                                       use_mxu):
+    """test_torch_kernel.dense_edge_case against the JAX kernel: a triangle
+    at two indices in different quarters of one 512-tile (A) and in two
+    tiles (B), each ray at them meeting both copies at the same t (the
+    lower index wins; any-hit reports the first tile's base), rays whose
+    only hit is in the last tile (C), and an any-hit block (rays 0-255)
+    with one unoccluded ray among occluded ones."""
+    c = edges
+    wd, wo = pd.pack_dense_tris(c["geom"])
+    assert wd.shape == (3, 3 * 1536)
+    t_max = c["t_occ"] if any_hit else c["far"]
+    want = jd.dense_intersect(
+        jnp.asarray(wd), jnp.asarray(wo), jnp.asarray(c["o"]),
+        jnp.asarray(c["d"]), jnp.asarray(t_max), jnp.asarray(c["act"]),
+        any_hit=any_hit, use_mxu=use_mxu, interpret=True, **SHAPE)
+    got = pd.dense_intersect_plain(
+        torch.tensor(wd), torch.tensor(wo), *_port(c, t_max),
+        any_hit=any_hit, use_mxu=use_mxu, **SHAPE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    prim = got[1].numpy()
+    for k, name in enumerate(DENSE_TIES):
+        first = DENSE_TIES[name][0]
+        expect = first // 512 * 512 if any_hit else first
+        assert (prim[(c["aim"] == k) & c["act"]] == expect).all()
+    assert (prim[(c["aim"] < 0) | ~c["act"]] == -1).all()
+    assert prim[17] == -1 and (prim[:256] >= 0).sum() == 255
 
 
 def test_dense_agrees_with_tree_walk(case):

@@ -269,6 +269,81 @@ def twin_slots(case):
     return pos[:, 0] // tc, pos[:, 1] // tc, pos[:, 0] % tc, pos[:, 1] % tc
 
 
+# dense_edge_case's tie triangles: A at two indices in different 128-wide
+# quarters of the first 512-triangle tile, B at two indices in different
+# tiles, C alone at the last index of the last tile.
+DENSE_TIES = {"A": (40, 300), "B": (600, 1100), "C": (1535,)}
+
+
+def dense_edge_case(seed=5, n_rays=512):
+    """The dense intersection's ties and edges: 1,536 triangles (three
+    512-triangle tiles) of small far-off fillers (x >= 20, never reached),
+    with three large triangles facing the rays at DENSE_TIES: A (z = 5) and
+    B (z = 7) twice each, so every ray at them hits two copies at bitwise
+    the same t, u and v and the lower index must win; C (z = 9) only in the
+    last tile. Rays from z = 0 along about +z: an eighth at A, B and C each
+    in turn, the rest at nothing. Ray block 0 (rays 0-255) holds hits only,
+    but ray 17, which misses: the one unoccluded ray of an any-hit block.
+    Rays 256 and up: about 10% inactive. Returns a dict of numpy arrays:
+    geom [1536, 9], o, d, far, t_occ (beyond every hit), act, and aim (0 A,
+    1 B, 2 C, -1 none)."""
+    rng = np.random.RandomState(seed)
+    n_tris = 1536
+    geom = np.zeros((n_tris, 9), np.float32)
+    geom[:, 0:3] = rng.uniform([20, -10, 0], [40, 10, 20], (n_tris, 3))
+    geom[:, 3:6] = rng.uniform(-0.5, 0.5, (n_tris, 3))
+    geom[:, 6:9] = rng.uniform(-0.5, 0.5, (n_tris, 3))
+    big = {"A": [-3, -2, 5, 3, 0, 0, 0, 4, 0],
+           "B": [0.5, -2, 7, 3, 0, 0, 0, 4, 0],
+           "C": [-1, 2.5, 9, 2, 0, 0, 0, 2, 0]}
+    for name, idx in DENSE_TIES.items():
+        geom[list(idx)] = big[name]
+    # Points well inside each triangle's projection on the xy plane.
+    boxes = [((-2.8, -1.8), (-2.0, -0.5)), ((0.7, -1.8), (1.5, -0.5)),
+             ((-0.8, 2.7), (-0.2, 3.2))]
+    aim = np.where(np.arange(n_rays) % 8 < 3, np.arange(n_rays) % 8, -1)
+    aim[:256] = np.arange(256) % 3
+    aim[17] = -1
+    xy = rng.uniform(0, 1, (n_rays, 2))
+    o = np.zeros((n_rays, 3), np.float32)
+    for k, (lo, hi) in enumerate(boxes):
+        sel = aim == k
+        o[sel, :2] = np.asarray(lo) + xy[sel] * (np.asarray(hi) -
+                                                  np.asarray(lo))
+    o[aim < 0, :2] = [10.0, 10.0]
+    d = np.concatenate([rng.uniform(-0.01, 0.01, (n_rays, 2)),
+                        np.ones((n_rays, 1))], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    act = np.ones(n_rays, bool)
+    act[256:] = rng.rand(n_rays - 256) < 0.9
+    return dict(geom=geom, o=o, d=d.astype(np.float32),
+                far=np.full(n_rays, 1e20, np.float32),
+                t_occ=np.full(n_rays, 12.0, np.float32), act=act, aim=aim)
+
+
+def cluster_tie_blocks(tc, seed=0):
+    """Two blocks [16, 3 * tc] for the cluster probe in which slot j and
+    every slot j + 32k (k >= 1, below tc) lie in one plane, for each
+    j < 32: their C thirds (rows 0:7) are equal, so a ray meets all of
+    them at bitwise the same t and the lowest slot must win; their A and
+    B thirds are slot j's times 2^-k, so u and v halve with k (a valid
+    slot's copies are valid) and show which slot won. Slot j's C origin
+    rows and constant are scaled by 1e-5 so that t is small and u * 1e-9,
+    v * 1e-9 show in the probe's t_state. Random coefficients otherwise
+    (float32 numpy)."""
+    blk = np.random.RandomState(seed).uniform(-1, 1, (16, 3 * tc)).astype(
+        np.float32)
+    for b in (0, 8):
+        a, bb, c = (blk[b:b + 7, k * tc:(k + 1) * tc] for k in range(3))
+        c[3:7, :32] *= np.float32(1e-5)
+        for k in range(1, tc // 32):
+            s = slice(32 * k, 32 * k + 32)
+            c[:, s] = c[:, :32]
+            a[:, s] = a[:, :32] * np.float32(2.0 ** -k)
+            bb[:, s] = bb[:, :32] * np.float32(2.0 ** -k)
+    return blk
+
+
 def _nearest_f32(v: Fraction) -> np.float32:
     """The float32 nearest to v, ties to even."""
     f = np.float32(float(v))
@@ -765,8 +840,14 @@ def test_subpacket_leaf_trig_on_cuda():
 @pytest.mark.cuda
 def test_dense_kernel_matches_plain_on_cuda():
     """csrc/dense_intersect.cu against its plain version, closest and
-    any-hit, both roundings, two block and tile shapes, a degenerate
-    triangle in the table."""
+    any-hit, both roundings, with a degenerate triangle in the table: on
+    8,192 rays (too few ray blocks for the card, so the triangle range is
+    split across blocks too) at two block and tile shapes and without
+    early exit; on 2^19 rays against 40 triangles (enough ray blocks for
+    two waves: one triangle range a block); on dense_edge_case's ties and
+    edges (a split range); and at one tile of all 4,096 triangles. A
+    table whose padded count is not a multiple of the kernel's
+    128-triangle stage raises."""
     _need_cuda()
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
 
@@ -776,18 +857,34 @@ def test_dense_kernel_matches_plain_on_cuda():
     geom[5, 6:9] = geom[5, 3:6]
     wd, wo = (torch.tensor(x, device="cuda")
               for x in pd.pack_dense_tris(geom))
-    for any_hit, t_max in ((False, case["far"]), (True, case["t_occ"])):
-        rays = _port(case, t_max, "cuda")
+    big = _soup_case(7, leaf=10, n_tris=40, n_rays=1 << 19)
+    edges = dense_edge_case()
+    ewd, ewo = (torch.tensor(x, device="cuda")
+                for x in pd.pack_dense_tris(edges["geom"]))
+    runs = 0
+    for any_hit in (False, True):
+        t_key = "t_occ" if any_hit else "far"
+        rays = _port(case, case[t_key], "cuda")
         for use_mxu in (True, False):
-            for shape in (dict(), dict(block=256, tile=1024),
-                          dict(early_exit=False)):
-                kw = dict(any_hit=any_hit, use_mxu=use_mxu, **shape)
-                _equal_bits(pd.dense_intersect(wd, wo, *rays, **kw),
-                            pd.dense_intersect_plain(wd, wo, *rays, **kw))
-    assert pd.LAUNCHES["dense_closest"] == launches["dense_closest"] + 6
-    assert pd.LAUNCHES["dense_anyhit"] == launches["dense_anyhit"] + 6
-    with pytest.raises(ValueError):  # more shared memory than a block has
-        pd.dense_intersect(wd, wo, *rays, tile=4096)
+            kw = dict(any_hit=any_hit, use_mxu=use_mxu)
+            for table, r, shape in (
+                    ((wd, wo), rays, dict()),
+                    ((wd, wo), rays, dict(block=256, tile=1024)),
+                    ((wd, wo), rays, dict(early_exit=False)),
+                    ((wd, wo), rays, dict(tile=4096)),
+                    ((wd, wo), _port(big, big[t_key], "cuda"), dict()),
+                    ((ewd, ewo), _port(edges, edges[t_key], "cuda"),
+                     dict(block=256))):
+                _equal_bits(pd.dense_intersect(*table, *r, **kw, **shape),
+                            pd.dense_intersect_plain(*table, *r, **kw,
+                                                     **shape))
+                runs += 1
+    assert pd.LAUNCHES["dense_closest"] == launches["dense_closest"] + runs // 2
+    assert pd.LAUNCHES["dense_anyhit"] == launches["dense_anyhit"] + runs // 2
+    odd = torch.zeros((3, 3 * 192), device="cuda")
+    with pytest.raises(ValueError):
+        pd.dense_intersect(odd, torch.zeros((4, 3 * 192), device="cuda"),
+                           *rays, tile=64)
 
 
 @pytest.mark.cuda
@@ -822,10 +919,18 @@ def test_roofline_probes_match_plain_on_cuda():
         want = plain(rows, o, d, inv, iters=7)
         assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
                    for g in got)
-    for tc, any_hit in ((128, False), (128, True), (256, False)):
-        blk = t(rng.uniform(-1, 1, (16, 3 * tc)).astype(np.float32))
+    # The cluster body on random blocks, then on cluster_tie_blocks (equal
+    # t at slots j, j + 32, ...: the lowest slot wins) at G = 16 and the
+    # copies of tools/torch_roofline.py (four 128-lane blocks a SM).
+    copies = -(-4 * torch.cuda.get_device_properties(dev)
+               .multi_processor_count // 16)
+    for tc, any_hit, tie in ((128, False, False), (128, True, False),
+                             (256, False, False), (128, False, True),
+                             (256, False, True), (128, True, True)):
+        blk = t(cluster_tie_blocks(tc) if tie else
+                rng.uniform(-1, 1, (16, 3 * tc)).astype(np.float32))
         got = rl.cluster_dense(blk, o, d, inv, iters=5, any_hit=any_hit,
-                               copies=3)
+                               copies=copies if tie else 3)
         want = rl.cluster_dense_plain(blk, o, d, inv, iters=5,
                                       any_hit=any_hit)
         assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))

@@ -30,6 +30,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from gpupathtracer_tpu_torch.ops import roofline as rl
+from test_torch_kernel import cluster_tie_blocks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G, ITERS = 2, 4
@@ -157,6 +158,31 @@ def test_cluster_probe_matches_jax(jroof, rays, tc, any_hit):
     assert (want < 1e19).mean() > 0.5
     for c in range(2):
         np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("tc", [128, 256])
+def test_cluster_probe_ties_match_jax(jroof, rays, tc):
+    """test_torch_kernel.cluster_tie_blocks: slots j, j + 32, j + 64, ...
+    in one plane (equal t), their u, v halving with each copy: the lowest
+    slot must win, and the winner shows in t_state (a block without the
+    base slots, whose first copies then win, reads otherwise in a quarter
+    of the lanes at least)."""
+    blk = cluster_tie_blocks(tc)
+    _, o, d, inv = rays
+    want = _pallas(jroof.cluster_dense_kernel, (G, 128), jnp.asarray(blk),
+                   *map(jnp.asarray, (o, d, inv)), iters=ITERS, G=G, tc=tc,
+                   precision=jax.lax.Precision.HIGHEST)
+    got = rl.cluster_dense(*map(torch.from_numpy, (blk, o, d, inv)),
+                           iters=ITERS, copies=2)
+    for c in range(2):
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+    lost = blk.copy()
+    for b in (0, 8):
+        lost[b:b + 7, 0:32] = 0
+        lost[b:b + 7, tc:tc + 32] = 0
+    other = rl.cluster_dense_plain(*map(torch.from_numpy, (lost, o, d, inv)),
+                                   iters=ITERS).numpy()
+    assert (other != want).mean() > 0.25
 
 
 def test_probes_check_their_arguments():

@@ -4,15 +4,18 @@ tree's own kernels (the experiments behind PERF.md section 6).
 
     python3 tools/torch_walk_variants.py [--variants a,b] [--reps 2]
         [--checkout NAME=DIR]
-        [--groups walks,mega,mega-rows,mega-profile,subpacket]
+        [--groups walks,mega,mega-rows,mega-profile,subpacket,dense,
+                  cluster-probe]
 
 Each variant is the tree's csrc/ with a few text edits (VARIANTS), built
 with ops/cuda_build.py's nvcc flags into _build/variants/<name>/ and
 swapped into the wrappers in turn; --checkout NAME=DIR adds the variant
 NAME, the csrc/ of another checkout (DIR is its root, for example a `git
 archive` of the parent commit as "parent") built as it is, so that a
-redesign is timed beside the design it replaces in one call. The
-wrappers' C interfaces must be the same in all. Groups of timings (--groups):
+redesign is timed beside the design it replaces in one call. A variant
+runs through the tree's wrappers, so its C interfaces must be the tree's;
+a checkout runs through its own ops/ wrapper where the dense group calls
+one (its C interface may differ). Groups of timings (--groups):
 
   walks         on chip_smoke.py phase 3's rays (131,072 a scene, sponza
                 1920x1080 and bathroom 1280x720): B1 closest and any-hit at
@@ -26,11 +29,18 @@ wrappers' C interfaces must be the same in all. Groups of timings (--groups):
                 seconds a sample through the CLI over ROW_FRAMES frames;
   mega-profile  tools/torch_mega_profile.py --time: ns a pop;
   subpacket     B6 at K = 128, 256 and 2048 on phase 3's rays and on the
-                A/B tool's 2^19 incoherent rays, closest and any-hit.
+                A/B tool's 2^19 incoherent rays, closest and any-hit;
+  dense         B5 on bathroom: phase 3's 131,072 rays and the A/B tool's
+                2^19 incoherent rays (t_max 1e20, all active), closest and
+                any-hit, both roundings; and sponza's first 8,192 of phase
+                3's rays (chip_smoke.py's dense check), closest and any-hit;
+  cluster-probe B9e at run_compact's G and copies (tools/torch_roofline.py),
+                tc 128 closest and any-hit and tc 256, PROBE_ITERS pops.
 
 Every variant runs beside the tree's build, in turns, and its outputs must
 be bitwise the tree's (B6: t and occlusion, which its visit order does not
-change, bitwise the per-ray kernel's). Prints the ptxas line of each
+change, bitwise the per-ray kernel's; B5 and B9e: the tree's also bitwise
+its plain version's, B9e's in every copy). Prints the ptxas line of each
 kernel a variant changes. Needs the card and nvcc; nothing here imports
 JAX.
 """
@@ -125,7 +135,7 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g, int threads)
   kernel<<<blocks, kThreads, 0, stream>>>(args, blocks * kThreads);""")]
 # Sources a --checkout build takes, each built as it is.
 CHECKOUT_SOURCES = ("traverse", "cluster_traverse", "megakernel",
-                  "subpacket_traverse")
+                    "subpacket_traverse", "roofline", "dense_intersect")
 
 # name -> (what it changes, sources it rebuilds, {file: [(old, new)]}).
 VARIANTS = {
@@ -221,6 +231,63 @@ VARIANTS = {
         ("subpacket_traverse",),
         {"subpacket_traverse.cu": [("const bool multi = group > kMaxWarps;",
                                     "const bool multi = true;")]}),
+    "cluster-sub-4": (
+        "B9e with four threads a ray pair", ("roofline",),
+        {"roofline.cu": [("constexpr int kClusterSub = 2;",
+                          "constexpr int kClusterSub = 4;")]}),
+    "cluster-128": (
+        "B9e with 128 threads a block", ("roofline",),
+        {"roofline.cu": [("constexpr int kClusterThreads = 256;",
+                          "constexpr int kClusterThreads = 128;")]}),
+    "cluster-one-ray": (
+        "B9e with one ray a thread", ("roofline",),
+        {"roofline.cu": [("constexpr int kClusterRays = 2;",
+                          "constexpr int kClusterRays = 1;")]}),
+    "cluster-sub-1": (
+        "B9e with one thread for a ray pair", ("roofline",),
+        {"roofline.cu": [("constexpr int kClusterSub = 2;",
+                          "constexpr int kClusterSub = 1;")]}),
+    "cluster-sub-8": (
+        "B9e with eight threads a ray pair", ("roofline",),
+        {"roofline.cu": [("constexpr int kClusterSub = 2;",
+                          "constexpr int kClusterSub = 8;")]}),
+    "cluster-cap": (
+        "B9e's registers capped for four blocks of 256 an SM (64)",
+        ("roofline",),
+        {"roofline.cu": [("__launch_bounds__(kClusterThreads)\n",
+                          "__launch_bounds__(kClusterThreads, 4)\n")]}),
+    "dense-one-ray": (
+        "B5 closest with one ray a thread", ("dense_intersect",),
+        {"dense_intersect.cu": [("constexpr int kRays = kAnyHit ? 1 : 2;",
+                                 "constexpr int kRays = 1;")]}),
+    "dense-four-rays": (
+        "B5 closest with four rays a thread", ("dense_intersect",),
+        {"dense_intersect.cu": [("constexpr int kRays = kAnyHit ? 1 : 2;",
+                                 "constexpr int kRays = kAnyHit ? 1 : 4;"),
+                                ("constexpr int kMaxBlockRays = 2 * kThreads;",
+                                 "constexpr int kMaxBlockRays = 4 * kThreads;")
+                                ]}),
+    "dense-anyhit-two-rays": (
+        "B5 any-hit with two rays a thread", ("dense_intersect",),
+        {"dense_intersect.cu": [("constexpr int kRays = kAnyHit ? 1 : 2;",
+                                 "constexpr int kRays = 2;")]}),
+    "dense-unroll-4": (
+        "B5 with four triangles unrolled in both modes", ("dense_intersect",),
+        {"dense_intersect.cu": [("constexpr int kUnroll = kAnyHit ? 4 : 2;",
+                                 "constexpr int kUnroll = 4;")]}),
+    "dense-256-threads": (
+        "B5 with 256 threads a block", ("dense_intersect",),
+        {"dense_intersect.cu": [("constexpr int kThreads = 128;",
+                                 "constexpr int kThreads = 256;")]}),
+    "dense-stage-64": (
+        "B5 staging 64 triangles at a time", ("dense_intersect",),
+        {"dense_intersect.cu": [("constexpr int kStage = 128;",
+                                 "constexpr int kStage = 64;")]}),
+    "dense-no-split": (
+        "B5 never splitting the triangle range across blocks",
+        ("dense_intersect",),
+        {"dense_intersect.cu": [("  const int parts = max(1, min(",
+                                 "  const int parts = 1 + 0 * max(1, min(")]}),
     "b4-four-blocks": (
         "B4 closest with 48 KB of idle shared memory a block (four blocks "
         "an SM)", ("cluster_traverse",),
@@ -238,7 +305,8 @@ KERNELS = ("trace_closest_kernel<0>", "trace_anyhit_kernel<0>",
            "mega_kernel<beckmann, nee=1, regen=1, cluster=1, stats=0>",
            "subpacket_kernel<0, 0>", "subpacket_kernel<1, 0>",
            "subpacket_kernel<0, 1>", "subpacket_kernel<1, 1>",
-           "subpacket_kernel<0>", "subpacket_kernel<1>")
+           "subpacket_kernel<0>", "subpacket_kernel<1>", "cluster_kernel",
+           "dense_kernel<0, 1>", "dense_kernel<1, 1>")
 
 
 def _printed(line: str) -> bool:
@@ -247,16 +315,17 @@ def _printed(line: str) -> bool:
                                and "cluster=0" in name)
 
 
-def build_variant(name: str, checkouts: dict) -> dict:
+def build_variant(name: str, checkouts: dict,
+                  needed=CHECKOUT_SOURCES) -> dict:
     """nvcc builds of one variant, or of a checkout's csrc/ (``checkouts``:
-    name -> root): {source: library path}."""
+    name -> root; its ``needed`` sources): {source: library path}."""
     import chip_smoke
     from gpupathtracer_tpu_torch.ops import cuda_build
 
     if name in checkouts:
         csrc = os.path.join(checkouts[name], "gpupathtracer_tpu_torch",
                             "csrc")
-        sources, edits = CHECKOUT_SOURCES, {}
+        sources, edits = needed, {}
     else:
         csrc = cuda_build.CSRC
         _, sources, edits = VARIANTS[name]
@@ -307,15 +376,38 @@ class Swapped:
         self.module._lib = self.saved
 
 
-def runs(libs: dict, source: str, module):
-    """(label, context) for the tree's build and each variant that
-    rebuilt ``source``."""
+def runs(libs: dict, source: str, module, own_wrapper: bool = False):
+    """(label, context, wrapper module) for the tree's build and each
+    variant that rebuilt ``source``; with ``own_wrapper`` a checkout runs
+    through its own copy of ``module``'s file (CHECKOUT_ROOTS)."""
     import contextlib
-    out = [("tree", contextlib.nullcontext())]
+    out = [("tree", contextlib.nullcontext(), module)]
     for name, built in libs.items():
         if source in built:
-            out.append((name, Swapped(module, built[source])))
+            mod = module
+            if own_wrapper and name in CHECKOUT_ROOTS:
+                mod = _checkout_module(CHECKOUT_ROOTS[name], module)
+            out.append((name, Swapped(mod, built[source]), mod))
     return out
+
+
+# name -> root of each --checkout.
+CHECKOUT_ROOTS: dict = {}
+
+
+def _checkout_module(root: str, module):
+    """The checkout's own copy of a wrapper module (same package path),
+    loaded beside the tree's under another name; its imports resolve to
+    the tree's package."""
+    import importlib.util
+
+    rel = module.__name__.replace(".", os.sep) + ".py"
+    spec = importlib.util.spec_from_file_location(
+        f"_checkout_{abs(hash(root))}_{module.__name__.split('.')[-1]}",
+        os.path.join(root, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def time_walks(libs: dict, reps: int, device) -> None:
@@ -337,7 +429,7 @@ def time_walks(libs: dict, reps: int, device) -> None:
         ref = (kt.closest(rows, o, d, far, on, **kw),
                kt.anyhit(rows, o, d, t_occ, on, **kw))
         for rep in range(reps):
-            for label, ctx in runs(libs, "traverse", kt):
+            for label, ctx, _ in runs(libs, "traverse", kt):
                 with ctx:
                     for th in (64, 128):
                         cs._hold_hits(f"{label} B1", kt.closest(
@@ -359,7 +451,7 @@ def time_walks(libs: dict, reps: int, device) -> None:
         ref = (kc.closest_cluster(*tabs, refs, o, d, far, on, **kw),
                kc.anyhit_cluster(*tabs, o, d, t_occ, on, **kw))
         for rep in range(reps):
-            for label, ctx in runs(libs, "cluster_traverse", kc):
+            for label, ctx, _ in runs(libs, "cluster_traverse", kc):
                 with ctx:
                     cs._hold_hits(f"{label} B4", kc.closest_cluster(
                         *tabs, refs, o, d, far, on, **kw), ref[0])
@@ -402,7 +494,7 @@ def time_mega(libs: dict, reps: int, device) -> None:
         ref = mk.trace_mega(*args, **kw)[0]
         leaf = "cluster" if ct else "MT"
         for rep in range(reps):
-            for label, ctx in runs(libs, "megakernel", mk):
+            for label, ctx, _ in runs(libs, "megakernel", mk):
                 with ctx:
                     got = mk.trace_mega(*args, **kw)[0]
                     torch.cuda.synchronize()
@@ -451,7 +543,7 @@ def time_mega_rows(libs: dict, reps: int, device) -> None:
         margs, kw = _mega_row_args(device, name, args, batch, ROW_FRAMES)
         ref = mk.trace_mega(*margs, **kw)
         for rep in range(reps):
-            for label, ctx in runs(libs, "megakernel", mk):
+            for label, ctx, _ in runs(libs, "megakernel", mk):
                 with ctx, tempfile.TemporaryDirectory() as tmp:
                     got = mk.trace_mega(*margs, **kw)
                     torch.cuda.synchronize()
@@ -485,7 +577,7 @@ def time_mega_profile(libs: dict, reps: int, device) -> None:
     import chip_smoke as cs
     prof = cs._tool_module("torch_mega_profile")
     for rep in range(reps):
-        for label, ctx in runs(libs, "megakernel", mk):
+        for label, ctx, _ in runs(libs, "megakernel", mk):
             with ctx:
                 out = prof.main(["--time"])
             print(f"[mega profile] {label}, rep {rep}: "
@@ -529,7 +621,7 @@ def time_subpacket(libs: dict, reps: int, device) -> None:
             ref = (kt.closest(scene.node_rows, o_, d_, far, act, **kw)[0],
                    kt.anyhit(scene.node_rows, o_, d_, tocc, act, **kw))
             for rep in range(reps):
-                for label, ctx in runs(libs, "subpacket_traverse", sp):
+                for label, ctx, _ in runs(libs, "subpacket_traverse", sp):
                     line = []
                     with ctx:
                         for K in SUBPACKET_KS:
@@ -561,7 +653,126 @@ def time_subpacket(libs: dict, reps: int, device) -> None:
                           + ", ".join(line) + " ms", flush=True)
 
 
-GROUPS = ("walks", "mega", "mega-rows", "mega-profile", "subpacket")
+def time_dense(libs: dict, reps: int, device) -> None:
+    """B5 on bathroom (phase 3's rays and the A/B tool's 2^19 incoherent
+    rays, both roundings) and on sponza's first DENSE_SPONZA_RAYS of phase
+    3's rays (use_mxu), closest and any-hit; the tree's output bitwise the
+    plain version's, every other build's bitwise the tree's."""
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import dense_intersect as pd
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    bench = cs._tool_module("torch_kernel_bench")
+    for name, w, h in (("bathroom", 1280, 720), ("sponza", 1920, 1080)):
+        cfg = cs._scene_cfg(name, w, h)
+        scene, meta = load_scene(cfg, device)
+        wd, wo = (torch.as_tensor(x, device=device)
+                  for x in pd.pack_dense_tris(scene.tri_geom.cpu().numpy()))
+        o, d, t_occ, on = cs._test_rays(scene, meta, cfg, device)
+        if name == "sponza":
+            n = cs.DENSE_SPONZA_RAYS
+            o, d, t_occ, on = (x[:n].contiguous() for x in (o, d, t_occ, on))
+        far = torch.full((o.shape[0],), 1e20, device=device)
+        sets = [("phase 3", (o, d, far, on), (o, d, t_occ, on))]
+        roundings = (True,)
+        if name == "bathroom":
+            roundings = (True, False)
+            o2, d2 = bench.make_rays(f"proc:{name}", scene, meta, 1 << 19,
+                                     device)["incoherent"]
+            far2 = torch.full((1 << 19,), 1e20, device=device)
+            all2 = torch.ones(1 << 19, dtype=torch.bool, device=device)
+            sets.append(("2^19 incoherent", (o2, d2, far2, all2),
+                         (o2, d2, far2, all2)))
+        for tag, closest_args, anyhit_args in sets:
+            for use_mxu in roundings:
+                for any_hit, args in ((False, closest_args),
+                                      (True, anyhit_args)):
+                    kw = dict(any_hit=any_hit, use_mxu=use_mxu)
+                    ref = pd.dense_intersect_plain(wd, wo, *args, **kw)
+                    mode = "any-hit" if any_hit else "closest"
+                    for rep in range(reps):
+                        line = []
+                        for label, ctx, mod in runs(libs, "dense_intersect",
+                                                    pd, own_wrapper=True):
+                            with ctx:
+                                got = mod.dense_intersect(wd, wo, *args, **kw)
+                                torch.cuda.synchronize()
+                                if not all(torch.equal(cs._bits(g), cs._bits(r))
+                                           for g, r in zip(got, ref)):
+                                    raise AssertionError(
+                                        f"{label} B5 {mode} differs from the "
+                                        f"plain version on {name} {tag}")
+                                ms = cs._events_ms(lambda: mod.dense_intersect(
+                                    wd, wo, *args, **kw), 5)
+                            line.append(f"{label} {ms:.4f}")
+                        print(f"[{name} {tag}, {args[0].shape[0]} rays] B5 "
+                              f"{mode} use_mxu={use_mxu}, rep {rep}: "
+                              + ", ".join(line) + " ms", flush=True)
+
+
+def time_cluster_probe(libs: dict, reps: int, device) -> None:
+    """B9e at tools/torch_roofline.py run_compact's G, copies and cases,
+    chip_smoke.py's timed iterations; every copy bitwise the plain
+    version at its check iterations, in every build."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import roofline as rl
+
+    tool = cs._tool_module("torch_roofline")
+    tool.set_device(device)
+    g = tool.COMPACT_G
+    rng = np.random.RandomState(11)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    o = t(rng.uniform(-0.5, 1.5, (3, g, 128)))
+    d = torch.nn.functional.normalize(t(rng.normal(size=(3, g, 128))), dim=0)
+    inv = 1.0 / d
+    copies = tool.copies_for(g * 128 // rl.THREADS)
+    iters = cs.PROBE_ITERS["roofline_cluster_dense"]
+    for tc, any_hit in tool.COMPACT_CLUSTER:
+        blk = t(rng.uniform(-1, 1, (16, 3 * tc)))
+        want = rl.cluster_dense_plain(blk, o, d, inv,
+                                      iters=cs.PROBE_CHECK_ITERS,
+                                      any_hit=any_hit).view(torch.int32)
+        work = g * 128 * (tc * rl.CLUSTER_SLOT + rl.CLUSTER_EPILOGUE)
+        bound = 1e3 * work * iters * copies / cs.PEAK_FP32_INSTR
+        mode = "any-hit" if any_hit else "closest"
+        for rep in range(reps):
+            line = []
+            for label, ctx, _ in runs(libs, "roofline", rl):
+                with ctx:
+                    got = rl.cluster_dense(blk, o, d, inv,
+                                           iters=cs.PROBE_CHECK_ITERS,
+                                           any_hit=any_hit, copies=copies)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(c.view(torch.int32), want)
+                               for c in got):
+                        raise AssertionError(f"{label} B9e tc {tc} {mode}: a "
+                                             f"copy differs from the plain "
+                                             f"version")
+                    ms = cs._events_ms(lambda: rl.cluster_dense(
+                        blk, o, d, inv, iters=iters, any_hit=any_hit,
+                        copies=copies), 3)
+                line.append(f"{label} {ms:.4f} ({bound / ms:.1%})")
+            print(f"[B9e G={g} x{copies} tc={tc} {mode}, {iters} pops] rep "
+                  f"{rep}, bound {bound:.4f} ms: " + ", ".join(line) + " ms",
+                  flush=True)
+
+
+GROUPS = ("walks", "mega", "mega-rows", "mega-profile", "subpacket", "dense",
+          "cluster-probe")
+# The csrc/ sources each group's timings run.
+GROUP_SOURCES = {"walks": ("traverse", "cluster_traverse"),
+                 "mega": ("megakernel",), "mega-rows": ("megakernel",),
+                 "mega-profile": ("megakernel",),
+                 "subpacket": ("subpacket_traverse", "traverse"),
+                 "dense": ("dense_intersect",), "cluster-probe": ("roofline",)}
 
 
 def main(argv=None) -> int:
@@ -591,16 +802,18 @@ def main(argv=None) -> int:
         if g not in GROUPS:
             raise SystemExit(f"unknown group {g!r}; known: {GROUPS}")
     checkouts = dict(c.split("=", 1) for c in args.checkout)
+    CHECKOUT_ROOTS.update(checkouts)
     names += list(checkouts)
     from gpupathtracer_tpu_torch.ops import cuda_build
     device = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    with ThreadPoolExecutor(len(names) + 4) as pool:
-        tree = pool.map(cuda_build.build, CHECKOUT_SOURCES)
+    needed = tuple(sorted({s for g in groups for s in GROUP_SOURCES[g]}))
+    with ThreadPoolExecutor(len(names) + len(needed)) as pool:
+        tree = pool.map(cuda_build.build, needed)
         built = dict(zip(names, pool.map(
-            lambda v: build_variant(v, checkouts), names)))
+            lambda v: build_variant(v, checkouts, needed), names)))
         list(tree)
     for v in names:
         print(f"[{v}] " + (f"the csrc/ of {checkouts[v]}" if v in checkouts
@@ -615,6 +828,10 @@ def main(argv=None) -> int:
         time_mega_profile(built, args.reps, device)
     if "subpacket" in groups:
         time_subpacket(built, args.reps, device)
+    if "dense" in groups:
+        time_dense(built, args.reps, device)
+    if "cluster-probe" in groups:
+        time_cluster_probe(built, args.reps, device)
     return 0
 
 
