@@ -14,7 +14,9 @@ nvcc and g++. Phases, each of which raises on failure:
      the dense intersection (csrc/dense_intersect.cu), the sub-packet
      traversal (csrc/subpacket_traverse.cu) and the roofline probes
      (csrc/roofline.cu) with nvcc, all at once; ptxas registers, stack
-     frame and spills of every instantiation;
+     frame and spills of every instantiation, and any wgmma chain ptxas
+     serializes; the bf16 product's kernel must issue HGMMA (its SASS,
+     cuobjdump);
   R. the roofline probes: each against its plain version at a small
      iteration count in every copy (bitwise; the bf16 product within a
      stated bound, its maximum printed), at every shape, tile, tc and mode
@@ -22,10 +24,11 @@ nvcc and g++. Phases, each of which raises on failure:
      also on the tie blocks of tests/test_torch_kernel.py, tc 128 and
      256: equal t at slots j, j + 32, ..., the lowest slot wins), and the f32
      product at the other shapes of its main(); the first of each timed
-     with its plain version and, for the products, torch.matmul on the
-     same shapes, with the float32 matmul precision it ran at (cuBLAS in
-     full FP32, not TF32); then run_compact itself, every probe launched,
-     its rates printed;
+     (the bf16 product at both its shapes, 128^3 and 512^3) with its plain
+     version and, for the products, torch.matmul on the same shapes, with
+     the float32 matmul precision it ran at (cuBLAS in full FP32, not
+     TF32), a kernel slower than it named; then run_compact itself, every
+     probe launched, its rates printed;
   3. each MT-leaf entry point against its plain torch version on the
      card, on the sponza and bathroom tables, with 65,536 camera rays plus
      65,536 random-direction rays from surface points, about 10% of lanes
@@ -44,7 +47,9 @@ nvcc and g++. Phases, each of which raises on failure:
      each against its plain version (every field bitwise equal) and
      against phase 3's kernel output (t and occluded bitwise equal; lanes
      where another triangle at bitwise the same t won are counted and
-     printed); the sub-packet kernel also timed at each K on the kernel
+     printed); the interleave also at stack depth 192 and with every ray
+     inactive, hits and pop counts bitwise B1's; the sub-packet kernel
+     also timed at each K on the kernel
      A/B tool's 2^19 incoherent rays, t and occluded bitwise the per-ray
      kernel's;
      S: the pop counters of every schedule (B1, W = 2 and 4, Q = 2),
@@ -616,6 +621,7 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
               f"ms (trace_anyhit {b1_ms[1]:.3f}), plain {plain_a:.1f} ms")
         out[f"trace_closest_{suffix}"] = (err_c, ms_c, plain_c, *b1_bound[0])
         out[f"trace_anyhit_{suffix}"] = (err_a, ms_a, plain_a, *b1_bound[1])
+    ilv_edges(name, rows, rays, meta)
 
     # The sub-packet kernel on K-ray packets of the same rays, at every K of
     # SUBPACKET_KS (the kernels line reports K = SUBPACKET_K).
@@ -683,6 +689,43 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
     subpacket_at_scale(name, scene, meta, device)
     results[name].update(out)
     _print_bounds(name, out)
+
+
+def ilv_edges(name, rows, rays, meta) -> None:
+    """Phase 3b, the interleave's edges: W = 2 and 4 at stack depth 192
+    (its largest shared stacks: 64 threads a block at W = 4) and with
+    every ray inactive (each slot retires at once and takes the next ray),
+    closest and any-hit with counters, every field and count bitwise B1's
+    at the same depth and mask (B1 at 192 is held to the plain version in
+    phase 3); each timed at 192."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    o, d, t_occ, on = rays
+    far = torch.full((o.shape[0],), 1e20, device=o.device)
+    line = []
+    for depth, act, tag in ((192, on, "depth 192"),
+                            (meta.stack_depth, torch.zeros_like(on),
+                             "every ray inactive")):
+        kd = dict(stack_depth=depth, leaf_size=meta.leaf_size)
+        for fn, t_max, label in ((kt.closest, far, "closest"),
+                                 (kt.anyhit, t_occ, "any-hit")):
+            want = fn(rows, o, d, t_max, act, with_stats=True, **kd)
+            if not act.any() and int(want[-1].sum()):
+                raise AssertionError(f"[{name}] B1 counted pops of inactive "
+                                     f"rays")
+            for w in kt.VARIANTS:
+                _hold_stats(f"[{name}] {label} W={w} {tag}", fn(
+                    rows, o, d, t_max, act, with_stats=True, interleave=w,
+                    **kd), want)
+                if depth == 192:
+                    ms = _events_ms(lambda: fn(rows, o, d, t_max, act,
+                                               interleave=w, **kd), 5)
+                    line.append(f"{label} W={w} {ms:.4f} ms")
+    print(f"[{name}] W = 2 and 4 at stack depth 192 and with every ray "
+          f"inactive: hits and pop counts bitwise B1's; at 192 "
+          + ", ".join(line))
 
 
 def subpacket_at_scale(name: str, scene, meta, device) -> None:
@@ -1384,6 +1427,38 @@ def build_kernels() -> None:
                   f"{secs:.2f} s")
             for line in _ptxas_summary(log):
                 print(f"[build]   {line}")
+            for line in log.splitlines():
+                if "wgmma.mma_async instructions are serialized" in line:
+                    print(f"[build]   {line.strip()}")
+    hgmma = _sass_count(cuda_build.build("roofline")[0], "mxu_wgmma_kernel",
+                        "HGMMA")
+    print(f"[build] HGMMA instructions in the SASS of each mxu_wgmma_kernel "
+          f"instantiation: {hgmma}")
+    if not hgmma or not all(hgmma.values()):
+        raise AssertionError("the bf16 product's kernel issues no wgmma")
+
+
+def _sass_count(lib: str, function: str, opcode: str) -> dict:
+    """Instructions of `opcode` in the SASS of each compiled function of
+    `lib` whose name holds `function` (cuobjdump -sass)."""
+    import shutil
+
+    from gpupathtracer_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[-1].strip()
+            name = _kernel_name(name) if function in name else None
+            if name:
+                counts[name] = 0
+        elif name and opcode in line:
+            counts[name] += 1
+    return counts
 
 
 # The roofline probes (phase R): FP32 instructions issue at half the 67
@@ -1530,7 +1605,9 @@ def roofline_phase(device, results) -> dict:
                 raise AssertionError(f"{label}: copies {bad[:5]} differ from "
                                      f"the plain version")
             held = "every copy bitwise equal to the plain version"
-        if name in results["roofline"]:
+        # The first case of each probe is timed; the bf16 product at each of
+        # its shapes (128^3 and 512^3), its first in the kernels line.
+        if name in results["roofline"] and scale is None:
             worst, *rest = results["roofline"][name]
             results["roofline"][name] = (max(worst, err), *rest)
             print(f"{label}: {held}")
@@ -1552,8 +1629,15 @@ def roofline_phase(device, results) -> dict:
                  f"{torch.get_float32_matmul_precision()!r}, allow_tf32 "
                  f"{torch.backends.cuda.matmul.allow_tf32})"
                  if lib else ""))
-        results["roofline"][name] = (err, ms, plain_ms, bound_ms,
-                                     "operations", lib_ms)
+        if name in results["roofline"]:
+            worst, *rest = results["roofline"][name]
+            results["roofline"][name] = (max(worst, err), *rest)
+        else:
+            results["roofline"][name] = (err, ms, plain_ms, bound_ms,
+                                         "operations", lib_ms)
+        if lib and ms > lib_ms:
+            print(f"{label}: the kernel is slower than torch.matmul on the "
+                  f"same work")
     rates = {}
     results["roofline_launches"] = _drive(
         "roofline path", tuple(rl.LAUNCHES), lambda: rates.update(

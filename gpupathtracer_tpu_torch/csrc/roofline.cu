@@ -23,14 +23,13 @@
 // product's fused multiply-adds too (the H100's tensor cores have no full
 // FP32 mode): its blocks stage their operands in shared memory once and
 // hold 8 x 8 outputs a thread, so a k step is four 16-byte shared loads for
-// 64 FFMA (section 2). The bf16 product runs mma.sync m16n8k16 on the
-// tensor cores, one 16-row band of a 64 x 64 tile per warp, its operands
-// read from global memory (L1 / L2): a simple first version, no ldmatrix,
-// no wgmma, no TMA. The feedback term acc[:, :1] means every iteration of
-// a row band needs column 0 of the last one: an f32 block owns whole rows
-// (only an N wider than 2048 splits them), a bf16 warp computes its rows'
-// column 0 itself as well, in the same order, so the copies agree bit for
-// bit.
+// 64 FFMA (section 2). The bf16 product runs wgmma on the tensor cores
+// (section 3): both operands staged in shared memory once, the feedback
+// added to A in registers. The feedback term acc[:, :1] means every
+// iteration of a row band needs column 0 of the last one: an f32 block
+// owns whole rows (only an N wider than 2048 splits them), a bf16 block
+// whose column slab lacks column 0 computes it itself as well, with the
+// same instructions, so the copies agree bit for bit.
 //
 // The cluster probe (:332 cluster_dense_kernel) is the floor that the
 // cluster walks' pops are read against, so it has to run at the card's
@@ -52,6 +51,7 @@
 #include <cuda_bf16.h>
 
 #include "bvh_walk.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -89,8 +89,6 @@ vpu_kernel(const float* __restrict__ x, int per_copy, int total, int iters,
 }
 
 // --- 2. matrix products ------------------------------------------------------
-
-constexpr int kTile = 64;  // output tile of a bf16 block
 
 // f32, staged once for Hopper. A block owns a band of bm rows and a slab of
 // bn columns of one copy, bn = N whenever N <= kMaxBn, so column 0 (the
@@ -228,88 +226,223 @@ mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// --- 3. the bf16 product on wgmma -------------------------------------------
+//
+// What bounds it: 2 M K N bf16 operations an iteration at the tensor cores'
+// 989 TFLOP/s; its operands are 64 KB to 200 KB a block and are read every
+// iteration, so they must stay on chip. Only wgmma reaches that rate, and
+// the feedback (a + bf16(acc[:, :1] * 1e-30), rounded to bf16 as JAX adds
+// two bf16 arrays) changes A every iteration, so:
+//   - a block is one warpgroup (128 threads) on a 64-row band and a column
+//     slab of bn = 8, 64 or 128 columns (the narrowest that holds N, 128
+//     above 64; a slab past N is zero-padded and its stores masked);
+//   - once per block, b's slab goes by cp.async into row-major buffers and
+//     from there, transposed, into a K-major tile in the 128-byte swizzle
+//     (B^T: a row of 64 k a 128-byte line, 16-byte chunks XORed with the
+//     row), which the wgmma descriptor names; then a's band goes by
+//     cp.async into rows of K + 8 values (ldmatrix without bank conflicts),
+//     K padded with zeros to a multiple of 128 (kPadK).
+//     At 512^3 the slab (139 KB with column 0) and the band (65 KB) fill a
+//     block's shared memory: one block an SM. A ring of K tiles streamed
+//     every iteration would read the slab from L2 each time instead;
+//   - every k step a warp loads its 16 x 16 slice of the band with one
+//     ldmatrix, adds its two rows' feedback in f32 and rounds each pair
+//     back with one cvt (a register A: no shared-memory rewrite, no block
+//     barrier in the loop), and issues wgmma m64nNk16 with B from shared
+//     memory. Four k steps make a group; two groups of A registers
+//     alternate, so one group's loads and adds overlap the last one's
+//     products (wgmma.wait_group 1);
+//   - each iteration's sum starts from zero (scale-d 0 on its first k
+//     step) and is added to acc in f32, as the TPU kernel's acc + dot;
+//   - column 0 of the band: in slab 0 it is the tile's own; with several
+//     slabs every block computes b's columns 0-7 as 8 more columns of its
+//     wgmma (N = 136), so the blocks of a band need no exchange. Lane 4 g of
+//     a warp holds column 0 of rows g and g + 8, which a shuffle brings to
+//     the lanes that hold those rows' A registers.
+constexpr int kWgThreads = 128;  // one warpgroup a block
+constexpr int kBand = 64;        // wgmma's M: rows a block
+constexpr int kPanel = 64;       // k of one 128-byte swizzle row
+constexpr int kGroup = 4;        // k steps a wgmma group
+// K padded with zeros to whole pairs of groups: no k step is conditional,
+// so ptxas keeps the wgmma chain asynchronous (a branch around one makes it
+// serialize them all).
+constexpr int kPadK = 2 * kGroup * 16;
+
+struct Bf16Plan {
+  int bn, nw, slabs, slots;
+  size_t smem;
+};
+
+// The tiling of one shape: slab width bn, wgmma width nw (bn, plus 8 for
+// column 0 when the band has several slabs), staging buffers and shared
+// memory (B^T, then the band, which the staging buffers use first), all
+// at K padded to kPadK.
+Bf16Plan bf16_plan(int k, int n) {
+  Bf16Plan p{};
+  p.bn = n <= 8 ? 8 : n <= 64 ? 64 : 128;
+  p.slabs = (n + p.bn - 1) / p.bn;
+  p.nw = p.bn + (p.slabs > 1 ? 8 : 0);
+  const size_t kp = (k + kPadK - 1) / kPadK * kPadK;
+  const size_t band = (size_t)kBand * (kp + 8) * 2;
+  const size_t slot = (size_t)kPanel * p.nw * 2;
+  p.slots = band >= 2 * slot ? 2 : 1;
+  p.smem = 1024 + kp / kPanel * p.nw * 128 + max(band, p.slots * slot);
+  return p;
 }
 
-// a[r, c] + f rounded to bf16, as JAX adds two bf16 arrays.
-__device__ __forceinline__ __nv_bfloat16 fed(const __nv_bfloat16* a, int k,
-                                             int r, int c, __nv_bfloat16 f) {
-  return __float2bfloat16_rn(__bfloat162float(a[(size_t)r * k + c]) +
-                             __bfloat162float(f));
+// (a + f) rounded to bf16 for a pair of bf16 values packed in x.
+__device__ __forceinline__ uint32_t fed2(uint32_t x, float f) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      __uint_as_float(x << 16) + f, __uint_as_float(x & 0xFFFF0000u) + f);
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kNt = kTile / 8;  // n tiles of 8 per warp
-
-// bf16: 4 warps, warp w the rows 16w..16w+15 of the 64 x 64 tile in 8
-// n-tiles of m16n8k16, plus a ninth for columns 0-7 of its rows (the
-// feedback). Fragment layouts are PTX's: lane = 4 * group + t holds A rows
-// group and group + 8, columns 2t, 2t + 1 (+ 8); B rows 2t, 2t + 1 (+ 8) of
-// column group; C rows group and group + 8, columns 2t and 2t + 1.
-// Requires m % 64 == 0, k % 16 == 0, n % 8 == 0.
-__global__ void __launch_bounds__(kThreads)
-mxu_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+template <int kNw, bool kCol0>
+__global__ void __launch_bounds__(kWgThreads)
+mxu_wgmma_kernel(const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ b, int m, int k, int n,
-                int iters, float* __restrict__ out) {
-  const int tiles_m = m / kTile, tiles_n = (n + kTile - 1) / kTile;
-  const int per_copy = tiles_m * tiles_n;
-  const int copy = blockIdx.x / per_copy, tile = blockIdx.x % per_copy;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane / 4, t = lane % 4;
-  const int r_lo = (tile / tiles_n) * kTile + warp * 16 + grp, r_hi = r_lo + 8;
-  const int col0 = (tile % tiles_n) * kTile;
-  float acc[kNt + 1][4] = {};
-  for (int it = 0; it < iters; ++it) {
-    // acc[r, 0] of rows r_lo, r_hi sits in lane 4 * grp of the ninth tile.
-    float c_lo = __shfl_sync(0xFFFFFFFFu, acc[kNt][0], lane & ~3);
-    float c_hi = __shfl_sync(0xFFFFFFFFu, acc[kNt][2], lane & ~3);
-    __nv_bfloat16 f_lo = __float2bfloat16_rn(c_lo * 1e-30f);
-    __nv_bfloat16 f_hi = __float2bfloat16_rn(c_hi * 1e-30f);
-    float s[kNt + 1][4] = {};
-    for (int k0 = 0; k0 < k; k0 += 16) {
-      const int c = k0 + 2 * t;
-      uint32_t af[4] = {
-          pack_bf16(fed(a, k, r_lo, c, f_lo), fed(a, k, r_lo, c + 1, f_lo)),
-          pack_bf16(fed(a, k, r_hi, c, f_hi), fed(a, k, r_hi, c + 1, f_hi)),
-          pack_bf16(fed(a, k, r_lo, c + 8, f_lo),
-                    fed(a, k, r_lo, c + 9, f_lo)),
-          pack_bf16(fed(a, k, r_hi, c + 8, f_hi),
-                    fed(a, k, r_hi, c + 9, f_hi))};
-#pragma unroll
-      for (int j = 0; j <= kNt; ++j) {
-        const int nc = (j < kNt ? col0 + 8 * j : 0) + grp;
-        if (j < kNt && col0 + 8 * j >= n) continue;
-        uint32_t b0 = pack_bf16(b[(size_t)c * n + nc], b[(size_t)(c + 1) * n + nc]);
-        uint32_t b1 = pack_bf16(b[(size_t)(c + 8) * n + nc],
-                                b[(size_t)(c + 9) * n + nc]);
-        mma_bf16(s[j], af, b0, b1);
+                int iters, int slabs, int slots,
+                float* __restrict__ out) {
+  constexpr int kBn = kCol0 ? kNw - 8 : kNw;
+  constexpr int kAcc = kNw / 2;
+  constexpr int kC0 = kCol0 ? kBn / 8 : 0;  // register group of column 0
+  extern __shared__ uint8_t bf16_smem[];
+  uint8_t* bt =
+      bf16_smem + ((1024 - wg::smem_addr(bf16_smem) % 1024) % 1024);
+  const int kp = (k + kPadK - 1) / kPadK * kPadK;
+  const int panels = kp / kPanel;
+  uint8_t* region = bt + (size_t)panels * kNw * 128;
+  const int per_copy = (m / kBand) * slabs;
+  const int copy = blockIdx.x / per_copy, rest = blockIdx.x % per_copy;
+  const int row0 = (rest / slabs) * kBand, col0 = (rest % slabs) * kBn;
+  const int tid = threadIdx.x;
+
+  // B^T: panel p (k in 64 p .. 64 p + 63) through staging slot p % slots,
+  // [k][kNw] row-major: columns col0.. of the slab, then (kCol0) 0..7;
+  // zeros past K and N.
+  const int slot_elems = kPanel * kNw;
+  auto stage = [&](int p) {
+    if (p < panels) {
+      __nv_bfloat16* buf =
+          reinterpret_cast<__nv_bfloat16*>(region) + (p % slots) * slot_elems;
+      for (int e = tid; e < kPanel * (kNw / 8); e += kWgThreads) {
+        const int r = e / (kNw / 8), c = e % (kNw / 8) * 8;
+        const int col = c < kBn ? col0 + c : c - kBn;
+        const bool in = col < n && kPanel * p + r < k;
+        wg::cp_async16(
+            buf + r * kNw + c,
+            b + (in ? (size_t)(kPanel * p + r) * n + col : 0), in ? 16 : 0);
       }
     }
+    wg::cp_async_commit();  // empty past the last panel: a constant count
+  };
+  for (int p = 0; p < slots; ++p) stage(p);
+  for (int p = 0; p < panels; ++p) {
+    if (slots == 2)
+      wg::cp_async_wait<1>();
+    else
+      wg::cp_async_wait<0>();
+    __syncthreads();
+    const __nv_bfloat16* buf = reinterpret_cast<const __nv_bfloat16*>(region) +
+                               (p % slots) * slot_elems;
+    uint8_t* panel = bt + (size_t)p * kNw * 128;
+    for (int e = tid; e < kPanel / 8 * kNw; e += kWgThreads) {
+      const int row = e % kNw, c = e / kNw;
+      uint32_t v[4];
 #pragma unroll
-    for (int j = 0; j <= kNt; ++j)
+      for (int q = 0; q < 4; ++q)
+        v[q] = (uint32_t)__bfloat16_as_ushort(
+                   buf[(8 * c + 2 * q) * kNw + row]) |
+               ((uint32_t)__bfloat16_as_ushort(
+                    buf[(8 * c + 2 * q + 1) * kNw + row])
+                << 16);
+      *reinterpret_cast<uint4*>(panel + row * 128 + ((c ^ (row & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();  // the slot is free again
+    stage(p + slots);
+  }
+  wg::fence_async_shared();  // B^T, written here, is read by wgmma
+
+  // a's band, rows of kp + 8 values, zeros past K.
+  const int astride = kp + 8;
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(region);
+  for (int e = tid; e < kBand * (kp / 8); e += kWgThreads) {
+    const int r = e / (kp / 8), c = e % (kp / 8) * 8;
+    wg::cp_async16(as + r * astride + c,
+                   a + (c < k ? (size_t)(row0 + r) * k + c : 0),
+                   c < k ? 16 : 0);
+  }
+  wg::cp_async_commit();
+  wg::cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  // ldmatrix tiles: rows 0-7 / 8-15 of the warp's 16 at k 0-7, then k 8-15.
+  const uint32_t a_addr = wg::smem_addr(
+      as + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8) * astride +
+      (lane >> 4) * 8);
+  const uint32_t b_addr = wg::smem_addr(bt);
+  const int steps = kp / 16;
+  float acc[kAcc], s[kAcc];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = acc[j][q] + s[j][q];
+  for (int i = 0; i < kAcc; ++i) acc[i] = s[i] = 0.0f;
+  uint32_t ar0[kGroup][4], ar1[kGroup][4];
+  // One group of k steps from step k0 on A registers ar: loads, feedback,
+  // then the products; `wait`: the group two back, which used ar, is done
+  // first.
+  auto group = [&](uint32_t(&ar)[kGroup][4], int k0, bool wait, float f_lo,
+                   float f_hi) {
+    if (wait) wg::wgmma_wait<1>();
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      wg::ldmatrix_x4(ar[j], a_addr + (k0 + j) * 32);
+      ar[j][0] = fed2(ar[j][0], f_lo);
+      ar[j][1] = fed2(ar[j][1], f_hi);
+      ar[j][2] = fed2(ar[j][2], f_lo);
+      ar[j][3] = fed2(ar[j][3], f_hi);
+    }
+    wg::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int ks = k0 + j;
+      wg::wgmma_rs(
+          s, ar[j],
+          wg::sw128_desc(b_addr + (ks / 4) * kNw * 128 + (ks % 4) * 32),
+          ks > 0);
+    }
+    wg::wgmma_commit();
+  };
+  for (int it = 0; it < iters; ++it) {
+    // acc[r, 0] of rows r_lo, r_hi sits in lane 4 * grp.
+    const float c_lo = __shfl_sync(0xFFFFFFFFu, acc[4 * kC0], lane & ~3);
+    const float c_hi = __shfl_sync(0xFFFFFFFFu, acc[4 * kC0 + 2], lane & ~3);
+    const float f_lo = __bfloat162float(__float2bfloat16_rn(c_lo * 1e-30f));
+    const float f_hi = __bfloat162float(__float2bfloat16_rn(c_hi * 1e-30f));
+    group(ar0, 0, false, f_lo, f_hi);
+    group(ar1, kGroup, false, f_lo, f_hi);
+    for (int k0 = 2 * kGroup; k0 < steps; k0 += 2 * kGroup) {
+      group(ar0, k0, true, f_lo, f_hi);
+      group(ar1, k0 + kGroup, true, f_lo, f_hi);
+    }
+    wg::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      wg::fence_operand(s[i]);
+      acc[i] = acc[i] + s[i];
+    }
   }
   float* o = out + (size_t)copy * m * n;
+  const int r_lo = row0 + 16 * warp + lane / 4;
 #pragma unroll
-  for (int j = 0; j < kNt; ++j) {
-    int c = col0 + 8 * j + 2 * t;
-    if (c >= n) continue;
-    o[(size_t)r_lo * n + c] = acc[j][0];
-    o[(size_t)r_lo * n + c + 1] = acc[j][1];
-    o[(size_t)r_hi * n + c] = acc[j][2];
-    o[(size_t)r_hi * n + c + 1] = acc[j][3];
+  for (int g = 0; g < kBn / 8; ++g) {
+    const int c = col0 + 8 * g + 2 * (lane % 4);
+    if (c < n) {
+      *reinterpret_cast<float2*>(o + (size_t)r_lo * n + c) =
+          make_float2(acc[4 * g], acc[4 * g + 1]);
+      *reinterpret_cast<float2*>(o + (size_t)(r_lo + 8) * n + c) =
+          make_float2(acc[4 * g + 2], acc[4 * g + 3]);
+    }
   }
 }
 
@@ -585,17 +718,26 @@ int gpt_roofline_vpu(const float* x, int rows, int iters, int ilp, int copies,
 int gpt_roofline_mxu(int bf16, const void* a, const void* b, int m, int k,
                      int n, int iters, int copies, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    if (m % kTile || k % 16 || n % 8) return -1;
-    int tiles = (m / kTile) * ((n + kTile - 1) / kTile);
-    mxu_bf16_kernel<<<tiles * copies, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, m, k, n, iters, out);
-    return (int)cudaGetLastError();
-  }
   int dev = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
+  if (bf16) {
+    if (m % kBand || k % 16 || n % 8) return -1;
+    const Bf16Plan p = bf16_plan(k, n);
+    if (p.smem > (size_t)smem_max) return -1;
+    auto kernel = p.nw == 8     ? mxu_wgmma_kernel<8, false>
+                  : p.nw == 64  ? mxu_wgmma_kernel<64, false>
+                  : p.nw == 128 ? mxu_wgmma_kernel<128, false>
+                                : mxu_wgmma_kernel<136, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(m / kBand) * p.slabs * copies, kWgThreads, p.smem, s>>>(
+        (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, m, k, n, iters,
+        p.slabs, p.slots, out);
+    return (int)cudaGetLastError();
+  }
   const MxuPlan p = mxu_f32_plan(m, k, n, (size_t)smem_max);
   if (p.nt == 0) return -1;
   cudaError_t err = cudaFuncSetAttribute(

@@ -457,21 +457,14 @@ def stats_of(tally: torch.Tensor, multi_pop: int = 1) -> torch.Tensor:
 
 def _scheduled_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
                      any_hit, pops, interleave, multi_pop, with_stats):
-    """``_walk_plain`` under a schedule. Interleave: the rays split as the
-    kernel's threads carry them (slot w of the T = ceil(N / W) threads
-    holds rays w*T ... w*T + T - 1), one walk per slot; a ray's walk does
-    not depend on its thread, so the results are the plain schedule's, and
-    so are its pop counts. Returns (t, prim, u, v, at, stats or None)."""
+    """``_walk_plain`` under a schedule. Interleave: which thread and slot
+    walk a ray, and when, does not change its walk, so the results are the
+    plain schedule's, and so are its pop counts. Returns (t, prim, u, v, at,
+    stats or None)."""
     depth = check_schedule(stack_depth, interleave, multi_pop)
-    n = o.shape[0]
-    tally = new_tally(n, o.device) if with_stats else None
-    per = -(-n // interleave) if n else 1
-    parts = [_walk_plain(rows, o[a:a + per], d[a:a + per], t_max[a:a + per],
-                         active[a:a + per], depth, leaf_size, any_hit, pops,
-                         multi_pop,
-                         None if tally is None else tally[a:a + per])
-             for a in range(0, max(n, 1), per)]
-    out = tuple(torch.cat(x) for x in zip(*parts))
+    tally = new_tally(o.shape[0], o.device) if with_stats else None
+    out = _walk_plain(rows, o, d, t_max, active, depth, leaf_size, any_hit,
+                      pops, multi_pop, tally)
     return out + (stats_of(tally, multi_pop) if with_stats else None,)
 
 

@@ -173,8 +173,10 @@ def mxu(a, b, *, iters: int, copies: int = 1) -> torch.Tensor:
     cores (H100 tensor cores have no full-f32 mode), its operands staged
     in shared memory once: a block's band of at least 8 rows of a (twice)
     and b's columns must fit a block's shared memory, or it raises. bf16
-    runs the tensor cores (mma.sync m16n8k16, K a multiple of 16, M of 64,
-    N of 8)."""
+    runs the tensor cores (wgmma on operands staged in shared memory once;
+    K a multiple of 16, M of 64, N of 8; a 64-row band of a and a column
+    slab of b must fit a block's shared memory, K up to 512 on an H100, or
+    it raises)."""
     _positive(iters=iters, copies=copies)
     m, k = a.shape
     n = b.shape[1]

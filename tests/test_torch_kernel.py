@@ -764,6 +764,42 @@ def test_schedule_kernels_match_plain_on_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 58, 192])
+def test_interleave_kernels_on_cuda(depth):
+    """B7 (W = 2 and 4) with counters against its plain version and against
+    B1's kernel, every field and the pop counts bitwise, at stack depths 8
+    (pushes dropped at the top of each shared stack), 58 and 192 (the
+    largest stacks: 64 threads a block at W = 4), on 65,535 rays; then on
+    a set where 2% of the rays are active and one where none is (slots
+    retire at once and take the next rays); two launches in a row on one
+    stream give the same results (the ray counter is zeroed each time)."""
+    _need_cuda()
+    case = _soup_case(7, leaf=10, n_tris=4000, n_rays=65535)
+    rows = _rows(case, "cuda")
+    kw = dict(stack_depth=depth, leaf_size=10)
+    act = case["act"]
+    sparse = act & (np.random.RandomState(2).rand(act.size) < 0.02)
+    for mask in (act, sparse, np.zeros_like(act)):
+        case["act"] = mask
+        for fn, plain, t_max in ((kt.closest, kt.closest_plain, case["far"]),
+                                 (kt.anyhit, kt.anyhit_plain,
+                                  case["t_occ"])):
+            rays = _port(case, t_max, "cuda")
+            b1 = fn(rows, *rays, with_stats=True, **kw)
+            for w in kt.VARIANTS:
+                got = fn(rows, *rays, with_stats=True, interleave=w, **kw)
+                again = fn(rows, *rays, with_stats=True, interleave=w, **kw)
+                _equal_bits(got, b1)
+                _equal_bits(again, got)
+                if mask is act:
+                    _equal_bits(got, plain(rows, *rays, with_stats=True,
+                                           interleave=w, **kw))
+            if not mask.any():
+                assert int(b1[-1].abs().sum()) == 0
+    case["act"] = act
+
+
+@pytest.mark.cuda
 def test_subpacket_kernel_matches_plain_on_cuda():
     """csrc/subpacket_traverse.cu against its plain version (hits and pop
     counts bitwise) and against the per-ray kernel (t, occluded), at
@@ -948,9 +984,14 @@ def test_roofline_probes_match_plain_on_cuda():
         got = rl.mxu(a, b, iters=5, copies=copies)
         want = rl.mxu_plain(a, b, iters=5).view(torch.int32)
         assert all(torch.equal(g.view(torch.int32), want) for g in got)
-    for m in (128, 512):
-        ab = t(rng.uniform(-1, 1, (m, m)).astype(np.float32)).bfloat16()
-        bb = t(rng.uniform(-1, 1, (m, m)).astype(np.float32)).bfloat16()
+    # The bf16 product (wgmma) at the edges of its tiling: M = 64 with a
+    # slab of N = 8, a 64-column slab, N = 264 and 512 (several 128-column
+    # slabs, each computing column 0 too; a last slab of 8), K = 16 (one k
+    # step), then the timed shapes 128^3 and 512^3 (every slab a block).
+    for m, kk, n in ((64, 16, 8), (128, 32, 64), (64, 16, 264),
+                     (128, 64, 512), (128, 128, 128), (512, 512, 512)):
+        ab = t(rng.uniform(-1, 1, (m, kk)).astype(np.float32)).bfloat16()
+        bb = t(rng.uniform(-1, 1, (kk, n)).astype(np.float32)).bfloat16()
         got = rl.mxu(ab, bb, iters=3, copies=2)
         scale = float(ab.float().abs().sum(1).max() * bb.float().abs().max()
                       * 3)

@@ -99,7 +99,9 @@ def test_vpu_probe_matches_jax(jroof, ilp, shape):
                                          (256, 128, 32, "f32 width 32"),
                                          (64, 3, 384, "f32"),
                                          (64, 16, 8, "bf16"),
-                                         (128, 32, 64, "bf16")])
+                                         (128, 32, 64, "bf16"),
+                                         (64, 16, 264, "bf16"),
+                                         (128, 64, 512, "bf16")])
 def test_mxu_probe_matches_jax(jroof, m, k, n, dtype):
     rng = np.random.RandomState(m + k + n)
     a = rng.uniform(-1, 1, (m, k)).astype(np.float32)

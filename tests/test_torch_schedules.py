@@ -51,14 +51,14 @@ def test_schedule_equals_plain_walk(case, schedule, n):
             np.testing.assert_array_equal(_bits(g), _bits(b))
 
 
-def _pallas(case, t_max, **kw):
+def _pallas(case, t_max, depth=None, **kw):
     P = 512 // 128
     shaped = [jnp.asarray(case["o"]).reshape(P, 128, 3),
               jnp.asarray(case["d"]).reshape(P, 128, 3),
               jnp.asarray(t_max).reshape(P, 128),
               jnp.asarray(case["act"]).reshape(P, 128)]
     out = traverse_pallas(jnp.asarray(case["wide"].node_rows), *shaped,
-                          stack_depth=case["depth"], leaf_size=10,
+                          stack_depth=depth or case["depth"], leaf_size=10,
                           interpret=True, **kw)
     return [np.asarray(x) for x in out]
 
@@ -88,6 +88,42 @@ def test_schedule_anyhit_matches_pallas_kernel(case, schedule):
                    **schedule)
     occ = kt.anyhit(_rows(case), *_port(case, case["t_occ"]),
                     stack_depth=case["depth"], leaf_size=10, **schedule)
+    np.testing.assert_array_equal(occ.numpy(), want[1].reshape(-1) >= 0)
+
+
+@pytest.mark.parametrize("depth", [8, 192])
+@pytest.mark.parametrize("w", [2, 4])
+def test_interleave_depths_and_pop_counts(case, w, depth):
+    """B7 at stack depth 8 (the tree needs 16: pushes are dropped at the
+    top of a ray's stack, and a hit moves) and 192 (the kernel's largest
+    shared stacks), closest and any-hit, on 509 rays (the last thread's
+    slots partly empty): every field and the per-ray pop counts bitwise
+    the per-ray walk's (B1) at the same depth. At 192, t, prim, u, v on all
+    512 rays also bitwise _kernel_ilv's in interpret mode, occlusion equal
+    (at 8 the TPU kernel's packet stack overflows by its own rule)."""
+    rows = _rows(case)
+    kw = dict(stack_depth=depth, leaf_size=10)
+    for t_max, fn in ((case["far"], kt.closest), (case["t_occ"], kt.anyhit)):
+        rays = [x[:509].contiguous() for x in _port(case, t_max)]
+        base = fn(rows, *rays, with_stats=True, **kw)
+        got = fn(rows, *rays, with_stats=True, interleave=w, **kw)
+        assert got[-1].shape == (509, 2) and int(got[-1].sum()) > 0
+        for g, b in zip(got, base):
+            np.testing.assert_array_equal(_bits(g), _bits(b))
+    if depth == 8:
+        deep = kt.closest(rows, *_port(case, case["far"]),
+                          stack_depth=case["depth"], leaf_size=10)
+        shallow = kt.closest(rows, *_port(case, case["far"]), interleave=w,
+                             **kw)
+        assert not np.array_equal(_bits(shallow[0]), _bits(deep[0]))
+        return
+    want = _pallas(case, case["far"], depth, interleave=w)
+    got = kt.closest(rows, *_port(case, case["far"]), interleave=w, **kw)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(x.reshape(-1)))
+    want = _pallas(case, case["t_occ"], depth, any_hit=True, ordered=False,
+                   interleave=w)
+    occ = kt.anyhit(rows, *_port(case, case["t_occ"]), interleave=w, **kw)
     np.testing.assert_array_equal(occ.numpy(), want[1].reshape(-1) >= 0)
 
 

@@ -17,7 +17,7 @@ without the stack machinery:
   2. matrix products: acc += dot(a + acc[:, :1] * 1e-30, b) at the JAX
      probe's shapes, f32 on the CUDA cores (fused multiply-adds on
      operands staged in shared memory once; the tensor cores have no
-     full-f32 mode) and bf16 on the tensor cores (mma.sync);
+     full-f32 mode) and bf16 on the tensor cores (wgmma);
   3. device-memory bandwidth: 512 MB elementwise passes in plain torch,
      each pass one read and one write (torch runs every op as its own pass);
   4. traversal-phase floors: the node pop's slab test, the leaf pop's

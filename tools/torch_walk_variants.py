@@ -5,7 +5,7 @@ tree's own kernels (the experiments behind PERF.md section 6).
     python3 tools/torch_walk_variants.py [--variants a,b] [--reps 2]
         [--checkout NAME=DIR]
         [--groups walks,mega,mega-rows,mega-profile,subpacket,dense,
-                  cluster-probe]
+                  cluster-probe,ilv,bf16-probe]
 
 Each variant is the tree's csrc/ with a few text edits (VARIANTS), built
 with ops/cuda_build.py's nvcc flags into _build/variants/<name>/ and
@@ -14,8 +14,9 @@ NAME, the csrc/ of another checkout (DIR is its root, for example a `git
 archive` of the parent commit as "parent") built as it is, so that a
 redesign is timed beside the design it replaces in one call. A variant
 runs through the tree's wrappers, so its C interfaces must be the tree's;
-a checkout runs through its own ops/ wrapper where the dense group calls
-one (its C interface may differ). Groups of timings (--groups):
+a checkout runs through its own ops/ wrapper where the dense and ilv
+groups call one (its C interface may differ). Groups of timings
+(--groups):
 
   walks         on chip_smoke.py phase 3's rays (131,072 a scene, sponza
                 1920x1080 and bathroom 1280x720): B1 closest and any-hit at
@@ -35,12 +36,20 @@ one (its C interface may differ). Groups of timings (--groups):
                 any-hit, both roundings; and sponza's first 8,192 of phase
                 3's rays (chip_smoke.py's dense check), closest and any-hit;
   cluster-probe B9e at run_compact's G and copies (tools/torch_roofline.py),
-                tc 128 closest and any-hit and tc 256, PROBE_ITERS pops.
+                tc 128 closest and any-hit and tc 256, PROBE_ITERS pops;
+  ilv           B7 at W = 2 and 4, closest and any-hit, on phase 3's rays of
+                sponza and bathroom and on sponza's 2^19 incoherent rays
+                (the A/B tool's, all active), B1 on the same rays beside it;
+  bf16-probe    the bf16 product (B9b) at run_compact's two shapes, 128^3
+                and 512^3, and copies, PROBE_ITERS iterations, torch.matmul
+                on the same work (bf16 in, bf16 out) beside it.
 
 Every variant runs beside the tree's build, in turns, and its outputs must
 be bitwise the tree's (B6: t and occlusion, which its visit order does not
 change, bitwise the per-ray kernel's; B5 and B9e: the tree's also bitwise
-its plain version's, B9e's in every copy). Prints the ptxas line of each
+its plain version's, B9e's in every copy; B7: its hits and counts bitwise
+B1's; the bf16 product: every copy equal and within chip_smoke.py's bound
+of its plain version). Prints the ptxas line of each
 kernel a variant changes. Needs the card and nvcc; nothing here imports
 JAX.
 """
@@ -133,6 +142,292 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(MegaArgs g, int threads)
   cudaGetSymbolAddress(&tickets, mega_tickets);
   cudaMemsetAsync(tickets, 0, sizeof(unsigned long long), stream);
   kernel<<<blocks, kThreads, 0, stream>>>(args, blocks * kThreads);""")]
+# The interleave (B7) redesigns timed against the tree's B7 (PERF.md
+# section 6), which they did not beat on phase 3's rays: kernels added
+# before the multi-pop schedule's and launched by the tree's C functions
+# (same interface; the ray counter is a __device__ int). Two loops:
+# "fetch" runs bvh::walk_ilv as the tree does and, when all of a thread's
+# walks have ended, takes W neighbouring rays from the counter; "slots"
+# (the tree's walk step in a loop of its own) hands a slot whose walk
+# ended the next ray at once, after one warp vote an iteration. Both
+# launch as many blocks as stay resident (with refill); "slots" may keep
+# its stacks in dynamic shared memory, [w][depth][blockDim], the block
+# halved until they fit.
+_ILV_ANCHOR = "// `depth` is the stack bound times Q."
+_ILV_KERNELS = r"""constexpr int kIlvThreads = @THREADS@;
+constexpr bool kIlvRefill = @REFILL@;
+constexpr bool kIlvShared = @SHARED@;
+constexpr bool kIlvOuter = @OUTER@;
+__device__ int ilv_next;  // rays handed out, zeroed by each launch
+
+struct IlvOut {
+  float* t;
+  int* prim;
+  float* u;
+  float* v;
+  uint8_t* occluded;
+  int* stats;
+};
+
+// `span` threads hold the first W * span rays (slot w of thread j: ray
+// w * span + j); with kIlvRefill, ray W * span + c goes to the c-th free
+// slot, c counted by *next (zero at launch).
+template <int W, bool kAnyHit, bool kStats>
+__global__ void __launch_bounds__(kMaxThreads)
+trace_ilv_kernel(const float* __restrict__ rows, const float* __restrict__ o,
+                 const float* __restrict__ d, const float* __restrict__ t_max,
+                 const uint8_t* __restrict__ active, int n, int depth,
+                 int span, int* __restrict__ next, IlvOut out) {
+  extern __shared__ int ilv_stack[];
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = blockDim.x;
+  int ray[W], sp[W];
+  bvh::Ray r[W];
+  float t[W];
+  bvh::MtLeaf<kAnyHit> leaf[W];
+  bvh::Pops pops[W];
+  int* stack[W];
+  int local[kIlvShared ? 1 : W][kIlvShared ? 1 : bvh::kMaxStack];
+  const int step = kIlvShared ? stride : 1;  // between a stack's entries
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    stack[w] = kIlvShared ? ilv_stack + w * depth * stride + threadIdx.x
+                          : local[w];
+    sp[w] = 0;
+    ray[w] = -1;
+  }
+  // Slot w starts ray i: its root on the stack if the ray is active.
+  auto begin = [&](int w, int i) {
+    ray[w] = i;
+    r[w] = bvh::load_ray(o, d, i);
+    t[w] = t_max[i];
+    leaf[w] = bvh::MtLeaf<kAnyHit>(rows);
+    pops[w] = bvh::Pops();
+    stack[w][0] = 0;  // root node row
+    sp[w] = active[i] ? 1 : 0;
+  };
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int i = w * span + j;
+    if (j < span && i < n) begin(w, i);
+  }
+  bool more = kIlvRefill;  // rays may be left to take
+  // The results of slot w's walk, by its ray's index.
+  auto retire = [&](int w) {
+    const int i = ray[w];
+    if constexpr (kAnyHit) {
+      out.occluded[i] = leaf[w].prim >= 0 ? 1 : 0;
+    } else {
+      out.t[i] = t[w];
+      out.prim[i] = leaf[w].prim;
+      out.u[i] = leaf[w].u;
+      out.v[i] = leaf[w].v;
+    }
+    store_pops<kStats>(out.stats, 2, i, pops[w]);
+    ray[w] = -1;
+  };
+  for (;;) {
+    // A slot has work here if its walk ended or it may take a ray; the
+    // warp skips the pass when no lane's slot has.
+    bool todo = false;
+#pragma unroll
+    for (int w = 0; w < W; ++w) todo |= sp[w] == 0 && (ray[w] >= 0 || more);
+    const bool pass = __any_sync(__activemask(), todo);
+    bool held = false;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      if (pass && ray[w] >= 0 && sp[w] == 0) retire(w);
+      if (pass && kIlvRefill && more) {
+        const bool want = ray[w] < 0;
+        const unsigned live = __activemask();
+        const unsigned asks = __ballot_sync(live, want);
+        if (asks) {
+          const int lane = threadIdx.x % 32, lead = __ffs(asks) - 1;
+          int base = 0;
+          if (lane == lead) base = atomicAdd(next, __popc(asks));
+          base = __shfl_sync(live, base, lead);
+          if (want) {
+            const int i =
+                W * span + base + __popc(asks & ((1u << lane) - 1u));
+            if (i < n)
+              begin(w, i);
+            else
+              more = false;
+          }
+        }
+      }
+      held |= ray[w] >= 0;
+    }
+    if (!held) return;
+    int entry[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      entry[w] = bvh::kInvalid;
+      if (sp[w] > 0) {
+        entry[w] = stack[w][--sp[w] * step];
+        bvh::prefetch_entry(rows, entry[w]);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int e = entry[w];
+      if (e == bvh::kInvalid) continue;
+      if (e >= 0) {
+        if constexpr (kStats) ++pops[w].node;
+        bvh::expand_node(rows + (size_t)e * bvh::kRow, r[w], t[w], !kAnyHit,
+                         stack[w], step, sp[w], depth);
+      } else {
+        if constexpr (kStats) ++pops[w].leaf;
+        if (leaf[w](-(e + 1), r[w], t[w]) && kAnyHit) sp[w] = 0;
+      }
+    }
+  }
+}
+
+// The interleave as bvh::walk_ilv runs it (W walks in flight, each on a
+// stack in local memory), inside a loop that fetches rays: slot w of
+// thread j first walks ray w * span + j; when all its walks have ended the
+// thread writes their results and, with kIlvRefill, takes W neighbouring
+// rays from the counter (one atomicAdd for the lanes of the warp that are
+// there), until none is left.
+template <int W, bool kAnyHit, bool kStats>
+__global__ void __launch_bounds__(kMaxThreads)
+trace_ilv_fetch_kernel(const float* __restrict__ rows,
+                       const float* __restrict__ o,
+                       const float* __restrict__ d,
+                       const float* __restrict__ t_max,
+                       const uint8_t* __restrict__ active, int n, int depth,
+                       int span, int* __restrict__ next, IlvOut out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int base = j, gap = span;  // slot w walks ray base + w * gap
+  bool own = j < span;
+  for (;;) {
+    int ray[W];
+    bool on[W];
+    bvh::Ray r[W];
+    float t[W];
+    bvh::MtLeaf<kAnyHit> leaf[W];
+    bvh::Pops pops[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      int i = base + w * gap;
+      const bool in = own && i < n;
+      ray[w] = in ? i : -1;
+      on[w] = in && active[i];
+      i = in ? i : 0;
+      t[w] = t_max[i];
+      r[w] = bvh::load_ray(o, d, i);
+      leaf[w].rows = rows;
+    }
+    bvh::walk_ilv<W, kAnyHit, bvh::MtLeaf<kAnyHit>, kStats>(rows, r, on, depth,
+                                                            t, leaf, pops);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int i = ray[w];
+      if (i < 0) continue;
+      if constexpr (kAnyHit) {
+        out.occluded[i] = leaf[w].prim >= 0 ? 1 : 0;
+      } else {
+        out.t[i] = t[w];
+        out.prim[i] = leaf[w].prim;
+        out.u[i] = leaf[w].u;
+        out.v[i] = leaf[w].v;
+      }
+      store_pops<kStats>(out.stats, 2, i, pops[w]);
+    }
+    if (!kIlvRefill) return;
+    const unsigned live = __activemask();
+    const int lane = threadIdx.x % 32, lead = __ffs(live) - 1;
+    int got = 0;
+    if (lane == lead) got = atomicAdd(next, W * __popc(live));
+    base = W * span + __shfl_sync(live, got, lead) +
+           W * __popc(live & ((1u << lane) - 1u));
+    if (base >= n) return;
+    gap = 1;
+    own = true;
+  }
+}
+
+// Launches an interleave kernel, w = 2 or 4 rays a thread; the rays it
+// hands out are counted in ilv_next, zeroed here on the launch's stream.
+template <bool kAnyHit>
+int launch_ilv(const float* rows, const float* o, const float* d,
+               const float* t_max, const uint8_t* active, int n, int depth,
+               int w, IlvOut out, cudaStream_t stream) {
+  const bool stats = out.stats != nullptr;
+  auto kernel =
+      kIlvOuter
+          ? (w == 2 ? (stats ? trace_ilv_fetch_kernel<2, kAnyHit, true>
+                             : trace_ilv_fetch_kernel<2, kAnyHit, false>)
+             : w == 4 ? (stats ? trace_ilv_fetch_kernel<4, kAnyHit, true>
+                               : trace_ilv_fetch_kernel<4, kAnyHit, false>)
+                      : nullptr)
+          : (w == 2 ? (stats ? trace_ilv_kernel<2, kAnyHit, true>
+                             : trace_ilv_kernel<2, kAnyHit, false>)
+             : w == 4 ? (stats ? trace_ilv_kernel<4, kAnyHit, true>
+                               : trace_ilv_kernel<4, kAnyHit, false>)
+                      : nullptr);
+  if (!kernel) return -1;
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  int threads = kIlvThreads;
+  auto smem = [&] {
+    return kIlvShared && !kIlvOuter ? (size_t)w * depth * threads * sizeof(int)
+                                    : 0;
+  };
+  while (smem() > (size_t)smem_max && threads > 32) threads /= 2;
+  if (smem() > (size_t)smem_max) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem());
+  if (err != cudaSuccess) return (int)err;
+  const int per_thread = (n + w - 1) / w;
+  int blocks = (per_thread + threads - 1) / threads;
+  if (kIlvRefill) {
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                        threads, smem());
+    if (err != cudaSuccess) return (int)err;
+    blocks = min(blocks, max(resident, 1) * sms);
+  }
+  const int span = min(blocks * threads, per_thread);
+  int* next = nullptr;
+  cudaGetSymbolAddress((void**)&next, ilv_next);
+  err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem(), stream>>>(rows, o, d, t_max, active, n,
+                                              depth, span, next, out);
+  return (int)cudaGetLastError();
+}
+
+"""
+_ILV_LAUNCHES = [
+    ("""  kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);""",
+     """  return launch_ilv<false>(rows, o, d, t_max, active, n, depth, w,
+                           IlvOut{t, prim, u, v, nullptr, stats},
+                           (cudaStream_t)stream);"""),
+    ("""  kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, occluded, stats);""",
+     """  return launch_ilv<true>(rows, o, d, t_max, active, n, depth, w,
+                          IlvOut{nullptr, nullptr, nullptr, nullptr, occluded,
+                                 stats},
+                          (cudaStream_t)stream);""")]
+
+
+def _ilv(fetch: bool, refill: bool = True, shared: bool = False,
+         threads: int = 128) -> dict:
+    """The edits of csrc/traverse.cu that make one interleave redesign."""
+    code = _ILV_KERNELS
+    for key, value in (("@THREADS@", str(threads)), ("@OUTER@", fetch),
+                       ("@REFILL@", refill), ("@SHARED@", shared)):
+        code = code.replace(key, str(value).lower())
+    return {"traverse.cu": [(_ILV_ANCHOR, code + _ILV_ANCHOR)] +
+            _ILV_LAUNCHES}
+
+
 # Sources a --checkout build takes, each built as it is.
 CHECKOUT_SOURCES = ("traverse", "cluster_traverse", "megakernel",
                     "subpacket_traverse", "roofline", "dense_intersect")
@@ -288,6 +583,44 @@ VARIANTS = {
         ("dense_intersect",),
         {"dense_intersect.cu": [("  const int parts = max(1, min(",
                                  "  const int parts = 1 + 0 * max(1, min(")]}),
+    "ilv-fetch": (
+        "B7's walk in a loop that fetches W neighbouring rays when a "
+        "thread's walks have all ended", ("traverse",), _ilv(True)),
+    "ilv-fetch-64": ("ilv-fetch at 64 threads a block", ("traverse",),
+                     _ilv(True, threads=64)),
+    "ilv-fetch-256": ("ilv-fetch at 256 threads a block", ("traverse",),
+                      _ilv(True, threads=256)),
+    "ilv-slots": (
+        "B7's walk step in a loop that hands a slot whose walk ended the "
+        "next ray at once", ("traverse",), _ilv(False)),
+    "ilv-slots-64": ("ilv-slots at 64 threads a block", ("traverse",),
+                     _ilv(False, threads=64)),
+    "ilv-slots-shared": (
+        "ilv-slots at 64 threads a block, its stacks in shared memory",
+        ("traverse",), _ilv(False, shared=True, threads=64)),
+    "ilv-slots-shared-no-refill": (
+        "ilv-slots-shared without refill: slot w of thread j walks ray "
+        "w T + j and nothing else", ("traverse",),
+        _ilv(False, refill=False, shared=True, threads=64)),
+    "ilv-cap-64": (
+        "B7's registers capped at 64 a thread (eight blocks of 128 an SM)",
+        ("traverse",),
+        {"traverse.cu": [(f"__launch_bounds__(kThreads)\n{k}(",
+                          f"__launch_bounds__(kThreads, 8)\n{k}(")
+                         for k in ("trace_closest_ilv_kernel",
+                                   "trace_anyhit_ilv_kernel")]}),
+    "bf16-hadd2": (
+        "the bf16 product's feedback added as bf16 pairs (add.rn.bf16x2, "
+        "one rounding; a timing of the f32 add's cost, not a design: JAX "
+        "rounds to f32 first)", ("roofline",),
+        {"roofline.cu": [("""  const __nv_bfloat162 r = __floats2bfloat162_rn(
+      __uint_as_float(x << 16) + f, __uint_as_float(x & 0xFFFF0000u) + f);""",
+                          """  const __nv_bfloat162 r = __hadd2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x), __float2bfloat162_rn(f));""")]}),
+    "bf16-group-2": (
+        "the bf16 product with two k steps a wgmma group", ("roofline",),
+        {"roofline.cu": [("constexpr int kGroup = 4;",
+                          "constexpr int kGroup = 2;")]}),
     "b4-four-blocks": (
         "B4 closest with 48 KB of idle shared memory a block (four blocks "
         "an SM)", ("cluster_traverse",),
@@ -306,7 +639,15 @@ KERNELS = ("trace_closest_kernel<0>", "trace_anyhit_kernel<0>",
            "subpacket_kernel<0, 0>", "subpacket_kernel<1, 0>",
            "subpacket_kernel<0, 1>", "subpacket_kernel<1, 1>",
            "subpacket_kernel<0>", "subpacket_kernel<1>", "cluster_kernel",
-           "dense_kernel<0, 1>", "dense_kernel<1, 1>")
+           "dense_kernel<0, 1>", "dense_kernel<1, 1>",
+           "trace_ilv_fetch_kernel<2, 0, 0>",
+           "trace_ilv_fetch_kernel<2, 1, 0>",
+           "trace_ilv_kernel<2, 0, 0>", "trace_ilv_kernel<2, 1, 0>",
+           "trace_ilv_kernel<4, 0, 0>", "trace_ilv_kernel<4, 1, 0>",
+           "trace_closest_ilv_kernel<2, 0>", "trace_anyhit_ilv_kernel<2, 0>",
+           "trace_closest_ilv_kernel<4, 0>", "trace_anyhit_ilv_kernel<4, 0>",
+           "mxu_bf16_kernel", "mxu_wgmma_kernel<128, 0>",
+           "mxu_wgmma_kernel<136, 1>")
 
 
 def _printed(line: str) -> bool:
@@ -765,14 +1106,123 @@ def time_cluster_probe(libs: dict, reps: int, device) -> None:
                   flush=True)
 
 
+def time_ilv(libs: dict, reps: int, device) -> None:
+    """B7 at W = 2 and 4, closest and any-hit, on phase 3's rays of sponza
+    and bathroom and on sponza's 2^19 incoherent rays (t_max 1e20, all
+    active), B1 beside it; every build's hits bitwise B1's."""
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    bench = cs._tool_module("torch_kernel_bench")
+    for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
+        cfg = cs._scene_cfg(name, w, h)
+        scene, meta = load_scene(cfg, device)
+        rows = scene.node_rows
+        kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+        o, d, t_occ, on = cs._test_rays(scene, meta, cfg, device)
+        far = torch.full((o.shape[0],), 1e20, device=device)
+        sets = {"phase 3": (o, d, far, t_occ, on)}
+        if name == "sponza":
+            o2, d2 = bench.make_rays(f"proc:{name}", scene, meta, 1 << 19,
+                                     device)["incoherent"]
+            far2 = torch.full((1 << 19,), 1e20, device=device)
+            sets["2^19 incoherent"] = (o2, d2, far2, far2, torch.ones_like(
+                far2, dtype=torch.bool))
+        for tag, (o_, d_, tc, ta, act) in sets.items():
+            b1 = (kt.closest(rows, o_, d_, tc, act, **kw),
+                  kt.anyhit(rows, o_, d_, ta, act, **kw))
+            for rep in range(reps):
+                ms_c = cs._events_ms(lambda: kt.closest(rows, o_, d_, tc, act,
+                                                        **kw), 10)
+                ms_a = cs._events_ms(lambda: kt.anyhit(rows, o_, d_, ta, act,
+                                                       **kw), 10)
+                line = [f"B1 {ms_c:.4f} / {ms_a:.4f}"]
+                for label, ctx, mod in runs(libs, "traverse", kt,
+                                            own_wrapper=True):
+                    with ctx:
+                        for wv in (2, 4):
+                            cs._hold_hits(f"{label} B7 W={wv}", mod.closest(
+                                rows, o_, d_, tc, act, interleave=wv, **kw),
+                                b1[0])
+                            cs._hold_occluded(f"{label} B7 W={wv}", mod.anyhit(
+                                rows, o_, d_, ta, act, interleave=wv, **kw),
+                                b1[1])
+                            ms_c = cs._events_ms(lambda: mod.closest(
+                                rows, o_, d_, tc, act, interleave=wv, **kw),
+                                10)
+                            ms_a = cs._events_ms(lambda: mod.anyhit(
+                                rows, o_, d_, ta, act, interleave=wv, **kw),
+                                10)
+                            line.append(f"{label} W={wv} {ms_c:.4f} / "
+                                        f"{ms_a:.4f}")
+                print(f"[{name} {tag}, {o_.shape[0]} rays] closest / any-hit "
+                      f"ms, rep {rep}: " + ", ".join(line), flush=True)
+
+
+def time_bf16_probe(libs: dict, reps: int, device) -> None:
+    """The bf16 product at run_compact's bf16 shapes and copies,
+    chip_smoke.py's timed iterations, beside torch.matmul (bf16) on the same
+    work; every copy within chip_smoke.py's bound of the plain version at
+    its check iterations, in every build."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import roofline as rl
+
+    tool = cs._tool_module("torch_roofline")
+    tool.set_device(device)
+    rng = np.random.RandomState(11)
+    iters = cs.PROBE_ITERS["roofline_mxu_bf16"]
+    for _, m, k, n, dtype, _, _ in tool.COMPACT_MXU:
+        if dtype != "bfloat16":
+            continue
+        a, b = (torch.as_tensor(rng.uniform(-1, 1, s).astype(np.float32),
+                                device=device).bfloat16()
+                for s in ((m, k), (k, n)))
+        copies = tool.copies_for(-(-m // 64) * -(-n // 64))
+        want = rl.mxu_plain(a, b, iters=cs.PROBE_CHECK_ITERS)
+        tol = (cs.BF16_BOUND * cs.PROBE_CHECK_ITERS *
+               float(a.float().abs().sum(1).max() * b.float().abs().max()))
+        bound = 1e3 * 2 * m * k * n * iters * copies / cs.PEAK_BF16_FLOPS
+        big = a.expand(copies, m, k).reshape(-1, k)
+        for rep in range(reps):
+            lib = cs._events_ms(
+                lambda: [torch.matmul(big, b) for _ in range(iters)], 3)
+            line = []
+            for label, ctx, _ in runs(libs, "roofline", rl):
+                with ctx:
+                    got = rl.mxu(a, b, iters=cs.PROBE_CHECK_ITERS,
+                                 copies=copies)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    if err > tol or not all(torch.equal(got[0], c)
+                                            for c in got):
+                        raise AssertionError(f"{label} B9b bf16 [{m},{k}]x"
+                                             f"[{k},{n}]: max |diff| {err:.3g}"
+                                             f" (bound {tol:.3g}), or copies "
+                                             f"differ")
+                    ms = cs._events_ms(lambda: rl.mxu(a, b, iters=iters,
+                                                      copies=copies), 3)
+                line.append(f"{label} {ms:.4f} ({bound / ms:.1%}, max |diff| "
+                            f"{err:.3g})")
+            print(f"[B9b bf16 [{m},{k}]x[{k},{n}] x{copies}, {iters} "
+                  f"iterations] rep {rep}, bound {bound:.4f} ms, torch.matmul "
+                  f"{lib:.4f} ms: " + ", ".join(line), flush=True)
+
+
 GROUPS = ("walks", "mega", "mega-rows", "mega-profile", "subpacket", "dense",
-          "cluster-probe")
+          "cluster-probe", "ilv", "bf16-probe")
 # The csrc/ sources each group's timings run.
 GROUP_SOURCES = {"walks": ("traverse", "cluster_traverse"),
                  "mega": ("megakernel",), "mega-rows": ("megakernel",),
                  "mega-profile": ("megakernel",),
                  "subpacket": ("subpacket_traverse", "traverse"),
-                 "dense": ("dense_intersect",), "cluster-probe": ("roofline",)}
+                 "dense": ("dense_intersect",), "cluster-probe": ("roofline",),
+                 "ilv": ("traverse",), "bf16-probe": ("roofline",)}
 
 
 def main(argv=None) -> int:
@@ -832,6 +1282,10 @@ def main(argv=None) -> int:
         time_dense(built, args.reps, device)
     if "cluster-probe" in groups:
         time_cluster_probe(built, args.reps, device)
+    if "ilv" in groups:
+        time_ilv(built, args.reps, device)
+    if "bf16-probe" in groups:
+        time_bf16_probe(built, args.reps, device)
     return 0
 
 
