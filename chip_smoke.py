@@ -22,7 +22,10 @@ nvcc and g++. Phases, each of which raises on failure:
      stated bound, its maximum printed), at every shape, tile, tc and mode
      that tools/torch_roofline.py run_compact launches (the cluster body
      also on the tie blocks of tests/test_torch_kernel.py, tc 128 and
-     256: equal t at slots j, j + 32, ..., the lowest slot wins), and the f32
+     256: equal t at slots j, j + 32, ..., the lowest slot wins; the leaf
+     body also on the edge rows of tests/test_torch_kernel.py, det = 0,
+     equal t, rays parallel to a triangle or pointing away, at G = 16 and
+     1 and at 70 pops, the rows wrapping), and the f32
      product at the other shapes of its main(); the first of each timed
      (the bf16 product at both its shapes, 128^3 and 512^3) with its plain
      version and, for the products, torch.matmul on the same shapes, with
@@ -48,15 +51,20 @@ nvcc and g++. Phases, each of which raises on failure:
      against phase 3's kernel output (t and occluded bitwise equal; lanes
      where another triangle at bitwise the same t won are counted and
      printed); the interleave also at stack depth 192 and with every ray
-     inactive, hits and pop counts bitwise B1's; the sub-packet kernel
+     inactive, hits and pop counts bitwise B1's; the multi-pop schedule
+     also at Q = 4, stack bound 48 (192 entries), and at Q = 2 with a
+     bound that drops pushes, with counters: every field and count
+     bitwise the plain version's, t and occluded bitwise B1's in every
+     lane that dropped none; the sub-packet kernel
      also timed at each K on the kernel
      A/B tool's 2^19 incoherent rays, t and occluded bitwise the per-ray
      kernel's;
      S: the pop counters of every schedule (B1, W = 2 and 4, Q = 2),
      closest and any-hit, per ray bitwise equal to the plain version's,
      the interleave's equal to B1's, the multi-pop's dropped pushes 0, the
-     hits with counters bitwise those without; the pop account of B1
-     (kernel time over its pops against the probes' floors); the dense
+     hits with counters bitwise those without; the pop account of B1,
+     B7 (W = 2) and B8 (Q = 2) (kernel time over its pops against the
+     probes' floors); the dense
      intersection
      against its plain version, both roundings, on all 131,072 rays of
      bathroom and on the first 8,192 of sponza (the plain version's cost
@@ -622,6 +630,7 @@ def compare_schedules(name: str, scene, meta, rays, b1, device, results):
         out[f"trace_closest_{suffix}"] = (err_c, ms_c, plain_c, *b1_bound[0])
         out[f"trace_anyhit_{suffix}"] = (err_a, ms_a, plain_a, *b1_bound[1])
     ilv_edges(name, rows, rays, meta)
+    multi_edges(name, rows, rays, meta, b1)
 
     # The sub-packet kernel on K-ray packets of the same rays, at every K of
     # SUBPACKET_KS (the kernels line reports K = SUBPACKET_K).
@@ -726,6 +735,50 @@ def ilv_edges(name, rows, rays, meta) -> None:
     print(f"[{name}] W = 2 and 4 at stack depth 192 and with every ray "
           f"inactive: hits and pop counts bitwise B1's; at 192 "
           + ", ".join(line))
+
+
+# Phase 3b's multi-pop edges: (Q, stack bound) at the largest stack
+# (stack_depth * Q = 192) and at a bound that drops pushes on both scenes.
+MULTI_EDGES = ((4, 48), (2, 4))
+
+
+def multi_edges(name, rows, rays, meta, b1) -> None:
+    """Phase 3b, the multi-pop schedule's edges (MULTI_EDGES): closest and
+    any-hit with counters, every field and the [N, 3] counts bitwise the
+    plain version's; t and occluded bitwise B1's (phase 3's kernel output)
+    in every lane whose walk dropped no push, and the dropping bound must
+    drop some; each timed."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    o, d, t_occ, on = rays
+    far = torch.full((o.shape[0],), 1e20, device=o.device)
+    line = []
+    for q, depth in MULTI_EDGES:
+        kd = dict(stack_depth=depth, leaf_size=meta.leaf_size, multi_pop=q)
+        for fn, plain, t_max, label in (
+                (kt.closest, kt.closest_plain, far, "closest"),
+                (kt.anyhit, kt.anyhit_plain, t_occ, "any-hit")):
+            tag = f"[{name}] {label} Q={q} at stack bound {depth}"
+            got = fn(rows, o, d, t_max, on, with_stats=True, **kd)
+            _hold_stats(tag, got, plain(rows, o, d, t_max, on,
+                                        with_stats=True, **kd))
+            kept = got[-1][:, 2] == 0
+            mine, ref = ((got[0], b1["occ"]) if label == "any-hit"
+                         else (got[0], b1["closest"][0]))
+            if not torch.equal(_bits(mine)[kept], _bits(ref)[kept]):
+                raise AssertionError(f"{tag}: differs from B1 where no push "
+                                     f"was dropped")
+            dropped = int((~kept).sum())
+            if (depth * q < kt.MAX_STACK) != (dropped > 0):
+                raise AssertionError(f"{tag}: {dropped} rays dropped pushes")
+            ms = _events_ms(lambda: fn(rows, o, d, t_max, on, **kd), 5)
+            line.append(f"{label} Q={q} bound {depth}: {ms:.4f} ms, "
+                        f"{dropped} rays dropped pushes")
+    print(f"[{name}] multi-pop edges with counters, bitwise the plain "
+          f"version's, t and occluded B1's where no push was dropped: "
+          + "; ".join(line))
 
 
 def subpacket_at_scale(name: str, scene, meta, device) -> None:
@@ -838,10 +891,18 @@ def compare_stats(name: str, scene, meta, rays, b1, device, results):
     for any_hit in (False, True):
         node, leaf = results[name + "_counts"][any_hit]
         entry = "trace_anyhit" if any_hit else "trace_closest"
+        scale = pops[any_hit].get("slots", 0) / max(leaf, 1) / 10
         pop_account(f"B1 {name} {entry} (leaf pops at the slots they test)",
                     results[name][entry][1], node, leaf, results["rates"],
-                    "leaf_pop_ray_ps",
-                    pops[any_hit].get("slots", 0) / max(leaf, 1) / 10)
+                    "leaf_pop_ray_ps", scale)
+        # B7 and B8 on their own counts, a leaf pop at B1's slots a pop.
+        for kernel, tag, suffix in (("B7", "W=2", "_ilv"),
+                                    ("B8", "Q=2", "_multi")):
+            node, leaf = (int(x) for x in counts[tag, any_hit][:, :2].sum(0))
+            pop_account(f"{kernel} {name} {entry}{suffix} (leaf pops at "
+                        f"B1's slots a leaf pop)",
+                        results[name][entry + suffix][1], node, leaf,
+                        results["rates"], "leaf_pop_ray_ps", scale)
 
 
 def pop_account(label, ms, node, leaf, rates, leaf_key, leaf_scale=1.0):
@@ -1473,6 +1534,8 @@ PROBE_ITERS = {"roofline_vpu": 2048, "roofline_mxu_f32": 32,
                "roofline_mxu_bf16": 32, "roofline_node_slab": 256,
                "roofline_leaf_mt": 128, "roofline_cluster_dense": 64}
 PROBE_CHECK_ITERS = 5
+# Pops of the leaf probe's wrapping check: not a multiple of its 64 rows.
+LEAF_WRAP_ITERS = 70
 # Largest |kernel - plain| of the bf16 product, as a share of
 # max_i sum_k |a_ik| max |b| * iters (tests/test_torch_roofline.py).
 BF16_BOUND = 1e-6
@@ -1543,6 +1606,24 @@ def _probe_cases(device, tool):
          lambda it: rl.leaf_mt_plain(rows, o, d, inv, iters=it),
          lanes // rl.THREADS, lanes * rl.LEAF_SIZE * rl.MT_SLOT, None,
          None)]
+    # The leaf body on the edge rows of tests/test_torch_kernel.py (det = 0,
+    # equal t, rays parallel to a triangle or pointing away) at G = 16 and
+    # 1, and at LEAF_WRAP_ITERS pops (the 64 rows wrap), in every copy.
+    tests = _tool_module("test_torch_kernel", "tests")
+    for gg in (g, 1):
+        edge = [t(x) for x in tests.leaf_probe_case(gg, seed=gg)]
+        for label, args, iters in (
+                (f"G={gg} edge rows", edge, None),
+                (f"G={gg} edge rows, {LEAF_WRAP_ITERS} pops", edge,
+                 LEAF_WRAP_ITERS)):
+            cases.append((
+                "roofline_leaf_mt", label,
+                lambda it, c, a=args, n=iters: rl.leaf_mt(
+                    *a, iters=n or it, copies=c),
+                lambda it, a=args, n=iters: rl.leaf_mt_plain(
+                    *a, iters=n or it),
+                gg * 128 // rl.THREADS, gg * 128 * rl.LEAF_SIZE * rl.MT_SLOT,
+                None, None))
     for tc, any_hit in tool.COMPACT_CLUSTER:
         blk = t(rng.uniform(-1, 1, (16, 3 * tc)))
         cases.append((
@@ -1557,7 +1638,6 @@ def _probe_cases(device, tool):
             None))
     # The tie case of tests/test_torch_kernel.py: slots j, j + 32, ... in
     # one plane (equal t), the lowest slot must win.
-    tests = _tool_module("test_torch_kernel", "tests")
     for tc in (128, 256):
         blk = t(tests.cluster_tie_blocks(tc))
         cases.append((

@@ -491,43 +491,108 @@ node_slab_kernel(const float* __restrict__ rows, const float* __restrict__ o,
 // The leaf pop's Moller-Trumbore body over the 10 triangles of row i % 64:
 // bvh_walk.cuh intersect_leaf's instructions, with the determinant rounded
 // as XLA rounds the JAX probe's, fma(e1z, pz, fma(e1x, px, e1y * py)).
-__global__ void __launch_bounds__(kThreads)
+//
+// The probe is the floor that the MT walks' leaf pops are read against, so
+// it has to run at the card's rate. One thread a lane reading a slot as 9
+// scalar loads from global memory (the first port) reached 38.8% of its
+// FP32 bound (NVIDIA H100 80GB HBM3, 700 W): 9 loads and their addresses a
+// slot against 40 counted instructions, and one division chain a thread.
+// Here the 64 rows' used 120 floats sit in shared memory (30 KB, staged
+// once a block), a slot comes as three 16-byte loads that the threads of a
+// warp read at two addresses (broadcasts), and kLeafSub threads share
+// kLeafRays rays: thread q of a group tests slots q, q + kLeafSub, ... of
+// every pop for each of its rays, so its five divisions a pop are
+// independent and twice the threads are in flight. A lane's answer is the
+// smallest valid t over every (pop, slot) it tests: each test is strict and
+// NaN fails it, and its validity but for t < t_c does not depend on t_c,
+// so the group's threads meet in a minimum. A lane's pops stay in order,
+// each (lane, pop, slot) is tested once. That runs at 56.9% of the bound
+// (0.1816 ms against 0.1033 for 128 pops x 33 copies of G = 16; the first
+// port 0.2664), 58.6% on tools/torch_roofline.py's constant rays; one,
+// two or four rays a thread, one or four threads a ray, 128 threads a
+// block, the slots read from global memory and __frcp_rn were timed beside
+// it (tools/torch_walk_variants.py --groups leaf-probe, PERF.md section 6).
+// What is left is issue: the IEEE division (a reciprocal, its refinement
+// and a slow-path check) counts as one of the slot's 40 instructions.
+constexpr int kLeafSub = 2;
+constexpr int kLeafRays = 1;
+constexpr int kLeafThreads = 256;
+constexpr int kLeafWords = kLeafSize * 3;  // 16-byte words a staged row
+
+// One slot of the probe's body against t_c (the slot's 12 floats in s0,
+// s1, s2, as bvh_walk.cuh mt_slot reads them).
+__device__ __forceinline__ void leaf_probe_slot(const float4& s0,
+                                                const float4& s1,
+                                                const float4& s2,
+                                                const bvh::Ray& r,
+                                                float& t_c) {
+  float p0x = s0.x, p0y = s0.y, p0z = s0.z;
+  float e1x = s0.w, e1y = s1.x, e1z = s1.y;
+  float e2x = s1.z, e2y = s1.w, e2z = s2.x;
+  float px = __fmaf_rn(r.d[1], e2z, -(r.d[2] * e2y));
+  float py = __fmaf_rn(r.d[2], e2x, -(r.d[0] * e2z));
+  float pz = __fmaf_rn(r.d[0], e2y, -(r.d[1] * e2x));
+  float det = __fmaf_rn(e1z, pz, __fmaf_rn(e1x, px, e1y * py));
+  float idet = 1.0f / det;
+  float tx = r.o[0] - p0x;
+  float ty = r.o[1] - p0y;
+  float tz = r.o[2] - p0z;
+  float uu = __fmaf_rn(tz, pz, __fmaf_rn(tx, px, ty * py)) * idet;
+  float qx = __fmaf_rn(ty, e1z, -(tz * e1y));
+  float qy = __fmaf_rn(tz, e1x, -(tx * e1z));
+  float qz = __fmaf_rn(tx, e1y, -(ty * e1x));
+  float vv = __fmaf_rn(r.d[2], qz, __fmaf_rn(r.d[0], qx, r.d[1] * qy)) * idet;
+  float tt = __fmaf_rn(e2z, qz, __fmaf_rn(e2x, qx, e2y * qy)) * idet;
+  if (uu > 0.0f && uu < 1.0f && vv > 0.0f && uu + vv < 1.0f && tt > 0.0f &&
+      tt < t_c)
+    t_c = tt;
+}
+
+// A group of kLeafSub neighbouring lanes of a warp shares kLeafRays rays,
+// ray group * kLeafRays + i in its slot i. The threads fill whole blocks
+// (the last block's extra groups trace rays of the tile again and store
+// nothing), so every warp is whole for the shuffles.
+__global__ void __launch_bounds__(kLeafThreads)
 leaf_mt_kernel(const float* __restrict__ rows, const float* __restrict__ o,
                const float* __restrict__ d, int lanes, int total, int iters,
                float* __restrict__ out) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const bvh::Ray r = tile_ray(o, d, nullptr, lanes, g % lanes);
-  float t_c = 1e20f;
-  for (int i = 0; i < iters; ++i) {
-    const float* row = rows + (i % kRows) * bvh::kRow;
+  __shared__ float4 srows[kRows * kLeafWords];
+  for (int e = threadIdx.x; e < kRows * kLeafWords; e += blockDim.x)
+    srows[e] = bvh::load4(rows + (e / kLeafWords) * bvh::kRow +
+                          4 * (e % kLeafWords));
+  __syncthreads();
+  const int group = (blockIdx.x * blockDim.x + threadIdx.x) / kLeafSub;
+  const int q = threadIdx.x % kLeafSub;
+  bvh::Ray r[kLeafRays];
+  float t_c[kLeafRays];
 #pragma unroll
-    for (int k = 0; k < kLeafSize; ++k) {
-      const float* s = row + k * 12;
-      float p0x = s[0], p0y = s[1], p0z = s[2];
-      float e1x = s[3], e1y = s[4], e1z = s[5];
-      float e2x = s[6], e2y = s[7], e2z = s[8];
-      float px = __fmaf_rn(r.d[1], e2z, -(r.d[2] * e2y));
-      float py = __fmaf_rn(r.d[2], e2x, -(r.d[0] * e2z));
-      float pz = __fmaf_rn(r.d[0], e2y, -(r.d[1] * e2x));
-      float det = __fmaf_rn(e1z, pz, __fmaf_rn(e1x, px, e1y * py));
-      float idet = 1.0f / det;
-      float tx = r.o[0] - p0x;
-      float ty = r.o[1] - p0y;
-      float tz = r.o[2] - p0z;
-      float uu = __fmaf_rn(tz, pz, __fmaf_rn(tx, px, ty * py)) * idet;
-      float qx = __fmaf_rn(ty, e1z, -(tz * e1y));
-      float qy = __fmaf_rn(tz, e1x, -(tx * e1z));
-      float qz = __fmaf_rn(tx, e1y, -(ty * e1x));
-      float vv = __fmaf_rn(r.d[2], qz, __fmaf_rn(r.d[0], qx, r.d[1] * qy)) *
-                 idet;
-      float tt = __fmaf_rn(e2z, qz, __fmaf_rn(e2x, qx, e2y * qy)) * idet;
-      if (uu > 0.0f && uu < 1.0f && vv > 0.0f && uu + vv < 1.0f &&
-          tt > 0.0f && tt < t_c)
-        t_c = tt;
+  for (int i = 0; i < kLeafRays; ++i) {
+    r[i] = tile_ray(o, d, nullptr, lanes, (group * kLeafRays + i) % lanes);
+    t_c[i] = 1e20f;
+  }
+  for (int it = 0; it < iters; ++it) {
+    const float4* row = srows + (it % kRows) * kLeafWords;
+#pragma unroll
+    for (int j = 0; j < (kLeafSize + kLeafSub - 1) / kLeafSub; ++j) {
+      const int k = q + j * kLeafSub;
+      if (k < kLeafSize) {
+        const float4 s0 = row[3 * k], s1 = row[3 * k + 1], s2 = row[3 * k + 2];
+#pragma unroll
+        for (int i = 0; i < kLeafRays; ++i)
+          leaf_probe_slot(s0, s1, s2, r[i], t_c[i]);
+      }
     }
   }
-  out[g] = t_c;
+#pragma unroll
+  for (int i = 0; i < kLeafRays; ++i) {
+#pragma unroll
+    for (int off = 1; off < kLeafSub; off <<= 1) {
+      const float other = __shfl_xor_sync(0xFFFFFFFFu, t_c[i], off);
+      if (other < t_c[i]) t_c[i] = other;
+    }
+    if (q == 0 && group * kLeafRays + i < total)
+      out[group * kLeafRays + i] = t_c[i];
+  }
 }
 
 // The cluster pop's body: every slot's arithmetic term for term as the
@@ -762,8 +827,11 @@ int gpt_roofline_node_slab(const float* rows, const float* o,
 int gpt_roofline_leaf_mt(const float* rows, const float* o, const float* d,
                          int g, int iters, int copies, float* out,
                          void* stream) {
-  int lanes = g * kLanes, total = lanes * copies;
-  leaf_mt_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+  const int lanes = g * kLanes, total = lanes * copies;
+  const long long threads =
+      (long long)(total + kLeafRays - 1) / kLeafRays * kLeafSub;
+  leaf_mt_kernel<<<(int)((threads + kLeafThreads - 1) / kLeafThreads),
+                   kLeafThreads, 0, (cudaStream_t)stream>>>(
       rows, o, d, lanes, total, iters, out);
   return (int)cudaGetLastError();
 }

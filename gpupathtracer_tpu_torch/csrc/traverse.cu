@@ -39,7 +39,12 @@
 // asks for all their rows before it works on the first. What bounds them is
 // what bounds B1, with their stacks in local memory, plus the registers of
 // W rays (interleave) or the extra children that pruning against a stale t
-// lets in (multi-pop).
+// lets in (multi-pop). For the multi-pop schedule, the rows of its pops
+// held in registers (56 a row), its stack in shared memory (whole or its
+// first 16-64 entries) and other block sizes and register caps were each
+// slower on the main path's rays (tools/torch_walk_variants.py --groups
+// multi, PERF.md section 6): the prefetch hints keep the Q rows in flight
+// without the registers that would cut the warps hiding the same latency.
 //
 // Every kernel has a kStats instantiation, launched when the caller passes
 // a stats array: the pop counters of the TPU kernels' with_stats, per ray,

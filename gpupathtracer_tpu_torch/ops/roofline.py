@@ -280,6 +280,9 @@ def leaf_mt(rows, o, d, inv, *, iters: int, copies: int = 1):
     g = _check_rays(rows, o, d, inv, ROWS, LANES)
     if o.device.type == "cpu":
         return _copies(leaf_mt_plain(rows, o, d, inv, iters=iters), copies)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary (the kernel "
+                         "stages them as 16-byte loads)")
     out = torch.empty((copies, g, LANES), dtype=torch.float32,
                       device=o.device)
     with torch.cuda.device(o.device):
@@ -296,30 +299,36 @@ def leaf_mt_plain(rows, o, d, inv, *, iters: int):
     fma(e1z, pz, fma(e1x, px, e1y * py)) (the CUDA probe does the same, for
     the same instructions as bvh_walk.cuh ``intersect_leaf``)."""
     shape = o.shape[1:]
+    t_c = torch.full((o[0].numel(),), 1e20, dtype=torch.float32,
+                     device=o.device)
+    for i in range(iters):
+        for k in range(LEAF_SIZE):
+            t, valid = leaf_mt_slot(rows[i % ROWS], k, o, d)
+            t_c = torch.where(valid & (t < t_c), t, t_c)
+    return t_c.reshape(shape)
+
+
+def leaf_mt_slot(row, k: int, o, d):
+    """Slot k of one leaf row against every lane of rays o, d [3, G, 128]:
+    (t, valid) flat [G * 128], valid the probe's test but for t < t_c (which
+    alone depends on the lane's running t_c)."""
     ox, oy, oz = (o[a].reshape(-1) for a in range(3))
     dx, dy, dz = (d[a].reshape(-1) for a in range(3))
-    t_c = torch.full_like(ox, 1e20)
-    one = torch.ones_like(ox)
-    for i in range(iters):
-        row = rows[i % ROWS]
-        for k in range(LEAF_SIZE):
-            p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-                row[k * 12 + j].expand_as(ox) for j in range(9))
-            px = fma32(dy, e2z, -(dz * e2y))
-            py = fma32(dz, e2x, -(dx * e2z))
-            pz = fma32(dx, e2y, -(dy * e2x))
-            idet = one / fma32(e1z, pz, fma32(e1x, px, e1y * py))
-            tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
-            u = fma32(tz, pz, fma32(tx, px, ty * py)) * idet
-            qx = fma32(ty, e1z, -(tz * e1y))
-            qy = fma32(tz, e1x, -(tx * e1z))
-            qz = fma32(tx, e1y, -(ty * e1x))
-            v = fma32(dz, qz, fma32(dx, qx, dy * qy)) * idet
-            t = fma32(e2z, qz, fma32(e2x, qx, e2y * qy)) * idet
-            ok = ((u > 0.0) & (u < 1.0) & (v > 0.0) & (u + v < 1.0)
-                  & (t > 0.0) & (t < t_c))
-            t_c = torch.where(ok, t, t_c)
-    return t_c.reshape(shape)
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        row[k * 12 + j].expand_as(ox) for j in range(9))
+    px = fma32(dy, e2z, -(dz * e2y))
+    py = fma32(dz, e2x, -(dx * e2z))
+    pz = fma32(dx, e2y, -(dy * e2x))
+    idet = torch.ones_like(ox) / fma32(e1z, pz, fma32(e1x, px, e1y * py))
+    tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
+    u = fma32(tz, pz, fma32(tx, px, ty * py)) * idet
+    qx = fma32(ty, e1z, -(tz * e1y))
+    qy = fma32(tz, e1x, -(tx * e1z))
+    qz = fma32(tx, e1y, -(ty * e1x))
+    v = fma32(dz, qz, fma32(dx, qx, dy * qy)) * idet
+    t = fma32(e2z, qz, fma32(e2x, qx, e2y * qy)) * idet
+    return t, ((u > 0.0) & (u < 1.0) & (v > 0.0) & (u + v < 1.0)
+               & (t > 0.0))
 
 
 def cluster_dense(blk, o, d, inv, *, iters: int, any_hit: bool = False,

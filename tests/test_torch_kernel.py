@@ -344,6 +344,32 @@ def cluster_tie_blocks(tc, seed=0):
     return blk
 
 
+def leaf_probe_case(g, seed=0):
+    """Rows [64, 128] and rays o, d, inv [3, G, 128] (float32 numpy) for the
+    leaf probe, with its edge cases in every row: slot 0 all zero (det = 0,
+    so u is NaN), slot 3 a copy of slot 2 (equal t: the first keeps it),
+    slot 1 in a plane z = const that the rays of lanes 0, 4, 8, ... run
+    parallel to (d_z = 0: det = +-0); lanes 1, 5, 9, ... point away from
+    the centre of the rows' unit box, so that most triangles lie behind
+    them (t < 0). Random triangles in [0, 1) and rays from [-0.5, 1.5)
+    otherwise."""
+    rng = np.random.RandomState(seed)
+    rows = rng.uniform(0, 1, (64, 128)).astype(np.float32)
+    rows[:, 0:12] = 0.0
+    rows[:, 36:48] = rows[:, 24:36]
+    rows[:, 12 + 5] = 0.0   # e1z
+    rows[:, 12 + 8] = 0.0   # e2z
+    o = rng.uniform(-0.5, 1.5, (3, g, 128)).astype(np.float32)
+    d = rng.normal(size=(3, g, 128)).astype(np.float32)
+    lane = np.arange(g * 128).reshape(g, 128)
+    d[2][lane % 4 == 0] = 0.0
+    away = lane % 4 == 1
+    d[:, away] = o[:, away] - 0.5
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    with np.errstate(divide="ignore"):
+        return rows, o, d, (1.0 / d).astype(np.float32)
+
+
 def _nearest_f32(v: Fraction) -> np.float32:
     """The float32 nearest to v, ties to even."""
     f = np.float32(float(v))
@@ -764,6 +790,56 @@ def test_schedule_kernels_match_plain_on_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("part", ["depths", "masks", "repeat"])
+def test_multi_kernels_on_cuda(part):
+    """B8 (Q = 2 and 4) with counters against its plain version, every
+    field and the [N, 3] counts bitwise, on 65,535 rays: "depths" at stack
+    bounds 2 (stacks of 2Q: pushes are dropped) and 4 and at
+    the largest (stack_depth * Q = 192); "masks" with 2% of the rays active
+    and with none (no pops, t_max, no hit); "repeat" two launches in a row
+    on one stream, equal, each counted in LAUNCHES."""
+    _need_cuda()
+    case = _soup_case(7, leaf=10, n_tris=4000, n_rays=65535)
+    rows = _rows(case, "cuda")
+    act = case["act"]
+    if part == "masks":
+        masks = (act & (np.random.RandomState(2).rand(act.size) < 0.02),
+                 np.zeros_like(act))
+    else:
+        masks = (act,)
+    launches = dict(kt.LAUNCHES)
+    calls = 0
+    for q in kt.VARIANTS:
+        depths = ((2, 4, kt.MAX_STACK // q) if part == "depths"
+                  else (case["depth"],))
+        for depth, mask in ((x, m) for x in depths for m in masks):
+            case["act"] = mask
+            kw = dict(stack_depth=depth, leaf_size=10, multi_pop=q,
+                      with_stats=True)
+            for fn, plain, t_max in ((kt.closest, kt.closest_plain,
+                                      case["far"]),
+                                     (kt.anyhit, kt.anyhit_plain,
+                                      case["t_occ"])):
+                rays = _port(case, t_max, "cuda")
+                got = fn(rows, *rays, **kw)
+                calls += 1
+                _equal_bits(got, plain(rows, *rays, **kw))
+                if depth == 2:
+                    assert int(got[-1][:, 2].sum()) > 0
+                if not mask.any():
+                    assert int(got[-1].abs().sum()) == 0
+                    assert not (got[0] if fn is kt.anyhit
+                                else got[1] >= 0).any()
+                if part == "repeat":
+                    _equal_bits(fn(rows, *rays, **kw), got)
+                    calls += 1
+    case["act"] = act
+    assert kt.LAUNCHES["trace_closest_stats"] + \
+        kt.LAUNCHES["trace_anyhit_stats"] == \
+        launches["trace_closest_stats"] + launches["trace_anyhit_stats"] + calls
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("depth", [8, 58, 192])
 def test_interleave_kernels_on_cuda(depth):
     """B7 (W = 2 and 4) with counters against its plain version and against
@@ -955,6 +1031,20 @@ def test_roofline_probes_match_plain_on_cuda():
         want = plain(rows, o, d, inv, iters=7)
         assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
                    for g in got)
+    # The leaf body on leaf_probe_case's edge rows (det = 0, equal t,
+    # parallel rays, rays pointing away) and on random rows, at G = 1 and
+    # 16, one copy and 33, at 70 pops (the rows wrap at 64).
+    for g in (1, 16):
+        edge = [t(x) for x in leaf_probe_case(g, seed=g)]
+        rand = [rows] + [x[:, :g].contiguous() for x in (o, d, inv)]
+        for args in (edge, rand):
+            want = rl.leaf_mt_plain(*args, iters=70).view(torch.int32)
+            assert (want.view(torch.float32) < 1e19).any()
+            for copies in (1, 33):
+                got = rl.leaf_mt(*args, iters=70, copies=copies)
+                assert got.shape == (copies, g, 128)
+                assert all(torch.equal(c.view(torch.int32), want)
+                           for c in got)
     # The cluster body on random blocks, then on cluster_tie_blocks (equal
     # t at slots j, j + 32, ...: the lowest slot wins) at G = 16 and the
     # copies of tools/torch_roofline.py (four 128-lane blocks a SM).

@@ -30,7 +30,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from gpupathtracer_tpu_torch.ops import roofline as rl
-from test_torch_kernel import cluster_tie_blocks
+from test_torch_kernel import cluster_tie_blocks, leaf_probe_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G, ITERS = 2, 4
@@ -144,6 +144,54 @@ def test_leaf_mt_probe_matches_jax(jroof, rays):
     got = rl.leaf_mt(*map(torch.from_numpy, rays), iters=ITERS)
     assert (want < 1e19).mean() > 0.1  # the rays hit triangles
     np.testing.assert_array_equal(_bits(got[0].numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("iters", [70, 130])
+def test_leaf_mt_probe_edge_rows_match_jax(jroof, iters):
+    """test_torch_kernel.leaf_probe_case (a zeroed triangle, det = 0; a
+    duplicated one, equal t; rays parallel to a triangle's plane or
+    pointing away from the triangles) at iteration counts that wrap the 64
+    rows: every copy bitwise the JAX probe's."""
+    case = leaf_probe_case(G)
+    want = _pallas(functools.partial(jroof.leaf_mt_kernel, leaf_size=10),
+                   (G, 128), *map(jnp.asarray, case), iters=iters, G=G)
+    rows, o, d, inv = map(torch.from_numpy, case)
+    got = rl.leaf_mt(rows, o, d, inv, iters=iters, copies=2)
+    for c in range(2):
+        np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+    assert 0.1 < (want < 1e19).mean() < 0.99
+    # The edges are there: slot 0 fails everywhere, slot 1 on the parallel
+    # lanes, slots 2 and 3 give equal t.
+    parallel = (np.arange(G * 128) % 4 == 0)
+    for i in range(64):
+        assert not rl.leaf_mt_slot(rows[i], 0, o, d)[1].any()
+        assert not rl.leaf_mt_slot(rows[i], 1, o, d)[1][parallel].any()
+        t2, t3 = (rl.leaf_mt_slot(rows[i], k, o, d)[0] for k in (2, 3))
+        np.testing.assert_array_equal(_bits(t2.numpy()), _bits(t3.numpy()))
+
+
+@pytest.mark.parametrize("split", [2, 4])
+def test_leaf_mt_probe_is_order_free(split):
+    """The property the leaf probe's kernel leans on: a lane's answer is the
+    smallest valid t over every (pop, slot) it tests, whatever the order.
+    leaf_mt_plain against the slots split into ``split`` interleaved sets
+    (slots q, q + split, ...), each run with its own t_c over the pops in
+    reverse, combined by a strict minimum: bitwise, on the edge rows of
+    leaf_probe_case at 130 pops."""
+    rows, o, d, inv = map(torch.from_numpy, leaf_probe_case(G, seed=3))
+    iters = 130
+    want = rl.leaf_mt_plain(rows, o, d, inv, iters=iters)
+    got = None
+    for q in range(split):
+        t_c = torch.full((G * 128,), 1e20, dtype=torch.float32)
+        for i in reversed(range(iters)):
+            for k in range(q, rl.LEAF_SIZE, split):
+                t, valid = rl.leaf_mt_slot(rows[i % rl.ROWS], k, o, d)
+                t_c = torch.where(valid & (t < t_c), t, t_c)
+        got = t_c if got is None else torch.where(t_c < got, t_c, got)
+    np.testing.assert_array_equal(_bits(got.reshape(G, 128).numpy()),
+                                  _bits(want.numpy()))
+    assert 0.1 < (want < 1e19).float().mean() < 0.99
 
 
 @pytest.mark.parametrize("tc", [128, 256])

@@ -63,9 +63,9 @@ def _pallas(case, t_max, depth=None, **kw):
     return [np.asarray(x) for x in out]
 
 
-@pytest.mark.parametrize("schedule", SCHEDULES[:3], ids=_ids)
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=_ids)
 def test_schedule_matches_pallas_kernel(case, schedule):
-    """_kernel_ilv (W = 2, 4) and _kernel_multi (Q = 2): t, prim, u, v
+    """_kernel_ilv (W = 2, 4) and _kernel_multi (Q = 2, 4): t, prim, u, v
     bitwise equal in all 512 lanes; the TPU kernel's overflow column and
     the port's latch both read 0 at a stack of stack_depth * Q."""
     stats = "multi_pop" in schedule
@@ -82,7 +82,7 @@ def test_schedule_matches_pallas_kernel(case, schedule):
         assert int(got[4][:, 2].sum()) == 0
 
 
-@pytest.mark.parametrize("schedule", [SCHEDULES[0], SCHEDULES[2]], ids=_ids)
+@pytest.mark.parametrize("schedule", SCHEDULES[0:1] + SCHEDULES[2:], ids=_ids)
 def test_schedule_anyhit_matches_pallas_kernel(case, schedule):
     want = _pallas(case, case["t_occ"], any_hit=True, ordered=False,
                    **schedule)

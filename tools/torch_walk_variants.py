@@ -5,7 +5,7 @@ tree's own kernels (the experiments behind PERF.md section 6).
     python3 tools/torch_walk_variants.py [--variants a,b] [--reps 2]
         [--checkout NAME=DIR]
         [--groups walks,mega,mega-rows,mega-profile,subpacket,dense,
-                  cluster-probe,ilv,bf16-probe]
+                  cluster-probe,ilv,bf16-probe,multi,leaf-probe]
 
 Each variant is the tree's csrc/ with a few text edits (VARIANTS), built
 with ops/cuda_build.py's nvcc flags into _build/variants/<name>/ and
@@ -42,14 +42,23 @@ groups call one (its C interface may differ). Groups of timings
                 (the A/B tool's, all active), B1 on the same rays beside it;
   bf16-probe    the bf16 product (B9b) at run_compact's two shapes, 128^3
                 and 512^3, and copies, PROBE_ITERS iterations, torch.matmul
-                on the same work (bf16 in, bf16 out) beside it.
+                on the same work (bf16 in, bf16 out) beside it;
+  multi         B8 at Q = 2 and 4, closest and any-hit, on phase 3's rays of
+                sponza and bathroom and on sponza's 2^19 incoherent rays,
+                B1 on the same rays beside it (its redesigns are the
+                multi-* variants);
+  leaf-probe    B9d at chip_smoke.py phase R's case and at
+                tools/torch_roofline.py run_phase_floors' case (its
+                redesigns are the leaf-* variants).
 
 Every variant runs beside the tree's build, in turns, and its outputs must
 be bitwise the tree's (B6: t and occlusion, which its visit order does not
 change, bitwise the per-ray kernel's; B5 and B9e: the tree's also bitwise
 its plain version's, B9e's in every copy; B7: its hits and counts bitwise
-B1's; the bf16 product: every copy equal and within chip_smoke.py's bound
-of its plain version). Prints the ptxas line of each
+B1's; B8: results and counts bitwise the tree's, t and occluded B1's where
+no push was dropped; B9d: every copy bitwise its plain version; the bf16
+product: every copy equal and within chip_smoke.py's bound of its plain
+version). Prints the ptxas line of each
 kernel a variant changes. Needs the card and nvcc; nothing here imports
 JAX.
 """
@@ -417,6 +426,307 @@ _ILV_LAUNCHES = [
                           (cudaStream_t)stream);""")]
 
 
+# The multi-pop (B8) redesigns timed against the tree's B8 (PERF.md section
+# 6), which none beat on phase 3's rays: node expansion made generic over
+# the stack it pushes to (expand_row), a block appended to bvh_walk.cuh
+# (walk_multi_split: the stack split between shared memory and a local
+# array, SplitStack; with kWin > 0 the popped rows' 224-byte heads loaded
+# into registers kWin at a time, each pop's registers taking the next head
+# as it is done, and a leaf's first slots tested from its head), and the
+# multi-pop kernels of traverse.cu launched with it (same C interface).
+_EXPAND_HEAD = """template <bool kKeys = false>
+__device__ __forceinline__ int expand_node(const float* __restrict__ row,
+                                           const Ray& r, float t,
+                                           bool ordered, int* stack,
+                                           int stride, int& sp, int depth,
+                                           float* keys = nullptr) {
+  NodeRow n;
+  load_node(row, n);
+  float key[kArity], skey[kKeys ? kArity : 1];"""
+_EXPAND_ROW = """template <bool kKeys = false, class Stack>
+__device__ __forceinline__ int expand_row(const NodeRow& n, const Ray& r,
+                                          float t, bool ordered, Stack& stack,
+                                          int& sp, int depth,
+                                          float* keys = nullptr) {
+  float key[kArity], skey[kKeys ? kArity : 1];"""
+_EXPAND_TAIL = """  sp = min(sp + total, depth);
+  return dropped;
+}
+"""
+_EXPAND_NODE = _EXPAND_TAIL + """
+// A stack as expand_row pushes to it: entry p at p[p * stride].
+struct StridedStack {
+  int* p;
+  int stride;
+  __device__ __forceinline__ int get(int i) const { return p[i * stride]; }
+  __device__ __forceinline__ void set(int i, int v) const {
+    p[i * stride] = v;
+  }
+};
+
+template <bool kKeys = false>
+__device__ __forceinline__ int expand_node(const float* __restrict__ row,
+                                           const Ray& r, float t,
+                                           bool ordered, int* stack,
+                                           int stride, int& sp, int depth,
+                                           float* keys = nullptr) {
+  NodeRow n;
+  load_node(row, n);
+  StridedStack st{stack, stride};
+  return expand_row<kKeys>(n, r, t, ordered, st, sp, depth, keys);
+}
+"""
+_MULTI_SPLIT = """// A row's first 224 bytes as fourteen 16-byte words: a node row's boxes
+// and entries, or a leaf's slots 0-3.
+constexpr int kHeadWords = 14;
+constexpr int kHeadSlots = 4;
+
+__device__ __forceinline__ void unpack_node(const float4 (&v)[kHeadWords],
+                                            NodeRow& n) {
+#pragma unroll
+  for (int q = 0; q < 12; ++q) {
+    n.b[4 * q] = v[q].x;
+    n.b[4 * q + 1] = v[q].y;
+    n.b[4 * q + 2] = v[q].z;
+    n.b[4 * q + 3] = v[q].w;
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    n.e[4 * q] = __float_as_int(v[12 + q].x);
+    n.e[4 * q + 1] = __float_as_int(v[12 + q].y);
+    n.e[4 * q + 2] = __float_as_int(v[12 + q].z);
+    n.e[4 * q + 3] = __float_as_int(v[12 + q].w);
+  }
+}
+
+// Entries below kLow in shared memory at low[p * stride] ([kLow][blockDim]
+// a block), the deeper ones in a local array (kLow = 0: all local).
+template <int kLow>
+struct SplitStack {
+  int* low;
+  int stride;
+  int high[kMaxStack > kLow ? kMaxStack - kLow : 1];
+  __device__ __forceinline__ int get(int i) const {
+    if constexpr (kLow == 0) return high[i];
+    return i < kLow ? low[i * stride] : high[i - kLow];
+  }
+  __device__ __forceinline__ void set(int i, int v) {
+    if constexpr (kLow == 0) {
+      high[i] = v;
+    } else if (i < kLow) {
+      low[i * stride] = v;
+    } else {
+      high[i - kLow] = v;
+    }
+  }
+};
+
+// The head of a popped entry's row: all fourteen words of a node row, the
+// words of a leaf's first min(count, kHeadSlots) slots, none for kInvalid.
+__device__ __forceinline__ void load_head(const float* __restrict__ rows,
+                                          int entry,
+                                          float4 (&h)[kHeadWords]) {
+  int row = entry, words = entry == kInvalid ? 0 : kHeadWords;
+  if (entry < 0) {
+    const int packed = -(entry + 1);
+    row = packed >> 4;
+    words = 3 * min(packed & 15, kHeadSlots);
+  }
+  const float* p = rows + (size_t)(words ? row : 0) * kRow;
+#pragma unroll
+  for (int k = 0; k < kHeadWords; ++k)
+    if (k < words) h[k] = load4(p + 4 * k);
+}
+
+// MtLeaf's leaf routine with the leaf's first slots in h: the same slots
+// in the same order, the rest read from the table.
+template <bool kAnyHit>
+__device__ __forceinline__ bool leaf_head(MtLeaf<kAnyHit>& leaf, int packed,
+                                          const Ray& r, float& t,
+                                          const float4 (&h)[kHeadWords]) {
+  const float* block = leaf.rows + (size_t)(packed >> 4) * kRow;
+  const int count = packed & 15;
+  for (int k = 0; k < count; ++k) {
+    const float* s = block + (k / kTrisPerRow) * kRow + (k % kTrisPerRow) * 12;
+    float4 s0, s1, s2;
+    if (k < kHeadSlots) {
+#pragma unroll
+      for (int j = 0; j < kHeadSlots; ++j) {
+        if (j == k) {
+          s0 = h[3 * j];
+          s1 = h[3 * j + 1];
+          s2 = h[3 * j + 2];
+        }
+      }
+    } else {
+      s0 = load4(s);
+      s1 = load4(s + 4);
+      s2 = load4(s + 8);
+    }
+    float tt, uu, vv;
+    if (mt_slot(s0, s1, s2, r, t, tt, uu, vv)) {
+      t = tt;
+      leaf.prim = __float_as_int(s2.y);
+      leaf.u = uu;
+      leaf.v = vv;
+      leaf.slot = s;
+      if (kAnyHit) break;
+    }
+  }
+  return leaf.prim >= 0;
+}
+
+// walk_multi's schedule on a SplitStack. Node expansions read t_entry and
+// only push; leaves read and write t and never touch the stack; so with
+// kWin > 0 the pops run in pop order as their heads arrive (an any-hit
+// walk that hits still expands the iteration's remaining nodes, for the
+// counts), and with kWin = 0 as walk_multi runs them.
+template <int Q, bool kAnyHit, bool kStats, int kWin, class Stack>
+__device__ __forceinline__ int walk_multi_split(
+    const float* __restrict__ rows, const Ray& r, int depth, float& t,
+    MtLeaf<kAnyHit>& leaf, Pops* pops, Stack& stack) {
+  int sp = 1, dropped = 0;
+  stack.set(0, 0);  // root node row
+  while (sp > 0) {
+    int entry[Q];
+    int n = 0;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (sp > 0) {
+        entry[q] = stack.get(--sp);
+        if constexpr (kWin == 0) prefetch_entry(rows, entry[q]);
+        n = q + 1;
+      }
+    }
+    const float t_entry = t;
+    if constexpr (kWin == 0) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (q < n && entry[q] >= 0) {
+          if constexpr (kStats) ++pops->node;
+          NodeRow nr;
+          load_node(rows + (size_t)entry[q] * kRow, nr);
+          dropped += expand_row(nr, r, t_entry, !kAnyHit, stack, sp, depth);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (q < n && entry[q] < 0) {
+          if constexpr (kStats) ++pops->leaf;
+          if (leaf(-(entry[q] + 1), r, t) && kAnyHit) return dropped;
+        }
+      }
+    } else {
+      float4 h[kWin][kHeadWords];
+#pragma unroll
+      for (int q = 0; q < kWin; ++q)
+        load_head(rows, q < n ? entry[q] : kInvalid, h[q]);
+      bool hit = false;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int e = q < n ? entry[q] : kInvalid;
+        if (e >= 0 && e != kInvalid) {
+          if constexpr (kStats) ++pops->node;
+          NodeRow nr;
+          unpack_node(h[q % kWin], nr);
+          dropped += expand_row(nr, r, t_entry, !kAnyHit, stack, sp, depth);
+        } else if (e < 0 && !hit) {
+          if constexpr (kStats) ++pops->leaf;
+          hit = leaf_head(leaf, -(e + 1), r, t, h[q % kWin]) && kAnyHit;
+        }
+        if (q + kWin < Q)
+          load_head(rows, q + kWin < n ? entry[q + kWin] : kInvalid,
+                    h[q % kWin]);
+      }
+      if (hit) return dropped;
+    }
+  }
+  return dropped;
+}
+
+}  // namespace bvh"""
+_MULTI_KNOBS = """constexpr int kMinBlocks = 4;
+constexpr int kMultiSharedDepth = @SHARED@;
+constexpr int kMultiThreads = @THREADS@;
+constexpr int kMultiMinBlocks = @MIN_BLOCKS@;
+constexpr int kMultiWindow = @WINDOW@;
+"""
+_MULTI_WALK = """// `depth` is the stack bound times Q.
+template <int Q, bool kAnyHit, bool kStats>
+__device__ __forceinline__ int multi_walk(const float* __restrict__ rows,
+                                          const float* __restrict__ o,
+                                          const float* __restrict__ d, int i,
+                                          int depth, float& t,
+                                          bvh::MtLeaf<kAnyHit>& leaf,
+                                          bvh::Pops* pops) {
+  extern __shared__ int multi_stack[];
+  bvh::SplitStack<kMultiSharedDepth> stack;
+  stack.low = multi_stack + threadIdx.x;
+  stack.stride = blockDim.x;
+  return bvh::walk_multi_split<Q, kAnyHit, kStats,
+                               (kMultiWindow < Q ? kMultiWindow : Q)>(
+      rows, bvh::load_ray(o, d, i), depth, t, leaf, pops, stack);
+}
+"""
+_MULTI_LAUNCH = """// Launches one of B8's kernels with the shared part of its stacks.
+template <class... Params, class... Args>
+int launch_multi(void (*kernel)(Params...), int n, int depth,
+                 cudaStream_t stream, Args... args) {
+  return launch_b1(kernel, n, min(depth, kMultiSharedDepth), kMultiThreads,
+                   stream, args...);
+}
+
+}  // namespace
+"""
+
+
+def _multi(shared: int, threads: int, min_blocks: int, window: int) -> dict:
+    """The edits of csrc/bvh_walk.cuh and csrc/traverse.cu that make one B8
+    redesign: its stack's first `shared` entries in shared memory, `threads`
+    a block, __launch_bounds__(threads, min_blocks), `window` popped rows'
+    heads in registers."""
+    knobs = _MULTI_KNOBS
+    for key, value in (("@SHARED@", shared), ("@THREADS@", threads),
+                       ("@MIN_BLOCKS@", min_blocks), ("@WINDOW@", window)):
+        knobs = knobs.replace(key, str(value))
+    walk = []
+    for q in ("false", "true"):
+        walk.append((f"""    dropped = bvh::walk_multi<Q, {q}, bvh::MtLeaf<{q}>, kStats>(
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);""",
+                     f"""    dropped = multi_walk<Q, {q}, kStats>(rows, o, d, i, depth, t, leaf,
+                                         &pops);"""))
+    return {
+        "bvh_walk.cuh": [
+            (_EXPAND_HEAD, _EXPAND_ROW),
+            ("        stack[pos * stride] = entry[k];",
+             "        stack.set(pos, entry[k]);"),
+            ("        stack[pos * stride] = entry[j];",
+             "        stack.set(pos, entry[j]);"),
+            (_EXPAND_TAIL, _EXPAND_NODE),
+            ("}  // namespace bvh", _MULTI_SPLIT)],
+        "traverse.cu": [
+            ("constexpr int kMinBlocks = 4;\n", knobs),
+            ("// `depth` is the stack bound times Q.\n", _MULTI_WALK),
+            ("__launch_bounds__(kThreads)\ntrace_closest_multi_kernel(",
+             "__launch_bounds__(kMultiThreads, kMultiMinBlocks)\n"
+             "trace_closest_multi_kernel("),
+            ("__launch_bounds__(kThreads)\ntrace_anyhit_multi_kernel(",
+             "__launch_bounds__(kMultiThreads, kMultiMinBlocks)\n"
+             "trace_anyhit_multi_kernel("),
+            *walk,
+            ("}  // namespace\n", _MULTI_LAUNCH),
+            ("""  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
+  return (int)cudaGetLastError();""",
+             """  return launch_multi(kernel, n, depth, (cudaStream_t)stream, rows, o, d,
+                      t_max, active, n, depth, t, prim, u, v, stats);"""),
+            ("""  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      rows, o, d, t_max, active, n, depth, occluded, stats);
+  return (int)cudaGetLastError();""",
+             """  return launch_multi(kernel, n, depth, (cudaStream_t)stream, rows, o, d,
+                      t_max, active, n, depth, occluded, stats);""")]}
+
+
 def _ilv(fetch: bool, refill: bool = True, shared: bool = False,
          threads: int = 128) -> dict:
     """The edits of csrc/traverse.cu that make one interleave redesign."""
@@ -426,6 +736,11 @@ def _ilv(fetch: bool, refill: bool = True, shared: bool = False,
         code = code.replace(key, str(value).lower())
     return {"traverse.cu": [(_ILV_ANCHOR, code + _ILV_ANCHOR)] +
             _ILV_LAUNCHES}
+
+
+def _leaf(old: str, new: str) -> dict:
+    """One edit of B9d's kernel in csrc/roofline.cu."""
+    return {"roofline.cu": [(old, new)]}
 
 
 # Sources a --checkout build takes, each built as it is.
@@ -621,6 +936,59 @@ VARIANTS = {
         "the bf16 product with two k steps a wgmma group", ("roofline",),
         {"roofline.cu": [("constexpr int kGroup = 4;",
                           "constexpr int kGroup = 2;")]}),
+    "multi-shared": (
+        "B8's whole stack in shared memory, [depth][blockDim] (B1's), 64 "
+        "threads, 64 registers", ("traverse",), _multi(192, 64, 16, 0)),
+    "multi-split-16": (
+        "B8's stack split: its first 16 entries in shared memory (4 KB a "
+        "block), the rest local; 64 threads, 64 registers", ("traverse",),
+        _multi(16, 64, 16, 0)),
+    "multi-split-32": ("multi-split-16 at 32 entries (8 KB a block)",
+                       ("traverse",), _multi(32, 64, 16, 0)),
+    "multi-split-64": ("multi-split-16 at 64 entries (16 KB a block)",
+                       ("traverse",), _multi(64, 64, 16, 0)),
+    "multi-split-32-uncapped": ("multi-split-32 without a register cap",
+                                ("traverse",), _multi(32, 64, 1, 0)),
+    "multi-split-32-128": ("multi-split-32 at 128 threads a block",
+                           ("traverse",), _multi(32, 128, 8, 0)),
+    "multi-split-32-256": ("multi-split-32 at 256 threads a block",
+                           ("traverse",), _multi(32, 256, 4, 0)),
+    "multi-local-128": (
+        "the redesign's code with the parent's layout: the stack local, 128 "
+        "threads, no register cap", ("traverse",), _multi(0, 128, 1, 0)),
+    "multi-local-256": (
+        "the stack local, 256 threads a block, 64 registers", ("traverse",),
+        _multi(0, 256, 4, 0)),
+    "multi-window-1": (
+        "multi-split-32 with the next popped row's head in registers (pops "
+        "in pop order), no register cap", ("traverse",), _multi(32, 64, 1, 1)),
+    "multi-window-2": (
+        "multi-split-32 with two popped rows' heads in registers, no "
+        "register cap", ("traverse",), _multi(32, 64, 1, 2)),
+    "multi-window-2-shared": (
+        "two popped rows' heads in registers, the whole stack in shared "
+        "memory, no register cap", ("traverse",), _multi(192, 64, 1, 2)),
+    "leaf-sub-1": ("B9d with one thread a ray (no slot split)",
+                   ("roofline",), _leaf("kLeafSub = 2", "kLeafSub = 1")),
+    "leaf-sub-4": ("B9d with four threads sharing a ray's slots",
+                   ("roofline",), _leaf("kLeafSub = 2", "kLeafSub = 4")),
+    "leaf-rays-2": ("B9d with two rays a thread", ("roofline",),
+                    _leaf("kLeafRays = 1", "kLeafRays = 2")),
+    "leaf-rays-4": ("B9d with four rays a thread", ("roofline",),
+                    _leaf("kLeafRays = 1", "kLeafRays = 4")),
+    "leaf-128": ("B9d with 128 threads a block", ("roofline",),
+                 _leaf("kLeafThreads = 256", "kLeafThreads = 128")),
+    "leaf-frcp": (
+        "B9d's division as __frcp_rn (a correctly rounded reciprocal: the "
+        "same bits)", ("roofline",),
+        _leaf("  float idet = 1.0f / det;\n  float tx = r.o[0] - p0x;",
+              "  float idet = __frcp_rn(det);\n  float tx = r.o[0] - p0x;")),
+    "leaf-global": (
+        "B9d reading its slots from the table in global memory (L1), not "
+        "the staged rows", ("roofline",),
+        _leaf("    const float4* row = srows + (it % kRows) * kLeafWords;",
+              "    const float4* row = reinterpret_cast<const float4*>(\n"
+              "        rows + (it % kRows) * bvh::kRow);")),
     "b4-four-blocks": (
         "B4 closest with 48 KB of idle shared memory a block (four blocks "
         "an SM)", ("cluster_traverse",),
@@ -647,7 +1015,10 @@ KERNELS = ("trace_closest_kernel<0>", "trace_anyhit_kernel<0>",
            "trace_closest_ilv_kernel<2, 0>", "trace_anyhit_ilv_kernel<2, 0>",
            "trace_closest_ilv_kernel<4, 0>", "trace_anyhit_ilv_kernel<4, 0>",
            "mxu_bf16_kernel", "mxu_wgmma_kernel<128, 0>",
-           "mxu_wgmma_kernel<136, 1>")
+           "mxu_wgmma_kernel<136, 1>", "trace_closest_multi_kernel<2, 0>",
+           "trace_anyhit_multi_kernel<2, 0>",
+           "trace_closest_multi_kernel<4, 0>",
+           "trace_anyhit_multi_kernel<4, 0>", "leaf_mt_kernel")
 
 
 def _printed(line: str) -> bool:
@@ -1214,15 +1585,149 @@ def time_bf16_probe(libs: dict, reps: int, device) -> None:
                   f"{lib:.4f} ms: " + ", ".join(line), flush=True)
 
 
+def time_multi(libs: dict, reps: int, device) -> None:
+    """B8 at Q = 2 and 4, closest and any-hit, on phase 3's rays of sponza
+    and bathroom and on sponza's 2^19 incoherent rays (t_max 1e20, all
+    active), B1 beside it. The stack bound is the scene's, at most 192 / Q
+    (sponza's 58 at Q = 4 would need 232 entries). Every build's results
+    and [N, 3] counts bitwise the tree's; t and occluded bitwise B1's in
+    every lane that dropped no push."""
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    bench = cs._tool_module("torch_kernel_bench")
+    for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
+        cfg = cs._scene_cfg(name, w, h)
+        scene, meta = load_scene(cfg, device)
+        rows = scene.node_rows
+        o, d, t_occ, on = cs._test_rays(scene, meta, cfg, device)
+        far = torch.full((o.shape[0],), 1e20, device=device)
+        sets = {"phase 3": (o, d, far, t_occ, on)}
+        if name == "sponza":
+            o2, d2 = bench.make_rays(f"proc:{name}", scene, meta, 1 << 19,
+                                     device)["incoherent"]
+            far2 = torch.full((1 << 19,), 1e20, device=device)
+            sets["2^19 incoherent"] = (o2, d2, far2, far2, torch.ones_like(
+                far2, dtype=torch.bool))
+        for tag, (o_, d_, tc, ta, act) in sets.items():
+            kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+            b1 = (kt.closest(rows, o_, d_, tc, act, **kw),
+                  kt.anyhit(rows, o_, d_, ta, act, **kw))
+            qs = {q: dict(kw, multi_pop=q, stack_depth=min(
+                meta.stack_depth, kt.MAX_STACK // q)) for q in kt.VARIANTS}
+            ref = {q: (kt.closest(rows, o_, d_, tc, act, with_stats=True,
+                                  **k),
+                       kt.anyhit(rows, o_, d_, ta, act, with_stats=True,
+                                 **k)) for q, k in qs.items()}
+            for q, (c, a) in ref.items():
+                for got, st, want in ((c[0], c[4], b1[0][0]),
+                                      (a[0], a[1], b1[1])):
+                    kept = st[:, 2] == 0
+                    if not torch.equal(cs._bits(got)[kept],
+                                       cs._bits(want)[kept]):
+                        raise AssertionError(f"[{name} {tag}] B8 Q={q} "
+                                             f"differs from B1")
+            for rep in range(reps):
+                ms_c = cs._events_ms(lambda: kt.closest(rows, o_, d_, tc, act,
+                                                        **kw), 10)
+                ms_a = cs._events_ms(lambda: kt.anyhit(rows, o_, d_, ta, act,
+                                                       **kw), 10)
+                line = [f"B1 {ms_c:.4f} / {ms_a:.4f}"]
+                for label, ctx, _ in runs(libs, "traverse", kt):
+                    with ctx:
+                        for q, k in qs.items():
+                            cs._hold_stats(f"{label} B8 Q={q} closest",
+                                           kt.closest(rows, o_, d_, tc, act,
+                                                      with_stats=True, **k),
+                                           ref[q][0])
+                            cs._hold_stats(f"{label} B8 Q={q} any-hit",
+                                           kt.anyhit(rows, o_, d_, ta, act,
+                                                     with_stats=True, **k),
+                                           ref[q][1])
+                            cs._hold_hits(f"{label} B8 Q={q} closest",
+                                          kt.closest(rows, o_, d_, tc, act,
+                                                     **k), ref[q][0][:4])
+                            cs._hold_occluded(f"{label} B8 Q={q} any-hit",
+                                              kt.anyhit(rows, o_, d_, ta, act,
+                                                        **k), ref[q][1][0])
+                            ms_c = cs._events_ms(lambda: kt.closest(
+                                rows, o_, d_, tc, act, **k), 10)
+                            ms_a = cs._events_ms(lambda: kt.anyhit(
+                                rows, o_, d_, ta, act, **k), 10)
+                            line.append(f"{label} Q={q} {ms_c:.4f} / "
+                                        f"{ms_a:.4f}")
+                print(f"[{name} {tag}, {o_.shape[0]} rays] closest / any-hit "
+                      f"ms, rep {rep}: " + ", ".join(line), flush=True)
+
+
+def time_leaf_probe(libs: dict, reps: int, device) -> None:
+    """B9d at chip_smoke.py phase R's case (run_compact's G and copies,
+    seeded random rows and rays, PROBE_ITERS pops) and at
+    tools/torch_roofline.py run_phase_floors' case (its constant rays and
+    seed-0 rows, run_compact's 4,096 pops), each with its bound; every
+    copy bitwise the plain version at PROBE_CHECK_ITERS and at
+    LEAF_WRAP_ITERS pops, in every build."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import roofline as rl
+
+    tool = cs._tool_module("torch_roofline")
+    tool.set_device(device)
+    g = tool.COMPACT_G
+    rng = np.random.RandomState(11)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    rows = t(rng.uniform(0, 1, (64, 128)))
+    o = t(rng.uniform(-0.5, 1.5, (3, g, 128)))
+    d = torch.nn.functional.normalize(t(rng.normal(size=(3, g, 128))), dim=0)
+    floors = (t(np.random.RandomState(0).uniform(0, 1, (64, 128))),
+              *tool._rays(g))
+    copies = tool.copies_for(g * 128 // rl.THREADS)
+    work = g * 128 * rl.LEAF_SIZE * rl.MT_SLOT * copies
+    for tag, args, iters in (("phase R", (rows, o, d, 1.0 / d),
+                              cs.PROBE_ITERS["roofline_leaf_mt"]),
+                             ("run_phase_floors", floors, 1 << 12)):
+        want = [rl.leaf_mt_plain(*args, iters=n).view(torch.int32)
+                for n in (cs.PROBE_CHECK_ITERS, cs.LEAF_WRAP_ITERS)]
+        bound = 1e3 * work * iters / cs.PEAK_FP32_INSTR
+        for rep in range(reps):
+            line = []
+            for label, ctx, _ in runs(libs, "roofline", rl):
+                with ctx:
+                    for n, w in zip((cs.PROBE_CHECK_ITERS,
+                                     cs.LEAF_WRAP_ITERS), want):
+                        got = rl.leaf_mt(*args, iters=n, copies=copies)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(c.view(torch.int32), w)
+                                   for c in got):
+                            raise AssertionError(f"{label} B9d {tag}: a copy "
+                                                 f"differs from the plain "
+                                                 f"version at {n} pops")
+                    ms = cs._events_ms(lambda: rl.leaf_mt(
+                        *args, iters=iters, copies=copies), 3)
+                line.append(f"{label} {ms:.4f} ({bound / ms:.1%})")
+            print(f"[B9d {tag}, G={g} x{copies}, {iters} pops] rep {rep}, "
+                  f"bound {bound:.4f} ms: " + ", ".join(line) + " ms",
+                  flush=True)
+
+
 GROUPS = ("walks", "mega", "mega-rows", "mega-profile", "subpacket", "dense",
-          "cluster-probe", "ilv", "bf16-probe")
+          "cluster-probe", "ilv", "bf16-probe", "multi", "leaf-probe")
 # The csrc/ sources each group's timings run.
 GROUP_SOURCES = {"walks": ("traverse", "cluster_traverse"),
                  "mega": ("megakernel",), "mega-rows": ("megakernel",),
                  "mega-profile": ("megakernel",),
                  "subpacket": ("subpacket_traverse", "traverse"),
                  "dense": ("dense_intersect",), "cluster-probe": ("roofline",),
-                 "ilv": ("traverse",), "bf16-probe": ("roofline",)}
+                 "ilv": ("traverse",), "bf16-probe": ("roofline",),
+                 "multi": ("traverse",), "leaf-probe": ("roofline",)}
 
 
 def main(argv=None) -> int:
@@ -1286,6 +1791,10 @@ def main(argv=None) -> int:
         time_ilv(built, args.reps, device)
     if "bf16-probe" in groups:
         time_bf16_probe(built, args.reps, device)
+    if "multi" in groups:
+        time_multi(built, args.reps, device)
+    if "leaf-probe" in groups:
+        time_leaf_probe(built, args.reps, device)
     return 0
 
 
