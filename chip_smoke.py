@@ -16,7 +16,7 @@ nvcc and g++. Phases, each of which raises on failure:
      (csrc/roofline.cu) with nvcc, all at once; ptxas registers, stack
      frame and spills of every instantiation, and any wgmma chain ptxas
      serializes; the bf16 product's kernel must issue HGMMA (its SASS,
-     cuobjdump);
+     cuobjdump); the node probe's longest loop in its SASS, by opcode;
   R. the roofline probes: each against its plain version at a small
      iteration count in every copy (bitwise; the bf16 product within a
      stated bound, its maximum printed), at every shape, tile, tc and mode
@@ -24,8 +24,10 @@ nvcc and g++. Phases, each of which raises on failure:
      also on the tie blocks of tests/test_torch_kernel.py, tc 128 and
      256: equal t at slots j, j + 32, ..., the lowest slot wins; the leaf
      body also on the edge rows of tests/test_torch_kernel.py, det = 0,
-     equal t, rays parallel to a triangle or pointing away, at G = 16 and
-     1 and at 70 pops, the rows wrapping), and the f32
+     equal t, rays parallel to a triangle or pointing away, and the node
+     body on its edge rows, flat, point, inverted and half-unbounded boxes,
+     a box around every origin, zero direction components and o * inv NaN,
+     each at G = 16 and 1 and at 70 pops, the rows wrapping), and the f32
      product at the other shapes of its main(); the first of each timed
      (the bf16 product at both its shapes, 128^3 and 512^3) with its plain
      version and, for the products, torch.matmul on the same shapes, with
@@ -109,6 +111,10 @@ nvcc and g++. Phases, each of which raises on failure:
      bathroom 1280x720 (Beckmann, DoF) at 4 spp and sponza 1920x1080 with
      64 bounces at 1 spp, --cluster-tris 128; both cluster entry points
      launched and neither MT entry point;
+  7b. the port bench, tools/torch_bench.py --quick, in process: every
+     quick row present (realtime direct, the sponza 640x360 probe of
+     default, fpair and tsort, the winner's timed batches), its times
+     finite and positive, both MT entry points launched and no other;
   8. the megakernel against its plain torch version on the card: bathroom
      256x144 (Beckmann, default DoF camera, 64 bounces) at 1 spp and with
      in-kernel regeneration at 4 spp, table 200x150 direct at 8 spp, on
@@ -1408,6 +1414,34 @@ def run_kernel_bench(scenes) -> dict:
     return launches
 
 
+def bench_quick() -> None:
+    """Phase 7b: tools/torch_bench.py --quick in process (sponza 640x360:
+    the realtime direct row, the probe of default, fpair and tsort, the
+    winner's timed batches): every quick row present, its times finite and
+    positive, its launches counted; the headline finite and positive."""
+    tool = _tool_module("torch_bench")
+    line = {}
+    _drive("bench quick path", ("trace_closest", "trace_anyhit"),
+           lambda: line.update(tool.main(["--quick"])))
+    rows = line["extra"]["rows"]
+    if list(rows) != tool.row_names(quick=True):
+        raise AssertionError(f"[bench] rows {list(rows)}, expected "
+                             f"{tool.row_names(quick=True)}")
+    for name, row in rows.items():
+        bad = [k for k in ("s_per_call", "spp_s", "mrays_s")
+               if not (math.isfinite(row[k]) and row[k] > 0)]
+        if bad or row["launches"]["trace_closest"] <= 0:
+            raise AssertionError(f"[bench] row {name}: {bad or 'no launch'} "
+                                 f"({row})")
+    if line["metric"] != "mrays_per_sec_sponza_360p" or not (
+            math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"[bench] headline {line['metric']} "
+                             f"{line['value']}")
+    print(f"[bench] --quick: {line['value']:.2f} Mrays/s, probe "
+          f"{line['extra']['probes']}, rows "
+          + ", ".join(f"{k} {v['s_per_call']:.4f} s" for k, v in rows.items()))
+
+
 def _scene_cfg(name: str, width: int, height: int, **kw):
     """RenderConfig of a procedural scene at its default camera, C++ SBVH."""
     from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -1497,21 +1531,30 @@ def build_kernels() -> None:
           f"instantiation: {hgmma}")
     if not hgmma or not all(hgmma.values()):
         raise AssertionError("the bf16 product's kernel issues no wgmma")
+    mix = _sass_loop_mix(cuda_build.build("roofline")[0], "node_slab_kernel")
+    print(f"[build] node_slab_kernel SASS, its longest loop by opcode: {mix}")
+    if not mix["pops"]:
+        raise AssertionError("node_slab_kernel: no loop of node pops found "
+                             "in its SASS")
 
 
-def _sass_count(lib: str, function: str, opcode: str) -> dict:
-    """Instructions of `opcode` in the SASS of each compiled function of
-    `lib` whose name holds `function` (cuobjdump -sass)."""
+def _sass(lib: str) -> str:
+    """cuobjdump -sass of a library."""
     import shutil
 
     from gpupathtracer_tpu_torch.ops import cuda_build
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
+
+
+def _sass_count(lib: str, function: str, opcode: str) -> dict:
+    """Instructions of `opcode` in the SASS of each compiled function of
+    `lib` whose name holds `function` (cuobjdump -sass)."""
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in _sass(lib).splitlines():
         if "Function :" in line:
             name = line.split("Function :")[-1].strip()
             name = _kernel_name(name) if function in name else None
@@ -1520,6 +1563,40 @@ def _sass_count(lib: str, function: str, opcode: str) -> dict:
         elif name and opcode in line:
             counts[name] += 1
     return counts
+
+
+def _sass_loop_mix(lib: str, function: str) -> dict:
+    """The instructions of the longest loop (the span from a backward
+    branch's target to the branch) in the SASS of the first compiled
+    function of `lib` whose name holds `function`: {opcode without its
+    modifiers: count}, plus "pops": the FFMA count over the 48 a node pop
+    has (the node probe's ray-pops a loop step)."""
+    import re
+
+    instr, inside = [], False
+    for line in _sass(lib).splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = function in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)[.A-Z0-9_]*\s*([^;]*);", line)
+        if inside and m:
+            instr.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loop = (0, 0)
+    for addr, op, args in instr:
+        target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr and \
+                addr - int(target.group(1), 16) > loop[1] - loop[0]:
+            loop = (int(target.group(1), 16), addr)
+    mix = {}
+    for addr, op, _ in instr:
+        if loop[0] <= addr <= loop[1]:
+            mix[op] = mix.get(op, 0) + 1
+    mix = dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+    mix["pops"] = mix.get("FFMA", 0) / (6 * 8)
+    return mix
 
 
 # The roofline probes (phase R): FP32 instructions issue at half the 67
@@ -1534,8 +1611,9 @@ PROBE_ITERS = {"roofline_vpu": 2048, "roofline_mxu_f32": 32,
                "roofline_mxu_bf16": 32, "roofline_node_slab": 256,
                "roofline_leaf_mt": 128, "roofline_cluster_dense": 64}
 PROBE_CHECK_ITERS = 5
-# Pops of the leaf probe's wrapping check: not a multiple of its 64 rows.
-LEAF_WRAP_ITERS = 70
+# Pops of the node and leaf probes' wrapping checks: not a multiple of
+# their 64 rows.
+WRAP_ITERS = 70
 # Largest |kernel - plain| of the bf16 product, as a share of
 # max_i sum_k |a_ik| max |b| * iters (tests/test_torch_roofline.py).
 BF16_BOUND = 1e-6
@@ -1607,23 +1685,29 @@ def _probe_cases(device, tool):
          lanes // rl.THREADS, lanes * rl.LEAF_SIZE * rl.MT_SLOT, None,
          None)]
     # The leaf body on the edge rows of tests/test_torch_kernel.py (det = 0,
-    # equal t, rays parallel to a triangle or pointing away) at G = 16 and
-    # 1, and at LEAF_WRAP_ITERS pops (the 64 rows wrap), in every copy.
+    # equal t, rays parallel to a triangle or pointing away), and the node
+    # body on its own (flat, point, inverted and half-unbounded boxes, a box
+    # around every origin, so tmin < 0; zero direction components, o * inv
+    # NaN), at G = 16 and 1, and at WRAP_ITERS pops (the 64 rows wrap), in
+    # every copy.
     tests = _tool_module("test_torch_kernel", "tests")
-    for gg in (g, 1):
-        edge = [t(x) for x in tests.leaf_probe_case(gg, seed=gg)]
-        for label, args, iters in (
-                (f"G={gg} edge rows", edge, None),
-                (f"G={gg} edge rows, {LEAF_WRAP_ITERS} pops", edge,
-                 LEAF_WRAP_ITERS)):
-            cases.append((
-                "roofline_leaf_mt", label,
-                lambda it, c, a=args, n=iters: rl.leaf_mt(
-                    *a, iters=n or it, copies=c),
-                lambda it, a=args, n=iters: rl.leaf_mt_plain(
-                    *a, iters=n or it),
-                gg * 128 // rl.THREADS, gg * 128 * rl.LEAF_SIZE * rl.MT_SLOT,
-                None, None))
+    for name, probe, plain, case_of, per_lane in (
+            ("roofline_leaf_mt", rl.leaf_mt, rl.leaf_mt_plain,
+             tests.leaf_probe_case, rl.LEAF_SIZE * rl.MT_SLOT),
+            ("roofline_node_slab", rl.node_slab, rl.node_slab_plain,
+             tests.node_probe_case, rl.NODE_POP)):
+        for gg in (g, 1):
+            edge = [t(x) for x in case_of(gg, seed=gg)]
+            for label, iters in ((f"G={gg} edge rows", None),
+                                 (f"G={gg} edge rows, {WRAP_ITERS} pops",
+                                  WRAP_ITERS)):
+                cases.append((
+                    name, label,
+                    lambda it, c, p=probe, a=edge, n=iters: p(
+                        *a, iters=n or it, copies=c),
+                    lambda it, p=plain, a=edge, n=iters: p(
+                        *a, iters=n or it),
+                    gg * 128 // rl.THREADS, gg * 128 * per_lane, None, None))
     for tc, any_hit in tool.COMPACT_CLUSTER:
         blk = t(rng.uniform(-1, 1, (16, 3 * tc)))
         cases.append((
@@ -2220,6 +2304,8 @@ def main() -> int:
             "cluster path", ("trace_cluster_closest", "trace_cluster_anyhit"),
             lambda: render_main_path(tmp, CLUSTER_RUNS)))
         stamp("phase 7")
+    bench_quick()
+    stamp("phase 7b")
 
     compare_mega(device, results)
     compare_mega(device, results, cluster_tris=128)

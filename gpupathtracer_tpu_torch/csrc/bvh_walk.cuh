@@ -121,9 +121,9 @@ __device__ __forceinline__ bool slab_test(const float* b, const Ray& r,
   return tmin <= tmax && tmax > 0.0f && tmin < t;
 }
 
-// slab_test of child j of a node row read in place (the roofline probe
-// csrc/roofline.cu iterates it on its own; the sub-packet kernel reads a
-// row staged in shared memory).
+// slab_test of child j of a node row read in place (the sub-packet kernel
+// reads a row staged in shared memory; the roofline probe csrc/roofline.cu
+// calls slab_test on boxes it loads as 16-byte words).
 __device__ __forceinline__ bool slab(const float* __restrict__ row, int j,
                                      const Ray& r, float t, float& tmin) {
   return slab_test(row + j * 6, r, t, tmin);

@@ -465,27 +465,95 @@ __device__ __forceinline__ bvh::Ray tile_ray(const float* __restrict__ o,
   return r;
 }
 
-// The node pop's slab body (bvh_walk.cuh slab, the walk's own) against row
-// i % 64; acc sums the entry distances of the entered children.
-__global__ void __launch_bounds__(kThreads)
-node_slab_kernel(const float* __restrict__ rows, const float* __restrict__ o,
-                 const float* __restrict__ inv, int lanes, int total,
-                 int iters, float* __restrict__ out) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const bvh::Ray r = tile_ray(o, nullptr, inv, lanes, g % lanes);
-  float acc = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const float* row = rows + (i % kRows) * bvh::kRow;
-    const float t_cur = acc + 1e20f;
+// The node pop's slab body (bvh_walk.cuh slab_test, the walk's own) against
+// row i % 64; acc sums the entry distances of the entered children:
+// t_cur = acc + 1e20 once a pop, then for each child in turn
+// acc = acc + (hit ? tmin : 0).
+//
+// The probe is the floor that the walks' node pops are read against, so it
+// has to run at the card's rate. The first port (one thread a lane, 128 a
+// block) read a pop's 48 bounds as 48 scalar loads from global memory, every
+// lane of the grid the same address, with the address arithmetic of
+// i % 64 each pop, and reached 44.4% of its FP32 bound (NVIDIA H100 80GB
+// HBM3, 700 W): 48 loads against 169 counted instructions. Here the 64 rows'
+// used 48 floats sit in shared memory (12 KB, staged once a block), children
+// 2m and 2m + 1 come as three 16-byte words that every thread of a warp
+// reads at one address (a broadcast), so a pop is 12 loads for both of a
+// thread's rays. The term is added under the hit predicate
+// (`if (hit) acc += tmin`): acc starts at +0 and a sum that rounds to zero
+// is +0, so acc is never -0 and adding +0 is the identity; NaN and inf add
+// as before, so the bits are the select's.
+//
+// The sum is not order-free: a ray that starts inside a box enters it at a
+// negative tmin, and a sum of partial sums rounds otherwise. So one thread
+// adds a pop's eight terms in child order, and the next pop's t_cur waits
+// for them. A thread carries kNodeRays = 2 rays, each word serving both,
+// so a thread has two independent add chains. One and four rays a thread,
+// two threads a lane (four children each, the terms met by shuffles), 128
+// threads a block, four pops a loop step, the rows read from global memory
+// and the parent's select were timed beside this design as text edits of
+// it (tools/torch_walk_variants.py --groups node-probe, PERF.md section 6).
+// This design runs at 69.4% of the bound (0.1257 ms against 0.0873 for 256
+// pops x 33 copies of G = 16; the first port 0.1952-0.1974; NVIDIA H100
+// 80GB HBM3, 700 W). The bound counts 169 instructions a pop, the JAX
+// probe's; this body needs 161 (80 FMNMX, 48 FFMA, 24 FSETP, 9 FADD: no
+// select), 66.2% at that count.
+constexpr int kNodeRays = 2;
+constexpr int kNodeThreads = 256;
+constexpr int kNodeWords = bvh::kArity * 6 / 4;  // 16-byte words of a pop
+
+// The boxes of children 2m and 2m + 1 of a pop's row (words w).
+__device__ __forceinline__ void node_pair(const float4* w, int m,
+                                          float (&b)[12]) {
+  const float4 w0 = w[3 * m], w1 = w[3 * m + 1], w2 = w[3 * m + 2];
+  b[0] = w0.x, b[1] = w0.y, b[2] = w0.z, b[3] = w0.w;
+  b[4] = w1.x, b[5] = w1.y, b[6] = w1.z, b[7] = w1.w;
+  b[8] = w2.x, b[9] = w2.y, b[10] = w2.z, b[11] = w2.w;
+}
+
+// One pop of row w for each of the thread's rays.
+__device__ __forceinline__ void node_pop(const float4* w,
+                                         const bvh::Ray (&r)[kNodeRays],
+                                         float (&acc)[kNodeRays]) {
+  float b[bvh::kArity / 2][12];
+#pragma unroll
+  for (int p = 0; p < bvh::kArity / 2; ++p) node_pair(w, p, b[p]);
+#pragma unroll
+  for (int k = 0; k < kNodeRays; ++k) {
+    const float t_cur = acc[k] + 1e20f;
 #pragma unroll
     for (int j = 0; j < bvh::kArity; ++j) {
       float tmin;
-      bool hit = bvh::slab(row, j, r, t_cur, tmin);
-      acc = acc + (hit ? tmin : 0.0f);
+      if (bvh::slab_test(b[j / 2] + 6 * (j % 2), r[k], t_cur, tmin))
+        acc[k] = acc[k] + tmin;
     }
   }
-  out[g] = acc;
+}
+
+// Thread t carries rays t * kNodeRays + k. The last block's extra threads
+// trace rays of the tile again and store nothing.
+__global__ void __launch_bounds__(kNodeThreads)
+node_slab_kernel(const float* __restrict__ rows, const float* __restrict__ o,
+                 const float* __restrict__ inv, int lanes, int total,
+                 int iters, float* __restrict__ out) {
+  __shared__ float4 srows[kRows * kNodeWords];
+  for (int e = threadIdx.x; e < kRows * kNodeWords; e += blockDim.x)
+    srows[e] = bvh::load4(rows + (e / kNodeWords) * bvh::kRow +
+                          4 * (e % kNodeWords));
+  __syncthreads();
+  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) * kNodeRays;
+  bvh::Ray r[kNodeRays];
+  float acc[kNodeRays];
+#pragma unroll
+  for (int k = 0; k < kNodeRays; ++k) {
+    r[k] = tile_ray(o, nullptr, inv, lanes, (ray + k) % lanes);
+    acc[k] = 0.0f;
+  }
+  for (int i = 0; i < iters; ++i)
+    node_pop(srows + (i & (kRows - 1)) * kNodeWords, r, acc);
+#pragma unroll
+  for (int k = 0; k < kNodeRays; ++k)
+    if (ray + k < total) out[ray + k] = acc[k];
 }
 
 // The leaf pop's Moller-Trumbore body over the 10 triangles of row i % 64:
@@ -818,8 +886,10 @@ int gpt_roofline_mxu(int bf16, const void* a, const void* b, int m, int k,
 int gpt_roofline_node_slab(const float* rows, const float* o,
                            const float* inv, int g, int iters, int copies,
                            float* out, void* stream) {
-  int lanes = g * kLanes, total = lanes * copies;
-  node_slab_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+  const int lanes = g * kLanes, total = lanes * copies;
+  const long long threads = (long long)(total + kNodeRays - 1) / kNodeRays;
+  node_slab_kernel<<<(int)((threads + kNodeThreads - 1) / kNodeThreads),
+                     kNodeThreads, 0, (cudaStream_t)stream>>>(
       rows, o, inv, lanes, total, iters, out);
   return (int)cudaGetLastError();
 }

@@ -60,6 +60,9 @@ VPU_STEP = 3               # FFMA, FMUL, FMNMX per chain
 NODE_CHILD = 6 + 6 + 4 + 3 + 1 + 1  # slab FMAs, min/max, running min/max,
 #                                     compares, select, accumulate
 NODE_POP = 8 * NODE_CHILD + 1       # + t_cur
+# NODE_POP is the JAX probe's count (tools/roofline.py), kept for parity
+# with it; csrc/roofline.cu's body adds under the hit predicate and issues
+# no select, 161 instructions a pop (PERF.md section 6 gives both shares).
 MT_SLOT = 40               # csrc/bvh_walk.cuh intersect_leaf, per triangle
 CLUSTER_SLOT = 31          # cluster_min per slot: 6 dots (18), 3 adds, a
 #                            division, 2 FMAs, u + v, 4 compares, the min
@@ -234,11 +237,15 @@ def _check_rays(rows, o, d, inv, n_rows: int, width: int):
 def node_slab(rows, o, d, inv, *, iters: int, copies: int = 1):
     """``node_slab_kernel``: rows [64, 128], rays o, d, inv [3, G, 128];
     returns [copies, G, 128], each lane's sum of the entry distances of
-    the children it enters, over ``iters`` pops of row i % 64."""
+    the children it enters, over ``iters`` pops of row i % 64, a pop's
+    terms added in child order (the sum is not order-free)."""
     _positive(iters=iters, copies=copies)
     g = _check_rays(rows, o, d, inv, ROWS, LANES)
     if o.device.type == "cpu":
         return _copies(node_slab_plain(rows, o, d, inv, iters=iters), copies)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary (the kernel "
+                         "stages them as 16-byte loads)")
     out = torch.empty((copies, g, LANES), dtype=torch.float32,
                       device=o.device)
     with torch.cuda.device(o.device):

@@ -370,6 +370,46 @@ def leaf_probe_case(g, seed=0):
         return rows, o, d, (1.0 / d).astype(np.float32)
 
 
+# Children of node_probe_case's rows, each with one edge of the slab test.
+NODE_FLAT, NODE_POINT, NODE_INVERTED, NODE_UNBOUNDED, NODE_AROUND = range(5)
+
+
+def node_probe_case(g, seed=0):
+    """Rows [64, 128] and rays o, d, inv [3, G, 128] (float32 numpy) for the
+    node probe, with its edge cases in every row: child NODE_FLAT has
+    lo = hi on z (tmin = tmax where a ray crosses it), NODE_POINT lo = hi
+    on every axis, NODE_INVERTED lo > hi on every axis (the slab test takes
+    the min and max of its two planes, so it reads as its mirror),
+    NODE_UNBOUNDED the wide rows' empty bounds (+inf, -inf) on x alone,
+    NODE_AROUND a box [-1, 2]^3 around every origin (the rays start inside:
+    tmin < 0, so the sum has terms of either sign); children 5-7 random
+    boxes in [0, 1). Lanes 0, 4, 8, ... run with d_x = +0 (inv = +inf) and
+    lanes 2, 6, 10, ... with d_y = -0 (inv = -inf); in lanes 0, 8, 16, ...
+    and 2, 10, 18, ... the origin is 0 on that axis too, so o * inv is NaN
+    and every child's slab is. Origins from [-0.5, 1.5) otherwise."""
+    rng = np.random.RandomState(seed)
+    rows = rng.uniform(0, 1, (64, 128)).astype(np.float32)
+    box = rows[:, :48].reshape(64, 8, 6)
+    box[:, NODE_FLAT, 5] = box[:, NODE_FLAT, 2]
+    box[:, NODE_POINT, 3:] = box[:, NODE_POINT, :3]
+    lo, hi = box[:, NODE_INVERTED, :3], box[:, NODE_INVERTED, 3:]
+    box[:, NODE_INVERTED] = np.concatenate([np.maximum(lo, hi),
+                                            np.minimum(lo, hi)], axis=1)
+    box[:, NODE_UNBOUNDED, 0], box[:, NODE_UNBOUNDED, 3] = np.inf, -np.inf
+    box[:, NODE_AROUND] = [-1, -1, -1, 2, 2, 2]
+    rows[:, :48] = box.reshape(64, 48)
+    o = rng.uniform(-0.5, 1.5, (3, g, 128)).astype(np.float32)
+    d = rng.normal(size=(3, g, 128)).astype(np.float32)
+    lane = np.arange(g * 128).reshape(g, 128)
+    d[0][lane % 4 == 0] = 0.0
+    d[1][lane % 4 == 2] = -0.0
+    o[0][lane % 8 == 0] = 0.0
+    o[1][lane % 8 == 2] = 0.0
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    with np.errstate(divide="ignore"):
+        return rows, o, d, (1.0 / d).astype(np.float32)
+
+
 def _nearest_f32(v: Fraction) -> np.float32:
     """The float32 nearest to v, ties to even."""
     f = np.float32(float(v))
@@ -1032,19 +1072,27 @@ def test_roofline_probes_match_plain_on_cuda():
         assert all(torch.equal(g.view(torch.int32), want.view(torch.int32))
                    for g in got)
     # The leaf body on leaf_probe_case's edge rows (det = 0, equal t,
-    # parallel rays, rays pointing away) and on random rows, at G = 1 and
-    # 16, one copy and 33, at 70 pops (the rows wrap at 64).
-    for g in (1, 16):
-        edge = [t(x) for x in leaf_probe_case(g, seed=g)]
-        rand = [rows] + [x[:, :g].contiguous() for x in (o, d, inv)]
-        for args in (edge, rand):
-            want = rl.leaf_mt_plain(*args, iters=70).view(torch.int32)
-            assert (want.view(torch.float32) < 1e19).any()
-            for copies in (1, 33):
-                got = rl.leaf_mt(*args, iters=70, copies=copies)
-                assert got.shape == (copies, g, 128)
-                assert all(torch.equal(c.view(torch.int32), want)
-                           for c in got)
+    # parallel rays, rays pointing away) and the node body on
+    # node_probe_case's (flat, point, inverted and half-unbounded boxes, a
+    # box around every origin; zero direction components, o * inv NaN),
+    # each also on random rows, at G = 1 and 16, one copy and 33, at 70
+    # pops (the rows wrap at 64).
+    for probe, plain, case_of, hit in (
+            (rl.leaf_mt, rl.leaf_mt_plain, leaf_probe_case,
+             lambda x: x < 1e19),
+            (rl.node_slab, rl.node_slab_plain, node_probe_case,
+             lambda x: x != 0)):
+        for g in (1, 16):
+            edge = [t(x) for x in case_of(g, seed=g)]
+            rand = [rows] + [x[:, :g].contiguous() for x in (o, d, inv)]
+            for args in (edge, rand):
+                want = plain(*args, iters=70).view(torch.int32)
+                assert hit(want.view(torch.float32)).any()
+                for copies in (1, 33):
+                    got = probe(*args, iters=70, copies=copies)
+                    assert got.shape == (copies, g, 128)
+                    assert all(torch.equal(c.view(torch.int32), want)
+                               for c in got)
     # The cluster body on random blocks, then on cluster_tie_blocks (equal
     # t at slots j, j + 32, ...: the lowest slot wins) at G = 16 and the
     # copies of tools/torch_roofline.py (four 128-lane blocks a SM).

@@ -113,7 +113,7 @@ def test_port_sources_never_import_the_jax_package():
     names = {os.path.basename(p) for p in paths}
     assert {"tsort.py", "dense_intersect.py", "subpacket_traverse.py",
             "torch_kernel_bench.py", "roofline.py", "torch_roofline.py",
-            "torch_mega_profile.py"} <= names
+            "torch_mega_profile.py", "torch_bench.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
@@ -161,6 +161,8 @@ prof = tool("torch_mega_profile").main(
     ["--device", "cpu", "--width", "16", "--height", "16", "--max-bounces",
      "4", "--time", "--frames", "1"])
 print("PROFILE", prof["rays"] > 0, prof["ns_per_pop"] > 0)
+bench = tool("torch_bench").main(["--device", "cpu", "--quick"])
+print("BENCH", sorted(bench["extra"]["rows"]), bench["value"] > 0)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 """
@@ -168,10 +170,11 @@ print("LOADED", loaded)
 
 def test_accounting_tools_run_without_jax():
     """tools/torch_roofline.py (run_compact), tools/torch_kernel_bench.py
-    --stats --cluster-tc --pop-skip and tools/torch_mega_profile.py --time
-    rehearse on the CPU, at a tiny size, with jax, PIL and the JAX package
-    refused; run_compact returns tools/roofline.py's keys (but the memory
-    sweep, which needs a card)."""
+    --stats --cluster-tc --pop-skip, tools/torch_mega_profile.py --time and
+    tools/torch_bench.py --quick rehearse on the CPU, at a tiny size, with
+    jax, PIL and the JAX package refused; run_compact returns
+    tools/roofline.py's keys (but the memory sweep, which needs a card),
+    the bench its quick rows."""
     proc = subprocess.run([sys.executable, "-c", TOOLS, REPO],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr
@@ -189,3 +192,9 @@ def test_accounting_tools_run_without_jax():
             "subpacket@128w1:coherent", "cluster128@128w1:incoherent",
             "cluster128s@128w1:incoherent"} <= set(stats)
     assert "PROFILE True True" in proc.stdout
+    rows, positive = proc.stdout.split("BENCH ")[1].splitlines()[0].rsplit(
+        " ", 1)
+    assert eval(rows) == sorted(["realtime_direct", "sponza_probe_default",
+                                 "sponza_probe_fpair", "sponza_probe_tsort",
+                                 "sponza"])
+    assert positive == "True"

@@ -30,7 +30,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from gpupathtracer_tpu_torch.ops import roofline as rl
-from test_torch_kernel import cluster_tie_blocks, leaf_probe_case
+from test_torch_kernel import (NODE_AROUND, NODE_FLAT, NODE_UNBOUNDED,
+                               cluster_tie_blocks, leaf_probe_case,
+                               node_probe_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G, ITERS = 2, 4
@@ -136,6 +138,56 @@ def test_node_slab_probe_matches_jax(jroof, rays):
     assert (want != 0).mean() > 0.2  # the rays enter boxes
     for c in range(3):
         np.testing.assert_array_equal(_bits(got[c].numpy()), _bits(want))
+
+
+def _only(rows, child):
+    """rows with every child but ``child`` given NaN bounds (never hit)."""
+    out = rows.clone()
+    for j in range(8):
+        if j != child:
+            out[:, j * 6:j * 6 + 6] = torch.nan
+    return out
+
+
+@pytest.mark.parametrize("iters", [70, 130])
+def test_node_slab_probe_edge_rows_match_jax(jroof, iters):
+    """test_torch_kernel.node_probe_case (flat, point and inverted boxes, a
+    box unbounded on one axis, a box around every origin; directions with a
+    +0 or -0 component, and o * inv NaN where the origin is 0 there too)
+    and the stock random rows, at iteration counts that wrap the 64 rows:
+    every copy bitwise the JAX probe's."""
+    edge = node_probe_case(G, seed=iters)
+    stock = (np.random.RandomState(iters).uniform(0, 1, (64, 128))
+             .astype(np.float32), *edge[1:])
+    for case in (edge, stock):
+        want = _pallas(jroof.node_slab_kernel, (G, 128),
+                       *map(jnp.asarray, case), iters=iters, G=G)
+        got = rl.node_slab(*map(torch.from_numpy, case), iters=iters,
+                           copies=2)
+        for c in range(2):
+            np.testing.assert_array_equal(_bits(got[c].numpy()),
+                                          _bits(want))
+        lane = np.arange(G * 128).reshape(G, 128)
+        nan_lanes = (lane % 8 == 0) | (lane % 8 == 2)
+        assert (want[nan_lanes] == 0).all()  # every slab NaN: no hit
+        assert (want[lane % 2 == 1] != 0).mean() > 0.2  # rays enter boxes
+    # The edges are there (a pop of each row through the plain version).
+    rows, o, d, inv = map(torch.from_numpy, edge)
+    finite = torch.from_numpy(lane % 2 == 1)
+
+    def one(child):
+        return rl.node_slab_plain(_only(rows, child), o, d, inv, iters=64)
+
+    assert (one(NODE_AROUND)[finite] < 0).all()  # rays inside: tmin < 0
+    assert (one(NODE_FLAT)[finite] != 0).any()   # tmin = tmax on z
+    assert (one(NODE_UNBOUNDED)[finite] != 0).any()
+    # A pop's terms summed in another child order round otherwise: the
+    # probe's sum is not order-free, so its kernel keeps child order.
+    rev = torch.cat([rows[:, (7 - j) * 6:(8 - j) * 6] for j in range(8)]
+                    + [rows[:, 48:]], dim=1)
+    want = rl.node_slab_plain(rows, o, d, inv, iters=iters)
+    other = rl.node_slab_plain(rev, o, d, inv, iters=iters)
+    assert not torch.equal(other.view(torch.int32), want.view(torch.int32))
 
 
 def test_leaf_mt_probe_matches_jax(jroof, rays):

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Frame profile of the PyTorch/CUDA port (PERF.md section 5).
 
-    python3 tools/torch_profile.py [--megakernel] [--out report.json]
-                                   [--trace-dir DIR]
+    python3 tools/torch_profile.py [--megakernel | --bench]
+                                   [--out report.json] [--trace-dir DIR]
 
 Run from the root of a checkout on a machine with one CUDA card. For the
 smoke check's two wavefront configurations (proc:sponza 1920x1080,
 proc:bathroom 1280x720 with Beckmann), it times three frames after a
 warm-up at the default ray_chunk and with one chunk for the whole film,
 counts traversal launches per frame, and runs torch.profiler over one
-default-chunk frame: device self time by op, host self time by op, and the
-cudaLaunchKernel count.
+default-chunk frame: its device time by kind (the port's kernels, torch's
+kernels, copies and sets) and busy time (the union of their spans), the
+device kernels and host ops that take most, and the cudaLaunchKernel
+count.
 
 With --megakernel it does the same for the megakernel rows of the smoke
 check (bathroom 1280x720 Beckmann at frame batch 64, table 800x600 with 64
@@ -19,6 +21,14 @@ bounces at 128, table 800x600 direct at 8) and for sponza 1920x1080 with
 seconds per frame, the megakernel's own seconds per launch (CUDA events
 around each launch) and its share of the wall time, and the profile of one
 frame.
+
+With --bench it profiles the wavefront rows of tools/torch_bench.py at
+their configurations (ray_chunk 2^21, black sky, 64 bounces): table
+800x600, sponza 1920x1080 (the default traversal) and bathroom 1280x720
+with Beckmann: wall seconds per frame over --frames frames after a
+warm-up, launches per frame, and the device's busy share: the busy time of one profiled frame (the union of its kernels', copies' and
+sets' spans on the device) over the median unprofiled frame, and over
+the profiled frame's own wall, which the profiler lengthens.
 
 --out writes every number as JSON; --trace-dir writes a Chrome trace per
 scene. Nothing here imports JAX.
@@ -30,6 +40,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -81,8 +92,38 @@ def _timed_frames(renderer, n: int):
     return times, {k: v / n for k, v in kt.LAUNCHES.items()}
 
 
+def _device_spans(prof):
+    """The profiled frame's device-side events (kernels, copies, sets):
+    their summed time in ms by kind (the port's kernels, torch's, copies
+    and sets), and the ms during which any ran (the union of their
+    spans). key_averages() lists a kernel twice, once under its own name
+    and once as the self device time of the op that launched it, so only
+    device-side events are summed."""
+    from torch.autograd import DeviceType
+
+    by_kind = {"port": 0.0, "torch": 0.0, "copy": 0.0}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = ("copy" if e.name.startswith(("Memcpy", "Memset")) else
+                "torch" if "at::" in e.name else "port")
+        by_kind[kind] += e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return by_kind, busy / 1e3
+
+
 def _profile_frame(renderer, trace_path, integrator=None):
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     renderer.render_frame(integrator, sync=True)
@@ -92,15 +133,19 @@ def _profile_frame(renderer, trace_path, integrator=None):
         renderer.render_frame(integrator, sync=True)
     wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    by_dev = sorted(ka, key=lambda e: -e.self_device_time_total)[:25]
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    by_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:25]
     by_host = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:12]
     launch = [e for e in ka if e.key == "cudaLaunchKernel"]
     if trace_path:
         prof.export_chrome_trace(trace_path)
     torch.cuda.synchronize()
+    by_kind, busy_ms = _device_spans(prof)
     return {
         "wall_s": wall,
-        "device_self_ms": sum(e.self_device_time_total for e in ka) / 1e3,
+        "device_ms": sum(by_kind.values()),
+        "device_ms_by_kind": by_kind,
+        "device_busy_ms": busy_ms,
         "launch_calls": launch[0].count if launch else 0,
         "launch_host_ms": launch[0].self_cpu_time_total / 1e3 if launch
         else 0.0,
@@ -119,8 +164,11 @@ def _trace_path(trace_dir, name):
 
 
 def _print_profile(name, prof) -> None:
+    kinds = ", ".join(f"{k} {v:.1f}" for k, v in
+                      prof["device_ms_by_kind"].items())
     print(f"[{name}] profiled frame: wall {prof['wall_s']:.2f} s, device "
-          f"self time {prof['device_self_ms']:.1f} ms, "
+          f"time {prof['device_ms']:.1f} ms ({kinds}), busy "
+          f"{prof['device_busy_ms']:.1f} ms, "
           f"{prof['launch_calls']} cudaLaunchKernel calls taking "
           f"{prof['launch_host_ms']:.1f} ms of host time")
     for key, ms, count in prof["top_device"]:
@@ -206,10 +254,49 @@ def _megakernel(args, report) -> None:
         mk.trace_mega = trace_mega
 
 
+def _bench(args, report) -> None:
+    """The bench's wavefront rows: wall per frame and the busy share."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_bench as tb
+
+    b = tb.Bench(torch.device("cuda"), tb.Protocol())
+    rows = (("table_pt_wavefront",
+             b.cfg("proc:table", 800, 600, integrator="wavefront",
+                   max_bounces=64)),
+            ("sponza_default",
+             b.cfg("proc:sponza", 1920, 1080, camera=tb._sponza_camera(),
+                   integrator="wavefront", max_bounces=64)),
+            ("bathroom_wavefront",
+             b.cfg("proc:bathroom", 1280, 720, integrator="wavefront",
+                   microfacet="beckmann", max_bounces=64)))
+    for label, cfg in rows:
+        r = b.renderer(cfg)
+        times, launches = _timed_frames(r, args.frames)
+        prof = _profile_frame(r, _trace_path(args.trace_dir, label))
+        wall = statistics.median(times)
+        entry = {"chunk": r.chunk, "s_per_frame": times,
+                 "launches_per_frame": launches, "profile": prof,
+                 "busy_share": prof["device_busy_ms"] / 1e3 / wall,
+                 "busy_share_profiled": prof["device_busy_ms"] / 1e3 /
+                 prof["wall_s"]}
+        print(f"[{label}] {r.width}x{r.height}, {r.chunk} rays per chunk: "
+              f"s/frame {', '.join(f'{t:.4f}' for t in times)}; launches "
+              f"per frame {launches}; device busy share "
+              f"{entry['busy_share']:.4f} of the median frame, "
+              f"{entry['busy_share_profiled']:.4f} of the profiled one")
+        _print_profile(label, prof)
+        report[label] = entry
+        del r
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--megakernel", action="store_true",
                    help="profile the megakernel rows instead")
+    p.add_argument("--bench", action="store_true",
+                   help="profile the bench's wavefront rows instead")
     p.add_argument("--frames", type=int, default=3,
                    help="timed wavefront frames per configuration")
     p.add_argument("--out", default=None, help="write the report as JSON")
@@ -227,7 +314,10 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     report = {"card": smi}
-    (_megakernel if args.megakernel else _wavefront)(args, report)
+    if args.megakernel and args.bench:
+        p.error("--megakernel and --bench are exclusive")
+    (_megakernel if args.megakernel else _bench if args.bench
+     else _wavefront)(args, report)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2)

@@ -135,16 +135,15 @@ def timed_autoscale(build, base_iters, reps, label, work_per_iter,
     iters = max(int(base_iters), 1)
     target = TARGET_S[0]
     fn = build(iters)
-    fn()
     wall = 0.0
-    for _ in range(8):
+    for _ in range(8 if target > 0 else 0):  # no target: no scaling calls
+        fn()
         wall = min(_call_s(fn) for _ in range(2))
         if wall >= target or iters >= max_iters:
             break
         scale = min(max(int(target / max(wall, 1e-6)) + 1, 2), 256)
         iters = min(iters * scale, max_iters)
         fn = build(iters)
-        fn()
     if wall < target:
         _p(f"  [autoscale: final call {wall * 1e3:.1f} ms < target "
            f"{target * 1e3:.0f} ms; treat {label!r} as noisy]", flush=True)
@@ -356,7 +355,7 @@ def run_compact(reps=3, to_stderr=True, quick=False, device="cuda",
     set_device(device)
     TARGET_S[0] = 0.0 if quick else 0.2
     res = {"rtt_ms": round(_rtt_ms(), 3)}
-    q = 6 if quick else 0
+    q = 8 if quick else 0
     rows_g = 2 if quick else COMPACT_G
 
     def row(key, scale, digits, fn, *a, **kw):

@@ -5,7 +5,7 @@ tree's own kernels (the experiments behind PERF.md section 6).
     python3 tools/torch_walk_variants.py [--variants a,b] [--reps 2]
         [--checkout NAME=DIR]
         [--groups walks,mega,mega-rows,mega-profile,subpacket,dense,
-                  cluster-probe,ilv,bf16-probe,multi,leaf-probe]
+                  cluster-probe,ilv,bf16-probe,multi,leaf-probe,node-probe]
 
 Each variant is the tree's csrc/ with a few text edits (VARIANTS), built
 with ops/cuda_build.py's nvcc flags into _build/variants/<name>/ and
@@ -49,14 +49,17 @@ groups call one (its C interface may differ). Groups of timings
                 multi-* variants);
   leaf-probe    B9d at chip_smoke.py phase R's case and at
                 tools/torch_roofline.py run_phase_floors' case (its
-                redesigns are the leaf-* variants).
+                redesigns are the leaf-* variants);
+  node-probe    B9c at the same two cases, each build's SASS loop by
+                opcode (its design variants are the node-* variants).
 
 Every variant runs beside the tree's build, in turns, and its outputs must
 be bitwise the tree's (B6: t and occlusion, which its visit order does not
 change, bitwise the per-ray kernel's; B5 and B9e: the tree's also bitwise
 its plain version's, B9e's in every copy; B7: its hits and counts bitwise
 B1's; B8: results and counts bitwise the tree's, t and occluded B1's where
-no push was dropped; B9d: every copy bitwise its plain version; the bf16
+no push was dropped; B9d and B9c: every copy bitwise its plain version,
+also on the edge rows of tests/test_torch_kernel.py; the bf16
 product: every copy equal and within chip_smoke.py's bound of its plain
 version). Prints the ptxas line of each
 kernel a variant changes. Needs the card and nvcc; nothing here imports
@@ -739,8 +742,50 @@ def _ilv(fetch: bool, refill: bool = True, shared: bool = False,
 
 
 def _leaf(old: str, new: str) -> dict:
-    """One edit of B9d's kernel in csrc/roofline.cu."""
+    """One edit of B9d's (or B9c's) kernel in csrc/roofline.cu."""
     return {"roofline.cu": [(old, new)]}
+
+
+# B9c with two threads a lane: thread q of a pair tests children 4q .. 4q + 3
+# and both add the pair's eight terms in child order.
+_NODE_SUB_2 = {"roofline.cu": [
+    ("void node_pop(const float4* w,\n",
+     "void node_pop(const float4* w, int q, int lead,\n"),
+    ("""  float b[bvh::kArity / 2][12];
+#pragma unroll
+  for (int p = 0; p < bvh::kArity / 2; ++p) node_pair(w, p, b[p]);""",
+     """  float b[2][12];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) node_pair(w, 2 * q + p, b[p]);"""),
+    ("""#pragma unroll
+    for (int j = 0; j < bvh::kArity; ++j) {
+      float tmin;
+      if (bvh::slab_test(b[j / 2] + 6 * (j % 2), r[k], t_cur, tmin))
+        acc[k] = acc[k] + tmin;
+    }""",
+     """    float term[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float tmin;
+      const bool hit =
+          bvh::slab_test(b[c / 2] + 6 * (c % 2), r[k], t_cur, tmin);
+      term[c] = hit ? tmin : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[k] = acc[k] + __shfl_sync(0xFFFFFFFFu, term[c], lead + s);"""),
+    ("  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) * kNodeRays;",
+     "  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) / 2 * "
+     "kNodeRays;\n  const int q = threadIdx.x % 2, lead = threadIdx.x % 32 - q;"),
+    ("node_pop(srows + (i & (kRows - 1)) * kNodeWords, r, acc);",
+     "node_pop(srows + (i & (kRows - 1)) * kNodeWords, q, lead, r, acc);"),
+    ("    if (ray + k < total) out[ray + k] = acc[k];",
+     "    if (q == 0 && ray + k < total) out[ray + k] = acc[k];"),
+    ("(long long)(total + kNodeRays - 1) / kNodeRays;",
+     "(long long)(total + kNodeRays - 1) / kNodeRays * 2;"),
+]}
 
 
 # Sources a --checkout build takes, each built as it is.
@@ -989,6 +1034,57 @@ VARIANTS = {
         _leaf("    const float4* row = srows + (it % kRows) * kLeafWords;",
               "    const float4* row = reinterpret_cast<const float4*>(\n"
               "        rows + (it % kRows) * bvh::kRow);")),
+    "node-sub-2": (
+        "B9c with two threads a lane, four children each, the terms "
+        "exchanged by shuffles and added in child order by both",
+        ("roofline",), _NODE_SUB_2),
+    "node-rays-1": ("B9c with one ray a thread", ("roofline",),
+                    _leaf("kNodeRays = 2", "kNodeRays = 1")),
+    "node-rays-4": ("B9c with four rays a thread", ("roofline",),
+                    _leaf("kNodeRays = 2", "kNodeRays = 4")),
+    "node-128": ("B9c with 128 threads a block", ("roofline",),
+                 _leaf("kNodeThreads = 256", "kNodeThreads = 128")),
+    "node-rays-1-128": (
+        "B9c with one ray a thread and 128 threads a block (the first "
+        "redesign)", ("roofline",),
+        {"roofline.cu": [("kNodeRays = 2", "kNodeRays = 1"),
+                         ("kNodeThreads = 256", "kNodeThreads = 128")]}),
+    "node-unroll-4": ("B9c with four pops a loop step (one row address, "
+                      "the others at constant offsets)", ("roofline",),
+                      _leaf("""  for (int i = 0; i < iters; ++i)
+    node_pop(srows + (i & (kRows - 1)) * kNodeWords, r, acc);""",
+                            """  int i = 0;
+  for (; i + 4 <= iters; i += 4) {
+    const float4* w = srows + (i & (kRows - 1)) * kNodeWords;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) node_pop(w + u * kNodeWords, r, acc);
+  }
+  for (; i < iters; ++i)
+    node_pop(srows + (i & (kRows - 1)) * kNodeWords, r, acc);""")),
+    "node-global": (
+        "B9c reading its boxes as 16-byte loads from the table in global "
+        "memory (L1), not the staged rows", ("roofline",),
+        {"roofline.cu": [
+            ("w[3 * m], w1 = w[3 * m + 1], w2 = w[3 * m + 2];",
+             "__ldg(w + 3 * m), w1 = __ldg(w + 3 * m + 1),\n"
+             "               w2 = __ldg(w + 3 * m + 2);"),
+            ("""  __shared__ float4 srows[kRows * kNodeWords];
+  for (int e = threadIdx.x; e < kRows * kNodeWords; e += blockDim.x)
+    srows[e] = bvh::load4(rows + (e / kNodeWords) * bvh::kRow +
+                          4 * (e % kNodeWords));
+  __syncthreads();""",
+             "  const float4* srows = reinterpret_cast<const float4*>(rows);"),
+            ("node_pop(srows + (i & (kRows - 1)) * kNodeWords, r, acc);",
+             "node_pop(srows + (i & (kRows - 1)) * (bvh::kRow / 4), r, acc);"),
+        ]}),
+    "node-select": (
+        "B9c adding the parent's select, acc + (hit ? tmin : 0), not the "
+        "term under the hit predicate", ("roofline",),
+        _leaf("""      if (bvh::slab_test(b[j / 2] + 6 * (j % 2), r[k], t_cur, tmin))
+        acc[k] = acc[k] + tmin;""",
+              """      const bool hit =
+          bvh::slab_test(b[j / 2] + 6 * (j % 2), r[k], t_cur, tmin);
+      acc[k] = acc[k] + (hit ? tmin : 0.0f);""")),
     "b4-four-blocks": (
         "B4 closest with 48 KB of idle shared memory a block (four blocks "
         "an SM)", ("cluster_traverse",),
@@ -1018,7 +1114,8 @@ KERNELS = ("trace_closest_kernel<0>", "trace_anyhit_kernel<0>",
            "mxu_wgmma_kernel<136, 1>", "trace_closest_multi_kernel<2, 0>",
            "trace_anyhit_multi_kernel<2, 0>",
            "trace_closest_multi_kernel<4, 0>",
-           "trace_anyhit_multi_kernel<4, 0>", "leaf_mt_kernel")
+           "trace_anyhit_multi_kernel<4, 0>", "leaf_mt_kernel",
+           "node_slab_kernel")
 
 
 def _printed(line: str) -> bool:
@@ -1663,21 +1760,38 @@ def time_multi(libs: dict, reps: int, device) -> None:
                       f"ms, rep {rep}: " + ", ".join(line), flush=True)
 
 
-def time_leaf_probe(libs: dict, reps: int, device) -> None:
-    """B9d at chip_smoke.py phase R's case (run_compact's G and copies,
-    seeded random rows and rays, PROBE_ITERS pops) and at
+def time_floor_probe(libs: dict, reps: int, device, node: bool) -> None:
+    """B9c (node) or B9d at chip_smoke.py phase R's case (run_compact's G
+    and copies, seeded random rows and rays, PROBE_ITERS pops) and at
     tools/torch_roofline.py run_phase_floors' case (its constant rays and
-    seed-0 rows, run_compact's 4,096 pops), each with its bound; every
-    copy bitwise the plain version at PROBE_CHECK_ITERS and at
-    LEAF_WRAP_ITERS pops, in every build."""
+    seed-0 rows, run_compact's 4,096 pops), each with its bound; every copy
+    bitwise the plain version at PROBE_CHECK_ITERS and at WRAP_ITERS pops,
+    and on tests/test_torch_kernel.py's edge rows at WRAP_ITERS pops, in
+    every build. For B9c, each build's longest SASS loop by opcode."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
+    from gpupathtracer_tpu_torch.ops import cuda_build
     from gpupathtracer_tpu_torch.ops import roofline as rl
 
     tool = cs._tool_module("torch_roofline")
     tool.set_device(device)
+    tests = cs._tool_module("test_torch_kernel", "tests")
+    if node:
+        tag, probe, plain, case_of, key, per_lane = (
+            "B9c", rl.node_slab, rl.node_slab_plain, tests.node_probe_case,
+            "roofline_node_slab", rl.NODE_POP)
+        for label, so in [("tree", cuda_build.build("roofline")[0])] + [
+                (n, b["roofline"]) for n, b in libs.items()
+                if "roofline" in b]:
+            print(f"[{label}] node_slab_kernel SASS, its longest loop by "
+                  f"opcode: {cs._sass_loop_mix(so, 'node_slab_kernel')}",
+                  flush=True)
+    else:
+        tag, probe, plain, case_of, key, per_lane = (
+            "B9d", rl.leaf_mt, rl.leaf_mt_plain, tests.leaf_probe_case,
+            "roofline_leaf_mt", rl.LEAF_SIZE * rl.MT_SLOT)
     g = tool.COMPACT_G
     rng = np.random.RandomState(11)
 
@@ -1689,37 +1803,39 @@ def time_leaf_probe(libs: dict, reps: int, device) -> None:
     d = torch.nn.functional.normalize(t(rng.normal(size=(3, g, 128))), dim=0)
     floors = (t(np.random.RandomState(0).uniform(0, 1, (64, 128))),
               *tool._rays(g))
+    edge = [t(x) for x in case_of(g, seed=g)]
     copies = tool.copies_for(g * 128 // rl.THREADS)
-    work = g * 128 * rl.LEAF_SIZE * rl.MT_SLOT * copies
-    for tag, args, iters in (("phase R", (rows, o, d, 1.0 / d),
-                              cs.PROBE_ITERS["roofline_leaf_mt"]),
-                             ("run_phase_floors", floors, 1 << 12)):
-        want = [rl.leaf_mt_plain(*args, iters=n).view(torch.int32)
-                for n in (cs.PROBE_CHECK_ITERS, cs.LEAF_WRAP_ITERS)]
+    work = g * 128 * per_lane * copies
+    for case, args, iters in (("phase R", (rows, o, d, 1.0 / d),
+                               cs.PROBE_ITERS[key]),
+                              ("run_phase_floors", floors, 1 << 12)):
+        checks = [(a, n, plain(*a, iters=n).view(torch.int32))
+                  for a, n in ((args, cs.PROBE_CHECK_ITERS),
+                               (args, cs.WRAP_ITERS), (edge, cs.WRAP_ITERS))]
         bound = 1e3 * work * iters / cs.PEAK_FP32_INSTR
         for rep in range(reps):
             line = []
             for label, ctx, _ in runs(libs, "roofline", rl):
                 with ctx:
-                    for n, w in zip((cs.PROBE_CHECK_ITERS,
-                                     cs.LEAF_WRAP_ITERS), want):
-                        got = rl.leaf_mt(*args, iters=n, copies=copies)
+                    for a, n, w in checks:
+                        got = probe(*a, iters=n, copies=copies)
                         torch.cuda.synchronize()
                         if not all(torch.equal(c.view(torch.int32), w)
                                    for c in got):
-                            raise AssertionError(f"{label} B9d {tag}: a copy "
-                                                 f"differs from the plain "
-                                                 f"version at {n} pops")
-                    ms = cs._events_ms(lambda: rl.leaf_mt(
+                            raise AssertionError(f"{label} {tag} {case}: a "
+                                                 f"copy differs from the "
+                                                 f"plain version at {n} pops")
+                    ms = cs._events_ms(lambda: probe(
                         *args, iters=iters, copies=copies), 3)
                 line.append(f"{label} {ms:.4f} ({bound / ms:.1%})")
-            print(f"[B9d {tag}, G={g} x{copies}, {iters} pops] rep {rep}, "
+            print(f"[{tag} {case}, G={g} x{copies}, {iters} pops] rep {rep}, "
                   f"bound {bound:.4f} ms: " + ", ".join(line) + " ms",
                   flush=True)
 
 
 GROUPS = ("walks", "mega", "mega-rows", "mega-profile", "subpacket", "dense",
-          "cluster-probe", "ilv", "bf16-probe", "multi", "leaf-probe")
+          "cluster-probe", "ilv", "bf16-probe", "multi", "leaf-probe",
+          "node-probe")
 # The csrc/ sources each group's timings run.
 GROUP_SOURCES = {"walks": ("traverse", "cluster_traverse"),
                  "mega": ("megakernel",), "mega-rows": ("megakernel",),
@@ -1727,7 +1843,8 @@ GROUP_SOURCES = {"walks": ("traverse", "cluster_traverse"),
                  "subpacket": ("subpacket_traverse", "traverse"),
                  "dense": ("dense_intersect",), "cluster-probe": ("roofline",),
                  "ilv": ("traverse",), "bf16-probe": ("roofline",),
-                 "multi": ("traverse",), "leaf-probe": ("roofline",)}
+                 "multi": ("traverse",), "leaf-probe": ("roofline",),
+                 "node-probe": ("roofline",)}
 
 
 def main(argv=None) -> int:
@@ -1794,7 +1911,9 @@ def main(argv=None) -> int:
     if "multi" in groups:
         time_multi(built, args.reps, device)
     if "leaf-probe" in groups:
-        time_leaf_probe(built, args.reps, device)
+        time_floor_probe(built, args.reps, device, node=False)
+    if "node-probe" in groups:
+        time_floor_probe(built, args.reps, device, node=True)
     return 0
 
 
