@@ -150,7 +150,27 @@ nvcc and g++. Phases, each of which raises on failure:
      200x150, 64 bounces, 64 spp, film means within 2%;
  13. cluster leaves against MT leaves through the megakernel, the same
      render: film means within 2% (in exact arithmetic both trace the
-     same hits).
+     same hits);
+ 14. the reference and AO integrators, textures with mips and the sun at
+     full width, each through its entry point: the CLI with --integrator
+     reference on proc:sponza 1920x1080 (64 bounces, 2 spp) and --integrator
+     ao there (4 spp); the port's generated textured town (24 houses,
+     about 55k triangles) at 1280x720 with --mip-levels 4 (4 spp); and the
+     Renderer with sun_enabled, sun_mode "disk" and "cone", on proc:bunny
+     1280x720 under a black sky (4 spp); PNGs written, films finite and
+     nonzero, AO's in [0, 1], s/sample printed beside the card; the
+     reference launching the closest-hit kernel and no other, the rest
+     both MT entry points and no other;
+ 15. agreement on the card, the JAX package's tests/test_integrator.py
+     recipes and bounds: cornell 32x32, wavefront at 12 spp against the
+     reference at 48, channel means within 8%; bunny 24x24 with the sun,
+     the same two, means within 25%; the sun's cone against its disk
+     (16 spp each), means within 15%;
+ 16. the card against the CPU: the reference, AO, sun (disk and cone) and
+     textured (mips) renders at 32x32 on the card and through the port's
+     plain versions on the CPU, the same seed: at most 1% of pixels
+     outside rtol = atol = 2e-3, channel means within 1% (the CPU port is
+     held to the JAX package by the CPU tests, which closes the chain).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2190,6 +2210,224 @@ def cluster_vs_mt(device) -> None:
         raise AssertionError("cluster and MT means differ by more than 2%")
 
 
+# Phase 14: name -> (CLI arguments, spp); the reference's rows launch the
+# closest-hit kernel alone.
+REFERENCE_RUNS = {
+    "sponza_reference": (["proc:sponza", "--width", "1920", "--height",
+                          "1080", "--max-bounces", "64", "--integrator",
+                          "reference"], 2),
+}
+AO_RUNS = {
+    "sponza_ao": (["proc:sponza", "--width", "1920", "--height", "1080",
+                   "--integrator", "ao"], 4),
+}
+# The generated town's framing (tests/test_textured_town.py's camera).
+TOWN_CAMERA = ["--position", "0,9,-26", "--rotation", f"{math.pi},-0.28",
+               "--fov", "55", "--skybox", "GENERATE COLOR BLACK"]
+
+
+def _spp_line(stats, smi) -> None:
+    for name, s in stats.items():
+        print(f"[{name}] {s['render_seconds'] / s['spp']:.4f} s/sample "
+              f"({s['spp']} samples, {s['mrays_per_sec']:.1f} Mrays/s) on "
+              f"{smi}")
+
+
+def render_ao_path(tmp: str, smi: str):
+    """Phase 14: AO through the CLI; its film must lie in [0, 1]."""
+    import numpy as np
+
+    stats = render_main_path(tmp, AO_RUNS)
+    for name in AO_RUNS:
+        film = np.load(os.path.join(tmp, f"{name}.npy"))
+        if film.min() < 0 or film.max() > 1:
+            raise AssertionError(f"[{name}] AO film outside [0, 1]: "
+                                 f"{film.min()} .. {film.max()}")
+    _spp_line(stats, smi)
+
+
+def render_town_path(tmp: str, town: str, smi: str):
+    """Phase 14: the port's generated textured town (its default 24 houses)
+    through the CLI at 1280x720 with 4 mip levels."""
+    stats = render_main_path(tmp, {"town_mips": (
+        [town, "--width", "1280", "--height", "720", "--mip-levels", "4",
+         *TOWN_CAMERA], 4)})
+    cfg = stats["town_mips"]["config"]
+    if cfg["mip_levels"] != 4:
+        raise AssertionError(f"--mip-levels reached the config as "
+                             f"{cfg['mip_levels']}")
+    print(f"[town_mips] {stats['town_mips']['triangles']} triangles")
+    _spp_line(stats, smi)
+
+
+def _sun_cfg(width: int, height: int, mode: str, **kw):
+    """proc:bunny with the sun under a black sky, framed as the JAX
+    package's tests/test_integrator.py frames it."""
+    from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+
+    cfg = RenderConfig(scene_path="proc:bunny", skybox="GENERATE COLOR BLACK",
+                       width=width, height=height, ray_chunk=width * height,
+                       sun_enabled=True, sun_mode=mode, bvh_builder="cpp",
+                       **kw)
+    cfg.camera = CameraConfig(position=(0.0, 4.0, -12.0), yaw=math.pi,
+                              pitch=-0.25, fov=math.radians(45), aspect=1.0)
+    return cfg
+
+
+def render_sun_path(tmp: str, device, smi: str, width=1280, height=720,
+                    spp=4):
+    """Phase 14: the Renderer with the sun, disk and cone; a PNG each, the
+    film finite and nonzero (the sun is the only light)."""
+    import numpy as np
+
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    for mode in ("disk", "cone"):
+        r = Renderer(_scene_cfg("bunny", width, height, sun_enabled=True,
+                                sun_mode=mode,
+                                skybox="GENERATE COLOR BLACK"), device)
+        if r.use_mega:
+            raise AssertionError("the sun took the megakernel")
+        for _ in range(spp):
+            r.render_frame(sync=True)
+        png = r.save_screenshot(os.path.join(tmp, f"sun_{mode}.png"))
+        with open(png, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"[sun {mode}] {png} is not a PNG")
+        film = r.film_hdr()
+        if not np.isfinite(film).all() or not (film > 0).any():
+            raise AssertionError(f"[sun {mode}] film is not finite and "
+                                 f"nonzero")
+        r.stats.finalize()
+        sec = sum(r.stats.frame_times)
+        print(f"[sun {mode}] proc:bunny {width}x{height}, {spp} spp: "
+              f"{sec / spp:.4f} s/sample ({r.stats.mrays_per_sec:.1f} "
+              f"Mrays/s, {r.stats.rays_traced} rays, film mean "
+              f"{float(film.mean()):.4f}) on {smi}")
+
+
+def _means(cfg, device, frames: int, integrator: str):
+    import numpy as np
+
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    r = Renderer(cfg, device)
+    for _ in range(frames):
+        r.render_frame(integrator)
+    img = r.film_hdr()
+    if not np.isfinite(img).all():
+        raise AssertionError(f"{integrator} film is not finite")
+    return img
+
+
+def integrator_agreement(device) -> None:
+    """Phase 15: the JAX package's statistical checks of the integrators
+    (tests/test_integrator.py, their recipes and bounds) on the card."""
+    import numpy as np
+
+    from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+
+    cfg = RenderConfig(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
+                       width=32, height=32, ray_chunk=1024, bvh_builder="cpp")
+    cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
+                              fov=math.radians(45), aspect=1.0)
+    img_w = _means(cfg, device, 12, "wavefront")
+    img_r = _means(cfg, device, 48, "reference")
+    mw, mr = img_w.mean(axis=(0, 1)), img_r.mean(axis=(0, 1))
+    rel = float((np.abs(mw - mr) / (mr + 1e-6)).max())
+    print(f"[agreement] cornell 32x32: wavefront 12 spp means {mw}, "
+          f"reference 48 spp {mr}: {rel:.2%} apart at most (bound 8%); "
+          f"channel spread {float(mw.std()):.4f} (> 0.005)")
+    if rel >= 0.08 or mw.std() <= 0.005:
+        raise AssertionError("cornell: wavefront and reference disagree")
+
+    img_w = _means(_sun_cfg(24, 24, "disk", max_bounces=8), device, 12,
+                   "wavefront")
+    img_r = _means(_sun_cfg(24, 24, "disk", max_bounces=8), device, 48,
+                   "reference")
+    mw, mr = float(img_w.mean()), float(img_r.mean())
+    rel = abs(mw - mr) / (mr + 1e-9)
+    print(f"[agreement] bunny 24x24 with the sun: wavefront 12 spp mean "
+          f"{mw:.5f}, reference 48 spp {mr:.5f}: {rel:.2%} apart (bound "
+          f"25%); wavefront max {float(img_w.max()):.4f} (> 0.05)")
+    if rel >= 0.25 or img_w.max() <= 0.05:
+        raise AssertionError("sun: wavefront and reference disagree")
+
+    imgs = {mode: _means(_sun_cfg(24, 24, mode, max_bounces=8, seed=5),
+                         device, 16, "wavefront") for mode in ("disk", "cone")}
+    md, mc = float(imgs["disk"].mean()), float(imgs["cone"].mean())
+    rel = abs(md - mc) / (md + 1e-9)
+    print(f"[agreement] bunny 24x24, sun cone against disk, 16 spp: means "
+          f"{mc:.5f} and {md:.5f}, {rel:.2%} apart (bound 15%); cone max "
+          f"{float(imgs['cone'].max()):.4f} (> 0.05)")
+    if rel >= 0.15 or imgs["cone"].max() <= 0.05:
+        raise AssertionError("sun: cone and disk disagree")
+
+
+# Phase 16: a pixel is outside when a channel leaves rtol = atol = 2e-3 of
+# the CPU's; at most this share may be, and the channel means must agree
+# within CPU_MEAN_BOUND.
+CPU_PIXEL_SHARE = 0.01
+CPU_MEAN_BOUND = 0.01
+
+
+def card_vs_cpu(device, town: str, size: int = 32, spp: int = 4) -> None:
+    """Phase 16: the new paths at size x size on the card and through the
+    port's plain versions on the CPU, the same seed and configuration."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    cornell = dict(scene_path="proc:cornell", skybox="GENERATE COLOR BLACK",
+                   width=size, height=size, max_bounces=8, bvh_builder="cpp")
+    cases = {
+        "reference": (RenderConfig(**cornell), "reference"),
+        "ao": (RenderConfig(**cornell), "ao"),
+        "sun_disk": (_sun_cfg(size, size, "disk", max_bounces=8),
+                     "wavefront"),
+        "sun_cone": (_sun_cfg(size, size, "cone", max_bounces=8),
+                     "wavefront"),
+        "town_mips": (RenderConfig(scene_path=town, width=size, height=size,
+                                   skybox="GENERATE COLOR BLACK",
+                                   max_bounces=8, mip_levels=4,
+                                   bvh_builder="cpp"), "wavefront"),
+    }
+    for name in ("reference", "ao"):
+        cases[name][0].camera = CameraConfig(
+            position=(2.75, 2.75, -7.0), yaw=math.pi, fov=math.radians(45),
+            aspect=1.0)
+    cases["town_mips"][0].camera = CameraConfig(
+        position=(0.0, 9.0, -26.0), yaw=math.pi, pitch=-0.28,
+        fov=math.radians(55), aspect=1.0)
+    for name, (cfg, integrator) in cases.items():
+        films, rays = {}, {}
+        for dev in (device, torch.device("cpu")):
+            r = Renderer(cfg, dev)
+            for _ in range(spp):
+                r.render_frame(integrator)
+            films[dev.type] = r.film_hdr()
+            r.stats.finalize()
+            rays[dev.type] = r.stats.rays_traced
+        card, cpu = films[device.type], films["cpu"]
+        outside = (np.abs(card - cpu) > 2e-3 + 2e-3 * np.abs(cpu)).any(-1)
+        mc, mp = card.mean(axis=(0, 1)), cpu.mean(axis=(0, 1))
+        rel = float((np.abs(mc - mp) / (np.abs(mp) + 1e-6)).max())
+        print(f"[card vs CPU] {name} {size}x{size}, {spp} spp: "
+              f"{int(outside.sum())} of {outside.size} pixels outside "
+              f"rtol = atol = 2e-3, max |diff| "
+              f"{float(np.abs(card - cpu).max()):.3g}, channel means "
+              f"{rel:.3%} apart, rays {rays[device.type]} (card) and "
+              f"{rays['cpu']} (CPU)")
+        if not np.isfinite(card).all() or card.max() <= 0:
+            raise AssertionError(f"[card vs CPU] {name}: the card's film is "
+                                 f"not finite and nonzero")
+        if outside.mean() > CPU_PIXEL_SHARE or rel > CPU_MEAN_BOUND:
+            raise AssertionError(f"[card vs CPU] {name}: the card's film "
+                                 f"leaves the CPU's bound")
+
+
 def _counters():
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -2324,6 +2562,34 @@ def main() -> int:
     stamp("phases 10-11")
     mega_vs_wavefront(device)
     cluster_vs_mt(device)
+    stamp("phases 12-13")
+
+    from gpupathtracer_tpu_torch.scene.samplegen import \
+        generate_textured_town
+    new_paths = []
+    with tempfile.TemporaryDirectory() as tmp:
+        town = generate_textured_town(os.path.join(tmp, "town"))
+        new_paths.append(_drive(
+            "reference path", ("trace_closest",),
+            lambda: _spp_line(render_main_path(tmp, REFERENCE_RUNS), smi)))
+        new_paths.append(_drive(
+            "AO path", ("trace_closest", "trace_anyhit"),
+            lambda: render_ao_path(tmp, smi)))
+        new_paths.append(_drive(
+            "textured path", ("trace_closest", "trace_anyhit"),
+            lambda: render_town_path(tmp, town, smi)))
+        new_paths.append(_drive(
+            "sun path", ("trace_closest", "trace_anyhit"),
+            lambda: render_sun_path(tmp, device, smi)))
+        stamp("phase 14")
+        integrator_agreement(device)
+        stamp("phase 15")
+        card_vs_cpu(device, town)
+        stamp("phase 16")
+    # The kernels line counts B1's launches on every path that drives it.
+    for counts in new_paths:
+        for k, v in counts.items():
+            launches[k] += v
 
     kernels = []
     for case, k in (("sponza", "trace_closest"), ("sponza", "trace_anyhit"),
@@ -2340,8 +2606,9 @@ def main() -> int:
                     ("sponza", "trace_closest_multi"),
                     ("sponza", "trace_anyhit_multi"),
                     *(("roofline", k) for k in results["roofline"])):
-        # Launches: of the path that drives the entry point (the renders
-        # for the first six, the kernel A/B entry point for the schedules,
+        # Launches: of the paths that drive the entry point (the renders
+        # for the first six: for B1 the wavefront, reference, AO, textured
+        # and sun paths; the kernel A/B entry point for the schedules,
         # run_compact for the probes).
         launches.setdefault(k, bench_launches.get(
             k, results["roofline_launches"].get(k, 0)))

@@ -75,8 +75,6 @@ def build_config(args):
 # Flags of the JAX CLI whose features the port does not have yet:
 # (attribute, value that is fine, what to say).
 _UNPORTED = (
-    ("integrator", ("wavefront", "direct"),
-     "the reference and AO integrators"),
     ("shadow_rev", (False,), "light-end shadow rays"),
     ("bounce_traversal", ("auto", "same", "tsort"),
      "the treelet bounce traversal"),

@@ -1,7 +1,8 @@
-"""Sampling warps of the wavefront integrator (counterpart of the JAX
+"""Sampling warps of the integrators (counterpart of the JAX
 package's math/sampling.py).
 
   - cosine hemisphere: Microfacet.glsl:148-154
+  - uniform hemisphere: Renderer.cpp:1040-1043 (the reference integrator)
   - uniform triangle (sqrt warp): Iterative.comp:66-77
 """
 
@@ -12,6 +13,7 @@ import math
 import torch
 
 from gpupathtracer_tpu_torch.math.vecmath import sqrt
+from gpupathtracer_tpu_torch.ops.intersect import fma32
 
 TWO_PI = 2.0 * math.pi
 
@@ -29,6 +31,18 @@ def sample_cosine_hemisphere(u):
 
 def pdf_cosine_hemisphere(ndi):
     return ndi / math.pi
+
+
+def sample_uniform_hemisphere(u):
+    """[..., 2] uniforms -> [..., 3] uniform direction in the local (+z up)
+    hemisphere: z = u0, phi = 2*pi*u1. pdf = 1/(2*pi). 1 - z^2 is one
+    fused multiply-add, as XLA contracts it on the CPU."""
+    r0, r1 = u[..., 0], u[..., 1]
+    z = r0
+    radius = sqrt(torch.clamp_min(fma32(-z, z, torch.ones_like(z)), 0.0))
+    phi = TWO_PI * r1
+    return torch.stack([radius * torch.cos(phi), radius * torch.sin(phi), z],
+                       dim=-1)
 
 
 def sample_triangle_barycentrics(u):

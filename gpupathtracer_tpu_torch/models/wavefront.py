@@ -13,6 +13,8 @@ the JAX package's, term by term:
   - NEE shadow ray + balance-heuristic weight (GenerateLightSample)
   - two-lobe BSDF importance sampling (Iterative.comp:282-284)
   - Russian roulette with luminance clamp + bounce cap (291-300)
+  - optional sun NEE (disk or cone), and textured albedo and
+    metallic-roughness maps, trilinear with a ray-cone mip level
 
 Random numbers are the JAX package's threefry streams (random.py), keyed
 by (seed, sample, chunk, bounce) the same way, so both packages draw the
@@ -27,12 +29,13 @@ import torch
 
 from gpupathtracer_tpu_torch import random
 from gpupathtracer_tpu_torch.math.camera import CameraParams, gen_rays
-from gpupathtracer_tpu_torch.math.vecmath import avdot, dot
+from gpupathtracer_tpu_torch.math.vecmath import avdot, dot, length
 from gpupathtracer_tpu_torch.models.bsdf import compute_bsdf, mis_weight
 from gpupathtracer_tpu_torch.models.interaction import make_interaction
 from gpupathtracer_tpu_torch.models.materials import make_material_instance
 from gpupathtracer_tpu_torch.models.microfacet import generate_importance_sample
 from gpupathtracer_tpu_torch.models.nee import generate_light_sample
+from gpupathtracer_tpu_torch.ops.intersect import fma32
 from gpupathtracer_tpu_torch.ops.traverse import trace_closest, trace_occluded
 from gpupathtracer_tpu_torch.ops.tsort import (_sort_perm,
                                                trace_closest_tsort,
@@ -65,6 +68,24 @@ def _reject_unported(**flags) -> None:
                 f"{name} is not ported yet (ROADMAP.md, queue A)")
 
 
+def hit_uv(shade, hit):
+    """The hit's texture coordinate [N, 2] from the shading rows' three
+    vertex uvs (cols 3:9) and the barycentrics, with the multiply-adds XLA
+    contracts on the CPU: uv1 * u + uv2 * v + uv0 * (1 - u - v)."""
+    w = (1.0 - hit.u - hit.v)[..., None].expand(-1, 2)
+    return fma32(shade[:, 3:5], w,
+                 fma32(shade[:, 7:9], hit.v[..., None].expand(-1, 2),
+                       shade[:, 5:7] * hit.u[..., None]))
+
+
+def pixel_cone_angle(cam: CameraParams, height: int):
+    """The angular width of one pixel, the ray-cone LOD's input, recovered
+    from the camera basis: |vertical| = 2 tan(fov/2) * focal_dist, and
+    focal_dist = |lower_left + h/2 + v/2| since |direction| = 1."""
+    fd = length(cam.lower_left + 0.5 * cam.horizontal + 0.5 * cam.vertical)
+    return length(cam.vertical) / (torch.clamp_min(fd, 1e-6) * height)
+
+
 def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        width: int, height: int,
                        model: str = "trowbridge_reitz",
@@ -78,6 +99,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        textured: bool = False,
                        mips: bool = False,
                        sun: bool = False,
+                       sun_mode: str = "disk",
                        sort_rays: bool = False,
                        shadow_rev: bool = False,
                        shadow_sort: bool = False,
@@ -105,10 +127,12 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
     rays' hit points, which the key already groups); ``tsort_alternate``
     sorts on even bounces only and reuses the permutation on odd ones.
     These are schedules: the hits, and so the film, do not depend on them.
+    ``textured`` reads the scene's atlas at each hit's uv; with ``mips``
+    both maps are sampled trilinearly at a ray-cone level of detail.
+    ``sun`` adds the sun to NEE (``sun_mode`` "disk" or "cone").
     Returns ([N, 3] radiance contributions, int64 scalar rays traced).
     """
-    _reject_unported(textured=textured, mips=mips, sun=sun,
-                     sort_rays=sort_rays, shadow_rev=shadow_rev, delta=delta,
+    _reject_unported(sort_rays=sort_rays, shadow_rev=shadow_rev, delta=delta,
                      partition=partition is not None,
                      sampler_ld=sampler == "ld")
     if sampler != "random":
@@ -125,6 +149,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
     ray_o, ray_d = gen_rays(cam, interp, lens_u)
 
     nee_pdf = 0.5 / scene.total_light_area  # InitRay, Iterative.comp:203
+    pixel_cone = pixel_cone_angle(cam, height) if mips and textured else None
 
     def body(c: Carry, trav: str = traversal) -> Carry:
         nw = c.o.shape[0]  # current (phase) wavefront width
@@ -154,7 +179,24 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         shade = scene.tri_shade[torch.clamp_min(hit.prim, 0).long()]
         normal = shade[:, 0:3]
         pos = c.o + c.d * hit.t[..., None] + 0.003 * normal
-        mat = make_material_instance(shade[:, 16:32])
+        mrow = shade[:, 16:32]
+        if textured:
+            lod = None
+            if mips:
+                # Ray-cone mip level (a segment-length approximation; the
+                # reference has no mips): the footprint t * pixel_cone,
+                # stretched at grazing incidence, times the texel density
+                # (shade col 10, uv per world unit) and the level-0 width.
+                tex0 = mrow[:, 8].contiguous().view(torch.int32)
+                rw = scene.atlas_rects[torch.clamp_min(tex0, 0).long(),
+                                       2].float()
+                ndv = torch.abs(dot(normal, c.d))
+                foot = hit.t * pixel_cone / torch.clamp_min(ndv, 0.2)
+                texels = foot * shade[:, 10] * rw
+                lod = torch.log2(torch.clamp_min(texels, 1.0))
+            mat = make_material_instance(mrow, scene, hit_uv(shade, hit), lod)
+        else:
+            mat = make_material_instance(mrow)
         view_dir = -c.d
         inter = make_interaction(normal, view_dir)
 
@@ -180,7 +222,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         if nee:
             ls = generate_light_sample(scene, pos, normal, mat, inter,
                                        c.throughput, rnd[:, 0], rnd[:, 1:3],
-                                       model)
+                                       model, sun=sun, sun_mode=sun_mode,
+                                       u_pick=rnd[:, 7])
             # Lanes whose light sample is exactly zero read 0 whatever the
             # occlusion, so leaving them out of the trace is exact.
             light = ls.throughput * ls.emission

@@ -10,7 +10,9 @@ them (seed -> sample count -> chunk), so the two draw the same numbers.
 With ``cfg.megakernel == "on"`` an eligible scene (ops/megakernel.py
 ``mega_eligible``) renders its wavefront and direct frames through the
 megakernel; any other scene takes the wavefront integrator, as in the JAX
-package. ``"auto"`` resolves to off there too.
+package. ``"auto"`` resolves to off there too. The reference and AO
+integrators render one sample a frame (``cfg.frame_batch`` applies to the
+wavefront and direct frames only), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 from gpupathtracer_tpu_torch import random
 from gpupathtracer_tpu_torch.config import RenderConfig
 from gpupathtracer_tpu_torch.math.camera import generate_image_plane
+from gpupathtracer_tpu_torch.models.ao import render_sample_ao
+from gpupathtracer_tpu_torch.models.reference import render_sample_reference
 from gpupathtracer_tpu_torch.models.wavefront import (render_sample_batch,
                                                       render_sample_impl)
 from gpupathtracer_tpu_torch.ops.megakernel import (mega_eligible,
@@ -35,6 +39,9 @@ from gpupathtracer_tpu_torch.ops.traverse import check_traversal
 from gpupathtracer_tpu_torch.utils.io import save_png
 from gpupathtracer_tpu_torch.utils.morton import ray_order
 from gpupathtracer_tpu_torch.utils.timing import FrameStats
+
+
+INTEGRATORS = ("wavefront", "direct", "reference", "ao")
 
 
 def _align8(x: int) -> int:
@@ -76,7 +83,7 @@ class Renderer:
         # schedule, so the option changes nothing here but, as in the JAX
         # package, is refused on cluster scenes (ops/megakernel.py).
         self.use_mega = (cfg.megakernel == "on" and mega_eligible(
-            scene, meta, textured=False, delta=meta.has_delta,
+            scene, meta, textured=meta.has_textures, delta=meta.has_delta,
             sun=cfg.sun_enabled, sampler=cfg.sampler))
         if self.use_mega:
             self.mega_tables = pack_mega_tables(scene)
@@ -117,16 +124,16 @@ class Renderer:
 
     def render_frame(self, integrator: Optional[str] = None,
                      sync: bool = False) -> None:
-        """Accumulate cfg.frame_batch samples per pixel (RenderFrame,
-        Renderer.cpp:651-662). With sync, the frame's recorded time ends
-        after the device has finished it."""
+        """Accumulate samples per pixel (RenderFrame, Renderer.cpp:651-662):
+        cfg.frame_batch of the wavefront or direct integrator, one of the
+        reference or AO integrator. With sync, the frame's recorded time
+        ends after the device has finished it."""
         integrator = integrator or self.cfg.integrator
-        if integrator not in ("wavefront", "direct"):
-            raise NotImplementedError(
-                f"integrator {integrator!r} is not ported yet "
-                f"(ROADMAP.md, queue A: reference/AO)")
+        if integrator not in INTEGRATORS:
+            raise ValueError(f"unknown integrator {integrator!r}")
         t0 = time.perf_counter()
-        batch = self.cfg.frame_batch
+        batch = (self.cfg.frame_batch if integrator in ("wavefront", "direct")
+                 else 1)
         out, rays = [], 0
         for c0 in range(0, self.n_rays, self.chunk):
             contribution, r = self._render_chunk(
@@ -171,6 +178,20 @@ class Renderer:
         cfg = self.cfg
         direct = integrator == "direct"
         px, py = self.pixel_x[sl], self.pixel_y[sl]
+        depth = dict(width=self.pad_w, height=self.pad_h,
+                     stack_depth=self.meta.stack_depth,
+                     leaf_size=self.meta.leaf_size, traversal=cfg.traversal)
+        if integrator == "reference":
+            # Diffuse-specular only, level 0 of the maps, sun on a miss.
+            out = render_sample_reference(
+                self.scene, self.camera, px, py, key,
+                max_bounces=cfg.max_bounces, model=cfg.microfacet,
+                textured=self.meta.has_textures, sun=cfg.sun_enabled,
+                **depth)
+            return out, self.chunk
+        if integrator == "ao":
+            return render_sample_ao(self.scene, self.camera, px, py, key,
+                                    **depth)
         if self.use_mega:
             mk = self.mega_statics(integrator)
             if batch > 1:
@@ -180,24 +201,23 @@ class Renderer:
             return render_sample_mega(
                 self.scene, self.mega_tables, self.camera, px, py, key,
                 sample_idx=self.num_samples, **mk)
-        kwargs = dict(width=self.pad_w, height=self.pad_h,
-                      max_bounces=0 if direct else cfg.max_bounces,
+        kwargs = dict(max_bounces=0 if direct else cfg.max_bounces,
                       nee=True if direct else cfg.nee_enabled,
                       compaction=cfg.compaction,
                       compaction_divs=tuple(cfg.compaction_divs),
-                      stack_depth=self.meta.stack_depth,
-                      leaf_size=self.meta.leaf_size,
                       model=cfg.microfacet,
-                      traversal=cfg.traversal,
                       bounce_traversal=self.bounce_traversal,
                       treelet_min=cfg.treelet_min,
+                      textured=self.meta.has_textures,
+                      mips=self.meta.mip_levels > 1,
                       sun=cfg.sun_enabled,
+                      sun_mode=cfg.sun_mode,
                       shadow_rev=cfg.shadow_rev,
                       shadow_sort=cfg.shadow_sort,
                       tsort_alternate=cfg.tsort_alternate,
                       sort_rays=False if direct else cfg.sort_rays,
                       sampler=cfg.sampler,
-                      delta=self.meta.has_delta)
+                      delta=self.meta.has_delta, **depth)
         if batch > 1:
             return render_sample_batch(self.scene, self.camera, px, py, key,
                                        spp=batch, **kwargs)

@@ -6,8 +6,9 @@ The BVH comes from the port's copy of the JAX package's builders
 (``gpupathtracer_tpu_torch.bvh``: C++ SBVH through ctypes, the 8-wide
 collapse, ``pack_for_packets`` and, with ``cfg.cluster_tris``, the dense
 cluster leaves of ``pack_clusters``), so both packages trace identical
-tables. The disk cache is not ported (ROADMAP.md, queue A); it changes no
-output.
+tables, and the texture atlas comes from the port's copy of the atlas
+builder (scene/textures.py). The disk cache is not ported (ROADMAP.md,
+queue A); it changes no output.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from gpupathtracer_tpu_torch.scene.materials import (MaterialDesc,
                                                      pack_materials)
 from gpupathtracer_tpu_torch.scene.mesh import (TriangleSoup,
                                                 build_triangle_soup)
+from gpupathtracer_tpu_torch.scene.textures import build_atlas
 
 
 class SceneData(NamedTuple):
@@ -64,6 +66,18 @@ class SceneData(NamedTuple):
     # table (ops/dense_intersect.py pack_dense_tris); the tree walks read
     # their triangles from node_rows.
     tri_geom: Optional[torch.Tensor] = None      # [T, 9] f32
+    # Texture atlas (role of bindless textures, Material.glsl:43-44): the
+    # packed images, each rect (x, y, w, h; mip levels included), and each
+    # texture slot's rect row per mip level (mat_rows cols 8 and 9 hold
+    # the slots). Without textures a 4x4 zero atlas with one rect.
+    atlas_image: Optional[torch.Tensor] = None   # [AH, AW, 3] f32
+    atlas_rects: Optional[torch.Tensor] = None   # [R, 4] i32
+    atlas_mips: Optional[torch.Tensor] = None    # [S, L] i32
+    # Sun disk (Renderer.cpp:23-26; SUN_LIGHT, Iterative.comp:84-126).
+    sun_dir: Optional[torch.Tensor] = None       # [3] unit, toward the sun
+    sun_emission: Optional[torch.Tensor] = None  # [3]
+    sun_radius: Optional[torch.Tensor] = None    # scalar: tan(angle)
+    sun_max_dot: Optional[torch.Tensor] = None   # scalar: cos(angle)
 
 
 @dataclass
@@ -75,16 +89,28 @@ class SceneMeta:
     num_lights: int
     stack_depth: int           # traversal stack bound from the wide depth
     leaf_size: int
+    has_textures: bool = False
     has_delta: bool = False    # any mirror/refractive materials
+    mip_levels: int = 1        # atlas pyramid depth (1 = level 0 only)
     bvh_stats: Optional[BuildStats] = None
 
 
 def scene_from_numpy(fields: dict, device) -> SceneData:
     """SceneData from arrays keyed by field name (``env`` is the lat-long
-    image), e.g. the JAX package's SceneData converted with np.asarray."""
+    image), e.g. the JAX package's SceneData converted with np.asarray.
+    Without atlas fields the scene gets the no-texture atlas."""
     def t(x):
         return None if x is None else torch.tensor(np.asarray(x),
                                                    device=device)
+    rects = fields.get("atlas_rects")
+    if rects is None:
+        rects = np.asarray([[0, 0, 4, 4]], np.int32)
+    mips = fields.get("atlas_mips")
+    if mips is None:
+        mips = np.arange(np.asarray(rects).shape[0], dtype=np.int32)[:, None]
+    image = fields.get("atlas_image")
+    if image is None:
+        image = np.zeros((4, 4, 3), np.float32)
     return SceneData(
         tri_shade=t(fields["tri_shade"]),
         light_rows=t(fields["light_rows"]),
@@ -97,7 +123,24 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         cluster_refs=t(fields.get("cluster_refs")),
         cut_entry=t(fields.get("cut_entry")),
         cut_bounds=t(fields.get("cut_bounds")),
-        tri_geom=t(fields.get("tri_geom")))
+        tri_geom=t(fields.get("tri_geom")),
+        atlas_image=t(image), atlas_rects=t(rects), atlas_mips=t(mips),
+        sun_dir=t(fields.get("sun_dir")),
+        sun_emission=t(fields.get("sun_emission")),
+        sun_radius=t(fields.get("sun_radius")),
+        sun_max_dot=t(fields.get("sun_max_dot")))
+
+
+def sun_fields(cfg: RenderConfig) -> dict:
+    """The sun's scene fields from the config, rounded as the JAX package
+    rounds them: the direction normalized in float64, tan and cos of the
+    angle in float64, each then stored as float32."""
+    direction = (np.asarray(cfg.sun_direction, np.float32)
+                 / max(np.linalg.norm(cfg.sun_direction), 1e-9))
+    return dict(sun_dir=direction.astype(np.float32),
+                sun_emission=np.asarray(cfg.sun_emission, np.float32),
+                sun_radius=np.float32(np.tan(cfg.sun_angle)),
+                sun_max_dot=np.float32(np.cos(cfg.sun_angle)))
 
 
 def build_emitter_cdf(soup: TriangleSoup, emissive_mask: np.ndarray):
@@ -123,17 +166,13 @@ def build_emitter_cdf(soup: TriangleSoup, emissive_mask: np.ndarray):
     return idx, cdf, total_area
 
 
-def _reject_textures(materials: List[MaterialDesc], base_dir: str) -> None:
-    """Texture maps are not ported yet. A map file that does not exist is
-    skipped, as the JAX package's atlas builder skips it."""
+def build_atlas_for(materials: List[MaterialDesc], base_dir: str,
+                    cfg: RenderConfig):
+    """The atlas of every map the materials name (the JAX package's
+    ``_build_atlas_for``): (image, rects, {path: slot}, mips)."""
     paths = sorted({m.albedo_texture for m in materials if m.albedo_texture}
                    | {m.mr_texture for m in materials if m.mr_texture})
-    for p in paths:
-        full = p if os.path.isabs(p) else os.path.join(base_dir, p)
-        if os.path.exists(full):
-            raise NotImplementedError(
-                f"texture {p!r}: textured scenes are not ported yet "
-                f"(ROADMAP.md, queue A: textures and mips)")
+    return build_atlas(paths, base_dir, mip_levels=cfg.mip_levels)
 
 
 def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
@@ -158,9 +197,10 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
     else:
         raise ValueError(f"unsupported scene format: {path!r}")
 
-    _reject_textures(materials, base_dir)
     soup = build_triangle_soup(mesh)
-    table = pack_materials(materials)
+    atlas_img, atlas_rects, slots, atlas_mips = build_atlas_for(
+        materials, base_dir, cfg)
+    table = pack_materials(materials, atlas_slots=slots)
     idx, cdf, total_area = build_emitter_cdf(soup, table.emissive)
     p0, p1, p2 = soup.vertices()
     wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=cfg.leaf_size,
@@ -227,14 +267,21 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
                                  cut_entry=wide.cut_entry,
                                  cut_bounds=wide.cut_bounds,
                                  tri_geom=pack_tri_geom(soup.p0, soup.e1,
-                                                        soup.e2)), device)
+                                                        soup.e2),
+                                 atlas_image=atlas_img,
+                                 atlas_rects=atlas_rects,
+                                 atlas_mips=atlas_mips, **sun_fields(cfg)),
+                            device)
     meta = SceneMeta(
         num_triangles=T,
         num_materials=M,
         num_lights=int(idx.size if total_area > 0 else 0),
         stack_depth=stack_depth,
         leaf_size=cfg.leaf_size,
+        has_textures=bool((table.albedo_tex >= 0).any()
+                          or (table.mr_tex >= 0).any()),
         has_delta=bool((table.mtype != 1).any()),
+        mip_levels=int(atlas_mips.shape[1]),
         bvh_stats=stats,
     )
     return data, meta

@@ -1,8 +1,10 @@
 """The port runs where neither JAX nor Pillow nor the JAX package is
 installed: a subprocess that refuses jax, PIL and ``gpupathtracer_tpu``
 renders proc:cornell on the CPU to a PNG, with the wavefront integrator,
-with the megakernel, on cluster leaves and with treelet-sorted bounce
-rays, and the PNGs are decoded here with zlib alone. No module of the port, and not chip_smoke.py, names the
+with the megakernel, on cluster leaves, with treelet-sorted bounce rays,
+with the reference and AO integrators, and a generated textured town with
+mips (its maps written and read by the port's own PNG code), and the PNGs
+are decoded here with zlib alone. No module of the port, and not chip_smoke.py, names the
 JAX package in an import."""
 
 import ast
@@ -44,6 +46,17 @@ rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
 rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
                      "--width", "16", "--height", "16", "--cluster-tris",
                      "128", "--out", sys.argv[4]])
+for integrator, out in (("reference", sys.argv[5]), ("ao", sys.argv[6])):
+    rc = rc or cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
+                         "--width", "16", "--height", "16", "--max-bounces",
+                         "4", "--integrator", integrator, "--out", out])
+from gpupathtracer_tpu_torch.scene.samplegen import generate_textured_town
+town = generate_textured_town(sys.argv[8], houses=2, trees=1,
+                              sphere_subdiv=1)
+rc = rc or cli.main([town, "--device", "cpu", "--spp", "1", "--width", "16",
+                     "--height", "16", "--max-bounces", "2", "--mip-levels",
+                     "4", "--position", "0,9,-26", "--rotation",
+                     "3.14159,-0.28", "--out", sys.argv[7]])
 # The treelet-sorted bounce traversal, with the sort forced on at 16x16.
 import math
 from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -84,8 +97,10 @@ def _read_png(path):
 
 def test_port_renders_without_jax_or_pil(tmp_path):
     outs = [str(tmp_path / f"{name}.png")
-            for name in ("cornell", "mega", "cluster")]
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, *outs],
+            for name in ("cornell", "mega", "cluster", "reference", "ao",
+                         "town")]
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, *outs,
+                           str(tmp_path / "town")],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout
@@ -113,7 +128,8 @@ def test_port_sources_never_import_the_jax_package():
     names = {os.path.basename(p) for p in paths}
     assert {"tsort.py", "dense_intersect.py", "subpacket_traverse.py",
             "torch_kernel_bench.py", "roofline.py", "torch_roofline.py",
-            "torch_mega_profile.py", "torch_bench.py"} <= names
+            "torch_mega_profile.py", "torch_bench.py", "reference.py",
+            "ao.py", "texture.py", "textures.py", "samplegen.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)

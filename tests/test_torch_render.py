@@ -129,7 +129,7 @@ def test_cli_writes_png(tmp_path):
     assert np.isfinite(film).all() and film.max() > 0
 
 
-@pytest.mark.parametrize("flag", [["--integrator", "ao"],
+@pytest.mark.parametrize("flag", [["--checkpoint", "x"],
                                   ["--shadow-rev"],
                                   ["--sampler", "ld"]])
 def test_cli_rejects_unported_flags(flag):
