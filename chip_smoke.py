@@ -85,6 +85,33 @@ nvcc and g++. Phases, each of which raises on failure:
      pop, against the probes' per-pop floors); then the same checks on
      the tie case of tests/test_torch_kernel.py (every triangle of a soup
      twice, the twins in one block: each hit a tie the lower slot wins);
+  A. (after phase 4 on sponza) the table arities: sponza's MT table and
+     its cluster table (tc 128) built at each arity of CARD_ARITIES (16
+     and 4; csrc/traverse.cu and csrc/cluster_traverse.cu built with
+     -DGPT_ARITY=A in phase 2, every instantiation's ptxas line printed),
+     phase 3's rays: B1 closest and any-hit, B7 (W = 2), B8 (Q = 2) and
+     B4, each bitwise its plain version; B1's and B4's closest t and
+     B1's occlusion bitwise arity 8's kernel's on the same rays (where
+     another triangle won at bitwise the same t, the lanes are counted and
+     printed); each timed by CUDA events beside arity 8's build in the
+     order 8, A, A, 8, with its bound; after phase T's renders, the path
+     that drives them: the kernel A/B tool at --arity A on bathroom (B1,
+     B7, B8, B4, closest and any-hit, every variant's t or occlusion its
+     plain version's);
+  T. (on sponza) start entries and the treelet traversal: B1 and B4 with
+     roots, one a 2048-ray packet (the table's treelet-cut roots in turn, a
+     leaf entry, an INVALID packet), bitwise their plain versions (a check:
+     no path of the port passes roots to B4, or to B1's any-hit but the
+     treelet occlusion query); trace_closest_treelet /
+     trace_occluded_treelet, each called once as a path of its own, on
+     phase 3's rays against B1's whole-tree hits (t and occluded bitwise,
+     prim but where another triangle is hit at bitwise the same t), rounds
+     and time beside B1's; after phase 6, the CLI on sponza 1920x1080, 64
+     bounces, 1 spp: the default, with --wide-arity 16 and with
+     --bounce-traversal treelet (ray_chunk 2^17, treelet_min 2^15), each
+     film against the default's (ray counts within RAY_SHARE, at most
+     PIXEL_SHARE of pixels outside rtol = atol = FILM_TOL, both printed),
+     s/sample and Mrays/s printed;
   5. the golden recipe of tests/test_golden.py (cornell, 32x32, 8 spp) on
      the card against tests/golden/cornell_32_8spp.npz;
   6. the main path through the CLI: proc:sponza 1920x1080 with 64 bounces
@@ -174,7 +201,9 @@ nvcc and g++. Phases, each of which raises on failure:
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
-have none of their own); the last line is {"ok": true, "device": {...}}.
+have none of their own; the builds at another arity, "_a<A>", and B1's
+launches with start entries, "_roots", have entries of their own; B4's with
+start entries are a check only, which no path launches); the last line is {"ok": true, "device": {...}}.
 Any failure exits nonzero before that line. Nothing here imports JAX.
 """
 
@@ -328,7 +357,8 @@ def _test_rays(scene, meta, cfg, device):
     on = torch.ones(N_RAYS, dtype=torch.bool, device=device)
     t, prim, _, _ = kt.closest_plain(scene.node_rows, o, d, far, on,
                                      stack_depth=meta.stack_depth,
-                                     leaf_size=meta.leaf_size)
+                                     leaf_size=meta.leaf_size,
+                                     arity=scene.arity)
     normal = scene.tri_shade[prim.clamp_min(0).long(), 0:3]
     hit = (prim >= 0)[:, None]
     o2 = torch.where(hit, o + d * t[:, None] + 0.003 * normal, o)
@@ -367,13 +397,15 @@ def leaf_bytes_of(cluster_tris: int):
 
 
 def bound(pops: dict, *, leaf_bytes, slot_ops: int, io_bytes: int,
-          extra_ops: int = 0):
+          extra_ops: int = 0, arity: int = 8):
     """(bound in ms, "bytes" or "operations") of a kernel's work from its
     plain version's pop counts (see PEAK_FLOPS); ``leaf_bytes`` maps a
-    distinct leaf id of the counts to the bytes its pops read."""
-    ops = (pops.get("node", 0) * NODE_OPS
+    distinct leaf id of the counts to the bytes its pops read. A node pop
+    of an ``arity``-wide table tests arity children and reads 28 * arity
+    bytes of its row."""
+    ops = (pops.get("node", 0) * NODE_OPS * arity // 8
            + pops.get("slots", 0) * slot_ops + extra_ops)
-    nbytes = (len(pops.get("node_ids", ())) * NODE_ROW_BYTES
+    nbytes = (len(pops.get("node_ids", ())) * NODE_ROW_BYTES * arity // 8
               + sum(map(leaf_bytes, pops.get("leaf_ids", ()))) + io_bytes)
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -1014,6 +1046,395 @@ def compare_dense(name: str, scene, rays, b1, device, results,
     results[name + "_dense"] = out
 
 
+# Phase A: the table arities the card runs besides 8 (tests/test_torch_arity.py
+# holds 2, 4 and 16 to the JAX kernels on the CPU), and phase T's packets of
+# rays a start entry serves.
+CARD_ARITIES = (16, 4)
+ROOTS_PACKET = 2048
+ROOTS_KEYS = ("trace_closest_roots", "trace_anyhit_roots",
+              "trace_cluster_closest_roots", "trace_cluster_anyhit_roots")
+# Phase T's films against the default film: the ray counts within this
+# share, at most PIXEL_SHARE of pixels outside rtol = atol = FILM_TOL.
+RAY_SHARE, PIXEL_SHARE, FILM_TOL = 1e-5, 1e-4, 2e-3
+
+
+def _timed(fn):
+    """(fn(), its milliseconds by CUDA events): one run, for the plain
+    versions, whose check run is also their timing."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _limit(label: str, count: int, total: int, share: float) -> None:
+    """Raises if count lanes of total exceed the share."""
+    if count > share * total:
+        raise AssertionError(f"{label}: {count} of {total} lanes, more than "
+                             f"{share:g} of them")
+
+
+def _order_diff(label, got, ref, geom, o, d) -> int:
+    """Closest hits of two walks of the same rays in another visit order
+    (another arity, treelet bins): t bitwise, prim but where another
+    triangle won at bitwise the same t; such a prim must hit its ray at
+    that t (recomputed with ops/intersect.py mt_intersect). Returns the
+    count of those lanes."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops.intersect import mt_intersect
+
+    torch.cuda.synchronize()
+    t_diff = _bits(got[0]) != _bits(ref[0])
+    for i in t_diff.nonzero().squeeze(1)[:8].tolist():
+        print(f"{label}: lane {i} t {float(got[0][i])!r} (prim "
+              f"{int(got[1][i])}) against {float(ref[0][i])!r} (prim "
+              f"{int(ref[1][i])})")
+    if t_diff.any():
+        raise AssertionError(f"{label}: t differs in {int(t_diff.sum())} "
+                             f"lanes")
+    tie = got[1] != ref[1]
+    lanes = tie.nonzero().squeeze(1)
+    if lanes.numel():
+        tt, _, _, ok = mt_intersect(geom[got[1][lanes].long()], o[lanes],
+                                    d[lanes])
+        if not bool(ok.all()) or not torch.equal(_bits(tt),
+                                                 _bits(got[0][lanes])):
+            raise AssertionError(f"{label}: a prim that differs at equal t "
+                                 f"does not hit its ray at that t")
+    return int(tie.sum())
+
+
+def _same_occluded(label, occ, ref) -> None:
+    """Occlusion of two walks of the same rays, held exactly."""
+    n = int((occ != ref).sum())
+    if n:
+        raise AssertionError(f"{label}: occluded differs in {n} lanes")
+
+
+def compare_arity(name: str, width: int, height: int, rays, b1, scene8,
+                  meta8, cluster8, device, results) -> None:
+    """Phase A on one scene: its MT table and its cluster table (tc 128) at
+    each of CARD_ARITIES, phase 3's rays. B1 closest and any-hit, B7 (W =
+    2), B8 (Q = 2) and B4 bitwise their plain versions; B1's and B4's
+    closest hits and B1's occlusion against arity 8's kernels
+    (_order_diff); each kernel timed beside its arity-8 build on the same
+    rays, with its bound. ``cluster8`` is the scene's cluster table at
+    arity 8 (phase 4's)."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    o, d, t_occ, on = rays
+    n = o.shape[0]
+    far = torch.full((n,), 1e20, device=device)
+    kw8 = dict(stack_depth=meta8.stack_depth, leaf_size=meta8.leaf_size)
+    for arity in CARD_ARITIES:
+        t0 = time.perf_counter()
+        scene, meta = load_scene(_scene_cfg(name, width, height,
+                                            wide_arity=arity), device)
+        rows = scene.node_rows
+        tag = f"[{name} A={arity}]"
+        print(f"{tag} ingest {time.perf_counter() - t0:.2f} s: "
+              f"{rows.shape[0]} rows ({rows.numel() * 4 / 1e6:.1f} MB; arity "
+              f"8 {scene8.node_rows.shape[0]}), stack depth "
+              f"{meta.stack_depth} (8: {meta8.stack_depth})")
+        kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+                  arity=arity)
+        entries, pops_b1 = {}, None
+        for sname, sched in (("", {}), ("_ilv", dict(interleave=2)),
+                             ("_multi", dict(multi_pop=2))):
+            pops_c, pops_a = {}, {}
+            got = kt.closest(rows, o, d, far, on, **sched, **kw)
+            want, plain_c = _timed(lambda: kt.closest_plain(
+                rows, o, d, far, on, pops=pops_c, **sched, **kw))
+            err_c = _hold_hits(f"{tag} trace_closest{sname}", got, want)
+            occ = kt.anyhit(rows, o, d, t_occ, on, **sched, **kw)
+            occ_want, plain_a = _timed(lambda: kt.anyhit_plain(
+                rows, o, d, t_occ, on, pops=pops_a, **sched, **kw))
+            err_a = _hold_occluded(f"{tag} trace_anyhit{sname}", occ,
+                                   occ_want)
+            if not sched:
+                pops_b1 = (pops_c, pops_a)
+                ties = _order_diff(f"{tag} trace_closest against arity 8's",
+                                   got, b1["closest"], scene.tri_geom, o, d)
+                _same_occluded(f"{tag} trace_anyhit against arity 8's", occ,
+                               b1["occ"])
+                print(f"{tag} B1 against arity 8's kernel: t and occluded "
+                      f"bitwise equal, another triangle at bitwise the "
+                      f"same t in {ties} lanes")
+            times = []
+            for rw, k in ((scene8.node_rows, kw8), (rows, kw),
+                          (rows, kw), (scene8.node_rows, kw8)):
+                times.append((_events_ms(lambda: kt.closest(
+                    rw, o, d, far, on, **sched, **k), 10), _events_ms(
+                    lambda: kt.anyhit(rw, o, d, t_occ, on, **sched, **k),
+                    10)))
+            ms = [sum(x[q] for x in times[1:3]) / 2 for q in (0, 1)]
+            ms8 = [(times[0][q] + times[3][q]) / 2 for q in (0, 1)]
+            for q, (query, err, plain, io) in enumerate((
+                    ("closest", err_c, plain_c, 45),
+                    ("anyhit", err_a, plain_a, 30))):
+                key = kt.launch_key(f"trace_{query}{sname}", arity, None)
+                entries[key] = (err, ms[q], plain, *bound(
+                    pops_b1[q], leaf_bytes=mt_leaf_bytes,
+                    slot_ops=MT_SLOT_OPS, io_bytes=n * io, arity=arity))
+                print(f"{tag} {key} {ms[q]:.4f} ms (runs "
+                      f"{times[1][q]:.4f}, {times[2][q]:.4f}; arity 8 "
+                      f"{ms8[q]:.4f}: {times[0][q]:.4f}, {times[3][q]:.4f}), "
+                      f"plain {plain:.1f} ms, bitwise the plain version")
+        t0 = time.perf_counter()
+        cscene, cmeta = load_scene(_scene_cfg(
+            name, width, height, wide_arity=arity, cluster_tris=128), device)
+        tabs = (cscene.node_rows, cscene.cluster_rows)
+        refs = cscene.cluster_refs
+        ck = dict(stack_depth=cmeta.stack_depth, arity=arity)
+        tabs8 = (cluster8[0].node_rows, cluster8[0].cluster_rows)
+        refs8 = cluster8[0].cluster_refs
+        ck8 = dict(stack_depth=cluster8[1].stack_depth)
+        pops_c, pops_a = {}, {}
+        got = kc.closest_cluster(*tabs, refs, o, d, far, on, **ck)
+        want, plain_c = _timed(lambda: kc.closest_cluster_plain(
+            *tabs, refs, o, d, far, on, pops=pops_c, **ck))
+        err_c = _hold_hits(f"{tag} trace_cluster_closest", got, want)
+        occ = kc.anyhit_cluster(*tabs, o, d, t_occ, on, **ck)
+        occ_want, plain_a = _timed(lambda: kc.anyhit_cluster_plain(
+            *tabs, o, d, t_occ, on, pops=pops_a, **ck))
+        err_a = _hold_occluded(f"{tag} trace_cluster_anyhit", occ, occ_want)
+        ties = _order_diff(f"{tag} trace_cluster_closest against arity 8's",
+                           got, kc.closest_cluster(*tabs8, refs8, o, d, far,
+                                                   on, **ck8),
+                           cscene.tri_geom, o, d)
+        _same_occluded(f"{tag} trace_cluster_anyhit against arity 8's", occ,
+                       kc.anyhit_cluster(*tabs8, o, d, t_occ, on, **ck8))
+        print(f"{tag} B4: ingest {time.perf_counter() - t0:.2f} s, top tree "
+              f"{tabs[0].shape[0]} rows (arity 8 {tabs8[0].shape[0]}); t "
+              f"and occluded bitwise arity 8's, another triangle at bitwise "
+              f"the same t in {ties} lanes")
+        times = []
+        for tb, k, rf in ((tabs8, ck8, refs8), (tabs, ck, refs),
+                          (tabs, ck, refs), (tabs8, ck8, refs8)):
+            times.append((_events_ms(lambda: kc.closest_cluster(
+                *tb, rf, o, d, far, on, **k), 10), _events_ms(
+                lambda: kc.anyhit_cluster(*tb, o, d, t_occ, on, **k), 10)))
+        for q, (query, err, plain, io, pops) in enumerate((
+                ("closest", err_c, plain_c, 45, pops_c),
+                ("anyhit", err_a, plain_a, 30, pops_a))):
+            key = kt.launch_key(f"trace_cluster_{query}", arity, None)
+            ms = (times[1][q] + times[2][q]) / 2
+            entries[key] = (err, ms, plain, *bound(
+                pops, leaf_bytes=leaf_bytes_of(128),
+                slot_ops=CLUSTER_SLOT_OPS, io_bytes=n * io, arity=arity))
+            print(f"{tag} {key} {ms:.4f} ms (runs {times[1][q]:.4f}, "
+                  f"{times[2][q]:.4f}; arity 8 {times[0][q]:.4f}, "
+                  f"{times[3][q]:.4f}), plain {plain:.1f} ms, bitwise the "
+                  f"plain version")
+        results[f"{name}_a{arity}"] = entries
+        _print_bounds(f"{name} A={arity}", entries)
+
+
+def _cut_roots(cut_entry, n: int, leaf_entry: int):
+    """Start entries for n rays in packets of ROOTS_PACKET: the cut's roots
+    in turn, ``leaf_entry`` in packet 1 and INVALID in packet 2."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    packets = -(-n // ROOTS_PACKET)
+    idx = torch.arange(packets, device=cut_entry.device) % cut_entry.shape[0]
+    roots = cut_entry.to(torch.int32)[idx].clone()
+    roots[1] = leaf_entry
+    roots[2] = kt.INVALID_ENTRY
+    return roots.contiguous()
+
+
+def _a_leaf(rows, arity: int) -> int:
+    """A leaf entry of a table: the first child entry that is one."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    e = rows[:, 6 * arity:7 * arity].contiguous().view(torch.int32)
+    return int(e[(e < 0) & (e != kt.INVALID_ENTRY)][0])
+
+
+def compare_roots(scene, meta, cscene, cmeta, rays, device, results):
+    """Phase T, the start entries: B1 closest and any-hit on sponza's MT
+    table and B4's two on its cluster table, ray i from roots[i // 2048]:
+    the table's treelet-cut roots in turn, a leaf entry in packet 1 and
+    INVALID in packet 2, each bitwise its plain version (the INVALID
+    packet: t_max, no hit, not occluded), timed with its bound."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    o, d, t_occ, on = rays
+    n = o.shape[0]
+    far = torch.full((n,), 1e20, device=device)
+    dead = slice(2 * ROOTS_PACKET, 3 * ROOTS_PACKET)
+    entries = {}
+    for table, sc, mt in (("MT", scene, meta), ("cluster", cscene, cmeta)):
+        roots = _cut_roots(sc.cut_entry, n, _a_leaf(sc.node_rows, sc.arity))
+        rk = dict(stack_depth=mt.stack_depth, roots=roots,
+                  packet=ROOTS_PACKET)
+        pops_c, pops_a = {}, {}
+        if table == "MT":
+            rk["leaf_size"] = mt.leaf_size
+            cl, an = kt.closest, kt.anyhit
+            clp, anp = kt.closest_plain, kt.anyhit_plain
+            tabs, ctabs, prefix = (sc.node_rows,), (sc.node_rows,), "trace"
+            leaf, slot_ops = mt_leaf_bytes, MT_SLOT_OPS
+        else:
+            cl, an = kc.closest_cluster, kc.anyhit_cluster
+            clp, anp = kc.closest_cluster_plain, kc.anyhit_cluster_plain
+            tabs = (sc.node_rows, sc.cluster_rows, sc.cluster_refs)
+            ctabs = tabs[:2]
+            prefix = "trace_cluster"
+            leaf, slot_ops = leaf_bytes_of(128), CLUSTER_SLOT_OPS
+        got = cl(*tabs, o, d, far, on, **rk)
+        want, plain_c = _timed(lambda: clp(*tabs, o, d, far, on,
+                                           pops=pops_c, **rk))
+        err_c = _hold_hits(f"[sponza {table} roots] {prefix}_closest", got,
+                           want)
+        occ = an(*ctabs, o, d, t_occ, on, **rk)
+        occ_want, plain_a = _timed(lambda: anp(*ctabs, o, d, t_occ, on,
+                                               pops=pops_a, **rk))
+        err_a = _hold_occluded(f"[sponza {table} roots] {prefix}_anyhit",
+                               occ, occ_want)
+        if not (torch.equal(got[0][dead], far[dead])
+                and bool((got[1][dead] < 0).all()) and not occ[dead].any()):
+            raise AssertionError(f"[sponza {table} roots] the INVALID packet "
+                                 f"walked")
+        ms_c = _events_ms(lambda: cl(*tabs, o, d, far, on, **rk), 10)
+        ms_a = _events_ms(lambda: an(*ctabs, o, d, t_occ, on, **rk), 10)
+        for query, err, ms, plain, pops, io in (
+                ("closest", err_c, ms_c, plain_c, pops_c, 45),
+                ("anyhit", err_a, ms_a, plain_a, pops_a, 30)):
+            key = f"{prefix}_{query}_roots"
+            entries[key] = (err, ms, plain, *bound(
+                pops, leaf_bytes=leaf, slot_ops=slot_ops,
+                io_bytes=n * io + 4 * roots.numel()))
+            print(f"[sponza {table} roots] {key} {ms:.4f} ms, plain "
+                  f"{plain:.1f} ms: {roots.numel()} start entries (cut "
+                  f"roots, leaf {int(roots[1])}, INVALID), bitwise the "
+                  f"plain version; hit rate "
+                  f"{float((want[1] >= 0).float().mean()):.3f}")
+    results["sponza_roots"] = entries
+    _print_bounds("sponza roots", entries)
+
+
+def compare_treelet(scene, meta, rays, b1, device) -> dict:
+    """Phase T, the treelet traversal on phase 3's sponza rays:
+    trace_closest_treelet and trace_occluded_treelet called once each, a
+    driven path of their own; their hits against B1's whole-tree hits there
+    (t and occlusion bitwise, prim but at true ties); then a timed run, its
+    rounds and host time beside B1's kernel time. Returns the path's
+    launches."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.ops import treelet
+
+    o, d, t_occ, on = rays
+    n = o.shape[0]
+    far = torch.full((n,), 1e20, device=device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+              packet_size=ROOTS_PACKET)
+    out = {}
+    counts = _drive("treelet queries", ("trace_closest_roots",
+                                        "trace_anyhit_roots"),
+                    lambda: out.update(
+                        hit=treelet.trace_closest_treelet(scene, o, d, far,
+                                                          on, **kw),
+                        occ=treelet.trace_occluded_treelet(scene, o, d,
+                                                           t_occ, on, **kw)))
+    ties = _order_diff("[sponza treelet] closest against B1's", out["hit"],
+                       b1["closest"], scene.tri_geom, o, d)
+    _same_occluded("[sponza treelet] occluded against B1's", out["occ"],
+                   b1["occ"])
+    before = dict(treelet.TRACES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    treelet.trace_closest_treelet(scene, o, d, far, on, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    treelet.trace_occluded_treelet(scene, o, d, t_occ, on, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rounds = treelet.TRACES["rounds"] - before["rounds"]
+    fallbacks = treelet.TRACES["fallbacks"]
+    b1_c = _events_ms(lambda: kt.closest(scene.node_rows, o, d, far, on,
+                                         stack_depth=meta.stack_depth,
+                                         leaf_size=meta.leaf_size), 10)
+    b1_a = _events_ms(lambda: kt.anyhit(scene.node_rows, o, d, t_occ, on,
+                                        stack_depth=meta.stack_depth,
+                                        leaf_size=meta.leaf_size), 10)
+    print(f"[sponza treelet] {n} rays, {scene.cut_entry.shape[0]} treelets: "
+          f"t and occluded bitwise B1's, another triangle at bitwise the "
+          f"same t in {ties} lanes; {rounds} rounds a pair of queries, "
+          f"{fallbacks} fallbacks in all; closest {1e3 * (t1 - t0):.2f} ms "
+          f"and occluded {1e3 * (t2 - t1):.2f} ms (host clock, its rounds' "
+          f"reads included) against B1's {b1_c:.4f} and {b1_a:.4f} ms")
+    return counts
+
+
+# Phase T's renders through the CLI: sponza 1080p, 64 bounces, 1 spp, the
+# default, on 16-wide tables and with treelet-binned bounce rays.
+TREELET_RUNS = {
+    "sponza_1spp": (["proc:sponza", "--width", "1920", "--height", "1080",
+                     "--max-bounces", "64"], 1),
+    "sponza_wide16": (["proc:sponza", "--width", "1920", "--height", "1080",
+                       "--max-bounces", "64", "--wide-arity", "16"], 1),
+    "sponza_treelet": (["proc:sponza", "--width", "1920", "--height", "1080",
+                        "--max-bounces", "64", "--bounce-traversal",
+                        "treelet"], 1),
+}
+
+
+def render_treelet_path(tmp: str, smi: str) -> dict:
+    """Phase T's renders: the 16-wide and the treelet films against the
+    default one of the same seed (ray counts within RAY_SHARE, at most
+    PIXEL_SHARE of pixels outside rtol = atol = FILM_TOL, both printed);
+    s/sample and Mrays/s beside the card."""
+    import numpy as np
+
+    stats = render_main_path(tmp, TREELET_RUNS)
+    ref = np.load(os.path.join(tmp, "sponza_1spp.npy"))
+    rays = stats["sponza_1spp"]["rays"]
+    for k, want in (("sponza_wide16", dict(arity=16)),
+                    ("sponza_treelet", dict(bounce_traversal="treelet"))):
+        s = stats[k]
+        for field, v in want.items():
+            if s[field] != v:
+                raise AssertionError(f"[{k}] {field} {s[field]}, not {v}")
+        if k == "sponza_treelet" and not s["treelet"]["rounds"]:
+            raise AssertionError(f"[{k}] no treelet round ran")
+        film = np.load(os.path.join(tmp, f"{k}.npy"))
+        outside = ~np.isclose(film, ref, rtol=FILM_TOL, atol=FILM_TOL).all(-1)
+        dr = abs(s["rays"] - rays)
+        print(f"[{k}] against the default film: {int(outside.sum())} of "
+              f"{outside.size} pixels outside rtol = atol = {FILM_TOL:g} "
+              f"({outside.mean():.2e}), {int((film != ref).any(-1).sum())} "
+              f"not bitwise equal; rays {s['rays']} against {rays} (differ "
+              f"by {dr}); {s['render_seconds'] / s['spp']:.3f} s/sample, "
+              f"{s['mrays_per_sec']:.2f} Mrays/s (default "
+              f"{stats['sponza_1spp']['render_seconds']:.3f} s, "
+              f"{stats['sponza_1spp']['mrays_per_sec']:.2f}); treelet "
+              f"{s['treelet']}; {smi}")
+        _limit(f"[{k}] pixels outside the bound", int(outside.sum()),
+               outside.size, PIXEL_SHARE)
+        _limit(f"[{k}] rays", dr, rays, RAY_SHARE)
+    return stats
+
+
 def _tool_module(name: str, folder: str = "tools"):
     """<folder>/<name>.py as a module."""
     import importlib.util
@@ -1182,6 +1603,7 @@ def compare_cluster(name: str, width: int, height: int, rays, device,
             pops_a, leaf_bytes=leaf, slot_ops=CLUSTER_SLOT_OPS,
             io_bytes=n * 30))}
     _print_bounds(name + " cluster", results[name + "_cluster"])
+    return scene, meta
 
 
 def compare_cluster_ties(device) -> None:
@@ -1434,6 +1856,39 @@ def run_kernel_bench(scenes) -> dict:
     return launches
 
 
+def run_arity_bench() -> dict:
+    """Phase A's driven path: tools/torch_kernel_bench.py --arity A on
+    bathroom (131,072 rays a set) for each of CARD_ARITIES, closest and
+    any-hit, B1, B7 (W = 2), B8 (Q = 2) and B4 (tc 128), every variant's t
+    or occlusion held to its plain version. Returns the launches by entry
+    point."""
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    bench = _bench_module()
+    launches = {}
+    for arity in CARD_ARITIES:
+        for any_hit in (False, True):
+            q = "anyhit" if any_hit else "closest"
+            want = tuple(kt.launch_key(k, arity, None) for k in (
+                f"trace_{q}", f"trace_{q}_ilv", f"trace_{q}_multi",
+                f"trace_cluster_{q}"))
+            if any_hit:
+                want += (kt.launch_key("trace_closest", arity, None),)
+            argv = ["--scene", "proc:bathroom", "--arity", str(arity),
+                    "--n", "131072", "--mode", "packet", "--interleave",
+                    "1,2", "--multi-pop", "2", "--cluster-tc", "128"] + (
+                        ["--any-hit"] if any_hit else [])
+            label = f"kernel bench {' '.join(argv)}"
+            got = {}
+            counts = _drive(label, want, lambda: got.update(bench.main(
+                argv + BENCH_ARGS)))
+            if any(v["plain_equal"] != 1.0 for v in got.values()):
+                raise AssertionError(f"[{label}] a variant differs from its "
+                                     f"kernel's plain version: {got}")
+            _add(launches, counts)
+    return launches
+
+
 def bench_quick() -> None:
     """Phase 7b: tools/torch_bench.py --quick in process (sponza 640x360:
     the realtime direct row, the probe of default, fpair and tsort, the
@@ -1529,17 +1984,23 @@ def build_kernels() -> None:
 
     from gpupathtracer_tpu_torch.ops import cuda_build
 
-    def one(name):
-        t0 = time.perf_counter()
-        _, log = cuda_build.build(name)
-        return time.perf_counter() - t0, log
-
     names = ("traverse", "cluster_traverse", "megakernel", "dense_intersect",
              "subpacket_traverse", "roofline")
-    with ThreadPoolExecutor(len(names)) as pool:
-        for name, (secs, log) in zip(names, pool.map(one, names)):
-            print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}: "
-                  f"{secs:.2f} s")
+    # The walks again at each arity phase A runs (-DGPT_ARITY=A), all at once.
+    jobs = [(n, ()) for n in names] + [
+        (n, cuda_build.arity_defines(a)) for a in CARD_ARITIES
+        for n in ("traverse", "cluster_traverse")]
+
+    def one(job):
+        t0 = time.perf_counter()
+        _, log = cuda_build.build(*job)
+        return time.perf_counter() - t0, log
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for (name, defines), (secs, log) in zip(jobs, pool.map(one, jobs)):
+            print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}"
+                  + (f" {' '.join(defines)}" if defines else "")
+                  + f": {secs:.2f} s")
             for line in _ptxas_summary(log):
                 print(f"[build]   {line}")
             for line in log.splitlines():
@@ -2453,6 +2914,11 @@ def _reset_launches() -> None:
             counts[k] = 0
 
 
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
 def _drive(label: str, want, fn):
     """Sets every launch count to 0, runs fn (one path), reads the counts:
     each entry point in ``want`` must have launched and no other."""
@@ -2461,12 +2927,31 @@ def _drive(label: str, want, fn):
     counts = _launches()
     print(f"[{label}] kernel launches: {counts}")
     for k in want:
-        if counts[k] <= 0:
+        if counts.get(k, 0) <= 0:
             raise AssertionError(f"the {label} never launched {k}")
     others = {k: v for k, v in counts.items() if k not in want and v}
     if others:
         raise AssertionError(f"the {label} launched {others}")
     return {k: counts[k] for k in want}
+
+
+def _base_key(key: str):
+    """(entry point, arity or None, roots) of a launch key
+    (kernel_traverse.launch_key)."""
+    import re
+
+    m = re.fullmatch(r"(.*?)(?:_a(\d+))?(_roots)?", key)
+    return m.group(1), m.group(2) and int(m.group(2)), bool(m.group(3))
+
+
+def source_of(key: str) -> str:
+    return SOURCES[_base_key(key)[0]]
+
+
+def replaces_of(key: str) -> str:
+    base, arity, roots = _base_key(key)
+    return REPLACES[base] + (f" (arity={arity})" if arity else "") + (
+        " (root_ref: per-packet start entries)" if roots else "")
 
 
 def main() -> int:
@@ -2500,7 +2985,7 @@ def main() -> int:
     results = {"mega": {}, "roofline": {}}
     results["rates"] = roofline_phase(device, results)
     stamp("phase R")
-    scenes = {}
+    scenes, launches = {}, {}
     for name, w, h in (("sponza", 1920, 1080), ("bathroom", 1280, 720)):
         rays, scene, meta, b1 = compare_kernels(name, w, h, device, results)
         scenes[name] = (scene, meta)
@@ -2510,7 +2995,7 @@ def main() -> int:
                       n_rays=DENSE_SPONZA_RAYS if name == "sponza" else None)
         if name == "sponza":
             compare_tsort(name, scene, meta, device)
-        compare_cluster(name, w, h, rays, device, results)
+        cluster = compare_cluster(name, w, h, rays, device, results)
         for entry, key, floor in (
                 ("trace_cluster_closest", "_cluster_pops",
                  "cluster_pop_ray_ps_tc128"),
@@ -2520,25 +3005,41 @@ def main() -> int:
             pop_account(f"B4 {name} {entry} (cluster pops at the tc = 128 "
                         f"body)", results[name + "_cluster"][entry][1], node,
                         cl, results["rates"], floor)
-        del rays, b1
         stamp(f"phases 3-4 on {name}")
+        if name == "sponza":
+            compare_arity(name, w, h, rays, b1, scene, meta, cluster, device,
+                          results)
+            stamp(f"phase A on {name}")
+            # A check, not a path: its counts are held, not reported.
+            _drive("roots check", ROOTS_KEYS, lambda: compare_roots(
+                scene, meta, *cluster, rays, device, results))
+            treelet_launches = compare_treelet(scene, meta, rays, b1, device)
+            stamp("phase T: roots and treelet queries")
+        del rays, b1, cluster
     compare_b1_ties(device)
     compare_cluster_ties(device)
     golden_check(device)
 
-    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(_drive(
+        _add(launches, _drive(
             "main path", ("trace_closest", "trace_anyhit"),
             lambda: render_wavefront_path(tmp)))
         stamp("phase 6")
+        _add(launches, _drive(
+            "16-wide and treelet paths", ("trace_closest", "trace_anyhit",
+                                          "trace_closest_a16",
+                                          "trace_anyhit_a16",
+                                          "trace_closest_roots"),
+            lambda: render_treelet_path(tmp, smi)))
+        stamp("phase T: renders")
         bench_launches = run_kernel_bench(scenes)
+        _add(bench_launches, run_arity_bench())
         del scenes
         profile = _tool_module("torch_mega_profile")
         _drive("mega profile", ("trace_mega", "trace_mega_stats"),
                lambda: profile.main(["--time"]))
         stamp("phase 6b")
-        launches.update(_drive(
+        _add(launches, _drive(
             "cluster path", ("trace_cluster_closest", "trace_cluster_anyhit"),
             lambda: render_main_path(tmp, CLUSTER_RUNS)))
         stamp("phase 7")
@@ -2552,10 +3053,10 @@ def main() -> int:
     compare_mega_rows(device, results, MEGA_RUNS + MEGACLUSTER_RUNS)
     stamp("phase 9")
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(_drive(
+        _add(launches, _drive(
             "megakernel path", ("trace_mega",),
             lambda: render_mega_path(tmp, MEGA_RUNS, "trace_mega")))
-        launches.update(_drive(
+        _add(launches, _drive(
             "megacluster path", ("trace_mega_cluster",),
             lambda: render_mega_path(tmp, MEGACLUSTER_RUNS,
                                      "trace_mega_cluster")))
@@ -2588,8 +3089,7 @@ def main() -> int:
         stamp("phase 16")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
-        for k, v in counts.items():
-            launches[k] += v
+        _add(launches, counts)
 
     kernels = []
     for case, k in (("sponza", "trace_closest"), ("sponza", "trace_anyhit"),
@@ -2605,19 +3105,26 @@ def main() -> int:
                     ("sponza", "trace_anyhit_ilv"),
                     ("sponza", "trace_closest_multi"),
                     ("sponza", "trace_anyhit_multi"),
-                    *(("roofline", k) for k in results["roofline"])):
+                    *(("roofline", k) for k in results["roofline"]),
+                    *((f"sponza_a{a}", k) for a in CARD_ARITIES
+                      for k in results[f"sponza_a{a}"]),
+                    *(("sponza_roots", k) for k in ROOTS_KEYS[:2])):
         # Launches: of the paths that drive the entry point (the renders
         # for the first six: for B1 the wavefront, reference, AO, textured
-        # and sun paths; the kernel A/B entry point for the schedules,
-        # run_compact for the probes).
-        launches.setdefault(k, bench_launches.get(
-            k, results["roofline_launches"].get(k, 0)))
+        # and sun paths, at arity 16 and with roots the 16-wide and treelet
+        # films; the kernel A/B entry point for the schedules and the
+        # arities' B4, the treelet occlusion query for B1's any-hit with
+        # roots, run_compact for the probes).
+        launches.setdefault(k, bench_launches.get(k, treelet_launches.get(
+            k, results["roofline_launches"].get(k, 0))))
         err, ms, plain_ms, bound_ms, bound_by, *lib = results[case][k]
-        kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
-                        "replaces": REPLACES[k], "launches": launches[k],
+        kernels.append({"name": k, "route": "cuda", "source": source_of(k),
+                        "replaces": replaces_of(k), "launches": launches[k],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib[0] if lib else None})
+        if launches[k] <= 0:
+            raise AssertionError(f"no path launched {k}")
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

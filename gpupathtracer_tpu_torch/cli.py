@@ -7,7 +7,8 @@ Usage:
   python -m gpupathtracer_tpu_torch.cli scene.txt --spp 64 --device cuda
 
 The flags are the JAX CLI's, plus --device (default cuda; the CLI raises if
-that device is absent, and never falls back). Flags for features the port
+that device is absent, and never falls back) and --wide-arity (children
+per BVH node, 2 to 16: cfg.wide_arity, which the JAX CLI leaves at 8). Flags for features the port
 does not have yet raise with a pointer to ROADMAP.md.
 """
 
@@ -67,6 +68,7 @@ def build_config(args):
     cfg.bounce_traversal = args.bounce_traversal
     cfg.mip_levels = args.mip_levels
     cfg.cluster_tris = args.cluster_tris
+    cfg.wide_arity = args.wide_arity
     if args.chunk:
         cfg.ray_chunk = args.chunk
     return cfg
@@ -76,8 +78,8 @@ def build_config(args):
 # (attribute, value that is fine, what to say).
 _UNPORTED = (
     ("shadow_rev", (False,), "light-end shadow rays"),
-    ("bounce_traversal", ("auto", "same", "tsort"),
-     "the treelet bounce traversal"),
+    ("bounce_traversal", ("auto", "same", "tsort", "treelet", "pallas"),
+     "the packet and perray bounce traversals"),
     ("sampler", ("random",), "the ld sampler"),
     ("partition_chips", (0,), "multi-device rendering"),
     ("partition_samples", (1,), "multi-device rendering"),
@@ -124,8 +126,11 @@ def parse_args(argv=None):
                    help="samples accumulated per frame")
     p.add_argument("--shadow-rev", action="store_true")
     p.add_argument("--bounce-traversal", default="auto",
-                   help="bounce-ray traversal override: auto|same|tsort "
-                        "(auto = same; tsort sorts by treelet when named)")
+                   help="bounce-ray traversal override: auto|same|tsort|"
+                        "treelet|pallas (auto = same; tsort sorts by "
+                        "treelet, treelet bins by treelet, when named)")
+    p.add_argument("--wide-arity", type=int, default=8,
+                   help="children per BVH node, 2 to 16")
     p.add_argument("--mip-levels", type=int, default=1)
     p.add_argument("--cluster-tris", type=int, default=0)
     p.add_argument("--sampler", default="random", choices=["random", "ld"])
@@ -165,6 +170,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    from gpupathtracer_tpu_torch.ops.treelet import TRACES
     from gpupathtracer_tpu_torch.ops.tsort import SORTED
     from gpupathtracer_tpu_torch.render import Renderer
     from gpupathtracer_tpu_torch.utils.io import timestamped_name
@@ -185,7 +191,7 @@ def main(argv=None) -> int:
 
     out = args.out or timestamped_name(
         os.path.splitext(os.path.basename(args.scene))[0].replace(":", "_"))
-    sorted_before = dict(SORTED)
+    sorted_before, binned_before = dict(SORTED), dict(TRACES)
     for s in range(args.spp):
         r.render_frame(sync=True)
         if args.save_every and (s + 1) % args.save_every == 0:
@@ -215,6 +221,9 @@ def main(argv=None) -> int:
                 "bounce_traversal": r.bounce_traversal,
                 # Treelet sorts and traces of sorted rays in this render.
                 "sorted": {k: SORTED[k] - sorted_before[k] for k in SORTED},
+                # Treelet-binned traces, their rounds and fallbacks.
+                "treelet": {k: TRACES[k] - binned_before[k] for k in TRACES},
+                "arity": r.scene.arity,
                 "config": json.loads(cfg.to_json()),
             }, f, indent=2)
     return 0

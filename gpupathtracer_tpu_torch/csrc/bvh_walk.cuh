@@ -10,9 +10,10 @@
 // the leaf test, and csrc/dense_intersect.cu the dot products.
 //
 // The MT-leaf table is the merged 128-float row table of bvh/wide.py
-// pack_for_packets:
-//   node row : cols 0:48  = 8 children x (min.xyz, max.xyz)
-//              cols 48:56 = 8 child entries (int32 bit-cast)
+// pack_for_packets, its nodes A = kArity wide (GPT_ARITY, 2 to 16; 8 unless
+// the build defines it, ops/cuda_build.py builds one library per arity):
+//   node row : cols 0:6A   = A children x (min.xyz, max.xyz)
+//              cols 6A:7A  = A child entries (int32 bit-cast)
 //   leaf rows: 10 slots of 12 floats (p0, e1, e2, prim id bit-cast, material
 //              id bit-cast, normal sign); a leaf spans ceil(leaf_size / 10)
 //              consecutive rows.
@@ -22,13 +23,16 @@
 // top tree's nodes alone, and a leaf's packed >> 4 is a cluster index into
 // the [Ncl * 8, 3 * tc] cluster table (see cluster_uv).
 //
-// A node pop reads its row's 224 used bytes as fourteen 16-byte loads
-// through the read-only path, all issued before the first slab test, and
-// orders the entered children in registers with a fixed compare-exchange
-// network (no array is indexed at run time); a leaf slot is three 16-byte
-// loads. Rows are 512 bytes and slots 48, so every load is aligned when the
+// A node pop reads its row's 28A used bytes (224 at A = 8) as ceil(7A / 4)
+// 16-byte loads through the read-only path, all issued before the first
+// slab test, and orders the entered children in registers with a fixed
+// compare-exchange network (no array is indexed at run time); a leaf slot
+// is three 16-byte loads. Rows are 512 bytes and slots 48, so every load is aligned when the
 // table is (the wrappers check it). The walk's stack is the caller's: a
-// pointer and a stride, so that B1 keeps it in shared memory.
+// pointer and a stride, so that B1 keeps it in shared memory. A walk
+// starts at the entry its caller gives (row 0, the whole tree's root, or
+// a subtree root or leaf of the treelet cut: the TPU kernels' per-packet
+// root_ref); kInvalid starts no walk.
 //
 // The arithmetic is the Pallas kernels', term by term, as XLA compiles them
 // for the CPU (where the JAX package's tests and goldens run): slab test as
@@ -44,10 +48,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef GPT_ARITY
+#define GPT_ARITY 8
+#endif
+
+#include "sort_net.cuh"
+
 namespace bvh {
 
 constexpr int kRow = 128;
-constexpr int kArity = 8;
+constexpr int kArity = GPT_ARITY;
+static_assert(kArity >= 2 && kArity <= 16,
+              "a node row holds 2 to 16 children (7 * 16 <= 128 floats)");
 constexpr int kTrisPerRow = kRow / 12;  // 10
 constexpr int kMaxStack = 192;          // cfg.stack_depth * 4
 constexpr int kInvalid = 0x7FFFFFFF;
@@ -157,32 +169,34 @@ __device__ __forceinline__ float skip_key(const float* b, const Ray& r,
   return tmin - kSkipMargin * (fabsf(tmin) + scale);
 }
 
-// A node row's children in registers: 8 boxes and 8 entries, the row's 224
-// used bytes as fourteen 16-byte loads, all in flight at once.
+// A node row's children in registers: A boxes and A entries, the row's
+// 28A used bytes as kRowWords 16-byte loads, all in flight at once (the
+// last word of an odd A reads up to 8 bytes past the entries, inside the
+// 512-byte row).
+constexpr int kRowWords = (7 * kArity + 3) / 4;  // 14 at A = 8
+
 struct NodeRow {
   float b[6 * kArity];
   int e[kArity];
 };
 
+// Float k of 16-byte words v (k a constant once the loops unroll).
+__device__ __forceinline__ float word_float(const float4 (&v)[kRowWords],
+                                            int k) {
+  const float4 w = v[k / 4];
+  return k % 4 == 0 ? w.x : k % 4 == 1 ? w.y : k % 4 == 2 ? w.z : w.w;
+}
+
 __device__ __forceinline__ void load_node(const float* __restrict__ row,
                                           NodeRow& n) {
-  float4 v[14];
+  float4 v[kRowWords];
 #pragma unroll
-  for (int q = 0; q < 14; ++q) v[q] = load4(row + 4 * q);
+  for (int q = 0; q < kRowWords; ++q) v[q] = load4(row + 4 * q);
 #pragma unroll
-  for (int q = 0; q < 12; ++q) {
-    n.b[4 * q] = v[q].x;
-    n.b[4 * q + 1] = v[q].y;
-    n.b[4 * q + 2] = v[q].z;
-    n.b[4 * q + 3] = v[q].w;
-  }
+  for (int k = 0; k < 6 * kArity; ++k) n.b[k] = word_float(v, k);
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    n.e[4 * q] = __float_as_int(v[12 + q].x);
-    n.e[4 * q + 1] = __float_as_int(v[12 + q].y);
-    n.e[4 * q + 2] = __float_as_int(v[12 + q].z);
-    n.e[4 * q + 3] = __float_as_int(v[12 + q].w);
-  }
+  for (int j = 0; j < kArity; ++j)
+    n.e[j] = __float_as_int(word_float(v, 6 * kArity + j));
 }
 
 template <class T>
@@ -192,25 +206,21 @@ __device__ __forceinline__ void swap_if(bool s, T& a, T& b) {
   a = x;
 }
 
-// Sorts the 8 (key, slot) pairs ascending, lexicographically, carrying each
-// child's entry (and, with kKeys, its pop_skip key) along. The slots are
-// distinct, so the order is total and any sorting network gives the stable
-// sort by key: the insertion order of the JAX kernel's port. The pairs are
-// the 19 compare-exchanges of the JAX kernel's _NET8
-// (pallas_traverse.py:48-51), which compares keys alone there;
-// tests/test_torch_walk_order.py reads them from this array.
+// Sorts the A (key, slot) pairs ascending, lexicographically, carrying
+// each child's entry (and, with kKeys, its pop_skip key) along. The slots
+// are distinct, so the order is total and any sorting network gives the
+// stable sort by key: the insertion order of the JAX kernel's port. The
+// pairs (sort_net.cuh, one network per arity) are the compare-exchanges of
+// the JAX kernel's _sort_net(A) (pallas_traverse.py:46-69), which compares
+// keys alone there: the hand-kept 19 of _NET8 at A = 8.
 template <bool kKeys>
 __device__ __forceinline__ void sort_children(float (&key)[kArity],
                                               int (&slot)[kArity],
                                               int (&entry)[kArity],
                                               float* skey) {
-  // child-order network
-  constexpr int kNet[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2},
-                               {1, 3}, {4, 6}, {5, 7}, {1, 2}, {5, 6},
-                               {0, 4}, {3, 7}, {1, 5}, {2, 6}, {1, 4},
-                               {3, 6}, {2, 4}, {3, 5}, {3, 4}};
+  constexpr int kNet[GPT_CHILD_NET_SIZE][2] = GPT_CHILD_NET;
 #pragma unroll
-  for (int c = 0; c < 19; ++c) {
+  for (int c = 0; c < GPT_CHILD_NET_SIZE; ++c) {
     const int a = kNet[c][0], b = kNet[c][1];
     const bool s =
         key[a] > key[b] || (key[a] == key[b] && slot[a] > slot[b]);
@@ -223,7 +233,7 @@ __device__ __forceinline__ void sort_children(float (&key)[kArity],
 
 // The two entered children of a node (bits `hits`) to positions 0 and 1 in
 // pop order: one compare, the pair picked by selects, where the network
-// takes 19 (the cost B4, bound by instruction issue, feels: PERF.md). Equal
+// takes 19 at A = 8 (the cost B4, bound by instruction issue, feels: PERF.md). Equal
 // keys keep slot order, as the network's (key, slot) order does.
 template <bool kKeys>
 __device__ __forceinline__ void order_two(unsigned hits, float (&key)[kArity],
@@ -441,18 +451,19 @@ struct Pops {
   int node = 0, leaf = 0, skip = 0;
 };
 
-// Walks the tree from the root: closest hit within (0, t) in near-first
-// order, or (kAnyHit) until the first leaf that reports a hit. On a miss t
-// and the leaf's records keep the values they came in with. kStats counts
-// the pops into *pops. The stack is the caller's: entry p at
-// stack[p * stride], `depth` entries.
+// Walks the tree from entry `root` (0: the root node row; a node row or a
+// leaf entry of the treelet cut; kInvalid: no walk, nothing is read):
+// closest hit within (0, t) in near-first order, or (kAnyHit) until the
+// first leaf that reports a hit. On a miss t and the leaf's records keep
+// the values they came in with. kStats counts the pops into *pops. The
+// stack is the caller's: entry p at stack[p * stride], `depth` entries.
 template <bool kAnyHit, class Leaf, bool kStats = false>
 __device__ __forceinline__ void walk(const float* __restrict__ rows,
                                      const Ray& r, int depth, float& t,
                                      Leaf& leaf, Pops* pops, int* stack,
-                                     int stride) {
-  int sp = 1;
-  stack[0] = 0;  // root node row
+                                     int stride, int root = 0) {
+  int sp = root != kInvalid ? 1 : 0;
+  stack[0] = root;
   while (sp > 0) {
     const int entry = stack[--sp * stride];
     if (entry >= 0) {
@@ -467,8 +478,8 @@ __device__ __forceinline__ void walk(const float* __restrict__ rows,
 }
 
 // Asks for the 128-byte lines of a popped entry's row to be brought near
-// the SM before the walk reads them: the 8 children's bounds and entries of
-// a node row (224 bytes), the used 48-byte slots of a leaf's first row.
+// the SM before the walk reads them: the A children's bounds and entries
+// of a node row (28A bytes), the used 48-byte slots of a leaf's first row.
 __device__ __forceinline__ void prefetch_entry(const float* __restrict__ rows,
                                                int entry) {
   const char* p;
@@ -489,19 +500,20 @@ __device__ __forceinline__ void prefetch_entry(const float* __restrict__ rows,
 // iteration pops one entry of each ray that still has one, asks for all
 // their rows, then processes them in turn, so that the W dependent row
 // reads overlap. Each ray's own visit order is `walk`'s, so its results are
-// too, bit for bit. Slots with on[w] false never start.
+// too, bit for bit. Slots with on[w] false, or whose start entry root[w]
+// is kInvalid, never start.
 template <int W, bool kAnyHit, class Leaf, bool kStats = false>
 __device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
                                          const Ray (&r)[W], const bool (&on)[W],
-                                         int depth, float (&t)[W],
-                                         Leaf (&leaf)[W],
+                                         const int (&root)[W], int depth,
+                                         float (&t)[W], Leaf (&leaf)[W],
                                          Pops* pops = nullptr) {
   int stack[W][kMaxStack];
   int sp[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    stack[w][0] = 0;  // root node row
-    sp[w] = on[w] ? 1 : 0;
+    stack[w][0] = root[w];
+    sp[w] = on[w] && root[w] != kInvalid ? 1 : 0;
   }
   for (;;) {
     int entry[W];
@@ -537,16 +549,18 @@ __device__ __forceinline__ void walk_ilv(const float* __restrict__ rows,
 // iteration began, in pop order, then the popped leaves are intersected in
 // pop order. The closest t is `walk`'s (stale-t pruning only enters more
 // children); the visit order is not, so among triangles at bitwise-equal t
-// another one may win. `depth` is the caller's stack bound times Q. Returns
-// the number of pushes dropped at the top of the stack (the overflow latch:
-// nonzero means hits may have been lost).
+// another one may win. `depth` is the caller's stack bound times Q; the
+// walk starts at `root` as `walk` does. Returns the number of pushes
+// dropped at the top of the stack (the overflow latch: nonzero means hits
+// may have been lost).
 template <int Q, bool kAnyHit, class Leaf, bool kStats = false>
 __device__ __forceinline__ int walk_multi(const float* __restrict__ rows,
                                           const Ray& r, int depth, float& t,
-                                          Leaf& leaf, Pops* pops = nullptr) {
+                                          Leaf& leaf, Pops* pops = nullptr,
+                                          int root = 0) {
   int stack[kMaxStack];
-  int sp = 1, dropped = 0;
-  stack[0] = 0;  // root node row
+  int sp = root != kInvalid ? 1 : 0, dropped = 0;
+  stack[0] = root;
   while (sp > 0) {
     int entry[Q];
     int n = 0;

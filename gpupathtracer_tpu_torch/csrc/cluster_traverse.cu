@@ -24,6 +24,12 @@
 // node phase. Every lane stays in the loop until the whole warp is done:
 // lanes past n and inactive rays take part in every ballot and shuffle.
 //
+// Both kernels take the table's arity at build time (bvh_walk.cuh kArity:
+// one library per arity) and, optionally, a start entry per packet of
+// `packet` consecutive rays (ray i from roots[i / packet]: a node row, a
+// cluster leaf entry, or kInvalid for no walk), as the TPU kernel's
+// root_ref; roots null starts every walk at row 0.
+//
 // Both kernels have kStats instantiations, launched when the caller passes
 // a stats array: the TPU kernel's with_stats counters, per ray ([n, 3]: node
 // pops, cluster pops run, cluster pops skipped). Closest hits also take
@@ -50,6 +56,13 @@ __device__ __forceinline__ void store_pops(int* __restrict__ stats, int i,
   }
 }
 
+// Ray i's start entry: roots[i / packet], or row 0 without roots (and for
+// lanes with no ray, which start no walk).
+__device__ __forceinline__ int root_of(const int* __restrict__ roots,
+                                       int packet, bool on, int i) {
+  return roots && on ? roots[i / packet] : 0;
+}
+
 // Every thread of a block runs the warp loop, in range or not: no lane
 // leaves before its warp is done.
 template <bool kStats, bool kSkip>
@@ -65,7 +78,8 @@ trace_cluster_closest_kernel(const float* __restrict__ rows,
                              int* __restrict__ prim_out,
                              float* __restrict__ u_out,
                              float* __restrict__ v_out,
-                             int* __restrict__ stats) {
+                             int* __restrict__ stats,
+                             const int* __restrict__ roots, int packet) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i < n;
   const bool on = in && active[i];
@@ -74,7 +88,7 @@ trace_cluster_closest_kernel(const float* __restrict__ rows,
   int win = -1;
   bvh::Pops pops;
   bvh::walk_warp<false, kStats, kSkip>(rows, cl, tc, r, on, depth, t, win,
-                                       pops);
+                                       pops, root_of(roots, packet, on, i));
   if (!in) return;
   if (win >= 0)
     bvh::cluster_uv(cl + (size_t)(win / tc) * 8 * 3 * tc, tc, win % tc, r, t,
@@ -95,7 +109,8 @@ trace_cluster_anyhit_kernel(const float* __restrict__ rows,
                             const float* __restrict__ t_max,
                             const uint8_t* __restrict__ active, int n,
                             int depth, uint8_t* __restrict__ occluded,
-                            int* __restrict__ stats) {
+                            int* __restrict__ stats,
+                            const int* __restrict__ roots, int packet) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i < n;
   const bool on = in && active[i];
@@ -104,7 +119,7 @@ trace_cluster_anyhit_kernel(const float* __restrict__ rows,
   int win = -1;
   bvh::Pops pops;
   bvh::walk_warp<true, kStats, false>(rows, cl, tc, r, on, depth, t, win,
-                                      pops);
+                                      pops, root_of(roots, packet, on, i));
   if (!in) return;
   occluded[i] = win >= 0 ? 1 : 0;
   store_pops<kStats>(stats, i, pops);
@@ -115,10 +130,13 @@ trace_cluster_anyhit_kernel(const float* __restrict__ rows,
 // Plain C interface for ctypes. Each returns cudaGetLastError() after its
 // launch (0 = launched); the caller checks it. n must be > 0. `stats` null
 // launches the kernel without counters, else its kStats instantiation,
-// which also writes the per-ray pop counts there.
+// which also writes the per-ray pop counts there. `roots` null walks every
+// ray from row 0, else ray i from roots[i / packet] (packet > 0).
 extern "C" {
 
 int gpt_cluster_max_stack() { return bvh::kMaxStack; }
+
+int gpt_cluster_arity() { return bvh::kArity; }
 
 // pop_skip != 0 takes the skipping schedule.
 int gpt_trace_cluster_closest(const float* rows, const float* cl,
@@ -126,7 +144,8 @@ int gpt_trace_cluster_closest(const float* rows, const float* cl,
                               const float* d, const float* t_max,
                               const uint8_t* active, int n, int depth,
                               float* t, int* prim, float* u, float* v,
-                              int pop_skip, int* stats, void* stream) {
+                              int pop_skip, int* stats, const int* roots,
+                              int packet, void* stream) {
   auto kernel =
       pop_skip ? (stats ? trace_cluster_closest_kernel<true, true>
                         : trace_cluster_closest_kernel<false, true>)
@@ -134,7 +153,8 @@ int gpt_trace_cluster_closest(const float* rows, const float* cl,
                         : trace_cluster_closest_kernel<false, false>);
   int blocks = (n + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, cl, refs, tc, o, d, t_max, active, n, depth, t, prim, u, v, stats);
+      rows, cl, refs, tc, o, d, t_max, active, n, depth, t, prim, u, v, stats,
+      roots, packet);
   return (int)cudaGetLastError();
 }
 
@@ -142,12 +162,13 @@ int gpt_trace_cluster_anyhit(const float* rows, const float* cl, int tc,
                              const float* o, const float* d,
                              const float* t_max, const uint8_t* active, int n,
                              int depth, uint8_t* occluded, int* stats,
-                             void* stream) {
+                             const int* roots, int packet, void* stream) {
   auto kernel = stats ? trace_cluster_anyhit_kernel<true>
                       : trace_cluster_anyhit_kernel<false>;
   int blocks = (n + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      rows, cl, tc, o, d, t_max, active, n, depth, occluded, stats);
+      rows, cl, tc, o, d, t_max, active, n, depth, occluded, stats, roots,
+      packet);
   return (int)cudaGetLastError();
 }
 

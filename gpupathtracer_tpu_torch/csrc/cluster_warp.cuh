@@ -138,23 +138,24 @@ __device__ __forceinline__ int next_cluster(const float* __restrict__ rows,
   return -1;
 }
 
-// The warp loop of a cluster walk. Lanes with `on` walk from the root; on a
-// closest hit t and win take the winner (cidx * tc + slot, the JAX
-// kernel's cluster-local prim id; the hit counts only if the block's
-// smallest valid t is below the ray's t, pallas_traverse.py:518-522), on an
-// any-hit win >= 0 and the ray ends.
+// The warp loop of a cluster walk. Lanes with `on` walk from entry `root`
+// (as bvh_walk.cuh `walk` does: kInvalid starts none, a leaf entry starts
+// at its cluster); on a closest hit t and win take the winner (cidx * tc +
+// slot, the JAX kernel's cluster-local prim id; the hit counts only if the
+// block's smallest valid t is below the ray's t,
+// pallas_traverse.py:518-522), on an any-hit win >= 0 and the ray ends.
 template <bool kAnyHit, bool kStats, bool kSkip>
 __device__ __forceinline__ void walk_warp(const float* __restrict__ rows,
                                           const float* __restrict__ cl,
                                           int tc, const Ray& r, bool on,
                                           int depth, float& t, int& win,
-                                          Pops& pops) {
+                                          Pops& pops, int root = 0) {
   static_assert(!(kSkip && kAnyHit), "pop_skip orders by t_near: closest only");
   const int lane = threadIdx.x % kWarp;
   int stack[kMaxStack];
   float keys[kSkip ? kMaxStack : 1];
-  int sp = on ? 1 : 0;
-  stack[0] = 0;  // root node row
+  int sp = on && root != kInvalid ? 1 : 0;
+  stack[0] = root;
   if constexpr (kSkip) keys[0] = -__int_as_float(0x7f800000);
   for (;;) {
     const int cidx = next_cluster<kAnyHit, kStats, kSkip>(rows, r, depth, t,

@@ -70,6 +70,10 @@
 
 #include "cluster_warp.cuh"
 
+// Built at the default arity only (ops/cuda_build.py passes no GPT_ARITY
+// here): this source reads 8-wide node rows.
+static_assert(bvh::kArity == 8, "this source reads 8-wide node rows");
+
 namespace {
 
 using bvh::nan_max;

@@ -53,6 +53,10 @@
 #include "bvh_walk.cuh"
 #include "wgmma.cuh"
 
+// Built at the default arity only (ops/cuda_build.py passes no GPT_ARITY
+// here): this source reads 8-wide node rows.
+static_assert(bvh::kArity == 8, "this source reads 8-wide node rows");
+
 namespace {
 
 constexpr int kThreads = 128;

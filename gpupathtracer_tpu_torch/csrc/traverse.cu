@@ -46,6 +46,14 @@
 // multi, PERF.md section 6): the prefetch hints keep the Q rows in flight
 // without the registers that would cut the warps hiding the same latency.
 //
+// Every kernel takes the table's arity at build time (bvh_walk.cuh kArity,
+// GPT_ARITY: one library per arity) and, optionally, a start entry per
+// packet of `packet` consecutive rays: ray i walks from roots[i / packet]
+// (the TPU kernels' root_ref, which the treelet traversal fills with the
+// subtree roots of its bins; a leaf entry starts at that leaf, kInvalid
+// starts no walk and the ray misses). roots null starts every walk at row
+// 0: one predicated load a ray, no template axis.
+//
 // Every kernel has a kStats instantiation, launched when the caller passes
 // a stats array: the pop counters of the TPU kernels' with_stats, per ray,
 // [n, 2] node and leaf pops, [n, 3] for the multi-pop schedule, whose third
@@ -77,6 +85,12 @@ __device__ __forceinline__ void store_pops(int* __restrict__ stats, int cols,
   }
 }
 
+// Ray i's start entry: roots[i / packet], or row 0 without roots.
+__device__ __forceinline__ int root_of(const int* __restrict__ roots,
+                                       int packet, int i) {
+  return roots ? roots[i / packet] : 0;
+}
+
 // B1's kernels: the walk's stack in dynamic shared memory, [depth][blockDim].
 template <bool kStats>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
@@ -86,7 +100,8 @@ trace_closest_kernel(const float* __restrict__ rows,
                      const uint8_t* __restrict__ active, int n, int depth,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
                      float* __restrict__ u_out, float* __restrict__ v_out,
-                     int* __restrict__ stats) {
+                     int* __restrict__ stats, const int* __restrict__ roots,
+                     int packet) {
   extern __shared__ int stack[];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -96,7 +111,7 @@ trace_closest_kernel(const float* __restrict__ rows,
   if (active[i])
     bvh::walk<false, bvh::MtLeaf<false>, kStats>(
         rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
-        stack + threadIdx.x, blockDim.x);
+        stack + threadIdx.x, blockDim.x, root_of(roots, packet, i));
   t_out[i] = t;
   prim_out[i] = leaf.prim;
   u_out[i] = leaf.u;
@@ -110,7 +125,8 @@ trace_anyhit_kernel(const float* __restrict__ rows,
                     const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ t_max,
                     const uint8_t* __restrict__ active, int n, int depth,
-                    uint8_t* __restrict__ occluded, int* __restrict__ stats) {
+                    uint8_t* __restrict__ occluded, int* __restrict__ stats,
+                    const int* __restrict__ roots, int packet) {
   extern __shared__ int stack[];
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -120,7 +136,7 @@ trace_anyhit_kernel(const float* __restrict__ rows,
   if (active[i])
     bvh::walk<true, bvh::MtLeaf<true>, kStats>(
         rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
-        stack + threadIdx.x, blockDim.x);
+        stack + threadIdx.x, blockDim.x, root_of(roots, packet, i));
   occluded[i] = leaf.prim >= 0 ? 1 : 0;
   store_pops<kStats>(stats, 2, i, pops);
 }
@@ -131,12 +147,14 @@ template <int W, bool kAnyHit, bool kStats>
 __device__ __forceinline__ void ilv_body(
     const float* __restrict__ rows, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ t_max,
-    const uint8_t* __restrict__ active, int n, int depth, int (&ray)[W],
-    float (&t)[W], bvh::MtLeaf<kAnyHit> (&leaf)[W], bvh::Pops (&pops)[W]) {
+    const uint8_t* __restrict__ active, int n, int depth,
+    const int* __restrict__ roots, int packet, int (&ray)[W], float (&t)[W],
+    bvh::MtLeaf<kAnyHit> (&leaf)[W], bvh::Pops (&pops)[W]) {
   int threads = (n + W - 1) / W;
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   bvh::Ray r[W];
   bool on[W];
+  int root[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     int i = w * threads + j;
@@ -144,12 +162,14 @@ __device__ __forceinline__ void ilv_body(
     ray[w] = in ? i : -1;
     on[w] = in && active[i];
     i = in ? i : 0;
+    root[w] = on[w] ? root_of(roots, packet, i) : 0;
     t[w] = t_max[i];
     r[w] = bvh::load_ray(o, d, i);
     leaf[w].rows = rows;
   }
-  bvh::walk_ilv<W, kAnyHit, bvh::MtLeaf<kAnyHit>, kStats>(rows, r, on, depth,
-                                                          t, leaf, pops);
+  bvh::walk_ilv<W, kAnyHit, bvh::MtLeaf<kAnyHit>, kStats>(rows, r, on, root,
+                                                          depth, t, leaf,
+                                                          pops);
 }
 
 template <int W, bool kStats>
@@ -161,13 +181,14 @@ trace_closest_ilv_kernel(const float* __restrict__ rows,
                          const uint8_t* __restrict__ active, int n, int depth,
                          float* __restrict__ t_out, int* __restrict__ prim_out,
                          float* __restrict__ u_out, float* __restrict__ v_out,
-                         int* __restrict__ stats) {
+                         int* __restrict__ stats,
+                         const int* __restrict__ roots, int packet) {
   int ray[W];
   float t[W];
   bvh::MtLeaf<false> leaf[W];
   bvh::Pops pops[W];
-  ilv_body<W, false, kStats>(rows, o, d, t_max, active, n, depth, ray, t, leaf,
-                             pops);
+  ilv_body<W, false, kStats>(rows, o, d, t_max, active, n, depth, roots,
+                             packet, ray, t, leaf, pops);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     if (ray[w] < 0) continue;
@@ -187,13 +208,14 @@ trace_anyhit_ilv_kernel(const float* __restrict__ rows,
                         const float* __restrict__ t_max,
                         const uint8_t* __restrict__ active, int n, int depth,
                         uint8_t* __restrict__ occluded,
-                        int* __restrict__ stats) {
+                        int* __restrict__ stats,
+                        const int* __restrict__ roots, int packet) {
   int ray[W];
   float t[W];
   bvh::MtLeaf<true> leaf[W];
   bvh::Pops pops[W];
-  ilv_body<W, true, kStats>(rows, o, d, t_max, active, n, depth, ray, t, leaf,
-                            pops);
+  ilv_body<W, true, kStats>(rows, o, d, t_max, active, n, depth, roots,
+                            packet, ray, t, leaf, pops);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     if (ray[w] < 0) continue;
@@ -213,7 +235,8 @@ trace_closest_multi_kernel(const float* __restrict__ rows,
                            float* __restrict__ t_out,
                            int* __restrict__ prim_out,
                            float* __restrict__ u_out, float* __restrict__ v_out,
-                           int* __restrict__ stats) {
+                           int* __restrict__ stats,
+                           const int* __restrict__ roots, int packet) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
@@ -222,7 +245,8 @@ trace_closest_multi_kernel(const float* __restrict__ rows,
   int dropped = 0;
   if (active[i])
     dropped = bvh::walk_multi<Q, false, bvh::MtLeaf<false>, kStats>(
-        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
+        root_of(roots, packet, i));
   t_out[i] = t;
   prim_out[i] = leaf.prim;
   u_out[i] = leaf.u;
@@ -238,7 +262,8 @@ trace_anyhit_multi_kernel(const float* __restrict__ rows,
                           const float* __restrict__ t_max,
                           const uint8_t* __restrict__ active, int n, int depth,
                           uint8_t* __restrict__ occluded,
-                          int* __restrict__ stats) {
+                          int* __restrict__ stats,
+                          const int* __restrict__ roots, int packet) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = t_max[i];
@@ -247,7 +272,8 @@ trace_anyhit_multi_kernel(const float* __restrict__ rows,
   int dropped = 0;
   if (active[i])
     dropped = bvh::walk_multi<Q, true, bvh::MtLeaf<true>, kStats>(
-        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
+        root_of(roots, packet, i));
   occluded[i] = leaf.prim >= 0 ? 1 : 0;
   store_pops<kStats>(stats, 3, i, pops, dropped);
 }
@@ -279,37 +305,44 @@ int launch_b1(void (*kernel)(Params...), int n, int depth, int threads,
 // Plain C interface for ctypes. Each returns cudaGetLastError() after its
 // launch (0 = launched); the caller checks it. n must be > 0. `stats` null
 // launches the kernel without counters, else its kStats instantiation,
-// which also writes the per-ray pop counts there.
+// which also writes the per-ray pop counts there. `roots` null walks every
+// ray from row 0, else ray i from roots[i / packet] (packet > 0).
 extern "C" {
 
 int gpt_max_stack() { return bvh::kMaxStack; }
+
+int gpt_arity() { return bvh::kArity; }
 
 // B1, `threads` a block (a multiple of 32 up to 256; -1 otherwise).
 int gpt_trace_closest(const float* rows, const float* o, const float* d,
                       const float* t_max, const uint8_t* active, int n,
                       int depth, int threads, float* t, int* prim, float* u,
-                      float* v, int* stats, void* stream) {
+                      float* v, int* stats, const int* roots, int packet,
+                      void* stream) {
   auto kernel =
       stats ? trace_closest_kernel<true> : trace_closest_kernel<false>;
   return launch_b1(kernel, n, depth, threads, (cudaStream_t)stream, rows, o,
-                   d, t_max, active, n, depth, t, prim, u, v, stats);
+                   d, t_max, active, n, depth, t, prim, u, v, stats, roots,
+                   packet);
 }
 
 int gpt_trace_anyhit(const float* rows, const float* o, const float* d,
                      const float* t_max, const uint8_t* active, int n,
                      int depth, int threads, uint8_t* occluded, int* stats,
-                     void* stream) {
+                     const int* roots, int packet, void* stream) {
   auto kernel =
       stats ? trace_anyhit_kernel<true> : trace_anyhit_kernel<false>;
   return launch_b1(kernel, n, depth, threads, (cudaStream_t)stream, rows, o,
-                   d, t_max, active, n, depth, occluded, stats);
+                   d, t_max, active, n, depth, occluded, stats, roots,
+                   packet);
 }
 
 // The interleave schedule, w = 2 or 4 rays per thread (-1 for any other w).
 int gpt_trace_closest_ilv(const float* rows, const float* o, const float* d,
                           const float* t_max, const uint8_t* active, int n,
                           int depth, int w, float* t, int* prim, float* u,
-                          float* v, int* stats, void* stream) {
+                          float* v, int* stats, const int* roots, int packet,
+                          void* stream) {
   auto kernel =
       w == 2 ? (stats ? trace_closest_ilv_kernel<2, true>
                       : trace_closest_ilv_kernel<2, false>)
@@ -318,14 +351,15 @@ int gpt_trace_closest_ilv(const float* rows, const float* o, const float* d,
                : nullptr;
   if (!kernel) return kBadVariant;
   kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats, roots,
+      packet);
   return (int)cudaGetLastError();
 }
 
 int gpt_trace_anyhit_ilv(const float* rows, const float* o, const float* d,
                          const float* t_max, const uint8_t* active, int n,
                          int depth, int w, uint8_t* occluded, int* stats,
-                         void* stream) {
+                         const int* roots, int packet, void* stream) {
   auto kernel =
       w == 2 ? (stats ? trace_anyhit_ilv_kernel<2, true>
                       : trace_anyhit_ilv_kernel<2, false>)
@@ -334,7 +368,7 @@ int gpt_trace_anyhit_ilv(const float* rows, const float* o, const float* d,
                : nullptr;
   if (!kernel) return kBadVariant;
   kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, occluded, stats);
+      rows, o, d, t_max, active, n, depth, occluded, stats, roots, packet);
   return (int)cudaGetLastError();
 }
 
@@ -343,7 +377,8 @@ int gpt_trace_anyhit_ilv(const float* rows, const float* o, const float* d,
 int gpt_trace_closest_multi(const float* rows, const float* o, const float* d,
                             const float* t_max, const uint8_t* active, int n,
                             int depth, int q, float* t, int* prim, float* u,
-                            float* v, int* stats, void* stream) {
+                            float* v, int* stats, const int* roots,
+                            int packet, void* stream) {
   auto kernel =
       q == 2 ? (stats ? trace_closest_multi_kernel<2, true>
                       : trace_closest_multi_kernel<2, false>)
@@ -352,14 +387,15 @@ int gpt_trace_closest_multi(const float* rows, const float* o, const float* d,
                : nullptr;
   if (!kernel) return kBadVariant;
   kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats, roots,
+      packet);
   return (int)cudaGetLastError();
 }
 
 int gpt_trace_anyhit_multi(const float* rows, const float* o, const float* d,
                            const float* t_max, const uint8_t* active, int n,
                            int depth, int q, uint8_t* occluded, int* stats,
-                           void* stream) {
+                           const int* roots, int packet, void* stream) {
   auto kernel =
       q == 2 ? (stats ? trace_anyhit_multi_kernel<2, true>
                       : trace_anyhit_multi_kernel<2, false>)
@@ -368,7 +404,7 @@ int gpt_trace_anyhit_multi(const float* rows, const float* o, const float* d,
                : nullptr;
   if (!kernel) return kBadVariant;
   kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, occluded, stats);
+      rows, o, d, t_max, active, n, depth, occluded, stats, roots, packet);
   return (int)cudaGetLastError();
 }
 

@@ -109,7 +109,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        compaction_divs: tuple = (2, 4, 8, 16, 32, 64, 128),
                        compaction_min: int = 2048,
                        sampler: str = "random",
-                       partition=None):
+                       partition=None,
+                       packet_size: int = 128):
     """Trace one sample for each pixel lane.
 
     Args:
@@ -126,7 +127,11 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
     the closest-hit and the shadow trace (shadow origins are the bounce
     rays' hit points, which the key already groups); ``tsort_alternate``
     sorts on even bounces only and reuses the permutation on odd ones.
-    These are schedules: the hits, and so the film, do not depend on them.
+    With "treelet" the bounce rays are binned by treelet (ops/treelet.py),
+    ``packet_size`` rays (at least 128) a start entry; shadow rays keep
+    ``traversal``. These are schedules: the hits, and so the film, do not
+    depend on them (but for which of two triangles at bitwise the same t a
+    ray takes).
     ``textured`` reads the scene's atlas at each hit's uv; with ``mips``
     both maps are sampled trilinearly at a ray-cone level of detail.
     ``sun`` adds the sun to NEE (``sun_mode`` "disk" or "cone").
@@ -172,7 +177,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                                       **depth, **shared)
         else:
             hit = trace_closest(scene, c.o, c.d, t_max_full, c.alive,
-                                traversal=trav, **depth)
+                                traversal=trav, packet_size=packet_size,
+                                **depth)
         next_perm = shared["perm"] if tsort_alternate and shared else c.perm
         miss = hit.prim < 0
         # Miss lanes read triangle 0's row; every use is masked below.
@@ -239,7 +245,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             else:
                 occluded = trace_occluded(
                     scene, ls.shadow_origin, ls.shadow_dir, ls.shadow_tmax,
-                    shadow_live, traversal=traversal, **depth)
+                    shadow_live, traversal=traversal,
+                    packet_size=packet_size, **depth)
             contribution = contribution + torch.where(
                 (shadow_live & ~occluded)[..., None], light, 0.0)
 

@@ -1,7 +1,10 @@
 """Build of the port's CUDA sources (``csrc/*.cu``) with nvcc into shared
 libraries with a plain C interface, which the kernel wrappers load with
 ctypes. A library is keyed by the hash of its source, every header of
-``csrc/`` and the flags, and built once into ``_build/``.
+``csrc/``, the flags and its defines, and built once into ``_build/``.
+The walks are built once per node arity they are called at
+(``arity_defines``: ``-DGPT_ARITY=A``); the default arity, 8, passes no
+define, so its key and flags are those of a build without any.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Tuple
+from typing import Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -21,6 +24,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
+# The node arity of a build without -DGPT_ARITY (csrc/bvh_walk.cuh).
+DEFAULT_ARITY = 8
 
 
 def _nvcc() -> str:
@@ -35,10 +40,20 @@ def source(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
-def build(name: str) -> Tuple[str, str]:
-    """Compile csrc/<name>.cu unless a library for these sources and flags
-    exists. Returns (library path, ptxas report of that build)."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def arity_defines(arity: int) -> Tuple[str, ...]:
+    """The defines of a walk source's build at a node arity (2-16): none
+    at the default 8 (csrc/bvh_walk.cuh GPT_ARITY)."""
+    if not 2 <= arity <= 16:
+        raise ValueError(f"node arity {arity} outside 2..16")
+    return () if arity == DEFAULT_ARITY else (f"-DGPT_ARITY={arity}",)
+
+
+def build(name: str, defines: Sequence[str] = ()) -> Tuple[str, str]:
+    """Compile csrc/<name>.cu with ``defines`` (nvcc -D flags) unless a
+    library for these sources, flags and defines exists. Returns (library
+    path, ptxas report of that build)."""
+    flags = (*NVCC_FLAGS, *defines)
+    digest = hashlib.sha1(" ".join(flags).encode())
     for path in [source(name)] + sorted(glob.glob(os.path.join(CSRC,
                                                                "*.cuh"))):
         with open(path, "rb") as f:
@@ -48,7 +63,7 @@ def build(name: str) -> Tuple[str, str]:
     if not os.path.exists(so_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{stem}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source(name)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source(name)}:\n"

@@ -21,6 +21,11 @@ XLA's CPU dot, written out with ``fma32``, never ``torch.matmul``), so the
 two agree bit for bit. Closest hits come back as global triangle ids,
 remapped through ``cluster_refs``.
 
+Both take the top tree's node ``arity`` (2-16) and optional start
+entries ``roots`` / ``packet`` (a node row, a cluster leaf entry or
+INVALID_ENTRY per packet of rays), as ops/kernel_traverse.py's entry
+points do; the kernel is built once per arity.
+
 ``with_stats=True`` adds the TPU kernel's pop counters per ray, [N, 3]
 int32: node pops, cluster pops run, cluster pops skipped. ``pop_skip=True``
 (closest only, as in the JAX kernel) skips a cluster pop whose entry
@@ -37,7 +42,7 @@ own. Both launch the kernels' kStats / kSkip instantiations
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -50,31 +55,41 @@ LANES = 128
 _PLAIN_LEAF_CHUNK = 8192
 
 # Kernel launches since the last reset, by entry point. Each wrapper adds
-# one where it launches its kernel and nowhere else.
+# one where it launches its kernel and nowhere else (keyed as
+# kernel_traverse.launch_key: by arity, and with roots).
 LAUNCHES = {"trace_cluster_closest": 0, "trace_cluster_anyhit": 0,
-            "trace_cluster_closest_stats": 0, "trace_cluster_anyhit_stats": 0}
+            "trace_cluster_closest_stats": 0, "trace_cluster_anyhit_stats": 0,
+            "trace_cluster_closest_roots": 0, "trace_cluster_anyhit_roots": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+# The built libraries, by node arity.
+_libs: Dict[int, ctypes.CDLL] = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build("cluster_traverse")[0])
+def _library(arity: int = kernel_traverse.ARITY) -> ctypes.CDLL:
+    if arity not in _libs:
+        lib = ctypes.CDLL(cuda_build.build(
+            "cluster_traverse", cuda_build.arity_defines(arity))[0])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpt_cluster_max_stack.argtypes = []
         lib.gpt_cluster_max_stack.restype = i
+        lib.gpt_cluster_arity.argtypes = []
+        lib.gpt_cluster_arity.restype = i
         lib.gpt_trace_cluster_closest.argtypes = [p, p, p, i, p, p, p, p, i,
-                                                  i, p, p, p, p, i, p, p]
+                                                  i, p, p, p, p, i, p, p, i,
+                                                  p]
         lib.gpt_trace_cluster_closest.restype = i
         lib.gpt_trace_cluster_anyhit.argtypes = [p, p, i, p, p, p, p, i, i,
-                                                 p, p, p]
+                                                 p, p, p, i, p]
         lib.gpt_trace_cluster_anyhit.restype = i
         if lib.gpt_cluster_max_stack() != kernel_traverse.MAX_STACK:
             raise RuntimeError("csrc/bvh_walk.cuh and kernel_traverse.py "
                                "disagree on the stack size")
-        _lib = lib
-    return _lib
+        if lib.gpt_cluster_arity() != arity:
+            raise RuntimeError(f"the arity-{arity} build of "
+                               f"csrc/cluster_traverse.cu walks "
+                               f"{lib.gpt_cluster_arity()}-wide rows")
+        _libs[arity] = lib
+    return _libs[arity]
 
 
 def cluster_width(cluster_rows) -> int:
@@ -88,9 +103,11 @@ def cluster_width(cluster_rows) -> int:
 
 
 def _check(rows, cluster_rows, cluster_refs, o, d, t_max, active,
-           stack_depth: int) -> int:
+           stack_depth: int, arity: int = kernel_traverse.ARITY, roots=None,
+           packet=None) -> int:
     tc = cluster_width(cluster_rows)
-    kernel_traverse.check_rays(rows, o, d, t_max, active, stack_depth)
+    kernel_traverse.check_rays(rows, o, d, t_max, active, stack_depth, arity,
+                               roots, packet)
     tables = [("cluster_rows", cluster_rows, torch.float32)]
     if cluster_refs is not None:
         ncl = cluster_rows.shape[0] // 8
@@ -111,27 +128,32 @@ def _stats(n: int, device, with_stats: bool):
             if with_stats else None)
 
 
-def _launched(entry: str, err: int) -> None:
+def _launched(entry: str, err: int, arity: int, roots) -> None:
+    entry = kernel_traverse.launch_key(entry, arity, roots)
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    LAUNCHES[entry] += 1
+    kernel_traverse.count_launch(LAUNCHES, entry)
 
 
 def closest_cluster(rows, cluster_rows, cluster_refs, o, d, t_max, active,
                     *, stack_depth: int, with_stats: bool = False,
-                    pop_skip: bool = False):
+                    pop_skip: bool = False, arity: int = kernel_traverse.ARITY,
+                    roots=None, packet=None):
     """Closest hit of rays o, d [N, 3] within (0, t_max) against the
     cluster top tree ``rows`` [W, 128] and its blocks ``cluster_rows``.
     Returns (t, prim, u, v), each [N], prim the global triangle id; t =
     t_max and prim = -1 on a miss or an inactive ray. ``with_stats``
     appends the per-ray pop counts [N, 3] int32 (node, cluster run, cluster
-    skipped); ``pop_skip`` takes the skipping schedule (module docstring)."""
+    skipped); ``pop_skip`` takes the skipping schedule, ``arity`` and
+    ``roots`` / ``packet`` the table's width and the start entries (module
+    docstring)."""
     tc = _check(rows, cluster_rows, cluster_refs, o, d, t_max, active,
-                stack_depth)
+                stack_depth, arity, roots, packet)
     if o.device.type == "cpu":
         return closest_cluster_plain(rows, cluster_rows, cluster_refs, o, d,
                                      t_max, active, stack_depth=stack_depth,
-                                     with_stats=with_stats, pop_skip=pop_skip)
+                                     with_stats=with_stats, pop_skip=pop_skip,
+                                     arity=arity, roots=roots, packet=packet)
     stream = kernel_traverse.stream_of(o)
     kernel_traverse.check_aligned(rows)
     n = o.shape[0]
@@ -142,28 +164,34 @@ def closest_cluster(rows, cluster_rows, cluster_refs, o, d, t_max, active,
     stats = _stats(n, o.device, with_stats)
     if n:
         with torch.cuda.device(o.device):
-            err = _library().gpt_trace_cluster_closest(
+            err = _library(arity).gpt_trace_cluster_closest(
                 rows.data_ptr(), cluster_rows.data_ptr(),
                 cluster_refs.data_ptr(), tc, o.data_ptr(), d.data_ptr(),
                 t_max.data_ptr(), active.data_ptr(), n, stack_depth,
                 t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
                 int(pop_skip), None if stats is None else stats.data_ptr(),
+                None if roots is None else roots.data_ptr(), packet or 1,
                 stream)
         _launched("trace_cluster_closest_stats" if with_stats or pop_skip
-                  else "trace_cluster_closest", err)
+                  else "trace_cluster_closest", err, arity, roots)
     return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit_cluster(rows, cluster_rows, o, d, t_max, active, *,
-                   stack_depth: int, with_stats: bool = False):
+                   stack_depth: int, with_stats: bool = False,
+                   arity: int = kernel_traverse.ARITY, roots=None,
+                   packet=None):
     """Occlusion of rays o, d [N, 3] within (0, t_max) on a cluster scene:
     [N] bool. Inactive rays are never occluded. ``with_stats`` returns
-    (occluded, [N, 3] pop counts); the skip column stays 0."""
-    tc = _check(rows, cluster_rows, None, o, d, t_max, active, stack_depth)
+    (occluded, [N, 3] pop counts); the skip column stays 0. ``arity`` and
+    the roots are ``closest_cluster``'s."""
+    tc = _check(rows, cluster_rows, None, o, d, t_max, active, stack_depth,
+                arity, roots, packet)
     if o.device.type == "cpu":
         return anyhit_cluster_plain(rows, cluster_rows, o, d, t_max, active,
                                     stack_depth=stack_depth,
-                                    with_stats=with_stats)
+                                    with_stats=with_stats, arity=arity,
+                                    roots=roots, packet=packet)
     stream = kernel_traverse.stream_of(o)
     kernel_traverse.check_aligned(rows)
     n = o.shape[0]
@@ -171,13 +199,15 @@ def anyhit_cluster(rows, cluster_rows, o, d, t_max, active, *,
     stats = _stats(n, o.device, with_stats)
     if n:
         with torch.cuda.device(o.device):
-            err = _library().gpt_trace_cluster_anyhit(
+            err = _library(arity).gpt_trace_cluster_anyhit(
                 rows.data_ptr(), cluster_rows.data_ptr(), tc, o.data_ptr(),
                 d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
                 stack_depth, occluded.data_ptr(),
-                None if stats is None else stats.data_ptr(), stream)
+                None if stats is None else stats.data_ptr(),
+                None if roots is None else roots.data_ptr(), packet or 1,
+                stream)
         _launched("trace_cluster_anyhit_stats" if with_stats
-                  else "trace_cluster_anyhit", err)
+                  else "trace_cluster_anyhit", err, arity, roots)
     return (occluded, stats) if with_stats else occluded
 
 
@@ -224,9 +254,11 @@ def walk_cluster_plain(rows, cluster_rows, o, d, t_max, active, *,
                        stack_depth: int, any_hit: bool,
                        pops: Optional[dict] = None,
                        tally: Optional[torch.Tensor] = None,
-                       pop_skip: bool = False):
-    """``kernel_traverse.walk_plain`` with the cluster leaf (``tally`` and
-    ``pop_skip`` as there). Returns (t, win): win [N] int64 is the winner's
+                       pop_skip: bool = False,
+                       arity: int = kernel_traverse.ARITY, roots=None,
+                       packet=None):
+    """``kernel_traverse.walk_plain`` with the cluster leaf (``tally``,
+    ``pop_skip``, ``arity`` and the roots as there). Returns (t, win): win [N] int64 is the winner's
     cluster-local id cidx * tc + slot (the JAX kernel's prim), -1 on a
     miss; with any_hit, win >= 0 iff occluded."""
     tc = cluster_width(cluster_rows)
@@ -251,7 +283,8 @@ def walk_cluster_plain(rows, cluster_rows, o, d, t_max, active, *,
 
     t = kernel_traverse.walk_plain(rows, o, d, t_max, active, stack_depth,
                                    any_hit, leaf, pops, tally=tally,
-                                   pop_skip=pop_skip)
+                                   pop_skip=pop_skip, arity=arity,
+                                   roots=roots, packet=packet)
     return t, win
 
 
@@ -285,15 +318,19 @@ def _cluster_stats(tally) -> torch.Tensor:
 def closest_cluster_plain(rows, cluster_rows, cluster_refs, o, d, t_max,
                           active, *, stack_depth: int,
                           pops: Optional[dict] = None,
-                          with_stats: bool = False, pop_skip: bool = False):
+                          with_stats: bool = False, pop_skip: bool = False,
+                          arity: int = kernel_traverse.ARITY, roots=None,
+                          packet=None):
     """Plain torch version of ``closest_cluster`` (same results, bit for
     bit, pop counts too). ``pops``, a dict, collects the walk's pop totals
     and the table entries they read."""
+    kernel_traverse.check_roots(o.shape[0], o.device, arity, roots, packet)
     tally = (kernel_traverse.new_tally(o.shape[0], o.device) if with_stats
              else None)
     t, win = walk_cluster_plain(rows, cluster_rows, o, d, t_max, active,
                                 stack_depth=stack_depth, any_hit=False,
-                                pops=pops, tally=tally, pop_skip=pop_skip)
+                                pops=pops, tally=tally, pop_skip=pop_skip,
+                                arity=arity, roots=roots, packet=packet)
     u, v = cluster_uv(cluster_rows, win, o, d, t)
     prim = torch.where(win >= 0, cluster_refs[win.clamp_min(0)], -1)
     out = (t, prim.to(torch.int32), u, v)
@@ -302,11 +339,15 @@ def closest_cluster_plain(rows, cluster_rows, cluster_refs, o, d, t_max,
 
 def anyhit_cluster_plain(rows, cluster_rows, o, d, t_max, active, *,
                          stack_depth: int, pops: Optional[dict] = None,
-                         with_stats: bool = False):
+                         with_stats: bool = False,
+                         arity: int = kernel_traverse.ARITY, roots=None,
+                         packet=None):
     """Plain torch version of ``anyhit_cluster`` (same results)."""
+    kernel_traverse.check_roots(o.shape[0], o.device, arity, roots, packet)
     tally = (kernel_traverse.new_tally(o.shape[0], o.device) if with_stats
              else None)
     occ = walk_cluster_plain(rows, cluster_rows, o, d, t_max, active,
                              stack_depth=stack_depth, any_hit=True,
-                             pops=pops, tally=tally)[1] >= 0
+                             pops=pops, tally=tally, arity=arity, roots=roots,
+                             packet=packet)[1] >= 0
     return (occ, _cluster_stats(tally)) if with_stats else occ

@@ -20,6 +20,16 @@ per iteration, node pruning against the t the iteration began with). Both
 give the hits of the plain schedule; multi-pop visits in another order, so
 among triangles at bitwise-equal t another one may win.
 
+Every entry point takes the table's node ``arity`` (2-16; the row holds
+``6 * arity`` bounds and ``arity`` entries) and, optionally, a start entry
+per packet: ``roots`` [ceil(N / packet)] int32, ray i walking from
+``roots[i // packet]`` (the TPU kernels' ``root_ref``; the treelet
+traversal, ops/treelet.py, passes its bins' subtree roots). A root may be
+a node row, a leaf entry (the walk starts with that leaf) or
+INVALID_ENTRY (no walk: the ray keeps t_max and misses). The kernels are
+built once per arity (ops/cuda_build.py); a library that fails to build
+raises.
+
 ``with_stats=True`` (every schedule) adds the pop counters of the TPU
 kernels' ``with_stats``, counted per ray: [N, 2] int32 node and leaf pops,
 [N, 3] under multi-pop, whose third column is the ray's pushes dropped at
@@ -35,7 +45,7 @@ passed; the plain side counts the same pops lane by lane
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -43,18 +53,21 @@ from gpupathtracer_tpu_torch.ops import cuda_build
 from gpupathtracer_tpu_torch.ops.intersect import fma32, mt_intersect
 
 ROW_WIDTH = 128
-ARITY = 8
+ARITY = 8  # the default node arity (the kernels' build without a define)
 TRIS_PER_ROW = ROW_WIDTH // 12
 MAX_STACK = 192  # kMaxStack in csrc/bvh_walk.cuh
 INVALID_ENTRY = 0x7FFFFFFF
 SKIP_MARGIN = 2.0 ** -12  # kSkipMargin in csrc/bvh_walk.cuh
 
 # Kernel launches since the last reset, by entry point. Each wrapper adds
-# one where it launches its kernel and nowhere else.
+# one where it launches its kernel and nowhere else: at another arity than
+# 8 under the entry point's name + "_a<arity>", with roots + "_roots"
+# (launch_key).
 LAUNCHES = {"trace_closest": 0, "trace_anyhit": 0,
             "trace_closest_ilv": 0, "trace_anyhit_ilv": 0,
             "trace_closest_multi": 0, "trace_anyhit_multi": 0,
-            "trace_closest_stats": 0, "trace_anyhit_stats": 0}
+            "trace_closest_stats": 0, "trace_anyhit_stats": 0,
+            "trace_closest_roots": 0, "trace_anyhit_roots": 0}
 # Columns of a per-ray pop tally (count_pops): node pops, leaf (or cluster)
 # pops run, cluster pops skipped (pop_skip), pushes dropped at the top of
 # the stack.
@@ -69,18 +82,33 @@ VARIANTS = (2, 4)
 BLOCK_SIZES = (64, 128, 256)
 THREADS = 64
 
-_lib: Optional[ctypes.CDLL] = None
+# The built libraries, by node arity.
+_libs: Dict[int, ctypes.CDLL] = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build("traverse")[0])
+def launch_key(entry: str, arity: int, roots) -> str:
+    """The LAUNCHES key of a launch of ``entry``: + "_a<arity>" at another
+    arity than 8, + "_roots" with start entries. Keys are made at their
+    first launch."""
+    return (entry + (f"_a{arity}" if arity != ARITY else "")
+            + ("_roots" if roots is not None else ""))
+
+
+def count_launch(launches: dict, key: str) -> None:
+    launches[key] = launches.get(key, 0) + 1
+
+
+def _library(arity: int = ARITY) -> ctypes.CDLL:
+    if arity not in _libs:
+        lib = ctypes.CDLL(cuda_build.build(
+            "traverse", cuda_build.arity_defines(arity))[0])
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpt_max_stack.argtypes = []
         lib.gpt_max_stack.restype = i
+        lib.gpt_arity.argtypes = []
+        lib.gpt_arity.restype = i
         # rows, o, d, t_max, active, n, depth, threads (B1) or w or q,
-        # results..., stats, stream
+        # results..., stats, roots, packet, stream
         rays = [p, p, p, p, p, i, i]
         for name, sched, res in (("closest", [i], 4), ("anyhit", [i], 1),
                                  ("closest_ilv", [i], 4),
@@ -88,19 +116,24 @@ def _library() -> ctypes.CDLL:
                                  ("closest_multi", [i], 4),
                                  ("anyhit_multi", [i], 1)):
             fn = getattr(lib, "gpt_trace_" + name)
-            fn.argtypes = rays + sched + [p] * (res + 2)
+            fn.argtypes = rays + sched + [p] * (res + 2) + [i, p]
             fn.restype = i
         if lib.gpt_max_stack() != MAX_STACK:
             raise RuntimeError("csrc/bvh_walk.cuh and kernel_traverse.py "
                                "disagree on the stack size")
-        _lib = lib
-    return _lib
+        if lib.gpt_arity() != arity:
+            raise RuntimeError(f"the arity-{arity} build of csrc/traverse.cu "
+                               f"walks {lib.gpt_arity()}-wide rows")
+        _libs[arity] = lib
+    return _libs[arity]
 
 
-def check_rays(rows, o, d, t_max, active, stack_depth: int) -> None:
+def check_rays(rows, o, d, t_max, active, stack_depth: int,
+               arity: int = ARITY, roots=None, packet=None) -> None:
     """Raises ValueError unless the wrappers' table and ray arguments are
-    what the kernels take."""
+    what the kernels take (``check_roots`` for the arity and roots)."""
     n = o.shape[0]
+    check_roots(n, o.device, arity, roots, packet)
     if rows.dim() != 2 or rows.shape[1] != ROW_WIDTH or rows.shape[0] < 1:
         raise ValueError(f"rows must be [M>=1, {ROW_WIDTH}], got "
                          f"{tuple(rows.shape)}")
@@ -120,6 +153,35 @@ def check_rays(rows, o, d, t_max, active, stack_depth: int) -> None:
     if not 1 <= stack_depth <= MAX_STACK:
         raise ValueError(f"stack_depth {stack_depth} outside 1..{MAX_STACK} "
                          f"(the kernel's stack)")
+
+
+def check_roots(n: int, device, arity: int, roots, packet) -> None:
+    """Raises ValueError unless ``arity`` is 2-16 and ``roots`` is None
+    (with ``packet`` None) or [ceil(n / packet)] int32 on ``device``."""
+    if not 2 <= arity <= 16:
+        raise ValueError(f"arity {arity} outside 2..16 (a node row holds "
+                         f"6 * arity bounds and arity entries)")
+    if roots is None:
+        if packet is not None:
+            raise ValueError("packet is the rays a start entry serves: pass "
+                             "it with roots")
+        return
+    if packet is None or packet < 1:
+        raise ValueError(f"roots need packet >= 1, got {packet}")
+    want = (-(-n // packet),)
+    if (tuple(roots.shape) != want or roots.dtype != torch.int32
+            or roots.device != device or not roots.is_contiguous()):
+        raise ValueError(f"roots must be contiguous int32 {want} on "
+                         f"{device}, got {roots.dtype} "
+                         f"{tuple(roots.shape)} on {roots.device}")
+
+
+def ray_roots(n: int, device, roots, packet) -> torch.Tensor:
+    """Each ray's start entry [n] int64: roots[i // packet], 0 (the root
+    node row) without roots."""
+    if roots is None:
+        return torch.zeros(n, dtype=torch.int64, device=device)
+    return roots.to(torch.int64).repeat_interleave(packet)[:n]
 
 
 def check_aligned(rows) -> None:
@@ -159,10 +221,11 @@ def check_schedule(stack_depth: int, interleave: int, multi_pop: int) -> int:
 
 def _launch(rows, o, d, t_max, active, depth: int, any_hit: bool,
             interleave: int, multi_pop: int, out, with_stats: bool,
-            threads: int):
-    """The kernel of a query and schedule; ``out`` its result tensors (t,
-    prim, u, v for closest, occluded for any-hit). Returns the per-ray pop
-    counts of its kStats instantiation with ``with_stats``, else None."""
+            threads: int, arity: int, roots, packet):
+    """The kernel of a query and schedule at ``arity``; ``out`` its result
+    tensors (t, prim, u, v for closest, occluded for any-hit). Returns the
+    per-ray pop counts of its kStats instantiation with ``with_stats``,
+    else None."""
     stream = stream_of(o)
     check_aligned(rows)
     n = o.shape[0]
@@ -176,15 +239,17 @@ def _launch(rows, o, d, t_max, active, depth: int, any_hit: bool,
     sched = ((interleave,) if interleave > 1 else
              (multi_pop,) if multi_pop > 1 else (threads,))
     with torch.cuda.device(o.device):
-        err = getattr(_library(), "gpt_trace_" + name)(
+        err = getattr(_library(arity), "gpt_trace_" + name)(
             rows.data_ptr(), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
             active.data_ptr(), n, depth, *sched,
             *(x.data_ptr() for x in out),
-            None if stats is None else stats.data_ptr(), stream)
-    entry = f"trace_{query}_stats" if with_stats else "trace_" + name
+            None if stats is None else stats.data_ptr(),
+            None if roots is None else roots.data_ptr(), packet or 1, stream)
+    entry = launch_key(f"trace_{query}_stats" if with_stats
+                       else "trace_" + name, arity, roots)
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    LAUNCHES[entry] += 1
+    count_launch(LAUNCHES, entry)
     return stats
 
 
@@ -199,51 +264,58 @@ def check_threads(threads: int, interleave: int, multi_pop: int) -> None:
 
 def closest(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
             interleave: int = 1, multi_pop: int = 1,
-            with_stats: bool = False, threads: int = THREADS):
+            with_stats: bool = False, threads: int = THREADS,
+            arity: int = ARITY, roots=None, packet=None):
     """Closest hit of rays o, d [N, 3] within (0, t_max) against the merged
-    row table rows [M, 128]. Returns (t, prim, u, v), each [N]; t = t_max
-    and prim = -1 on a miss or an inactive ray. ``interleave`` / ``multi_pop``
-    choose a schedule (module docstring); ``with_stats`` appends the per-ray
-    pop counts [N, 2] (node, leaf) int32, [N, 3] under multi-pop (and the
-    pushes dropped at the top of the stack). ``threads`` is the plain
-    schedule's block size on the card (``BLOCK_SIZES``); the results do
-    not depend on it."""
-    check_rays(rows, o, d, t_max, active, stack_depth)
+    row table rows [M, 128] of ``arity``-wide nodes. Returns (t, prim, u,
+    v), each [N]; t = t_max and prim = -1 on a miss or an inactive ray.
+    ``interleave`` / ``multi_pop`` choose a schedule (module docstring);
+    ``with_stats`` appends the per-ray pop counts [N, 2] (node, leaf)
+    int32, [N, 3] under multi-pop (and the pushes dropped at the top of the
+    stack). ``threads`` is the plain schedule's block size on the card
+    (``BLOCK_SIZES``); the results do not depend on it. ``roots`` /
+    ``packet``: the start entries (module docstring)."""
+    check_rays(rows, o, d, t_max, active, stack_depth, arity, roots, packet)
     depth = check_schedule(stack_depth, interleave, multi_pop)
     check_threads(threads, interleave, multi_pop)
     if o.device.type == "cpu":
         return closest_plain(rows, o, d, t_max, active,
                              stack_depth=stack_depth, leaf_size=leaf_size,
                              interleave=interleave, multi_pop=multi_pop,
-                             with_stats=with_stats)
+                             with_stats=with_stats, arity=arity, roots=roots,
+                             packet=packet)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     stats = _launch(rows, o, d, t_max, active, depth, False, interleave,
-                    multi_pop, (t, prim, u, v), with_stats, threads)
+                    multi_pop, (t, prim, u, v), with_stats, threads, arity,
+                    roots, packet)
     return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit(rows, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
            interleave: int = 1, multi_pop: int = 1, with_stats: bool = False,
-           threads: int = THREADS):
+           threads: int = THREADS, arity: int = ARITY, roots=None,
+           packet=None):
     """Occlusion of rays o, d [N, 3] within (0, t_max): [N] bool, True iff
-    some triangle is hit. Inactive rays are never occluded. The schedule
-    and block arguments are ``closest``'s; with ``with_stats`` returns
-    (occluded, stats)."""
-    check_rays(rows, o, d, t_max, active, stack_depth)
+    some triangle is hit. Inactive rays are never occluded. The schedule,
+    block, arity and roots arguments are ``closest``'s; with
+    ``with_stats`` returns (occluded, stats)."""
+    check_rays(rows, o, d, t_max, active, stack_depth, arity, roots, packet)
     depth = check_schedule(stack_depth, interleave, multi_pop)
     check_threads(threads, interleave, multi_pop)
     if o.device.type == "cpu":
         return anyhit_plain(rows, o, d, t_max, active,
                             stack_depth=stack_depth, leaf_size=leaf_size,
                             interleave=interleave, multi_pop=multi_pop,
-                            with_stats=with_stats)
+                            with_stats=with_stats, arity=arity, roots=roots,
+                            packet=packet)
     occluded = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
     stats = _launch(rows, o, d, t_max, active, depth, True, interleave,
-                    multi_pop, (occluded,), with_stats, threads)
+                    multi_pop, (occluded,), with_stats, threads, arity,
+                    roots, packet)
     return (occluded, stats) if with_stats else occluded
 
 
@@ -271,7 +343,8 @@ def count_pops(pops: Optional[dict], kind: str, ids: torch.Tensor,
 def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
                leaf, pops: Optional[dict] = None, multi_pop: int = 1,
                tally: Optional[torch.Tensor] = None,
-               pop_skip: bool = False) -> torch.Tensor:
+               pop_skip: bool = False, arity: int = ARITY, roots=None,
+               packet=None) -> torch.Tensor:
     """The node phase of csrc/bvh_walk.cuh ``walk`` (``walk_multi`` with
     ``multi_pop`` > 1), for every ray in lockstep with its own stack: each
     step pops one entry per live ray (up to ``multi_pop``). Node pops push
@@ -293,7 +366,9 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
     entry is t_near (``skip_key`` there: the margin covers the entry's
     rounding, which grows with the origin's distance, and a triangle's t
     rounding below its box's entry). A leaf pop whose key is not below its
-    ray's t is skipped. Returns t."""
+    ray's t is skipped. Node rows are ``arity`` wide; each ray starts at
+    its entry of ``roots`` (``ray_roots``; none for INVALID_ENTRY).
+    Returns t."""
     if pop_skip and (any_hit or multi_pop > 1):
         raise ValueError("pop_skip orders pops by t_near: closest walks of "
                          "one pop a step only")
@@ -304,7 +379,8 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
     rows_i = rows.view(torch.int32)
     t = t_max.clone()
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
-    sp = active.to(torch.int64)  # stack[:, 0] = 0, the root row
+    stack[:, 0] = ray_roots(n, dev, roots, packet)
+    sp = (active & (stack[:, 0] != INVALID_ENTRY)).to(torch.int64)
     keys = (torch.full((n, stack_depth), -torch.inf, device=dev)
             if pop_skip else None)
 
@@ -313,7 +389,7 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
         if not ln.numel():
             return
         row = rows[en]
-        bounds = row[:, :6 * ARITY].reshape(-1, ARITY, 6)
+        bounds = row[:, :6 * arity].reshape(-1, arity, 6)
         inv_l, oi_l = inv[ln][:, None, :], oi[ln][:, None, :]
         t0 = fma32(bounds[..., 0:3], inv_l, -oi_l)
         t1 = fma32(bounds[..., 3:6], inv_l, -oi_l)
@@ -323,7 +399,7 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
                              lo[..., 2])
         tmax = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
                              hi[..., 2])
-        child = rows_i[en, 6 * ARITY:7 * ARITY].to(torch.int64)
+        child = rows_i[en, 6 * arity:7 * arity].to(torch.int64)
         hit = ((tmin <= tmax) & (tmax > 0.0) & (tmin < t_entry[ln, None])
                & (child != INVALID_ENTRY))
         key = torch.where(hit, tmin, torch.inf)
@@ -348,7 +424,7 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
         if tally is not None:
             tally[:, POP_COLUMNS["dropped"]].index_add_(
                 0, ln, (hit & ~keep).sum(dim=1))
-        lane = ln[:, None].expand(-1, ARITY)
+        lane = ln[:, None].expand(-1, arity)
         stack[lane[keep], pos[keep]] = child[keep]
         if keys is not None:
             keys[lane[keep], pos[keep]] = skey[keep]
@@ -388,9 +464,10 @@ def walk_plain(rows, o, d, t_max, active, stack_depth: int, any_hit: bool,
 
 def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
                 any_hit: bool, pops: Optional[dict] = None,
-                multi_pop: int = 1, tally: Optional[torch.Tensor] = None):
+                multi_pop: int = 1, tally: Optional[torch.Tensor] = None,
+                arity: int = ARITY, roots=None, packet=None):
     """``walk_plain`` over the MT-leaf table: leaf pops run Moller-Trumbore
-    on the block's slots; ``tally`` as there.
+    on the block's slots; ``tally``, ``arity`` and the roots as there.
 
     Returns (t, prim, u, v, at): ``at`` [N] int64 is the flat index into
     ``rows`` of the winning triangle's 12-float slot (-1 on a miss), whose
@@ -436,7 +513,8 @@ def _walk_plain(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
         return lw
 
     t = walk_plain(rows, o, d, t_max, active, stack_depth, any_hit, leaf,
-                   pops, multi_pop, tally)
+                   pops, multi_pop, tally, arity=arity, roots=roots,
+                   packet=packet)
     return t, prim, u, v, at
 
 
@@ -456,7 +534,8 @@ def stats_of(tally: torch.Tensor, multi_pop: int = 1) -> torch.Tensor:
 
 
 def _scheduled_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
-                     any_hit, pops, interleave, multi_pop, with_stats):
+                     any_hit, pops, interleave, multi_pop, with_stats,
+                     arity=ARITY, roots=None, packet=None):
     """``_walk_plain`` under a schedule. Interleave: which thread and slot
     walk a ray, and when, does not change its walk, so the results are the
     plain schedule's, and so are its pop counts. Returns (t, prim, u, v, at,
@@ -464,29 +543,34 @@ def _scheduled_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
     depth = check_schedule(stack_depth, interleave, multi_pop)
     tally = new_tally(o.shape[0], o.device) if with_stats else None
     out = _walk_plain(rows, o, d, t_max, active, depth, leaf_size, any_hit,
-                      pops, multi_pop, tally)
+                      pops, multi_pop, tally, arity, roots, packet)
     return out + (stats_of(tally, multi_pop) if with_stats else None,)
 
 
 def closest_plain(rows, o, d, t_max, active, *, stack_depth: int,
                   leaf_size: int, pops: Optional[dict] = None,
                   interleave: int = 1, multi_pop: int = 1,
-                  with_stats: bool = False):
+                  with_stats: bool = False, arity: int = ARITY, roots=None,
+                  packet=None):
     """Plain torch version of ``closest`` (same results, bit for bit, pop
     counts too). ``pops``, a dict, collects the walk's pop totals and
     the table rows they read (``count_pops``)."""
+    check_roots(o.shape[0], o.device, arity, roots, packet)
     t, prim, u, v, _, stats = _scheduled_plain(
         rows, o, d, t_max, active, stack_depth, leaf_size, False, pops,
-        interleave, multi_pop, with_stats)
+        interleave, multi_pop, with_stats, arity, roots, packet)
     return (t, prim, u, v, stats) if with_stats else (t, prim, u, v)
 
 
 def anyhit_plain(rows, o, d, t_max, active, *, stack_depth: int,
                  leaf_size: int, pops: Optional[dict] = None,
                  interleave: int = 1, multi_pop: int = 1,
-                 with_stats: bool = False):
+                 with_stats: bool = False, arity: int = ARITY, roots=None,
+                 packet=None):
     """Plain torch version of ``anyhit`` (same results)."""
+    check_roots(o.shape[0], o.device, arity, roots, packet)
     out = _scheduled_plain(rows, o, d, t_max, active, stack_depth, leaf_size,
-                           True, pops, interleave, multi_pop, with_stats)
+                           True, pops, interleave, multi_pop, with_stats,
+                           arity, roots, packet)
     occluded = out[1] >= 0
     return (occluded, out[5]) if with_stats else occluded

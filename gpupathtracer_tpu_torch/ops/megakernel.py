@@ -40,7 +40,10 @@ separate set of instantiations, with NEE only.
 Scope (``mega_eligible``, the JAX gate unchanged): untextured materials,
 a constant-colour sky, no delta materials, no sun, at most 64 materials
 and 64 emitters, and tables of at most 100 MB. Every other scene takes the
-wavefront integrator.
+wavefront integrator. The kernel reads 8-wide node rows only
+(``check_arity``): the JAX package never passes its kernel the table's
+arity (megakernel.py:1351-1355 leaves ``arity`` at 8), so a wider table
+there is read as 8-wide rows; the port refuses it rather than copy that.
 """
 
 from __future__ import annotations
@@ -95,6 +98,16 @@ def mega_eligible(scene, meta, *, textured: bool, delta: bool, sun: bool,
             and meta.num_materials <= 64
             and scene.light_rows.shape[0] <= 64
             and table_bytes <= TABLE_LIMIT)
+
+
+def check_arity(arity: int) -> None:
+    """Raises NotImplementedError unless the node rows are 8 wide."""
+    if arity != kernel_traverse.ARITY:
+        raise NotImplementedError(
+            f"the megakernel reads 8-wide node rows; this table is "
+            f"{arity}-wide. The JAX package never passes its megakernel the "
+            f"arity (ops/megakernel.py:1351-1355), so it would read these "
+            f"rows as 8-wide ones: render with megakernel='off'")
 
 
 def pack_mega_tables(scene):
@@ -740,6 +753,7 @@ def prepare_mega(scene, mega_tables, cam, pixel_x, pixel_y, key, *,
     spp = 1 draws the wavefront's threefry jitter and lens numbers and
     generates the primary rays; spp > 1 passes the normalized pixel
     coordinates and the camera scalars for the kernel's own raygen."""
+    check_arity(scene.arity)
     n, dev = pixel_x.shape[0], pixel_x.device
     K = min(packet_size, max(n, LANES))
     pad = (-n) % K

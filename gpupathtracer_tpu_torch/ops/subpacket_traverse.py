@@ -18,6 +18,11 @@ backlog pops one leaf, in a node phase every sub-packet with a node pops
 one node, and the others idle. So the port visits in the TPU kernel's
 order at every K: every field and both pop counts equal the JAX kernel's.
 
+The kernel reads 8-wide node rows only, as the JAX kernel does (its rows
+are hard-coded 8 wide, ops/subpacket_traverse.py:241, 293, and the JAX
+kernel bench refuses any other arity for it): ``arity`` other than 8
+raises.
+
 ``traverse_subpacket`` launches the kernel for CUDA tensors and runs
 ``traverse_subpacket_plain`` for CPU tensors; the plain version steps all
 packets in lockstep, in the kernel's visit order and with its arithmetic,
@@ -69,9 +74,15 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check(rows, o, d, t_max, active, stack_depth: int, leaf_size: int):
-    """Raises ValueError unless the arguments are what the kernel takes;
-    returns (P, K)."""
+def _check(rows, o, d, t_max, active, stack_depth: int, leaf_size: int,
+           arity: int = ARITY):
+    """Raises ValueError unless the arguments are what the kernel takes
+    (NotImplementedError at an arity other than 8); returns (P, K)."""
+    if arity != ARITY:
+        raise NotImplementedError(
+            f"the sub-packet kernel reads 8-wide node rows, as the JAX "
+            f"kernel does (ops/subpacket_traverse.py:241, 293); this table "
+            f"is {arity}-wide")
     if o.dim() != 3 or o.shape[2] != 3:
         raise ValueError(f"o must be [P, K, 3], got {tuple(o.shape)}")
     P, K, _ = o.shape
@@ -104,15 +115,17 @@ def _check(rows, o, d, t_max, active, stack_depth: int, leaf_size: int):
 
 def traverse_subpacket(rows, o, d, t_max, active, *, stack_depth: int = 48,
                        leaf_size: int = 4, any_hit: bool = False,
-                       ordered: bool = True, with_stats: bool = False):
+                       ordered: bool = True, with_stats: bool = False,
+                       arity: int = ARITY):
     """Closest hit (or, with ``any_hit``, any hit) of rays o, d [P, K, 3]
     within (0, t_max [P, K]) against rows [M, 128]; K = G * 128 is G
     independent 128-ray sub-packets. Returns (t, prim, u, v), each [P, K]:
     the ``kernel_traverse.closest`` contract; with ``any_hit`` a ray is
     occluded iff prim >= 0 (t, prim, u, v are then the nearest hit of the
     leaf that ended its walk). ``with_stats`` appends a [P, 2] int32
-    tensor of (node pops, leaf pops) per K-packet."""
-    P, K = _check(rows, o, d, t_max, active, stack_depth, leaf_size)
+    tensor of (node pops, leaf pops) per K-packet. ``arity`` is the
+    table's node width: 8 only (module docstring)."""
+    P, K = _check(rows, o, d, t_max, active, stack_depth, leaf_size, arity)
     if o.device.type == "cpu":
         return traverse_subpacket_plain(
             rows, o, d, t_max, active, stack_depth=stack_depth,

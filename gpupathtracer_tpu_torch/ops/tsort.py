@@ -20,7 +20,6 @@ from __future__ import annotations
 import torch
 
 from gpupathtracer_tpu_torch.ops import kernel_cluster, kernel_traverse
-from gpupathtracer_tpu_torch.ops.kernel_traverse import ARITY
 from gpupathtracer_tpu_torch.ops.subpacket_traverse import (LANES,
                                                             traverse_subpacket)
 from gpupathtracer_tpu_torch.ops.traverse import Hit
@@ -79,17 +78,18 @@ def _sort_perm(cut_bounds, o, d, t_max, active, key_mode: str = "top2",
     t2 = torch.argmax((masked == k2[:, None]).to(torch.uint8), dim=1)
     sec = torch.where(torch.isfinite(k2), t2, C)
     if key_mode == "deep":
+        A = scene.arity
         ce = scene.cut_entry[t1].long()              # [N] treelet root entry
         node = torch.clamp_min(ce, 0)
-        cb = scene.node_rows[node, :6 * ARITY].reshape(-1, ARITY, 6)
-        sk = _slab_keys(cb, o, inv, t_max)           # [N, 8]
+        cb = scene.node_rows[node, :6 * A].reshape(-1, A, 6)
+        sk = _slab_keys(cb, o, inv, t_max)           # [N, A]
         smin = torch.amin(sk, dim=1)
         sub = torch.argmax((sk == smin[:, None]).to(torch.uint8), dim=1)
-        # Leaf-entry treelets have no children: one group (sub = 8).
-        sub = torch.where((ce >= 0) & torch.isfinite(smin), sub, ARITY)
-        prim_key = t1 * (ARITY + 1) + sub
+        # Leaf-entry treelets have no children: one group (sub = A).
+        sub = torch.where((ce >= 0) & torch.isfinite(smin), sub, A)
+        prim_key = t1 * (A + 1) + sub
         skey = torch.where(active & has1, prim_key * (C + 1) + sec,
-                           (ARITY + 1) * C * (C + 1) + C)
+                           (A + 1) * C * (C + 1) + C)
     else:
         skey = torch.where(active & has1, t1 * (C + 1) + sec,
                            C * (C + 1) + C)
@@ -125,7 +125,7 @@ def _trace(scene, o, d, t_max, active, *, stack_depth: int, leaf_size: int,
         inv = torch.argsort(perm)
     rays = [o[perm].contiguous(), d[perm].contiguous(),
             t_max[perm].contiguous(), active[perm].contiguous()]
-    depth = dict(stack_depth=stack_depth)
+    depth = dict(stack_depth=stack_depth, arity=scene.arity)
 
     if kernel == "subpacket":
         K = max(LANES, (min(packet_size, n) // LANES) * LANES)

@@ -30,6 +30,8 @@ from gpupathtracer_tpu_torch.models.ao import render_sample_ao
 from gpupathtracer_tpu_torch.models.reference import render_sample_reference
 from gpupathtracer_tpu_torch.models.wavefront import (render_sample_batch,
                                                       render_sample_impl)
+from gpupathtracer_tpu_torch.ops.megakernel import check_arity as \
+    check_mega_arity
 from gpupathtracer_tpu_torch.ops.megakernel import (mega_eligible,
                                                     pack_mega_tables,
                                                     render_sample_mega,
@@ -68,11 +70,19 @@ class Renderer:
             scene, meta = load_scene(cfg, self.device)
         self.scene = scene
         self.meta = meta
-        # Bounce-ray override, resolved as the JAX Renderer resolves it for
-        # every traversal but its TPU kernel ("pallas", which the port does
-        # not have): "auto" is "same". The JAX gate takes treelet-sorted
-        # dispatch (ops/tsort.py) only for that kernel, on tables of 8192
-        # rows or more; on the card the sort costs ten times the kernel it
+        if scene.cluster_rows is not None and cfg.bounce_traversal == \
+                "treelet":
+            raise ValueError("bounce_traversal='treelet' reads MT leaf rows; "
+                             "cluster scenes support pallas/tsort only")
+        # The packet size of the kernel's traversals, resolved as the JAX
+        # Renderer resolves it for its on-core kernel ("pallas", which
+        # "auto" is here): the treelet bins' packets.
+        self.packet_size = (cfg.pallas_packet_size
+                            if cfg.traversal in ("auto", "pallas")
+                            else cfg.packet_size)
+        # Bounce-ray override: "auto" is "same". The JAX gate takes
+        # treelet-sorted dispatch (ops/tsort.py) only for its TPU kernel
+        # ("pallas"), on tables of 8192 rows or more; on the card the sort costs ten times the kernel it
         # speeds up (PERF.md, section 7), so it runs only when named.
         if cfg.bounce_traversal == "auto":
             self.bounce_traversal = "same"
@@ -86,6 +96,7 @@ class Renderer:
             scene, meta, textured=meta.has_textures, delta=meta.has_delta,
             sun=cfg.sun_enabled, sampler=cfg.sampler))
         if self.use_mega:
+            check_mega_arity(scene.arity)
             self.mega_tables = pack_mega_tables(scene)
         self.width, self.height = cfg.width, cfg.height
         self.pad_w, self.pad_h = _align8(cfg.width), _align8(cfg.height)
@@ -217,6 +228,7 @@ class Renderer:
                       tsort_alternate=cfg.tsort_alternate,
                       sort_rays=False if direct else cfg.sort_rays,
                       sampler=cfg.sampler,
+                      packet_size=self.packet_size,
                       delta=self.meta.has_delta, **depth)
         if batch > 1:
             return render_sample_batch(self.scene, self.camera, px, py, key,

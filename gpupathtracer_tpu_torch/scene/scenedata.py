@@ -3,8 +3,8 @@ and the packed shading tables, as torch tensors on an explicit device
 (counterpart of the JAX package's scene/scenedata.py).
 
 The BVH comes from the port's copy of the JAX package's builders
-(``gpupathtracer_tpu_torch.bvh``: C++ SBVH through ctypes, the 8-wide
-collapse, ``pack_for_packets`` and, with ``cfg.cluster_tris``, the dense
+(``gpupathtracer_tpu_torch.bvh``: C++ SBVH through ctypes, the
+``cfg.wide_arity``-wide collapse (2 to 16 children a node), ``pack_for_packets`` and, with ``cfg.cluster_tris``, the dense
 cluster leaves of ``pack_clusters``), so both packages trace identical
 tables, and the texture atlas comes from the port's copy of the atlas
 builder (scene/textures.py). The disk cache is not ported (ROADMAP.md,
@@ -78,6 +78,10 @@ class SceneData(NamedTuple):
     sun_emission: Optional[torch.Tensor] = None  # [3]
     sun_radius: Optional[torch.Tensor] = None    # scalar: tan(angle)
     sun_max_dot: Optional[torch.Tensor] = None   # scalar: cos(angle)
+    # Children per node row of node_rows (cfg.wide_arity, 2 to 16): a row
+    # holds 6 * arity bounds and arity entries. The JAX SceneData reads it
+    # from bvh.child_entry.shape[1].
+    arity: int = 8
 
 
 @dataclass
@@ -98,7 +102,9 @@ class SceneMeta:
 def scene_from_numpy(fields: dict, device) -> SceneData:
     """SceneData from arrays keyed by field name (``env`` is the lat-long
     image), e.g. the JAX package's SceneData converted with np.asarray.
-    Without atlas fields the scene gets the no-texture atlas."""
+    Without atlas fields the scene gets the no-texture atlas; without
+    ``arity`` (the nodes' width, the JAX scene's
+    ``bvh.child_entry.shape[1]``) it is 8."""
     def t(x):
         return None if x is None else torch.tensor(np.asarray(x),
                                                    device=device)
@@ -109,6 +115,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
     if mips is None:
         mips = np.arange(np.asarray(rects).shape[0], dtype=np.int32)[:, None]
     image = fields.get("atlas_image")
+    arity = int(fields.get("arity", 8))
     if image is None:
         image = np.zeros((4, 4, 3), np.float32)
     return SceneData(
@@ -128,7 +135,7 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         sun_dir=t(fields.get("sun_dir")),
         sun_emission=t(fields.get("sun_emission")),
         sun_radius=t(fields.get("sun_radius")),
-        sun_max_dot=t(fields.get("sun_max_dot")))
+        sun_max_dot=t(fields.get("sun_max_dot")), arity=arity)
 
 
 def sun_fields(cfg: RenderConfig) -> dict:
@@ -178,9 +185,9 @@ def build_atlas_for(materials: List[MaterialDesc], base_dir: str,
 def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
     """Full ingest: dispatch on scene_path ("proc:<name>" or .obj), load the
     environment, build the BVH, pack the tables onto `device`."""
-    if cfg.wide_arity != 8:
-        raise NotImplementedError(
-            "the port traverses 8-wide tables only (wide_arity=8)")
+    if not 2 <= cfg.wide_arity <= 16:
+        raise ValueError(f"wide_arity {cfg.wide_arity} outside 2..16 (a "
+                         f"128-float node row holds 16 children at most)")
     path = cfg.scene_path
     base_dir = os.path.dirname(os.path.abspath(path)) if os.path.sep in path else "."
     env = environment_image(cfg.skybox, base_dir=base_dir)
@@ -270,7 +277,8 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
                                                         soup.e2),
                                  atlas_image=atlas_img,
                                  atlas_rects=atlas_rects,
-                                 atlas_mips=atlas_mips, **sun_fields(cfg)),
+                                 atlas_mips=atlas_mips,
+                                 arity=cfg.wide_arity, **sun_fields(cfg)),
                             device)
     meta = SceneMeta(
         num_triangles=T,

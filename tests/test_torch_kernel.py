@@ -245,7 +245,7 @@ def soup_mega_case(tc, duplicate, width, height, spp, max_bounces, device,
     lane = torch.arange(width * height, device=device)
     return mk.prepare_mega(
         SimpleNamespace(node_rows=tabs["node_rows"],
-                        cluster_rows=tabs["cluster_rows"]),
+                        cluster_rows=tabs["cluster_rows"], arity=kt.ARITY),
         tables, generate_image_plane(cam, device),
         (lane % width).float(), (lane // width).float(),
         random.PRNGKey(5, device), width=width, height=height,
@@ -1199,3 +1199,133 @@ def test_stats_kernels_match_plain_on_cuda():
     _equal_bits(got[:4], kc.closest_cluster(*tabs, o, d, far, act,
                                             stack_depth=depth))
     assert int(got[4][:, 2].sum()) > 0
+
+
+def arity_soup_case(arity, n_tris=4000, n_rays=65535, seed=7, tc=0,
+                    packet=2048):
+    """_soup_case's soup at ``arity`` children a node (MT leaves of 4, or
+    with ``tc`` cluster leaves), its rays, and start entries for packets of
+    ``packet`` rays: row 0, the cut's roots in turn, a leaf entry of the
+    cut in packet 1 and INVALID in packet 2. Tensors on the card."""
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(-5, 5, (n_tris, 1, 3))
+    tri = (base + rng.uniform(-0.6, 0.6, (n_tris, 3, 3))).astype(np.float32)
+    p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
+    wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=4, builder="numpy",
+                                 arity=arity)
+    if tc:
+        wide = pack_clusters(wide, p0, p1 - p0, p2 - p0, tc=tc, arity=arity)
+    else:
+        wide = pack_for_packets(wide, p0, p1 - p0, p2 - p0, 4)
+    o = rng.uniform(-8, 8, (n_rays, 3)).astype(np.float32)
+    d = rng.uniform(-4, 4, (n_rays, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cut = wide.cut_entry
+    roots = cut[np.arange(-(-n_rays // packet)) % len(cut)].copy()
+    roots[0] = 0
+    if (cut < 0).any():
+        roots[1] = cut[cut < 0][0]
+    roots[2] = kt.INVALID_ENTRY
+
+    def dev(x):
+        return torch.tensor(x, device="cuda")
+    tabs = {f: dev(np.asarray(getattr(wide, f))) for f in (
+        "node_rows", "cluster_rows", "cluster_refs") if getattr(wide, f)
+        is not None}
+    return dict(tabs=tabs, o=dev(o), d=dev(d), cut_entry=dev(cut),
+                cut_bounds=dev(wide.cut_bounds),
+                depth=min(stats.max_depth * (arity - 1) + 2, kt.MAX_STACK),
+                far=dev(np.full(n_rays, 1e20, np.float32)),
+                t_occ=dev(rng.uniform(0.5, 8.0, n_rays).astype(np.float32)),
+                act=dev(rng.rand(n_rays) < 0.9), roots=dev(roots),
+                packet=packet)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arity", [16, 4, 8, 3])
+def test_arity_and_roots_match_plain_on_cuda(arity):
+    """B1 closest and any-hit, B7 (W = 2) and B8 (Q = 2) on a table of
+    ``arity`` children, from row 0 and from per-packet start entries (cut
+    roots, a leaf, INVALID), each bitwise its plain version; launches
+    counted under the arity's and the roots' keys. At 3, 7A is no multiple
+    of 4: the row's last 16-byte word is partly read."""
+    _need_cuda()
+    case = arity_soup_case(arity)
+    rows = case["tabs"]["node_rows"]
+    rays = [case[k] for k in ("o", "d", "far", "act")]
+    occ_rays = [case[k] for k in ("o", "d", "t_occ", "act")]
+    launches = dict(kt.LAUNCHES)
+    for roots in (None, case["roots"]):
+        kw = dict(stack_depth=case["depth"], leaf_size=4, arity=arity,
+                  roots=roots, packet=None if roots is None else
+                  case["packet"])
+        for sched in (dict(), dict(interleave=2), dict(multi_pop=2)):
+            _equal_bits(kt.closest(rows, *rays, **sched, **kw),
+                        kt.closest_plain(rows, *rays, **sched, **kw))
+            assert torch.equal(kt.anyhit(rows, *occ_rays, **sched, **kw),
+                               kt.anyhit_plain(rows, *occ_rays, **sched,
+                                               **kw))
+        if roots is not None:
+            got = kt.closest(rows, *rays, **kw)
+            dead = slice(2 * case["packet"], 3 * case["packet"])
+            assert torch.equal(got[0][dead], case["far"][dead])
+            assert bool((got[1][dead] == -1).all())
+    # One launch a query and start, the closest one with roots twice.
+    for name, with_roots in (("trace_closest", 2), ("trace_anyhit", 1)):
+        for key, n in ((kt.launch_key(name, arity, None), 1),
+                       (kt.launch_key(name, arity, case["roots"]),
+                        with_roots)):
+            assert kt.LAUNCHES[key] == launches.get(key, 0) + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arity", [16, 4, 3])
+def test_cluster_arity_and_roots_match_plain_on_cuda(arity):
+    """B4 closest and any-hit on a cluster table of ``arity`` children (tc
+    128), from row 0 and from start entries (cluster leaf entries among
+    them), bitwise its plain version."""
+    _need_cuda()
+    case = arity_soup_case(arity, n_rays=16384, tc=128)
+    t = case["tabs"]
+    rays = [case[k] for k in ("o", "d", "far", "act")]
+    occ_rays = [case[k] for k in ("o", "d", "t_occ", "act")]
+    for roots in (None, case["roots"]):
+        kw = dict(stack_depth=case["depth"], arity=arity, roots=roots,
+                  packet=None if roots is None else case["packet"])
+        _equal_bits(kc.closest_cluster(t["node_rows"], t["cluster_rows"],
+                                       t["cluster_refs"], *rays, **kw),
+                    kc.closest_cluster_plain(t["node_rows"], t["cluster_rows"],
+                                             t["cluster_refs"], *rays, **kw))
+        assert torch.equal(
+            kc.anyhit_cluster(t["node_rows"], t["cluster_rows"], *occ_rays,
+                              **kw),
+            kc.anyhit_cluster_plain(t["node_rows"], t["cluster_rows"],
+                                    *occ_rays, **kw))
+
+
+@pytest.mark.cuda
+def test_treelet_on_cuda_matches_cpu():
+    """The treelet traversal (ops/treelet.py) at arity 16 through the
+    kernels on the card against the same loop through their plain versions
+    on the CPU: every field bitwise (the loop's integer logic is the same
+    on both devices, each launch bitwise its plain version)."""
+    from types import SimpleNamespace
+
+    from gpupathtracer_tpu_torch.ops import treelet
+    _need_cuda()
+    case = arity_soup_case(16, n_rays=8192)
+    kw = dict(stack_depth=case["depth"], leaf_size=4, packet_size=128)
+    out = []
+    for dev in ("cuda", "cpu"):
+        scene = SimpleNamespace(
+            node_rows=case["tabs"]["node_rows"].to(dev),
+            cut_entry=case["cut_entry"].to(dev),
+            cut_bounds=case["cut_bounds"].to(dev), cluster_rows=None,
+            arity=16)
+        rays = [case[k].to(dev) for k in ("o", "d", "far", "act")]
+        occ_rays = [case[k].to(dev) for k in ("o", "d", "t_occ", "act")]
+        hit = treelet.trace_closest_treelet(scene, *rays, **kw)
+        occ = treelet.trace_occluded_treelet(scene, *occ_rays, **kw)
+        out.append([x.cpu() for x in (*hit, occ)])
+    _equal_bits(out[0], out[1])
+    assert float((out[0][1] >= 0).float().mean()) > 0.1

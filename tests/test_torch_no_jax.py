@@ -2,9 +2,10 @@
 installed: a subprocess that refuses jax, PIL and ``gpupathtracer_tpu``
 renders proc:cornell on the CPU to a PNG, with the wavefront integrator,
 with the megakernel, on cluster leaves, with treelet-sorted bounce rays,
-with the reference and AO integrators, and a generated textured town with
-mips (its maps written and read by the port's own PNG code), and the PNGs
-are decoded here with zlib alone. No module of the port, and not chip_smoke.py, names the
+with the reference and AO integrators, a 16-wide table with treelet-binned
+bounce rays, and a generated textured town with mips (its maps written and
+read by the port's own PNG code), and the PNGs are decoded here with zlib
+alone. No module of the port, and not chip_smoke.py, names the
 JAX package in an import."""
 
 import ast
@@ -68,6 +69,18 @@ cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
 r = Renderer(cfg, "cpu")
 r.render_frame()
 print("TSORT", r.bounce_traversal, bool(r.film_hdr().max() > 0))
+# A 16-wide table, bounce rays binned by treelet from the first bounce.
+from gpupathtracer_tpu_torch.ops import treelet
+cfg = RenderConfig(scene_path="proc:cornell", width=16, height=16,
+                   max_bounces=4, bounce_traversal="treelet", treelet_min=1,
+                   wide_arity=16)
+cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
+                          fov=math.radians(45), aspect=1.0)
+r = Renderer(cfg, "cpu")
+r.render_frame()
+r.save_screenshot(sys.argv[9])
+print("TREELET", r.scene.arity, treelet.TRACES["closest"] > 0,
+      treelet.TRACES["rounds"] > 0)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 sys.exit(rc)
@@ -99,13 +112,15 @@ def test_port_renders_without_jax_or_pil(tmp_path):
     outs = [str(tmp_path / f"{name}.png")
             for name in ("cornell", "mega", "cluster", "reference", "ao",
                          "town")]
+    wide = str(tmp_path / "wide16_treelet.png")
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, *outs,
-                           str(tmp_path / "town")],
+                           str(tmp_path / "town"), wide],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout
     assert "TSORT tsort True" in proc.stdout
-    for out in outs:
+    assert "TREELET 16 True True" in proc.stdout
+    for out in outs + [wide]:
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
         assert img.max() > 0

@@ -250,7 +250,7 @@ def test_auto_gate_on_cluster_scene_counts_the_full_tree():
 
 def test_cli_takes_bounce_traversal(tmp_path):
     hdr = {}
-    for mode in ("same", "tsort", "auto"):
+    for mode in ("same", "tsort", "treelet", "auto"):
         out = tmp_path / f"{mode}.npy"
         rc = cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
                        "--width", "16", "--height", "16", "--bounce-traversal",
@@ -265,7 +265,8 @@ def test_cli_takes_bounce_traversal(tmp_path):
                                               "occluded": 0}
         hdr[mode] = np.load(out)
     np.testing.assert_array_equal(hdr["tsort"], hdr["same"])
+    np.testing.assert_array_equal(hdr["treelet"], hdr["same"])
     np.testing.assert_array_equal(hdr["auto"], hdr["same"])
     with pytest.raises(SystemExit):
         cli.main(["proc:cornell", "--device", "cpu", "--bounce-traversal",
-                  "treelet"])
+                  "packet"])

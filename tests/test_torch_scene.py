@@ -191,6 +191,8 @@ def test_environment_specs_match(spec):
 def test_unported_inputs_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         envmap.environment_image(str(tmp_path / "sky.png"))
-    with pytest.raises(NotImplementedError):
-        load_scene(RenderConfig(scene_path="proc:cornell", wide_arity=16),
+    # Node rows hold 2 to 16 children (wide_arity 16 loads since the
+    # kernels take the table's arity).
+    with pytest.raises(ValueError):
+        load_scene(RenderConfig(scene_path="proc:cornell", wide_arity=17),
                    "cpu")

@@ -43,7 +43,8 @@ def _port_scene(wide):
     return SimpleNamespace(node_rows=torch.tensor(wide.node_rows),
                            cluster_rows=None, cluster_refs=None,
                            cut_entry=torch.tensor(wide.cut_entry),
-                           cut_bounds=torch.tensor(wide.cut_bounds))
+                           cut_bounds=torch.tensor(wide.cut_bounds),
+                           arity=wide.child_entry.shape[1])
 
 
 def _jax_scene(wide):
@@ -216,8 +217,8 @@ def test_tsort_subpacket_kernel():
 @pytest.mark.parametrize("cluster_tris", [0, 128])
 def test_dispatch_takes_tsort(cluster_tris):
     """ops/traverse.py: traversal="tsort" beside "auto", on MT and on
-    cluster leaves, the same hits; the names whose modules are not ported
-    raise."""
+    cluster leaves, the same hits; "pallas" is "auto"; the names whose
+    modules are not ported raise, and "treelet" on cluster leaves."""
     scene, meta = load_scene(RenderConfig(scene_path="proc:table",
                                           cluster_tris=cluster_tris), "cpu")
     cb = scene.cut_bounds.numpy()
@@ -238,9 +239,15 @@ def test_dispatch_takes_tsort(cluster_tris):
                             interleave=2, **kw)
         for g, b in zip(hit, base):
             np.testing.assert_array_equal(_bits(g), _bits(b))
-    for name in ("treelet", "packet", "perray"):
+    hit = trace_closest(scene, o, d, far, act, traversal="pallas", **kw)
+    for g, b in zip(hit, base):
+        np.testing.assert_array_equal(_bits(g), _bits(b))
+    for name in ("packet", "perray"):
         with pytest.raises(NotImplementedError):
             trace_closest(scene, o, d, far, act, traversal=name, **kw)
+    if cluster_tris:
+        with pytest.raises(ValueError):
+            trace_closest(scene, o, d, far, act, traversal="treelet", **kw)
 
 
 def test_tsort_alternate_bitwise_equals_default():

@@ -25,7 +25,14 @@ Modes:
   dense       every ray against every triangle, rounding of the matrix
               form (--k rays a block, at most 1024; small scenes only)
   dense-vpu   the same with the multiply chain's rounding
-  treelet     not ported: raises
+  treelet     not a mode here: raises (its t can differ from the per-ray
+              walk's at triangles whose t rounds below their box's entry,
+              so it cannot be held bitwise to it; chip_smoke.py phase T
+              times it)
+
+--arity A builds the scene's tables A children wide (2 to 16; the kernels
+are built at that arity, tools/kernel_bench.py's --arity); the sub-packet
+modes (subpacket, tsort-sub) read 8-wide rows only and refuse another.
 
 --cluster-tc TC adds, for each TC of a comma-separated list, the cluster
 leaf walk (csrc/cluster_traverse.cu) on the scene cut into clusters of TC
@@ -100,16 +107,17 @@ def time_ms(fn, reps: int, device):
     return med, (max(times) - min(times)) / med if med > 0 else 0.0
 
 
-def load(scene_path: str, device, cluster_tris: int = 0):
+def load(scene_path: str, device, cluster_tris: int = 0, arity: int = 8):
     """(scene, meta) of a scene at its default settings (C++ SBVH where a
-    compiler is present), cut into clusters of ``cluster_tris`` triangles
-    when that is not 0."""
+    compiler is present), ``arity`` children a node, cut into clusters of
+    ``cluster_tris`` triangles when that is not 0."""
     from gpupathtracer_tpu_torch.config import RenderConfig
     from gpupathtracer_tpu_torch.scene import load_scene
 
     return load_scene(RenderConfig(scene_path=scene_path, width=64,
                                    height=64, skybox="GENERATE COLOR BLACK",
-                                   cluster_tris=cluster_tris), device)
+                                   cluster_tris=cluster_tris,
+                                   wide_arity=arity), device)
 
 
 def make_rays(scene_path: str, scene, meta, n: int, device):
@@ -170,10 +178,13 @@ def make_run(mode: str, scene, meta, *, any_hit: bool = False,
 
     if mode == "treelet":
         raise NotImplementedError(
-            "mode 'treelet': ops/treelet.py is not ported yet (ROADMAP.md, "
-            "queue A)")
+            "mode 'treelet': not a mode of the A/B tool (module docstring); "
+            "chip_smoke.py phase T times the treelet traversal")
     if mode not in MODES + ("cluster",):
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode in ("subpacket", "tsort-sub") and scene.arity != 8:
+        raise SystemExit(f"mode {mode!r}: the sub-packet kernel reads 8-wide "
+                         f"rows only (--arity {scene.arity})")
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
     if (mode == "cluster") != (scene.cluster_rows is not None):
         raise ValueError("mode 'cluster' runs on a cluster scene and only "
@@ -221,7 +232,7 @@ def make_run(mode: str, scene, meta, *, any_hit: bool = False,
             return (out[1] >= 0 if any_hit else out[0]).reshape(-1)
     elif mode == "cluster":
         tabs = (rows, scene.cluster_rows)
-        sd = dict(stack_depth=meta.stack_depth)
+        sd = dict(stack_depth=meta.stack_depth, arity=scene.arity)
 
         def run(o, d, K, ilv=1, stats=False):
             if any_hit:
@@ -238,7 +249,7 @@ def make_run(mode: str, scene, meta, *, any_hit: bool = False,
         def run(o, d, K, ilv=1, stats=False):
             out = fn(rows, o, d, *full(o), interleave=ilv,
                      multi_pop=multi_pop if ilv == 1 else 1,
-                     with_stats=stats, **kw)
+                     with_stats=stats, arity=scene.arity, **kw)
             if stats:
                 return out[-1]
             return out if any_hit else out[0]
@@ -256,7 +267,8 @@ def make_plain(mode: str, scene, meta, *, any_hit: bool = False):
     from gpupathtracer_tpu_torch.ops import (dense_intersect, kernel_cluster,
                                              kernel_traverse)
 
-    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+              arity=scene.arity)
     rows = scene.node_rows
 
     def full(o):
@@ -266,7 +278,7 @@ def make_plain(mode: str, scene, meta, *, any_hit: bool = False):
 
     if mode == "cluster":
         tabs = (rows, scene.cluster_rows)
-        sd = dict(stack_depth=meta.stack_depth)
+        sd = dict(stack_depth=meta.stack_depth, arity=scene.arity)
 
         def plain(o, d):
             if any_hit:
@@ -332,6 +344,8 @@ def main(argv=None, loaded=None) -> dict:
     ap.add_argument("--pop-skip", action="store_true",
                     help="with --cluster-tc, closest: also the pop-skipping "
                          "schedule")
+    ap.add_argument("--arity", type=int, default=8,
+                    help="children per node of the scene's tables (2-16)")
     args = ap.parse_args(argv)
 
     import torch
@@ -350,9 +364,13 @@ def main(argv=None, loaded=None) -> dict:
     modes = args.mode.split(",")
     k_list = [int(s) for s in args.k.split(",")]
     ilv_list = [int(s) for s in args.interleave.split(",")]
-    scene, meta = loaded or load(args.scene, device)
+    scene, meta = loaded or load(args.scene, device, arity=args.arity)
+    if scene.arity != args.arity:
+        raise ValueError(f"the loaded scene is {scene.arity}-wide, "
+                         f"--arity {args.arity}")
     rows = scene.node_rows
-    print(f"# {args.scene} leaf={meta.leaf_size}: rows={tuple(rows.shape)} "
+    print(f"# {args.scene} arity={scene.arity} leaf={meta.leaf_size}: "
+          f"rows={tuple(rows.shape)} "
           f"({rows.numel() * 4 / 1e6:.1f} MB) stack={meta.stack_depth} "
           f"K={k_list} N={args.n}")
     runs = {m: make_run(m, scene, meta, any_hit=args.any_hit) for m in modes}
@@ -378,7 +396,8 @@ def main(argv=None, loaded=None) -> dict:
                                       any_hit=args.any_hit,
                                       multi_pop=args.multi_pop), k_list[0], 1))
     for tc in (int(x) for x in args.cluster_tc.split(",") if x):
-        cscene, cmeta = load(args.scene, device, cluster_tris=tc)
+        cscene, cmeta = load(args.scene, device, cluster_tris=tc,
+                             arity=args.arity)
         skips = (False, True) if args.pop_skip and not args.any_hit else \
             (False,)
         for skip in skips:

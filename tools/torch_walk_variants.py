@@ -14,8 +14,8 @@ NAME, the csrc/ of another checkout (DIR is its root, for example a `git
 archive` of the parent commit as "parent") built as it is, so that a
 redesign is timed beside the design it replaces in one call. A variant
 runs through the tree's wrappers, so its C interfaces must be the tree's;
-a checkout runs through its own ops/ wrapper where the dense and ilv
-groups call one (its C interface may differ). Groups of timings
+a checkout runs through its own ops/ wrapper in the walks, dense, ilv and
+multi groups (its C interface may differ). Groups of timings
 (--groups):
 
   walks         on chip_smoke.py phase 3's rays (131,072 a scene, sponza
@@ -85,15 +85,15 @@ _ORDER = """  if (ordered && total == 2) {
     sort_children<kKeys>(key, slot, entry, skey);
   }
   if (ordered && total > 1) {"""
-_WALK = """  int sp = 1;
-  stack[0] = 0;  // root node row
+_WALK = """  int sp = root != kInvalid ? 1 : 0;
+  stack[0] = root;
   while (sp > 0) {
     const int entry = stack[--sp * stride];
     if (entry >= 0) {
       if constexpr (kStats) ++pops->node;
       expand_node(rows + (size_t)entry * kRow, r, t, !kAnyHit, stack, stride,
                   sp, depth);"""
-_HELD_WALK = """  int sp = 0, next = 0;  // the root node row, held
+_HELD_WALK = """  int sp = 0, next = root;  // the start entry, held
   while (next != kInvalid || sp > 0) {
     const int entry = next != kInvalid ? next : stack[--sp * stride];
     next = kInvalid;
@@ -331,8 +331,10 @@ trace_ilv_fetch_kernel(const float* __restrict__ rows,
       r[w] = bvh::load_ray(o, d, i);
       leaf[w].rows = rows;
     }
-    bvh::walk_ilv<W, kAnyHit, bvh::MtLeaf<kAnyHit>, kStats>(rows, r, on, depth,
-                                                            t, leaf, pops);
+    const int root[W] = {};  // the variants walk from row 0
+    bvh::walk_ilv<W, kAnyHit, bvh::MtLeaf<kAnyHit>, kStats>(rows, r, on, root,
+                                                            depth, t, leaf,
+                                                            pops);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       const int i = ray[w];
@@ -417,12 +419,13 @@ int launch_ilv(const float* rows, const float* o, const float* d,
 """
 _ILV_LAUNCHES = [
     ("""  kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);""",
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats, roots,
+      packet);""",
      """  return launch_ilv<false>(rows, o, d, t_max, active, n, depth, w,
                            IlvOut{t, prim, u, v, nullptr, stats},
                            (cudaStream_t)stream);"""),
     ("""  kernel<<<blocks_for((n + w - 1) / w), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, occluded, stats);""",
+      rows, o, d, t_max, active, n, depth, occluded, stats, roots, packet);""",
      """  return launch_ilv<true>(rows, o, d, t_max, active, n, depth, w,
                           IlvOut{nullptr, nullptr, nullptr, nullptr, occluded,
                                  stats},
@@ -695,7 +698,8 @@ def _multi(shared: int, threads: int, min_blocks: int, window: int) -> dict:
     walk = []
     for q in ("false", "true"):
         walk.append((f"""    dropped = bvh::walk_multi<Q, {q}, bvh::MtLeaf<{q}>, kStats>(
-        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops);""",
+        rows, bvh::load_ray(o, d, i), depth, t, leaf, &pops,
+        root_of(roots, packet, i));""",
                      f"""    dropped = multi_walk<Q, {q}, kStats>(rows, o, d, i, depth, t, leaf,
                                          &pops);"""))
     return {
@@ -719,15 +723,18 @@ def _multi(shared: int, threads: int, min_blocks: int, window: int) -> dict:
             *walk,
             ("}  // namespace\n", _MULTI_LAUNCH),
             ("""  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats);
+      rows, o, d, t_max, active, n, depth, t, prim, u, v, stats, roots,
+      packet);
   return (int)cudaGetLastError();""",
              """  return launch_multi(kernel, n, depth, (cudaStream_t)stream, rows, o, d,
-                      t_max, active, n, depth, t, prim, u, v, stats);"""),
+                      t_max, active, n, depth, t, prim, u, v, stats, roots,
+                      packet);"""),
             ("""  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, o, d, t_max, active, n, depth, occluded, stats);
+      rows, o, d, t_max, active, n, depth, occluded, stats, roots, packet);
   return (int)cudaGetLastError();""",
              """  return launch_multi(kernel, n, depth, (cudaStream_t)stream, rows, o, d,
-                      t_max, active, n, depth, occluded, stats);""")]}
+                      t_max, active, n, depth, occluded, stats, roots,
+                      packet);""")]}
 
 
 def _ilv(fetch: bool, refill: bool = True, shared: bool = False,
@@ -1173,16 +1180,28 @@ class Swapped:
 
     def __enter__(self):
         from gpupathtracer_tpu_torch.ops import cuda_build
-        self.saved, build = self.module._lib, cuda_build.build
-        cuda_build.build = lambda name: (self.so, "")
+        # The traversal wrappers keep a library per arity (_libs); a
+        # checkout's may keep one (_lib). The variant serves arity 8.
+        per_arity = hasattr(self.module, "_libs")
+        self.saved = (dict(self.module._libs) if per_arity
+                      else self.module._lib)
+        build = cuda_build.build
+        cuda_build.build = lambda name, *_: (self.so, "")
         try:
-            self.module._lib = None
+            if per_arity:
+                self.module._libs.clear()
+            else:
+                self.module._lib = None
             self.module._library()
         finally:
             cuda_build.build = build
 
     def __exit__(self, *exc):
-        self.module._lib = self.saved
+        if hasattr(self.module, "_libs"):
+            self.module._libs.clear()
+            self.module._libs.update(self.saved)
+        else:
+            self.module._lib = self.saved
 
 
 def runs(libs: dict, source: str, module, own_wrapper: bool = False):
@@ -1238,16 +1257,17 @@ def time_walks(libs: dict, reps: int, device) -> None:
         ref = (kt.closest(rows, o, d, far, on, **kw),
                kt.anyhit(rows, o, d, t_occ, on, **kw))
         for rep in range(reps):
-            for label, ctx, _ in runs(libs, "traverse", kt):
+            for label, ctx, mod in runs(libs, "traverse", kt,
+                                        own_wrapper=True):
                 with ctx:
                     for th in (64, 128):
-                        cs._hold_hits(f"{label} B1", kt.closest(
+                        cs._hold_hits(f"{label} B1", mod.closest(
                             rows, o, d, far, on, threads=th, **kw), ref[0])
-                        cs._hold_occluded(f"{label} B1", kt.anyhit(
+                        cs._hold_occluded(f"{label} B1", mod.anyhit(
                             rows, o, d, t_occ, on, threads=th, **kw), ref[1])
-                        ms_c = cs._events_ms(lambda: kt.closest(
+                        ms_c = cs._events_ms(lambda: mod.closest(
                             rows, o, d, far, on, threads=th, **kw), 20)
-                        ms_a = cs._events_ms(lambda: kt.anyhit(
+                        ms_a = cs._events_ms(lambda: mod.anyhit(
                             rows, o, d, t_occ, on, threads=th, **kw), 20)
                         print(f"[{name}] B1 {label}, {th} threads, rep {rep}:"
                               f" closest {ms_c:.4f} ms, any-hit {ms_a:.4f} ms",
@@ -1260,15 +1280,16 @@ def time_walks(libs: dict, reps: int, device) -> None:
         ref = (kc.closest_cluster(*tabs, refs, o, d, far, on, **kw),
                kc.anyhit_cluster(*tabs, o, d, t_occ, on, **kw))
         for rep in range(reps):
-            for label, ctx, _ in runs(libs, "cluster_traverse", kc):
+            for label, ctx, mod in runs(libs, "cluster_traverse", kc,
+                                        own_wrapper=True):
                 with ctx:
-                    cs._hold_hits(f"{label} B4", kc.closest_cluster(
+                    cs._hold_hits(f"{label} B4", mod.closest_cluster(
                         *tabs, refs, o, d, far, on, **kw), ref[0])
-                    cs._hold_occluded(f"{label} B4", kc.anyhit_cluster(
+                    cs._hold_occluded(f"{label} B4", mod.anyhit_cluster(
                         *tabs, o, d, t_occ, on, **kw), ref[1])
-                    ms_c = cs._events_ms(lambda: kc.closest_cluster(
+                    ms_c = cs._events_ms(lambda: mod.closest_cluster(
                         *tabs, refs, o, d, far, on, **kw), 10)
-                    ms_a = cs._events_ms(lambda: kc.anyhit_cluster(
+                    ms_a = cs._events_ms(lambda: mod.anyhit_cluster(
                         *tabs, o, d, t_occ, on, **kw), 10)
                 print(f"[{name}] B4 {label}, rep {rep}: closest {ms_c:.4f} "
                       f"ms, any-hit {ms_a:.4f} ms", flush=True)
@@ -1733,26 +1754,27 @@ def time_multi(libs: dict, reps: int, device) -> None:
                 ms_a = cs._events_ms(lambda: kt.anyhit(rows, o_, d_, ta, act,
                                                        **kw), 10)
                 line = [f"B1 {ms_c:.4f} / {ms_a:.4f}"]
-                for label, ctx, _ in runs(libs, "traverse", kt):
+                for label, ctx, mod in runs(libs, "traverse", kt,
+                                            own_wrapper=True):
                     with ctx:
                         for q, k in qs.items():
                             cs._hold_stats(f"{label} B8 Q={q} closest",
-                                           kt.closest(rows, o_, d_, tc, act,
-                                                      with_stats=True, **k),
+                                           mod.closest(rows, o_, d_, tc, act,
+                                                       with_stats=True, **k),
                                            ref[q][0])
                             cs._hold_stats(f"{label} B8 Q={q} any-hit",
-                                           kt.anyhit(rows, o_, d_, ta, act,
-                                                     with_stats=True, **k),
+                                           mod.anyhit(rows, o_, d_, ta, act,
+                                                      with_stats=True, **k),
                                            ref[q][1])
                             cs._hold_hits(f"{label} B8 Q={q} closest",
-                                          kt.closest(rows, o_, d_, tc, act,
-                                                     **k), ref[q][0][:4])
+                                          mod.closest(rows, o_, d_, tc, act,
+                                                      **k), ref[q][0][:4])
                             cs._hold_occluded(f"{label} B8 Q={q} any-hit",
-                                              kt.anyhit(rows, o_, d_, ta, act,
-                                                        **k), ref[q][1][0])
-                            ms_c = cs._events_ms(lambda: kt.closest(
+                                              mod.anyhit(rows, o_, d_, ta, act,
+                                                         **k), ref[q][1][0])
+                            ms_c = cs._events_ms(lambda: mod.closest(
                                 rows, o_, d_, tc, act, **k), 10)
-                            ms_a = cs._events_ms(lambda: kt.anyhit(
+                            ms_a = cs._events_ms(lambda: mod.anyhit(
                                 rows, o_, d_, ta, act, **k), 10)
                             line.append(f"{label} Q={q} {ms_c:.4f} / "
                                         f"{ms_a:.4f}")
