@@ -161,8 +161,10 @@ nvcc and g++. Phases, each of which raises on failure:
      rows of phases 10 and 11: the first chunk of each row's first frame,
      built as the Renderer builds it (the row's own samples a lane), runs
      through the kernel on all its lanes; its first two packets run
-     through the kernel alone (the same lanes must come out) and through
-     the plain version (held as in phase 8; phase 8 holds the counters);
+     through the kernel alone (the same lanes must come out), and at no
+     more than 64 samples a lane (MEGA_CHECK_SPP; the 128-sample rows are
+     cut to 64 to keep the smoke under 800 s) through the kernel and the
+     plain version (held as in phase 8; phase 8 holds the counters);
  10. the megakernel path through the CLI, the JAX bench's megakernel rows
      at their published sizes: bathroom 1280x720 Beckmann DoF (frame batch
      64), table 800x600 with 64 bounces (frame batch 128) and table
@@ -193,11 +195,37 @@ nvcc and g++. Phases, each of which raises on failure:
      reference at 48, channel means within 8%; bunny 24x24 with the sun,
      the same two, means within 25%; the sun's cone against its disk
      (16 spp each), means within 15%;
- 16. the card against the CPU: the reference, AO, sun (disk and cone) and
-     textured (mips) renders at 32x32 on the card and through the port's
-     plain versions on the CPU, the same seed: at most 1% of pixels
-     outside rtol = atol = 2e-3, channel means within 1% (the CPU port is
-     held to the JAX package by the CPU tests, which closes the chain).
+ 17. (after phase 14) the delta materials, glTF, image skies, the bounce
+     coherence sort, light-end shadow rays and the ld sampler at full
+     width, each render launching both MT entry points and no other, its
+     PNG written, its film finite and nonzero, its s/sample printed beside
+     the card: (a) proc:sponza with its columns and sphere stone made
+     mirrors and its banners glass (ior 1.5), 1920x1080, 64 bounces, 2 spp
+     through the Renderer, has_delta set, the share of lanes that hit a
+     delta surface printed; (b) proc:sponza's mesh written as a .glb (one
+     primitive a material, the banners KHR_materials_transmission 1.0)
+     through the CLI at 1920x1080, 64 bounces, 1 spp, its triangle count
+     sponza's and has_delta set, and the demo glTF (write_demo_gltf) at
+     1280x720, 4 spp; (c) proc:bunny 1280x720, 4 spp, under a 2048x1024
+     PNG equirect and under a .txt cubemap of six 512x512 PNG faces; (d)
+     proc:sponza 1920x1080, 64 bounces, 1 spp, one scene load: the
+     sort_rays film bitwise the default film with the same rays, the
+     shadow_rev film's channel means within 1% of the default's (the
+     pixels outside rtol = atol = 2e-3 printed); (e) proc:sponza 1920x1080
+     through --sampler ld, 2 spp, and r2_sequence, pixel_rotation and the
+     jitter on the card bitwise the CPU's over all 2,073,600 pixel ids at
+     sample indices 0, 1, 2^24 - 1 and 2^32 - 2;
+     then phase 15 adds the JAX package's recipes for these paths on the
+     card: tests/test_integrator.py's mirror material (max > 3, 20th
+     percentile < 0.5) and glass furnace (0.80 < mean < 1.1),
+     tests/test_ld_sampler.py's deterministic ld render and
+     tests/test_edge_cases.py's cubemap face colours;
+ 16. the card against the CPU: the reference, AO, sun (disk and cone),
+     textured (mips), mirror-and-glass, cubemap sky, ld, shadow_rev and
+     sort_rays renders at 32x32 on the card and through the port's plain
+     versions on the CPU, the same seed: at most 1% of pixels outside
+     rtol = atol = 2e-3, channel means within 1% (the CPU port is held to
+     the JAX package by the CPU tests, which closes the chain).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2495,7 +2523,8 @@ def compare_mega_rows(device, results, runs) -> None:
     chunk of its first frame as the Renderer builds it (same
     configuration, lanes, key and arguments). The kernel runs on all the
     chunk's lanes, and on its first MEGA_PACKETS packets alone, which must
-    give the same lanes; the plain version runs on those packets."""
+    give the same lanes; then the kernel and the plain version run on those
+    packets at no more than MEGA_CHECK_SPP samples a lane."""
     import torch
 
     from gpupathtracer_tpu_torch import cli
@@ -2526,17 +2555,26 @@ def compare_mega_rows(device, results, runs) -> None:
                            full[:m].view(torch.int32)):
             raise AssertionError(f"{label} the first {MEGA_PACKETS} packets "
                                  f"alone differ from the whole launch")
+        spp = min(batch, MEGA_CHECK_SPP)
+        if spp != batch:
+            cargs, ckw = mk.prepare_mega(
+                r.scene, r.mega_tables, r.camera, r.pixel_x[sl],
+                r.pixel_y[sl], r.chunk_key(0), sample_idx=0, spp=spp,
+                **statics)
+            sargs, skw = _first_packets(cargs, ckw, MEGA_PACKETS)
+            got, rays = mk.trace_mega(*sargs, **skw)
         t0 = time.perf_counter()
         want, rays_plain = mk.trace_mega_plain(*sargs, **skw)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        err = _hold_mega(f"{label} packets 0-{MEGA_PACKETS - 1}", got, want,
-                         rays, rays_plain)
+        err = _hold_mega(f"{label} packets 0-{MEGA_PACKETS - 1} at spp="
+                         f"{spp}", got, want, rays, rays_plain)
         worst, *rest = results["mega"][entry]
         results["mega"][entry] = (max(worst, err), *rest)
         print(f"{label} {entry} on all {n} lanes: {ms:.1f} ms, "
               f"{int(rays_full)} rays ({int(rays_full) / ms / 1e3:.1f} "
-              f"Mrays/s); trace_mega_plain on {m} lanes: {plain_s:.1f} s")
+              f"Mrays/s); trace_mega_plain on {m} lanes at spp={spp}: "
+              f"{plain_s:.1f} s")
 
 
 # The megakernel rows of the JAX bench (bench.py:186-225, 352-371) at their
@@ -2566,8 +2604,13 @@ MEGACLUSTER_RUNS = (
                               "128"], 128, 8),
 )
 # Phase 9 holds the kernel to its plain version on this many packets of
-# each row's first chunk, at the row's own samples per lane.
+# each row's first chunk, at the row's arguments but for its samples a lane,
+# cut to MEGA_CHECK_SPP (the 128-sample rows ran at 128 until phase 17 took
+# the smoke past 800 s). The plain version's time is its loop, one step a
+# bounce of every sample in turn, about a minute a row at 64 samples, and
+# neither fewer lanes nor a lower bounce cap shortens it.
 MEGA_PACKETS = 2
+MEGA_CHECK_SPP = 64
 
 
 def _mega_argv(args, batch: int, frames: int):
@@ -2739,8 +2782,6 @@ def render_sun_path(tmp: str, device, smi: str, width=1280, height=720,
                     spp=4):
     """Phase 14: the Renderer with the sun, disk and cone; a PNG each, the
     film finite and nonzero (the sun is the only light)."""
-    import numpy as np
-
     from gpupathtracer_tpu_torch.render import Renderer
 
     for mode in ("disk", "cone"):
@@ -2749,22 +2790,7 @@ def render_sun_path(tmp: str, device, smi: str, width=1280, height=720,
                                 skybox="GENERATE COLOR BLACK"), device)
         if r.use_mega:
             raise AssertionError("the sun took the megakernel")
-        for _ in range(spp):
-            r.render_frame(sync=True)
-        png = r.save_screenshot(os.path.join(tmp, f"sun_{mode}.png"))
-        with open(png, "rb") as f:
-            if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                raise AssertionError(f"[sun {mode}] {png} is not a PNG")
-        film = r.film_hdr()
-        if not np.isfinite(film).all() or not (film > 0).any():
-            raise AssertionError(f"[sun {mode}] film is not finite and "
-                                 f"nonzero")
-        r.stats.finalize()
-        sec = sum(r.stats.frame_times)
-        print(f"[sun {mode}] proc:bunny {width}x{height}, {spp} spp: "
-              f"{sec / spp:.4f} s/sample ({r.stats.mrays_per_sec:.1f} "
-              f"Mrays/s, {r.stats.rays_traced} rays, film mean "
-              f"{float(film.mean()):.4f}) on {smi}")
+        _renderer_frames(f"sun_{mode}", r, spp, tmp, smi)
 
 
 def _means(cfg, device, frames: int, integrator: str):
@@ -2832,9 +2858,13 @@ CPU_PIXEL_SHARE = 0.01
 CPU_MEAN_BOUND = 0.01
 
 
-def card_vs_cpu(device, town: str, size: int = 32, spp: int = 4) -> None:
+def card_vs_cpu(device, town: str, mirror_glass: str, cubemap: str,
+                size: int = 32, spp: int = 4) -> None:
     """Phase 16: the new paths at size x size on the card and through the
-    port's plain versions on the CPU, the same seed and configuration."""
+    port's plain versions on the CPU, the same seed and configuration: the
+    reference, AO, the sun, textures with mips; mirrors and glass, a
+    cubemap sky, the ld sampler, light-end shadow rays and the coherence
+    sort."""
     import numpy as np
     import torch
 
@@ -2855,7 +2885,16 @@ def card_vs_cpu(device, town: str, size: int = 32, spp: int = 4) -> None:
                                    max_bounces=8, mip_levels=4,
                                    bvh_builder="cpp"), "wavefront"),
     }
-    for name in ("reference", "ao"):
+    cases.update({
+        "mirror_glass": (_mirror_cfg(mirror_glass, size, 8), "wavefront"),
+        "cubemap": (_scene_cfg("bunny", size, size, skybox=cubemap,
+                               max_bounces=8), "wavefront"),
+        "ld": (RenderConfig(**cornell, sampler="ld"), "wavefront"),
+        "shadow_rev": (RenderConfig(**cornell, shadow_rev=True),
+                       "wavefront"),
+        "sort_rays": (RenderConfig(**cornell, sort_rays=True), "wavefront"),
+    })
+    for name in ("reference", "ao", "ld", "shadow_rev", "sort_rays"):
         cases[name][0].camera = CameraConfig(
             position=(2.75, 2.75, -7.0), yaw=math.pi, fov=math.radians(45),
             aspect=1.0)
@@ -2887,6 +2926,441 @@ def card_vs_cpu(device, town: str, size: int = 32, spp: int = 4) -> None:
         if outside.mean() > CPU_PIXEL_SHARE or rel > CPU_MEAN_BOUND:
             raise AssertionError(f"[card vs CPU] {name}: the card's film "
                                  f"leaves the CPU's bound")
+
+
+# Phase 17: the delta materials, glTF, image skies, the coherence sort and
+# light-end shadow rays, and the ld sampler at full width.
+SPONZA_1080 = ["--width", "1920", "--height", "1080", "--max-bounces", "64"]
+# The sample indices at which the card's LD sequences must be the CPU's:
+# the ends of float32's exact integers and of 32 bits.
+LD_INDICES = (0, 1, (1 << 24) - 1, (1 << 32) - 2)
+# Phase 17d: the shadow_rev film's channel means against the default's.
+REV_MEAN_BOUND = 0.01
+
+
+def _camera_args(name: str):
+    """A procedural scene's default camera as CLI flags, for a file that
+    holds its mesh."""
+    from gpupathtracer_tpu_torch.scene.procedural import default_camera
+
+    pos, yaw, pitch, fov, aperture, focus = default_camera(name)
+    # "=" keeps argparse from reading a leading minus sign as a flag.
+    return [f"--position={','.join(str(x) for x in pos)}",
+            f"--rotation={yaw},{pitch}", f"--fov={fov}",
+            f"--aperture={aperture}", f"--focus={focus}"]
+
+
+def _delta_materials(materials):
+    """proc:sponza's materials with its columns and sphere stone
+    ("stone2") made a mirror and its banners ("banner") glass, ior 1.5."""
+    from dataclasses import replace
+
+    from gpupathtracer_tpu_torch.scene.materials import (MATERIAL_MIRROR,
+                                                         MATERIAL_REFRACTIVE)
+
+    kinds = {"stone2": dict(material_type=MATERIAL_MIRROR),
+             "banner": dict(material_type=MATERIAL_REFRACTIVE, ior=1.5)}
+    return [replace(m, **kinds.get(m.name, {})) for m in materials]
+
+
+def _renderer_frames(label: str, r, frames: int, tmp: str, smi: str):
+    """Renders ``frames`` frames (synchronized), writes the PNG, holds the
+    film finite and nonzero, prints s/sample; returns the film."""
+    import numpy as np
+
+    for _ in range(frames):
+        r.render_frame(sync=True)
+    png = r.save_screenshot(os.path.join(tmp, f"{label}.png"))
+    with open(png, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"[{label}] {png} is not a PNG")
+    film = r.film_hdr()
+    if not np.isfinite(film).all() or not (film > 0).any():
+        raise AssertionError(f"[{label}] film is not finite and nonzero")
+    r.stats.finalize()
+    print(f"[{label}] {r.width}x{r.height}, {frames} spp: "
+          f"{sum(r.stats.frame_times) / frames:.4f} s/sample "
+          f"({r.stats.mrays_per_sec:.1f} Mrays/s, {r.stats.rays_traced} "
+          f"rays, film mean {float(film.mean()):.4f}) on {smi}")
+    return film
+
+
+def render_delta_path(tmp: str, device, smi: str) -> None:
+    """Phase 17a: proc:sponza with mirror columns and spheres and glass
+    banners, 1920x1080, 64 bounces, 2 spp, through the Renderer."""
+    from gpupathtracer_tpu_torch.models import wavefront
+    from gpupathtracer_tpu_torch.render import Renderer
+    from gpupathtracer_tpu_torch.scene import pack_scene
+    from gpupathtracer_tpu_torch.scene.envmap import environment_image
+    from gpupathtracer_tpu_torch.scene.mesh import build_triangle_soup
+    from gpupathtracer_tpu_torch.scene.procedural import load_procedural
+
+    cfg = _scene_cfg("sponza", 1920, 1080, max_bounces=64)
+    mesh, materials = load_procedural("proc:sponza")
+    scene, meta = pack_scene(build_triangle_soup(mesh),
+                             _delta_materials(materials),
+                             environment_image(cfg.skybox), cfg, device)
+    if not meta.has_delta:
+        raise AssertionError("[sponza delta] has_delta is false")
+    r = Renderer(cfg, device, scene=scene, meta=meta)
+    wavefront.DELTA_LANES = counts = {"hits": 0, "delta": 0}
+    try:
+        _renderer_frames("sponza_delta", r, 2, tmp, smi)
+    finally:
+        wavefront.DELTA_LANES = None
+    hits, on_delta = counts["hits"], counts["delta"]
+    print(f"[sponza_delta] {meta.num_triangles} triangles; {on_delta} of "
+          f"{hits} lanes that hit a surface ({on_delta / max(hits, 1):.2%}) "
+          f"hit a mirror or glass")
+    if not on_delta:
+        raise AssertionError("[sponza delta] no lane hit a delta surface")
+
+
+def write_sponza_glb(path: str):
+    """proc:sponza as a .glb: one primitive per material (its corners,
+    u32 indices), baseColorFactor the albedo, the emission as an
+    emissiveFactor times KHR_materials_emissive_strength, the banners
+    transmissive (KHR_materials_transmission 1.0, ior 1.5). Returns the
+    path and the triangle count."""
+    import struct
+
+    import numpy as np
+
+    from gpupathtracer_tpu_torch.scene.procedural import load_procedural
+
+    mesh, materials = load_procedural("proc:sponza")
+    tri_mat = mesh.mat_ids[mesh.triangles[:, 0]]
+    blob, views, accessors, meshes, gmats = bytearray(), [], [], [], []
+
+    def add(arr, kind, ctype, **extra):
+        raw = arr.tobytes()
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(raw)})
+        blob.extend(raw + b"\0" * ((-len(raw)) % 4))
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": int(len(arr)), "type": kind, **extra})
+        return len(accessors) - 1
+
+    for m, desc in enumerate(materials):
+        sel = mesh.triangles[tri_mat == m]
+        if m == 0 or not len(sel):
+            continue
+        pos = np.ascontiguousarray(mesh.positions[sel.reshape(-1)],
+                                   np.float32)
+        a = add(pos, "VEC3", 5126, min=pos.min(0).tolist(),
+                max=pos.max(0).tolist())
+        i = add(np.arange(len(pos), dtype=np.uint32), "SCALAR", 5125)
+        meshes.append({"primitives": [{"attributes": {"POSITION": a},
+                                       "indices": i,
+                                       "material": len(gmats)}]})
+        gm = {"name": desc.name, "pbrMetallicRoughness": {
+            "baseColorFactor": [*map(float, desc.albedo), 1.0],
+            "metallicFactor": float(desc.metallic),
+            "roughnessFactor": float(desc.roughness_g)}}
+        strength = max(desc.emission)
+        if strength > 0:
+            gm["emissiveFactor"] = [e / strength for e in desc.emission]
+            gm["extensions"] = {"KHR_materials_emissive_strength":
+                                {"emissiveStrength": strength}}
+        if desc.name == "banner":
+            gm["extensions"] = {
+                "KHR_materials_transmission": {"transmissionFactor": 1.0},
+                "KHR_materials_ior": {"ior": 1.5}}
+        gmats.append(gm)
+    doc = {"asset": {"version": "2.0"}, "scene": 0,
+           "scenes": [{"nodes": list(range(len(meshes)))}],
+           "nodes": [{"mesh": k} for k in range(len(meshes))],
+           "meshes": meshes, "materials": gmats,
+           "buffers": [{"byteLength": len(blob)}],
+           "bufferViews": views, "accessors": accessors}
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    return path, int(len(mesh.triangles))
+
+
+def render_gltf_path(tmp: str, smi: str) -> None:
+    """Phase 17b: proc:sponza's mesh as a .glb through the CLI (1920x1080,
+    64 bounces, 1 spp; the banners transmissive), and the demo glTF
+    (write_demo_gltf) at 1280x720, 4 spp."""
+    from gpupathtracer_tpu_torch.scene.samplegen import write_demo_gltf
+
+    glb, tris = write_sponza_glb(os.path.join(tmp, "sponza.glb"))
+    demo = write_demo_gltf(os.path.join(tmp, "demo.gltf"))
+    stats = render_main_path(tmp, {
+        "sponza_glb": ([glb, *SPONZA_1080, *_camera_args("sponza")], 1),
+        "demo_gltf": ([demo, "--width", "1280", "--height", "720",
+                       "--position", "0,2,-7", "--rotation",
+                       f"{math.pi},-0.2", "--fov", "60"], 4)})
+    s = stats["sponza_glb"]
+    print(f"[sponza_glb] {os.path.getsize(glb)} bytes, {s['triangles']} "
+          f"triangles (proc:sponza {tris}), has_delta {s['has_delta']}")
+    if s["triangles"] != tris or not s["has_delta"]:
+        raise AssertionError("[sponza_glb] the glTF is not sponza's mesh "
+                             "with its glass banners")
+    _spp_line(stats, smi)
+
+
+def write_skies(folder: str, size: int = 512):
+    """A 2048x1024 PNG equirect (a horizon gradient with a bright band) and
+    a .txt cubemap of six size x size PNG faces, each its own colour with a
+    gradient; returns (equirect path, cubemap list path)."""
+    import numpy as np
+
+    from gpupathtracer_tpu_torch.utils.io import save_png
+
+    v = np.linspace(0.0, 1.0, 1024, dtype=np.float32)[:, None, None]
+    u = np.linspace(0.0, 1.0, 2048, dtype=np.float32)[None, :, None]
+    sky = np.concatenate([0.3 + 0.6 * v + 0 * u, 0.4 + 0.5 * v + 0 * u,
+                          0.6 + 0.4 * v + 0.2 * np.sin(8 * np.pi * u) ** 2],
+                         axis=-1)
+    equirect = save_png(os.path.join(folder, "sky_equirect.png"),
+                        np.clip(sky, 0, 1))
+    ramp = np.linspace(0.3, 1.0, size, dtype=np.float32)[:, None, None]
+    names = []
+    for i, c in enumerate([(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0),
+                           (1, 0, 1), (0, 1, 1)]):
+        face = np.broadcast_to(np.asarray(c, np.float32) * ramp,
+                               (size, size, 3))
+        names.append(f"face{i}.png")
+        save_png(os.path.join(folder, names[-1]), face)
+    cubemap = os.path.join(folder, "sky_cube.txt")
+    with open(cubemap, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return equirect, cubemap
+
+
+def render_sky_path(tmp: str, skies, smi: str) -> None:
+    """Phase 17c: proc:bunny at 1280x720, 4 spp, under the PNG equirect and
+    under the cubemap, through the CLI."""
+    equirect, cubemap = skies
+    stats = render_main_path(tmp, {
+        f"bunny_{name}": (["proc:bunny", "--width", "1280", "--height", "720",
+                           "--skybox", path], 4)
+        for name, path in (("equirect", equirect), ("cubemap", cubemap))})
+    _spp_line(stats, smi)
+
+
+def render_a21_path(tmp: str, device, smi: str) -> None:
+    """Phase 17d: proc:sponza 1920x1080, 64 bounces, 1 spp, one scene load:
+    the default film, the sort_rays film (bitwise the default, the same
+    rays) and the shadow_rev film (channel means within REV_MEAN_BOUND)."""
+    import numpy as np
+
+    from gpupathtracer_tpu_torch.render import Renderer
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    cfg = _scene_cfg("sponza", 1920, 1080, max_bounces=64)
+    scene, meta = load_scene(cfg, device)
+    films, rays = {}, {}
+    for name, kw in (("default", {}), ("sort_rays", dict(sort_rays=True)),
+                     ("shadow_rev", dict(shadow_rev=True))):
+        r = Renderer(_scene_cfg("sponza", 1920, 1080, max_bounces=64, **kw),
+                     device, scene=scene, meta=meta)
+        films[name] = _renderer_frames(f"sponza_{name}", r, 1, tmp, smi)
+        rays[name] = r.stats.rays_traced
+    ref = films["default"]
+    differ = int((films["sort_rays"].view(np.int32)
+                  != ref.view(np.int32)).any(-1).sum())
+    print(f"[sponza_sort_rays] {differ} of {ref.shape[0] * ref.shape[1]} "
+          f"pixels differ from the default film's; rays {rays['sort_rays']} "
+          f"against {rays['default']}")
+    if differ or rays["sort_rays"] != rays["default"]:
+        raise AssertionError("[sponza sort_rays] the film is not the "
+                             "default film")
+    rev = films["shadow_rev"]
+    outside = (np.abs(rev - ref) > 2e-3 + 2e-3 * np.abs(ref)).any(-1)
+    mr, md = rev.mean(axis=(0, 1)), ref.mean(axis=(0, 1))
+    rel = float((np.abs(mr - md) / (np.abs(md) + 1e-6)).max())
+    print(f"[sponza_shadow_rev] channel means {mr} against {md}: {rel:.3%} "
+          f"apart (bound {REV_MEAN_BOUND:.0%}); {outside.mean():.3%} of "
+          f"pixels outside rtol = atol = 2e-3; rays {rays['shadow_rev']} "
+          f"against {rays['default']}")
+    if rel > REV_MEAN_BOUND:
+        raise AssertionError("[sponza shadow_rev] the channel means leave "
+                             "the bound")
+
+
+def render_ld_path(tmp: str, smi: str) -> None:
+    """Phase 17e: proc:sponza 1920x1080 with --sampler ld, 2 spp."""
+    stats = render_main_path(tmp, {"sponza_ld": (
+        ["proc:sponza", *SPONZA_1080, "--sampler", "ld"], 2)})
+    if stats["sponza_ld"]["config"]["sampler"] != "ld":
+        raise AssertionError("[sponza_ld] --sampler ld did not reach the "
+                             "config")
+    _spp_line(stats, smi)
+
+
+def ld_sequences_on_card(device, width: int = 1920, height: int = 1080):
+    """Phase 17e: r2_sequence, pixel_rotation and the wavefront's jitter on
+    the card, bitwise the CPU's, over every pixel id of a 1080p film at
+    LD_INDICES."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.math.sampling import (pixel_rotation,
+                                                       r2_sequence)
+    from gpupathtracer_tpu_torch.models.wavefront import ld_jitter
+
+    ids = torch.arange(width * height, dtype=torch.int64)
+    px, py = (ids % width).float(), (ids // width).float()
+    checks = [("pixel_rotation", pixel_rotation(ids.to(device)),
+               pixel_rotation(ids))]
+    for idx in LD_INDICES:
+        checks.append((f"r2_sequence({idx})", r2_sequence(idx, device),
+                       r2_sequence(idx)))
+        checks.append((f"jitter({idx})",
+                       ld_jitter(px.to(device), py.to(device), width, idx),
+                       ld_jitter(px, py, width, idx)))
+    for label, card, cpu in checks:
+        if not np.array_equal(card.cpu().numpy(), cpu.numpy()):
+            raise AssertionError(f"[ld] {label} on the card is not the "
+                                 f"CPU's")
+    print(f"[ld] r2_sequence, pixel_rotation and the jitter at sample "
+          f"indices {LD_INDICES} over {width * height} pixel ids: bitwise "
+          f"the CPU's on the card")
+
+
+def write_mirror_obj(folder: str, glass: bool = False) -> str:
+    """tests/test_integrator.py::test_mirror_material's scene (an illum 5
+    mirror floor under a light); with ``glass``, also an illum 7 pane
+    (Ni 1.5) standing on the floor."""
+    with open(os.path.join(folder, "m.mtl"), "w") as f:
+        f.write("newmtl mirror\nKd 0.9 0.9 0.9\nNs 1000\nillum 5\n"
+                "newmtl light\nKd 0 0 0\nKe 10 10 10\nNs 1\n"
+                "newmtl glass\nKd 1 1 1\nNi 1.5\nillum 7\n")
+    obj = ("mtllib m.mtl\n"
+           "v -5 0 -5\nv 5 0 -5\nv 5 0 5\nv -5 0 5\n"
+           "v -1 4 -1\nv 1 4 -1\nv 1 4 1\nv -1 4 1\n"
+           "vn 0 1 0\nvn 0 -1 0\n"
+           "usemtl mirror\nf 1//1 4//1 3//1 2//1\n"
+           "usemtl light\nf 5//2 6//2 7//2 8//2\n")
+    if glass:
+        obj += ("v -0.5 0 -2\nv -0.5 0 2\nv -0.5 2.5 2\nv -0.5 2.5 -2\n"
+                "vn 1 0 0\nusemtl glass\nf 9//3 10//3 11//3 12//3\n")
+    path = os.path.join(folder, "mirror_glass.obj" if glass else "mirror.obj")
+    with open(path, "w") as f:
+        f.write(obj)
+    return path
+
+
+def _mirror_cfg(path: str, size: int, max_bounces: int):
+    """The mirror recipe's configuration and camera (above the floor, looking
+    down at the mirror beside the light)."""
+    from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+
+    cfg = RenderConfig(scene_path=path, skybox="GENERATE COLOR BLACK",
+                       width=size, height=size, ray_chunk=size * size,
+                       max_bounces=max_bounces, bvh_builder="cpp")
+    cfg.camera = CameraConfig(position=(3.0, 2.5, 0.0), yaw=-math.pi / 2,
+                              pitch=-0.8, fov=math.radians(60), aspect=1.0)
+    return cfg
+
+
+def _ld_cfg(sampler: str, **kw):
+    """tests/test_ld_sampler.py's cornell configuration."""
+    from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+
+    cfg = RenderConfig(scene_path="proc:cornell",
+                       skybox="GENERATE COLOR BLACK", width=24, height=24,
+                       ray_chunk=576, max_bounces=3, sampler=sampler,
+                       bvh_builder="cpp", **kw)
+    cfg.camera = CameraConfig(position=(2.75, 2.75, -7.0), yaw=math.pi,
+                              fov=math.radians(45), aspect=1.0)
+    return cfg
+
+
+def delta_ld_sky_recipes(device, folder: str) -> None:
+    """Phase 15: the JAX package's own recipes and bounds on the card:
+    tests/test_integrator.py's mirror material (max > 3, 20th percentile <
+    0.5) and glass furnace (0.80 < mean < 1.1), tests/test_ld_sampler.py's
+    deterministic ld render, tests/test_edge_cases.py's cubemap face
+    colours."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
+    from gpupathtracer_tpu_torch.render import Renderer
+    from gpupathtracer_tpu_torch.scene import pack_scene
+    from gpupathtracer_tpu_torch.scene.envmap import (EnvMap,
+                                                      environment_image,
+                                                      sample_env)
+    from gpupathtracer_tpu_torch.scene.materials import MATERIAL_REFRACTIVE
+    from gpupathtracer_tpu_torch.scene.mesh import build_triangle_soup
+    from gpupathtracer_tpu_torch.scene.procedural import SceneBuilder
+    from gpupathtracer_tpu_torch.utils.io import save_png
+
+    r = Renderer(_mirror_cfg(write_mirror_obj(folder), 32, 4), device)
+    if not r.meta.has_delta:
+        raise AssertionError("[mirror] has_delta is false")
+    img = _means(r.cfg, device, 16, "wavefront")
+    p20 = float(np.percentile(img, 20))
+    print(f"[recipes] mirror 32x32, 16 spp: max {float(img.max()):.3f} "
+          f"(> 3), 20th percentile {p20:.4f} (< 0.5)")
+    if not (img.max() > 3.0 and p20 < 0.5):
+        raise AssertionError("[recipes] the mirror recipe fails its bounds")
+
+    sb = SceneBuilder()
+    glass = sb.add_material(name="glass", albedo=(1.0, 1.0, 1.0),
+                            material_type=MATERIAL_REFRACTIVE, ior=1.5)
+    sb.add_icosphere([0, 0, 0], 1.0, glass, subdiv=3)
+    mesh, mats = sb.build()
+    cfg = RenderConfig(width=24, height=24, ray_chunk=576, max_bounces=24,
+                       bvh_builder="cpp")
+    cfg.camera = CameraConfig(position=(0, 0, -4), yaw=math.pi,
+                              fov=math.radians(40), aspect=1.0)
+    scene, meta = pack_scene(build_triangle_soup(mesh), mats,
+                             np.ones((2, 4, 3), np.float32), cfg, device)
+    r = Renderer(cfg, device, scene=scene, meta=meta)
+    for _ in range(16):
+        r.render_frame()
+    mean = float(r.film_hdr().mean())
+    print(f"[recipes] glass furnace 24x24, 24 bounces, 16 spp: mean "
+          f"{mean:.4f} (0.80 .. 1.1)")
+    if not (meta.has_delta and 0.80 < mean < 1.1):
+        raise AssertionError("[recipes] the glass furnace fails its bounds")
+
+    accum = {}
+    for name, sampler, source in (("a", "ld", None), ("b", "ld", "a"),
+                                  ("c", "random", "a")):
+        kw = {} if source is None else dict(scene=accum[source][1].scene,
+                                            meta=accum[source][1].meta)
+        rr = Renderer(_ld_cfg(sampler), device, **kw)
+        rr.render_frame("wavefront")
+        rr.render_frame("wavefront")
+        accum[name] = (rr.accum.cpu().numpy(), rr)
+    a = accum["a"][0]
+    if not (np.isfinite(a).all() and a.max() > 0
+            and np.array_equal(a, accum["b"][0])
+            and not np.array_equal(a, accum["c"][0])):
+        raise AssertionError("[recipes] the ld render is not deterministic "
+                             "and finite, or equals the random sampler's")
+    print("[recipes] ld: two renders bitwise equal, finite, not the random "
+          "sampler's")
+
+    colors = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
+              (0, 1, 1)]
+    faces = os.path.join(folder, "faces8")
+    os.makedirs(faces, exist_ok=True)
+    for i, c in enumerate(colors):
+        save_png(os.path.join(faces, f"face{i}.png"),
+                 np.broadcast_to(np.asarray(c, np.float32), (8, 8, 3)).copy())
+    with open(os.path.join(faces, "sky.txt"), "w") as f:
+        f.write("\n".join(f"face{i}.png" for i in range(6)) + "\n")
+    env = EnvMap(image=torch.tensor(environment_image(
+        os.path.join(faces, "sky.txt")), device=device))
+    d = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                      [0, 0, 1], [0, 0, -1]], dtype=torch.float32,
+                     device=device)
+    out = sample_env(env, d).cpu().numpy()
+    for i, c in enumerate(colors):
+        if np.argmax(out[i]) != np.argmax(c):
+            raise AssertionError(f"[recipes] cube face {i}: {out[i]}, not "
+                                 f"{c}")
+    print("[recipes] cubemap face list: every axis sees its face's colour")
 
 
 def _counters():
@@ -3083,9 +3557,30 @@ def main() -> int:
             "sun path", ("trace_closest", "trace_anyhit"),
             lambda: render_sun_path(tmp, device, smi)))
         stamp("phase 14")
+        skies = write_skies(tmp)
+        new_paths.append(_drive(
+            "delta path", ("trace_closest", "trace_anyhit"),
+            lambda: render_delta_path(tmp, device, smi)))
+        new_paths.append(_drive(
+            "glTF path", ("trace_closest", "trace_anyhit"),
+            lambda: render_gltf_path(tmp, smi)))
+        new_paths.append(_drive(
+            "image sky path", ("trace_closest", "trace_anyhit"),
+            lambda: render_sky_path(tmp, skies, smi)))
+        new_paths.append(_drive(
+            "sort_rays and shadow_rev paths", ("trace_closest",
+                                               "trace_anyhit"),
+            lambda: render_a21_path(tmp, device, smi)))
+        new_paths.append(_drive(
+            "ld path", ("trace_closest", "trace_anyhit"),
+            lambda: render_ld_path(tmp, smi)))
+        ld_sequences_on_card(device)
+        stamp("phase 17")
         integrator_agreement(device)
+        delta_ld_sky_recipes(device, tmp)
         stamp("phase 15")
-        card_vs_cpu(device, town)
+        card_vs_cpu(device, town, write_mirror_obj(tmp, glass=True),
+                    skies[1])
         stamp("phase 16")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
@@ -3111,7 +3606,8 @@ def main() -> int:
                     *(("sponza_roots", k) for k in ROOTS_KEYS[:2])):
         # Launches: of the paths that drive the entry point (the renders
         # for the first six: for B1 the wavefront, reference, AO, textured
-        # and sun paths, at arity 16 and with roots the 16-wide and treelet
+        # and sun paths, the delta, glTF, image sky, sort_rays /
+        # shadow_rev and ld paths, at arity 16 and with roots the 16-wide and treelet
         # films; the kernel A/B entry point for the schedules and the
         # arities' B4, the treelet occlusion query for B1's any-hit with
         # roots, run_compact for the probes).

@@ -77,10 +77,8 @@ def build_config(args):
 # Flags of the JAX CLI whose features the port does not have yet:
 # (attribute, value that is fine, what to say).
 _UNPORTED = (
-    ("shadow_rev", (False,), "light-end shadow rays"),
     ("bounce_traversal", ("auto", "same", "tsort", "treelet", "pallas"),
      "the packet and perray bounce traversals"),
-    ("sampler", ("random",), "the ld sampler"),
     ("partition_chips", (0,), "multi-device rendering"),
     ("partition_samples", (1,), "multi-device rendering"),
     ("partition_routing", ("ring",), "multi-device rendering"),
@@ -99,7 +97,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="gpupathtracer_tpu_torch",
         description="Progressive path tracer on PyTorch and CUDA")
-    p.add_argument("scene", help="scene.txt, .obj, or proc:<name>")
+    p.add_argument("scene", help="scene.txt, .obj, .gltf/.glb, or proc:<name>")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     p.add_argument("--spp", type=int, default=16, help="samples per pixel")
@@ -124,7 +122,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--frame-batch", type=int, default=1,
                    help="samples accumulated per frame")
-    p.add_argument("--shadow-rev", action="store_true")
+    p.add_argument("--shadow-rev", action="store_true",
+                   help="trace NEE shadow rays from the light end")
     p.add_argument("--bounce-traversal", default="auto",
                    help="bounce-ray traversal override: auto|same|tsort|"
                         "treelet|pallas (auto = same; tsort sorts by "
@@ -133,7 +132,8 @@ def parse_args(argv=None):
                    help="children per BVH node, 2 to 16")
     p.add_argument("--mip-levels", type=int, default=1)
     p.add_argument("--cluster-tris", type=int, default=0)
-    p.add_argument("--sampler", default="random", choices=["random", "ld"])
+    p.add_argument("--sampler", default="random", choices=["random", "ld"],
+                   help="pixel jitter: threefry or R2 low-discrepancy")
     p.add_argument("--megakernel", default="off", choices=["off", "on", "auto"])
     p.add_argument("--mega-fused-nee", action="store_true")
     p.add_argument("--exposure", type=float, default=1.68)
@@ -217,6 +217,7 @@ def main(argv=None) -> int:
                 "mrays_per_sec": r.stats.mrays_per_sec,
                 "rays": r.stats.rays_traced,
                 "triangles": r.meta.num_triangles,
+                "has_delta": r.meta.has_delta,
                 "device": str(device),
                 "bounce_traversal": r.bounce_traversal,
                 # Treelet sorts and traces of sorted rays in this render.

@@ -232,9 +232,10 @@ class Renderer:
                       delta=self.meta.has_delta, **depth)
         if batch > 1:
             return render_sample_batch(self.scene, self.camera, px, py, key,
-                                       spp=batch, **kwargs)
+                                       spp=batch, sample_idx=self.num_samples,
+                                       **kwargs)
         return render_sample_impl(self.scene, self.camera, px, py, key,
-                                  **kwargs)
+                                  sample_idx=self.num_samples, **kwargs)
 
     def reset_samples(self) -> None:
         """ResetSamples (Renderer.cpp:687-691)."""

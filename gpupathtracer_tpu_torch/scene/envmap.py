@@ -2,8 +2,11 @@
 package's scene/envmap.py).
 
 Supported skybox specs (Renderer.cpp:236-325 grammar): "GENERATE COLOR
-WHITE|BLACK|r g b" and Radiance .hdr equirectangular maps. Cubemap lists
-and LDR (.jpg/.png) maps are not ported yet (ROADMAP.md, queue A).
+WHITE|BLACK|r g b", equirectangular .hdr and .png maps, and a .txt list of
+six cube faces (GL +X, -X, +Y, -Y, +Z, -Z), resampled to a lat-long image
+once at load. Images go through the port's decoder (utils/io.py
+``load_image``): a JPEG or EXR sky or face raises NotImplementedError
+naming the file (ROADMAP.md C6).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gpupathtracer_tpu_torch.utils.io import load_hdr
+from gpupathtracer_tpu_torch.utils.io import load_image
 
 
 class EnvMap(NamedTuple):
@@ -58,6 +61,35 @@ def sample_env(env: EnvMap, directions) -> torch.Tensor:
             + (c10 * (1 - fx) + c11 * fx) * fy)
 
 
+def _cubemap_to_equirect(faces: np.ndarray, out_h: int = 512) -> np.ndarray:
+    """Resample 6 cube faces [6, S, S, 3] (GL +X,-X,+Y,-Y,+Z,-Z order) to a
+    lat-long image (nearest; done once at load)."""
+    out_w = out_h * 2
+    v = (np.arange(out_h) + 0.5) / out_h
+    u = (np.arange(out_w) + 0.5) / out_w
+    uu, vv = np.meshgrid(u, v)
+    phi = (uu - 0.5) / 0.15915494
+    theta = (vv - 0.5) / 0.31830987
+    d = np.stack([np.cos(theta) * np.cos(phi), np.sin(theta),
+                  np.cos(theta) * np.sin(phi)], axis=-1)
+    ax, ay, az = np.abs(d[..., 0]), np.abs(d[..., 1]), np.abs(d[..., 2])
+    # Standard GL cubemap face selection + (s,t) derivation.
+    face = np.where(ax >= np.maximum(ay, az),
+                    np.where(d[..., 0] > 0, 0, 1),
+                    np.where(ay >= az, np.where(d[..., 1] > 0, 2, 3),
+                             np.where(d[..., 2] > 0, 4, 5)))
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    sc = np.choose(face, [-z, z, x, x, x, -x])
+    tc = np.choose(face, [-y, -y, z, -z, -y, -y])
+    ma = np.choose(face, [ax, ax, ay, ay, az, az])
+    s = (sc / np.maximum(ma, 1e-9) + 1.0) / 2.0
+    t = (tc / np.maximum(ma, 1e-9) + 1.0) / 2.0
+    size = faces.shape[1]
+    si = np.clip((s * size).astype(np.int64), 0, size - 1)
+    ti = np.clip((t * size).astype(np.int64), 0, size - 1)
+    return faces[face, ti, si].astype(np.float32)
+
+
 def _color(rgb) -> np.ndarray:
     return np.broadcast_to(np.asarray(rgb, np.float32), (2, 4, 3)).copy()
 
@@ -80,12 +112,15 @@ def environment_image(spec: str, base_dir: str = ".") -> np.ndarray:
         return _color((1.0, 0.0, 0.0))
     path = spec if os.path.isabs(spec) else os.path.join(base_dir, spec)
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".hdr":
+    if ext in (".hdr", ".jpg", ".jpeg", ".png", ".exr"):
         # Image files store row 0 at the top; the lat-long convention keeps
         # row 0 at the bottom (v=0 <-> y=-1), so flip.
-        return np.ascontiguousarray(load_hdr(path)[::-1])
-    if ext in (".jpg", ".jpeg", ".png", ".exr", ".txt"):
-        raise NotImplementedError(
-            f"skybox {spec!r}: LDR and cubemap environments are not ported "
-            f"yet (ROADMAP.md, queue A: image environment maps)")
+        return np.ascontiguousarray(load_image(path)[::-1], np.float32)
+    if ext == ".txt":
+        with open(path) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+        folder = os.path.dirname(path)
+        faces = np.stack([load_image(os.path.join(folder, n))
+                          for n in names[:6]])
+        return _cubemap_to_equirect(faces)
     raise ValueError(f"unrecognized skybox spec {spec!r}")

@@ -10,7 +10,7 @@ corner 0.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 
@@ -91,3 +91,19 @@ def build_triangle_soup(mesh: MeshData) -> TriangleSoup:
     return TriangleSoup(p0=p0, e1=(p1 - p0), e2=(p2 - p0),
                         normal=gn.astype(np.float32), uv=uv, mat=mat)
 
+
+
+def merge_meshes(meshes: List[MeshData]) -> MeshData:
+    """Concatenate indexed meshes into one (glTF multi-primitive scenes)."""
+    offs, pos, nrm, uv, mid, tri = 0, [], [], [], [], []
+    for m in meshes:
+        pos.append(m.positions); nrm.append(m.normals); uv.append(m.uvs)
+        mid.append(m.mat_ids); tri.append(m.triangles + offs)
+        offs += m.positions.shape[0]
+    return MeshData(
+        positions=np.concatenate(pos).astype(np.float32),
+        normals=np.concatenate(nrm).astype(np.float32),
+        uvs=np.concatenate(uv).astype(np.float32),
+        mat_ids=np.concatenate(mid).astype(np.int32),
+        triangles=np.concatenate(tri).astype(np.int32),
+    )

@@ -1,7 +1,8 @@
-"""Generated multi-material textured OBJ scene ("textured town"; a copy
-of generate_textured_town and its helpers from the JAX package's
-scene/samplegen.py, which tests/test_torch_textures.py holds it to byte for
-byte).
+"""Generated multi-material textured OBJ scene ("textured town") and the
+demo glTF: copies of generate_textured_town (with its helpers) and
+write_demo_gltf from the JAX package's scene/samplegen.py, which
+tests/test_torch_textures.py and tests/test_torch_gltf.py hold them to
+byte for byte.
 
 The reference's bread and butter is multi-material textured OBJ scenes
 (src/core/Scene.cpp:120-231 + Material.glsl:43-44); the repo's checked-in
@@ -176,6 +177,96 @@ def _icosphere(w, center, radius, mtl, subdiv=3):
                 cz + radius * vlist[q][2]) for q in (i, j, k)]
         n = tuple(np.mean([vlist[q] for q in (i, j, k)], axis=0))
         w.add_tri(mtl, pts, [uv(vlist[q]) for q in (i, j, k)], n)
+
+
+def write_demo_gltf(path: str) -> str:
+    """Write a small self-contained .gltf (base64 buffer): a grey ground
+    quad, a rough red box, a metallic box, and an emissive ceiling quad —
+    enough materials/nodes to exercise the full glTF pipeline (BASELINE
+    config 5) in multi-chip dryruns without binary assets."""
+    import base64
+    import json
+
+    def quad(x0, y, z0, x1, z1, up=True):
+        p = np.asarray([[x0, y, z0], [x1, y, z0], [x1, y, z1], [x0, y, z1]],
+                       np.float32)
+        n = np.tile(np.asarray([[0, 1 if up else -1, 0]], np.float32), (4, 1))
+        t = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+        idx = [0, 1, 2, 0, 2, 3] if up else [0, 2, 1, 0, 3, 2]
+        return p, n, t, np.asarray(idx, np.uint16)
+
+    def box(cx, cz, s, h):
+        pts, nrm, uv, idx = [], [], [], []
+        faces = [((0, 1, 0), [(-s, h, -s), (s, h, -s), (s, h, s), (-s, h, s)]),
+                 ((0, 0, -1), [(-s, 0, -s), (-s, h, -s), (s, h, -s), (s, 0, -s)]),
+                 ((0, 0, 1), [(s, 0, s), (s, h, s), (-s, h, s), (-s, 0, s)]),
+                 ((-1, 0, 0), [(-s, 0, s), (-s, h, s), (-s, h, -s), (-s, 0, -s)]),
+                 ((1, 0, 0), [(s, 0, -s), (s, h, -s), (s, h, s), (s, 0, s)])]
+        for n, corners in faces:
+            b = len(pts)
+            pts += [(cx + a, y, cz + c) for a, y, c in corners]
+            nrm += [n] * 4
+            uv += [(0, 0), (0, 1), (1, 1), (1, 0)]
+            idx += [b, b + 1, b + 2, b, b + 2, b + 3]
+        return (np.asarray(pts, np.float32), np.asarray(nrm, np.float32),
+                np.asarray(uv, np.float32), np.asarray(idx, np.uint16))
+
+    prims = [quad(-4, 0, -4, 4, 4), box(-1.4, 0.2, 0.8, 1.6),
+             box(1.5, -0.8, 0.7, 2.4), quad(-1.5, 3.9, -1.5, 1.5, 1.5,
+                                            up=False)]
+    mats = [
+        {"name": "floor", "pbrMetallicRoughness": {
+            "baseColorFactor": [0.7, 0.7, 0.7, 1], "metallicFactor": 0.0,
+            "roughnessFactor": 0.9}},
+        {"name": "red", "pbrMetallicRoughness": {
+            "baseColorFactor": [0.7, 0.15, 0.1, 1], "metallicFactor": 0.0,
+            "roughnessFactor": 0.5}},
+        {"name": "chrome", "pbrMetallicRoughness": {
+            "baseColorFactor": [0.9, 0.9, 0.95, 1], "metallicFactor": 1.0,
+            "roughnessFactor": 0.15}},
+        {"name": "lamp", "pbrMetallicRoughness": {
+            "baseColorFactor": [0, 0, 0, 1]},
+         "emissiveFactor": [1.0, 0.95, 0.8],
+         "extensions": {"KHR_materials_emissive_strength":
+                        {"emissiveStrength": 12.0}}},
+    ]
+    blob = b""
+    views, accessors, meshes = [], [], []
+    for mi, (p, n, t, idx) in enumerate(prims):
+        attrs = {}
+        for arr, kind, ctype, aname in [(p, "VEC3", 5126, "POSITION"),
+                                        (n, "VEC3", 5126, "NORMAL"),
+                                        (t, "VEC2", 5126, "TEXCOORD_0"),
+                                        (idx, "SCALAR", 5123, None)]:
+            off = len(blob)
+            raw = arr.tobytes()
+            blob += raw + b"\0" * ((-len(raw)) % 4)
+            views.append({"buffer": 0, "byteOffset": off,
+                          "byteLength": len(raw)})
+            acc = {"bufferView": len(views) - 1, "componentType": ctype,
+                   "count": int(len(arr)), "type": kind}
+            if aname == "POSITION":
+                acc["min"] = [float(x) for x in arr.min(axis=0)]
+                acc["max"] = [float(x) for x in arr.max(axis=0)]
+            accessors.append(acc)
+            if aname:
+                attrs[aname] = len(accessors) - 1
+        meshes.append({"primitives": [{"attributes": attrs,
+                                       "indices": len(accessors) - 1,
+                                       "material": mi}]})
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": list(range(len(meshes)))}],
+        "nodes": [{"mesh": i} for i in range(len(meshes))],
+        "meshes": meshes, "materials": mats,
+        "buffers": [{"byteLength": len(blob),
+                     "uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(blob).decode()}],
+        "bufferViews": views, "accessors": accessors,
+    }
+    with open(path, "w") as f:
+        json.dump(gltf, f)
+    return path
 
 
 def generate_textured_town(out_dir: str, houses: int = 24,

@@ -7,7 +7,8 @@ The BVH comes from the port's copy of the JAX package's builders
 ``cfg.wide_arity``-wide collapse (2 to 16 children a node), ``pack_for_packets`` and, with ``cfg.cluster_tris``, the dense
 cluster leaves of ``pack_clusters``), so both packages trace identical
 tables, and the texture atlas comes from the port's copy of the atlas
-builder (scene/textures.py). The disk cache is not ported (ROADMAP.md,
+builder (scene/textures.py). Scenes come from the procedural generators,
+OBJ + MTL and glTF / GLB files. The disk cache is not ported (ROADMAP.md,
 queue A); it changes no output.
 """
 
@@ -183,11 +184,9 @@ def build_atlas_for(materials: List[MaterialDesc], base_dir: str,
 
 
 def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
-    """Full ingest: dispatch on scene_path ("proc:<name>" or .obj), load the
-    environment, build the BVH, pack the tables onto `device`."""
-    if not 2 <= cfg.wide_arity <= 16:
-        raise ValueError(f"wide_arity {cfg.wide_arity} outside 2..16 (a "
-                         f"128-float node row holds 16 children at most)")
+    """Full ingest: dispatch on scene_path ("proc:<name>", .obj, .gltf or
+    .glb), load the environment, build the BVH, pack the tables onto
+    `device`."""
     path = cfg.scene_path
     base_dir = os.path.dirname(os.path.abspath(path)) if os.path.sep in path else "."
     env = environment_image(cfg.skybox, base_dir=base_dir)
@@ -199,12 +198,24 @@ def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
         from gpupathtracer_tpu_torch.scene.objloader import load_obj
         mesh, materials = load_obj(path)
     elif path.lower().endswith((".gltf", ".glb")):
-        raise NotImplementedError(
-            f"{path!r}: glTF is not ported yet (ROADMAP.md, queue A)")
+        from gpupathtracer_tpu_torch.scene.gltf import load_gltf
+        mesh, materials = load_gltf(path)
     else:
         raise ValueError(f"unsupported scene format: {path!r}")
+    return pack_scene(build_triangle_soup(mesh), materials, env, cfg, device,
+                      base_dir=base_dir)
 
-    soup = build_triangle_soup(mesh)
+
+def pack_scene(soup: TriangleSoup, materials: List[MaterialDesc],
+               env: np.ndarray, cfg: RenderConfig, device,
+               base_dir: str = ".") -> Tuple[SceneData, SceneMeta]:
+    """Pack a triangle soup, its materials and a lat-long environment image
+    into tables on ``device`` and build the BVH: the funnel every loader
+    goes through (the JAX package's ``pack_scene``). Texture paths are read
+    relative to ``base_dir``."""
+    if not 2 <= cfg.wide_arity <= 16:
+        raise ValueError(f"wide_arity {cfg.wide_arity} outside 2..16 (a "
+                         f"128-float node row holds 16 children at most)")
     atlas_img, atlas_rects, slots, atlas_mips = build_atlas_for(
         materials, base_dir, cfg)
     table = pack_materials(materials, atlas_slots=slots)

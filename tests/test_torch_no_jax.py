@@ -3,9 +3,10 @@ installed: a subprocess that refuses jax, PIL and ``gpupathtracer_tpu``
 renders proc:cornell on the CPU to a PNG, with the wavefront integrator,
 with the megakernel, on cluster leaves, with treelet-sorted bounce rays,
 with the reference and AO integrators, a 16-wide table with treelet-binned
-bounce rays, and a generated textured town with mips (its maps written and
-read by the port's own PNG code), and the PNGs are decoded here with zlib
-alone. No module of the port, and not chip_smoke.py, names the
+bounce rays, a generated textured town with mips (its maps written and
+read by the port's own PNG code), and a mirror and glass OBJ with the ld
+sampler and light-end shadow rays (and it loads the demo glTF and plots a
+sampler's points), and the PNGs are decoded here with zlib alone. No module of the port, and not chip_smoke.py, names the
 JAX package in an import."""
 
 import ast
@@ -81,6 +82,39 @@ r.render_frame()
 r.save_screenshot(sys.argv[9])
 print("TREELET", r.scene.arity, treelet.TRACES["closest"] > 0,
       treelet.TRACES["rounds"] > 0)
+# A mirror floor (illum 5) and a glass pane (illum 7) under a light, with
+# the ld sampler and light-end shadow rays; the glTF loader on the demo
+# scene; the sampler plots.
+import os
+folder = os.path.dirname(sys.argv[10])
+with open(os.path.join(folder, "m.mtl"), "w") as f:
+    f.write("newmtl mirror\nKd 0.9 0.9 0.9\nillum 5\n"
+            "newmtl glass\nKd 1 1 1\nNi 1.5\nillum 7\n"
+            "newmtl light\nKd 0 0 0\nKe 10 10 10\n")
+with open(os.path.join(folder, "d.obj"), "w") as f:
+    f.write("mtllib m.mtl\n"
+            "v -5 0 -5\nv 5 0 -5\nv 5 0 5\nv -5 0 5\n"
+            "v -1 4 -1\nv 1 4 -1\nv 1 4 1\nv -1 4 1\n"
+            "v -2 0 1\nv 2 0 1\nv 2 3 1\nv -2 3 1\n"
+            "vn 0 1 0\nvn 0 -1 0\nvn 0 0 -1\n"
+            "usemtl mirror\nf 1//1 4//1 3//1 2//1\n"
+            "usemtl light\nf 5//2 6//2 7//2 8//2\n"
+            "usemtl glass\nf 9//3 10//3 11//3 12//3\n")
+rc = rc or cli.main([os.path.join(folder, "d.obj"), "--device", "cpu",
+                     "--spp", "1", "--width", "16", "--height", "16",
+                     "--max-bounces", "4", "--sampler", "ld", "--shadow-rev",
+                     "--position", "0,2.5,-7", "--rotation", "3.14159,-0.3",
+                     "--skybox", "GENERATE COLOR BLACK",
+                     "--out", sys.argv[10]])
+from gpupathtracer_tpu_torch.scene import gltf, load_scene
+from gpupathtracer_tpu_torch.scene.samplegen import write_demo_gltf
+from gpupathtracer_tpu_torch.utils import sampler_viz
+mesh, mats = gltf.load_gltf(write_demo_gltf(os.path.join(folder, "demo.gltf")))
+_, meta = load_scene(RenderConfig(scene_path=os.path.join(folder, "d.obj")),
+                     "cpu")
+sampler_viz.plot_points(sampler_viz.halton_set(64), size=16,
+                        path=os.path.join(folder, "halton.png"))
+print("DELTA", meta.has_delta, mesh.triangles.shape[0])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 sys.exit(rc)
@@ -113,14 +147,17 @@ def test_port_renders_without_jax_or_pil(tmp_path):
             for name in ("cornell", "mega", "cluster", "reference", "ao",
                          "town")]
     wide = str(tmp_path / "wide16_treelet.png")
+    delta = str(tmp_path / "delta" / "delta_ld_rev.png")
+    os.makedirs(os.path.dirname(delta))
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO, *outs,
-                           str(tmp_path / "town"), wide],
+                           str(tmp_path / "town"), wide, delta],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout
     assert "TSORT tsort True" in proc.stdout
     assert "TREELET 16 True True" in proc.stdout
-    for out in outs + [wide]:
+    assert "DELTA True 24" in proc.stdout
+    for out in outs + [wide, delta]:
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
         assert img.max() > 0
@@ -144,7 +181,8 @@ def test_port_sources_never_import_the_jax_package():
     assert {"tsort.py", "dense_intersect.py", "subpacket_traverse.py",
             "torch_kernel_bench.py", "roofline.py", "torch_roofline.py",
             "torch_mega_profile.py", "torch_bench.py", "reference.py",
-            "ao.py", "texture.py", "textures.py", "samplegen.py"} <= names
+            "ao.py", "texture.py", "textures.py", "samplegen.py",
+            "gltf.py", "sampler_viz.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)

@@ -130,8 +130,8 @@ def test_cli_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint", "x"],
-                                  ["--shadow-rev"],
-                                  ["--sampler", "ld"]])
+                                  ["--interactive"],
+                                  ["--partition-chips", "2"]])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as exc:
         cli.main(["proc:cornell", "--device", "cpu", *flag])

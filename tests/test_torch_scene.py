@@ -189,8 +189,11 @@ def test_environment_specs_match(spec):
 
 
 def test_unported_inputs_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        envmap.environment_image(str(tmp_path / "sky.png"))
+    # A JPEG sky: the port's decoder reads PNG and .hdr only (C6).
+    jpg = tmp_path / "sky.jpg"
+    jpg.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 64)
+    with pytest.raises(NotImplementedError, match="sky.jpg"):
+        envmap.environment_image(str(jpg))
     # Node rows hold 2 to 16 children (wide_arity 16 loads since the
     # kernels take the table's arity).
     with pytest.raises(ValueError):
