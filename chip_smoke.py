@@ -162,9 +162,10 @@ nvcc and g++. Phases, each of which raises on failure:
      built as the Renderer builds it (the row's own samples a lane), runs
      through the kernel on all its lanes; its first two packets run
      through the kernel alone (the same lanes must come out), and at no
-     more than 64 samples a lane (MEGA_CHECK_SPP; the 128-sample rows are
-     cut to 64 to keep the smoke under 800 s) through the kernel and the
-     plain version (held as in phase 8; phase 8 holds the counters);
+     more than 32 samples a lane (MEGA_CHECK_SPP; the 64- and 128-sample
+     rows are cut to 32 to keep the smoke under 800 s) through the kernel
+     and the plain version (held as in phase 8; phase 8 holds the
+     counters);
  10. the megakernel path through the CLI, the JAX bench's megakernel rows
      at their published sizes: bathroom 1280x720 Beckmann DoF (frame batch
      64), table 800x600 with 64 bounces (frame batch 128) and table
@@ -225,7 +226,24 @@ nvcc and g++. Phases, each of which raises on failure:
      sort_rays renders at 32x32 on the card and through the port's plain
      versions on the CPU, the same seed: at most 1% of pixels outside
      rtol = atol = 2e-3, channel means within 1% (the CPU port is held to
-     the JAX package by the CPU tests, which closes the chain).
+     the JAX package by the CPU tests, which closes the chain);
+ 18. checkpoints, the scene disk cache, the viewer and the plain torch
+     walks: (b) a cold and a warm load_scene of sponza with the disk
+     cache in a temporary folder, every tensor bitwise, both times; (a)
+     sponza 1920x1080 through the CLI (its scene from that cache), --spp 1
+     --checkpoint, then --resume --spp 1, bitwise (0 pixels) the --spp 2
+     film, the file's bytes and its save and load seconds; (c) --viewer-bench 60 on proc:table
+     640x360, direct and wavefront, fps and encode ms; (d) (after phase T)
+     the "packet" and "perray" traversals, closest and any-hit, and
+     closest_hit_trail's t and prim, on phase 3's sponza rays, t and
+     occlusion bitwise B1's (prims but at true ties, printed), the packet
+     fallback on sponza's cluster table bitwise the per-ray walk and its
+     prims B4's (but where B4's triangle hits at the same t within 1e-6,
+     printed), none launching a kernel, each timed beside B1; (e) a
+     proc:bathroom 256x144 one-sample film through "packet" and "perray"
+     (no kernel launch) bitwise the default film, s/sample of each. The
+     earlier phases' CLI runs pass --no-cache, so that no run reads a
+     cache file another checkout left.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -1753,7 +1771,8 @@ def render_main_path(tmp: str, runs):
         hdr = os.path.join(tmp, f"{name}.npy")
         sj = os.path.join(tmp, f"{name}.json")
         rc = cli.main(args + ["--device", "cuda", "--spp", str(spp),
-                              "--bvh-builder", "cpp", "--out", png,
+                              "--bvh-builder", "cpp", "--no-cache",
+                              "--out", png,
                               "--hdr-out", hdr, "--stats-json", sj])
         if rc != 0:
             raise AssertionError(f"[{name}] CLI returned {rc}")
@@ -2606,19 +2625,21 @@ MEGACLUSTER_RUNS = (
 # Phase 9 holds the kernel to its plain version on this many packets of
 # each row's first chunk, at the row's arguments but for its samples a lane,
 # cut to MEGA_CHECK_SPP (the 128-sample rows ran at 128 until phase 17 took
-# the smoke past 800 s). The plain version's time is its loop, one step a
-# bounce of every sample in turn, about a minute a row at 64 samples, and
-# neither fewer lanes nor a lower bounce cap shortens it.
+# the smoke past 800 s, the rows at 64 at 64 until phase 18 did). The plain
+# version's time is its loop, one step a bounce of every sample in turn,
+# about half a minute a row at 32 samples, and neither fewer lanes nor a
+# lower bounce cap shortens it.
 MEGA_PACKETS = 2
-MEGA_CHECK_SPP = 64
+MEGA_CHECK_SPP = 32
 
 
 def _mega_argv(args, batch: int, frames: int):
-    """The CLI arguments of a megakernel row: black sky, one chunk."""
+    """The CLI arguments of a megakernel row: black sky, one chunk, no scene
+    disk cache."""
     return args + ["--device", "cuda", "--megakernel", "on", "--frame-batch",
                    str(batch), "--spp", str(frames), "--skybox",
                    "GENERATE COLOR BLACK", "--bvh-builder", "cpp", "--chunk",
-                   "2097152"]
+                   "2097152", "--no-cache"]
 
 
 def render_mega_path(tmp: str, runs, entry: str):
@@ -3363,6 +3384,264 @@ def delta_ld_sky_recipes(device, folder: str) -> None:
     print("[recipes] cubemap face list: every axis sees its face's colour")
 
 
+# Phase 18: checkpoints, the scene disk cache, the viewer, the packet and
+# per-ray traversals and the debug trails (plain torch and host code: no
+# kernel of their own; their renders run B1).
+CHECKPOINT_RUN = ["proc:sponza", "--width", "1920", "--height", "1080",
+                  "--max-bounces", "64", "--device", "cuda", "--bvh-builder",
+                  "cpp"]
+VIEWER_FRAMES = 60
+# Phase 18e's films: bathroom at this size, one sample.
+WALK_FILM = (256, 144)
+
+
+def render_checkpoint_path(tmp: str, smi: str) -> None:
+    """Phase 18a: sponza 1920x1080 through the CLI, 1 sample and
+    --checkpoint, then --resume and 1 more, against --spp 2: the films
+    bitwise (0 pixels); the file's bytes and the seconds of a save and of
+    a load (the file alone, and load_checkpoint). Every run reads the scene
+    from the disk cache phase 18b wrote in ``tmp``."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch import cli
+    from gpupathtracer_tpu_torch.render.checkpoint import (load_checkpoint,
+                                                           save_checkpoint)
+
+    ckpt = os.path.join(tmp, "sponza.ckpt")
+    run = CHECKPOINT_RUN + ["--cache-dir", os.path.join(tmp, "scene_cache")]
+    for args in (["--spp", "1", "--checkpoint", ckpt],
+                 ["--spp", "1", "--resume", ckpt, "--hdr-out",
+                  os.path.join(tmp, "resumed.npy")],
+                 ["--spp", "2", "--hdr-out", os.path.join(tmp, "full.npy")]):
+        rc = cli.main(run + args + ["--out", os.path.join(tmp, "ck.png")])
+        if rc != 0:
+            raise AssertionError(f"[checkpoint] CLI returned {rc}")
+    resumed, full = (np.load(os.path.join(tmp, f"{k}.npy")).view(np.int32)
+                     for k in ("resumed", "full"))
+    differ = int((resumed != full).any(-1).sum())
+    if differ or not (full.view(np.float32) > 0).any():
+        raise AssertionError(f"[checkpoint] the resumed film differs from "
+                             f"the uninterrupted one in {differ} pixels")
+    t0 = time.perf_counter()
+    with np.load(ckpt) as z:
+        accum = z["accum"]
+    t1 = time.perf_counter()
+    r = load_checkpoint(ckpt, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    save_checkpoint(r, os.path.join(tmp, "again.ckpt"))
+    t3 = time.perf_counter()
+    print(f"[checkpoint] sponza 1920x1080, 1 + 1 samples through "
+          f"--checkpoint / --resume: bitwise the --spp 2 film (0 of "
+          f"{full.shape[0] * full.shape[1]} pixels differ); the file "
+          f"{os.path.getsize(ckpt)} bytes ({accum.nbytes} of accumulator); "
+          f"save {t3 - t2:.3f} s, load {t1 - t0:.3f} s (the file) and "
+          f"{t2 - t1:.3f} s (load_checkpoint, its scene from the disk "
+          f"cache); {smi}")
+
+
+def cache_check(tmp: str, device, smi: str) -> None:
+    """Phase 18b: a cold and a warm load_scene of sponza with the disk
+    cache in a fresh folder of ``tmp`` (phase 18a's CLI runs read it):
+    every SceneData tensor bitwise; both times and the file's bytes."""
+    import torch
+
+    from gpupathtracer_tpu_torch.scene import cache, load_scene
+
+    cfg = _scene_cfg("sponza", 1920, 1080, cache_enabled=True,
+                     cache_dir=os.path.join(tmp, "scene_cache"))
+    t0 = time.perf_counter()
+    cold, cmeta = load_scene(cfg, device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    warm, wmeta = load_scene(cfg, device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for f in cold._fields:
+        a, b = getattr(cold, f), getattr(warm, f)
+        if f == "env":
+            a, b = a.image, b.image
+        if isinstance(a, torch.Tensor) and not (
+                a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.view(torch.uint8) if a.dim() else a,
+                                b.view(torch.uint8) if b.dim() else b)):
+            raise AssertionError(f"[cache] {f} differs between the cold and "
+                                 f"the warm ingest")
+    if (cmeta.stack_depth, cmeta.num_triangles) != (wmeta.stack_depth,
+                                                    wmeta.num_triangles):
+        raise AssertionError("[cache] the warm scene's meta differs")
+    print(f"[cache] sponza ({cmeta.num_triangles} triangles): cold ingest "
+          f"{t1 - t0:.3f} s (SBVH and the file's write), warm {t2 - t1:.3f} "
+          f"s, every tensor bitwise; the file "
+          f"{os.path.getsize(cache.cache_path(cfg))} bytes; {smi}")
+
+
+def render_viewer_path(smi: str) -> None:
+    """Phase 18c: --viewer-bench 60 on proc:table 640x360, the direct
+    integrator and the wavefront: fps and the ANSI encode's ms."""
+    import contextlib
+    import io
+
+    from gpupathtracer_tpu_torch import cli
+
+    for integrator in ("direct", "wavefront"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["proc:table", "--width", "640", "--height", "360",
+                           "--device", "cuda", "--integrator", integrator,
+                           "--viewer-bench", str(VIEWER_FRAMES),
+                           "--no-cache", "--bvh-builder", "cpp"])
+        line = out.getvalue().strip().splitlines()[-1]
+        if rc != 0 or not line.startswith("viewer loop:"):
+            raise AssertionError(f"[viewer] {integrator}: {out.getvalue()!r}")
+        print(f"[viewer] {line}; {smi}")
+
+
+def compare_walks(scene, meta, cscene, cmeta, rays, b1, device,
+                  smi: str) -> None:
+    """Phase 18d on phase 3's sponza rays: the packet (128 rays a packet)
+    and per-ray walks, closest and any-hit, and closest_hit_trail's t and
+    prim, each against B1's (t and occlusion bitwise, prim but at a true
+    tie, printed); the packet walk on sponza's cluster table (tc 128), which
+    walks per ray, bitwise the per-ray walk of the MT table and its prims
+    B4's (but where B4's triangle hits at t within 1e-6 relative, printed).
+    The queries launch no kernel. Each timed (host clock around a
+    synchronized run) beside B1's."""
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.ops.debug import closest_hit_trail
+    from gpupathtracer_tpu_torch.ops.intersect import mt_intersect
+    from gpupathtracer_tpu_torch.ops.traverse import (trace_closest,
+                                                      trace_occluded)
+
+    o, d, t_occ, on = rays
+    n = o.shape[0]
+    far = torch.full((n,), 1e20, device=device)
+    every = torch.ones(n, dtype=torch.bool, device=device)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+              packet_size=128)
+    out, ms = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[key] = fn()
+        torch.cuda.synchronize()
+        ms[key] = 1e3 * (time.perf_counter() - t0)
+
+    def queries():
+        for mode in ("packet", "perray"):
+            timed(mode, lambda: trace_closest(scene, o, d, far, on,
+                                              traversal=mode, **kw))
+            timed(mode + "_occ", lambda: trace_occluded(
+                scene, o, d, t_occ, on, traversal=mode, **kw))
+        timed("trail", lambda: closest_hit_trail(
+            scene, o, d, far, stack_depth=meta.stack_depth,
+            leaf_size=meta.leaf_size))
+        timed("cluster", lambda: trace_closest(cscene, o, d, far, on,
+                                               traversal="packet", **kw))
+        timed("cluster_occ", lambda: trace_occluded(
+            cscene, o, d, t_occ, on, traversal="packet", **kw))
+
+    _drive("packet and per-ray queries", (), queries)
+    ties = {}
+    for mode in ("packet", "perray"):
+        ties[mode] = _order_diff(f"[sponza {mode}] closest against B1's",
+                                 out[mode], b1["closest"], scene.tri_geom, o,
+                                 d)
+        same = out[mode].prim == b1["closest"][1]
+        for k in (2, 3):
+            if not torch.equal(_bits(out[mode][k])[same],
+                               _bits(b1["closest"][k])[same]):
+                raise AssertionError(f"[sponza {mode}] u or v differs from "
+                                     f"B1's")
+        _same_occluded(f"[sponza {mode}] occluded against B1's",
+                       out[mode + "_occ"], b1["occ"])
+    b1_all = kt.closest(scene.node_rows, o, d, far, every,
+                        stack_depth=meta.stack_depth,
+                        leaf_size=meta.leaf_size)
+    trail = out["trail"]
+    ties["trail"] = _order_diff("[sponza trail] t and prim against B1's",
+                                (trail.t, trail.prim), b1_all,
+                                scene.tri_geom, o, d)
+    for k in range(4):
+        if not torch.equal(_bits(out["cluster"][k]),
+                           _bits(out["perray"][k])):
+            raise AssertionError("[sponza cluster] the per-ray fallback is "
+                                 "not the MT table's per-ray walk")
+    _same_occluded("[sponza cluster] occluded against the per-ray walk's",
+                   out["cluster_occ"], out["perray_occ"])
+    b4 = kc.closest_cluster(cscene.node_rows, cscene.cluster_rows,
+                            cscene.cluster_refs, o, d, far, on,
+                            stack_depth=cmeta.stack_depth, arity=cscene.arity)
+    torch.cuda.synchronize()
+    lanes = (out["cluster"].prim != b4[1]).nonzero().squeeze(1)
+    if lanes.numel():
+        got = out["cluster"]
+        tt, _, _, ok = mt_intersect(scene.tri_geom[b4[1][lanes].long()],
+                                    o[lanes], d[lanes])
+        near = (tt - got.t[lanes]).abs() <= 1e-6 * got.t[lanes].abs()
+        for i in lanes[:8].tolist():
+            print(f"[sponza cluster] lane {i}: per-ray prim "
+                  f"{int(got.prim[i])} at t {float(got.t[i])!r}, B4's prim "
+                  f"{int(b4[1][i])} at t {float(b4[0][i])!r}")
+        if not bool((ok & near).all()):
+            raise AssertionError("[sponza cluster] a prim differs from B4's "
+                                 "where B4's triangle is not at the same t")
+    b1_ms = {"closest": _events_ms(lambda: kt.closest(
+        scene.node_rows, o, d, far, on, stack_depth=meta.stack_depth,
+        leaf_size=meta.leaf_size), 10), "occ": _events_ms(
+        lambda: kt.anyhit(scene.node_rows, o, d, t_occ, on,
+                          stack_depth=meta.stack_depth,
+                          leaf_size=meta.leaf_size), 10)}
+    print(f"[sponza walks] {n} rays: packet and per-ray closest t and "
+          f"occluded bitwise B1's (another triangle at bitwise the same t in "
+          f"{ties['packet']} and {ties['perray']} lanes), the trail's t "
+          f"bitwise B1's ({ties['trail']} such lanes), the cluster table's "
+          f"per-ray fallback bitwise the MT table's, its prims B4's but in "
+          f"{lanes.numel()} lanes; ms (host clock): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; B1 closest {b1_ms['closest']:.4f} and any-hit "
+          f"{b1_ms['occ']:.4f} ms (CUDA events); {smi}")
+
+
+def render_walk_films(device, smi: str) -> None:
+    """Phase 18e: a proc:bathroom one-sample film at WALK_FILM with
+    cfg.traversal "packet" and "perray" (plain torch: no kernel launch),
+    each bitwise the default film of the same seed; s/sample of each."""
+    import torch
+
+    from gpupathtracer_tpu_torch.render import Renderer
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    cfg = _scene_cfg("bathroom", *WALK_FILM)
+    scene, meta = load_scene(cfg, device)
+    films, spf = {}, {}
+
+    def film(traversal):
+        cfg.traversal = traversal
+        r = Renderer(cfg, device, scene=scene, meta=meta)
+        t0 = time.perf_counter()
+        r.render_frame(sync=True)
+        spf[traversal] = time.perf_counter() - t0
+        films[traversal] = torch.as_tensor(r.film_hdr()).view(torch.int32)
+
+    film("auto")
+    _drive("packet and per-ray films", (),
+           lambda: [film(t) for t in ("packet", "perray")])
+    for k in ("packet", "perray"):
+        differ = int((films[k] != films["auto"]).any(-1).sum())
+        if differ:
+            raise AssertionError(f"[bathroom {k} film] {differ} pixels differ "
+                                 f"from the default film")
+    print(f"[bathroom films] {WALK_FILM[0]}x{WALK_FILM[1]}, 1 spp: packet "
+          f"and perray bitwise the default film; s/sample: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spf.items()) + f"; {smi}")
+
+
 def _counters():
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -3489,6 +3768,8 @@ def main() -> int:
                 scene, meta, *cluster, rays, device, results))
             treelet_launches = compare_treelet(scene, meta, rays, b1, device)
             stamp("phase T: roots and treelet queries")
+            compare_walks(scene, meta, *cluster, rays, b1, device, smi)
+            stamp("phase 18d")
         del rays, b1, cluster
     compare_b1_ties(device)
     compare_cluster_ties(device)
@@ -3582,6 +3863,15 @@ def main() -> int:
         card_vs_cpu(device, town, write_mirror_obj(tmp, glass=True),
                     skies[1])
         stamp("phase 16")
+        cache_check(tmp, device, smi)
+        new_paths.append(_drive(
+            "checkpoint path", ("trace_closest", "trace_anyhit"),
+            lambda: render_checkpoint_path(tmp, smi)))
+        new_paths.append(_drive(
+            "viewer path", ("trace_closest", "trace_anyhit"),
+            lambda: render_viewer_path(smi)))
+        render_walk_films(device, smi)
+        stamp("phase 18")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)

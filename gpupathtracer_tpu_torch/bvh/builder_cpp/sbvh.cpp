@@ -471,9 +471,8 @@ struct Builder {
   // Each pass detaches high-surface-area subtrees and re-inserts them at
   // the globally best position found by a best-first branch-and-bound
   // search over SA growth (the standard formulation). Pop counts in the
-  // packet traversal are surface-area-weighted (the TPU record,
-  // docs/PERF_TPU_history.md), so upper-tree SA reduction is the lever this
-  // targets.
+  // packet traversal are surface-area-weighted (PERF.md session 8), so
+  // upper-tree SA reduction is the lever this targets.
 
   void refitUp(std::vector<int32_t>& parent, int32_t n) {
     while (n >= 0) {

@@ -5,16 +5,23 @@ tonemapped PNG, report seconds per frame and Mrays/s.
 Usage:
   python -m gpupathtracer_tpu_torch.cli proc:cornell --spp 16 --out c.png
   python -m gpupathtracer_tpu_torch.cli scene.txt --spp 64 --device cuda
+  python -m gpupathtracer_tpu_torch.cli proc:sponza --spp 8 --checkpoint s.ck
+  python -m gpupathtracer_tpu_torch.cli proc:sponza --spp 8 --resume s.ck
+  python -m gpupathtracer_tpu_torch.cli proc:table --interactive
 
 The flags are the JAX CLI's, plus --device (default cuda; the CLI raises if
-that device is absent, and never falls back) and --wide-arity (children
-per BVH node, 2 to 16: cfg.wide_arity, which the JAX CLI leaves at 8). Flags for features the port
-does not have yet raise with a pointer to ROADMAP.md.
+that device is absent, and never falls back), --wide-arity (children per
+BVH node, 2 to 16: cfg.wide_arity, which the JAX CLI leaves at 8) and
+--cache-dir (cfg.cache_dir). The scene disk cache (scene/cache.py) is on
+unless --no-cache is given, as in the JAX CLI. Flags of features the port
+does not have yet (--partition-*, multi-device rendering) raise with a
+pointer to ROADMAP.md; so does --platform (JAX platforms: use --device).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -59,6 +66,8 @@ def build_config(args):
     cfg.seed = args.seed
     cfg.exposure = args.exposure
     cfg.tonemap = "none" if args.no_tonemap else "uncharted2"
+    cfg.cache_enabled = not args.no_cache
+    cfg.cache_dir = args.cache_dir
     cfg.bvh_builder = args.bvh_builder
     cfg.sampler = args.sampler
     cfg.frame_batch = args.frame_batch
@@ -77,17 +86,10 @@ def build_config(args):
 # Flags of the JAX CLI whose features the port does not have yet:
 # (attribute, value that is fine, what to say).
 _UNPORTED = (
-    ("bounce_traversal", ("auto", "same", "tsort", "treelet", "pallas"),
-     "the packet and perray bounce traversals"),
     ("partition_chips", (0,), "multi-device rendering"),
     ("partition_samples", (1,), "multi-device rendering"),
     ("partition_routing", ("ring",), "multi-device rendering"),
     ("platform", (None,), "JAX platforms (use --device)"),
-    ("checkpoint", (None,), "checkpoints"),
-    ("resume", (None,), "checkpoints"),
-    ("interactive", (False,), "the viewer"),
-    ("viewer_bench", (0,), "the viewer"),
-    ("orbit", (0,), "orbit renders (the viewer's camera loop)"),
 )
 
 
@@ -118,7 +120,9 @@ def parse_args(argv=None):
     p.add_argument("--no-nee", action="store_true")
     p.add_argument("--no-tonemap", action="store_true")
     p.add_argument("--no-cache", action="store_true",
-                   help="accepted for parity: the port keeps no scene cache")
+                   help="build the scene's BVH without the disk cache")
+    p.add_argument("--cache-dir", default="cache",
+                   help="folder of the scene disk cache (default cache)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--frame-batch", type=int, default=1,
                    help="samples accumulated per frame")
@@ -126,8 +130,9 @@ def parse_args(argv=None):
                    help="trace NEE shadow rays from the light end")
     p.add_argument("--bounce-traversal", default="auto",
                    help="bounce-ray traversal override: auto|same|tsort|"
-                        "treelet|pallas (auto = same; tsort sorts by "
-                        "treelet, treelet bins by treelet, when named)")
+                        "treelet|pallas|packet|perray (auto = same; tsort "
+                        "sorts by treelet, treelet bins by treelet, when "
+                        "named; packet and perray are plain torch walks)")
     p.add_argument("--wide-arity", type=int, default=8,
                    help="children per BVH node, 2 to 16")
     p.add_argument("--mip-levels", type=int, default=1)
@@ -151,12 +156,22 @@ def parse_args(argv=None):
     p.add_argument("--save-every", type=int, default=0,
                    help="save a progressive screenshot every N samples")
     p.add_argument("--platform", default=None)
-    p.add_argument("--checkpoint", default=None)
-    p.add_argument("--resume", default=None)
-    p.add_argument("--interactive", action="store_true")
-    p.add_argument("--viewer-bench", type=int, default=0)
-    p.add_argument("--move-speed", type=float, default=1.0)
-    p.add_argument("--orbit", type=int, default=0)
+    p.add_argument("--checkpoint", default=None,
+                   help="save a resumable checkpoint here when done")
+    p.add_argument("--resume", default=None,
+                   help="resume a progressive render from this checkpoint "
+                        "(its config; the scene flags are ignored)")
+    p.add_argument("--interactive", action="store_true",
+                   help="live WASD camera loop in the terminal (ANSI "
+                        "half-block frames)")
+    p.add_argument("--viewer-bench", type=int, default=0, metavar="N",
+                   help="run N scripted navigation frames of the viewer "
+                        "loop headless and report fps (no tty needed)")
+    p.add_argument("--move-speed", type=float, default=1.0,
+                   help="interactive camera move step (world units)")
+    p.add_argument("--orbit", type=int, default=0, metavar="N",
+                   help="render N frames orbiting the camera about the "
+                        "vertical axis; writes out-000.png ...")
     args = p.parse_args(argv)
     for attr, fine, what in _UNPORTED:
         if getattr(args, attr) not in fine:
@@ -173,6 +188,8 @@ def main(argv=None) -> int:
     from gpupathtracer_tpu_torch.ops.treelet import TRACES
     from gpupathtracer_tpu_torch.ops.tsort import SORTED
     from gpupathtracer_tpu_torch.render import Renderer
+    from gpupathtracer_tpu_torch.render.checkpoint import (load_checkpoint,
+                                                           save_checkpoint)
     from gpupathtracer_tpu_torch.utils.io import timestamped_name
 
     device = torch.device(args.device)
@@ -182,7 +199,12 @@ def main(argv=None) -> int:
     cfg = build_config(args)
 
     t0 = time.time()
-    r = Renderer(cfg, device)
+    if args.resume:
+        r = load_checkpoint(args.resume, device)
+        cfg = r.cfg
+        print(f"resumed at {r.num_samples} spp", file=sys.stderr)
+    else:
+        r = Renderer(cfg, device)
     print(f"scene: {r.meta.num_triangles} tris, {r.meta.num_materials} "
           f"materials, {r.meta.num_lights} lights "
           f"({time.time() - t0:.1f}s)", file=sys.stderr)
@@ -191,6 +213,44 @@ def main(argv=None) -> int:
 
     out = args.out or timestamped_name(
         os.path.splitext(os.path.basename(args.scene))[0].replace(":", "_"))
+
+    if args.viewer_bench:
+        from gpupathtracer_tpu_torch.render.viewer import bench_viewer
+        fps, enc_ms = bench_viewer(r, frames=args.viewer_bench,
+                                   move_speed=args.move_speed)
+        print(f"viewer loop: {fps:.1f} fps over {args.viewer_bench} "
+              f"navigation frames ({cfg.width}x{cfg.height}, "
+              f"{cfg.integrator}; ANSI encode {enc_ms:.1f} ms/frame)")
+        return 0
+
+    if args.interactive:
+        from gpupathtracer_tpu_torch.render.viewer import run_viewer
+        run_viewer(r, move_speed=args.move_speed)
+        print(r.save_screenshot(out))
+        return 0
+
+    if args.orbit:
+        # Turntable: the camera position rotated about the vertical axis,
+        # accumulation reset a frame (Program.cpp camera-move semantics).
+        base = r.cfg.camera
+        px, py, pz = (float(x) for x in base.position)
+        stem, ext = os.path.splitext(out)
+        for f in range(args.orbit):
+            ang = 2.0 * math.pi * f / args.orbit
+            c, sn = math.cos(ang), math.sin(ang)
+            r.set_camera(dataclasses.replace(
+                base, position=(px * c - pz * sn, py, px * sn + pz * c),
+                yaw=base.yaw + ang))
+            for _ in range(args.spp):
+                r.render_frame()
+            frame_path = f"{stem}-{f:03d}{ext}"
+            r.save_screenshot(frame_path)
+            print(f"orbit frame {f + 1}/{args.orbit} -> {frame_path}",
+                  file=sys.stderr)
+        print(f"{args.orbit} frames | {r.stats.report()}", file=sys.stderr)
+        print(out)
+        return 0
+
     sorted_before, binned_before = dict(SORTED), dict(TRACES)
     for s in range(args.spp):
         r.render_frame(sync=True)
@@ -200,6 +260,9 @@ def main(argv=None) -> int:
                   f"({r.stats.mrays_per_sec:.1f} Mrays/s)", file=sys.stderr)
 
     path = r.save_screenshot(out)
+    if args.checkpoint:
+        save_checkpoint(r, args.checkpoint)
+        print(f"checkpoint -> {args.checkpoint}", file=sys.stderr)
     elapsed = time.time() - t0
     print(f"{args.spp} spp in {sum(r.stats.frame_times):.1f}s render "
           f"({elapsed:.1f}s total) | {r.stats.report()}", file=sys.stderr)

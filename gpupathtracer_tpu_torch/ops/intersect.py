@@ -47,23 +47,36 @@ def mt_intersect(tri: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
     Returns (t, u, v, hit): hit is the parametric-validity mask only;
     callers compare t against their current closest.
     """
-    p0x, p0y, p0z = tri[:, 0], tri[:, 1], tri[:, 2]
-    e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
-    e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
-    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    px = fma32(dy, e2z, -(dz * e2y))
-    py = fma32(dz, e2x, -(dx * e2z))
-    pz = fma32(dx, e2y, -(dy * e2x))
-    det = fma32(e1z, pz, fma32(e1y, py, e1x * px))
+    return mt_xyz([tri[:, i] for i in range(0, 3)],
+                  [tri[:, i] for i in range(3, 6)],
+                  [tri[:, i] for i in range(6, 9)],
+                  [o[:, i] for i in range(3)], [d[:, i] for i in range(3)])
+
+
+def mt_xyz(p0, e1, e2, o, d):
+    """``mt_intersect`` on components: each argument is the (x, y, z) of
+    its vector as tensors that broadcast against one another (a triangle
+    a packet against the packet's rays, ops/packet_traverse.py). The six
+    cross-product terms share one ``fma32`` call and the four dot products
+    two (each element rounded as alone)."""
+    (p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx, dy,
+     dz) = torch.broadcast_tensors(*p0, *e1, *e2, *o, *d)
+    tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
+    # p = d x e2 and q = t x e1: component k is fma(a_k1, b_k2, -(a_k2 b_k1)).
+    px, py, pz, qx, qy, qz = fma32(
+        torch.stack([dy, dz, dx, ty, tz, tx]),
+        torch.stack([e2z, e2x, e2y, e1z, e1x, e1y]),
+        -(torch.stack([dz, dx, dy, tz, tx, ty])
+          * torch.stack([e2y, e2z, e2x, e1y, e1z, e1x])))
+    # det = e1.p, u = t.p, v = d.q, t = e2.q as fma(z, z, fma(a, a, b b)).
+    det, uu, vv, tt = fma32(
+        torch.stack([e1z, tz, dz, e2z]), torch.stack([pz, pz, qz, qz]),
+        fma32(torch.stack([e1y, tx, dx, e2x]), torch.stack([py, px, qx, qx]),
+              torch.stack([e1x, ty, dy, e2y]) * torch.stack([px, py, qy,
+                                                             qy])))
     idet = torch.ones_like(det) / det  # may be inf; comparisons then fail
-    tx = o[:, 0] - p0x
-    ty = o[:, 1] - p0y
-    tz = o[:, 2] - p0z
-    u = fma32(tz, pz, fma32(tx, px, ty * py)) * idet
-    qx = fma32(ty, e1z, -(tz * e1y))
-    qy = fma32(tz, e1x, -(tx * e1z))
-    qz = fma32(tx, e1y, -(ty * e1x))
-    v = fma32(dz, qz, fma32(dx, qx, dy * qy)) * idet
-    t = fma32(e2z, qz, fma32(e2x, qx, e2y * qy)) * idet
+    u = uu * idet
+    v = vv * idet
+    t = tt * idet
     hit = (u > 0.0) & (u < 1.0) & (v > 0.0) & (u + v < 1.0) & (t > 0.0)
     return t, u, v, hit

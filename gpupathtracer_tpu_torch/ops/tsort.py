@@ -22,20 +22,13 @@ import torch
 from gpupathtracer_tpu_torch.ops import kernel_cluster, kernel_traverse
 from gpupathtracer_tpu_torch.ops.subpacket_traverse import (LANES,
                                                             traverse_subpacket)
-from gpupathtracer_tpu_torch.ops.traverse import Hit
+from gpupathtracer_tpu_torch.ops.traverse import Hit, _safe_inv
 
 KEY_MODES = ("top1", "top2", "deep")
 # What ran sorted since the counts were last set to 0: treelet sorts
 # (_sort_perm) and traces of sorted rays (_trace) by query. A render that
 # resolves to "tsort" but never reaches a width of treelet_min reads 0.
 SORTED = {"sorts": 0, "closest": 0, "occluded": 0}
-
-
-def _safe_inv(d):
-    """1/d with tiny components clamped (ops/traverse.py of the JAX
-    package)."""
-    eps = torch.tensor(1e-12, dtype=d.dtype, device=d.device)
-    return torch.where(d >= 0, 1.0, -1.0) / torch.maximum(d.abs(), eps)
 
 
 def _slab_keys(bounds, o, inv, t_max):

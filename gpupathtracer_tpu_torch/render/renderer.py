@@ -13,6 +13,11 @@ megakernel; any other scene takes the wavefront integrator, as in the JAX
 package. ``"auto"`` resolves to off there too. The reference and AO
 integrators render one sample a frame (``cfg.frame_batch`` applies to the
 wavefront and direct frames only), as in the JAX package.
+
+``cfg.traversal`` names the traversal of every query (ops/traverse.py):
+the kernel ("auto", "pallas"), or "tsort", "treelet", "packet" or
+"perray"; the megakernel runs with the kernel traversal only, as the JAX
+package's runs with its on-core kernel only.
 """
 
 from __future__ import annotations
@@ -92,9 +97,11 @@ class Renderer:
         # reschedules the TPU kernel's walks; the CUDA kernel has one
         # schedule, so the option changes nothing here but, as in the JAX
         # package, is refused on cluster scenes (ops/megakernel.py).
-        self.use_mega = (cfg.megakernel == "on" and mega_eligible(
-            scene, meta, textured=meta.has_textures, delta=meta.has_delta,
-            sun=cfg.sun_enabled, sampler=cfg.sampler))
+        self.use_mega = (
+            cfg.megakernel == "on" and cfg.traversal in ("auto", "pallas")
+            and mega_eligible(scene, meta, textured=meta.has_textures,
+                              delta=meta.has_delta, sun=cfg.sun_enabled,
+                              sampler=cfg.sampler))
         if self.use_mega:
             check_mega_arity(scene.arity)
             self.mega_tables = pack_mega_tables(scene)
@@ -256,15 +263,30 @@ class Renderer:
         img = img[:self.height, :self.width].cpu().numpy()
         return img / max(self.num_samples, 1)
 
-    def present(self) -> np.ndarray:
-        """Tonemapped LDR frame [H, W, 3] in [0, 1]. Row 0 is the bottom
-        scanline (GL convention); save with flip_y=True."""
+    def present_device(self) -> torch.Tensor:
+        """Tonemapped LDR frame [H, W, 3] as a tensor on the renderer's
+        device (no host copy): a caller can enqueue the next frame before
+        paying this one's transfer (render/viewer.py)."""
         img = present_op(self._unpermute().reshape(self.pad_h, self.pad_w, 3),
                          max(self.num_samples, 1),
                          exposure=self.cfg.exposure,
                          tonemap=self.cfg.tonemap)
-        return img[:self.height, :self.width].cpu().numpy()
+        return img[:self.height, :self.width]
+
+    def present(self) -> np.ndarray:
+        """Tonemapped LDR frame [H, W, 3] in [0, 1]. Row 0 is the bottom
+        scanline (GL convention); save with flip_y=True."""
+        return self.present_device().cpu().numpy()
 
     def save_screenshot(self, path: str) -> str:
         """SaveScreenshot (Renderer.cpp:697-705): tonemapped PNG, y-flipped."""
         return save_png(path, self.present(), flip_y=True)
+
+    def render(self, spp: int, integrator: Optional[str] = None,
+               verbose: bool = False) -> np.ndarray:
+        """Accumulate ``spp`` frames and return the LDR frame."""
+        for s in range(spp):
+            self.render_frame(integrator)
+            if verbose and (s + 1) % max(spp // 10, 1) == 0:
+                print(f"  sample {s + 1}/{spp} ({self.stats.avg_fps:.2f} fps)")
+        return self.present()

@@ -8,8 +8,15 @@ The BVH comes from the port's copy of the JAX package's builders
 cluster leaves of ``pack_clusters``), so both packages trace identical
 tables, and the texture atlas comes from the port's copy of the atlas
 builder (scene/textures.py). Scenes come from the procedural generators,
-OBJ + MTL and glTF / GLB files. The disk cache is not ported (ROADMAP.md,
-queue A); it changes no output.
+OBJ + MTL and glTF / GLB files.
+
+Ingest is two steps, as in the JAX package: ``build_scene`` (the soup, the
+material table, the emitter CDF, the atlas and the wide BVH) and
+``upload_scene`` (the node-row packing, the cluster leaves and the treelet
+cut, the packed tables, the tensors on the device). With
+``cfg.cache_enabled`` the first step's arrays go through the disk cache of
+scene/cache.py (``cfg.cache_dir``): a hit skips the loaders and the SBVH,
+a miss writes the file; the upload is the same either way.
 """
 
 from __future__ import annotations
@@ -23,11 +30,14 @@ import torch
 
 from gpupathtracer_tpu_torch.bvh import BuildStats, build_wide_bvh
 from gpupathtracer_tpu_torch.bvh.cluster import pack_clusters
+from gpupathtracer_tpu_torch.bvh.types import WideBVH
 from gpupathtracer_tpu_torch.bvh.wide import pack_for_packets
 from gpupathtracer_tpu_torch.config import RenderConfig
 from gpupathtracer_tpu_torch.ops.intersect import pack_tri_geom
 from gpupathtracer_tpu_torch.scene.envmap import EnvMap, environment_image
+from gpupathtracer_tpu_torch.scene import cache as scache
 from gpupathtracer_tpu_torch.scene.materials import (MaterialDesc,
+                                                     MaterialTable,
                                                      pack_materials)
 from gpupathtracer_tpu_torch.scene.mesh import (TriangleSoup,
                                                 build_triangle_soup)
@@ -67,6 +77,14 @@ class SceneData(NamedTuple):
     # table (ops/dense_intersect.py pack_dense_tris); the tree walks read
     # their triangles from node_rows.
     tri_geom: Optional[torch.Tensor] = None      # [T, 9] f32
+    # The per-lane layout of the same tree (bvh/types.py WideBVH, kept on
+    # cluster scenes too), which the per-ray walk reads (ops/traverse.py
+    # "perray", and "packet" where it falls back to it): each node's
+    # children's bounds and entries (leaves as -(first_ref << 4 | count)
+    # - 1) and the triangle id of each leaf reference.
+    child_bounds: Optional[torch.Tensor] = None  # [W, arity, 6] f32
+    child_entry: Optional[torch.Tensor] = None   # [W, arity] i32
+    refs: Optional[torch.Tensor] = None          # [R] i32
     # Texture atlas (role of bindless textures, Material.glsl:43-44): the
     # packed images, each rect (x, y, w, h; mip levels included), and each
     # texture slot's rect row per mip level (mat_rows cols 8 and 9 hold
@@ -132,6 +150,9 @@ def scene_from_numpy(fields: dict, device) -> SceneData:
         cut_entry=t(fields.get("cut_entry")),
         cut_bounds=t(fields.get("cut_bounds")),
         tri_geom=t(fields.get("tri_geom")),
+        child_bounds=t(fields.get("child_bounds")),
+        child_entry=t(fields.get("child_entry")),
+        refs=t(fields.get("refs")),
         atlas_image=t(image), atlas_rects=t(rects), atlas_mips=t(mips),
         sun_dir=t(fields.get("sun_dir")),
         sun_emission=t(fields.get("sun_emission")),
@@ -183,36 +204,26 @@ def build_atlas_for(materials: List[MaterialDesc], base_dir: str,
     return build_atlas(paths, base_dir, mip_levels=cfg.mip_levels)
 
 
-def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
-    """Full ingest: dispatch on scene_path ("proc:<name>", .obj, .gltf or
-    .glb), load the environment, build the BVH, pack the tables onto
-    `device`."""
-    path = cfg.scene_path
-    base_dir = os.path.dirname(os.path.abspath(path)) if os.path.sep in path else "."
-    env = environment_image(cfg.skybox, base_dir=base_dir)
+class BuiltScene(NamedTuple):
+    """The arrays ingest builds before the upload: what the disk cache
+    keeps (scene/cache.py)."""
 
-    if path.startswith("proc:"):
-        from gpupathtracer_tpu_torch.scene.procedural import load_procedural
-        mesh, materials = load_procedural(path)
-    elif path.lower().endswith(".obj"):
-        from gpupathtracer_tpu_torch.scene.objloader import load_obj
-        mesh, materials = load_obj(path)
-    elif path.lower().endswith((".gltf", ".glb")):
-        from gpupathtracer_tpu_torch.scene.gltf import load_gltf
-        mesh, materials = load_gltf(path)
-    else:
-        raise ValueError(f"unsupported scene format: {path!r}")
-    return pack_scene(build_triangle_soup(mesh), materials, env, cfg, device,
-                      base_dir=base_dir)
+    soup: TriangleSoup
+    table: MaterialTable
+    light_idx: np.ndarray      # [L] i32 emissive triangles, by area
+    light_cdf: np.ndarray      # [L] f32 cumulative areas
+    total_area: float
+    wide: WideBVH              # child_bounds, child_entry, refs
+    stats: BuildStats
+    atlas_img: np.ndarray
+    atlas_rects: np.ndarray
+    atlas_mips: np.ndarray
 
 
-def pack_scene(soup: TriangleSoup, materials: List[MaterialDesc],
-               env: np.ndarray, cfg: RenderConfig, device,
-               base_dir: str = ".") -> Tuple[SceneData, SceneMeta]:
-    """Pack a triangle soup, its materials and a lat-long environment image
-    into tables on ``device`` and build the BVH: the funnel every loader
-    goes through (the JAX package's ``pack_scene``). Texture paths are read
-    relative to ``base_dir``."""
+def build_scene(soup: TriangleSoup, materials: List[MaterialDesc],
+                cfg: RenderConfig, base_dir: str = ".") -> BuiltScene:
+    """The atlas, the material table, the emitter CDF and the wide BVH of a
+    triangle soup (texture paths read relative to ``base_dir``)."""
     if not 2 <= cfg.wide_arity <= 16:
         raise ValueError(f"wide_arity {cfg.wide_arity} outside 2..16 (a "
                          f"128-float node row holds 16 children at most)")
@@ -226,6 +237,78 @@ def pack_scene(soup: TriangleSoup, materials: List[MaterialDesc],
                                  spatial_splits=cfg.spatial_splits,
                                  force_leaf=cfg.force_leaf,
                                  reinsert_rounds=cfg.reinsert_rounds)
+    return BuiltScene(soup, table, idx, cdf, total_area, wide, stats,
+                      atlas_img, atlas_rects, atlas_mips)
+
+
+def scene_from_cache(z: dict) -> BuiltScene:
+    """A BuiltScene from a cache file's arrays (the JAX package's
+    load_scene, scene/scenedata.py:303-329)."""
+    soup = TriangleSoup(p0=z["p0"], e1=z["e1"], e2=z["e2"],
+                        normal=z["normal"], uv=z["uv"], mat=z["mat"])
+    table = MaterialTable(albedo=z["m_albedo"], rough_g=z["m_rough"],
+                          metallic=z["m_metal"], emission=z["m_emission"],
+                          emissive=z["m_emissive"], albedo_tex=z["m_tex"],
+                          mtype=z["m_type"], ior=z["m_ior"],
+                          mr_tex=z["m_mr_tex"])
+    wide = WideBVH(child_bounds=z["child_bounds"],
+                   child_entry=z["child_entry"], refs=z["refs"])
+    st = z["stats"]
+    stats = BuildStats(num_triangles=int(st[0]), num_refs=int(st[1]),
+                       num_binary_nodes=int(st[2]), num_wide_nodes=int(st[3]),
+                       num_leaves=int(st[4]), max_depth=int(st[5]),
+                       spatial_splits=int(st[6]), sah_cost=float(z["sah"]))
+    return BuiltScene(soup, table, z["light_idx"], z["light_cdf"],
+                      float(z["total_area"]), wide, stats, z["atlas_img"],
+                      z["atlas_rects"], z["atlas_mips"])
+
+
+def load_scene(cfg: RenderConfig, device) -> Tuple[SceneData, SceneMeta]:
+    """Full ingest: dispatch on scene_path ("proc:<name>", .obj, .gltf or
+    .glb), load the environment, build the BVH (or read it from the disk
+    cache), pack the tables onto `device`."""
+    path = cfg.scene_path
+    base_dir = os.path.dirname(os.path.abspath(path)) if os.path.sep in path else "."
+    env = environment_image(cfg.skybox, base_dir=base_dir)
+
+    cached = scache.load_scene_cache(cfg)
+    if cached is not None:
+        return upload_scene(scene_from_cache(cached), env, cfg, device)
+    if path.startswith("proc:"):
+        from gpupathtracer_tpu_torch.scene.procedural import load_procedural
+        mesh, materials = load_procedural(path)
+    elif path.lower().endswith(".obj"):
+        from gpupathtracer_tpu_torch.scene.objloader import load_obj
+        mesh, materials = load_obj(path)
+    elif path.lower().endswith((".gltf", ".glb")):
+        from gpupathtracer_tpu_torch.scene.gltf import load_gltf
+        mesh, materials = load_gltf(path)
+    else:
+        raise ValueError(f"unsupported scene format: {path!r}")
+    built = build_scene(build_triangle_soup(mesh), materials, cfg, base_dir)
+    if cfg.cache_enabled:
+        scache.save_scene_cache(cfg, *built)
+    return upload_scene(built, env, cfg, device)
+
+
+def pack_scene(soup: TriangleSoup, materials: List[MaterialDesc],
+               env: np.ndarray, cfg: RenderConfig, device,
+               base_dir: str = ".") -> Tuple[SceneData, SceneMeta]:
+    """Pack a triangle soup, its materials and a lat-long environment image
+    into tables on ``device`` and build the BVH: the funnel every loader
+    goes through (the JAX package's ``pack_scene``; no disk cache). Texture
+    paths are read relative to ``base_dir``."""
+    return upload_scene(build_scene(soup, materials, cfg, base_dir), env,
+                        cfg, device)
+
+
+def upload_scene(built: BuiltScene, env: np.ndarray, cfg: RenderConfig,
+                 device) -> Tuple[SceneData, SceneMeta]:
+    """Pack a BuiltScene's node rows (MT leaves or, with cfg.cluster_tris,
+    cluster leaves) and shading tables onto ``device`` (the JAX package's
+    ``_upload``)."""
+    (soup, table, idx, cdf, total_area, wide, stats, atlas_img, atlas_rects,
+     atlas_mips) = built
     stack_depth = min(max(stats.max_depth * (cfg.wide_arity - 1) + 2, 8),
                       cfg.stack_depth * 4)
     # Shading-normal sign vs the geometric e1 x e2 (leaf slot 11).
@@ -286,6 +369,9 @@ def pack_scene(soup: TriangleSoup, materials: List[MaterialDesc],
                                  cut_bounds=wide.cut_bounds,
                                  tri_geom=pack_tri_geom(soup.p0, soup.e1,
                                                         soup.e2),
+                                 child_bounds=wide.child_bounds,
+                                 child_entry=wide.child_entry,
+                                 refs=wide.refs,
                                  atlas_image=atlas_img,
                                  atlas_rects=atlas_rects,
                                  atlas_mips=atlas_mips,

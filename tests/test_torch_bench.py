@@ -79,7 +79,7 @@ def test_full_rehearsal_line_is_well_formed(bench, full_line):
                                      "cluster", "cluster256"}
     assert probes["sponza_winner"] in probes["sponza"]
     assert probes["bathroom_winner"] in probes["bathroom"]
-    assert extra["sponza"]["first_frame_warm_s"] is None
+    assert extra["sponza"]["first_frame_warm_s"] >= 0
     assert extra["sponza"]["median_frame_s"] > 0
     assert extra["rows"]["sponza_probe_tsort"]["bounce_traversal"] == "tsort"
     assert extra["rows"]["table_pt_megaregen128"]["megakernel"]

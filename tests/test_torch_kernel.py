@@ -1329,3 +1329,37 @@ def test_treelet_on_cuda_matches_cpu():
         out.append([x.cpu() for x in (*hit, occ)])
     _equal_bits(out[0], out[1])
     assert float((out[0][1] >= 0).float().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_packet_walk_on_cuda_matches_cpu():
+    """ops/packet_traverse.py on CUDA tensors (its steps replayed as CUDA
+    graphs, both packet counts of the compaction: 160 packets of 128 rays,
+    a first pass over all, rounds of 5) against the same walk on the CPU,
+    and the per-ray walk, every field bitwise."""
+    _need_cuda()
+    import types
+
+    from gpupathtracer_tpu_torch.ops import packet_traverse, traverse
+
+    case = _soup_case(7, leaf=10, n_tris=2000, n_rays=160 * 128)
+    kw = dict(stack_depth=case["depth"], leaf_size=10)
+    layout = dict(child_bounds=case["wide"].child_bounds,
+                  child_entry=case["wide"].child_entry,
+                  refs=case["wide"].refs, tri_geom=case["geom"])
+    for dev in ("cuda", "cpu"):
+        scene = types.SimpleNamespace(**{
+            k: torch.tensor(v, device=dev) for k, v in layout.items()})
+        rows = _rows(case, dev)
+        rays = _port(case, case["far"], dev)
+        occ_rays = _port(case, case["t_occ"], dev)
+        got = (*packet_traverse.closest_hit_packets(rows, *rays, **kw),
+               packet_traverse.any_hit_packets(rows, *occ_rays, **kw),
+               *traverse.closest_hit(scene, *rays, **kw),
+               traverse.any_hit(scene, *occ_rays, **kw))
+        if dev == "cuda":
+            on_card = [g.cpu() for g in got]
+    for g, w in zip(on_card, got):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)

@@ -6,7 +6,10 @@ with the reference and AO integrators, a 16-wide table with treelet-binned
 bounce rays, a generated textured town with mips (its maps written and
 read by the port's own PNG code), and a mirror and glass OBJ with the ld
 sampler and light-end shadow rays (and it loads the demo glTF and plots a
-sampler's points), and the PNGs are decoded here with zlib alone. No module of the port, and not chip_smoke.py, names the
+sampler's points), and the PNGs are decoded here with zlib alone; it also
+saves and resumes a checkpoint, reads a scene warm from a temporary disk
+cache, runs the viewer's bench and renders with the packet and per-ray
+traversals. No module of the port, and not chip_smoke.py, names the
 JAX package in an import."""
 
 import ast
@@ -115,6 +118,31 @@ _, meta = load_scene(RenderConfig(scene_path=os.path.join(folder, "d.obj")),
 sampler_viz.plot_points(sampler_viz.halton_set(64), size=16,
                         path=os.path.join(folder, "halton.png"))
 print("DELTA", meta.has_delta, mesh.triangles.shape[0])
+# A checkpoint saved and resumed, the scene warm from a temporary disk
+# cache (the checkpoint's config enables it), the viewer's bench, and the
+# films of the packet and per-ray traversals against the default one.
+from gpupathtracer_tpu_torch.render.checkpoint import (load_checkpoint,
+                                                       save_checkpoint)
+from gpupathtracer_tpu_torch.render.viewer import bench_viewer
+cfg = RenderConfig(scene_path="proc:cornell", width=16, height=16,
+                   max_bounces=4, cache_enabled=True,
+                   cache_dir=os.path.join(folder, "cache"))
+r = Renderer(cfg, "cpu")
+r.render_frame()
+r2 = load_checkpoint(save_checkpoint(r, os.path.join(folder, "r.ckpt")),
+                     "cpu")
+r.render_frame()
+r2.render_frame()
+resumed = bool((r2.accum == r.accum).all())
+fps, _ = bench_viewer(r2, frames=2, warmup=1)
+films = []
+for trav in ("auto", "packet", "perray"):
+    cfg.traversal = trav
+    rt = Renderer(cfg, "cpu", scene=r.scene, meta=r.meta)
+    rt.render_frame()
+    films.append(rt.film_hdr())
+print("A15", resumed, fps > 0, os.listdir(cfg.cache_dir)[0][:6],
+      all((f == films[0]).all() for f in films))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 sys.exit(rc)
@@ -157,6 +185,7 @@ def test_port_renders_without_jax_or_pil(tmp_path):
     assert "TSORT tsort True" in proc.stdout
     assert "TREELET 16 True True" in proc.stdout
     assert "DELTA True 24" in proc.stdout
+    assert "A15 True True scene_ True" in proc.stdout
     for out in outs + [wide, delta]:
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
@@ -182,7 +211,8 @@ def test_port_sources_never_import_the_jax_package():
             "torch_kernel_bench.py", "roofline.py", "torch_roofline.py",
             "torch_mega_profile.py", "torch_bench.py", "reference.py",
             "ao.py", "texture.py", "textures.py", "samplegen.py",
-            "gltf.py", "sampler_viz.py"} <= names
+            "gltf.py", "sampler_viz.py", "checkpoint.py", "viewer.py",
+            "debug.py", "cache.py", "packet_traverse.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)

@@ -129,8 +129,8 @@ def test_cli_writes_png(tmp_path):
     assert np.isfinite(film).all() and film.max() > 0
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "x"],
-                                  ["--interactive"],
+@pytest.mark.parametrize("flag", [["--partition-samples", "2"],
+                                  ["--platform", "cpu"],
                                   ["--partition-chips", "2"]])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as exc:
@@ -250,7 +250,7 @@ def test_auto_gate_on_cluster_scene_counts_the_full_tree():
 
 def test_cli_takes_bounce_traversal(tmp_path):
     hdr = {}
-    for mode in ("same", "tsort", "treelet", "auto"):
+    for mode in ("same", "tsort", "treelet", "auto", "packet", "perray"):
         out = tmp_path / f"{mode}.npy"
         rc = cli.main(["proc:cornell", "--device", "cpu", "--spp", "1",
                        "--width", "16", "--height", "16", "--bounce-traversal",
@@ -267,6 +267,8 @@ def test_cli_takes_bounce_traversal(tmp_path):
     np.testing.assert_array_equal(hdr["tsort"], hdr["same"])
     np.testing.assert_array_equal(hdr["treelet"], hdr["same"])
     np.testing.assert_array_equal(hdr["auto"], hdr["same"])
-    with pytest.raises(SystemExit):
+    np.testing.assert_array_equal(hdr["packet"], hdr["same"])
+    np.testing.assert_array_equal(hdr["perray"], hdr["same"])
+    with pytest.raises(ValueError):
         cli.main(["proc:cornell", "--device", "cpu", "--bounce-traversal",
-                  "packet"])
+                  "packet2"])
