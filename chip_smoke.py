@@ -101,9 +101,10 @@ nvcc and g++. Phases, each of which raises on failure:
   T. (on sponza) start entries and the treelet traversal: B1 and B4 with
      roots, one a 2048-ray packet (the table's treelet-cut roots in turn, a
      leaf entry, an INVALID packet), bitwise their plain versions (a check:
-     no path of the port passes roots to B4, or to B1's any-hit but the
-     treelet occlusion query); trace_closest_treelet /
-     trace_occluded_treelet, each called once as a path of its own, on
+     no path of the port passes roots to B4; B1's any-hit takes them on
+     the treelet occlusion query and phase 19's partition);
+     trace_closest_treelet / trace_occluded_treelet, each called once as a
+     path of its own, on
      phase 3's rays against B1's whole-tree hits (t and occluded bitwise,
      prim but where another triangle is hit at bitwise the same t), rounds
      and time beside B1's; after phase 6, the CLI on sponza 1920x1080, 64
@@ -244,6 +245,34 @@ nvcc and g++. Phases, each of which raises on failure:
      (no kernel launch) bitwise the default film, s/sample of each. The
      earlier phases' CLI runs pass --no-cache, so that no run reads a
      cache file another checkout left.
+ 19. multi-device rendering (parallel/) on the card's one GPU, each run
+     of ranks ended by its own deadline (P19_DEADLINE): (a) one NCCL rank
+     on cuda:0: every collective of parallel/comm.py on CUDA tensors
+     exact and none staged through the host, render_sample_sharded over a
+     one-rank mesh bitwise render_sample_impl with the folded key
+     (bathroom 256x144); (b) 4 gloo ranks, all on cuda:0 (NCCL refuses
+     two ranks on one GPU; comm.py stages CUDA tensors through the host
+     under gloo and counts the bytes): phase 3's 131,072 sponza rays
+     through the partitioned trace, ring and routed, closest and any-hit,
+     with their counters: t bitwise B1's whole-table hits (prims but at
+     true ties, counted), occlusion equal, the routed results bitwise the
+     ring's; V, pops a hop, bytes staged a hop and host-clock ms beside
+     B1's whole-table time; each rank's local B1 launch from its steady
+     root, closest and any-hit, bitwise its plain version; (c) sponza
+     1920x1080 at its 64 bounces, one frame each in 4 gloo ranks: the
+     (2, 2) mesh Renderer and the 4-rank partition Renderer, ring and
+     routed (the films bitwise), their launches (B1 with roots, closest
+     and any-hit, on the partition), s a frame beside one process's; the
+     ring's frame (compaction on, the Renderer's default) bitwise each
+     rank's whole-table render with the same folded key and the same
+     collective loop conditions, the compaction phases each rank ran
+     printed; a compaction-free partitioned frame (P19_FREE_BOUNCES
+     bounces: every bounce at full width) bitwise each rank's whole-table
+     render with the same folded key; (d) bathroom 256x144 through
+     render_sample_mega_sharded, 2 gloo ranks x 4 samples, bitwise the
+     sum of this process's megakernel calls with the folded keys.
+     ``python3 chip_smoke.py --phase19`` runs phase 19 alone (no result
+     line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -3642,6 +3671,567 @@ def render_walk_films(device, smi: str) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in spf.items()) + f"; {smi}")
 
 
+# --- phase 19: multi-device rendering on one card ----------------------------
+
+P19_RANKS = 4
+# Each run of ranks ends by this deadline (s) or fails the smoke.
+P19_DEADLINE = 420
+# Phase 19c's compaction-free frame runs every bounce at full width: its
+# bounce cap (the Renderer frames keep the config's 64).
+P19_FREE_BOUNCES = 8
+P19_MEGA_SPP = 4
+
+
+def _rank_sync(device) -> None:
+    """Every rank has finished its enqueued work."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(device)
+    dist.barrier()
+
+
+def _rank_timed(call, device, reps: int) -> list:
+    """Host-clock milliseconds of call(), from a barrier to a barrier, reps
+    times after a warm-up."""
+    call()
+    times = []
+    for _ in range(reps):
+        _rank_sync(device)
+        t0 = time.perf_counter()
+        call()
+        _rank_sync(device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def rank19a(device):
+    """Phase 19a, one NCCL rank on the card: every collective of
+    parallel/comm.py on CUDA tensors, no host staging; then
+    render_sample_sharded over a one-rank mesh, bitwise render_sample_impl
+    with fold_in(key, 1311) on bathroom 256x144."""
+    import torch
+
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.models.wavefront import render_sample_impl
+    from gpupathtracer_tpu_torch.parallel import comm
+    from gpupathtracer_tpu_torch.parallel.mesh import (make_device_mesh,
+                                                       render_sample_sharded)
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    if comm.backend() != "nccl" or device.type != "cuda":
+        raise AssertionError(f"19a runs NCCL on the card, got "
+                             f"{comm.backend()} on {device}")
+    x = torch.arange(6, dtype=torch.float32, device=device)
+    flags = torch.tensor([True, False], device=device)
+    checks = {"psum": (comm.psum(x), x), "pmax": (comm.pmax(x), x),
+              "all_gather": (comm.all_gather(x), x[None]),
+              "all_to_all": (comm.all_to_all(x.reshape(1, 6)),
+                             x.reshape(1, 6)),
+              "ring_shift": (comm.ring_shift(x), x),
+              "ring_shift bool": (comm.ring_shift((x, flags))[1], flags)}
+    for name, (got, want) in checks.items():
+        if got.device != device or not torch.equal(got, want):
+            raise AssertionError(f"[19a] {name} on one NCCL rank")
+    if comm.STAGED["calls"]:
+        raise AssertionError("[19a] NCCL staged tensors through the host")
+    r = Renderer(_scene_cfg("bathroom", *WALK_FILM, microfacet="beckmann"),
+                 device)
+    mesh = make_device_mesh((1,))
+    key = random.PRNGKey(19, device)
+    static = dict(width=r.pad_w, height=r.pad_h,
+                  stack_depth=r.meta.stack_depth,
+                  leaf_size=r.meta.leaf_size, max_bounces=64,
+                  model="beckmann")
+    _reset_launches()
+    got, rays = render_sample_sharded(mesh, r.scene, r.camera, r.pixel_x,
+                                      r.pixel_y, key, **static)
+    torch.cuda.synchronize(device)
+    counts = {k: v for k, v in _launches().items() if v}
+    want, want_rays = render_sample_impl(r.scene, r.camera, r.pixel_x,
+                                         r.pixel_y, random.fold_in(key, 1311),
+                                         **static)
+    if not torch.equal(_bits(got), _bits(want)) or int(rays) != int(
+            want_rays) or not float(want.sum()) > 0:
+        raise AssertionError("[19a] render_sample_sharded on one NCCL rank "
+                             "is not render_sample_impl with the folded key")
+    return dict(launches=counts, rays=int(rays), describe=comm.describe(),
+                torch=torch.__version__,
+                nccl=".".join(map(str, torch.cuda.nccl.version())))
+
+
+def phase19a(smi: str) -> dict:
+    from gpupathtracer_tpu_torch.parallel.launch import run_ranks
+    import chip_smoke
+
+    t0 = time.perf_counter()
+    out = run_ranks(chip_smoke.rank19a, 1, "nccl", "cuda:0",
+                    timeout_s=P19_DEADLINE)[0]
+    print(f"[19a] one NCCL rank (torch {out['torch']}, NCCL {out['nccl']}): "
+          f"psum, pmax, all_gather, all_to_all, ring_shift on CUDA tensors "
+          f"exact, {out['describe']}; render_sample_sharded over a one-rank "
+          f"mesh (bathroom {WALK_FILM[0]}x{WALK_FILM[1]}, {out['rays']} "
+          f"rays) bitwise render_sample_impl with fold_in(key, 1311); "
+          f"{time.perf_counter() - t0:.1f} s with the rank's start; {smi}")
+    return out["launches"]
+
+
+def rank19b(device, part, rays, kw, reps):
+    """Phase 19b in each of 4 gloo ranks on cuda:0: phase 3's sponza rays
+    through the ring and the routed trace, closest and any-hit, with their
+    counters (the launches, the host staging and the host-clock times of
+    the runs without counters), and one hop's local B1 launch (the steady
+    root, closest and any-hit) against its plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.parallel import comm
+    from gpupathtracer_tpu_torch.parallel.partition import (
+        shard_partition, trace_closest_partitioned)
+
+    me, D = dist.get_rank(), dist.get_world_size()
+    table, route = shard_partition(part, None, device)
+    o, d, t_occ, on = (torch.as_tensor(a, device=device) for a in rays)
+    far = torch.full_like(t_occ, 1e20)
+    out = {}
+    for routing in ("ring", "routed"):
+        for any_hit in (False, True):
+            def call(stats):
+                return trace_closest_partitioned(
+                    table, route, o, d, t_occ if any_hit else far, on,
+                    any_hit=any_hit, with_stats=stats, routing=routing, **kw)
+            _reset_launches()
+            comm.reset_staged()
+            res, st = call(True)
+            torch.cuda.synchronize(device)
+            entry = dict(stats=st.cpu().numpy(), staged=dict(comm.STAGED),
+                         launches={k: v for k, v in _launches().items()
+                                   if v},
+                         ms=_rank_timed(lambda: call(False), device, reps))
+            if me == 0:
+                entry["result"] = (res.cpu() if any_hit
+                                   else [x.cpu() for x in res])
+            out[f"{routing} {'any-hit' if any_hit else 'closest'}"] = entry
+    # One hop's local launch: this rank's shard from its steady root, one
+    # start entry a packet, as hops >= 1 run it.
+    n = o.shape[0] // D
+    sl = slice(me * n, (me + 1) * n)
+    K = kw["packet_size"]
+    roots = torch.full((-(-n // K),), int(route.steady_root[me]),
+                       dtype=torch.int32, device=device)
+    depth = dict(stack_depth=kw["stack_depth"], leaf_size=kw["leaf_size"],
+                 roots=roots, packet=K)
+    args = (o[sl].contiguous(), d[sl].contiguous())
+    got = kt.closest(table, *args, far[sl], on[sl], **depth)
+    want = kt.closest_plain(table, *args, far[sl], on[sl], **depth)
+    occ = kt.anyhit(table, *args, t_occ[sl], on[sl], **depth)
+    occ_want = kt.anyhit_plain(table, *args, t_occ[sl], on[sl], **depth)
+    _hold_hits(f"[19b] rank {me} hop from the steady root trace_closest",
+               got, want)
+    _hold_occluded(f"[19b] rank {me} hop from the steady root trace_anyhit",
+                   occ, occ_want)
+    out["hop"] = dict(rays=n, root=int(route.steady_root[me]),
+                      rows=int(table.shape[0]),
+                      hits=int((want[1] >= 0).sum()))
+    return out
+
+
+def report19b(res, scene, meta, rays, b1, part, smi: str) -> None:
+    """Phase 19b's results (rank19b in each rank): the partitioned trace
+    of phase 3's 131,072 sponza rays at D = 4 held to B1 on the whole
+    table (t bitwise, prims but at true ties, occlusion equal), the routed
+    trace bitwise the ring; V, pops a hop, bytes staged a hop, host-clock
+    ms beside B1's whole-table time."""
+    import numpy as np
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+
+    D = P19_RANKS
+    o, d, t_occ, on = rays
+    far = torch.full_like(t_occ, 1e20)
+    depth = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    whole = {"closest": _events_ms(lambda: kt.closest(
+        scene.node_rows, o, d, far, on, **depth), 10),
+        "any-hit": _events_ms(lambda: kt.anyhit(
+            scene.node_rows, o, d, t_occ, on, **depth), 10)}
+    N = o.shape[0]
+    print(f"[19b] sponza {scene.node_rows.shape[0]} rows over {D} ranks "
+          f"(gloo, every rank on cuda:0): live rows a rank "
+          f"{part.num_rows.tolist()}, steady roots "
+          f"{part.steady_root.tolist()}")
+    for key in ("ring closest", "ring any-hit", "routed closest",
+                "routed any-hit"):
+        r0 = res[0][key]
+        query = key.split()[1]
+        if query == "closest":
+            got = [x.to(o.device) for x in r0["result"]]
+            ties = _hold_to_b1(f"[19b] {key}", got, b1["closest"])
+            held = (f"t bitwise B1's whole-table hits, {ties} lanes with "
+                    f"another triangle at bitwise the same t")
+        else:
+            got = r0["result"].to(o.device)
+            if not torch.equal(got, b1["occ"]):
+                raise AssertionError(f"[19b] {key}: occlusion differs from "
+                                     f"B1's in {int((got != b1['occ']).sum())}"
+                                     f" lanes")
+            held = "occlusion equal to B1's"
+        launches = {}
+        for r in res:
+            _add(launches, r[key]["launches"])
+        st = r0["stats"]
+        ms = [float(np.median(r[key]["ms"])) for r in res]
+        staged = r0["staged"]
+        if key.startswith("ring"):
+            routed, pops = st[:, 0], st[:, 2]
+            counters = (f"V {routed.sum() / N:.3f} of {D} hops a ray, "
+                        f"improved {st[:, 1].sum() / N:.3f} a ray, pops a hop "
+                        f"{pops.sum() / D:.0f} (max rank a hop "
+                        f"{pops.max(0).tolist()}), per-rank routed "
+                        f"{routed.sum(1).tolist()}")
+            hops = D
+        else:
+            used = int(max(np.nonzero(st[:, 0].sum(0) + st[:, 1].sum(0))[0],
+                           default=0))
+            if st[:, 3, -1].sum():
+                raise AssertionError(f"[19b] {key}: {int(st[:, 3, -1].sum())}"
+                                     f" rays undelivered")
+            counters = (f"pops a ray {st[:, 0].sum() / N:.3f}, rounds used "
+                        f"{used} of {st.shape[2] - 1}, transported a ray "
+                        f"{st[:, 1].sum() / N:.3f}, per-round pops "
+                        f"{st[:, 0].sum(0).tolist()}")
+            hops = max(used, 1)
+        print(f"[19b] {key}: {held}; {counters}; {ms[0]:.2f} ms host clock "
+              f"(median of 3, rank 0; ranks {[round(m, 2) for m in ms]}) "
+              f"against B1 whole-table {whole[query]:.3f} ms; staged "
+              f"through the host {staged['bytes']} bytes in "
+              f"{staged['calls']} copies a rank ({staged['bytes'] / hops:.0f}"
+              f" a hop or round); launches {launches}")
+    for query in ("closest", "any-hit"):
+        a, b = res[0][f"ring {query}"]["result"], \
+            res[0][f"routed {query}"]["result"]
+        for x, y in zip(a if query == "closest" else [a],
+                        b if query == "closest" else [b]):
+            if not torch.equal(_bits(x), _bits(y)):
+                raise AssertionError(f"[19b] routed {query} is not the "
+                                     f"ring's bitwise")
+    hops = [r["hop"] for r in res]
+    print(f"[19b] the routed trace bitwise the ring, closest and any-hit; "
+          f"one hop's local B1 launch from each rank's steady root "
+          f"(trace_closest_roots, trace_anyhit_roots; {hops[0]['rays']} rays "
+          f"a rank, roots {[h['root'] for h in hops]}, rows "
+          f"{[h['rows'] for h in hops]}) bitwise its plain version; {smi}")
+
+
+def rank19c(device, cache_dir):
+    """Phase 19c in each of 4 gloo ranks on cuda:0: sponza 1920x1080, one
+    frame of a (2, 2) mesh Renderer and of the 4-rank partition (ring and
+    routed), each timed host clock between barriers with its launches; the
+    ring's frame against this rank's whole-table render with the same key
+    and loop conditions; then a compaction-free partitioned frame against
+    this rank's whole-table render with the same folded key."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.bvh.partition import build_partition
+    from gpupathtracer_tpu_torch.models.wavefront import render_sample_impl
+    from gpupathtracer_tpu_torch.parallel import comm
+    from gpupathtracer_tpu_torch.parallel.mesh import (make_device_mesh,
+                                                       pixel_shard)
+    from gpupathtracer_tpu_torch.parallel.partition import (
+        render_sample_partitioned, shard_partition, strip_scene_bvh)
+    from gpupathtracer_tpu_torch.render import Renderer
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    me = dist.get_rank()
+    out, films = {}, {}
+
+    def frame(label, **kw):
+        cfg = _scene_cfg("sponza", 1920, 1080, cache_enabled=True,
+                         cache_dir=cache_dir, **kw)
+        r = Renderer(cfg, device)
+        _rank_sync(device)
+        _reset_launches()
+        comm.reset_staged()
+        t0 = time.perf_counter()
+        r.render_frame(sync=True)
+        _rank_sync(device)
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in _launches().items() if v}
+        staged = dict(comm.STAGED)
+        film = r.film_hdr()
+        r.stats.finalize()
+        films[label] = film
+        out[label] = dict(s=secs, launches=counts, staged=staged,
+                          spf=r.samples_per_frame, rays=r.stats.rays_traced,
+                          finite=bool(np.isfinite(film).all()),
+                          mean=float(film.mean()),
+                          bounces=cfg.max_bounces)
+        return r
+
+    frame("mesh (2, 2)", mesh_shape=(2, 2))
+    r = frame("partition ring", partition_chips=P19_RANKS)
+    frame("partition routed", partition_chips=P19_RANKS,
+          partition_routing="routed")
+    out["ring = routed"] = int((films["partition ring"]
+                                != films["partition routed"]).any(-1).sum())
+
+    cfg = _scene_cfg("sponza", 1920, 1080, cache_enabled=True,
+                     cache_dir=cache_dir)
+    scene, meta = load_scene(cfg, device)
+    # The ring's frame: the whole table, the Renderer's frame key folded by
+    # this rank's chips index, the same collective loop conditions.
+    sl = r.shard
+    phases = []
+    _rank_sync(device)
+    t0 = time.perf_counter()
+    want, _ = render_sample_impl(
+        scene, r.camera, r.pixel_x[sl], r.pixel_y[sl],
+        random.fold_in(random.fold_in(r.base_key, 0), me + 7177),
+        partition_group=r.mesh.groups["chips"], phases=phases,
+        packet_size=r.packet_size, **r.sharded_statics())
+    _rank_sync(device)
+    out["compacted"] = dict(
+        differ=int((r.accum != want).any(-1).sum()),
+        lanes=int(want.shape[0]), s=time.perf_counter() - t0,
+        phases=phases, nonzero=bool(float(want.sum()) > 0))
+
+    mesh = make_device_mesh((P19_RANKS,), ("chips",))
+    part = build_partition(scene.node_rows.cpu().numpy(),
+                           scene.child_bounds.shape[0], P19_RANKS)
+    table, route = shard_partition(part, mesh.groups["chips"], device)
+    key = random.PRNGKey(1919, device)
+    static = dict(width=r.pad_w, height=r.pad_h,
+                  max_bounces=P19_FREE_BOUNCES,
+                  stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+                  compaction=False)
+    _rank_sync(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    got, rays = render_sample_partitioned(
+        mesh, table, route, strip_scene_bvh(scene), r.camera, r.pixel_x,
+        r.pixel_y, key, packet_size=r.packet_size, **static)
+    _rank_sync(device)
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in _launches().items() if v}
+    sl = pixel_shard(mesh, r.n_rays, "chips")
+    t0 = time.perf_counter()
+    want, _ = render_sample_impl(scene, r.camera, r.pixel_x[sl],
+                                 r.pixel_y[sl],
+                                 random.fold_in(key, me + 7177), **static)
+    torch.cuda.synchronize(device)
+    out["whole"] = dict(
+        differ=int((_bits(got) != _bits(want)).any(-1).sum()),
+        lanes=int(got.shape[0]), s=secs,
+        whole_s=time.perf_counter() - t0, launches=counts, rays=int(rays),
+        nonzero=bool(float(want.sum()) > 0))
+    return out
+
+
+def report19c(res, one_s: float, smi: str) -> dict:
+    """Phase 19c's results (rank19c in each rank): the films and launches
+    held, the frames' seconds beside ``one_s``, one process's frame;
+    returns the partition path's B1 launches, summed over the ranks."""
+    path = {}
+    for label in ("mesh (2, 2)", "partition ring", "partition routed"):
+        r0 = res[0][label]
+        launches = {}
+        for r in res:
+            _add(launches, r[label]["launches"])
+        want = ({"trace_closest", "trace_anyhit"} if label.startswith("mesh")
+                else {"trace_closest", "trace_anyhit", "trace_closest_roots",
+                      "trace_anyhit_roots"})
+        if set(launches) != want or not r0["finite"] or not r0["mean"] > 0:
+            raise AssertionError(f"[19c] {label}: launches {launches}, film "
+                                 f"finite {r0['finite']}, mean {r0['mean']}")
+        if label.startswith("partition"):
+            _add(path, launches)
+        print(f"[19c] sponza 1920x1080 {label}: {r0['spf']} sample(s) a "
+              f"frame of {r0['bounces']} bounces, {r0['s']:.3f} s host "
+              f"clock (one process: {one_s:.3f} s a sample), {r0['rays']} "
+              f"rays, film mean "
+              f"{r0['mean']:.5f}; staged {r0['staged']['bytes']} bytes in "
+              f"{r0['staged']['calls']} copies (rank 0); launches "
+              f"{launches}; {smi}")
+    if res[0]["ring = routed"]:
+        raise AssertionError(f"[19c] the routed film differs from the "
+                             f"ring's in {res[0]['ring = routed']} pixels")
+    for key, what in (("compacted", "the ring's frame (compaction on)"),
+                      ("whole", f"a compaction-free partitioned frame "
+                                f"({P19_FREE_BOUNCES} bounces)")):
+        differ = sum(r[key]["differ"] for r in res)
+        lanes = sum(r[key]["lanes"] for r in res)
+        if differ or not all(r[key]["nonzero"] for r in res):
+            raise AssertionError(f"[19c] {what}: {differ} of {lanes} lanes "
+                                 f"differ from each rank's whole-table "
+                                 f"render with the same key (or it is "
+                                 f"black)")
+    phases = [r["compacted"]["phases"] for r in res]
+    if any(p != phases[0] for p in phases) or len(phases[0]) < 2:
+        raise AssertionError(f"[19c] the ranks' compaction phases {phases}")
+    c, w = res[0]["compacted"], res[0]["whole"]
+    print(f"[19c] the partition ring's and routed films bitwise; the ring's "
+          f"frame bitwise each rank's whole-table render with the same key "
+          f"and loop conditions ({c['s']:.3f} s on rank 0), every rank "
+          f"through the phases (width, first bounce) {phases[0]}; a "
+          f"compaction-free partitioned frame ({P19_FREE_BOUNCES} bounces, "
+          f"{w['s']:.3f} s host clock, launches {w['launches']} on rank 0) "
+          f"bitwise each rank's whole-table render with the same folded "
+          f"key ({w['whole_s']:.3f} s on rank 0); "
+          f"{sum(r['whole']['lanes'] for r in res)} lanes each; {smi}")
+    return path
+
+
+def rank19d(device, spp):
+    """Phase 19d in each of 4 gloo ranks on cuda:0: bathroom 256x144
+    through render_sample_mega_sharded on a (2, 2) mesh: 2 samples ranks
+    x spp samples, every pixel on every rank."""
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.parallel.mesh import (
+        make_device_mesh, render_sample_mega_sharded)
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    r = Renderer(_scene_cfg("bathroom", *WALK_FILM, microfacet="beckmann",
+                            megakernel="on"), device)
+    mesh = make_device_mesh((2, 2))
+    _reset_launches()
+    c, rays = render_sample_mega_sharded(
+        mesh, r.scene, r.mega_tables, r.camera, r.pixel_x, r.pixel_y,
+        random.PRNGKey(1923, device), spp_per_chip=spp,
+        **r.mega_statics("wavefront"))
+    return dict(c=c.cpu(), rays=int(rays),
+                launches={k: v for k, v in _launches().items() if v})
+
+
+def check19d(res, device, smi: str) -> dict:
+    """Phase 19d's results (rank19d in each rank): the megakernel's sample
+    axis, 2 samples ranks x P19_MEGA_SPP samples, bitwise the sum of this
+    process's megakernel calls with the keys folded by the samples index
+    and sample indices 0 and spp; returns its launches."""
+    import torch
+
+    from gpupathtracer_tpu_torch import random
+    from gpupathtracer_tpu_torch.ops.megakernel import render_sample_mega
+    from gpupathtracer_tpu_torch.render import Renderer
+
+    r = Renderer(_scene_cfg("bathroom", *WALK_FILM, microfacet="beckmann",
+                            megakernel="on"), device)
+    want, rays = None, 0
+    for s in range(2):
+        c, n = render_sample_mega(
+            r.scene, r.mega_tables, r.camera, r.pixel_x, r.pixel_y,
+            random.fold_in(random.PRNGKey(1923, device), s),
+            sample_idx=s * P19_MEGA_SPP, spp=P19_MEGA_SPP,
+            **r.mega_statics("wavefront"))
+        want = c if want is None else want + c
+        rays += int(n)
+    for i, out in enumerate(res):
+        if (not torch.equal(_bits(out["c"].to(device)), _bits(want))
+                or out["rays"] != rays
+                or set(out["launches"]) != {"trace_mega"}):
+            raise AssertionError(f"[19d] rank {i}: the sharded megakernel is "
+                                 f"not the sum of the single-rank calls "
+                                 f"(rays {out['rays']} against {rays}, "
+                                 f"launches {out['launches']})")
+    launches = {}
+    for out in res:
+        _add(launches, out["launches"])
+    print(f"[19d] bathroom {WALK_FILM[0]}x{WALK_FILM[1]} through "
+          f"render_sample_mega_sharded on a (2, 2) mesh of gloo ranks, 2 "
+          f"samples ranks x {P19_MEGA_SPP} samples: bitwise the sum of the single-rank calls, {rays} rays, "
+          f"launches {launches}; {smi}")
+    return launches
+
+
+def rank19(device, part, rays, kw, reps, cache_dir, spp):
+    """Phases 19b, 19c and 19d in each of 4 gloo ranks on cuda:0, one
+    start of the ranks for the three; the seconds of each."""
+    out = {}
+    for name, fn, args in (("b", rank19b, (part, rays, kw, reps)),
+                           ("c", rank19c, (cache_dir,)),
+                           ("d", rank19d, (spp,))):
+        _rank_sync(device)
+        t0 = time.perf_counter()
+        out[name] = fn(device, *args)
+        _rank_sync(device)
+        out[name + " s"] = time.perf_counter() - t0
+    return out
+
+
+def run_phase19(p19, tmp: str, device, smi: str, stamp) -> list:
+    """Phases 19a-d; the B1 and megakernel launches of their paths (the
+    one-rank mesh, the partition frames, the megakernel's sample axis),
+    summed over the ranks. The ranks read sponza from the disk cache in
+    ``tmp`` (phase 18b's)."""
+    from gpupathtracer_tpu_torch.bvh.partition import build_partition
+    from gpupathtracer_tpu_torch.parallel.launch import run_ranks
+    from gpupathtracer_tpu_torch.render import Renderer
+    import chip_smoke
+
+    paths = [phase19a(smi)]
+    stamp("phase 19a")
+    scene, meta, rays, b1 = p19
+    cache_dir = os.path.join(tmp, "scene_cache")
+    one = Renderer(_scene_cfg("sponza", 1920, 1080, cache_enabled=True,
+                              cache_dir=cache_dir),
+                   device)
+    t0 = time.perf_counter()
+    one.render_frame(sync=True)
+    one_s = time.perf_counter() - t0
+    del one
+    t0 = time.perf_counter()
+    part = build_partition(scene.node_rows.cpu().numpy(),
+                           scene.child_bounds.shape[0], P19_RANKS)
+    print(f"[19b] build_partition of sponza at D = {P19_RANKS}: "
+          f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
+              packet_size=2048)
+    res = run_ranks(chip_smoke.rank19, P19_RANKS, "gloo", "cuda:0", args=(
+        part, tuple(x.cpu().numpy() for x in rays), kw, 3, cache_dir,
+        P19_MEGA_SPP), timeout_s=P19_DEADLINE)
+    report19b([r["b"] for r in res], scene, meta, rays, b1, part, smi)
+    paths.append(report19c([r["c"] for r in res], one_s, smi))
+    paths.append(check19d([r["d"] for r in res], device, smi))
+    print(f"[19] the ranks' seconds (rank 0, barrier to barrier): 19b "
+          f"{res[0]['b s']:.1f}, 19c {res[0]['c s']:.1f}, 19d "
+          f"{res[0]['d s']:.1f}")
+    stamp("phases 19b-d")
+    return paths
+
+
+def phase19_alone(device, smi: str, stamp) -> int:
+    """``python3 chip_smoke.py --phase19``: the kernels phase 19 runs
+    (csrc/traverse.cu, csrc/megakernel.cu), phase 3's sponza rays and B1's
+    whole-table hits on them, then phases 19a-d alone; no kernels line and
+    no result line (a check of phase 19, not the smoke)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from gpupathtracer_tpu_torch.ops import cuda_build
+    from gpupathtracer_tpu_torch.ops import kernel_traverse as kt
+    from gpupathtracer_tpu_torch.scene import load_scene
+
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(cuda_build.build, ("traverse", "megakernel")))
+    stamp("build (phase 19's kernels)")
+    cfg = _scene_cfg("sponza", 1920, 1080)
+    scene, meta = load_scene(cfg, device)
+    rays = _test_rays(scene, meta, cfg, device)
+    o, d, t_occ, on = rays
+    far = torch.full_like(t_occ, 1e20)
+    kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size)
+    b1 = {"closest": kt.closest(scene.node_rows, o, d, far, on, **kw),
+          "occ": kt.anyhit(scene.node_rows, o, d, t_occ, on, **kw)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = run_phase19((scene, meta, rays, b1), tmp, device, smi, stamp)
+    print(f"[smoke] phase 19 alone: launches of its paths {paths}")
+    return 0
+
+
 def _counters():
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -3732,6 +4322,8 @@ def main() -> int:
         print(f"[smoke] {phase} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
+    if sys.argv[1:] == ["--phase19"]:
+        return phase19_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -3770,6 +4362,7 @@ def main() -> int:
             stamp("phase T: roots and treelet queries")
             compare_walks(scene, meta, *cluster, rays, b1, device, smi)
             stamp("phase 18d")
+            p19 = (scene, meta, rays, b1)
         del rays, b1, cluster
     compare_b1_ties(device)
     compare_cluster_ties(device)
@@ -3872,6 +4465,8 @@ def main() -> int:
             lambda: render_viewer_path(smi)))
         render_walk_films(device, smi)
         stamp("phase 18")
+        new_paths += run_phase19(p19, tmp, device, smi, stamp)
+        del p19
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -3897,10 +4492,12 @@ def main() -> int:
         # Launches: of the paths that drive the entry point (the renders
         # for the first six: for B1 the wavefront, reference, AO, textured
         # and sun paths, the delta, glTF, image sky, sort_rays /
-        # shadow_rev and ld paths, at arity 16 and with roots the 16-wide and treelet
-        # films; the kernel A/B entry point for the schedules and the
-        # arities' B4, the treelet occlusion query for B1's any-hit with
-        # roots, run_compact for the probes).
+        # shadow_rev and ld paths and phase 19's mesh and partition
+        # frames, summed over their ranks; at arity 16 the 16-wide film;
+        # with roots the treelet film and the partition frames (any-hit
+        # with roots: the partition frames alone); the kernel A/B entry
+        # point for the schedules and the arities' B4, run_compact for the
+        # probes).
         launches.setdefault(k, bench_launches.get(k, treelet_launches.get(
             k, results["roofline_launches"].get(k, 0))))
         err, ms, plain_ms, bound_ms, bound_by, *lib = results[case][k]

@@ -13,15 +13,26 @@ The flags are the JAX CLI's, plus --device (default cuda; the CLI raises if
 that device is absent, and never falls back), --wide-arity (children per
 BVH node, 2 to 16: cfg.wide_arity, which the JAX CLI leaves at 8) and
 --cache-dir (cfg.cache_dir). The scene disk cache (scene/cache.py) is on
-unless --no-cache is given, as in the JAX CLI. Flags of features the port
-does not have yet (--partition-*, multi-device rendering) raise with a
-pointer to ROADMAP.md; so does --platform (JAX platforms: use --device).
+unless --no-cache is given, as in the JAX CLI. --platform (JAX platforms)
+raises: use --device.
+
+Multi-device: run one process a device under torchrun, e.g.
+
+  torchrun --standalone --nproc-per-node 4 -m gpupathtracer_tpu_torch.cli \
+      proc:sponza --partition-chips 4 --spp 8 --out s.png
+
+With WORLD_SIZE > 1 the CLI joins the default process group: NCCL with
+rank r on cuda:LOCAL_RANK for --device cuda (it raises when the host has
+fewer GPUs than local ranks), gloo for --device cpu. Every rank renders
+its share; rank 0 writes the PNG, the checkpoint, --hdr-out and
+--stats-json. The interactive viewer and its bench run in one process.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import math
 import os
@@ -78,17 +89,17 @@ def build_config(args):
     cfg.mip_levels = args.mip_levels
     cfg.cluster_tris = args.cluster_tris
     cfg.wide_arity = args.wide_arity
+    cfg.partition_chips = args.partition_chips
+    cfg.partition_samples = args.partition_samples
+    cfg.partition_routing = args.partition_routing
     if args.chunk:
         cfg.ray_chunk = args.chunk
     return cfg
 
 
-# Flags of the JAX CLI whose features the port does not have yet:
+# Flags of the JAX CLI whose features the port does not have:
 # (attribute, value that is fine, what to say).
 _UNPORTED = (
-    ("partition_chips", (0,), "multi-device rendering"),
-    ("partition_samples", (1,), "multi-device rendering"),
-    ("partition_routing", ("ring",), "multi-device rendering"),
     ("platform", (None,), "JAX platforms (use --device)"),
 )
 
@@ -145,10 +156,16 @@ def parse_args(argv=None):
     p.add_argument("--bvh-builder", default="auto",
                    choices=["auto", "cpp", "numpy"])
     p.add_argument("--chunk", type=int, default=0, help="rays per chunk")
-    p.add_argument("--partition-chips", type=int, default=0)
-    p.add_argument("--partition-samples", type=int, default=1)
+    p.add_argument("--partition-chips", type=int, default=0,
+                   help="scene-partitioned render: that many ranks own BVH "
+                        "subtrees and rays migrate between them "
+                        "(parallel/partition.py)")
+    p.add_argument("--partition-samples", type=int, default=1,
+                   help="sample replicas composed over the partition")
     p.add_argument("--partition-routing", default="ring",
-                   choices=["ring", "routed"])
+                   choices=["ring", "routed"],
+                   help="partitioned ray migration: the ring (default) or "
+                        "demand-routed all-to-all rounds")
     p.add_argument("--hdr-out", default=None,
                    help="also dump the raw mean-radiance film as .npy")
     p.add_argument("--stats-json", default=None,
@@ -180,10 +197,53 @@ def parse_args(argv=None):
     return args
 
 
+def join_ranks(device: str):
+    """Under torchrun (WORLD_SIZE > 1): joins the default process group and
+    returns this rank's device (NCCL and cuda:LOCAL_RANK for a CUDA
+    device, gloo for the CPU); otherwise returns ``device``."""
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return torch.device(device)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < local_world:
+            raise RuntimeError(
+                f"{local_world} ranks on this host need as many GPUs for "
+                f"NCCL (one a rank), the host has {have}")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return dev
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    import numpy as np
     import torch
+    import torch.distributed as dist
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run the plain versions)")
+    device = join_ranks(args.device)
+    try:
+        return _run(args, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> int:
+    import numpy as np
+    import torch.distributed as dist
 
     from gpupathtracer_tpu_torch.ops.treelet import TRACES
     from gpupathtracer_tpu_torch.ops.tsort import SORTED
@@ -192,24 +252,37 @@ def main(argv=None) -> int:
                                                            save_checkpoint)
     from gpupathtracer_tpu_torch.utils.io import timestamped_name
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to run the plain versions)")
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if ranks > 1 and (args.interactive or args.viewer_bench):
+        raise ValueError("the viewer runs in one process, not under "
+                         f"{ranks} ranks")
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    # Rank 0 speaks for the ranks.
+    log = sys.stderr if writer else io.StringIO()
     cfg = build_config(args)
+    if cfg.partition_samples > 1 and cfg.partition_chips <= 0:
+        raise SystemExit("--partition-samples composes sample replicas over "
+                         "--partition-chips: give both")
+    need = (cfg.partition_chips * max(cfg.partition_samples, 1)
+            if cfg.partition_chips > 0 else 1)
+    if not args.resume and need != ranks:
+        raise SystemExit(f"--partition-chips {cfg.partition_chips} x "
+                         f"--partition-samples {cfg.partition_samples} "
+                         f"needs {need} ranks (torchrun --nproc-per-node "
+                         f"{need}); this run has {ranks}")
 
     t0 = time.time()
     if args.resume:
         r = load_checkpoint(args.resume, device)
         cfg = r.cfg
-        print(f"resumed at {r.num_samples} spp", file=sys.stderr)
+        print(f"resumed at {r.num_samples} spp", file=log)
     else:
         r = Renderer(cfg, device)
     print(f"scene: {r.meta.num_triangles} tris, {r.meta.num_materials} "
           f"materials, {r.meta.num_lights} lights "
-          f"({time.time() - t0:.1f}s)", file=sys.stderr)
+          f"({time.time() - t0:.1f}s)", file=log)
     if r.meta.bvh_stats:
-        print(r.meta.bvh_stats.report(), file=sys.stderr)
+        print(r.meta.bvh_stats.report(), file=log)
 
     out = args.out or timestamped_name(
         os.path.splitext(os.path.basename(args.scene))[0].replace(":", "_"))
@@ -246,9 +319,10 @@ def main(argv=None) -> int:
             frame_path = f"{stem}-{f:03d}{ext}"
             r.save_screenshot(frame_path)
             print(f"orbit frame {f + 1}/{args.orbit} -> {frame_path}",
-                  file=sys.stderr)
-        print(f"{args.orbit} frames | {r.stats.report()}", file=sys.stderr)
-        print(out)
+                  file=log)
+        print(f"{args.orbit} frames | {r.stats.report()}", file=log)
+        if writer:
+            print(out)
         return 0
 
     sorted_before, binned_before = dict(SORTED), dict(TRACES)
@@ -257,19 +331,22 @@ def main(argv=None) -> int:
         if args.save_every and (s + 1) % args.save_every == 0:
             r.save_screenshot(out)
             print(f"  {s + 1}/{args.spp} spp -> {out} "
-                  f"({r.stats.mrays_per_sec:.1f} Mrays/s)", file=sys.stderr)
+                  f"({r.stats.mrays_per_sec:.1f} Mrays/s)", file=log)
 
     path = r.save_screenshot(out)
     if args.checkpoint:
         save_checkpoint(r, args.checkpoint)
-        print(f"checkpoint -> {args.checkpoint}", file=sys.stderr)
+        print(f"checkpoint -> {args.checkpoint}", file=log)
     elapsed = time.time() - t0
     print(f"{args.spp} spp in {sum(r.stats.frame_times):.1f}s render "
-          f"({elapsed:.1f}s total) | {r.stats.report()}", file=sys.stderr)
-    print(path)
-
+          f"({elapsed:.1f}s total) | {r.stats.report()}", file=log)
     if args.hdr_out:
-        np.save(args.hdr_out, r.film_hdr())
+        film = r.film_hdr()
+        if writer:
+            np.save(args.hdr_out, film)
+    if not writer:
+        return 0
+    print(path)
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump({
@@ -282,6 +359,7 @@ def main(argv=None) -> int:
                 "triangles": r.meta.num_triangles,
                 "has_delta": r.meta.has_delta,
                 "device": str(device),
+                "ranks": ranks,
                 "bounce_traversal": r.bounce_traversal,
                 # Treelet sorts and traces of sorted rays in this render.
                 "sorted": {k: SORTED[k] - sorted_before[k] for k in SORTED},

@@ -43,7 +43,8 @@ from gpupathtracer_tpu_torch.models.materials import make_material_instance
 from gpupathtracer_tpu_torch.models.microfacet import generate_importance_sample
 from gpupathtracer_tpu_torch.models.nee import generate_light_sample
 from gpupathtracer_tpu_torch.ops.intersect import fma32
-from gpupathtracer_tpu_torch.ops.traverse import trace_closest, trace_occluded
+from gpupathtracer_tpu_torch.ops.traverse import (Hit, trace_closest,
+                                                  trace_occluded)
 from gpupathtracer_tpu_torch.ops.tsort import (_sort_perm,
                                                trace_closest_tsort,
                                                trace_occluded_tsort)
@@ -216,8 +217,12 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        compaction_min: int = 2048,
                        sampler: str = "random",
                        partition=None,
+                       partition_group=None,
+                       partition_routing: str = "ring",
+                       num_chips: int = 0,
                        packet_size: int = 128,
-                       sample_idx: int = 0):
+                       sample_idx: int = 0,
+                       phases: Optional[list] = None):
     """Trace one sample for each pixel lane.
 
     Args:
@@ -250,11 +255,39 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
     ``sampler="ld"`` jitters pixels by the R2 point of ``sample_idx``
     rotated per pixel (the jitter key is still split off, unused, so the
     lens draws stay the same).
+    ``partition`` = (local table, RouteInfo or [D, 6] bounds) is the
+    scene-partitioned mode (parallel/partition.py): every rank of
+    ``partition_group`` (``num_chips`` ranks) calls this with its pixel
+    shard, and every closest-hit and shadow query goes through the ring
+    (``partition_routing`` "ring") or the routed trace ("routed") with
+    packets of at least 128 rays; the traversal options and the ray sort
+    are off. The loop conditions become collectives (the sum of "any ray
+    alive", the maximum live count), so that every rank runs the same
+    bounces: a rank that stopped early would leave the others' ring
+    waiting. ``partition_group`` without ``partition`` keeps those
+    collective conditions over the whole table: every rank of the group
+    switches compaction phases at the same bounces as the partitioned
+    frame, which makes it that frame's whole-table reference. Each phase
+    run appends (its width, its first bounce) to ``phases`` when given.
     Returns ([N, 3] radiance contributions, int64 scalar rays traced).
     """
+    if partition_group is not None:
+        from gpupathtracer_tpu_torch.parallel import comm
     if partition is not None:
-        raise NotImplementedError("the scene partition is not ported yet "
-                                  "(ROADMAP.md, queue A)")
+        from gpupathtracer_tpu_torch.parallel.partition import (
+            trace_partitioned_local, trace_partitioned_routed)
+        if partition_routing not in ("ring", "routed"):
+            raise ValueError(f"partition_routing must be ring or routed, "
+                             f"got {partition_routing!r}")
+        traversal = "partition"
+        bounce_traversal = "same"
+        sort_rays = False
+        part_table, part_bounds = partition
+        _ptrace = (trace_partitioned_routed if partition_routing == "routed"
+                   else trace_partitioned_local)
+        part_kw = dict(group=partition_group, num_devices=num_chips,
+                       stack_depth=stack_depth, leaf_size=leaf_size,
+                       packet_size=max(packet_size, 128))
     if sampler not in ("random", "ld"):
         raise ValueError(f"unknown sampler {sampler!r}")
     n = pixel_x.shape[0]
@@ -295,7 +328,10 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                                   c.alive, scene=scene)
             shared = dict(perm=perm, inv=torch.argsort(perm))
         trace = dict(traversal=trav, packet_size=packet_size, **depth)
-        if sort_rays:
+        if partition is not None:
+            hit = Hit(*_ptrace(part_table, part_bounds, c.o, c.d, t_max_full,
+                               c.alive, **part_kw))
+        elif sort_rays:
             # Takes precedence over a shared treelet permutation, as in the
             # JAX package (which still sorts the shadow rays by it).
             perm = ray_sort_perm(c.o, c.d, c.alive, root_lo, inv_extent)
@@ -384,7 +420,11 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             # Without a shared permutation shadow rays keep the primary
             # traversal even under a bounce override (the JAX package
             # measured a fresh sort for them as a loss).
-            if shared is not None:
+            if partition is not None:
+                occluded = _ptrace(part_table, part_bounds, so, sd, st_,
+                                   shadow_live, any_hit=True,
+                                   **part_kw)[1] >= 0
+            elif shared is not None:
                 occluded = trace_occluded_tsort(
                     scene, so, sd, st_, shadow_live, **depth, **shared)
             else:
@@ -455,11 +495,25 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         last_pos=ray_o, alive=torch.ones((n,), dtype=torch.bool, device=dev),
         rays=torch.zeros((), dtype=torch.int64, device=dev),
         perm=identity(n)))
+    def live_count(c: Carry, last: bool) -> int:
+        """The live lanes of this wavefront; over ``partition_group``, the
+        maximum over the ranks, or (the last phase) whether any rank has
+        one."""
+        live = torch.sum(c.alive)
+        if partition_group is None:
+            return int(live)
+        if last:
+            return int(comm.psum((live > 0).to(torch.int64),
+                                 partition_group))
+        return int(comm.pmax(live, partition_group))
+
     for j in range(len(widths)):
         nxt = widths[j + 1] if j + 1 < len(widths) else None
         trav = trav_for(widths[j])
+        if phases is not None:
+            phases.append((widths[j], int(c.i)))
         while c.i <= max_bounces + 1:
-            live = int(torch.sum(c.alive))
+            live = live_count(c, nxt is None)
             if live == 0 or (nxt is not None and live <= nxt):
                 break
             c = body(c, trav)

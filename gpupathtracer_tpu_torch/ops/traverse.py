@@ -85,7 +85,8 @@ def _slab_test(bounds, o, inv_d, t_cur):
 
 
 def _traverse(scene, o, d, t_max, active, stack_depth: int, leaf_size: int,
-              any_hit_mode: bool, counters: bool = False):
+              any_hit_mode: bool, counters: bool = False,
+              visit_bucket=None, num_buckets: int = 0):
     """The JAX package's per-lane lockstep walk (ops/traverse.py
     ``_traverse``): each step pops one entry of every live ray's stack; a
     node row's children are slab-tested and the entered ones pushed so
@@ -95,9 +96,12 @@ def _traverse(scene, o, d, t_max, active, stack_depth: int, leaf_size: int,
     ends at its first hit. Each step visits only the live rays: a ray's
     walk does not depend on the others'. With ``counters`` also returns
     each ray's (pops, node expansions, triangle tests) [N] int32 (the
-    JAX package's ops/debug.py trail).
+    JAX package's ops/debug.py trail). ``visit_bucket`` [W] int (wide
+    node -> bucket) adds the node pops of every ray by bucket,
+    [num_buckets] int32 (buckets at or past ``num_buckets`` are dropped):
+    the pilot demand of bvh/partition.py (``count_entry_visits``).
 
-    Returns (t, prim, u, v[, counts])."""
+    Returns (t, prim, u, v[, counts][, bucket counts])."""
     child_bounds, child_entry, refs, tri_geom = (
         scene.child_bounds, scene.child_entry, scene.refs, scene.tri_geom)
     if any(f is None for f in (child_bounds, child_entry, refs, tri_geom)):
@@ -116,6 +120,9 @@ def _traverse(scene, o, d, t_max, active, stack_depth: int, leaf_size: int,
     counts = (torch.zeros((3, n), dtype=torch.int32, device=dev)
               if counters else None)
     slot = torch.arange(leaf_size, device=dev)
+    if visit_bucket is not None:
+        visit_bucket = torch.as_tensor(visit_bucket, device=dev).long()
+        per_bucket = torch.zeros(num_buckets, dtype=torch.int64, device=dev)
     while True:
         ln = torch.nonzero(sp > 0).squeeze(1)
         if ln.numel() == 0:
@@ -128,6 +135,10 @@ def _traverse(scene, o, d, t_max, active, stack_depth: int, leaf_size: int,
             counts[1, ln[node]] += 1
 
         nl, ne = ln[node], entry[node]
+        if visit_bucket is not None:
+            b = visit_bucket[ne]
+            per_bucket += torch.bincount(b[b < num_buckets],
+                                         minlength=num_buckets)
         if nl.numel():
             centry = child_entry[ne].to(torch.int64)
             tnear, chit = _slab_test(child_bounds[ne], o[nl], inv_d[nl],
@@ -175,9 +186,12 @@ def _traverse(scene, o, d, t_max, active, stack_depth: int, leaf_size: int,
             v[lw] = tv.gather(1, best)[win, 0]
             if any_hit_mode:
                 sp[lw] = 0  # the walk ends at its first hit
+    out = (t, prim, u, v)
     if counters:
-        return t, prim, u, v, counts
-    return t, prim, u, v
+        out += (counts,)
+    if visit_bucket is not None:
+        out += (per_bucket.to(torch.int32),)
+    return out
 
 
 def closest_hit(scene, o, d, t_max, active=None, stack_depth: int = 48,
@@ -202,6 +216,19 @@ def any_hit(scene, o, d, t_max, active=None, stack_depth: int = 48,
     _, prim, _, _ = _traverse(scene, o, d, t_max, active, stack_depth,
                               leaf_size, True)
     return prim >= 0
+
+
+def count_entry_visits(scene, o, d, t_max, bucket_map, num_buckets: int,
+                       stack_depth: int = 48, leaf_size: int = 4):
+    """Pilot demand: the per-ray closest-hit walk of every ray, its node
+    pops summed by bucket through ``bucket_map`` ([W] wide node -> bucket,
+    bvh/partition.py ``node_bucket_map``): [num_buckets] int32 (the JAX
+    package's ``count_entry_visits``). Unlike the slab estimate of
+    bvh/partition.py, it sees how deep rays walk in each subtree."""
+    active = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    return _traverse(scene, o, d, t_max, active, stack_depth, leaf_size,
+                     False, visit_bucket=bucket_map,
+                     num_buckets=num_buckets)[4]
 
 
 def _pad_rays(o, d, t_max, active, multiple: int):

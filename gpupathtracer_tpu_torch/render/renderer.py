@@ -18,6 +18,25 @@ wavefront and direct frames only), as in the JAX package.
 the kernel ("auto", "pallas"), or "tsort", "treelet", "packet" or
 "perray"; the megakernel runs with the kernel traversal only, as the JAX
 package's runs with its on-core kernel only.
+
+Multi-device (parallel/): every rank of the default process group builds
+a Renderer with the same config. ``cfg.mesh_shape`` shards the pixels
+over a "pixels" axis and the samples over a "samples" axis
+(parallel/mesh.py); ``cfg.partition_chips`` (> 0) partitions the scene's
+BVH over that many ranks, ``cfg.partition_samples`` sample replicas of
+them, the rays going through the ring or the routed trace
+(``cfg.partition_routing``, parallel/partition.py). A wavefront frame is
+then one call a rank with the frame's key (no chunks, as the JAX package
+renders a sharded frame in one ``shard_map`` call) and accumulates
+``samples_per_frame`` samples. Each rank accumulates its pixel shard;
+the film is padded with sentinel rays to a multiple of the pixels axis,
+their slot dropped on present. ``film_hdr``, ``present``,
+``present_device`` and ``save_screenshot`` gather the film: every rank
+calls them, rank 0 writes the file. Under a mesh, the other integrators
+render the whole film on every rank (the JAX package renders them on one
+device) and keep the rank's shard; under a partition, whose ranks hold no
+whole tree, they raise. The megakernel stays off under a mesh, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -62,9 +81,9 @@ class Renderer:
             raise ValueError("cluster_tris and partition_chips are mutually "
                              "exclusive (the partition builds its own "
                              "per-chip tables)")
-        if int(np.prod(cfg.mesh_shape)) > 1 or cfg.partition_chips > 0:
-            raise NotImplementedError("multi-device rendering is not ported "
-                                      "yet (ROADMAP.md, queue A)")
+        if cfg.partition_chips > 0 and int(np.prod(cfg.mesh_shape)) > 1:
+            raise ValueError("partition_chips and mesh_shape are mutually "
+                             "exclusive scaling modes")
         check_traversal(cfg.traversal)
         if cfg.bounce_traversal not in ("auto", "same"):
             check_traversal(cfg.bounce_traversal)
@@ -102,6 +121,19 @@ class Renderer:
             and mega_eligible(scene, meta, textured=meta.has_textures,
                               delta=meta.has_delta, sun=cfg.sun_enabled,
                               sampler=cfg.sampler))
+        self.mesh = None
+        self.partition = None
+        self.samples_per_frame = 1
+        self.pixels_axis = None
+        if cfg.partition_chips > 0:
+            self._init_partition(cfg)
+        elif int(np.prod(cfg.mesh_shape)) > 1:
+            from gpupathtracer_tpu_torch.parallel.mesh import make_device_mesh
+            self.mesh = make_device_mesh(cfg.mesh_shape)
+            self.pixels_axis = "pixels"
+            self.samples_per_frame = self.mesh.size("samples")
+        # The megakernel stays off under a mesh (the JAX Renderer's gate).
+        self.use_mega = self.use_mega and self.mesh is None
         if self.use_mega:
             check_mega_arity(scene.arity)
             self.mega_tables = pack_mega_tables(scene)
@@ -110,14 +142,27 @@ class Renderer:
         n = self.pad_w * self.pad_h
 
         # Ray order: Morton/Hilbert within 8x8 blocks (Renderer.cpp:568-592).
+        # A film that does not divide the pixels axis is padded with
+        # sentinel rays aimed at one extra film slot, which the film drops.
         fwd = ray_order(self.pad_w, self.pad_h, cfg.pixel_order)
+        pixels = self.mesh.size(self.pixels_axis) if self.mesh else 1
+        pad_rays = (-n) % pixels
+        if pad_rays:
+            fwd = np.concatenate([fwd, np.full(pad_rays, n, fwd.dtype)])
         self._ray_to_pixel = torch.as_tensor(fwd.astype(np.int64),
                                              device=self.device)
-        self.pixel_x = torch.as_tensor((fwd % self.pad_w).astype(np.float32),
+        px = np.where(fwd < n, fwd % self.pad_w, 0)
+        py = np.where(fwd < n, fwd // self.pad_w, 0)
+        self.pixel_x = torch.as_tensor(px.astype(np.float32),
                                        device=self.device)
-        self.pixel_y = torch.as_tensor((fwd // self.pad_w).astype(np.float32),
+        self.pixel_y = torch.as_tensor(py.astype(np.float32),
                                        device=self.device)
-        self.n_rays = n
+        self.n_rays = n + pad_rays
+        # This rank's rays of the film (all of them on one device).
+        self.shard = slice(0, self.n_rays)
+        if self.mesh is not None:
+            from gpupathtracer_tpu_torch.parallel.mesh import pixel_shard
+            self.shard = pixel_shard(self.mesh, self.n_rays, self.pixels_axis)
 
         # Fewest equal chunks <= ray_chunk that tile the ray space exactly.
         n_chunks = max(-(-self.n_rays // min(cfg.ray_chunk, self.n_rays)), 1)
@@ -125,12 +170,36 @@ class Renderer:
             n_chunks += 1
         self.chunk = self.n_rays // n_chunks
 
-        self.accum = torch.zeros((self.n_rays, 3), dtype=torch.float32,
-                                 device=self.device)
+        self.accum = torch.zeros((self.shard.stop - self.shard.start, 3),
+                                 dtype=torch.float32, device=self.device)
         self.num_samples = 0
         self.base_key = random.PRNGKey(cfg.seed, self.device)
         self.camera = generate_image_plane(cfg.camera, self.device)
         self.stats = FrameStats()
+
+    def _init_partition(self, cfg) -> None:
+        """The scene-partitioned mesh: ("samples", "chips") or ("chips",);
+        this rank's partition table; the scene without its tree."""
+        from gpupathtracer_tpu_torch.bvh.partition import build_partition
+        from gpupathtracer_tpu_torch.parallel.mesh import make_device_mesh
+        from gpupathtracer_tpu_torch.parallel.partition import (
+            shard_partition, strip_scene_bvh)
+        C, S = cfg.partition_chips, max(cfg.partition_samples, 1)
+        if S > 1:
+            self.mesh = make_device_mesh((S, C), ("samples", "chips"))
+        else:
+            self.mesh = make_device_mesh((C,), ("chips",))
+        if self.scene.arity != 8 or cfg.leaf_size > 10:
+            raise ValueError("partition_chips requires wide_arity=8 and "
+                             "leaf_size <= 10 (the partition builder "
+                             "parses 8-wide single-row-leaf tables)")
+        part = build_partition(self.scene.node_rows.cpu().numpy(),
+                               self.scene.child_bounds.shape[0], C)
+        self.partition = shard_partition(part, self.mesh.groups["chips"],
+                                         self.device)
+        self.scene = strip_scene_bvh(self.scene)
+        self.samples_per_frame = S
+        self.pixels_axis = "chips"
 
     # -- frame loop ---------------------------------------------------------
 
@@ -150,17 +219,28 @@ class Renderer:
         if integrator not in INTEGRATORS:
             raise ValueError(f"unknown integrator {integrator!r}")
         t0 = time.perf_counter()
-        batch = (self.cfg.frame_batch if integrator in ("wavefront", "direct")
-                 else 1)
-        out, rays = [], 0
-        for c0 in range(0, self.n_rays, self.chunk):
-            contribution, r = self._render_chunk(
-                integrator, slice(c0, c0 + self.chunk),
-                self.chunk_key(c0 // self.chunk), batch)
-            out.append(contribution)
-            rays = rays + r
-        self.accum = self.accum + torch.cat(out, dim=0)
-        self.num_samples += batch
+        if self.mesh is not None and integrator == "wavefront":
+            contribution, rays = self._render_sharded(random.fold_in(
+                self.base_key, self.num_samples))
+            self.accum = self.accum + contribution
+            self.num_samples += self.samples_per_frame
+        else:
+            if self.partition is not None:
+                raise ValueError(f"the {integrator} integrator traces the "
+                                 f"whole tree, which no rank of a scene "
+                                 f"partition holds: partitioned renders "
+                                 f"take the wavefront integrator")
+            batch = (self.cfg.frame_batch
+                     if integrator in ("wavefront", "direct") else 1)
+            out, rays = [], 0
+            for c0 in range(0, self.n_rays, self.chunk):
+                contribution, r = self._render_chunk(
+                    integrator, slice(c0, c0 + self.chunk),
+                    self.chunk_key(c0 // self.chunk), batch)
+                out.append(contribution)
+                rays = rays + r
+            self.accum = self.accum + torch.cat(out, dim=0)[self.shard]
+            self.num_samples += batch
         if sync:
             self.sync()
         self.stats.add_frame(time.perf_counter() - t0, rays)
@@ -190,6 +270,47 @@ class Renderer:
                     n_lights=int(self.scene.light_rows.shape[0]),
                     packet_size=cfg.pallas_packet_size,
                     fused_nee=cfg.mega_fused_nee)
+
+    def sharded_statics(self) -> dict:
+        """Keyword arguments of this renderer's sharded wavefront frames
+        (render_sample_impl's), apart from the mode's own."""
+        cfg = self.cfg
+        return dict(width=self.pad_w, height=self.pad_h,
+                    max_bounces=cfg.max_bounces, nee=cfg.nee_enabled,
+                    compaction=cfg.compaction,
+                    compaction_divs=tuple(cfg.compaction_divs),
+                    stack_depth=self.meta.stack_depth,
+                    leaf_size=self.meta.leaf_size, model=cfg.microfacet,
+                    textured=self.meta.has_textures,
+                    mips=self.meta.mip_levels > 1, sun=cfg.sun_enabled,
+                    sun_mode=cfg.sun_mode, sampler=cfg.sampler,
+                    delta=self.meta.has_delta)
+
+    def _render_sharded(self, key):
+        """One frame of this rank: samples_per_frame samples of its pixel
+        shard (parallel/mesh.py), or of the scene partition."""
+        cfg = self.cfg
+        kwargs = self.sharded_statics()
+        if self.partition is not None:
+            from gpupathtracer_tpu_torch.parallel.partition import \
+                render_sample_partitioned
+            table, route = self.partition
+            return render_sample_partitioned(
+                self.mesh, table, route, self.scene, self.camera,
+                self.pixel_x, self.pixel_y, key,
+                sample_base=self.num_samples,
+                packet_size=self.packet_size,
+                partition_routing=cfg.partition_routing, **kwargs)
+        from gpupathtracer_tpu_torch.parallel.mesh import \
+            render_sample_sharded
+        return render_sample_sharded(
+            self.mesh, self.scene, self.camera, self.pixel_x, self.pixel_y,
+            key, sample_base=self.num_samples, shadow_rev=cfg.shadow_rev,
+            shadow_sort=cfg.shadow_sort,
+            tsort_alternate=cfg.tsort_alternate, traversal=cfg.traversal,
+            bounce_traversal=self.bounce_traversal,
+            treelet_min=cfg.treelet_min,
+            packet_size=min(self.packet_size, self.chunk), **kwargs)
 
     def _render_chunk(self, integrator: str, sl: slice, key, batch: int = 1):
         """Returns ([C, 3] contribution, rays traced)."""
@@ -251,11 +372,30 @@ class Renderer:
 
     # -- output ---------------------------------------------------------------
 
+    def film_accum(self) -> torch.Tensor:
+        """The whole accumulator [n_rays, 3] in ray order: under a mesh the
+        ranks' shards gathered over the pixels axis (every rank of the
+        mesh must call this)."""
+        if self.mesh is None:
+            return self.accum
+        from gpupathtracer_tpu_torch.parallel import comm
+        return comm.all_gather(self.accum, self.mesh.groups[
+            self.pixels_axis]).reshape(self.n_rays, 3)
+
+    def is_writer(self) -> bool:
+        """Whether this process writes the frame's files: rank 0 of a
+        mesh, or the one process."""
+        import torch.distributed as dist
+        return self.mesh is None or dist.get_rank() == 0
+
     def _unpermute(self) -> torch.Tensor:
-        """Accumulator (ray order) -> film pixel order, [pad_h*pad_w, 3]."""
-        flat = torch.zeros_like(self.accum)
-        flat[self._ray_to_pixel] = self.accum
-        return flat
+        """Accumulator (ray order) -> film pixel order, [pad_h*pad_w, 3];
+        the slot past the film absorbs the sentinel rays."""
+        n = self.pad_h * self.pad_w
+        flat = torch.zeros((n + 1, 3), dtype=torch.float32,
+                           device=self.device)
+        flat[self._ray_to_pixel] = self.film_accum()
+        return flat[:n]
 
     def film_hdr(self) -> np.ndarray:
         """Mean radiance per pixel, [H, W, 3] float32 (pre-tonemap)."""
@@ -279,8 +419,10 @@ class Renderer:
         return self.present_device().cpu().numpy()
 
     def save_screenshot(self, path: str) -> str:
-        """SaveScreenshot (Renderer.cpp:697-705): tonemapped PNG, y-flipped."""
-        return save_png(path, self.present(), flip_y=True)
+        """SaveScreenshot (Renderer.cpp:697-705): tonemapped PNG, y-flipped
+        (under a mesh every rank calls it, rank 0 writes the file)."""
+        img = self.present()
+        return save_png(path, img, flip_y=True) if self.is_writer() else path
 
     def render(self, spp: int, integrator: Optional[str] = None,
                verbose: bool = False) -> np.ndarray:

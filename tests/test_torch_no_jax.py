@@ -9,8 +9,11 @@ sampler and light-end shadow rays (and it loads the demo glTF and plots a
 sampler's points), and the PNGs are decoded here with zlib alone; it also
 saves and resumes a checkpoint, reads a scene warm from a temporary disk
 cache, runs the viewer's bench and renders with the packet and per-ray
-traversals. No module of the port, and not chip_smoke.py, names the
-JAX package in an import."""
+traversals, and two gloo ranks render it through the scene partition
+(the ranks refuse jax and the JAX package on their own:
+parallel/launch.py); a rank cannot import jax. No module of the port,
+not chip_smoke.py, not a tool of the port and not the ranks' helper
+(tests/torch_dist_ranks.py) names the JAX package in an import."""
 
 import ast
 import glob
@@ -143,6 +146,16 @@ for trav in ("auto", "packet", "perray"):
     films.append(rt.film_hdr())
 print("A15", resumed, fps > 0, os.listdir(cfg.cache_dir)[0][:6],
       all((f == films[0]).all() for f in films))
+# Two gloo ranks (processes of their own, which refuse jax and the JAX
+# package themselves) render cornell through the scene partition.
+sys.path.insert(0, os.path.join(sys.argv[1], "tests"))
+import torch_dist_ranks
+from gpupathtracer_tpu_torch.parallel.launch import run_ranks
+ranks = run_ranks(torch_dist_ranks.renderer_frames, 2, "gloo", "cpu",
+                  args=(torch_dist_ranks.cornell_config(
+                      partition_chips=2).to_json(), 1), timeout_s=240)
+print("A18", len(ranks), all(r["film"].max() > 0 for r in ranks),
+      bool((ranks[0]["film"] == ranks[1]["film"]).all()))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 sys.exit(rc)
@@ -186,6 +199,7 @@ def test_port_renders_without_jax_or_pil(tmp_path):
     assert "TREELET 16 True True" in proc.stdout
     assert "DELTA True 24" in proc.stdout
     assert "A15 True True scene_ True" in proc.stdout
+    assert "A18 2 True True" in proc.stdout
     for out in outs + [wide, delta]:
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
@@ -206,13 +220,16 @@ def test_port_sources_never_import_the_jax_package():
                                           "**", "*.py"), recursive=True))
     paths.append(os.path.join(REPO, "chip_smoke.py"))
     paths += sorted(glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
+    paths.append(os.path.join(REPO, "tests", "torch_dist_ranks.py"))
     names = {os.path.basename(p) for p in paths}
     assert {"tsort.py", "dense_intersect.py", "subpacket_traverse.py",
             "torch_kernel_bench.py", "roofline.py", "torch_roofline.py",
             "torch_mega_profile.py", "torch_bench.py", "reference.py",
             "ao.py", "texture.py", "textures.py", "samplegen.py",
             "gltf.py", "sampler_viz.py", "checkpoint.py", "viewer.py",
-            "debug.py", "cache.py", "packet_traverse.py"} <= names
+            "debug.py", "cache.py", "packet_traverse.py", "comm.py",
+            "mesh.py", "partition.py", "launch.py",
+            "torch_partition_bench.py", "torch_dist_ranks.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
@@ -262,6 +279,12 @@ prof = tool("torch_mega_profile").main(
 print("PROFILE", prof["rays"] > 0, prof["ns_per_pop"] > 0)
 bench = tool("torch_bench").main(["--device", "cpu", "--quick"])
 print("BENCH", sorted(bench["extra"]["rows"]), bench["value"] > 0)
+part = tool("torch_partition_bench").main(
+    ["--device", "cpu", "--scene", "proc:cornell", "--n", "256", "--chips",
+     "2", "--routing", "routed", "--populations", "incoherent,anyhit",
+     "--hardware", "--reps", "1", "--baseline", "--timeout", "240"])
+print("PARTITION", sorted(part["populations"]), part["floor_ms"] > 0,
+      all(p["whole_pops_per_ray"] > 0 for p in part["populations"].values()))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", loaded)
 """
@@ -297,3 +320,21 @@ def test_accounting_tools_run_without_jax():
                                  "sponza_probe_fpair", "sponza_probe_tsort",
                                  "sponza"])
     assert positive == "True"
+    assert ("PARTITION ['incoherent any-hit (tmax=20)', 'incoherent "
+            "closest'] True True") in proc.stdout
+
+
+def test_a_rank_refuses_jax():
+    """parallel/launch.py's ranks refuse jax and the JAX package: a rank
+    that imports jax fails its run, with the refusal in its log."""
+    import pytest
+
+    import torch_dist_ranks
+    from gpupathtracer_tpu_torch.parallel.launch import run_ranks
+    for name in ("jax", "gpupathtracer_tpu.config"):
+        with pytest.raises(RuntimeError, match="is not imported by a rank"):
+            run_ranks(torch_dist_ranks.import_module, 1, "gloo", "cpu",
+                      args=(name,), timeout_s=60)
+    assert run_ranks(torch_dist_ranks.import_module, 1, "gloo", "cpu",
+                     args=("gpupathtracer_tpu_torch.parallel",),
+                     timeout_s=60) == [[]]

@@ -133,6 +133,10 @@ def test_cli_writes_png(tmp_path):
                                   ["--platform", "cpu"],
                                   ["--partition-chips", "2"]])
 def test_cli_rejects_unported_flags(flag):
+    """--platform is not ported (use --device); the --partition-* flags
+    are, but one process cannot run them: the partition needs
+    as many ranks as it names (torchrun), and --partition-samples alone
+    composes over nothing. Each exits with an error."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["proc:cornell", "--device", "cpu", *flag])
     assert exc.value.code != 0
