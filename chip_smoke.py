@@ -273,6 +273,20 @@ nvcc and g++. Phases, each of which raises on failure:
      sum of this process's megakernel calls with the folded keys.
      ``python3 chip_smoke.py --phase19`` runs phase 19 alone (no result
      line).
+ 20. (after phase 19) the image decoders (ROADMAP.md C6): (a) the JPEG
+     decoder built from utils/jpeg_cpp/jpeg.cpp with g++ on this host (its
+     build timed), every committed fixture of tests/golden/images
+     (tools/torch_image_fixtures.py: PIL's encodes, its decodes as PNG
+     twins) decoded bitwise its PNG twin and the manifest's pixel sha256,
+     host ms (median of 5) and MPix/s a fixture beside its twin's PNG
+     decode and the host CPU's model name; (b) the generated town at
+     1280x720, 4 mip levels, 1 spp through the CLI, once with its .mtl on
+     the four JPEG maps and once on their PNG twins: the films bitwise
+     equal; (c) proc:bunny at 1280x720, 1 spp, under the 512x256 JPEG
+     equirect sky and under its PNG twin: bitwise equal; B1's launches
+     of (b) and (c) are counted in the kernels line.
+     ``python3 chip_smoke.py --phase20`` runs phase 20 alone (no result
+     line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2072,7 +2086,15 @@ def build_kernels() -> None:
         _, log = cuda_build.build(*job)
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(jobs)) as pool:
+    def jpeg_build():
+        # Phase 20's JPEG decoder (g++), beside the nvcc builds.
+        from gpupathtracer_tpu_torch.utils import jpeg
+        t0 = time.perf_counter()
+        jpeg._load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        jpeg_secs = pool.submit(jpeg_build)
         for (name, defines), (secs, log) in zip(jobs, pool.map(one, jobs)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}"
                   + (f" {' '.join(defines)}" if defines else "")
@@ -2082,6 +2104,8 @@ def build_kernels() -> None:
             for line in log.splitlines():
                 if "wgmma.mma_async instructions are serialized" in line:
                     print(f"[build]   {line.strip()}")
+        print(f"[build] gpupathtracer_tpu_torch/utils/jpeg_cpp/jpeg.cpp (g++): "
+              f"{jpeg_secs.result():.2f} s")
     hgmma = _sass_count(cuda_build.build("roofline")[0], "mxu_wgmma_kernel",
                         "HGMMA")
     print(f"[build] HGMMA instructions in the SASS of each mxu_wgmma_kernel "
@@ -4232,6 +4256,140 @@ def phase19_alone(device, smi: str, stamp) -> int:
     return 0
 
 
+# --- phase 20: the image decoders (C6) -------------------------------------------
+
+FIXTURES = os.path.join(ROOT, "tests", "golden", "images")
+TOWN_MAPS = ("checker", "bricks", "roof", "foliage")
+
+
+def _host_cpu() -> str:
+    """lscpu's model name and the machine's architecture."""
+    import platform
+
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    for line in out.splitlines():
+        if line.startswith("Model name:"):
+            return f"{line.split(':', 1)[1].strip()} ({platform.machine()})"
+    return f"CPU model not reported ({platform.machine()})"
+
+
+def decode_fixtures(smi: str) -> None:
+    """Phase 20a: the JPEG decoder's build, then every fixture decoded
+    bitwise its PNG twin and the manifest's pixel sha256, with host times
+    (median of 5 decodes after one warm-up)."""
+    import hashlib
+    import statistics
+
+    from gpupathtracer_tpu_torch.utils import io, jpeg
+
+    t0 = time.perf_counter()
+    jpeg._load()
+    print(f"[20a] the JPEG decoder's library loaded in "
+          f"{time.perf_counter() - t0:.2f} s (g++ at first use; the smoke "
+          f"builds it in phase 2)")
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    cpu = _host_cpu()
+    for name, entry in sorted(manifest.items()):
+        with open(os.path.join(FIXTURES, entry["jpeg"]), "rb") as f:
+            jpg = f.read()
+        with open(os.path.join(FIXTURES, entry["png"]), "rb") as f:
+            png = f.read()
+        times = {}
+        for label, fn in (("jpeg", lambda: jpeg.decode_jpeg(jpg, name)),
+                          ("png", lambda: io.decode_png(png, name))):
+            out = fn()
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            times[label] = (out, statistics.median(ts) * 1e3)
+        got, twin = times["jpeg"][0], times["png"][0]
+        if (got.shape != (entry["height"], entry["width"], 3)
+                or got.tobytes() != twin.tobytes()
+                or hashlib.sha256(got.tobytes()).hexdigest()
+                != entry["pixels_sha256"]):
+            raise AssertionError(f"[20a] {name}: the JPEG decode is not its "
+                                 f"PNG twin")
+        ms = times["jpeg"][1]
+        mpix = entry["height"] * entry["width"] / 1e6
+        print(f"[20a] {name} {entry['width']}x{entry['height']} "
+              f"{entry['encoding']}: bitwise its PNG twin; JPEG decode "
+              f"{ms:.3f} ms ({mpix / (ms / 1e3):.1f} MPix/s), PNG twin "
+              f"{times['png'][1]:.3f} ms; host {cpu}; {smi}")
+
+
+def _twin_folders(tmp: str, town: str):
+    """Two copies of the town's folder, the .mtl on the JPEG fixtures in
+    one and on their PNG twins in the other; their OBJ paths."""
+    import shutil
+
+    paths = []
+    for ext in ("jpg", "png"):
+        folder = os.path.join(tmp, f"town_{ext}")
+        os.makedirs(folder, exist_ok=True)
+        shutil.copy(town, folder)
+        for name in TOWN_MAPS:
+            shutil.copy(os.path.join(FIXTURES, f"{name}.{ext}"), folder)
+        with open(os.path.join(os.path.dirname(town), "town.mtl")) as f:
+            mtl = f.read()
+        with open(os.path.join(folder, "town.mtl"), "w") as f:
+            f.write(mtl.replace(".png", f".{ext}"))
+        paths.append(os.path.join(folder, os.path.basename(town)))
+    return paths
+
+
+def render_decoder_path(tmp: str, town: str, smi: str) -> None:
+    """Phases 20b and 20c: the town on its JPEG maps and on their PNG
+    twins, bunny under the JPEG sky and under its PNG twin, each pair of
+    films bitwise equal."""
+    import numpy as np
+
+    jpg_town, png_town = _twin_folders(tmp, town)
+    runs = {}
+    for ext, path in (("jpg", jpg_town), ("png", png_town)):
+        runs[f"town_{ext}"] = ([path, "--width", "1280", "--height", "720",
+                                "--mip-levels", "4", *TOWN_CAMERA], 1)
+        runs[f"bunny_sky_{ext}"] = (["proc:bunny", "--width", "1280",
+                                     "--height", "720", "--skybox",
+                                     os.path.join(FIXTURES, f"sky.{ext}")], 1)
+    t0 = time.perf_counter()
+    stats = render_main_path(tmp, runs)
+    for pair in ("town", "bunny_sky"):
+        a = np.load(os.path.join(tmp, f"{pair}_jpg.npy"))
+        b = np.load(os.path.join(tmp, f"{pair}_png.npy"))
+        if a.tobytes() != b.tobytes():
+            raise AssertionError(f"[20] the {pair} film on JPEG images is "
+                                 f"not bitwise its film on the PNG twins")
+        print(f"[20] {pair}: the film on the JPEG images bitwise the film on "
+              f"their PNG twins ({stats[pair + '_jpg']['triangles']} "
+              f"triangles)")
+    print(f"[20b-c] four CLI renders: {time.perf_counter() - t0:.1f} s")
+    _spp_line(stats, smi)
+
+
+def phase20_alone(device, smi: str, stamp) -> int:
+    """``python3 chip_smoke.py --phase20``: csrc/traverse.cu, then phase
+    20 alone; no kernels line and no result line (a check of phase 20, not
+    the smoke)."""
+    from gpupathtracer_tpu_torch.ops import cuda_build
+    from gpupathtracer_tpu_torch.scene.samplegen import \
+        generate_textured_town
+
+    cuda_build.build("traverse")
+    stamp("build (phase 20's kernel)")
+    decode_fixtures(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        town = generate_textured_town(os.path.join(tmp, "town"))
+        paths = _drive("image decoder path", ("trace_closest",
+                                              "trace_anyhit"),
+                       lambda: render_decoder_path(tmp, town, smi))
+    stamp("phase 20")
+    print(f"[smoke] phase 20 alone: launches of its path {paths}")
+    return 0
+
+
 def _counters():
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -4324,6 +4482,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--phase19"]:
         return phase19_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase20"]:
+        return phase20_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -4467,6 +4627,11 @@ def main() -> int:
         stamp("phase 18")
         new_paths += run_phase19(p19, tmp, device, smi, stamp)
         del p19
+        decode_fixtures(smi)
+        new_paths.append(_drive(
+            "image decoder path", ("trace_closest", "trace_anyhit"),
+            lambda: render_decoder_path(tmp, town, smi)))
+        stamp("phase 20")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -4492,8 +4657,9 @@ def main() -> int:
         # Launches: of the paths that drive the entry point (the renders
         # for the first six: for B1 the wavefront, reference, AO, textured
         # and sun paths, the delta, glTF, image sky, sort_rays /
-        # shadow_rev and ld paths and phase 19's mesh and partition
-        # frames, summed over their ranks; at arity 16 the 16-wide film;
+        # shadow_rev and ld paths, phase 19's mesh and partition frames,
+        # summed over their ranks, and phase 20's JPEG-map and JPEG-sky
+        # films and their PNG twins; at arity 16 the 16-wide film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

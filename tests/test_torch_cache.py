@@ -83,16 +83,40 @@ def town(tmp_path_factory):
                                   houses=2, trees=1, sphere_subdiv=1)
 
 
+@pytest.fixture(scope="module")
+def jpeg_town(tmp_path_factory):
+    """The small town with its four maps swapped for the committed JPEG
+    fixtures (tests/golden/images)."""
+    import shutil
+
+    path = generate_textured_town(str(tmp_path_factory.mktemp("jtown")),
+                                  houses=2, trees=1, sphere_subdiv=1)
+    folder = os.path.dirname(path)
+    for name in ("checker", "bricks", "roof", "foliage"):
+        shutil.copy(os.path.join(REPO, "tests", "golden", "images",
+                                 name + ".jpg"), folder)
+    mtl = os.path.join(folder, "town.mtl")
+    with open(mtl) as f:
+        text = f.read()
+    with open(mtl, "w") as f:
+        f.write(text.replace(".png", ".jpg"))
+    return path
+
+
 @pytest.mark.parametrize("scene,kw", [("proc:table", {}),
                                       ("proc:table", {"cluster_tris": 128}),
-                                      ("town", {"mip_levels": 4})])
-def test_files_read_in_either_direction(scene, kw, town, tmp_path,
+                                      ("town", {"mip_levels": 4}),
+                                      ("jpeg_town", {"mip_levels": 4})])
+def test_files_read_in_either_direction(scene, kw, town, jpeg_town, tmp_path,
                                         monkeypatch):
     """A file the JAX package's load_scene wrote gives the port a SceneData
     bitwise its cold ingest, without building anything (the cluster
     leaves and the treelet cut are packed after the cache); a file the
-    port wrote gives the JAX package its own cold scene's arrays."""
-    cfg = RenderConfig(scene_path=town if scene == "town" else scene,
+    port wrote gives the JAX package its own cold scene's arrays. The
+    JPEG-textured town's atlas (PIL's decode in the JAX package, the port's
+    own decoder) goes through the file in both directions too."""
+    path = {"town": town, "jpeg_town": jpeg_town}.get(scene, scene)
+    cfg = RenderConfig(scene_path=path,
                        cache_dir=str(tmp_path / "jax"), cache_enabled=True,
                        **kw)
     jax_load_scene(_jax(cfg))

@@ -2,8 +2,9 @@
 CPU: load_gltf's meshes and materials byte for byte (.gltf with a data:
 buffer, .gltf with a .bin, .glb, a PNG texture, transmission + ior, a node
 hierarchy), the malformed-file error, merge_meshes, the demo glTF and its
-scene tables; PNG equirect and .txt cubemap skies byte for byte, and the
-images the port's decoder does not read (C6) raising with the file's name.
+scene tables; a JPEG texture's atlas byte for byte; PNG equirect and .txt
+cubemap skies byte for byte, and the images the port's decoders do not
+read (C6) raising with the file's name.
 """
 
 import base64
@@ -203,14 +204,41 @@ def test_gltf_scene_tables_and_film_match_jax(tmp_path):
 
 
 def test_gltf_jpeg_texture_raises(tmp_path):
-    """C6: a JPEG map raises NotImplementedError naming the file, where the
-    JAX package (PIL) reads it; a silent skip would render its constant
-    albedo instead."""
+    """C6, now read: a JPEG base-colour map goes through load_scene into the
+    same atlas, rects, mips and material rows as the JAX package's (PIL);
+    a header with nothing behind it raises ValueError naming the file and
+    is skipped by both packages; a CMYK JPEG map (four components, still
+    unread) raises NotImplementedError naming the file, where a silent skip
+    would render its constant albedo instead."""
+    from test_torch_images import write_unread
+
+    from gpupathtracer_tpu_torch.utils.io import load_image
+
     _write_maps(tmp_path)
-    jpg = tmp_path / "albedo.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 64)
+    rng = np.random.RandomState(4)
+    from PIL import Image
+    Image.fromarray(rng.randint(0, 256, (12, 20, 3)).astype(np.uint8)).save(
+        str(tmp_path / "albedo.jpg"), quality=80)
     path = _write(str(tmp_path), "data", texture_uri="albedo.jpg")
-    with pytest.raises(NotImplementedError, match="albedo.jpg"):
+    scene, meta = load_scene(RenderConfig(scene_path=path), "cpu")
+    jscene, _ = jax_load_scene(JaxRenderConfig(scene_path=path))
+    assert meta.has_textures
+    for f in ("atlas_image", "atlas_rects", "atlas_mips", "mat_rows"):
+        assert getattr(scene, f).numpy().tobytes() == \
+            np.asarray(getattr(jscene, f)).tobytes(), f
+    bad = tmp_path / "bad.jpg"
+    bad.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 64)
+    with pytest.raises(ValueError, match="bad.jpg"):
+        load_image(str(bad))
+    path = _write(str(tmp_path), "data", texture_uri="bad.jpg")
+    scene, _ = load_scene(RenderConfig(scene_path=path), "cpu")
+    jscene, _ = jax_load_scene(JaxRenderConfig(scene_path=path))
+    for f in ("atlas_image", "atlas_rects", "atlas_mips", "mat_rows"):
+        assert getattr(scene, f).numpy().tobytes() == \
+            np.asarray(getattr(jscene, f)).tobytes(), f
+    write_unread(tmp_path)
+    path = _write(str(tmp_path), "data", texture_uri="cmyk.jpg")
+    with pytest.raises(NotImplementedError, match="cmyk.jpg"):
         load_scene(RenderConfig(scene_path=path), "cpu")
 
 
@@ -329,19 +357,28 @@ def test_png_equirect_and_cubemap_match_jax(tmp_path):
 
 
 def test_unread_skies_raise(tmp_path):
-    """C6: a JPEG or EXR sky, and a JPEG cube face, raise
-    NotImplementedError naming the file; a missing file raises
+    """C6: a JPEG sky and JPEG cube faces are read now
+    (tests/test_torch_images.py holds them to JAX's); a JPEG sky or face
+    whose header has nothing behind it raises ValueError naming the file,
+    as PIL raises on it; an EXR sky, a CMYK JPEG sky and a GIF cube face
+    raise NotImplementedError naming the file; a missing file raises
     FileNotFoundError, as the JAX package's PIL loader does."""
+    from test_torch_images import write_unread
+
     jpg = tmp_path / "sky.jpg"
     jpg.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 64)
-    exr = tmp_path / "sky.exr"
-    exr.write_bytes(b"\x76\x2f\x31\x01" + b"\0" * 64)
-    for path in (jpg, exr):
-        with pytest.raises(NotImplementedError, match=str(path)):
-            envmap.environment_image(str(path))
+    with pytest.raises(ValueError, match=str(jpg)):
+        envmap.environment_image(str(jpg))
     (tmp_path / "faces.txt").write_text("sky.jpg\n" * 6)
-    with pytest.raises(NotImplementedError, match=str(jpg)):
+    with pytest.raises(ValueError, match=str(jpg)):
         envmap.environment_image(str(tmp_path / "faces.txt"))
+    unread = write_unread(tmp_path)
+    for name in ("sky.exr", "cmyk.jpg"):
+        with pytest.raises(NotImplementedError, match=unread[name]):
+            envmap.environment_image(unread[name])
+    (tmp_path / "gif_faces.txt").write_text("anim.gif\n" * 6)
+    with pytest.raises(NotImplementedError, match=unread["anim.gif"]):
+        envmap.environment_image(str(tmp_path / "gif_faces.txt"))
     with pytest.raises(FileNotFoundError):
         envmap.environment_image(str(tmp_path / "missing.png"))
     with pytest.raises(FileNotFoundError):

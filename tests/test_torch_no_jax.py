@@ -4,7 +4,8 @@ renders proc:cornell on the CPU to a PNG, with the wavefront integrator,
 with the megakernel, on cluster leaves, with treelet-sorted bounce rays,
 with the reference and AO integrators, a 16-wide table with treelet-binned
 bounce rays, a generated textured town with mips (its maps written and
-read by the port's own PNG code), and a mirror and glass OBJ with the ld
+read by the port's own PNG code, then swapped for the committed JPEG
+fixtures, read by its own JPEG decoder), and a mirror and glass OBJ with the ld
 sampler and light-end shadow rays (and it loads the demo glTF and plots a
 sampler's points), and the PNGs are decoded here with zlib alone; it also
 saves and resumes a checkpoint, reads a scene warm from a temporary disk
@@ -65,6 +66,26 @@ rc = rc or cli.main([town, "--device", "cpu", "--spp", "1", "--width", "16",
                      "--height", "16", "--max-bounces", "2", "--mip-levels",
                      "4", "--position", "0,9,-26", "--rotation",
                      "3.14159,-0.28", "--out", sys.argv[7]])
+# The town again, its maps the committed JPEG fixtures (the port's own JPEG
+# decoder; PIL is refused).
+import os
+import shutil
+fixtures = os.path.join(sys.argv[1], "tests", "golden", "images")
+for name in ("checker", "bricks", "roof", "foliage"):
+    shutil.copy(os.path.join(fixtures, name + ".jpg"), sys.argv[8])
+with open(os.path.join(sys.argv[8], "town.mtl")) as f:
+    mtl = f.read()
+with open(os.path.join(sys.argv[8], "town.mtl"), "w") as f:
+    f.write(mtl.replace(".png", ".jpg"))
+from gpupathtracer_tpu_torch.scene import textures
+_, _, jslots, _ = textures.build_atlas(
+    ["checker.jpg", "bricks.jpg", "roof.jpg", "foliage.jpg"], sys.argv[8])
+rc = rc or cli.main([town, "--device", "cpu", "--spp", "1", "--width", "16",
+                     "--height", "16", "--max-bounces", "2", "--mip-levels",
+                     "4", "--position", "0,9,-26", "--rotation",
+                     "3.14159,-0.28", "--out",
+                     os.path.join(sys.argv[8], "town_jpeg.png")])
+print("JPEGTOWN", sorted(jslots))
 # The treelet-sorted bounce traversal, with the sort forced on at 16x16.
 import math
 from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -200,7 +221,10 @@ def test_port_renders_without_jax_or_pil(tmp_path):
     assert "DELTA True 24" in proc.stdout
     assert "A15 True True scene_ True" in proc.stdout
     assert "A18 2 True True" in proc.stdout
-    for out in outs + [wide, delta]:
+    assert ("JPEGTOWN ['bricks.jpg', 'checker.jpg', 'foliage.jpg', "
+            "'roof.jpg']") in proc.stdout
+    for out in outs + [wide, delta, str(tmp_path / "town" /
+                                        "town_jpeg.png")]:
         img = _read_png(out)
         assert img.shape == (16, 16, 3)
         assert img.max() > 0
@@ -235,6 +259,12 @@ def test_port_sources_never_import_the_jax_package():
            for m in _imported_modules(p)
            if m.split(".")[0] in ("gpupathtracer_tpu", "jax", "jaxlib")]
     assert not bad
+    # Nor PIL (the card's machine has none), but in the tool that writes
+    # the JPEG fixtures with it, which runs beside the JAX package only.
+    no_pil = [p for p in paths
+              if os.path.basename(p) != "torch_image_fixtures.py"]
+    assert not [(os.path.relpath(p, REPO), m) for p in no_pil
+                for m in _imported_modules(p) if m.split(".")[0] == "PIL"]
 
 
 TOOLS = r"""

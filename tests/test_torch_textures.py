@@ -1,5 +1,6 @@
 """The port's textures against the JAX package on the CPU: its PNG decoder
-against PIL (which the JAX package reads images with), the atlas builder,
+against PIL (which the JAX package reads images with; the other decoders
+are in tests/test_torch_images.py), the atlas builder,
 atlas sampling (bilinear and trilinear), textured material instances, the
 generated textured town, its scene tables and its renders (wavefront with
 mips, reference at level 0, and the CLI with --mip-levels)."""
@@ -60,18 +61,47 @@ def _filter_row(ftype, row, prev, bpp):
     return bytes([ftype]) + bytes(out)
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pack_rows(pixels, depth):
+    """[h, w, C] samples -> [h, stride] bytes: uint8 pixels at depth 8 or
+    16 are the row bytes as given (16-bit samples big-endian pairs), uint16
+    pixels at depth 16 are written big-endian, and 1-, 2- and 4-bit samples
+    are packed most significant bits first."""
+    h, w, c = pixels.shape
+    if depth == 16 and pixels.dtype == np.uint16:
+        return pixels.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
+    if depth >= 8:
+        return pixels.reshape(h, w * c)
+    per = 8 // depth
+    vals = pixels.reshape(h, w * c).astype(np.uint8)
+    vals = np.concatenate([vals, np.zeros((h, (-w * c) % per), np.uint8)], 1)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return (vals.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+
+
 def encode_png(pixels, ctype, filters, depth=8, interlace=0, palette=None):
-    """A PNG of ``pixels`` [H, W, C] uint8, row y filtered with
-    ``filters[y % len(filters)]`` (PIL picks its own filters, so the test
-    writes its files itself)."""
-    h, w, bpp = pixels.shape
-    rows = pixels.reshape(h, w * bpp)
-    prev = bytes(w * bpp)
+    """A PNG of ``pixels`` [H, W, C] (see _pack_rows for the sample
+    layouts), row y filtered with ``filters[y % len(filters)]`` (PIL picks
+    its own filters, so the test writes its files itself); interlace=1
+    writes the seven Adam7 passes, each filtered from its own first row,
+    the empty ones left out."""
+    h, w = pixels.shape[:2]
+    bpp = max(1, CHANNELS[ctype] * depth // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
     raw = b""
-    for y in range(h):
-        row = rows[y].tobytes()
-        raw += _filter_row(filters[y % len(filters)], row, prev, bpp)
-        prev = row
+    for x0, y0, dx, dy in passes:
+        sub = pixels[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = _pack_rows(sub, depth)
+        prev = bytes(rows.shape[1])
+        for y in range(rows.shape[0]):
+            row = rows[y].tobytes()
+            raw += _filter_row(filters[y % len(filters)], row, prev, bpp)
+            prev = row
     png = b"\x89PNG\r\n\x1a\n" + _chunk(
         b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
@@ -127,9 +157,13 @@ def test_png_decoder_reads_the_writer_and_pil(tmp_path):
 
 
 def test_unread_images_raise_and_name_the_file(tmp_path):
-    """JPEG, 16-bit and interlaced PNGs raise NotImplementedError naming the
-    file (the JAX package reads them through PIL: ROADMAP.md C), and the
+    """A JPEG, a 16-bit PNG and an interlaced PNG now read bitwise as the
+    JAX package reads them (PIL), also through the atlas builder; what
+    stays unread (a CMYK JPEG, arithmetic and lossless JPEG, EXR, GIF:
+    ROADMAP.md C6) raises NotImplementedError naming the file, and the
     atlas builder lets it through instead of skipping the map."""
+    from test_torch_images import write_unread
+
     jpg = tmp_path / "a.jpg"
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(str(jpg))
     deep = tmp_path / "deep.png"
@@ -138,11 +172,22 @@ def test_unread_images_raise_and_name_the_file(tmp_path):
     laced = tmp_path / "laced.png"
     laced.write_bytes(encode_png(np.zeros((4, 4, 3), np.uint8), 2, [0],
                                  interlace=1))
-    for path in (jpg, deep, laced):
-        with pytest.raises(NotImplementedError, match=path.name):
-            io.load_image(str(path))
-        with pytest.raises(NotImplementedError, match=path.name):
-            textures.build_atlas([path.name], str(tmp_path))
+    read = [jpg.name, deep.name, laced.name]
+    for name in read:
+        path = str(tmp_path / name)
+        assert io.load_image(path).tobytes() == \
+            jax_io.load_image(path).tobytes(), name
+    got = textures.build_atlas(read, str(tmp_path))
+    want = jax_textures.build_atlas(read, str(tmp_path))
+    assert got[2] == want[2] and len(got[2]) == 3
+    assert got[0].tobytes() == want[0].tobytes()
+    unread = write_unread(tmp_path)
+    for name in ("cmyk.jpg", "arith.jpg", "lossless.jpg", "sky.exr",
+                 "anim.gif"):
+        with pytest.raises(NotImplementedError, match=name):
+            io.load_image(unread[name])
+        with pytest.raises(NotImplementedError, match=name):
+            textures.build_atlas([name], str(tmp_path))
 
 
 # --- the atlas ---------------------------------------------------------------
