@@ -287,6 +287,21 @@ nvcc and g++. Phases, each of which raises on failure:
      of (b) and (c) are counted in the kernels line.
      ``python3 chip_smoke.py --phase20`` runs phase 20 alone (no result
      line).
+ 21. (after phase 20) the image formats beside JPEG (ROADMAP.md C6): (a)
+     utils/codecs_cpp/codecs.cpp built with g++ on this host (built in
+     phase 2 beside nvcc; the load timed here), then every committed
+     fixture of tests/golden/images that phase 20 does not decode (DDS
+     uncompressed and BC1, BC3, BC4, BC5, BC6H UF16 / SF16, BC7; TIFF LZW
+     and tiled Deflate; PSD RLE; BMP; GIF; CMYK and YCCK JPEG) decoded
+     bitwise its PNG twin and the manifest's pixel sha256, host ms
+     (median of 5) and MPix/s a fixture beside its twin's PNG decode;
+     (b) the generated town at 1280x720, 4 mip levels, 1 spp through the
+     CLI, its .mtl on lossless re-encodings of phase 20's PNG twins
+     (checker TIFF LZW, bricks PSD RLE, roof uncompressed DDS, foliage
+     BMP): the film bitwise phase 20b's PNG-twin film (rendered here too
+     when phase 21 runs alone); B1's launches of (b) are counted in the
+     kernels line. ``python3 chip_smoke.py --phase21`` runs phase 21 alone
+     (no result line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2086,15 +2101,17 @@ def build_kernels() -> None:
         _, log = cuda_build.build(*job)
         return time.perf_counter() - t0, log
 
-    def jpeg_build():
-        # Phase 20's JPEG decoder (g++), beside the nvcc builds.
-        from gpupathtracer_tpu_torch.utils import jpeg
+    def host_build(module):
+        # Phase 20's JPEG decoder and phase 21's codecs (g++), beside the
+        # nvcc builds.
         t0 = time.perf_counter()
-        jpeg._load()
+        module._load()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(jobs) + 1) as pool:
-        jpeg_secs = pool.submit(jpeg_build)
+    from gpupathtracer_tpu_torch.utils import codecs, jpeg
+    with ThreadPoolExecutor(len(jobs) + 2) as pool:
+        jpeg_secs = pool.submit(host_build, jpeg)
+        codecs_secs = pool.submit(host_build, codecs)
         for (name, defines), (secs, log) in zip(jobs, pool.map(one, jobs)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}"
                   + (f" {' '.join(defines)}" if defines else "")
@@ -2106,6 +2123,8 @@ def build_kernels() -> None:
                     print(f"[build]   {line.strip()}")
         print(f"[build] gpupathtracer_tpu_torch/utils/jpeg_cpp/jpeg.cpp (g++): "
               f"{jpeg_secs.result():.2f} s")
+        print(f"[build] gpupathtracer_tpu_torch/utils/codecs_cpp/codecs.cpp "
+              f"(g++): {codecs_secs.result():.2f} s")
     hgmma = _sass_count(cuda_build.build("roofline")[0], "mxu_wgmma_kernel",
                         "HGMMA")
     print(f"[build] HGMMA instructions in the SASS of each mxu_wgmma_kernel "
@@ -4260,6 +4279,9 @@ def phase19_alone(device, smi: str, stamp) -> int:
 
 FIXTURES = os.path.join(ROOT, "tests", "golden", "images")
 TOWN_MAPS = ("checker", "bricks", "roof", "foliage")
+# Phase 20a's fixtures (the JPEGs of slice 18); phase 21a decodes the rest.
+PHASE20_FIXTURES = ("bricks", "checker", "foliage", "grey", "map1024", "roof",
+                    "sky")
 
 
 def _host_cpu() -> str:
@@ -4290,8 +4312,9 @@ def decode_fixtures(smi: str) -> None:
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     cpu = _host_cpu()
-    for name, entry in sorted(manifest.items()):
-        with open(os.path.join(FIXTURES, entry["jpeg"]), "rb") as f:
+    for name in PHASE20_FIXTURES:
+        entry = manifest[name]
+        with open(os.path.join(FIXTURES, entry["file"]), "rb") as f:
             jpg = f.read()
         with open(os.path.join(FIXTURES, entry["png"]), "rb") as f:
             png = f.read()
@@ -4390,6 +4413,125 @@ def phase20_alone(device, smi: str, stamp) -> int:
     return 0
 
 
+# --- phase 21: the image formats beside JPEG (C6) ----------------------------
+
+# The town's maps as lossless re-encodings of phase 20's PNG twins.
+TOWN_FORMATS = {"checker": "tif", "bricks": "psd", "roof": "dds",
+                "foliage": "bmp"}
+
+
+def decode_formats(smi: str) -> None:
+    """Phase 21a: the codecs library's load, then every fixture phase 20a
+    does not decode, bitwise its PNG twin and the manifest's pixel
+    sha256, with host times (median of 5 decodes after one warm-up)."""
+    import hashlib
+    import statistics
+
+    from gpupathtracer_tpu_torch.utils import codecs, io
+
+    t0 = time.perf_counter()
+    codecs._load()
+    print(f"[21a] the codecs library loaded in {time.perf_counter() - t0:.2f}"
+          f" s (g++ at first use; the smoke builds it in phase 2)")
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    cpu = _host_cpu()
+    names = sorted(set(manifest) - set(PHASE20_FIXTURES))
+    if not names:
+        raise AssertionError("[21a] no fixtures beside phase 20's")
+    for name in names:
+        entry = manifest[name]
+        with open(os.path.join(FIXTURES, entry["file"]), "rb") as f:
+            data = f.read()
+        with open(os.path.join(FIXTURES, entry["png"]), "rb") as f:
+            png = f.read()
+        times = {}
+        for label, fn in (("file", lambda: io.decode_image(data, name)),
+                          ("png", lambda: io.decode_png(png, name))):
+            out = fn()
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            times[label] = (out, statistics.median(ts) * 1e3)
+        got, twin = times["file"][0], times["png"][0]
+        if (got.shape != (entry["height"], entry["width"], 3)
+                or got.tobytes() != twin.tobytes()
+                or hashlib.sha256(got.tobytes()).hexdigest()
+                != entry["pixels_sha256"]):
+            raise AssertionError(f"[21a] {name}: the {entry['format']} decode "
+                                 f"is not its PNG twin")
+        ms = times["file"][1]
+        mpix = entry["height"] * entry["width"] / 1e6
+        print(f"[21a] {name} {entry['format']} {entry['width']}x"
+              f"{entry['height']} ({entry['encoding']}): bitwise its PNG "
+              f"twin; decode {ms:.3f} ms ({mpix / (ms / 1e3):.1f} MPix/s), "
+              f"PNG twin {times['png'][1]:.3f} ms; host {cpu}; {smi}")
+
+
+def render_formats_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 21b: the town on lossless TIFF / PSD / DDS / BMP re-encodings
+    of its PNG-twin maps, bitwise phase 20b's film on the PNG twins (that
+    film rendered here when phase 20 did not run in this process)."""
+    import shutil
+
+    import numpy as np
+
+    folder = os.path.join(tmp, "town_formats")
+    os.makedirs(folder, exist_ok=True)
+    shutil.copy(town, folder)
+    with open(os.path.join(os.path.dirname(town), "town.mtl")) as f:
+        mtl = f.read()
+    for name, ext in TOWN_FORMATS.items():
+        shutil.copy(os.path.join(FIXTURES, f"{name}.{ext}"), folder)
+        mtl = mtl.replace(f"{name}.png", f"{name}.{ext}")
+    with open(os.path.join(folder, "town.mtl"), "w") as f:
+        f.write(mtl)
+    args = ["--width", "1280", "--height", "720", "--mip-levels", "4",
+            *TOWN_CAMERA]
+    runs = {"town_formats": ([os.path.join(folder, os.path.basename(town)),
+                              *args], 1)}
+    twin = os.path.join(tmp, "town_png.npy")
+    if not os.path.exists(twin):
+        _, png_town = _twin_folders(tmp, town)
+        runs["town_png"] = ([png_town, *args], 1)
+    t0 = time.perf_counter()
+    stats = render_main_path(tmp, runs)
+    a = np.load(os.path.join(tmp, "town_formats.npy"))
+    b = np.load(twin)
+    if a.tobytes() != b.tobytes():
+        raise AssertionError("[21b] the town film on TIFF / PSD / DDS / BMP "
+                             "maps is not bitwise its film on the PNG twins")
+    print(f"[21b] town: the film on TIFF LZW / PSD RLE / DDS / BMP maps "
+          f"bitwise the film on their PNG twins "
+          f"({stats['town_formats']['triangles']} triangles); "
+          f"{len(runs)} CLI render(s): {time.perf_counter() - t0:.1f} s")
+    _spp_line(stats, smi)
+
+
+def phase21_alone(device, smi: str, stamp) -> int:
+    """``python3 chip_smoke.py --phase21``: csrc/traverse.cu, then phase
+    21 alone (its town also on the PNG twins); no kernels line and no
+    result line."""
+    from gpupathtracer_tpu_torch.ops import cuda_build
+    from gpupathtracer_tpu_torch.scene.samplegen import \
+        generate_textured_town
+
+    cuda_build.build("traverse")
+    stamp("build (phase 21's kernel)")
+    decode_formats(smi)
+    stamp("phase 21a")
+    with tempfile.TemporaryDirectory() as tmp:
+        town = generate_textured_town(os.path.join(tmp, "town"))
+        paths = _drive("image formats path", ("trace_closest",
+                                              "trace_anyhit"),
+                       lambda: render_formats_path(tmp, town, smi))
+    stamp("phase 21")
+    print(f"[smoke] phase 21 alone: launches of its path {paths}")
+    return 0
+
+
 def _counters():
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -4484,6 +4626,8 @@ def main() -> int:
         return phase19_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase20"]:
         return phase20_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase21"]:
+        return phase21_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -4632,6 +4776,11 @@ def main() -> int:
             "image decoder path", ("trace_closest", "trace_anyhit"),
             lambda: render_decoder_path(tmp, town, smi)))
         stamp("phase 20")
+        decode_formats(smi)
+        new_paths.append(_drive(
+            "image formats path", ("trace_closest", "trace_anyhit"),
+            lambda: render_formats_path(tmp, town, smi)))
+        stamp("phase 21")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -4658,8 +4807,9 @@ def main() -> int:
         # for the first six: for B1 the wavefront, reference, AO, textured
         # and sun paths, the delta, glTF, image sky, sort_rays /
         # shadow_rev and ld paths, phase 19's mesh and partition frames,
-        # summed over their ranks, and phase 20's JPEG-map and JPEG-sky
-        # films and their PNG twins; at arity 16 the 16-wide film;
+        # summed over their ranks, phase 20's JPEG-map and JPEG-sky
+        # films and their PNG twins, and phase 21's town on TIFF / PSD /
+        # DDS / BMP maps; at arity 16 the 16-wide film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

@@ -5,7 +5,8 @@ byte).
 Packs all referenced material images into one atlas with simple shelf
 packing. Returns the atlas image, per-slot rectangles, and the path->slot
 mapping consumed by pack_materials. Images are read by the port's own
-decoder (utils/io.py load_image: 8-bit PNG and .hdr).
+decoders (utils/io.py load_image: PNG, JPEG, BMP, TGA, GIF, TIFF, DDS,
+PSD and .hdr, each bitwise PIL's).
 """
 
 from __future__ import annotations
@@ -54,9 +55,11 @@ def build_atlas(paths: List[str], base_dir: str = ".",
         try:
             img = load_image(full)
         except NotImplementedError:
-            # A format the port's decoder does not read (JPEG, 16-bit or
-            # interlaced PNG) raises: skipping it would render what the
-            # JAX package, which reads it through PIL, does not.
+            # A format PIL reads and the port does not yet (WebP, JPEG 2000,
+            # ...: ROADMAP.md C6) raises: skipping it would render what the
+            # JAX package, which reads it through PIL, does not. Bytes PIL
+            # cannot read raise ValueError and are skipped below, as JAX
+            # skips them.
             raise
         except Exception:
             continue

@@ -1,0 +1,86 @@
+"""ctypes binding for utils/codecs_cpp/codecs.cpp (built with g++ at first
+use, utils/native.py): the BCn block decoders of DDS, GIF's and TIFF's LZW
+and PackBits. Corrupt or short input raises ValueError naming the file."""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import numpy as np
+
+from gpupathtracer_tpu_torch.utils import native
+
+_SRC = os.path.join(os.path.dirname(__file__), "codecs_cpp", "codecs.cpp")
+_lib: Optional[ctypes.CDLL] = None
+
+# gpt_bcn_decode's formats.
+BC1, BC2, BC3, BC4, BC5, BC5S, BC6H, BC6HS, BC7 = range(1, 10)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = native.load(_SRC, "codecs")
+        for fn, res, args in (
+                ("gpt_bcn_decode", ctypes.c_int,
+                 [ctypes.c_char_p, _I64, _I32, _I32, _I32, _P]),
+                ("gpt_gif_lzw", _I64,
+                 [ctypes.c_char_p, _I64, _I32, _P, _I32, _I32, _I32, _I32,
+                  _I32, _I32]),
+                ("gpt_tiff_lzw", _I64, [ctypes.c_char_p, _I64, _P, _I64]),
+                ("gpt_packbits", _I64,
+                 [ctypes.c_char_p, _I64, _P, _I64, _I64, _I32])):
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = res, args
+        _lib = lib
+    return _lib
+
+
+def bcn(blocks: bytes, w: int, h: int, fmt: int, name: str) -> np.ndarray:
+    """BCn blocks, row-major over ceil(h/4) x ceil(w/4) blocks -> uint8
+    [h, w, 3] (BC4 grey in all three channels, BC5's blue 0)."""
+    out = np.zeros((h, w, 3), np.uint8)
+    if h and w and _load().gpt_bcn_decode(blocks, len(blocks), w, h, fmt,
+                                          out.ctypes.data):
+        raise ValueError(f"{name}: truncated block-compressed data")
+    return out
+
+
+def gif_lzw(data: bytes, bits: int, frame: np.ndarray, x0: int, y0: int,
+            w: int, h: int, interlace: bool) -> int:
+    """GIF image data (from the first sub-block's size byte on; LZW, LSB
+    first, code size ``bits``) into ``frame`` [H, W] uint8 at (x0, y0),
+    w x h, rows interlaced in GIF's four passes if asked. Returns 0 once
+    the frame is full, 1 if the data ends first, -1 for a code past the
+    table, -2 for a bad code size."""
+    return _load().gpt_gif_lzw(data, len(data), bits, frame.ctypes.data,
+                               frame.shape[1], x0, y0, w, h, int(interlace))
+
+
+def tiff_lzw(data: bytes, size: int) -> bytes:
+    """One TIFF LZW strip or tile (MSB first, early change) -> up to
+    ``size`` bytes; -1 for a corrupt table."""
+    out = np.zeros(size, np.uint8)
+    n = _load().gpt_tiff_lzw(data, len(data), out.ctypes.data, size)
+    if n < 0:
+        raise ValueError("corrupt LZW data")
+    return out[:n].tobytes()
+
+
+def packbits(data: bytes, rows: int, row_bytes: int,
+             libtiff: bool = False) -> tuple:
+    """PackBits -> (rows * row_bytes bytes, bytes consumed). A run past a
+    row's end is cut there, as PIL's decoder cuts it; ``libtiff``: one
+    row of a whole strip, a literal cut at its end needing only the bytes
+    it copies, as libtiff decodes a strip. -1 bytes consumed when the
+    data ends first."""
+    out = np.zeros(rows * row_bytes, np.uint8)
+    used = _load().gpt_packbits(data, len(data), out.ctypes.data, rows,
+                                row_bytes, int(libtiff))
+    return out.tobytes(), int(used)

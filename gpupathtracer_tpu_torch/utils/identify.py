@@ -1,0 +1,352 @@
+"""Which of PIL's image plugins opens a file, decided as Pillow 12.1.0's
+``Image.open`` decides it: the plugins in ``Image.ID`` order (the preinit
+five, BMP, DIB, GIF, JPEG, PPM and PNG, then the rest as ``Image.init``
+registers them), each first by its ``_accept(prefix)`` test on the first
+16 bytes, then by the header checks of its ``_open``. A plugin whose
+``_open`` raises SyntaxError (or reads past the end: IndexError,
+struct.error) passes the file on to the next; any other exception stops
+PIL there, and so does an opened image with no mode or no pixels.
+
+``identify`` returns the plugin's format name, and raises ValueError
+naming the file where PIL would fail to open it or where no plugin
+accepts it ("cannot identify image file"). The header checks are copied
+for the plugins the port reads and for those without an accept test (IM,
+IMT, IPTC, PCD, SPIDER, TGA); for the rest the accept test decides, and a
+few header checks of PCX, GBR and WMF are copied besides.
+"""
+
+from __future__ import annotations
+
+import re
+import struct
+
+# Formats PIL opens but cannot load here (stubs; MPEG identifies only;
+# EPS needs Ghostscript, WMF Windows).
+CANNOT_LOAD = ("BUFR", "GRIB", "HDF5", "MPEG", "EPS", "WMF")
+
+
+class Refused(Exception):
+    """PIL's _open raised something other than SyntaxError: it stops."""
+
+
+def _u16le(d, o):
+    return struct.unpack_from("<H", d, o)[0]
+
+
+def _u32le(d, o):
+    return struct.unpack_from("<I", d, o)[0]
+
+
+def _u32be(d, o):
+    return struct.unpack_from(">I", d, o)[0]
+
+
+# --- accept tests (each plugin's _accept) ------------------------------------
+
+def _bmp(p):
+    return p.startswith(b"BM")
+
+
+def _dib(p):
+    return len(p) >= 4 and _u32le(p, 0) in (12, 40, 52, 56, 64, 108, 124)
+
+
+def _gif(p):
+    return p.startswith((b"GIF87a", b"GIF89a"))
+
+
+def _jpeg(p):
+    return p.startswith(b"\xff\xd8\xff")
+
+
+def _ppm(p):
+    return len(p) >= 2 and p.startswith(b"P") and p[1] in b"0123456fy"
+
+
+def _png(p):
+    return p.startswith(b"\x89PNG\r\n\x1a\n")
+
+
+def _avif(p):
+    return p[4:8] == b"ftyp" and p[8:12] in (
+        b"avif", b"avis", b"mif1", b"msf1")
+
+
+def _starts(*magics):
+    return lambda p: p.startswith(magics)
+
+
+def _pcx(p):
+    return len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5)
+
+
+def _dcx(p):
+    return len(p) >= 4 and _u32le(p, 0) == 987654321
+
+
+def _eps(p):
+    return p.startswith(b"%!PS") or (len(p) >= 4
+                                     and _u32le(p, 0) == 0xC6D3D0C5)
+
+
+def _fli(p):
+    return (len(p) >= 16 and _u16le(p, 4) in (0xAF11, 0xAF12)
+            and _u16le(p, 14) in (0, 3))
+
+
+def _gbr(p):
+    return len(p) >= 8 and _u32be(p, 0) >= 20 and _u32be(p, 4) in (1, 2)
+
+
+def _grib(p):
+    return len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1
+
+
+def _tiff(p):
+    return p.startswith((b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
+                         b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"))
+
+
+def _sgi(p):
+    return len(p) >= 2 and struct.unpack_from(">H", p, 0)[0] == 474
+
+
+def _sun(p):
+    return len(p) >= 4 and _u32be(p, 0) == 0x59A66A95
+
+
+def _webp(p):
+    return (p.startswith(b"RIFF") and p[8:12] == b"WEBP"
+            and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"))
+
+
+def _xbm(p):
+    return p.lstrip().startswith(b"#define")
+
+
+def _always(p):
+    return True
+
+
+# --- header checks of _open: True opens, False passes on, Refused stops ------
+
+def _probe_bmp(d):
+    if len(d) < 18:
+        return False                    # struct.error reading the header
+    hsize = _u32le(d, 14)
+    if hsize not in (12, 40, 52, 56, 64, 108, 124):
+        raise Refused(f"BMP header of {hsize} bytes")
+    if len(d) < 14 + hsize:
+        raise Refused("truncated BMP header")
+    if hsize == 12:
+        w, h = _u16le(d, 18), _u16le(d, 20)
+    else:
+        w, h = struct.unpack_from("<ii", d, 18)
+        if d[14 + 4 + 7] == 0xFF:       # PIL's y_flip
+            h = 2 ** 32 - (h & 0xFFFFFFFF)
+    return w > 0 and h > 0
+
+
+def _probe_cur(d):
+    """CurImagePlugin: the largest of its entries, then a BMP header at
+    the entry's offset (a TGA of type 2 starts with CUR's magic bytes)."""
+    m = b""
+    for i in range(_u16le(d, 4)):
+        s = d[6 + 16 * i:22 + 16 * i]
+        if not m:
+            m = s
+        elif s[0] > m[0] and s[1] > m[1]:
+            m = s
+    if not m:
+        return False                    # TypeError: no cursors
+    hsize = _u32le(d, _u32le(m, 12))
+    if hsize not in (12, 40, 52, 56, 64, 108, 124):
+        raise Refused(f"BMP header of {hsize} bytes")
+    return True
+
+
+def _probe_psd(d):
+    return len(d) >= 26 and struct.unpack_from(">H", d, 4)[0] == 1
+
+
+def _probe_tga(d):
+    if len(d) < 18:
+        return False
+    w, h = _u16le(d, 12), _u16le(d, 14)
+    if d[1] not in (0, 1) or w <= 0 or h <= 0 or d[16] not in (1, 8, 16, 24,
+                                                               32):
+        return False
+    if d[2] not in (1, 2, 3, 9, 10, 11):
+        return False
+    if d[1] and d[7] not in (16, 24, 32):
+        return False                    # "unknown TGA map depth"
+    return True
+
+
+def _probe_pcx(d):
+    if len(d) < 12:
+        return False
+    x0, y0, x1, y1 = struct.unpack_from("<4H", d, 4)
+    return x1 + 1 > x0 and y1 + 1 > y0
+
+
+def _probe_gbr(d):
+    if len(d) < 20:
+        return False
+    hsize, version, w, h, depth = struct.unpack_from(">5I", d, 0)
+    if hsize < 20 or version not in (1, 2) or w <= 0 or h <= 0 or (
+            depth not in (1, 4)):
+        return False
+    return version == 1 or d[20:24] == b"GIMP"
+
+
+def _probe_wmf(d):
+    if d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00"):
+        return True
+    return d[40:44] == b" EMF"
+
+
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = (b"Comment", b"Date", b"Digitalization equipment",
+            b"File size (no of images)", b"Lut", b"Name",
+            b"Scale (x,y)", b"Image size (x*y)", b"Image type")
+
+
+def _probe_im(d):
+    """ImImagePlugin: "Key: value" lines up to a 0 or 0x1A byte, at least
+    one of them a known key, then the 0x1A that starts the data."""
+    if b"\n" not in d[:100]:
+        return False
+    pos, known = 0, 0
+    while pos < len(d):
+        c = d[pos:pos + 1]
+        if c == b"\r":
+            pos += 1
+            continue
+        if c in (b"\0", b"\x1a"):
+            break
+        nl = d.find(b"\n", pos + 1)
+        end = len(d) if nl < 0 else nl + 1
+        line = d[pos:end]
+        pos = end
+        if len(line) > 100:
+            return False
+        line = line[:-2] if line.endswith(b"\r\n") else (
+            line[:-1] if line.endswith(b"\n") else line)
+        m = _IM_LINE.match(line)
+        if not m:
+            return False
+        known += m.group(1) in _IM_TAGS
+    if not known:
+        return False
+    return d.find(b"\x1a", pos) >= 0
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _probe_imt(d):
+    """ImtImagePlugin: "width N", "height N" and "pixel n8" lines before
+    a form feed; PIL needs the mode and a size above 0."""
+    if b"\n" not in d[:100]:
+        return False
+    w = h = 0
+    mode = False
+    for line in d.split(b"\x0c", 1)[0].split(b"\n"):
+        if len(line) == 0 or len(line) > 99:
+            break
+        if line[:1] == b"*":
+            continue
+        m = _IMT_FIELD.match(line)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        try:
+            if k == b"width":
+                w = int(v)
+            elif k == b"height":
+                h = int(v)
+        except ValueError as e:
+            raise Refused(str(e)) from e
+        if k == b"pixel" and v == b"n8":
+            mode = True
+    return mode and w > 0 and h > 0
+
+
+def _probe_iptc(d):
+    return len(d) >= 5 and d[0] == 0x1C and d[1] in (1, 2, 3, 4, 5, 6, 7, 8,
+                                                     9, 240)
+
+
+def _probe_pcd(d):
+    return d[2048:2052] == b"PCD_"
+
+
+def _spider_header(t):
+    h = (99,) + t
+    for i in (1, 2, 5, 12, 13, 22, 23):
+        v = h[i]
+        if v != v or v in (float("inf"), float("-inf")) or v != int(v):
+            return False
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+        return False
+    return int(h[22]) == int(h[13]) * int(h[23])
+
+
+def _probe_spider(d):
+    if len(d) < 108:
+        return False
+    return (_spider_header(struct.unpack_from(">27f", d, 0))
+            or _spider_header(struct.unpack_from("<27f", d, 0)))
+
+
+# (format, accept, probe) in Image.ID order.
+PLUGINS = (
+    ("BMP", _bmp, _probe_bmp), ("DIB", _dib, None), ("GIF", _gif, None),
+    ("JPEG", _jpeg, None), ("PPM", _ppm, None), ("PNG", _png, None),
+    ("AVIF", _avif, None), ("BLP", _starts(b"BLP1", b"BLP2"), None),
+    ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
+    ("CUR", _starts(b"\0\0\2\0"), _probe_cur), ("PCX", _pcx, _probe_pcx),
+    ("DCX", _dcx, None), ("DDS", _starts(b"DDS "), None),
+    ("EPS", _eps, None), ("FITS", _starts(b"SIMPLE"), None),
+    ("FLI", _fli, None), ("FTEX", _starts(b"FTEX"), None),
+    ("GBR", _gbr, _probe_gbr), ("GRIB", _grib, None),
+    ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), None),
+    ("JPEG2000", _starts(b"\xff\x4f\xff\x51",
+                         b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
+    ("ICNS", _starts(b"icns"), None), ("ICO", _starts(b"\0\0\1\0"), None),
+    ("IM", _always, _probe_im), ("IMT", _always, _probe_imt),
+    ("IPTC", _always, _probe_iptc),
+    ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None),
+    ("MPEG", _starts(b"\x00\x00\x01\xb3"), None), ("TIFF", _tiff, None),
+    ("MSP", _starts(b"DanM", b"LinS"), None), ("PCD", _always, _probe_pcd),
+    ("PIXAR", _starts(b"\200\350\000\000"), None),
+    ("PSD", _starts(b"8BPS"), _probe_psd), ("QOI", _starts(b"qoif"), None),
+    ("SGI", _sgi, None), ("SPIDER", _always, _probe_spider),
+    ("SUN", _sun, None), ("TGA", _always, _probe_tga),
+    ("WEBP", _webp, None),
+    ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"),
+     _probe_wmf),
+    ("XBM", _xbm, None), ("XPM", _starts(b"/* XPM */"), None),
+    ("XVTHUMB", _starts(b"P7 332"), None),
+)
+
+
+def identify(data: bytes, name: str = "<image>") -> str:
+    """The format name of the PIL plugin that opens ``data``; ValueError
+    naming ``name`` where PIL cannot open it."""
+    prefix = data[:16]
+    for fmt, accept, probe in PLUGINS:
+        if not accept(prefix):
+            continue
+        try:
+            if probe is None or probe(data):
+                return fmt
+        except Refused as e:
+            raise ValueError(f"{name}: PIL's {fmt} plugin refuses the file "
+                             f"({e})") from e
+        except (IndexError, struct.error):
+            continue
+    raise ValueError(f"{name}: no image format identifies the file (PIL: "
+                     f"cannot identify image file; first bytes "
+                     f"{data[:8]!r})")

@@ -1,7 +1,8 @@
-"""Image I/O without third-party imaging packages: a PNG writer, readers
-for PNG, JPEG (utils/jpeg.py, a native decoder), TGA and BMP that give
-what the JAX package gets from PIL bit for bit, and the Radiance .hdr
-reader of the JAX package's utils/io.py."""
+"""Image I/O without third-party imaging packages: a PNG writer, the
+entry point of the image readers (decode_image: the format told as PIL
+tells it, utils/identify.py), the PNG, TGA and BMP readers, PIL's CMYK to
+RGB, and the Radiance .hdr reader of the JAX package's utils/io.py. Every
+reader gives what the JAX package gets from PIL, bit for bit."""
 
 from __future__ import annotations
 
@@ -45,14 +46,10 @@ def save_png(path: str, image: np.ndarray, flip_y: bool = False) -> str:
 
 def load_image(path: str) -> np.ndarray:
     """Load an image to float32 [H, W, 3], as the JAX package's PIL
-    ``Image.open(path).convert("RGB")`` / 255 reads it, bit for bit: PNG
-    (every colour type, bit depth and interlace), JPEG (baseline and
-    progressive Huffman, utils/jpeg.py), TGA and BMP; a .hdr file (by its
-    name, as the JAX package) as linear floats. The format is told by the
-    file's first bytes, as PIL tells it; other formats (GIF, TIFF, WebP,
-    DDS, PSD, EXR, ...) and the JPEG variants the decoder does not read
-    raise NotImplementedError naming the file (ROADMAP.md C6); corrupt
-    files raise ValueError."""
+    ``Image.open(path).convert("RGB")`` / 255 reads it, bit for bit; a
+    .hdr file (by its name, as the JAX package) as linear floats. The
+    format is told as PIL tells it (utils/identify.py); see decode_image
+    for the formats read and what raises."""
     if path.lower().endswith(".hdr"):
         return load_hdr(path)
     with open(path, "rb") as f:
@@ -61,33 +58,53 @@ def load_image(path: str) -> np.ndarray:
 
 
 def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
-    """Decode an image file's bytes to uint8 [H, W, 3] RGB by its magic
-    bytes (load_image's formats)."""
-    if data.startswith(_PNG_MAGIC):
-        return decode_png(data, name)
-    if data.startswith(b"\xff\xd8\xff"):
-        from gpupathtracer_tpu_torch.utils.jpeg import decode_jpeg
-        return decode_jpeg(data, name)
-    if data.startswith(b"BM") and len(data) >= 26:
-        return decode_bmp(data, name)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise NotImplementedError(
-            f"{name}: a WebP image (not read: ROADMAP.md C6)")
-    for magic, fmt in _UNREAD:
-        if data.startswith(magic):
-            raise NotImplementedError(
-                f"{name}: a {fmt} image (not read: ROADMAP.md C6)")
-    if _looks_like_tga(data):
-        return decode_tga(data, name)
+    """Decode an image file's bytes to uint8 [H, W, 3] RGB, bit for bit
+    PIL's ``convert("RGB")``.
+
+    The format is the one PIL's ``Image.open`` would pick
+    (utils/identify.py). Read: PNG (every depth, Adam7), JPEG (utils/
+    jpeg.py: baseline, progressive, 1, 3 or 4 components), BMP (raw,
+    RLE4, RLE8, bit fields; Windows and OS/2 headers), TGA, GIF (utils/
+    gif.py), TIFF (utils/tiff.py), DDS (utils/dds.py: BC1-BC7) and PSD
+    (utils/psd.py). A format PIL reads and the port does not yet read
+    (WebP, JPEG 2000, AVIF, PPM, ICO, QOI, ...; ROADMAP.md C6) raises
+    NotImplementedError naming the file and the format. Bytes PIL cannot
+    open or cannot load (no plugin accepts them, a corrupt or truncated
+    file, the stub plugins) raise ValueError naming the file: the atlas
+    builder skips such a map, as the JAX package's does."""
+    from gpupathtracer_tpu_torch.utils.identify import CANNOT_LOAD, identify
+
+    fmt = identify(data, name)
+    reader = _readers().get(fmt)
+    if reader is not None:
+        return reader(data, name)
+    if fmt in CANNOT_LOAD:
+        raise ValueError(f"{name}: PIL identifies a {fmt} file but cannot "
+                         f"load it")
     raise NotImplementedError(
-        f"{name}: an image format the port does not read (first bytes "
-        f"{data[:8]!r}; ROADMAP.md C6)")
+        f"{name}: a {fmt} image (PIL reads it; the port does not: "
+        f"ROADMAP.md C6)")
 
 
-# Magic bytes of formats the port does not read (ROADMAP.md C6).
-_UNREAD = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"II*\x00", "TIFF"),
-           (b"MM\x00*", "TIFF"), (b"DDS ", "DDS"), (b"8BPS", "PSD"),
-           (b"\x76\x2f\x31\x01", "OpenEXR"))
+def _readers() -> dict:
+    from gpupathtracer_tpu_torch.utils.dds import decode_dds
+    from gpupathtracer_tpu_torch.utils.gif import decode_gif
+    from gpupathtracer_tpu_torch.utils.jpeg import decode_jpeg
+    from gpupathtracer_tpu_torch.utils.psd import decode_psd
+    from gpupathtracer_tpu_torch.utils.tiff import decode_tiff
+    return {"PNG": decode_png, "JPEG": decode_jpeg, "BMP": decode_bmp,
+            "TGA": decode_tga, "GIF": decode_gif, "TIFF": decode_tiff,
+            "DDS": decode_dds, "PSD": decode_psd}
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB (Convert.c cmyk2rgb): each channel
+    255 - k - c * (255 - k) / 255 with PIL's rounded division, clipped;
+    uint8 [..., 4] -> uint8 [..., 3]."""
+    nk = 255 - cmyk[..., 3:4].astype(np.int32)
+    t = cmyk[..., :3].astype(np.int32) * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
 
 # PIL's Image.MAX_IMAGE_PIXELS: past twice this it raises
 # DecompressionBombError (and the JAX package's atlas builder skips the
@@ -245,62 +262,77 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int,
 
 # --- TGA and BMP (PIL's TgaImagePlugin / BmpImagePlugin) ---------------------
 
-def _looks_like_tga(data: bytes) -> bool:
-    """PIL's TGA header checks (TGA has no magic bytes)."""
-    if len(data) < 18:
-        return False
-    w, h = struct.unpack("<HH", data[12:16])
-    return (data[1] in (0, 1) and data[2] in (1, 2, 3, 9, 10, 11)
-            and w > 0 and h > 0 and data[16] in (1, 8, 16, 24, 32))
+# (image type & 7, depth) -> bytes a pixel (PIL's TGA MODES).
+_TGA_BPP = {(1, 8): 1, (3, 1): 1, (3, 8): 1, (3, 16): 2, (2, 16): 2,
+            (2, 24): 3, (2, 32): 4}
+
+
+def _bgr15(px: np.ndarray) -> np.ndarray:
+    """PIL's BGR;15 / BGRA;15Z unpackers: little-endian 16-bit X1R5G5B5,
+    each channel v * 255 // 31."""
+    v = px[..., 0].astype(np.int32) | (px[..., 1].astype(np.int32) << 8)
+    return np.stack([((v >> 10) & 31) * 255 // 31, ((v >> 5) & 31) * 255 // 31,
+                     (v & 31) * 255 // 31], -1).astype(np.uint8)
 
 
 def decode_tga(data: bytes, name: str = "<tga>") -> np.ndarray:
     """Decode a TGA to uint8 [H, W, 3], bit for bit PIL's convert("RGB"):
-    types 1 and 9 (colour-mapped, 8-bit indices, 24-bit map entries), 2
-    and 10 (BGR at 24 bits, BGRA at 32), 3 and 11 (grey at 8
-    bits, grey + alpha at 16), raw or run-length encoded, rows bottom-up
-    unless the origin bit (0x20) is set, mirrored when bit 0x10 is."""
+    types 1 and 9 (colour-mapped, 8-bit indices into 16-, 24- or 32-bit
+    map entries, black below the map's first index and past its end), 2
+    and 10 (16-bit X1R5G5B5, BGR at 24 bits, BGRA at 32), 3 and 11 (grey
+    at 1 bit raw, 8 bits, grey + alpha at 16), raw or run-length encoded,
+    rows bottom-up unless the origin bit (0x20) is set, mirrored when bit
+    0x10 is (a grey image with a colour map is looked up in it, as PIL
+    does). What PIL cannot load (another depth for the type, 1-bit
+    run-length data or 1 bit with a map, a true-colour image with a
+    colour map, a run past its row's end) raises ValueError."""
     id_len, cmap_type, itype = data[0], data[1], data[2]
     cm_start, cm_len, cm_depth = struct.unpack("<HHB", data[3:8])
     w, h, depth, flags = struct.unpack("<HHBB", data[12:18])
     check_pixels(h, w, name)
     kind = itype & 7
-    bpp = {(1, 8): 1, (2, 24): 3, (2, 32): 4, (3, 8): 1, (3, 16): 2}.get(
-        (kind, depth))
-    if bpp is None:
-        raise NotImplementedError(
-            f"{name}: TGA image type {itype} at {depth} bits (not read: "
-            f"ROADMAP.md C6)")
     pos = 18 + id_len
     pal = None
     if cmap_type:
-        entry = {15: 2, 16: 2, 24: 3, 32: 4}.get(cm_depth)
-        if entry is None:
-            raise ValueError(f"{name}: TGA colour map depth {cm_depth}")
-        if entry == 2 and kind == 1:
-            raise NotImplementedError(
-                f"{name}: TGA colour map of {cm_depth}-bit entries (not "
-                f"read: ROADMAP.md C6)")
-        if entry == 4 and kind == 1:
-            raise ValueError(f"{name}: TGA colour map of 32-bit entries "
-                             f"(PIL refuses it too)")
+        if kind == 2:
+            raise ValueError(f"{name}: true-colour TGA with a colour map "
+                             f"(PIL cannot load it)")
+        entry = {16: 2, 24: 3, 32: 4}[cm_depth]
         table = data[pos:pos + entry * cm_len]
         pos += entry * cm_len
-        if entry == 3:
-            # PIL's palette: `start` black entries, then BGR(A) entries,
-            # black past its end.
-            pal = np.zeros((256, 3), np.uint8)
-            bgr = np.frombuffer(table[:len(table) // entry * entry],
-                                np.uint8).reshape(-1, entry)[:, 2::-1]
-            pal[cm_start:cm_start + len(bgr)] = bgr[:256 - cm_start]
-    n = w * h * bpp
-    if itype & 8:
-        px, pos = _tga_rle(data, pos, w * h, bpp, name)
-    else:
-        if pos + n > len(data):
+        if kind == 1 and entry == 4:
+            raise ValueError(f"{name}: TGA colour map of 32-bit entries "
+                             f"(PIL refuses it too)")
+        # PIL's palette: `start` black entries, then the map's entries,
+        # black past its end.
+        ent = np.frombuffer(table[:len(table) // entry * entry],
+                            np.uint8).reshape(-1, entry)
+        rgb = _bgr15(ent) if entry == 2 else ent[:, 2::-1]
+        pal = np.zeros((256, 3), np.uint8)
+        pal[cm_start:cm_start + len(rgb)] = rgb[:max(0, 256 - cm_start)]
+    bpp = _TGA_BPP.get((kind, depth))
+    if bpp is None:
+        raise ValueError(f"{name}: TGA image type {itype} at {depth} bits "
+                         f"(PIL cannot load it)")
+    if depth == 1 and (itype & 8 or pal is not None):
+        raise ValueError(f"{name}: a 1-bit TGA run-length coded or with a "
+                         f"colour map (PIL cannot load it)")
+    if depth == 1:
+        stride = (w + 7) // 8
+        if pos + stride * h > len(data):
             raise ValueError(f"{name}: truncated TGA image data")
-        px = np.frombuffer(data, np.uint8, n, pos)
-    px = px.reshape(h, w, bpp)
+        rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h,
+                                                                      stride)
+        px = (_samples(rows, w, 1, 1) * 255).astype(np.uint8)
+    else:
+        n = w * h * bpp
+        if itype & 8:
+            px, pos = _tga_rle(data, pos, w * h, bpp, w, name)
+        else:
+            if pos + n > len(data):
+                raise ValueError(f"{name}: truncated TGA image data")
+            px = np.frombuffer(data, np.uint8, n, pos)
+        px = px.reshape(h, w, bpp)
     if not flags & 0x20:
         px = px[::-1]                      # bottom-up rows
     if flags & 0x10:
@@ -310,12 +342,19 @@ def decode_tga(data: bytes, name: str = "<tga>") -> np.ndarray:
             return np.repeat(px, 3, axis=2)
         return pal[px[..., 0]]
     if kind == 3:
+        if pal is not None:                # PIL applies a grey image's map
+            return pal[px[..., 0]]
         return np.repeat(px[..., :1], 3, axis=2)
+    if depth == 16:
+        return _bgr15(px)
     return np.ascontiguousarray(px[..., 2::-1])
 
 
-def _tga_rle(data: bytes, pos: int, count: int, bpp: int, name: str):
-    """TGA run-length packets (runs may cross rows) -> count pixels."""
+def _tga_rle(data: bytes, pos: int, count: int, bpp: int, row: int,
+             name: str):
+    """TGA run-length packets -> count pixels, as PIL's decoder takes them:
+    a literal packet may cross rows, a run past its row's end is an
+    overrun (PIL raises)."""
     out = bytearray()
     want = count * bpp
     n = len(data)
@@ -326,6 +365,9 @@ def _tga_rle(data: bytes, pos: int, count: int, bpp: int, name: str):
         pos += 1
         k = (head & 0x7F) + 1
         if head & 0x80:
+            if len(out) % (row * bpp) + k * bpp > row * bpp:
+                raise ValueError(f"{name}: a TGA run past its row's end "
+                                 f"(PIL: buffer overrun)")
             out += data[pos:pos + bpp] * k
             pos += bpp
         else:
@@ -336,47 +378,213 @@ def _tga_rle(data: bytes, pos: int, count: int, bpp: int, name: str):
     return np.frombuffer(bytes(out[:want]), np.uint8), pos
 
 
+# BI_BITFIELDS masks PIL reads: (bits, masks) -> PIL's raw mode.
+_BMP_MASKS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)), (32, (0xFF000000, 0xFF0000, 0xFF00,
+                                               0x0)),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)), (32, (0xFF000000, 0xFF0000,
+                                                 0xFF00, 0xFF)),
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)), (32, (0xFF0000, 0xFF00, 0xFF,
+                                                      0xFF000000)),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)), (32, (0x0, 0x0, 0x0, 0x0)),
+    (24, (0xFF0000, 0xFF00, 0xFF)), (16, (0xF800, 0x7E0, 0x1F)),
+    (16, (0x7C00, 0x3E0, 0x1F))}
+
+
 def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
     """Decode a BMP to uint8 [H, W, 3], bit for bit PIL's convert("RGB"):
-    uncompressed (BI_RGB) 24- and 32-bit BGR(X) and 1-, 4- and 8-bit
-    palette images (an index past the palette reads black), rows
-    bottom-up unless the height is negative; BITMAPINFOHEADER and its V2-V5
-    extensions."""
+    BI_RGB at 1, 4, 8, 16 (X1R5G5B5), 24 and 32 bits; RLE8 and RLE4 (PIL's
+    Python decoder: end-of-line, end-of-bitmap, delta and absolute runs);
+    BI_BITFIELDS at 16 (565, 555), 24 and 32 bits with the masks PIL
+    lists. A palette of the grey ramp is dropped (PIL's mode L: an index
+    is its grey level; at 1 and 4 bits PIL memory-maps the file and reads
+    a byte a pixel, as load_image's path gives it). Rows bottom-up unless
+    the height is negative. The
+    12-byte OS/2 1.x header (BGR palette entries), BITMAPINFOHEADER, the
+    64-byte OS/2 2.x header and the V2-V5 extensions. What PIL refuses
+    raises ValueError naming the file."""
+    if len(data) < 18:
+        raise ValueError(f"{name}: truncated BMP header")
     (offset,) = struct.unpack("<I", data[10:14])
     (hsize,) = struct.unpack("<I", data[14:18])
-    if hsize in (40, 52, 56, 64, 108, 124):
-        w, h, _, bits, comp = struct.unpack("<iiHHI", data[18:34])
-        (colors,) = struct.unpack("<I", data[46:50])
+    head = data[18:14 + hsize]
+    if len(head) < hsize - 4:
+        raise ValueError(f"{name}: truncated BMP header")
+    pos = 14 + hsize                    # where PIL reads on from
+    direction = -1
+    masks = None
+    if hsize == 12:
+        w, h, _, bits = struct.unpack("<HHHH", head[:8])
+        comp, colors, padding = 0, 0, 3
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        y_flip = head[7] == 0xFF
+        direction = 1 if y_flip else -1
+        w, h = struct.unpack("<II", head[:8])
+        if y_flip:
+            h = 2 ** 32 - h
+        _, bits, comp = struct.unpack("<HHI", head[8:16])
+        (colors,) = struct.unpack("<I", head[28:32])
+        padding = 4
+        if comp == 3:
+            if len(head) >= 48:
+                n = 4 if len(head) >= 52 else 3
+                masks = struct.unpack(f"<{n}I", head[36:36 + 4 * n])
+                masks += (0,) * (4 - n)
+            else:
+                masks = struct.unpack("<3I", data[pos:pos + 12]) + (0,)
+                pos += 12
     else:
-        raise NotImplementedError(
-            f"{name}: BMP header of {hsize} bytes (not read: ROADMAP.md C6)")
-    if comp != 0 or bits not in (1, 4, 8, 24, 32):
-        raise NotImplementedError(
-            f"{name}: BMP of {bits} bits, compression {comp} (only "
-            f"uncompressed 1-, 4-, 8-, 24- and 32-bit files are read: "
-            f"ROADMAP.md C6)")
-    top_down = h < 0
-    h = abs(h)
-    if w <= 0 or h == 0:
+        raise ValueError(f"{name}: BMP header of {hsize} bytes (PIL "
+                         f"refuses it)")
+    if w <= 0 or h <= 0 or w >= 2 ** 31:
         raise ValueError(f"{name}: BMP of {w}x{h} pixels")
     check_pixels(h, w, name)
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{name}: BMP of {bits} bits (PIL refuses it)")
+    if comp == 3:
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_MASKS:
+            raise ValueError(f"{name}: BMP bit field layout {masks} (PIL "
+                             f"refuses it)")
+    elif comp not in (0, 1, 2):
+        raise ValueError(f"{name}: BMP compression {comp} (PIL refuses it)")
+    pal = grey = None
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{name}: BMP palette of {colors} colours")
+        table = data[pos:pos + padding * colors]
+        ent = np.frombuffer(table[:len(table) // padding * padding],
+                            np.uint8).reshape(-1, padding)[:, 2::-1]
+        ramp = np.array([0, 255] if colors == 2 else range(colors)) & 255
+        grey = len(ent) >= colors and bool(
+            (ent[:colors] == ramp[:, None]).all())
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:min(len(ent), 256)] = ent[:256]
+    if comp in (1, 2):
+        if bits > 8:
+            raise ValueError(f"{name}: run-length BMP at {bits} bits")
+        if grey and colors == 2:
+            raise ValueError(f"{name}: run-length BMP of a bilevel palette "
+                             f"(PIL cannot load it)")
+        idx = _bmp_rle(data, offset, w, h, comp == 2, name)
+        rows = idx.reshape(h, w)
+        if direction == -1:
+            rows = rows[::-1]
+        return np.repeat(rows[..., None], 3, axis=2) if grey else pal[rows]
     stride = ((w * bits + 31) >> 3) & ~3
     if offset + stride * h > len(data):
         raise ValueError(f"{name}: truncated BMP image data")
+    if grey and colors != 2 and bits < 8:
+        # PIL's mode L with raw mode L: it memory-maps the file and reads a
+        # row as w bytes from each row's start, one byte a pixel (its raw
+        # decoder, from bytes in memory, refuses the stride instead).
+        # Past the end of the file the map reads zeros up to its last page.
+        end = offset + stride * (h - 1) + w
+        if end > -(-len(data) // 4096) * 4096:
+            raise ValueError(f"{name}: BMP rows past the end of the file")
+        starts = offset + stride * np.arange(h)
+        if direction == -1:
+            starts = starts[::-1]
+        buf = np.frombuffer(data.ljust(end, b"\0"), np.uint8)
+        g = buf[starts[:, None] + np.arange(w)]
+        return np.repeat(g[..., None], 3, axis=2)
     rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h,
                                                                      stride)
-    if not top_down:
+    if direction == -1:
         rows = rows[::-1]
-    if bits >= 24:
-        px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)
-        return np.ascontiguousarray(px[..., 2::-1])
-    colors = colors or (1 << bits)
-    table = data[14 + hsize:14 + hsize + 4 * colors]
-    pal = np.zeros((256, 3), np.uint8)
-    bgr = np.frombuffer(table[:len(table) // 4 * 4],
-                        np.uint8).reshape(-1, 4)[:256, 2::-1]
-    pal[:len(bgr)] = bgr
-    return pal[_samples(rows, w, 1, bits)[..., 0]]
+    if bits <= 8:
+        if grey and colors == 2:
+            # PIL's mode 1: the row's bytes unpacked as bits, whatever the
+            # depth.
+            bit = _samples(rows, w, 1, 1)[..., 0]
+            return np.repeat((bit * 255).astype(np.uint8)[..., None], 3, 2)
+        idx = _samples(rows, w, 1, bits)[..., 0]
+        return np.repeat(idx[..., None], 3, axis=2) if grey else pal[idx]
+    px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)
+    if bits == 16:
+        if comp == 3 and masks[0] == 0xF800:   # PIL's BGR;16: 565
+            v = px[..., 0].astype(np.int32) | (px[..., 1].astype(np.int32)
+                                               << 8)
+            return np.stack([((v >> 11) & 31) * 255 // 31,
+                             ((v >> 5) & 63) * 255 // 63,
+                             (v & 31) * 255 // 31], -1).astype(np.uint8)
+        return _bgr15(px)
+    if comp == 3 and bits == 32:
+        v = px.astype(np.uint32)
+        v = v[..., 0] | v[..., 1] << 8 | v[..., 2] << 16 | v[..., 3] << 24
+        if masks[:3] == (0, 0, 0):             # PIL reads it as BGRA
+            masks = (0xFF0000, 0xFF00, 0xFF)
+        return np.stack([(v & np.uint32(m)) >> np.uint32(
+            (m & -m).bit_length() - 1) for m in masks[:3]],
+            -1).astype(np.uint8)
+    return np.ascontiguousarray(px[..., 2::-1])
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool,
+             name: str) -> np.ndarray:
+    """PIL's BmpRleDecoder: indices, w * h of them, in file row order.
+    Runs are cut at the row's end; an end-of-line pads the row with 0;
+    a delta skips two bytes and then reads its (right, up) pair as PIL
+    does; absolute runs keep the file's 16-bit alignment (RLE4 drops an
+    odd run's last pixel, as PIL does). Data that stops short of w * h
+    indices raises ValueError, as PIL does."""
+    out = bytearray()
+    want = w * h
+    x = 0
+    n = len(data)
+    while len(out) < want:
+        if pos + 2 > n:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            if x + count > w:
+                count = max(0, w - x)
+            if rle4:
+                pair = (byte >> 4, byte & 15)
+                out += bytes(pair[i % 2] for i in range(count))
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:
+            break
+        elif byte == 2:
+            if pos + 2 > n:
+                break
+            pos += 2
+            if pos + 2 > n:
+                raise ValueError(f"{name}: truncated BMP run-length delta")
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:
+            if rle4:
+                chunk = data[pos:pos + byte // 2]
+                pos += len(chunk)
+                for b in chunk:
+                    out += bytes((b >> 4, b & 15))
+                short = len(chunk) < byte // 2
+            else:
+                chunk = data[pos:pos + byte]
+                pos += len(chunk)
+                out += chunk
+                short = len(chunk) < byte
+            if short:
+                break
+            x += byte
+            if pos % 2:
+                pos += 1
+    if len(out) < want:
+        raise ValueError(f"{name}: BMP run-length data ends early (PIL: not "
+                         f"enough image data)")
+    return np.frombuffer(bytes(out[:want]), np.uint8)
 
 
 def timestamped_name(prefix: str, suffix: str = ".png") -> str:

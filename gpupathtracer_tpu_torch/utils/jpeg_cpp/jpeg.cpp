@@ -5,16 +5,22 @@
 // h1v2, int_upsample and the box upsamplers it falls back to below three
 // samples a row) and the table-driven YCbCr -> RGB of jdcolor.c.
 //
-// Reads SOF0, SOF1 and SOF2 at 8-bit precision with 1 or 3 components,
-// sampling factors 1-4, DQT (8- and 16-bit), DHT, DRI / RST0-7 and every
-// progressive scan kind (spectral selection, successive approximation of
-// DC and AC, EOB runs). Integer arithmetic only.
+// Reads SOF0, SOF1 and SOF2 at 8-bit precision with 1, 3 or 4
+// components, sampling factors 1-4, DQT (8- and 16-bit), DHT, DRI /
+// RST0-7 and every progressive scan kind (spectral selection, successive
+// approximation of DC and AC, EOB runs). Four components are CMYK, or
+// YCCK (an Adobe marker with a transform other than 0) taken to CMYK by
+// jdcolor.c's ycck_cmyk_convert. Integer arithmetic only.
 //
 // C interface (ctypes, utils/jpeg.py):
 //   int gpt_jpeg_info(data, n, dims[3], err, errlen)  -> height, width,
 //       components of the frame;
-//   int gpt_jpeg_decode(data, n, out, h, w, err, errlen) -> out [h, w, 3]
-//       uint8 RGB, grey replicated.
+//   int gpt_jpeg_decode(data, n, out, h, w, colour, err, errlen) -> out
+//       [h, w, 3] uint8 RGB, grey replicated, or [h, w, 4] CMYK for four
+//       components (as libjpeg gives it: PIL's "CMYK;I" inverts it after).
+//       colour 0 picks three components' colour space as libjpeg does
+//       (JFIF, Adobe, component ids), 1 keeps the components as they are
+//       (libtiff's JCS_UNKNOWN), 2 reads them as YCbCr.
 // Both return 0, 1 for corrupt data or what libjpeg itself refuses
 // (ValueError), 2 for what this decoder does not read (NotImplementedError),
 // with a message in err.
@@ -162,7 +168,7 @@ struct Decoder {
   int qt_defined[4] = {0, 0, 0, 0};
   uint16_t qt[4][64];  // natural order
   Huff dc[4], ac[4];
-  Comp comp[3];
+  Comp comp[4];
   int maxh = 1, maxv = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
   int scans = 0;
@@ -264,9 +270,7 @@ struct Decoder {
                   "samples are read)");
     if (height == 0 || width == 0)
       corrupt("empty image (a DNL height is not read by libjpeg either)");
-    if (ncomp == 4)
-      unsupported("4 components (CMYK / YCCK)");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       corrupt(std::to_string(ncomp) + " components");
     if (len != 8 + 3 * ncomp) corrupt("bad SOF length");
     for (int i = 0; i < ncomp; i++) {
@@ -851,7 +855,8 @@ inline uint8_t clamp255(int v) {
   return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-int run(const uint8_t* data, int64_t n, uint8_t* out, int h, int w) {
+int run(const uint8_t* data, int64_t n, uint8_t* out, int h, int w,
+        int colour) {
   Decoder dec(data, size_t(n));
   dec.decode_all();
   if (dec.height != h || dec.width != w) corrupt("size changed");
@@ -884,9 +889,35 @@ int run(const uint8_t* data, int64_t n, uint8_t* out, int h, int w) {
         out[3 * p + 2] = g[p];
     return 0;
   }
+  if (nc == 4) {
+    // jdapimin.c: an Adobe marker with transform 0 is CMYK, any other
+    // YCCK; no Adobe marker is CMYK.
+    const uint8_t *p0 = full[0].data(), *p1 = full[1].data(),
+                  *p2 = full[2].data(), *p3 = full[3].data();
+    bool ycck = colour == 0 && dec.adobe && dec.adobe_transform != 0;
+    for (size_t p = 0; p < np; p++) {
+      if (ycck) {
+        int y = p0[p], cb = p1[p], cr = p2[p];
+        out[4 * p] = clamp255(255 - (y + kYcc.cr_r[cr]));
+        out[4 * p + 1] =
+            clamp255(255 - (y + ((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+        out[4 * p + 2] = clamp255(255 - (y + kYcc.cb_b[cb]));
+      } else {
+        out[4 * p] = p0[p];
+        out[4 * p + 1] = p1[p];
+        out[4 * p + 2] = p2[p];
+      }
+      out[4 * p + 3] = p3[p];
+    }
+    return 0;
+  }
   // jdapimin.c default_decompress_parms: the colour space of 3 components.
   bool rgb;
-  if (dec.jfif)
+  if (colour == 1)
+    rgb = true;
+  else if (colour == 2)
+    rgb = false;
+  else if (dec.jfif)
     rgb = false;
   else if (dec.adobe)
     rgb = dec.adobe_transform == 0;
@@ -939,9 +970,9 @@ int gpt_jpeg_info(const uint8_t* data, int64_t n, int32_t* dims, char* err,
 }
 
 int gpt_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int32_t h,
-                    int32_t w, char* err, int errlen) {
+                    int32_t w, int32_t colour, char* err, int errlen) {
   try {
-    return run(data, n, out, h, w);
+    return run(data, n, out, h, w, colour);
   } catch (const Corrupt& e) {
     return fail(e.msg, err, errlen, 1);
   } catch (const Unsupported& e) {

@@ -207,9 +207,8 @@ def test_gltf_jpeg_texture_raises(tmp_path):
     """C6, now read: a JPEG base-colour map goes through load_scene into the
     same atlas, rects, mips and material rows as the JAX package's (PIL);
     a header with nothing behind it raises ValueError naming the file and
-    is skipped by both packages; a CMYK JPEG map (four components, still
-    unread) raises NotImplementedError naming the file, where a silent skip
-    would render its constant albedo instead."""
+    is skipped by both packages; a CMYK JPEG map (four components, read
+    since the second image slice) gives the JAX package's tables too."""
     from test_torch_images import write_unread
 
     from gpupathtracer_tpu_torch.utils.io import load_image
@@ -238,8 +237,12 @@ def test_gltf_jpeg_texture_raises(tmp_path):
             np.asarray(getattr(jscene, f)).tobytes(), f
     write_unread(tmp_path)
     path = _write(str(tmp_path), "data", texture_uri="cmyk.jpg")
-    with pytest.raises(NotImplementedError, match="cmyk.jpg"):
-        load_scene(RenderConfig(scene_path=path), "cpu")
+    scene, meta = load_scene(RenderConfig(scene_path=path), "cpu")
+    jscene, _ = jax_load_scene(JaxRenderConfig(scene_path=path))
+    assert meta.has_textures
+    for f in ("atlas_image", "atlas_rects", "atlas_mips", "mat_rows"):
+        assert getattr(scene, f).numpy().tobytes() == \
+            np.asarray(getattr(jscene, f)).tobytes(), f
 
 
 def test_demo_gltf_matches_jax(tmp_path):
@@ -360,9 +363,10 @@ def test_unread_skies_raise(tmp_path):
     """C6: a JPEG sky and JPEG cube faces are read now
     (tests/test_torch_images.py holds them to JAX's); a JPEG sky or face
     whose header has nothing behind it raises ValueError naming the file,
-    as PIL raises on it; an EXR sky, a CMYK JPEG sky and a GIF cube face
-    raise NotImplementedError naming the file; a missing file raises
-    FileNotFoundError, as the JAX package's PIL loader does."""
+    as PIL raises on it; an EXR sky (no PIL plugin reads it) raises
+    ValueError naming the file, as JAX's PIL raises; a CMYK JPEG sky and
+    GIF cube faces read bitwise as the JAX package reads them; a missing
+    file raises FileNotFoundError, as the JAX package's PIL loader does."""
     from test_torch_images import write_unread
 
     jpg = tmp_path / "sky.jpg"
@@ -373,12 +377,16 @@ def test_unread_skies_raise(tmp_path):
     with pytest.raises(ValueError, match=str(jpg)):
         envmap.environment_image(str(tmp_path / "faces.txt"))
     unread = write_unread(tmp_path)
-    for name in ("sky.exr", "cmyk.jpg"):
-        with pytest.raises(NotImplementedError, match=unread[name]):
-            envmap.environment_image(unread[name])
+    with pytest.raises(ValueError, match=unread["sky.exr"]):
+        envmap.environment_image(unread["sky.exr"])
+    with pytest.raises(Exception):
+        jax_envmap.load_environment(unread["sky.exr"])
     (tmp_path / "gif_faces.txt").write_text("anim.gif\n" * 6)
-    with pytest.raises(NotImplementedError, match=unread["anim.gif"]):
-        envmap.environment_image(str(tmp_path / "gif_faces.txt"))
+    for spec in (unread["cmyk.jpg"], str(tmp_path / "gif_faces.txt")):
+        got = envmap.environment_image(spec)
+        want = np.asarray(jax_envmap.load_environment(spec).image)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes(), spec
     with pytest.raises(FileNotFoundError):
         envmap.environment_image(str(tmp_path / "missing.png"))
     with pytest.raises(FileNotFoundError):

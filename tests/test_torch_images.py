@@ -685,18 +685,48 @@ def write_unread(folder) -> dict:
     return out
 
 
+# What each file of write_unread does in the port since the second image
+# slice: "same" is read bitwise as the JAX package reads it (PIL), also
+# through the atlas builder; "skip" is bytes PIL cannot read (PIL has no
+# EXR reader), ValueError naming the file, skipped by both atlas builders;
+# "raise" stays unread (ROADMAP.md C6), NotImplementedError naming the
+# file, which the atlas builder lets through.
+UNREAD = {"cmyk.jpg": "same", "arith.jpg": "raise", "lossless.jpg": "raise",
+          "sky.exr": "skip", "anim.gif": "same", "photo.tif": "same",
+          "photo.webp": "raise"}
+
+
 @pytest.mark.parametrize("name", ["cmyk.jpg", "arith.jpg", "lossless.jpg",
                                   "sky.exr", "anim.gif", "photo.tif",
                                   "photo.webp"])
 def test_unread_formats_raise(tmp_path, name):
-    """Four components, arithmetic coding (SOF9), lossless JPEG (SOF3),
-    EXR, GIF, TIFF and WebP raise NotImplementedError naming the file,
-    also through the atlas builder (which skips only corrupt maps)."""
+    """A CMYK JPEG, a GIF and a TIFF read bitwise as the JAX package reads
+    them, also through the atlas builder; an EXR (no PIL plugin reads it)
+    raises ValueError naming the file and both atlas builders skip it;
+    arithmetic coding (SOF9), lossless JPEG (SOF3) and WebP still raise
+    NotImplementedError naming the file, also through the atlas builder
+    (which skips only what PIL cannot read)."""
     path = write_unread(tmp_path)[name]
-    with pytest.raises(NotImplementedError, match=name):
-        io.load_image(path)
-    with pytest.raises(NotImplementedError, match=name):
-        textures.build_atlas([name], str(tmp_path))
+    kind = UNREAD[name]
+    if kind == "raise":
+        with pytest.raises(NotImplementedError, match=name):
+            io.load_image(path)
+        with pytest.raises(NotImplementedError, match=name):
+            textures.build_atlas([name], str(tmp_path))
+        return
+    if kind == "skip":
+        with pytest.raises(ValueError, match=name):
+            io.load_image(path)
+        with pytest.raises(Exception):
+            jax_io.load_image(path)
+    else:
+        _same(path)
+    got = textures.build_atlas([name], str(tmp_path))
+    want = jax_textures.build_atlas([name], str(tmp_path))
+    assert got[2] == want[2] == ({} if kind == "skip" else {name: 0})
+    for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
 
 
 # --- scenes ---------------------------------------------------------------------------
@@ -794,24 +824,26 @@ def _manifest():
 
 @pytest.mark.parametrize("name", sorted(_manifest()))
 def test_fixtures_decode_to_their_pngs(name):
-    """Each committed JPEG (tools/torch_image_fixtures.py) decodes to its
-    PNG twin in PIL and in the port, and the manifest's sha256 values hold
-    for the files and the pixels."""
+    """Each committed image file (tools/torch_image_fixtures.py: the JPEGs,
+    and since the second image slice the DDS, TIFF, GIF, PSD, BMP and
+    CMYK / YCCK JPEG files) decodes to its PNG twin in PIL and in the
+    port, and the manifest's sha256 values hold for the files and the
+    pixels."""
     entry = _manifest()[name]
-    jpg = os.path.join(FIXTURES, entry["jpeg"])
+    path = os.path.join(FIXTURES, entry["file"])
     png = os.path.join(FIXTURES, entry["png"])
-    for path, key in ((jpg, "jpeg_sha256"), (png, "png_sha256")):
-        with open(path, "rb") as f:
+    for p, key in ((path, "file_sha256"), (png, "png_sha256")):
+        with open(p, "rb") as f:
             assert hashlib.sha256(f.read()).hexdigest() == entry[key]
-    with open(jpg, "rb") as f:
-        got = decode_jpeg(f.read(), jpg)
+    with open(path, "rb") as f:
+        got = io.decode_image(f.read(), path)
     with open(png, "rb") as f:
         twin = io.decode_png(f.read(), png)
-    pil = np.asarray(Image.open(jpg).convert("RGB"))
+    pil = np.asarray(Image.open(path).convert("RGB"))
     assert got.shape == (entry["height"], entry["width"], 3)
     assert hashlib.sha256(got.tobytes()).hexdigest() == entry["pixels_sha256"]
     assert got.tobytes() == twin.tobytes() == pil.tobytes()
-    assert _same(jpg).tobytes() == _same(png).tobytes()
+    assert _same(path).tobytes() == _same(png).tobytes()
 
 
 def test_fixture_tool_rewrites_the_fixtures(tmp_path):
@@ -832,8 +864,8 @@ def test_fixture_tool_rewrites_the_fixtures(tmp_path):
 
 
 def test_fixture_tool_times_the_decodes(capsys):
-    """--time prints a line a fixture: the port's and PIL's JPEG decode and
-    the PNG twin's, in ms and MPix/s."""
+    """--time prints a line a fixture: the port's and PIL's decode of the
+    same bytes and the PNG twin's, in ms and MPix/s."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "torch_image_fixtures", os.path.join(REPO, "tools",

@@ -190,16 +190,23 @@ def test_environment_specs_match(spec):
 
 def test_unported_inputs_raise(tmp_path):
     # A JPEG sky whose header has nothing behind it: corrupt, ValueError
-    # naming the file (JPEG skies read since C6's decoder); a four-component
-    # (CMYK) JPEG sky stays unread: NotImplementedError naming the file.
+    # naming the file (JPEG skies read since C6's decoder); a
+    # four-component (CMYK) JPEG sky reads bitwise as the JAX package's
+    # since the second image slice; a WebP sky stays unread:
+    # NotImplementedError naming the file.
     from test_torch_images import write_unread
 
     jpg = tmp_path / "sky.jpg"
     jpg.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 64)
     with pytest.raises(ValueError, match="sky.jpg"):
         envmap.environment_image(str(jpg))
-    with pytest.raises(NotImplementedError, match="cmyk.jpg"):
-        envmap.environment_image(write_unread(tmp_path)["cmyk.jpg"])
+    unread = write_unread(tmp_path)
+    got = envmap.environment_image(unread["cmyk.jpg"])
+    want = np.asarray(jax_envmap.load_environment(unread["cmyk.jpg"]).image)
+    assert got.tobytes() == want.tobytes()
+    (tmp_path / "webp_faces.txt").write_text("photo.webp\n" * 6)
+    with pytest.raises(NotImplementedError, match="photo.webp"):
+        envmap.environment_image(str(tmp_path / "webp_faces.txt"))
     # Node rows hold 2 to 16 children (wide_arity 16 loads since the
     # kernels take the table's arity).
     with pytest.raises(ValueError):

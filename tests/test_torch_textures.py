@@ -157,9 +157,11 @@ def test_png_decoder_reads_the_writer_and_pil(tmp_path):
 
 
 def test_unread_images_raise_and_name_the_file(tmp_path):
-    """A JPEG, a 16-bit PNG and an interlaced PNG now read bitwise as the
-    JAX package reads them (PIL), also through the atlas builder; what
-    stays unread (a CMYK JPEG, arithmetic and lossless JPEG, EXR, GIF:
+    """A JPEG, a 16-bit PNG and an interlaced PNG read bitwise as the JAX
+    package reads them (PIL), also through the atlas builder; so do a CMYK
+    JPEG and a GIF since the second image slice; an EXR, which no PIL
+    plugin reads, raises ValueError naming the file and both atlas
+    builders skip it; what stays unread (arithmetic and lossless JPEG:
     ROADMAP.md C6) raises NotImplementedError naming the file, and the
     atlas builder lets it through instead of skipping the map."""
     from test_torch_images import write_unread
@@ -172,18 +174,19 @@ def test_unread_images_raise_and_name_the_file(tmp_path):
     laced = tmp_path / "laced.png"
     laced.write_bytes(encode_png(np.zeros((4, 4, 3), np.uint8), 2, [0],
                                  interlace=1))
-    read = [jpg.name, deep.name, laced.name]
+    unread = write_unread(tmp_path)
+    read = [jpg.name, deep.name, laced.name, "cmyk.jpg", "anim.gif"]
     for name in read:
         path = str(tmp_path / name)
         assert io.load_image(path).tobytes() == \
             jax_io.load_image(path).tobytes(), name
-    got = textures.build_atlas(read, str(tmp_path))
-    want = jax_textures.build_atlas(read, str(tmp_path))
-    assert got[2] == want[2] and len(got[2]) == 3
+    got = textures.build_atlas(read + ["sky.exr"], str(tmp_path))
+    want = jax_textures.build_atlas(read + ["sky.exr"], str(tmp_path))
+    assert got[2] == want[2] and len(got[2]) == 5
     assert got[0].tobytes() == want[0].tobytes()
-    unread = write_unread(tmp_path)
-    for name in ("cmyk.jpg", "arith.jpg", "lossless.jpg", "sky.exr",
-                 "anim.gif"):
+    with pytest.raises(ValueError, match="sky.exr"):
+        io.load_image(unread["sky.exr"])
+    for name in ("arith.jpg", "lossless.jpg"):
         with pytest.raises(NotImplementedError, match=name):
             io.load_image(unread[name])
         with pytest.raises(NotImplementedError, match=name):
