@@ -290,9 +290,9 @@ nvcc and g++. Phases, each of which raises on failure:
  21. (after phase 20) the image formats beside JPEG (ROADMAP.md C6): (a)
      utils/codecs_cpp/codecs.cpp built with g++ on this host (built in
      phase 2 beside nvcc; the load timed here), then every committed
-     fixture of tests/golden/images that phase 20 does not decode (DDS
-     uncompressed and BC1, BC3, BC4, BC5, BC6H UF16 / SF16, BC7; TIFF LZW
-     and tiled Deflate; PSD RLE; BMP; GIF; CMYK and YCCK JPEG) decoded
+     fixture of tests/golden/images that phases 20 and 22 do not decode
+     (DDS uncompressed and BC1, BC3, BC4, BC5, BC6H UF16 / SF16, BC7; TIFF
+     LZW and tiled Deflate; PSD RLE; BMP; GIF; CMYK and YCCK JPEG) decoded
      bitwise its PNG twin and the manifest's pixel sha256, host ms
      (median of 5) and MPix/s a fixture beside its twin's PNG decode;
      (b) the generated town at 1280x720, 4 mip levels, 1 spp through the
@@ -302,6 +302,20 @@ nvcc and g++. Phases, each of which raises on failure:
      when phase 21 runs alone); B1's launches of (b) are counted in the
      kernels line. ``python3 chip_smoke.py --phase21`` runs phase 21 alone
      (no result line).
+ 22. (after phase 21) WebP (ROADMAP.md C6): (a) utils/webp_cpp/webp.cpp
+     built with g++ on this host (in phase 2 beside nvcc; the load timed
+     here), then every committed WebP fixture of tests/golden/images
+     (lossless re-encodings of the town's PNG twins, lossy at q75, lossy
+     RGBA with ALPH, an animation whose first frame is offset, the simple
+     loop filter, eight token partitions) decoded bitwise its PNG twin
+     and the manifest's pixel sha256, host ms (median of 5) and MPix/s a
+     fixture beside its twin's PNG decode; (b) the generated town at
+     1280x720, 4 mip levels, 1 spp through the CLI, its .mtl on the
+     lossless WebP re-encodings of phase 20's PNG twins: the film bitwise
+     phase 20b's PNG-twin film (rendered here too when phase 22 runs
+     alone); B1's launches of (b) are counted in the kernels line.
+     ``python3 chip_smoke.py --phase22`` runs phase 22 alone (no result
+     line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2102,16 +2116,17 @@ def build_kernels() -> None:
         return time.perf_counter() - t0, log
 
     def host_build(module):
-        # Phase 20's JPEG decoder and phase 21's codecs (g++), beside the
-        # nvcc builds.
+        # Phase 20's JPEG decoder, phase 21's codecs and phase 22's WebP
+        # decoders (g++), beside the nvcc builds.
         t0 = time.perf_counter()
         module._load()
         return time.perf_counter() - t0
 
-    from gpupathtracer_tpu_torch.utils import codecs, jpeg
-    with ThreadPoolExecutor(len(jobs) + 2) as pool:
+    from gpupathtracer_tpu_torch.utils import codecs, jpeg, webp
+    with ThreadPoolExecutor(len(jobs) + 3) as pool:
         jpeg_secs = pool.submit(host_build, jpeg)
         codecs_secs = pool.submit(host_build, codecs)
+        webp_secs = pool.submit(host_build, webp)
         for (name, defines), (secs, log) in zip(jobs, pool.map(one, jobs)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}"
                   + (f" {' '.join(defines)}" if defines else "")
@@ -2125,6 +2140,8 @@ def build_kernels() -> None:
               f"{jpeg_secs.result():.2f} s")
         print(f"[build] gpupathtracer_tpu_torch/utils/codecs_cpp/codecs.cpp "
               f"(g++): {codecs_secs.result():.2f} s")
+        print(f"[build] gpupathtracer_tpu_torch/utils/webp_cpp/webp.cpp "
+              f"(g++): {webp_secs.result():.2f} s")
     hgmma = _sass_count(cuda_build.build("roofline")[0], "mxu_wgmma_kernel",
                         "HGMMA")
     print(f"[build] HGMMA instructions in the SASS of each mxu_wgmma_kernel "
@@ -4420,25 +4437,21 @@ TOWN_FORMATS = {"checker": "tif", "bricks": "psd", "roof": "dds",
                 "foliage": "bmp"}
 
 
-def decode_formats(smi: str) -> None:
-    """Phase 21a: the codecs library's load, then every fixture phase 20a
-    does not decode, bitwise its PNG twin and the manifest's pixel
-    sha256, with host times (median of 5 decodes after one warm-up)."""
+def hold_fixtures(tag: str, names, smi: str) -> None:
+    """Each named fixture of tests/golden/images decoded (the format as
+    PIL's Image.open picks it) bitwise its PNG twin and the manifest's
+    pixel sha256, with host times (median of 5 decodes after one
+    warm-up)."""
     import hashlib
     import statistics
 
-    from gpupathtracer_tpu_torch.utils import codecs, io
+    from gpupathtracer_tpu_torch.utils import io
 
-    t0 = time.perf_counter()
-    codecs._load()
-    print(f"[21a] the codecs library loaded in {time.perf_counter() - t0:.2f}"
-          f" s (g++ at first use; the smoke builds it in phase 2)")
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     cpu = _host_cpu()
-    names = sorted(set(manifest) - set(PHASE20_FIXTURES))
     if not names:
-        raise AssertionError("[21a] no fixtures beside phase 20's")
+        raise AssertionError(f"[{tag}] no fixtures")
     for name in names:
         entry = manifest[name]
         with open(os.path.join(FIXTURES, entry["file"]), "rb") as f:
@@ -4460,76 +4473,138 @@ def decode_formats(smi: str) -> None:
                 or got.tobytes() != twin.tobytes()
                 or hashlib.sha256(got.tobytes()).hexdigest()
                 != entry["pixels_sha256"]):
-            raise AssertionError(f"[21a] {name}: the {entry['format']} decode "
-                                 f"is not its PNG twin")
+            raise AssertionError(f"[{tag}] {name}: the {entry['format']} "
+                                 f"decode is not its PNG twin")
         ms = times["file"][1]
         mpix = entry["height"] * entry["width"] / 1e6
-        print(f"[21a] {name} {entry['format']} {entry['width']}x"
+        print(f"[{tag}] {name} {entry['format']} {entry['width']}x"
               f"{entry['height']} ({entry['encoding']}): bitwise its PNG "
               f"twin; decode {ms:.3f} ms ({mpix / (ms / 1e3):.1f} MPix/s), "
               f"PNG twin {times['png'][1]:.3f} ms; host {cpu}; {smi}")
 
 
-def render_formats_path(tmp: str, town: str, smi: str) -> None:
-    """Phase 21b: the town on lossless TIFF / PSD / DDS / BMP re-encodings
-    of its PNG-twin maps, bitwise phase 20b's film on the PNG twins (that
-    film rendered here when phase 20 did not run in this process)."""
+def _fixtures_of(formats) -> list:
+    """The manifest's fixtures beside phase 20's JPEGs whose format is in
+    ``formats`` (None: every format but WebP)."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    return sorted(n for n, e in manifest.items()
+                  if n not in PHASE20_FIXTURES
+                  and (e["format"] in formats if formats
+                       else e["format"] != "WEBP"))
+
+
+def decode_formats(smi: str) -> None:
+    """Phase 21a: the codecs library's load, then every fixture phase 20a
+    does not decode and phase 22a does not (WebP), bitwise its PNG twin."""
+    from gpupathtracer_tpu_torch.utils import codecs
+
+    t0 = time.perf_counter()
+    codecs._load()
+    print(f"[21a] the codecs library loaded in {time.perf_counter() - t0:.2f}"
+          f" s (g++ at first use; the smoke builds it in phase 2)")
+    hold_fixtures("21a", _fixtures_of(None), smi)
+
+
+def render_town_maps(tmp: str, town: str, smi: str, tag: str,
+                     exts: dict) -> None:
+    """The town with each map ``name`` replaced by the fixture
+    ``name.ext`` (lossless re-encodings of its PNG-twin maps), bitwise
+    phase 20b's film on the PNG twins (that film rendered here when phase
+    20 did not run in this process)."""
     import shutil
 
     import numpy as np
 
-    folder = os.path.join(tmp, "town_formats")
+    folder = os.path.join(tmp, f"town_{tag}")
     os.makedirs(folder, exist_ok=True)
     shutil.copy(town, folder)
     with open(os.path.join(os.path.dirname(town), "town.mtl")) as f:
         mtl = f.read()
-    for name, ext in TOWN_FORMATS.items():
+    for name, ext in exts.items():
         shutil.copy(os.path.join(FIXTURES, f"{name}.{ext}"), folder)
         mtl = mtl.replace(f"{name}.png", f"{name}.{ext}")
     with open(os.path.join(folder, "town.mtl"), "w") as f:
         f.write(mtl)
     args = ["--width", "1280", "--height", "720", "--mip-levels", "4",
             *TOWN_CAMERA]
-    runs = {"town_formats": ([os.path.join(folder, os.path.basename(town)),
-                              *args], 1)}
+    runs = {f"town_{tag}": ([os.path.join(folder, os.path.basename(town)),
+                             *args], 1)}
     twin = os.path.join(tmp, "town_png.npy")
     if not os.path.exists(twin):
         _, png_town = _twin_folders(tmp, town)
         runs["town_png"] = ([png_town, *args], 1)
     t0 = time.perf_counter()
     stats = render_main_path(tmp, runs)
-    a = np.load(os.path.join(tmp, "town_formats.npy"))
+    a = np.load(os.path.join(tmp, f"town_{tag}.npy"))
     b = np.load(twin)
+    maps = " / ".join(sorted(set(exts.values())))
     if a.tobytes() != b.tobytes():
-        raise AssertionError("[21b] the town film on TIFF / PSD / DDS / BMP "
-                             "maps is not bitwise its film on the PNG twins")
-    print(f"[21b] town: the film on TIFF LZW / PSD RLE / DDS / BMP maps "
-          f"bitwise the film on their PNG twins "
-          f"({stats['town_formats']['triangles']} triangles); "
+        raise AssertionError(f"[{tag}] the town film on {maps} maps is not "
+                             f"bitwise its film on the PNG twins")
+    print(f"[{tag}] town: the film on {maps} maps bitwise the film on their "
+          f"PNG twins ({stats[f'town_{tag}']['triangles']} triangles); "
           f"{len(runs)} CLI render(s): {time.perf_counter() - t0:.1f} s")
     _spp_line(stats, smi)
 
 
-def phase21_alone(device, smi: str, stamp) -> int:
-    """``python3 chip_smoke.py --phase21``: csrc/traverse.cu, then phase
-    21 alone (its town also on the PNG twins); no kernels line and no
-    result line."""
+def render_formats_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 21b: the town on lossless TIFF / PSD / DDS / BMP re-encodings
+    of its PNG-twin maps, bitwise phase 20b's film on the PNG twins."""
+    render_town_maps(tmp, town, smi, "21b", TOWN_FORMATS)
+
+
+def _phase_alone(number: int, label: str, decode, render, smi: str,
+                 stamp) -> int:
+    """``python3 chip_smoke.py --phase<number>``: csrc/traverse.cu, then
+    the phase alone (its town also on the PNG twins); no kernels line and
+    no result line."""
     from gpupathtracer_tpu_torch.ops import cuda_build
     from gpupathtracer_tpu_torch.scene.samplegen import \
         generate_textured_town
 
     cuda_build.build("traverse")
-    stamp("build (phase 21's kernel)")
-    decode_formats(smi)
-    stamp("phase 21a")
+    stamp(f"build (phase {number}'s kernel)")
+    decode(smi)
+    stamp(f"phase {number}a")
     with tempfile.TemporaryDirectory() as tmp:
         town = generate_textured_town(os.path.join(tmp, "town"))
-        paths = _drive("image formats path", ("trace_closest",
-                                              "trace_anyhit"),
-                       lambda: render_formats_path(tmp, town, smi))
-    stamp("phase 21")
-    print(f"[smoke] phase 21 alone: launches of its path {paths}")
+        paths = _drive(label, ("trace_closest", "trace_anyhit"),
+                       lambda: render(tmp, town, smi))
+    stamp(f"phase {number}")
+    print(f"[smoke] phase {number} alone: launches of its path {paths}")
     return 0
+
+
+def phase21_alone(device, smi: str, stamp) -> int:
+    return _phase_alone(21, "image formats path", decode_formats,
+                        render_formats_path, smi, stamp)
+
+
+# --- phase 22: WebP (C6) -----------------------------------------------------
+
+def decode_webp(smi: str) -> None:
+    """Phase 22a: the WebP library's load, then every WebP fixture
+    (lossless, lossy, lossy RGBA, animated, the simple loop filter, eight
+    token partitions) bitwise its PNG twin and the manifest's sha256."""
+    from gpupathtracer_tpu_torch.utils import webp
+
+    t0 = time.perf_counter()
+    webp._load()
+    print(f"[22a] the WebP library loaded in {time.perf_counter() - t0:.2f} "
+          f"s (g++ at first use; the smoke builds it in phase 2)")
+    hold_fixtures("22a", _fixtures_of(("WEBP",)), smi)
+
+
+def render_webp_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 22b: the town on lossless WebP re-encodings of its PNG-twin
+    maps, bitwise phase 20b's film on the PNG twins."""
+    render_town_maps(tmp, town, smi, "22b", {k: "webp" for k in TOWN_MAPS})
+
+
+def phase22_alone(device, smi: str, stamp) -> int:
+    return _phase_alone(22, "WebP path", decode_webp, render_webp_path, smi,
+                        stamp)
 
 
 def _counters():
@@ -4628,6 +4703,8 @@ def main() -> int:
         return phase20_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase21"]:
         return phase21_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase22"]:
+        return phase22_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -4781,6 +4858,11 @@ def main() -> int:
             "image formats path", ("trace_closest", "trace_anyhit"),
             lambda: render_formats_path(tmp, town, smi)))
         stamp("phase 21")
+        decode_webp(smi)
+        new_paths.append(_drive(
+            "WebP path", ("trace_closest", "trace_anyhit"),
+            lambda: render_webp_path(tmp, town, smi)))
+        stamp("phase 22")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -4808,8 +4890,9 @@ def main() -> int:
         # and sun paths, the delta, glTF, image sky, sort_rays /
         # shadow_rev and ld paths, phase 19's mesh and partition frames,
         # summed over their ranks, phase 20's JPEG-map and JPEG-sky
-        # films and their PNG twins, and phase 21's town on TIFF / PSD /
-        # DDS / BMP maps; at arity 16 the 16-wide film;
+        # films and their PNG twins, phase 21's town on TIFF / PSD / DDS /
+        # BMP maps and phase 22's on WebP maps; at arity 16 the 16-wide
+        # film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

@@ -55,7 +55,7 @@ def build_atlas(paths: List[str], base_dir: str = ".",
         try:
             img = load_image(full)
         except NotImplementedError:
-            # A format PIL reads and the port does not yet (WebP, JPEG 2000,
+            # A format PIL reads and the port does not yet (JPEG 2000, AVIF,
             # ...: ROADMAP.md C6) raises: skipping it would render what the
             # JAX package, which reads it through PIL, does not. Bytes PIL
             # cannot read raise ValueError and are skipped below, as JAX

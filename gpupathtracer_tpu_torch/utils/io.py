@@ -65,13 +65,15 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
     (utils/identify.py). Read: PNG (every depth, Adam7), JPEG (utils/
     jpeg.py: baseline, progressive, 1, 3 or 4 components), BMP (raw,
     RLE4, RLE8, bit fields; Windows and OS/2 headers), TGA, GIF (utils/
-    gif.py), TIFF (utils/tiff.py), DDS (utils/dds.py: BC1-BC7) and PSD
-    (utils/psd.py). A format PIL reads and the port does not yet read
-    (WebP, JPEG 2000, AVIF, PPM, ICO, QOI, ...; ROADMAP.md C6) raises
-    NotImplementedError naming the file and the format. Bytes PIL cannot
-    open or cannot load (no plugin accepts them, a corrupt or truncated
-    file, the stub plugins) raise ValueError naming the file: the atlas
-    builder skips such a map, as the JAX package's does."""
+    gif.py), TIFF (utils/tiff.py), DDS (utils/dds.py: BC1-BC7), PSD
+    (utils/psd.py) and WebP (utils/webp.py: lossless, lossy with its
+    alpha, extended and animated files' first frame). A format PIL reads
+    and the port does not yet read (JPEG 2000, AVIF, PPM, ICO, QOI, ...;
+    ROADMAP.md C6) raises NotImplementedError naming the file and the
+    format. Bytes PIL cannot open or cannot load (no plugin accepts
+    them, a corrupt or truncated file, the stub plugins) raise
+    ValueError naming the file: the atlas builder skips such a map, as
+    the JAX package's does."""
     from gpupathtracer_tpu_torch.utils.identify import CANNOT_LOAD, identify
 
     fmt = identify(data, name)
@@ -92,9 +94,10 @@ def _readers() -> dict:
     from gpupathtracer_tpu_torch.utils.jpeg import decode_jpeg
     from gpupathtracer_tpu_torch.utils.psd import decode_psd
     from gpupathtracer_tpu_torch.utils.tiff import decode_tiff
+    from gpupathtracer_tpu_torch.utils.webp import decode_webp
     return {"PNG": decode_png, "JPEG": decode_jpeg, "BMP": decode_bmp,
             "TGA": decode_tga, "GIF": decode_gif, "TIFF": decode_tiff,
-            "DDS": decode_dds, "PSD": decode_psd}
+            "DDS": decode_dds, "PSD": decode_psd, "WEBP": decode_webp}
 
 
 def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:

@@ -761,7 +761,7 @@ def test_bytes_no_plugin_reads_are_value_errors(folder):
         _hold(folder, name, data, pil_reads=False)
 
 
-@pytest.mark.parametrize("fmt,ext", [("PPM", "ppm"), ("WEBP", "webp"),
+@pytest.mark.parametrize("fmt,ext", [("PPM", "ppm"), ("XBM", "xbm"),
                                      ("JPEG2000", "jp2"), ("ICO", "ico"),
                                      ("QOI", "qoi"), ("PCX", "pcx"),
                                      ("SGI", "sgi"), ("IM", "im"),
@@ -777,6 +777,8 @@ def test_formats_pil_reads_and_the_port_does_not(folder, fmt, ext):
     buf = _bio.BytesIO()
     if fmt == "TIFF":
         im.convert("1").save(buf, "TIFF", compression="group3")
+    elif fmt == "XBM":
+        im.convert("1").save(buf, "XBM")
     elif fmt == "DIB":
         im.save(buf, "BMP")
         buf = _bio.BytesIO(buf.getvalue()[14:])
@@ -837,6 +839,8 @@ def _seeds():
     Image.fromarray(rgba).save(dxt, "DDS", pixel_format="DXT5")
     lzw = _bio.BytesIO()
     Image.fromarray(px).save(lzw, "TIFF", compression="tiff_lzw")
+    alpha = np.concatenate([px, np.random.RandomState(23).randint(
+        0, 256, (24, 20, 1)).astype(np.uint8)], -1)
     return {
         "dds": [dxt.getvalue(), W.write_dds(
             20, 24, W.random_blocks(30, 16, 5, list(range(8))), dxgi=98)],
@@ -849,13 +853,26 @@ def _seeds():
             lct=rng.randint(0, 256, (16, 3)), interlace=True)],
         "psd": [W.write_psd([px[..., c] for c in range(3)], 3, rle=True),
                 W.write_psd([px[..., c] for c in range(3)], 3)],
+        "webp_lossless": [_webp(px, lossless=True),
+                          _webp(alpha, lossless=True, exact=True)],
+        "webp_lossy": [_webp(px, quality=70),
+                       _webp(alpha, quality=70, alpha_quality=80)],
     }
 
 
-@pytest.mark.parametrize("kind", ["dds", "tiff", "gif", "psd"])
+def _webp(img, **kw) -> bytes:
+    buf = _bio.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind", ["dds", "tiff", "gif", "psd",
+                                  "webp_lossless", "webp_lossy"])
 @pytest.mark.parametrize("seed", [1, 2])
 def test_mutations_never_decode_otherwise(kind, seed):
-    """Bytes set, deleted or cut off in DDS, TIFF, GIF and PSD files: the
+    """Bytes set, deleted or cut off in DDS, TIFF, GIF and PSD files, and
+    in lossless and lossy WebP files (RGB, and RGBA: VP8L with alpha,
+    VP8X with ALPH): the
     port decodes a mutated file to PIL's bits, or raises ValueError; it
     raises NotImplementedError only where PIL reads the file (a mutation
     that lands on a variant the port leaves out). Where PIL reads a file

@@ -688,12 +688,14 @@ def write_unread(folder) -> dict:
 # What each file of write_unread does in the port since the second image
 # slice: "same" is read bitwise as the JAX package reads it (PIL), also
 # through the atlas builder; "skip" is bytes PIL cannot read (PIL has no
-# EXR reader), ValueError naming the file, skipped by both atlas builders;
-# "raise" stays unread (ROADMAP.md C6), NotImplementedError naming the
-# file, which the atlas builder lets through.
+# EXR reader; since the WebP slice, a RIFF/WEBP header with no VP8 frame
+# behind it, which libwebp refuses), ValueError naming the file, skipped
+# by both atlas builders; "raise" stays unread (ROADMAP.md C6),
+# NotImplementedError naming the file, which the atlas builder lets
+# through.
 UNREAD = {"cmyk.jpg": "same", "arith.jpg": "raise", "lossless.jpg": "raise",
           "sky.exr": "skip", "anim.gif": "same", "photo.tif": "same",
-          "photo.webp": "raise"}
+          "photo.webp": "skip"}
 
 
 @pytest.mark.parametrize("name", ["cmyk.jpg", "arith.jpg", "lossless.jpg",
@@ -702,8 +704,9 @@ UNREAD = {"cmyk.jpg": "same", "arith.jpg": "raise", "lossless.jpg": "raise",
 def test_unread_formats_raise(tmp_path, name):
     """A CMYK JPEG, a GIF and a TIFF read bitwise as the JAX package reads
     them, also through the atlas builder; an EXR (no PIL plugin reads it)
-    raises ValueError naming the file and both atlas builders skip it;
-    arithmetic coding (SOF9), lossless JPEG (SOF3) and WebP still raise
+    and a WebP header without a frame (PIL's WebP plugin cannot open it)
+    raise ValueError naming the file and both atlas builders skip them;
+    arithmetic coding (SOF9) and lossless JPEG (SOF3) still raise
     NotImplementedError naming the file, also through the atlas builder
     (which skips only what PIL cannot read)."""
     path = write_unread(tmp_path)[name]

@@ -5,7 +5,8 @@ with the megakernel, on cluster leaves, with treelet-sorted bounce rays,
 with the reference and AO integrators, a 16-wide table with treelet-binned
 bounce rays, a generated textured town with mips (its maps written and
 read by the port's own PNG code, then swapped for the committed JPEG
-fixtures, read by its own JPEG decoder), and a mirror and glass OBJ with the ld
+fixtures, read by its own JPEG decoder; the WebP fixtures decode to their
+manifest's pixels), and a mirror and glass OBJ with the ld
 sampler and light-end shadow rays (and it loads the demo glTF and plots a
 sampler's points), and the PNGs are decoded here with zlib alone; it also
 saves and resumes a checkpoint, reads a scene warm from a temporary disk
@@ -86,6 +87,20 @@ rc = rc or cli.main([town, "--device", "cpu", "--spp", "1", "--width", "16",
                      "3.14159,-0.28", "--out",
                      os.path.join(sys.argv[8], "town_jpeg.png")])
 print("JPEGTOWN", sorted(jslots))
+# The committed WebP fixtures through the port's WebP decoder (PIL refused).
+import hashlib
+import json
+from gpupathtracer_tpu_torch.utils import io as port_io
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)
+webp = [k for k, e in sorted(manifest.items()) if e["format"] == "WEBP"]
+held = 0
+for k in webp:
+    with open(os.path.join(fixtures, manifest[k]["file"]), "rb") as f:
+        px = port_io.decode_image(f.read(), k)
+    held += (hashlib.sha256(px.tobytes()).hexdigest()
+             == manifest[k]["pixels_sha256"])
+print("WEBP", len(webp), held)
 # The treelet-sorted bounce traversal, with the sort forced on at 16x16.
 import math
 from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -223,6 +238,7 @@ def test_port_renders_without_jax_or_pil(tmp_path):
     assert "A18 2 True True" in proc.stdout
     assert ("JPEGTOWN ['bricks.jpg', 'checker.jpg', 'foliage.jpg', "
             "'roof.jpg']") in proc.stdout
+    assert "WEBP 9 9" in proc.stdout
     for out in outs + [wide, delta, str(tmp_path / "town" /
                                         "town_jpeg.png")]:
         img = _read_png(out)
@@ -253,7 +269,8 @@ def test_port_sources_never_import_the_jax_package():
             "gltf.py", "sampler_viz.py", "checkpoint.py", "viewer.py",
             "debug.py", "cache.py", "packet_traverse.py", "comm.py",
             "mesh.py", "partition.py", "launch.py",
-            "torch_partition_bench.py", "torch_dist_ranks.py"} <= names
+            "torch_partition_bench.py", "torch_dist_ranks.py",
+            "webp.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)

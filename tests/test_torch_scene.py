@@ -192,8 +192,10 @@ def test_unported_inputs_raise(tmp_path):
     # A JPEG sky whose header has nothing behind it: corrupt, ValueError
     # naming the file (JPEG skies read since C6's decoder); a
     # four-component (CMYK) JPEG sky reads bitwise as the JAX package's
-    # since the second image slice; a WebP sky stays unread:
-    # NotImplementedError naming the file.
+    # since the second image slice; cube faces of a WebP header with no
+    # frame behind it: ValueError naming the file since the WebP slice
+    # (PIL cannot open it either); arithmetic-coded JPEG faces stay
+    # unread: NotImplementedError naming the file.
     from test_torch_images import write_unread
 
     jpg = tmp_path / "sky.jpg"
@@ -205,8 +207,13 @@ def test_unported_inputs_raise(tmp_path):
     want = np.asarray(jax_envmap.load_environment(unread["cmyk.jpg"]).image)
     assert got.tobytes() == want.tobytes()
     (tmp_path / "webp_faces.txt").write_text("photo.webp\n" * 6)
-    with pytest.raises(NotImplementedError, match="photo.webp"):
+    with pytest.raises(ValueError, match="photo.webp"):
         envmap.environment_image(str(tmp_path / "webp_faces.txt"))
+    with pytest.raises(Exception):
+        jax_envmap.load_environment(str(tmp_path / "webp_faces.txt"))
+    (tmp_path / "arith_faces.txt").write_text("arith.jpg\n" * 6)
+    with pytest.raises(NotImplementedError, match="arith.jpg"):
+        envmap.environment_image(str(tmp_path / "arith_faces.txt"))
     # Node rows hold 2 to 16 children (wide_arity 16 loads since the
     # kernels take the table's arity).
     with pytest.raises(ValueError):

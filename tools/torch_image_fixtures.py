@@ -9,7 +9,8 @@ decoded pixels.
 Needs Pillow, so it runs where the JAX package's tests run, never on the
 card's machine; the port reads the files without it (utils/io.py
 decode_image) and tests/test_torch_images.py, chip_smoke.py phase 20 (the
-JPEGs) and phase 21 (the rest) hold its decodes to the PNGs. The files:
+JPEGs), phase 21 (the rest but WebP) and phase 22 (the WebP files) hold its
+decodes to the PNGs. The files:
 
 - JPEG, PIL's encoder: the generated town's four 128x128 maps
   (scene/samplegen.py), one encoding each: checker baseline 4:4:4 at q95,
@@ -27,12 +28,19 @@ JPEGs) and phase 21 (the rest) hold its decodes to the PNGs. The files:
   quantizer), bricks as a CMYK JPEG (PIL) and as the same file marked
   YCCK (its Adobe transform byte set to 2), and seeded random BC4, BC6H
   (UF16, SF16) and BC7 blocks under DX10 headers (PIL writes none of
-  them), every BC7 mode and BC6H mode among them.
+  them), every BC7 mode and BC6H mode among them;
+- WebP: lossless re-encodings of the four town twins (PIL, each at another
+  method and quality), bricks lossy at q75, foliage as lossy RGBA (VP8X and
+  ALPH), an animation whose 96x80 lossy first frame sits at (8, 16) on a
+  128x128 canvas (PIL's decode: black around it), and two lossy files by
+  libwebp's advanced encoder, which PIL's options do not reach: foliage
+  with the simple loop filter, bricks in eight token partitions.
 
 The writers of the containers PIL does not write (DDS headers, GIF, TIFF
 with tiles, planar configuration 2, predictors, big-endian and BigTIFF,
-PSD) live here too; tests/test_torch_image_formats.py builds its cases
-with them.
+PSD, WebP chunks and animations) live here too;
+tests/test_torch_image_formats.py and tests/test_torch_webp.py build their
+cases with them.
 
 The PNGs use filters None, Sub and Up only (the port unfilters those
 without a per-byte loop), chosen per row by the smallest sum of absolute
@@ -490,6 +498,137 @@ def write_psd(planes, mode: int, bits: int = 8, rle: bool = False,
     return bytes(out + b"".join(r for c in rows for r in c))
 
 
+# --- WebP: the RIFF container, and what PIL's options cannot write ---------
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk, padded to an even size."""
+    return (tag + struct.pack("<I", len(payload)) + payload
+            + b"\0" * (len(payload) & 1))
+
+
+def webp_riff(chunks: bytes, riff_size: int = None) -> bytes:
+    """A WebP file around ``chunks`` (its RIFF size given or true)."""
+    if riff_size is None:
+        riff_size = 4 + len(chunks)
+    return b"RIFF" + struct.pack("<I", riff_size) + b"WEBP" + chunks
+
+
+def webp_chunks(data: bytes) -> list:
+    """(tag, payload) of each chunk of a well-formed WebP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack_from("<I", data, pos + 4)
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def webp_vp8x(flags: int, w: int, h: int) -> bytes:
+    """A VP8X chunk: the flags and the canvas size."""
+    return webp_chunk(b"VP8X", struct.pack("<I", flags)
+                      + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def write_webp_anim(canvas, frames, loops: int = 0) -> bytes:
+    """An animated WebP of ``canvas`` (w, h): VP8X (animation and alpha
+    flags), ANIM, then an ANMF for each (x, y, still WebP file,
+    duration ms, ANMF flags) of ``frames`` (even offsets) holding the
+    still file's ALPH / VP8 / VP8L chunks; its size is the bitstream's."""
+    body = b""
+    for x, y, still, duration, flags in frames:
+        image = [(t, p) for t, p in webp_chunks(still)
+                 if t in (b"ALPH", b"VP8 ", b"VP8L")]
+        tag, bits = image[-1]
+        if tag == b"VP8L":
+            v = struct.unpack_from("<I", bits, 1)[0]
+            w, h = 1 + (v & 0x3FFF), 1 + ((v >> 14) & 0x3FFF)
+        else:
+            w, h = (struct.unpack_from("<H", bits, 6)[0] & 0x3FFF,
+                    struct.unpack_from("<H", bits, 8)[0] & 0x3FFF)
+        head = b"".join(v.to_bytes(3, "little") for v in (
+            x // 2, y // 2, w - 1, h - 1, duration)) + bytes([flags])
+        body += webp_chunk(b"ANMF", head + b"".join(
+            webp_chunk(t, p) for t, p in image))
+    return webp_riff(webp_vp8x(0x12, *canvas) + webp_chunk(
+        b"ANIM", struct.pack("<IH", 0, loops)) + body)
+
+
+# WebPConfig's fields, in order (libwebp 1.x, all 4 bytes: ints but the
+# two floats).
+_WEBP_CONFIG = (
+    "lossless", "quality", "method", "image_hint", "target_size",
+    "target_PSNR", "segments", "sns_strength", "filter_strength",
+    "filter_sharpness", "filter_type", "autofilter", "alpha_compression",
+    "alpha_filtering", "alpha_quality", "pass", "show_compressed",
+    "preprocessing", "partitions", "partition_limit", "emulate_jpeg_size",
+    "thread_level", "low_memory", "near_lossless", "exact",
+    "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")
+
+
+def libwebp_encode(rgb: np.ndarray, **config) -> bytes:
+    """A lossy WebP of uint8 [H, W, 3] by libwebp's advanced encoder (the
+    library Pillow bundles, through ctypes), for what PIL's options do
+    not reach: ``config`` sets WebPConfig fields (filter_type 0, the
+    simple loop filter; partitions 3, eight token partitions, which
+    libwebp writes at methods 0-2 only; ...)."""
+    import ctypes
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    for dep in sorted(glob.glob(os.path.join(libs, "libsharpyuv-*.so*"))):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    found = glob.glob(os.path.join(libs, "libwebp-*.so*"))
+    lib = ctypes.CDLL(found[0] if found else "libwebp.so")
+
+    class Config(ctypes.Structure):
+        _fields_ = [(f, ctypes.c_float if f in ("quality", "target_PSNR")
+                     else ctypes.c_int) for f in _WEBP_CONFIG]
+
+    class Writer(ctypes.Structure):
+        _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)),
+                    ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                    ("pad", ctypes.c_uint32)]
+
+    abi = 0x0210    # WEBP_ENCODER_ABI_VERSION's major byte is what is held
+    cfg = Config()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0,
+                                      ctypes.c_float(75.0), abi):
+        raise RuntimeError("libwebp: WebPConfigInit failed")
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the config {config}")
+    # WebPPicture (256 bytes on LP64): use_argb at 0, width at 8, height
+    # at 12, writer at 96, custom_ptr at 104, error_code at 136.
+    pic = (ctypes.c_uint8 * 512)()
+    if not lib.WebPPictureInitInternal(pic, abi):
+        raise RuntimeError("libwebp: WebPPictureInit failed")
+    h, w, _ = rgb.shape
+    ctypes.c_int.from_buffer(pic, 8).value = w
+    ctypes.c_int.from_buffer(pic, 12).value = h
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    writer = Writer()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    try:
+        if not lib.WebPPictureImportRGB(pic, rgb.ctypes.data_as(
+                ctypes.c_void_p), w * 3):
+            raise RuntimeError("libwebp: WebPPictureImportRGB failed")
+        ctypes.c_void_p.from_buffer(pic, 96).value = ctypes.cast(
+            lib.WebPMemoryWrite, ctypes.c_void_p).value
+        ctypes.c_void_p.from_buffer(pic, 104).value = ctypes.addressof(writer)
+        if not lib.WebPEncode(ctypes.byref(cfg), pic):
+            raise RuntimeError(f"libwebp: WebPEncode failed (error "
+                               f"{ctypes.c_int.from_buffer(pic, 136).value})")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(pic)
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
 # --- the fixtures -------------------------------------------------------------
 
 # name -> (pixels, PIL save arguments): the JPEGs.
@@ -579,7 +718,48 @@ def other_fixtures(twins: dict) -> dict:
                         {"JPEG": "CMYK, q85 (PIL)"}),
         "bricks_ycck": ("bricks_ycck.jpg", bytes(ycck), None,
                         {"JPEG": "the CMYK file, Adobe transform 2 (YCCK)"}),
+        **webp_fixtures(t),
     }
+
+
+def webp_fixtures(t: dict) -> dict:
+    """The WebP files: lossless re-encodings of the town's PNG twins (each
+    at another method and quality), a lossy map at q75, lossy RGBA (VP8X
+    and ALPH), an animation whose first frame is offset on its canvas,
+    and two that PIL's options cannot write (libwebp_encode): the simple
+    loop filter, and eight token partitions."""
+    from PIL import Image
+    lossless = {"checker": (6, 100), "bricks": (0, 0), "roof": (4, 50),
+                "foliage": (2, 75)}
+    out = {f"{k}_webp": (f"{k}.webp", _pil(t[k], "WEBP", lossless=True,
+                                          method=m, quality=q), f"{k}.png",
+                         {"WEBP": f"lossless, method {m}, q{q} (PIL)"})
+           for k, (m, q) in lossless.items()}
+    yy, xx = np.mgrid[0:128, 0:128]
+    alpha = ((xx + yy) * 255 // 254).astype(np.uint8)[..., None]
+    still = _pil(t["bricks"][16:96, 8:104], "WEBP", quality=70)
+    second = _pil(t["roof"], "WEBP", lossless=True)
+    out.update({
+        "bricks_q75": ("bricks_q75.webp", _pil(t["bricks"], "WEBP",
+                                               quality=75), None,
+                       {"WEBP": "lossy, q75 (PIL)"}),
+        "foliage_alpha": ("foliage_alpha.webp", _pil(Image.fromarray(
+            np.concatenate([t["foliage"], alpha], -1)), "WEBP", quality=80,
+            alpha_quality=60), None,
+            {"WEBP": "lossy RGBA, q80, alpha q60: VP8X + ALPH (PIL)"}),
+        "anim_offset": ("anim_offset.webp", write_webp_anim(
+            (128, 128), [(8, 16, still, 100, 0), (0, 0, second, 100, 0)]),
+            None, {"WEBP": "animated, a 96x80 lossy first frame at (8, 16) "
+                           "then a lossless one"}),
+        "foliage_simple": ("foliage_simple.webp", libwebp_encode(
+            t["foliage"], quality=80.0, filter_type=0, filter_strength=60,
+            filter_sharpness=2), None,
+            {"WEBP": "lossy, the simple loop filter (libwebp)"}),
+        "bricks_parts8": ("bricks_parts8.webp", libwebp_encode(
+            t["bricks"], quality=70.0, method=2, partitions=3, segments=4),
+            None, {"WEBP": "lossy, eight token partitions (libwebp)"}),
+    })
+    return out
 
 
 def _chunk(tag: bytes, body: bytes) -> bytes:
