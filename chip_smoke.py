@@ -316,6 +316,20 @@ nvcc and g++. Phases, each of which raises on failure:
      alone); B1's launches of (b) are counted in the kernels line.
      ``python3 chip_smoke.py --phase22`` runs phase 22 alone (no result
      line).
+ 23. (after phase 22) the rest of JPEG (ROADMAP.md C6): (a) every
+     committed fixture of the fourth image slice (arithmetic-coded
+     sequential and progressive files with restarts and DAC conditioning,
+     lossless files at predictors 1-7, a file without DHT, progressive
+     files cut after a scan, a scan cut by EOI, a dropped RST marker)
+     decoded bitwise its PNG twin and the manifest's pixel sha256, host ms
+     (median of 5) and MPix/s a fixture beside its twin's PNG decode; (b)
+     the generated town at 1280x720, 4 mip levels, 1 spp through the CLI,
+     its .mtl on arithmetic-coded transcodes of phase 20's checker (SOF9)
+     and roof (SOF10) JPEGs and lossless (SOF3) encodings of the bricks
+     and foliage twins: the film bitwise phase 20b's PNG-twin film
+     (rendered here too when phase 23 runs alone); B1's launches of (b)
+     are counted in the kernels line. ``python3 chip_smoke.py --phase23``
+     runs phase 23 alone (no result line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -4484,12 +4498,12 @@ def hold_fixtures(tag: str, names, smi: str) -> None:
 
 
 def _fixtures_of(formats) -> list:
-    """The manifest's fixtures beside phase 20's JPEGs whose format is in
-    ``formats`` (None: every format but WebP)."""
+    """The manifest's fixtures beside phase 20's and phase 23's JPEGs whose
+    format is in ``formats`` (None: every format but WebP)."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     return sorted(n for n, e in manifest.items()
-                  if n not in PHASE20_FIXTURES
+                  if n not in PHASE20_FIXTURES + PHASE23_FIXTURES
                   and (e["format"] in formats if formats
                        else e["format"] != "WEBP"))
 
@@ -4509,9 +4523,10 @@ def decode_formats(smi: str) -> None:
 def render_town_maps(tmp: str, town: str, smi: str, tag: str,
                      exts: dict) -> None:
     """The town with each map ``name`` replaced by the fixture
-    ``name.ext`` (lossless re-encodings of its PNG-twin maps), bitwise
-    phase 20b's film on the PNG twins (that film rendered here when phase
-    20 did not run in this process)."""
+    ``name.ext`` (or by the fixture file an ``exts`` value names; each
+    decodes to its map's PNG twin), bitwise phase 20b's film on the PNG
+    twins (that film rendered here when phase 20 did not run in this
+    process)."""
     import shutil
 
     import numpy as np
@@ -4522,8 +4537,9 @@ def render_town_maps(tmp: str, town: str, smi: str, tag: str,
     with open(os.path.join(os.path.dirname(town), "town.mtl")) as f:
         mtl = f.read()
     for name, ext in exts.items():
-        shutil.copy(os.path.join(FIXTURES, f"{name}.{ext}"), folder)
-        mtl = mtl.replace(f"{name}.png", f"{name}.{ext}")
+        fname = ext if "." in ext else f"{name}.{ext}"
+        shutil.copy(os.path.join(FIXTURES, fname), folder)
+        mtl = mtl.replace(f"{name}.png", fname)
     with open(os.path.join(folder, "town.mtl"), "w") as f:
         f.write(mtl)
     args = ["--width", "1280", "--height", "720", "--mip-levels", "4",
@@ -4539,6 +4555,9 @@ def render_town_maps(tmp: str, town: str, smi: str, tag: str,
     a = np.load(os.path.join(tmp, f"town_{tag}.npy"))
     b = np.load(twin)
     maps = " / ".join(sorted(set(exts.values())))
+    if any("." in v for v in exts.values()):
+        maps = "JPEG " + " / ".join(sorted(set(
+            v.split(".")[0].split("_")[-1] for v in exts.values())))
     if a.tobytes() != b.tobytes():
         raise AssertionError(f"[{tag}] the town film on {maps} maps is not "
                              f"bitwise its film on the PNG twins")
@@ -4605,6 +4624,46 @@ def render_webp_path(tmp: str, town: str, smi: str) -> None:
 def phase22_alone(device, smi: str, stamp) -> int:
     return _phase_alone(22, "WebP path", decode_webp, render_webp_path, smi,
                         stamp)
+
+
+# --- phase 23: the rest of JPEG (C6) -----------------------------------------
+
+# Phase 23a's fixtures (tools/torch_image_fixtures.py jpeg_rest_fixtures).
+PHASE23_FIXTURES = (
+    "arith_420", "arith_444_dac", "arith_grey", "arith_prog",
+    "arith_prog_cut", "bricks_lossless", "checker_arith", "foliage_lossless",
+    *(f"lossless_p{p}" for p in range(1, 8)), "nodht", "prog_cut1",
+    "prog_cut3", "prog_cut7", "roof_arith", "rst_dropped", "scan_cut")
+# The town's maps as the JPEG processes beside Huffman DCT: arithmetic
+# transcodes of phase 20's checker and roof JPEGs (their coefficients, so
+# their pixels) and lossless encodings of the bricks and foliage twins.
+TOWN_JPEG_REST = {"checker": "checker_arith.jpg", "roof": "roof_arith.jpg",
+                  "bricks": "bricks_lossless.jpg",
+                  "foliage": "foliage_lossless.jpg"}
+
+
+def decode_jpeg_rest(smi: str) -> None:
+    """Phase 23a: the JPEG decoder's load, then every fixture of the fourth
+    image slice bitwise its PNG twin and the manifest's sha256."""
+    from gpupathtracer_tpu_torch.utils import jpeg
+
+    t0 = time.perf_counter()
+    jpeg._load()
+    print(f"[23a] the JPEG decoder's library loaded in "
+          f"{time.perf_counter() - t0:.2f} s (g++ at first use; the smoke "
+          f"builds it in phase 2)")
+    hold_fixtures("23a", PHASE23_FIXTURES, smi)
+
+
+def render_jpeg_rest_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 23b: the town on arithmetic-coded and lossless JPEG maps,
+    bitwise phase 20b's film on the PNG twins."""
+    render_town_maps(tmp, town, smi, "23b", TOWN_JPEG_REST)
+
+
+def phase23_alone(device, smi: str, stamp) -> int:
+    return _phase_alone(23, "JPEG processes path", decode_jpeg_rest,
+                        render_jpeg_rest_path, smi, stamp)
 
 
 def _counters():
@@ -4705,6 +4764,8 @@ def main() -> int:
         return phase21_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase22"]:
         return phase22_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase23"]:
+        return phase23_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -4863,6 +4924,11 @@ def main() -> int:
             "WebP path", ("trace_closest", "trace_anyhit"),
             lambda: render_webp_path(tmp, town, smi)))
         stamp("phase 22")
+        decode_jpeg_rest(smi)
+        new_paths.append(_drive(
+            "JPEG processes path", ("trace_closest", "trace_anyhit"),
+            lambda: render_jpeg_rest_path(tmp, town, smi)))
+        stamp("phase 23")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -4891,8 +4957,8 @@ def main() -> int:
         # shadow_rev and ld paths, phase 19's mesh and partition frames,
         # summed over their ranks, phase 20's JPEG-map and JPEG-sky
         # films and their PNG twins, phase 21's town on TIFF / PSD / DDS /
-        # BMP maps and phase 22's on WebP maps; at arity 16 the 16-wide
-        # film;
+        # BMP maps, phase 22's on WebP maps and phase 23's on arithmetic
+        # and lossless JPEG maps; at arity 16 the 16-wide film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

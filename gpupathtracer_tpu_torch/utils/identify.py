@@ -165,6 +165,134 @@ def _probe_cur(d):
     return True
 
 
+# JpegImagePlugin.MARKER: the markers its _open walks, by handler.
+_JPEG_SOF = (frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}) | {0xDE}
+_JPEG_SKIP = frozenset((0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF))
+_JPEG_NONE = frozenset([0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)])
+
+
+def _read(d, pos, n):
+    """ImageFile._safe_read: n bytes, nothing for n <= 0, OSError short."""
+    if n <= 0:
+        return b"", pos
+    if pos + n > len(d):
+        raise Refused("Truncated File Read")
+    return d[pos:pos + n], pos + n
+
+
+def _jpeg_app(marker, s):
+    """The parts of JpegImagePlugin.APP that can raise."""
+    if marker == 0xE0 and s.startswith(b"JFIF"):
+        struct.unpack_from(">H", s, 5)
+    elif marker == 0xED and s.startswith(b"Photoshop 3.0\x00"):
+        offset = 14
+        while s[offset:offset + 4] == b"8BIM":
+            offset += 4
+            if len(s) < offset + 2:
+                break                   # struct.error: insufficient data
+            code = struct.unpack_from(">H", s, offset)[0]
+            offset += 2
+            offset += 1 + s[offset]     # IndexError past the end
+            offset += offset & 1
+            if len(s) < offset + 4:
+                break
+            size = struct.unpack_from(">I", s, offset)[0]
+            offset += 4
+            if code == 0x03ED and len(s[offset:offset + size]) < 14:
+                break                   # ResolutionInfo cut short
+            offset += size
+            offset += offset & 1
+    elif marker == 0xEE and s.startswith(b"Adobe"):
+        struct.unpack_from(">H", s, 5)
+
+
+def _probe_jpeg(d):
+    """JpegImagePlugin._open: the markers up to the first SOS, walked as
+    PIL walks them (junk bytes skipped, FF FF and FF 00 passed over, any
+    other unknown marker "no marker found"), with the checks of its SOF,
+    DQT and APP handlers: 8-bit samples in 1, 3 or 4 layers, whole
+    quantization tables. Then Image.open's: a mode and a size above 0."""
+    pos, s = 3, 0xFF
+    layers = width = height = 0
+    icc = []
+    while True:
+        if s != 0xFF:
+            if pos >= len(d):
+                return False            # IndexError at the end
+            s = d[pos]
+            pos += 1
+            continue
+        if pos >= len(d):
+            return False                # struct.error reading the marker
+        m = d[pos]
+        pos += 1
+        if m in _JPEG_SOF or m in _JPEG_SKIP or m == 0xDB or 0xE0 <= m <= \
+                0xEF or m == 0xFE:
+            if pos + 2 > len(d):
+                return False
+            n = struct.unpack_from(">H", d, pos)[0] - 2
+            body, pos = _read(d, pos + 2, n)
+            if m in _JPEG_SOF:
+                if len(body) < 5:
+                    return False
+                height, width = struct.unpack_from(">HH", body, 1)
+                if body[0] != 8:
+                    return False        # "cannot handle N-bit layers"
+                if len(body) < 6:
+                    return False
+                layers = body[5]
+                if layers not in (1, 3, 4):
+                    return False        # "cannot handle N-layer images"
+                if icc:
+                    if len(min(icc)) < 14:
+                        return False
+                    icc = []
+            elif m == 0xDB:
+                while body:
+                    size = 65 if body[0] // 16 == 0 else 129
+                    if len(body) < size:
+                        return False    # "bad quantization table marker"
+                    body = body[size:]
+            elif 0xE0 <= m <= 0xEF:
+                if m == 0xE2 and body.startswith(b"ICC_PROFILE\0"):
+                    icc.append(body)
+                try:
+                    _jpeg_app(m, body)
+                except (IndexError, struct.error):
+                    return False
+            if m == 0xDA:
+                break
+            if pos >= len(d):
+                return False
+            s = d[pos]
+            pos += 1
+        elif m in _JPEG_NONE:
+            if pos >= len(d):
+                return False
+            s = d[pos]
+            pos += 1
+        elif m == 0xFF:
+            s = 0xFF
+        elif m == 0x00:
+            if pos >= len(d):
+                return False
+            s = d[pos]
+            pos += 1
+        else:
+            return False                # "no marker found"
+    return layers != 0 and width > 0 and height > 0
+
+
+def pil_jpeg_refuses(data: bytes):
+    """Why PIL's JPEG plugin would not open ``data`` (None if it would)."""
+    try:
+        if _jpeg(data[:16]) and _probe_jpeg(data):
+            return None
+        return "no SOS after a frame of 8-bit samples in 1, 3 or 4 layers"
+    except Refused as e:
+        return str(e)
+
+
 def _probe_psd(d):
     return len(d) >= 26 and struct.unpack_from(">H", d, 4)[0] == 1
 
@@ -303,7 +431,7 @@ def _probe_spider(d):
 # (format, accept, probe) in Image.ID order.
 PLUGINS = (
     ("BMP", _bmp, _probe_bmp), ("DIB", _dib, None), ("GIF", _gif, None),
-    ("JPEG", _jpeg, None), ("PPM", _ppm, None), ("PNG", _png, None),
+    ("JPEG", _jpeg, _probe_jpeg), ("PPM", _ppm, None), ("PNG", _png, None),
     ("AVIF", _avif, None), ("BLP", _starts(b"BLP1", b"BLP2"), None),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
     ("CUR", _starts(b"\0\0\2\0"), _probe_cur), ("PCX", _pcx, _probe_pcx),

@@ -63,7 +63,8 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
 
     The format is the one PIL's ``Image.open`` would pick
     (utils/identify.py). Read: PNG (every depth, Adam7), JPEG (utils/
-    jpeg.py: baseline, progressive, 1, 3 or 4 components), BMP (raw,
+    jpeg.py: every process PIL reads, Huffman or arithmetic coded and
+    lossless, 1, 3 or 4 components), BMP (raw,
     RLE4, RLE8, bit fields; Windows and OS/2 headers), TGA, GIF (utils/
     gif.py), TIFF (utils/tiff.py), DDS (utils/dds.py: BC1-BC7), PSD
     (utils/psd.py) and WebP (utils/webp.py: lossless, lossy with its

@@ -62,6 +62,10 @@ _SCALAR = (_WIDTH, _LENGTH, _COMPRESSION, _PHOTO, _FILLORDER, _ORIENTATION,
            _SPP, _ROWS, _PLANAR, _PREDICTOR, _TILEW, _TILEL)
 _USED = _SCALAR + (_BPS, _STRIPS, _STRIPBYTES, _COLORMAP, _TILES, _TILEBYTES,
                    _EXTRA, _FORMAT)
+# Fields of a type PIL does not know that it skips and the file reads on:
+# Compression (PIL's own raw decoder then reads the strips) and Predictor
+# (libtiff warns, and predicts nothing).
+_SKIPPED_UNKNOWN = (_COMPRESSION, _PREDICTOR)
 
 
 def _ifd(data: bytes, name: str) -> tuple:
@@ -84,6 +88,8 @@ def _ifd(data: bytes, name: str) -> tuple:
             tag, typ, n = struct.unpack_from(order + "HHQ", data, p)
         else:
             tag, typ, n = struct.unpack_from(order + "HHI", data, p)
+        if typ not in _TYPES and tag in _SKIPPED_UNKNOWN:
+            continue
         if typ not in _TYPES or (tag in _SCALAR and n != 1):
             if tag in _USED:
                 raise ValueError(f"{name}: TIFF tag {tag} of type {typ}, "
@@ -455,7 +461,8 @@ def _jpeg(src, tables, bh, bw, ns, layout, name):
     photo = layout["photo"]
     if layout["bps"] != 8:
         raise ValueError(f"{name}: JPEG-in-TIFF at {layout['bps']} bits")
-    img = decode_jpeg(src, name, colour="ycbcr" if photo == 6 else "none")
+    img = decode_jpeg(src, name, colour="ycbcr" if photo == 6 else "none",
+                      source="libtiff")
     if img.shape[0] < bh or img.shape[1] < bw:
         raise ValueError(f"{name}: a JPEG strip smaller than its strip")
     img = img[:bh, :bw]

@@ -134,9 +134,9 @@ def test_jpeg_tables_and_range_limit(tmp_path, case):
 def test_progressive_needs_no_block_smoothing(tmp_path):
     """libjpeg's block smoothing (jdcoefct.c) only runs where a progressive
     file leaves a low coefficient unrefined: for every complete file PIL
-    writes, the port's decode (which has no smoothing) is PIL's. A file cut
-    after its DC scans, which PIL would smooth, raises NotImplementedError
-    naming the file instead."""
+    writes, the decode is PIL's without it. A file cut after its DC scans
+    is smoothed (from its DC values alone) as PIL smooths it, bitwise the
+    JAX package's (since the fourth image slice)."""
     pixels = _photo(64, 96, 8)
     for sub in (0, 2):
         path = _pil_jpeg(tmp_path / f"p{sub}.jpg", pixels, quality=70,
@@ -148,8 +148,7 @@ def test_progressive_needs_no_block_smoothing(tmp_path):
     sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
     cut = tmp_path / "dc_only.jpg"
     cut.write_bytes(data[:sos[1]] + b"\xff\xd9")
-    with pytest.raises(NotImplementedError, match="dc_only.jpg"):
-        io.load_image(str(cut))
+    _same(cut)
 
 
 # --- JPEG: files PIL does not write -------------------------------------------
@@ -421,10 +420,10 @@ def test_jpeg_corrupt_data_raises_value_error(tmp_path):
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_jpeg_mutations_never_decode_otherwise(seed):
     """Bytes set, deleted or cut off (an EOI appended) in PIL-written files:
-    the port raises only ValueError (corrupt) or NotImplementedError
-    (unread), and wherever both it and PIL decode a file, the images are
-    bitwise equal. (Where libjpeg decodes corrupt data with a warning the
-    port raises: ROADMAP.md C6.)"""
+    the port raises only ValueError, and only where PIL fails too (libjpeg
+    decodes corrupt data with warnings: since the fourth image slice the
+    port recovers as it does); wherever both decode a file, the images are
+    bitwise equal."""
     rng = np.random.RandomState(seed)
     both = 0
     for _ in range(60):
@@ -451,8 +450,10 @@ def test_jpeg_mutations_never_decode_otherwise(seed):
             want = None
         try:
             got = decode_jpeg(bytes(data))
-        except (ValueError, NotImplementedError):
+        except ValueError:
             got = None
+        assert got is not None or want is None, "PIL reads a mutant the " \
+            "port refuses"
         if want is not None and got is not None:
             both += 1
             assert got.tobytes() == want.tobytes()
@@ -682,6 +683,8 @@ def write_unread(folder) -> dict:
     out["photo.webp"] = os.path.join(folder, "photo.webp")
     with open(out["photo.webp"], "wb") as f:    # a RIFF/WEBP header
         f.write(b"RIFF\x24\0\0\0WEBPVP8 " + b"\0" * 32)
+    out["photo.ppm"] = os.path.join(folder, "photo.ppm")
+    Image.fromarray(rgb).save(out["photo.ppm"], "PPM")
     return out
 
 
@@ -689,26 +692,29 @@ def write_unread(folder) -> dict:
 # slice: "same" is read bitwise as the JAX package reads it (PIL), also
 # through the atlas builder; "skip" is bytes PIL cannot read (PIL has no
 # EXR reader; since the WebP slice, a RIFF/WEBP header with no VP8 frame
-# behind it, which libwebp refuses), ValueError naming the file, skipped
-# by both atlas builders; "raise" stays unread (ROADMAP.md C6),
-# NotImplementedError naming the file, which the atlas builder lets
-# through.
-UNREAD = {"cmyk.jpg": "same", "arith.jpg": "raise", "lossless.jpg": "raise",
+# behind it, which libwebp refuses; since the fourth image slice, DCT
+# data under a lossless SOF3 header, whose scan libjpeg refuses),
+# ValueError naming the file, skipped by both atlas builders; "raise"
+# stays unread (ROADMAP.md C6: a PPM), NotImplementedError naming the
+# file, which the atlas builder lets through. The SOF9 relabel of a
+# baseline file is read as PIL reads it (Huffman data decoded as
+# arithmetic) since the fourth image slice.
+UNREAD = {"cmyk.jpg": "same", "arith.jpg": "same", "lossless.jpg": "skip",
           "sky.exr": "skip", "anim.gif": "same", "photo.tif": "same",
-          "photo.webp": "skip"}
+          "photo.webp": "skip", "photo.ppm": "raise"}
 
 
 @pytest.mark.parametrize("name", ["cmyk.jpg", "arith.jpg", "lossless.jpg",
                                   "sky.exr", "anim.gif", "photo.tif",
-                                  "photo.webp"])
+                                  "photo.webp", "photo.ppm"])
 def test_unread_formats_raise(tmp_path, name):
-    """A CMYK JPEG, a GIF and a TIFF read bitwise as the JAX package reads
-    them, also through the atlas builder; an EXR (no PIL plugin reads it)
-    and a WebP header without a frame (PIL's WebP plugin cannot open it)
-    raise ValueError naming the file and both atlas builders skip them;
-    arithmetic coding (SOF9) and lossless JPEG (SOF3) still raise
-    NotImplementedError naming the file, also through the atlas builder
-    (which skips only what PIL cannot read)."""
+    """A CMYK JPEG, an arithmetic-coded (SOF9) JPEG, a GIF and a TIFF read
+    bitwise as the JAX package reads them, also through the atlas
+    builder; an EXR (no PIL plugin reads it), a WebP header without a
+    frame and a lossless (SOF3) header over DCT data (PIL cannot load
+    either) raise ValueError naming the file and both atlas builders skip
+    them; a PPM still raises NotImplementedError naming the file, also
+    through the atlas builder (which skips only what PIL cannot read)."""
     path = write_unread(tmp_path)[name]
     kind = UNREAD[name]
     if kind == "raise":

@@ -194,8 +194,10 @@ def test_unported_inputs_raise(tmp_path):
     # four-component (CMYK) JPEG sky reads bitwise as the JAX package's
     # since the second image slice; cube faces of a WebP header with no
     # frame behind it: ValueError naming the file since the WebP slice
-    # (PIL cannot open it either); arithmetic-coded JPEG faces stay
-    # unread: NotImplementedError naming the file.
+    # (PIL cannot open it either); arithmetic-coded JPEG faces read
+    # bitwise as the JAX package's since the fourth image slice, and
+    # faces of a format that stays unread (PPM) raise NotImplementedError
+    # naming the file.
     from test_torch_images import write_unread
 
     jpg = tmp_path / "sky.jpg"
@@ -212,8 +214,13 @@ def test_unported_inputs_raise(tmp_path):
     with pytest.raises(Exception):
         jax_envmap.load_environment(str(tmp_path / "webp_faces.txt"))
     (tmp_path / "arith_faces.txt").write_text("arith.jpg\n" * 6)
-    with pytest.raises(NotImplementedError, match="arith.jpg"):
-        envmap.environment_image(str(tmp_path / "arith_faces.txt"))
+    spec = str(tmp_path / "arith_faces.txt")
+    got = envmap.environment_image(spec)
+    want = np.asarray(jax_envmap.load_environment(spec).image)
+    assert got.tobytes() == want.tobytes()
+    (tmp_path / "ppm_faces.txt").write_text("photo.ppm\n" * 6)
+    with pytest.raises(NotImplementedError, match="photo.ppm"):
+        envmap.environment_image(str(tmp_path / "ppm_faces.txt"))
     # Node rows hold 2 to 16 children (wide_arity 16 loads since the
     # kernels take the table's arity).
     with pytest.raises(ValueError):

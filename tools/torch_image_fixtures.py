@@ -632,6 +632,700 @@ def libwebp_encode(rgb: np.ndarray, **config) -> bytes:
 # --- the fixtures -------------------------------------------------------------
 
 # name -> (pixels, PIL save arguments): the JPEGs.
+# --- JPEG processes PIL does not write: arithmetic coding and lossless --------
+# Written from T.81 (Annex D's QM coder, F.1.4 and G.1.3's arithmetic
+# coding models, Annex H's lossless predictors), with a small reader of
+# baseline Huffman files for coefficients to transcode. None of it reads
+# or shares the port's decoder.
+
+# T.81 Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS); entry
+# 113 is the fixed estimate of 0.5 for signs and refinement bits (T.851).
+QE_TABLE = (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))
+
+# jcparam.c's jpeg_simple_progression for three components (and its first
+# lines for one): (component indices, Ss, Se, Ah, Al).
+PROGRESSION_3 = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                 ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                 ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                 ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                 ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0))
+PROGRESSION_1 = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                 ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                 ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def jpeg_segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+class QMEncoder:
+    """T.81 Annex D.1: the arithmetic encoder (Initenc, Code_0 / Code_1 as
+    CodeLPS / CodeMPS with the conditional exchange, Renorm_e, Byte_out
+    with its carry, Flush), over statistics bins held as bytearrays whose
+    entries are (MPS << 7) | index."""
+
+    def __init__(self):
+        self.a, self.c, self.ct, self.out = 0x10000, 0, 11, []
+
+    def code(self, st: bytearray, i: int, bit: int) -> None:
+        sv = st[i]
+        mps = sv >> 7
+        qe, nlps, nmps, switch = QE_TABLE[sv & 0x7F]
+        self.a -= qe
+        if bit != mps:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = ((mps ^ switch) << 7) | nlps
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (mps << 7) | nmps
+        while self.a < 0x8000:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byte_out()
+                self.ct = 8
+
+    def _byte_out(self):
+        t = self.c >> 19
+        if t > 0xFF:                    # the carry into the bytes out
+            i = len(self.out) - 1
+            while self.out[i] == 0xFF:
+                self.out[i] = 0
+                i -= 1
+            self.out[i] += 1
+            t &= 0xFF
+        self.out.append(t)
+        self.c &= 0x7FFFF
+
+    def flush(self) -> bytes:
+        t = (self.c + self.a - 1) & 0xFFFF0000       # Clear_final_bits
+        self.c = t + 0x8000 if t < self.c else t
+        self.c <<= self.ct
+        self._byte_out()
+        self.c <<= 8
+        self._byte_out()
+        while self.out and self.out[-1] == 0:       # Discard_final_zeros
+            self.out.pop()
+        return bytes(self.out).replace(b"\xff", b"\xff\x00")
+
+
+class _ArithModel:
+    """F.1.4 / G.1.3: the coding models of DC differences and AC
+    coefficients, with DAC conditioning (L, U, Kx) per table."""
+
+    def __init__(self, enc, dac):
+        self.enc, self.dac = enc, dac
+        self.fixed = bytearray([113])
+
+    def value(self, st, i, v, x1, kx_bins=None):
+        """Sign, magnitude category and magnitude bits of v != 0: S0 + 1 is
+        the sign bin (DC), SP / SN follow; for AC the sign is coded at the
+        fixed bin by the caller and i is already SP's."""
+        e = self.enc
+        v = abs(v) - 1
+        if v == 0:
+            e.code(st, i, 0)
+            return 0
+        e.code(st, i, 1)
+        m, v2 = 1, v
+        if kx_bins is None:             # DC: X1 ... at dc_stats + 20
+            j = x1
+            while True:
+                v2 >>= 1
+                if not v2:
+                    break
+                e.code(st, j, 1)
+                m <<= 1
+                j += 1
+        else:                           # AC: X1 at SP, X2 ... at 189 / 217
+            v2 >>= 1
+            if v2:
+                e.code(st, i, 1)
+                m <<= 1
+                j = kx_bins
+                while True:
+                    v2 >>= 1
+                    if not v2:
+                        break
+                    e.code(st, j, 1)
+                    m <<= 1
+                    j += 1
+            else:
+                j = i
+        e.code(st, j, 0)
+        j += 14
+        mm = m
+        while mm > 1:
+            mm >>= 1
+            e.code(st, j, 1 if v & mm else 0)
+        return m
+
+    def dc(self, st, ctx, ci, diff, tbl):
+        """F.1.4.1: one DC difference; updates ctx[ci]."""
+        e = self.enc
+        s0 = ctx[ci]
+        if diff == 0:
+            e.code(st, s0, 0)
+            ctx[ci] = 0
+            return
+        e.code(st, s0, 1)
+        sign = 1 if diff < 0 else 0
+        e.code(st, s0 + 1, sign)
+        m = self.value(st, s0 + 2 + sign, diff, 20)
+        lo, hi = self.dac.get(tbl, (0, 1, 5))[:2]
+        if m < (1 << lo) >> 1:
+            ctx[ci] = 0
+        elif m > (1 << hi) >> 1:
+            ctx[ci] = 12 + 4 * sign
+        else:
+            ctx[ci] = 4 + 4 * sign
+
+    def ac(self, st, zz, lo, hi, al, tbl):
+        """F.1.4.2 / G.1.3.2: coefficients lo..hi of a zigzag block, each
+        |v| >> al with its sign."""
+        e = self.enc
+        kx = self.dac.get(tbl, (0, 1, 5))[2]
+        vals = [(abs(int(zz[k])) >> al) * (1 if zz[k] >= 0 else -1)
+                for k in range(64)]
+        ke = max([k for k in range(lo, hi + 1) if vals[k]], default=lo - 1)
+        k = lo
+        while k <= ke:
+            s = 3 * (k - 1)
+            e.code(st, s, 0)            # not EOB
+            while vals[k] == 0:
+                e.code(st, s + 1, 0)
+                s += 3
+                k += 1
+            e.code(st, s + 1, 1)
+            e.code(self.fixed, 0, 1 if vals[k] < 0 else 0)
+            self.value(st, s + 2, vals[k], None,
+                       189 if k <= kx else 217)
+            k += 1
+        if k <= hi:
+            e.code(st, 3 * (k - 1), 1)  # EOB
+
+    def ac_refine(self, st, zz, lo, hi, al):
+        """G.1.3.3: the bit al of coefficients lo..hi."""
+        e = self.enc
+        mag = [abs(int(zz[k])) for k in range(64)]
+        ke = max([k for k in range(lo, hi + 1) if mag[k] >> al],
+                 default=lo - 1)
+        kex = max([k for k in range(1, ke + 1) if mag[k] >> (al + 1)],
+                  default=0)
+        k = lo
+        while k <= ke:
+            s = 3 * (k - 1)
+            if k > kex:
+                e.code(st, s, 0)        # not EOB
+            while True:
+                v = mag[k] >> al
+                if v:
+                    if v >> 1:          # already nonzero: its next bit
+                        e.code(st, s + 2, v & 1)
+                    else:               # newly nonzero
+                        e.code(st, s + 1, 1)
+                        e.code(self.fixed, 0, 1 if zz[k] < 0 else 0)
+                    break
+                e.code(st, s + 1, 0)
+                s += 3
+                k += 1
+            k += 1
+        if k <= hi:
+            e.code(st, 3 * (k - 1), 1)  # EOB
+
+
+def read_huffman_jpeg(data: bytes) -> dict:
+    """The coefficients of a baseline Huffman JPEG (SOF0 / SOF1, any
+    scans, restart intervals): {"comps": [(id, h, v, tq)], "width",
+    "height", "dqt": [DQT segment bodies], "app": [APPn segments],
+    "restart", "blocks": [int array [rows, cols, 64] in zigzag order, MCU
+    padded]}."""
+    pos, out = 2, {"dqt": [], "app": [], "restart": 0}
+    dc, ac = {}, {}
+    while True:
+        while data[pos] != 0xFF:
+            pos += 1
+        m = data[pos + 1]
+        pos += 2
+        if m == 0xD9:
+            return out
+        n = struct.unpack(">H", data[pos:pos + 2])[0]
+        body = data[pos + 2:pos + n]
+        pos += n
+        if m == 0xDB:
+            out["dqt"].append(body)
+        elif 0xE0 <= m <= 0xEF:
+            out["app"].append(jpeg_segment(m, body))
+        elif m in (0xC0, 0xC1):
+            h, w, nc = struct.unpack(">HHB", body[1:6])
+            comps = [tuple(body[6 + 3 * i:9 + 3 * i]) for i in range(nc)]
+            comps = [(i, hv >> 4, hv & 15, tq) for i, hv, tq in comps]
+            maxh = max(c[1] for c in comps)
+            maxv = max(c[2] for c in comps)
+            out.update(width=w, height=h, comps=comps,
+                       mcux=-(-w // (8 * maxh)), mcuy=-(-h // (8 * maxv)))
+            out["blocks"] = [np.zeros((out["mcuy"] * v, out["mcux"] * hh, 64),
+                                      np.int64) for _, hh, v, _ in comps]
+        elif m == 0xDD:
+            out["restart"] = struct.unpack(">H", body)[0]
+        elif m == 0xC4:
+            p = 0
+            while p < len(body):
+                tc, counts = body[p], body[p + 1:p + 17]
+                syms = body[p + 17:p + 17 + sum(counts)]
+                table, code, k = {}, 0, 0
+                for length in range(1, 17):
+                    for _ in range(counts[length - 1]):
+                        table[(length, code)] = syms[k]
+                        code += 1
+                        k += 1
+                    code <<= 1
+                (ac if tc >> 4 else dc)[tc & 15] = table
+                p += 17 + len(syms)
+        elif m == 0xDA:
+            pos = _read_huffman_scan(data, pos, body, out, dc, ac)
+
+
+def _read_huffman_scan(data, pos, sos, out, dc, ac):
+    """Decode one sequential scan into out["blocks"]; the position after
+    its data."""
+    ns = sos[0]
+    ids = [c[0] for c in out["comps"]]
+    scan = [(ids.index(sos[1 + 2 * i]), sos[2 + 2 * i] >> 4,
+             sos[2 + 2 * i] & 15) for i in range(ns)]
+    bits = []
+
+    def load(p):                        # the bytes up to the next marker
+        while True:
+            b = data[p]
+            if b == 0xFF:
+                if data[p + 1] == 0:
+                    bits.extend((0xFF >> (7 - i)) & 1 for i in range(8))
+                    p += 2
+                    continue
+                return p
+            bits.extend((b >> (7 - i)) & 1 for i in range(8))
+            p += 1
+
+    state = {"i": 0}
+
+    def get(n):
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | bits[state["i"]]
+            state["i"] += 1
+        return v
+
+    def sym(table):
+        code, length = 0, 0
+        while True:
+            code = (code << 1) | get(1)
+            length += 1
+            if (length, code) in table:
+                return table[(length, code)]
+
+    def ext(v, s):
+        return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+    if ns == 1:
+        c = scan[0][0]
+        _, h, v, _ = out["comps"][c]
+        maxh = max(x[1] for x in out["comps"])
+        maxv = max(x[2] for x in out["comps"])
+        bw = -(-(-(-out["width"] * h // maxh)) // 8)
+        bh = -(-(-(-out["height"] * v // maxv)) // 8)
+        units = [[(c, by, bx)] for by in range(bh) for bx in range(bw)]
+    else:
+        units = [[(c, my * out["comps"][c][2] + y, mx * out["comps"][c][1] + x)
+                  for c, _, _ in scan for y in range(out["comps"][c][2])
+                  for x in range(out["comps"][c][1])]
+                 for my in range(out["mcuy"]) for mx in range(out["mcux"])]
+    pos = load(pos)
+    pred = {}
+    tables = {c: (dc[td], ac[ta]) for c, td, ta in scan}
+    for i, unit in enumerate(units):
+        if i == 0 or (out["restart"] and i % out["restart"] == 0):
+            if i:
+                bits.clear()
+                state["i"] = 0
+                pos = load(pos + 2)     # past the RSTn marker
+            pred = {c: 0 for c, _, _ in scan}
+        for c, by, bx in unit:
+            dct, act = tables[c]
+            blk = out["blocks"][c][by, bx]
+            s = sym(dct)
+            pred[c] += ext(get(s), s) if s else 0
+            blk[0] = pred[c]
+            k = 1
+            while k < 64:
+                rs = sym(act)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    blk[k] = ext(get(s), s)
+                    k += 1
+                elif r == 15:
+                    k += 16
+                else:
+                    break
+    return pos
+
+
+def _dqt_sof_dac(frame, sof, dac):
+    """The DQT segments, the SOF, and DAC conditioning if any."""
+    out = b"".join(jpeg_segment(0xDB, q) for q in frame["dqt"])
+    out += jpeg_segment(sof, struct.pack(
+        ">BHHB", 8, frame["height"], frame["width"], len(frame["comps"]))
+        + b"".join(bytes([i, (h << 4) | v, tq])
+                   for i, h, v, tq in frame["comps"]))
+    if dac:
+        body = b""
+        for t, (lo, hi, kx) in sorted(dac.items()):
+            body += bytes([t, (hi << 4) | lo, 16 + t, kx])
+        out += jpeg_segment(0xCC, body)
+    return out
+
+
+def write_arith_jpeg(frame: dict, progression=None, restart: int = 0,
+                     dac=None, tables=None, cut_after: int = None) -> bytes:
+    """An arithmetic-coded JPEG of ``frame``'s coefficients (a dict as
+    read_huffman_jpeg gives): SOF9 with one interleaved scan, or SOF10
+    with ``progression`` [(components, Ss, Se, Ah, Al)]; ``restart``
+    MCUs a restart interval; ``dac`` {table: (L, U, Kx)}; ``tables``
+    the conditioning table of each component (default: 0 for the first,
+    1 for the rest); ``cut_after`` ends the file (EOI) after that many
+    scans."""
+    comps = frame["comps"]
+    nc = len(comps)
+    dac = dac or {}
+    tables = tables or [0] + [1] * (nc - 1)
+    sof = 0xC9 if progression is None else 0xCA
+    scans = progression or [(tuple(range(nc)), 0, 63, 0, 0)]
+    out = b"\xff\xd8" + b"".join(frame["app"]) + _dqt_sof_dac(frame, sof, dac)
+    if restart:
+        out += jpeg_segment(0xDD, struct.pack(">H", restart))
+    maxh = max(c[1] for c in comps)
+    maxv = max(c[2] for c in comps)
+    for si, (sc, ss, se, ah, al) in enumerate(scans):
+        if cut_after is not None and si == cut_after:
+            break
+        out += jpeg_segment(0xDA, bytes([len(sc)]) + b"".join(
+            bytes([comps[c][0], (tables[c] << 4) | tables[c]]) for c in sc)
+            + bytes([ss, se, (ah << 4) | al]))
+        if len(sc) == 1:
+            c = sc[0]
+            bw = -(-(-(-frame["width"] * comps[c][1] // maxh)) // 8)
+            bh = -(-(-(-frame["height"] * comps[c][2] // maxv)) // 8)
+            units = [[(c, by, bx)] for by in range(bh) for bx in range(bw)]
+        else:
+            units = [[(c, my * comps[c][2] + y, mx * comps[c][1] + x)
+                      for c in sc for y in range(comps[c][2])
+                      for x in range(comps[c][1])]
+                     for my in range(frame["mcuy"])
+                     for mx in range(frame["mcux"])]
+        enc = None
+        for i, unit in enumerate(units):
+            if i == 0 or (restart and i % restart == 0):
+                if enc is not None:
+                    out += enc.flush() + bytes([0xFF, 0xD0 + (i // restart
+                                                              - 1) % 8])
+                enc = QMEncoder()
+                model = _ArithModel(enc, dac)
+                dcs = {t: bytearray(64) for t in set(tables)}
+                acs = {t: bytearray(256) for t in set(tables)}
+                ctx = {c: 0 for c in sc}
+                pred = {c: 0 for c in sc}
+            for c, by, bx in unit:
+                zz = frame["blocks"][c][by, bx]
+                t = tables[c]
+                if ss == 0 and ah == 0:
+                    v = int(zz[0]) >> al
+                    model.dc(dcs[t], ctx, c, v - pred[c], t)
+                    pred[c] = v
+                elif ss == 0:
+                    enc.code(model.fixed, 0, (int(zz[0]) >> al) & 1)
+                if progression is None:
+                    model.ac(acs[t], zz, 1, 63, 0, t)
+                elif ss and ah == 0:
+                    model.ac(acs[t], zz, ss, se, al, t)
+                elif ss:
+                    model.ac_refine(acs[t], zz, ss, se, al)
+        out += enc.flush()
+    return out + b"\xff\xd9"
+
+
+def write_lossless_jpeg(planes, predictor: int, pt: int = 0,
+                        sampling=None, restart_rows: int = 0, ids=None,
+                        app: bytes = b"") -> bytes:
+    """A lossless (SOF3) JPEG, T.81 Annex H: ``planes`` uint8 [h, w] (one
+    per component, each at its own ``sampling`` (h, v) size), predictor
+    1-7 and point transform ``pt``; one interleaved scan, a restart every
+    ``restart_rows`` MCU rows; one Huffman table a component (each
+    difference category used coded at one length)."""
+    nc = len(planes)
+    sampling = sampling or [(1, 1)] * nc
+    ids = ids or list(range(1, nc + 1))
+    maxh = max(s[0] for s in sampling)
+    maxv = max(s[1] for s in sampling)
+    height = planes[0].shape[0] * maxv // sampling[0][1]
+    width = planes[0].shape[1] * maxh // sampling[0][0]
+    mcux, mcuy = -(-width // maxh), -(-height // maxv)
+    restart = restart_rows * mcux
+    diffs = []
+    for p, (sh, sv) in zip(planes, sampling):
+        # Each component's differences, the predictors run over its
+        # samples >> pt, the first row after each restart 1-D.
+        x = p.astype(np.int64) >> pt
+        d = np.zeros_like(x)
+        rows_per = restart_rows * sv if restart_rows else x.shape[0]
+        for y in range(x.shape[0]):
+            first = y % rows_per == 0
+            for i in range(x.shape[1]):
+                if first:
+                    pr = (1 << (8 - pt - 1)) if i == 0 else x[y, i - 1]
+                elif i == 0:
+                    pr = x[y - 1, 0]
+                else:
+                    ra, rb, rc = x[y, i - 1], x[y - 1, i], x[y - 1, i - 1]
+                    pr = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                          rb + ((ra - rc) >> 1), (ra + rb) >> 1)[predictor - 1]
+                d[y, i] = x[y, i] - pr
+        # padded to whole MCUs by repeating the last column and row
+        ph, pw = mcuy * sv, mcux * sh
+        d = np.pad(d, ((0, ph - d.shape[0]), (0, pw - d.shape[1])), "edge")
+        diffs.append(d)
+    cats = [np.vectorize(lambda v: abs(int(v)).bit_length())(d) for d in diffs]
+    hts = []
+    for c in range(nc):
+        syms = sorted(set(int(s) for s in np.unique(cats[c])))
+        length = 1
+        while (1 << length) <= len(syms):
+            length += 1
+        counts = [0] * 16
+        counts[length - 1] = len(syms)
+        hts.append((bytes([c]) + bytes(counts) + bytes(syms),
+                    {s: (i, length) for i, s in enumerate(syms)}))
+    out = b"\xff\xd8" + app + jpeg_segment(0xC3, struct.pack(
+        ">BHHB", 8, height, width, nc) + b"".join(
+        bytes([ids[c], (sampling[c][0] << 4) | sampling[c][1], 0])
+        for c in range(nc)))
+    out += b"".join(jpeg_segment(0xC4, t[0]) for t in hts)
+    if restart:
+        out += jpeg_segment(0xDD, struct.pack(">H", restart))
+    out += jpeg_segment(0xDA, bytes([nc]) + b"".join(
+        bytes([ids[c], c << 4]) for c in range(nc))
+        + bytes([predictor, 0, pt]))
+    bitstr, acc, nbits = bytearray(), 0, 0
+    marker = 0
+    for my in range(mcuy):
+        if restart and my and my % restart_rows == 0:
+            if nbits:
+                acc = (acc << (8 - nbits)) | ((1 << (8 - nbits)) - 1)
+                bitstr.append(acc)
+                if acc == 0xFF:
+                    bitstr.append(0)
+            acc, nbits = 0, 0
+            bitstr += bytes([0xFF, 0xD0 + marker % 8])
+            marker += 1
+        for mx in range(mcux):
+            for c, (sh, sv) in enumerate(sampling):
+                for y in range(sv):
+                    for x in range(sh):
+                        v = int(diffs[c][my * sv + y, mx * sh + x])
+                        s = cats[c][my * sv + y, mx * sh + x]
+                        code, length = hts[c][1][s]
+                        for val, n in ((code, length),
+                                       (v if v >= 0 else v + (1 << s) - 1,
+                                        s)):
+                            for i in range(n - 1, -1, -1):
+                                acc = (acc << 1) | ((val >> i) & 1)
+                                nbits += 1
+                                if nbits == 8:
+                                    bitstr.append(acc)
+                                    if acc == 0xFF:
+                                        bitstr.append(0)
+                                    acc, nbits = 0, 0
+    if nbits:
+        acc = (acc << (8 - nbits)) | ((1 << (8 - nbits)) - 1)
+        bitstr.append(acc)
+        if acc == 0xFF:
+            bitstr.append(0)
+    return out + bytes(bitstr) + b"\xff\xd9"
+
+
+def _cut_after_scans(jpg: bytes, k: int) -> bytes:
+    """The file up to its (k+1)-th SOS, then EOI: its first k scans."""
+    sos = [i for i in range(len(jpg) - 1) if jpg[i:i + 2] == b"\xff\xda"]
+    return jpg[:sos[k]] + b"\xff\xd9"
+
+
+def jpeg_rest_fixtures(t: dict) -> dict:
+    """The JPEG processes and recoveries PIL reads beside baseline and
+    progressive Huffman files: arithmetic-coded transcodes of the checker
+    (SOF9) and roof (SOF10) maps, which decode to their Huffman
+    originals; lossless (SOF3) encodings of the bricks and foliage twins;
+    small files of each kind (arithmetic: grey, 4:2:0 with restarts, 4:4:4
+    under a DAC, progressive whole and cut; lossless: predictors 1-7, Pt 0
+    and 2, one and three components, restarts, 2x2 sampling), a file with
+    no DHT (libjpeg's standard tables), a PIL progressive file cut after
+    scans 1, 3 and 7 (block smoothing), a scan cut by EOI and a dropped
+    RST marker (libjpeg's recovery)."""
+    from PIL import Image
+
+    def jpg(img, **kw):
+        return _pil(img, "JPEG", **kw)
+
+    maps = fixtures()
+
+    def frame(name):                    # the coefficients of name.jpg
+        pixels, kw = maps[name]
+        return read_huffman_jpeg(jpg(pixels, **kw))
+
+    photo = t["sky"][100:140, 200:248]
+    grey = t["grey"][20:60, 30:78, 0]
+    out = {
+        "checker_arith": ("checker_arith.jpg", write_arith_jpeg(
+            frame("checker")), "checker.png",
+            {"JPEG": "arithmetic sequential (SOF9), checker.jpg's "
+                     "coefficients"}),
+        "roof_arith": ("roof_arith.jpg", write_arith_jpeg(
+            frame("roof"), PROGRESSION_3, restart=5), "roof.png",
+            {"JPEG": "arithmetic progressive (SOF10), roof.jpg's "
+                     "coefficients, 10 scans, restarts every 5 MCUs"}),
+        "bricks_lossless": ("bricks_lossless.jpg", write_lossless_jpeg(
+            [t["bricks"][..., c] for c in range(3)], 7), "bricks.png",
+            {"JPEG": "lossless (SOF3), predictor 7, RGB"}),
+        "foliage_lossless": ("foliage_lossless.jpg", write_lossless_jpeg(
+            [t["foliage"][..., c] for c in range(3)], 4, restart_rows=16),
+            "foliage.png",
+            {"JPEG": "lossless (SOF3), predictor 4, RGB, restarts every 16 "
+                     "rows"}),
+        "arith_grey": ("arith_grey.jpg", write_arith_jpeg(
+            read_huffman_jpeg(jpg(grey, quality=85)), restart=7), None,
+            {"JPEG": "arithmetic sequential, grey, restarts every 7 MCUs"}),
+        "arith_420": ("arith_420.jpg", write_arith_jpeg(
+            read_huffman_jpeg(jpg(photo, quality=80, subsampling=2)),
+            restart=3), None,
+            {"JPEG": "arithmetic sequential, 4:2:0, restarts every 3 MCUs"}),
+        "arith_444_dac": ("arith_444_dac.jpg", write_arith_jpeg(
+            read_huffman_jpeg(jpg(photo, quality=90, subsampling=0)),
+            dac={0: (2, 5, 12), 1: (1, 3, 2)}), None,
+            {"JPEG": "arithmetic sequential, 4:4:4, DAC L/U/Kx 2/5/12 and "
+                     "1/3/2"}),
+    }
+    prog = read_huffman_jpeg(jpg(photo, quality=75, subsampling=2))
+    out["arith_prog"] = ("arith_prog.jpg", write_arith_jpeg(
+        prog, PROGRESSION_3), None,
+        {"JPEG": "arithmetic progressive (SOF10), 4:2:0, 10 scans"})
+    out["arith_prog_cut"] = ("arith_prog_cut.jpg", write_arith_jpeg(
+        prog, PROGRESSION_3, cut_after=4), None,
+        {"JPEG": "arithmetic progressive, cut after scan 4 (block "
+                 "smoothing)"})
+    lossless = {1: (1, 0, {}), 2: (3, 2, {}), 3: (3, 0, {}),
+                4: (1, 2, {}), 5: (3, 0, dict(restart_rows=5)),
+                6: (3, 2, dict(sampling=[(2, 2), (1, 1), (1, 1)])),
+                7: (1, 0, {})}
+    for p, (nc, pt, kw) in lossless.items():
+        if nc == 1:
+            planes = [grey]
+        elif "sampling" in kw:
+            planes = [photo[..., 0], photo[::2, ::2, 1], photo[::2, ::2, 2]]
+        else:
+            planes = [photo[..., c] for c in range(3)]
+        extra = ", restarts every 5 rows" if "restart_rows" in kw else (
+            ", 2x2 sampling of the first component" if "sampling" in kw
+            else "")
+        data = write_lossless_jpeg(planes, p, pt, **kw)
+        if pt == 0 and "sampling" not in kw:
+            got = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            want = np.stack(planes * 3 if nc == 1 else planes, -1)
+            if got.tobytes() != want.tobytes():
+                raise AssertionError(f"lossless_p{p}.jpg does not decode to "
+                                     f"its samples")
+        out[f"lossless_p{p}"] = (f"lossless_p{p}.jpg", data, None,
+            {"JPEG": f"lossless, predictor {p}, Pt {pt}, {nc} "
+                     f"component{'s' if nc > 1 else ''}{extra}"})
+    base = jpg(photo, quality=80, subsampling=2)
+    nodht = bytearray()
+    pos = 2
+    nodht += base[:2]
+    while base[pos + 1] != 0xDA:
+        n = struct.unpack(">H", base[pos + 2:pos + 4])[0]
+        if base[pos + 1] != 0xC4:
+            nodht += base[pos:pos + 2 + n]
+        pos += 2 + n
+    nodht += base[pos:]
+    out["nodht"] = ("nodht.jpg", bytes(nodht), None,
+                    {"JPEG": "baseline 4:2:0 without DHT (libjpeg's "
+                             "standard tables)"})
+    progressive = jpg(t["bricks"][:64, :80], quality=75, subsampling=2,
+                      progressive=True)
+    for k in (1, 3, 7):
+        out[f"prog_cut{k}"] = (f"prog_cut{k}.jpg", _cut_after_scans(
+            progressive, k), None,
+            {"JPEG": f"PIL progressive 4:2:0 cut after scan {k} (block "
+                     f"smoothing)"})
+    seq = jpg(photo, quality=85, subsampling=1)
+    sos = seq.find(b"\xff\xda")
+    out["scan_cut"] = ("scan_cut.jpg", seq[:sos + (len(seq) - sos) * 2 // 3]
+                       + b"\xff\xd9", None,
+                       {"JPEG": "4:2:2, its scan cut by EOI two thirds in "
+                                "(zero bits, then grey)"})
+    rst = jpg(photo, quality=85, subsampling=2, restart_marker_blocks=2)
+    marks = [i for i in range(len(rst) - 1)
+             if rst[i] == 0xFF and 0xD0 <= rst[i + 1] <= 0xD7]
+    k = marks[len(marks) // 2]
+    out["rst_dropped"] = ("rst_dropped.jpg", rst[:k] + rst[k + 2:], None,
+                          {"JPEG": "restarts every 2 MCUs, one RST marker "
+                                   "dropped (libjpeg's resync)"})
+    return out
+
+
 def fixtures() -> dict:
     maps = town_maps()
     grey = (0.299 * maps["bricks"][..., 0] + 0.587 * maps["bricks"][..., 1]
@@ -719,6 +1413,7 @@ def other_fixtures(twins: dict) -> dict:
         "bricks_ycck": ("bricks_ycck.jpg", bytes(ycck), None,
                         {"JPEG": "the CMYK file, Adobe transform 2 (YCCK)"}),
         **webp_fixtures(t),
+        **jpeg_rest_fixtures(t),
     }
 
 
