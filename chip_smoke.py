@@ -330,6 +330,17 @@ nvcc and g++. Phases, each of which raises on failure:
      (rendered here too when phase 23 runs alone); B1's launches of (b)
      are counted in the kernels line. ``python3 chip_smoke.py --phase23``
      runs phase 23 alone (no result line).
+ 24. (after phase 23) the simple formats (ROADMAP.md C6): (a) every
+     committed PNM / PFM, QOI, ICO, CUR, SGI, PCX and DIB fixture decoded
+     bitwise its PNG twin and the manifest's pixel sha256, host ms (median
+     of 5) and MPix/s a fixture beside its twin's PNG decode; (b) the
+     generated town at 1280x720, 4 mip levels, 1 spp through the CLI, its
+     .mtl on lossless re-encodings of phase 20's PNG twins (checker as P6
+     PPM, bricks as QOI, roof as run-length SGI, foliage as 3-plane PCX):
+     the film bitwise phase 20b's PNG-twin film (rendered here too when
+     phase 24 runs alone); B1's launches of (b) are counted in the kernels
+     line. ``python3 chip_smoke.py --phase24`` runs phase 24 alone (no
+     result line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2130,8 +2141,8 @@ def build_kernels() -> None:
         return time.perf_counter() - t0, log
 
     def host_build(module):
-        # Phase 20's JPEG decoder, phase 21's codecs and phase 22's WebP
-        # decoders (g++), beside the nvcc builds.
+        # Phase 20's JPEG decoder, the codecs of phases 21 and 24 and
+        # phase 22's WebP decoders (g++), beside the nvcc builds.
         t0 = time.perf_counter()
         module._load()
         return time.perf_counter() - t0
@@ -4499,18 +4510,20 @@ def hold_fixtures(tag: str, names, smi: str) -> None:
 
 def _fixtures_of(formats) -> list:
     """The manifest's fixtures beside phase 20's and phase 23's JPEGs whose
-    format is in ``formats`` (None: every format but WebP)."""
+    format is in ``formats`` (None: every format but WebP and phase 24's
+    simple formats)."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     return sorted(n for n, e in manifest.items()
                   if n not in PHASE20_FIXTURES + PHASE23_FIXTURES
                   and (e["format"] in formats if formats
-                       else e["format"] != "WEBP"))
+                       else e["format"] not in ("WEBP",) + PHASE24_FORMATS))
 
 
 def decode_formats(smi: str) -> None:
-    """Phase 21a: the codecs library's load, then every fixture phase 20a
-    does not decode and phase 22a does not (WebP), bitwise its PNG twin."""
+    """Phase 21a: the codecs library's load, then every fixture phases
+    20a, 22a (WebP), 23a and 24a (the simple formats) do not decode,
+    bitwise its PNG twin."""
     from gpupathtracer_tpu_torch.utils import codecs
 
     t0 = time.perf_counter()
@@ -4666,6 +4679,46 @@ def phase23_alone(device, smi: str, stamp) -> int:
                         render_jpeg_rest_path, smi, stamp)
 
 
+# --- phase 24: the simple formats (C6) ---------------------------------------
+
+# PIL's format names of phase 24a's fixtures (tools/torch_image_fixtures.py
+# simple_fixtures; PFM files are PIL's PPM).
+PHASE24_FORMATS = ("PPM", "QOI", "ICO", "CUR", "SGI", "PCX", "DIB")
+# The town's maps as lossless re-encodings of phase 20's PNG twins.
+TOWN_SIMPLE = {"checker": "ppm", "bricks": "qoi", "roof": "sgi",
+               "foliage": "pcx"}
+
+
+def decode_simple(smi: str) -> None:
+    """Phase 24a: the codecs library's load (QOI, SGI and PCX run-length
+    decoders), then every fixture of the simple formats bitwise its PNG
+    twin and the manifest's sha256."""
+    from gpupathtracer_tpu_torch.utils import codecs
+
+    t0 = time.perf_counter()
+    codecs._load()
+    print(f"[24a] the codecs library loaded in {time.perf_counter() - t0:.2f}"
+          f" s (g++ at first use; the smoke builds it in phase 2)")
+    names = _fixtures_of(PHASE24_FORMATS)
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    formats = {manifest[n]["format"] for n in names}
+    if formats != set(PHASE24_FORMATS):
+        raise AssertionError(f"[24a] fixtures of {sorted(formats)} only")
+    hold_fixtures("24a", names, smi)
+
+
+def render_simple_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 24b: the town on PPM / QOI / SGI / PCX re-encodings of its
+    PNG-twin maps, bitwise phase 20b's film on the PNG twins."""
+    render_town_maps(tmp, town, smi, "24b", TOWN_SIMPLE)
+
+
+def phase24_alone(device, smi: str, stamp) -> int:
+    return _phase_alone(24, "simple formats path", decode_simple,
+                        render_simple_path, smi, stamp)
+
+
 def _counters():
     from gpupathtracer_tpu_torch.ops import dense_intersect as pd
     from gpupathtracer_tpu_torch.ops import kernel_cluster as kc
@@ -4766,6 +4819,8 @@ def main() -> int:
         return phase22_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase23"]:
         return phase23_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase24"]:
+        return phase24_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -4929,6 +4984,11 @@ def main() -> int:
             "JPEG processes path", ("trace_closest", "trace_anyhit"),
             lambda: render_jpeg_rest_path(tmp, town, smi)))
         stamp("phase 23")
+        decode_simple(smi)
+        new_paths.append(_drive(
+            "simple formats path", ("trace_closest", "trace_anyhit"),
+            lambda: render_simple_path(tmp, town, smi)))
+        stamp("phase 24")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -4957,8 +5017,9 @@ def main() -> int:
         # shadow_rev and ld paths, phase 19's mesh and partition frames,
         # summed over their ranks, phase 20's JPEG-map and JPEG-sky
         # films and their PNG twins, phase 21's town on TIFF / PSD / DDS /
-        # BMP maps, phase 22's on WebP maps and phase 23's on arithmetic
-        # and lossless JPEG maps; at arity 16 the 16-wide film;
+        # BMP maps, phase 22's on WebP maps, phase 23's on arithmetic
+        # and lossless JPEG maps and phase 24's on PPM / QOI / SGI / PCX
+        # maps; at arity 16 the 16-wide film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

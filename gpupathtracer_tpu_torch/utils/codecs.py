@@ -1,6 +1,8 @@
 """ctypes binding for utils/codecs_cpp/codecs.cpp (built with g++ at first
-use, utils/native.py): the BCn block decoders of DDS, GIF's and TIFF's LZW
-and PackBits. Corrupt or short input raises ValueError naming the file."""
+use, utils/native.py): the BCn block decoders of DDS, GIF's and TIFF's LZW,
+PackBits, and the byte-serial decoders of QOI, SGI's run-length rows and
+PCX's run-length lines. Corrupt or short input raises ValueError naming the
+file."""
 
 from __future__ import annotations
 
@@ -35,7 +37,12 @@ def _load() -> ctypes.CDLL:
                   _I32, _I32]),
                 ("gpt_tiff_lzw", _I64, [ctypes.c_char_p, _I64, _P, _I64]),
                 ("gpt_packbits", _I64,
-                 [ctypes.c_char_p, _I64, _P, _I64, _I64, _I32])):
+                 [ctypes.c_char_p, _I64, _P, _I64, _I64, _I32]),
+                ("gpt_qoi", _I64, [ctypes.c_char_p, _I64, _I64, _P, _I64]),
+                ("gpt_sgi_rle", _I64,
+                 [ctypes.c_char_p, _I64, _I32, _I32, _I32, _I32, _P]),
+                ("gpt_pcx", _I64,
+                 [ctypes.c_char_p, _I64, _I32, _I32, _I32, _I32, _P])):
             f = getattr(lib, fn)
             f.restype, f.argtypes = res, args
         _lib = lib
@@ -84,3 +91,43 @@ def packbits(data: bytes, rows: int, row_bytes: int,
     used = _load().gpt_packbits(data, len(data), out.ctypes.data, rows,
                                 row_bytes, int(libtiff))
     return out.tobytes(), int(used)
+
+
+def qoi(data: bytes, pos: int, npix: int, name: str) -> np.ndarray:
+    """QOI ops from byte ``pos`` on -> npix pixels' RGB, uint8 [npix, 3]
+    (PIL's Python decoder); ValueError where the data ends first."""
+    out = np.zeros((npix, 3), np.uint8)
+    if _load().gpt_qoi(data, len(data), pos, out.ctypes.data, npix):
+        raise ValueError(f"{name}: QOI data ends before the image's last "
+                         f"pixel (PIL's load fails)")
+    return out
+
+
+def sgi_rle(data: bytes, w: int, h: int, bands: int, bpc: int,
+            name: str) -> np.ndarray:
+    """SGI run-length data (the file after its 512-byte header) -> uint8
+    [h, w, bands * bpc], rows in the tables' order (bottom row first), as
+    Pillow's SgiRleDecode.c fills them; ValueError where it overruns."""
+    out = np.zeros((h, w, bands * bpc), np.uint8)
+    if _load().gpt_sgi_rle(data, len(data), w, h, bands, bpc,
+                           out.ctypes.data):
+        raise ValueError(f"{name}: corrupt SGI run-length data (PIL: buffer "
+                         f"overrun)")
+    return out
+
+
+def pcx(data: bytes, w: int, h: int, line: int, bits: int,
+        name: str) -> np.ndarray:
+    """PCX run-length data -> uint8 [h, line], each line's planes where
+    Pillow's PcxDecode.c leaves them for a raw mode of ``bits`` bits a
+    pixel (1-bit planes ceil(w / 8) bytes apart, byte planes w apart);
+    ValueError where a run crosses a line's end (PIL: buffer overrun) or
+    the data ends first."""
+    out = np.zeros((h, line), np.uint8)
+    rc = _load().gpt_pcx(data, len(data), w, h, line, bits, out.ctypes.data)
+    if rc == -1:
+        raise ValueError(f"{name}: a PCX run crosses a line's end (PIL: "
+                         f"buffer overrun)")
+    if rc:
+        raise ValueError(f"{name}: truncated PCX image data")
+    return out

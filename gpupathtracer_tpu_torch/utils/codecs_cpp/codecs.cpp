@@ -1,5 +1,6 @@
-// The image codecs behind utils/dds.py, utils/gif.py, utils/tiff.py and
-// utils/psd.py, each giving bit for bit what PIL (Pillow 12.1.0) gives:
+// The image codecs behind utils/dds.py, utils/gif.py, utils/tiff.py,
+// utils/psd.py, utils/qoi.py, utils/sgi.py and utils/pcx.py, each giving
+// bit for bit what PIL (Pillow 12.1.0) gives:
 //
 //   - the BCn block decoders of DDS files (Pillow's BcnDecode.c): BC1-BC5
 //     (BC4 and BC5 unsigned and signed), BC6H (unsigned and signed half
@@ -8,7 +9,14 @@
 //     interlaced or not;
 //   - TIFF's LZW (MSB first with early change, libtiff's LZWDecode);
 //   - PackBits, by rows (Pillow's PackBitsDecode.c, PSD) or over a whole
-//     strip (libtiff's PackBitsDecode, TIFF).
+//     strip (libtiff's PackBitsDecode, TIFF);
+//   - QOI (Pillow's Python QoiDecoder: its index table starts empty and
+//     runs do not enter it);
+//   - SGI's run-length rows (Pillow's SgiRleDecode.c: the start and length
+//     tables, one row buffer reused from row to row);
+//   - PCX's run-length lines (Pillow's PcxDecode.c: a run that crosses a
+//     line's end is an overrun, the planes of a padded line moved
+//     together).
 //
 // Integer arithmetic only, but BC6H's last step: a half float widened to
 // float, times 255, truncated, as Pillow's C code does it in single
@@ -819,6 +827,191 @@ int64_t packbits(const uint8_t* src, int64_t n, uint8_t* out, int64_t rows,
   return pos;
 }
 
+// --- QOI ----------------------------------------------------------------------
+
+// Pillow's QoiDecoder from byte ``pos`` on: npix pixels' RGB into out.
+// Its index table is a dict that starts empty (a slot never written reads
+// 0, 0, 0, 0), each decoded pixel enters it at its own hash (an index op's
+// pixel too), a run does not. Returns 0, or -1 when the data ends inside
+// an op (PIL's load fails).
+int64_t qoi(const uint8_t* src, int64_t n, int64_t pos, uint8_t* out,
+            int64_t npix) {
+  uint8_t seen[64][4];
+  std::memset(seen, 0, sizeof seen);
+  uint8_t prev[4] = {0, 0, 0, 255};
+  int64_t done = 0;
+  while (done < npix) {
+    if (pos >= n) return -1;
+    int b = src[pos++];
+    uint8_t v[4];
+    if (b == 0xFE) {
+      if (n - pos < 3) return -1;
+      v[0] = src[pos];
+      v[1] = src[pos + 1];
+      v[2] = src[pos + 2];
+      v[3] = prev[3];
+      pos += 3;
+    } else if (b == 0xFF) {
+      if (n - pos < 4) return -1;
+      std::memcpy(v, src + pos, 4);
+      pos += 4;
+    } else if ((b >> 6) == 0) {
+      std::memcpy(v, seen[b & 63], 4);
+    } else if ((b >> 6) == 1) {
+      v[0] = uint8_t(prev[0] + ((b >> 4) & 3) - 2);
+      v[1] = uint8_t(prev[1] + ((b >> 2) & 3) - 2);
+      v[2] = uint8_t(prev[2] + (b & 3) - 2);
+      v[3] = prev[3];
+    } else if ((b >> 6) == 2) {
+      if (pos >= n) return -1;
+      int b2 = src[pos++];
+      int dg = (b & 63) - 32;
+      v[0] = uint8_t(prev[0] + dg + ((b2 >> 4) - 8));
+      v[1] = uint8_t(prev[1] + dg);
+      v[2] = uint8_t(prev[2] + dg + ((b2 & 15) - 8));
+      v[3] = prev[3];
+    } else {  // a run of the previous pixel, outside the table
+      for (int k = (b & 63) + 1; k > 0 && done < npix; k--, done++)
+        std::memcpy(out + 3 * done, prev, 3);
+      continue;
+    }
+    std::memcpy(prev, v, 4);
+    std::memcpy(seen[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v,
+                4);
+    std::memcpy(out + 3 * done, v, 3);
+    done++;
+  }
+  return 0;
+}
+
+// --- SGI run-length rows ------------------------------------------------------
+
+// One row's chunks into dest (every z-th byte, or byte pair at bpc 2):
+// Pillow's expandrow / expandrow2. n counts chunks; end is the buffer's
+// last byte. 0 the row ends, 1 its last chunk is not the terminator
+// (Pillow stops decoding there, without an error), -1 an overrun.
+int sgi_row(uint8_t* dest, const uint8_t* src, int n, int z, int xsize,
+            const uint8_t* end, int bpc) {
+  int x = 0;
+  for (; n > 0; n--) {
+    uint8_t pixel;
+    if (bpc == 1) {
+      if (src > end) return -1;
+      pixel = *src++;
+    } else {
+      if (src + 1 > end) return -1;
+      pixel = src[1];
+      src += 2;
+    }
+    if (n == 1 && pixel != 0) return 1;
+    int count = pixel & 0x7F;
+    if (!count) return 0;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (src + bpc * count > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, bpc);
+        src += bpc;
+        dest += z * bpc;
+      }
+    } else {
+      if (src + bpc > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, bpc);
+        dest += z * bpc;
+      }
+      src += bpc;
+    }
+  }
+  return 0;
+}
+
+// The file's bytes after the 512-byte header (``n`` of them) -> out
+// [ysize, xsize, bands * bpc], rows in the file's table order (row 0 is
+// the image's bottom row). Returns 0, or -1 where Pillow sets an error.
+// A row whose chunks stop short keeps the previous row's samples past
+// them (one buffer for every row); rows after a non-terminating last
+// chunk stay 0.
+int64_t sgi_rle(const uint8_t* buf, int64_t n, int32_t xsize, int32_t ysize,
+                int32_t bands, int32_t bpc, uint8_t* out) {
+  int64_t tablen = int64_t(bands) * ysize;
+  if (n < 8 * tablen) return -1;
+  auto be32 = [](const uint8_t* p) {
+    return uint32_t(p[0]) << 24 | uint32_t(p[1]) << 16 |
+           uint32_t(p[2]) << 8 | uint32_t(p[3]);
+  };
+  int64_t row_bytes = int64_t(xsize) * bands * bpc;
+  std::vector<uint8_t> row(row_bytes, 0);
+  const uint8_t* end = buf + n - 1;
+  for (int64_t y = 0; y < ysize; y++) {
+    for (int c = 0; c < bands; c++) {
+      uint32_t start = be32(buf + 4 * (y + int64_t(c) * ysize));
+      uint32_t len = be32(buf + 4 * (tablen + y + int64_t(c) * ysize));
+      if (start < 512) return -1;
+      start -= 512;
+      int status = sgi_row(row.data() + c * bpc, buf + start, int32_t(len),
+                           bands, xsize, end, bpc);
+      if (status == -1) return -1;
+      if (status == 1) return 0;
+    }
+    std::memcpy(out + y * row_bytes, row.data(), row_bytes);
+  }
+  return 0;
+}
+
+// --- PCX run-length lines -----------------------------------------------------
+
+// Pillow's PcxDecode over the image data: ysize lines of ``bytes`` bytes
+// (planes * stride) into out. A padded line's planes are moved together
+// as Pillow moves them: 1-bit planes (raw mode P;2L and P;4L, ``bits`` 2
+// and 4) to ceil(xsize / 8) bytes apart, byte planes to xsize apart where
+// bytes / (bytes / xsize) exceeds xsize. Returns 0, -1 where a run crossed
+// a line's end (Pillow finishes, then raises an overrun), or -2 when the
+// data ends first.
+int64_t pcx(const uint8_t* src, int64_t n, int32_t xsize, int32_t ysize,
+            int32_t bytes, int32_t bits, uint8_t* out) {
+  std::vector<uint8_t> line(bytes, 0);
+  int64_t pos = 0;
+  int x = 0;
+  bool overrun = false;
+  for (int y = 0; y < ysize;) {
+    if (pos >= n) return -2;
+    if ((src[pos] & 0xC0) == 0xC0) {
+      if (n - pos < 2) return -2;
+      for (int k = src[pos] & 0x3F; k > 0; k--) {
+        if (x >= bytes) {
+          overrun = true;
+          break;
+        }
+        line[x++] = src[pos + 1];
+      }
+      pos += 2;
+    } else {
+      line[x++] = src[pos++];
+    }
+    if (x >= bytes) {
+      int width, bands, stride = 0;
+      if (bits == 2 || bits == 4) {
+        width = (xsize + 7) / 8;
+        bands = bits;
+        stride = bytes / bits;
+      } else {
+        width = xsize;
+        bands = bytes / xsize;
+        if (bands) stride = bytes / bands;
+      }
+      if (stride > width)
+        for (int i = 1; i < bands; i++)
+          std::memmove(&line[i * width], &line[i * stride], width);
+      std::memcpy(out + int64_t(y) * bytes, line.data(), bytes);
+      x = 0;
+      y++;
+    }
+  }
+  return overrun ? -1 : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -910,6 +1103,27 @@ int64_t gpt_tiff_lzw(const uint8_t* src, int64_t n, uint8_t* out,
 int64_t gpt_packbits(const uint8_t* src, int64_t n, uint8_t* out,
                      int64_t rows, int64_t row_bytes, int32_t clip) {
   return packbits(src, n, out, rows, row_bytes, clip != 0);
+}
+
+// QOI ops from pos -> npix RGB pixels; 0, or -1 (data short).
+int64_t gpt_qoi(const uint8_t* src, int64_t n, int64_t pos, uint8_t* out,
+                int64_t npix) {
+  return qoi(src, n, pos, out, npix);
+}
+
+// SGI run-length data (the file after its header) -> [ysize, xsize,
+// bands * bpc] in table row order; 0, or -1 (Pillow's overrun).
+int64_t gpt_sgi_rle(const uint8_t* buf, int64_t n, int32_t xsize,
+                    int32_t ysize, int32_t bands, int32_t bpc, uint8_t* out) {
+  return sgi_rle(buf, n, xsize, ysize, bands, bpc, out);
+}
+
+// PCX run-length data -> ysize lines of ``bytes``, the planes moved as
+// Pillow moves them for a raw mode of ``bits``; 0, -1 (overrun) or -2
+// (data short).
+int64_t gpt_pcx(const uint8_t* src, int64_t n, int32_t xsize, int32_t ysize,
+                int32_t bytes, int32_t bits, uint8_t* out) {
+  return pcx(src, n, xsize, ysize, bytes, bits, out);
 }
 
 }  // extern "C"

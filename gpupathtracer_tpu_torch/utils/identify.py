@@ -10,9 +10,10 @@ PIL there, and so does an opened image with no mode or no pixels.
 ``identify`` returns the plugin's format name, and raises ValueError
 naming the file where PIL would fail to open it or where no plugin
 accepts it ("cannot identify image file"). The header checks are copied
-for the plugins the port reads and for those without an accept test (IM,
-IMT, IPTC, PCD, SPIDER, TGA); for the rest the accept test decides, and a
-few header checks of PCX, GBR and WMF are copied besides.
+for the plugins the port reads (BMP, DIB, CUR, ICO, JPEG, PPM, PCX, PSD,
+QOI, SGI, TGA) and for those without an accept test (IM, IMT, IPTC, PCD,
+SPIDER); for the rest the accept test decides, and a few header checks of
+GBR and WMF are copied besides.
 """
 
 from __future__ import annotations
@@ -27,6 +28,12 @@ CANNOT_LOAD = ("BUFR", "GRIB", "HDF5", "MPEG", "EPS", "WMF")
 
 class Refused(Exception):
     """PIL's _open raised something other than SyntaxError: it stops."""
+
+
+class PassOn(Exception):
+    """PIL's _open raised SyntaxError (or an error ImageFile turns into
+    one: IndexError, TypeError, KeyError, EOFError, struct.error), or
+    opened an image of no pixels: the next plugin is tried."""
 
 
 def _u16le(d, o):
@@ -130,38 +137,81 @@ def _always(p):
 
 # --- header checks of _open: True opens, False passes on, Refused stops ------
 
+def _bitmap_probe(d, at, offset, halve=False):
+    """BmpImageFile._bitmap's checks (utils/io.py bitmap_header), then
+    Image.open's: pixels in both directions, under the decompression bomb
+    limit."""
+    from gpupathtracer_tpu_torch.utils.io import MAX_IMAGE_PIXELS, \
+        bitmap_header
+    hd = bitmap_header(d, at, offset)
+    h = hd["h"] // 2 if halve else hd["h"]
+    if h <= 0:
+        raise PassOn("a bitmap of no rows")
+    if hd["w"] * h > 2 * MAX_IMAGE_PIXELS:
+        raise Refused("decompression bomb")
+    return True
+
+
 def _probe_bmp(d):
-    if len(d) < 18:
-        return False                    # struct.error reading the header
-    hsize = _u32le(d, 14)
-    if hsize not in (12, 40, 52, 56, 64, 108, 124):
-        raise Refused(f"BMP header of {hsize} bytes")
-    if len(d) < 14 + hsize:
-        raise Refused("truncated BMP header")
-    if hsize == 12:
-        w, h = _u16le(d, 18), _u16le(d, 20)
-    else:
-        w, h = struct.unpack_from("<ii", d, 18)
-        if d[14 + 4 + 7] == 0xFF:       # PIL's y_flip
-            h = 2 ** 32 - (h & 0xFFFFFFFF)
-    return w > 0 and h > 0
+    return _bitmap_probe(d, 14, _u32le(d, 10))
 
 
-def _probe_cur(d):
-    """CurImagePlugin: the largest of its entries, then a BMP header at
-    the entry's offset (a TGA of type 2 starts with CUR's magic bytes)."""
+def _probe_dib(d):
+    return _bitmap_probe(d, 0, 0)
+
+
+def cur_bitmap_at(d):
+    """CurImagePlugin: where the bitmap of the cursor PIL picks starts.
+    The first entry, replaced by a later one only where both its width and
+    its height byte are strictly larger (a 0 byte is 0); an entry offset
+    of 0 reads on where the directory ends. No entry: TypeError, which
+    passes the file on (a TGA of type 2 starts with CUR's magic bytes)."""
     m = b""
-    for i in range(_u16le(d, 4)):
+    count = _u16le(d, 4)
+    for i in range(count):
         s = d[6 + 16 * i:22 + 16 * i]
         if not m:
             m = s
         elif s[0] > m[0] and s[1] > m[1]:
             m = s
     if not m:
-        return False                    # TypeError: no cursors
-    hsize = _u32le(d, _u32le(m, 12))
-    if hsize not in (12, 40, 52, 56, 64, 108, 124):
-        raise Refused(f"BMP header of {hsize} bytes")
+        raise PassOn("no cursors were found")
+    return _u32le(m, 12) or min(6 + 16 * count, len(d))
+
+
+def _probe_cur(d):
+    return _bitmap_probe(d, cur_bitmap_at(d), 0, halve=True)
+
+
+def _probe_ico(d):
+    """IcoImagePlugin's _open, which loads the first frame: its checks
+    that pass the file on (utils/ico.py open_ico); what the load refuses
+    stops PIL, so it is left to the decode."""
+    from gpupathtracer_tpu_torch.utils.ico import open_ico
+    open_ico(d, pixels=False)
+    return True
+
+
+def _probe_ppm(d):
+    from gpupathtracer_tpu_torch.utils.pnm import ppm_header
+    ppm_header(d)
+    return True
+
+
+def _probe_qoi(d):
+    """QoiImagePlugin: the 14-byte header, a size above 0."""
+    from gpupathtracer_tpu_torch.utils.io import MAX_IMAGE_PIXELS
+    if len(d) < 13:
+        return False                    # struct.error / IndexError
+    w, h = _u32be(d, 4), _u32be(d, 8)
+    if w * h > 2 * MAX_IMAGE_PIXELS:
+        raise Refused("decompression bomb")
+    return w > 0 and h > 0
+
+
+def _probe_sgi(d):
+    from gpupathtracer_tpu_torch.utils.sgi import sgi_header
+    sgi_header(d)
     return True
 
 
@@ -312,10 +362,9 @@ def _probe_tga(d):
 
 
 def _probe_pcx(d):
-    if len(d) < 12:
-        return False
-    x0, y0, x1, y1 = struct.unpack_from("<4H", d, 4)
-    return x1 + 1 > x0 and y1 + 1 > y0
+    from gpupathtracer_tpu_torch.utils.pcx import pcx_header
+    pcx_header(d)
+    return True
 
 
 def _probe_gbr(d):
@@ -430,8 +479,9 @@ def _probe_spider(d):
 
 # (format, accept, probe) in Image.ID order.
 PLUGINS = (
-    ("BMP", _bmp, _probe_bmp), ("DIB", _dib, None), ("GIF", _gif, None),
-    ("JPEG", _jpeg, _probe_jpeg), ("PPM", _ppm, None), ("PNG", _png, None),
+    ("BMP", _bmp, _probe_bmp), ("DIB", _dib, _probe_dib),
+    ("GIF", _gif, None), ("JPEG", _jpeg, _probe_jpeg),
+    ("PPM", _ppm, _probe_ppm), ("PNG", _png, None),
     ("AVIF", _avif, None), ("BLP", _starts(b"BLP1", b"BLP2"), None),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
     ("CUR", _starts(b"\0\0\2\0"), _probe_cur), ("PCX", _pcx, _probe_pcx),
@@ -442,15 +492,17 @@ PLUGINS = (
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", _starts(b"\xff\x4f\xff\x51",
                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
-    ("ICNS", _starts(b"icns"), None), ("ICO", _starts(b"\0\0\1\0"), None),
+    ("ICNS", _starts(b"icns"), None),
+    ("ICO", _starts(b"\0\0\1\0"), _probe_ico),
     ("IM", _always, _probe_im), ("IMT", _always, _probe_imt),
     ("IPTC", _always, _probe_iptc),
     ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None),
     ("MPEG", _starts(b"\x00\x00\x01\xb3"), None), ("TIFF", _tiff, None),
     ("MSP", _starts(b"DanM", b"LinS"), None), ("PCD", _always, _probe_pcd),
     ("PIXAR", _starts(b"\200\350\000\000"), None),
-    ("PSD", _starts(b"8BPS"), _probe_psd), ("QOI", _starts(b"qoif"), None),
-    ("SGI", _sgi, None), ("SPIDER", _always, _probe_spider),
+    ("PSD", _starts(b"8BPS"), _probe_psd),
+    ("QOI", _starts(b"qoif"), _probe_qoi), ("SGI", _sgi, _probe_sgi),
+    ("SPIDER", _always, _probe_spider),
     ("SUN", _sun, None), ("TGA", _always, _probe_tga),
     ("WEBP", _webp, None),
     ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"),
@@ -473,7 +525,7 @@ def identify(data: bytes, name: str = "<image>") -> str:
         except Refused as e:
             raise ValueError(f"{name}: PIL's {fmt} plugin refuses the file "
                              f"({e})") from e
-        except (IndexError, struct.error):
+        except (PassOn, IndexError, struct.error):
             continue
     raise ValueError(f"{name}: no image format identifies the file (PIL: "
                      f"cannot identify image file; first bytes "

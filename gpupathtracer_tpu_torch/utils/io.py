@@ -1,12 +1,14 @@
 """Image I/O without third-party imaging packages: a PNG writer, the
 entry point of the image readers (decode_image: the format told as PIL
-tells it, utils/identify.py), the PNG, TGA and BMP readers, PIL's CMYK to
-RGB, and the Radiance .hdr reader of the JAX package's utils/io.py. Every
-reader gives what the JAX package gets from PIL, bit for bit."""
+tells it, utils/identify.py), the PNG, TGA and BMP readers (BMP's bitmap
+also read as DIB and CUR, and in ICO frames), PIL's CMYK to RGB, and the
+Radiance .hdr reader of the JAX package's utils/io.py. Every reader gives
+what the JAX package gets from PIL, bit for bit."""
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 import time
 import zlib
@@ -65,16 +67,19 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
     (utils/identify.py). Read: PNG (every depth, Adam7), JPEG (utils/
     jpeg.py: every process PIL reads, Huffman or arithmetic coded and
     lossless, 1, 3 or 4 components), BMP (raw,
-    RLE4, RLE8, bit fields; Windows and OS/2 headers), TGA, GIF (utils/
-    gif.py), TIFF (utils/tiff.py), DDS (utils/dds.py: BC1-BC7), PSD
-    (utils/psd.py) and WebP (utils/webp.py: lossless, lossy with its
-    alpha, extended and animated files' first frame). A format PIL reads
-    and the port does not yet read (JPEG 2000, AVIF, PPM, ICO, QOI, ...;
-    ROADMAP.md C6) raises NotImplementedError naming the file and the
-    format. Bytes PIL cannot open or cannot load (no plugin accepts
-    them, a corrupt or truncated file, the stub plugins) raise
-    ValueError naming the file: the atlas builder skips such a map, as
-    the JAX package's does."""
+    RLE4, RLE8, bit fields; Windows and OS/2 headers) and its bitmap as
+    DIB and CUR, TGA, GIF (utils/gif.py), TIFF (utils/tiff.py), DDS
+    (utils/dds.py: BC1-BC7), PSD (utils/psd.py), WebP (utils/webp.py:
+    lossless, lossy with its alpha, extended and animated files' first
+    frame), PNM and PFM (utils/pnm.py: P1-P6, P0CMYK, Pf and PIL's Py*),
+    QOI (utils/qoi.py), ICO (utils/ico.py: PNG and bitmap frames), SGI
+    (utils/sgi.py: raw and run-length, 8 and 16 bits) and PCX (utils/
+    pcx.py). A format PIL reads and the port does not yet read (JPEG
+    2000, AVIF, XBM, IM, ...; ROADMAP.md C6) raises NotImplementedError
+    naming the file and the format. Bytes PIL cannot open or cannot load
+    (no plugin accepts them, a corrupt or truncated file, the stub
+    plugins) raise ValueError naming the file: build_atlas skips
+    such a map, as the JAX package's does."""
     from gpupathtracer_tpu_torch.utils.identify import CANNOT_LOAD, identify
 
     fmt = identify(data, name)
@@ -92,13 +97,21 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
 def _readers() -> dict:
     from gpupathtracer_tpu_torch.utils.dds import decode_dds
     from gpupathtracer_tpu_torch.utils.gif import decode_gif
+    from gpupathtracer_tpu_torch.utils.ico import decode_ico
     from gpupathtracer_tpu_torch.utils.jpeg import decode_jpeg
+    from gpupathtracer_tpu_torch.utils.pcx import decode_pcx
+    from gpupathtracer_tpu_torch.utils.pnm import decode_ppm
     from gpupathtracer_tpu_torch.utils.psd import decode_psd
+    from gpupathtracer_tpu_torch.utils.qoi import decode_qoi
+    from gpupathtracer_tpu_torch.utils.sgi import decode_sgi
     from gpupathtracer_tpu_torch.utils.tiff import decode_tiff
     from gpupathtracer_tpu_torch.utils.webp import decode_webp
     return {"PNG": decode_png, "JPEG": decode_jpeg, "BMP": decode_bmp,
             "TGA": decode_tga, "GIF": decode_gif, "TIFF": decode_tiff,
-            "DDS": decode_dds, "PSD": decode_psd, "WEBP": decode_webp}
+            "DDS": decode_dds, "PSD": decode_psd, "WEBP": decode_webp,
+            "PPM": decode_ppm, "QOI": decode_qoi, "DIB": decode_dib,
+            "CUR": decode_cur, "ICO": decode_ico, "SGI": decode_sgi,
+            "PCX": decode_pcx}
 
 
 def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
@@ -134,60 +147,115 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 
 
 def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
-    """Decode a PNG to uint8 [H, W, 3] RGB, bit for bit PIL's
+    """Decode a PNG to uint8 [H, W, 3], bit for bit PIL's
     ``convert("RGB")``: grey replicated (1-, 2- and 4-bit grey scaled by
     255 / (2^d - 1)), palette indices looked up (an index past the palette
     reads black), alpha and tRNS dropped; 16-bit RGB, RGBA and grey +
     alpha keep each sample's high byte, 16-bit grey (PIL's mode I;16) is
-    clipped at 255. Adam7-interlaced files are read pass by pass."""
-    pos, idat, plte = 8, [], None
-    ihdr = None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
+    clipped at 255. Adam7-interlaced files are read pass by pass. The
+    chunks are read as PIL reads them: up to the first IDAT each with its
+    CRC, then the run of IDAT chunks only as far as the image needs (the
+    zlib stream's checksum and what follows its last row are not read).
+    What PIL cannot read raises ValueError naming the file."""
+    pos, plte, ihdr = 8, None, None
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"{name}: PNG ends before its image data")
+        (n,) = struct.unpack_from(">I", data, pos)
         tag = data[pos + 4:pos + 8]
+        if not _PNG_CID.match(tag):
+            raise ValueError(f"{name}: broken PNG file (chunk {tag!r})")
         body = data[pos + 8:pos + 8 + n]
+        if tag == b"IDAT":
+            break
+        if len(body) < n or pos + 12 + n > len(data):
+            raise ValueError(f"{name}: truncated PNG chunk {tag!r}")
+        (crc,) = struct.unpack_from(">I", data, pos + 8 + n)
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{name}: broken PNG file (bad checksum in "
+                             f"{tag!r})")
         pos += 12 + n
         if tag == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
+            if n < 13:
+                raise ValueError(f"{name}: truncated IHDR chunk")
+            ihdr = struct.unpack(">IIBBBBB", body[:13])
         elif tag == b"PLTE":
             plte = np.frombuffer(body[:len(body) // 3 * 3],
                                  np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
-            idat.append(body)
         elif tag == b"IEND":
-            break
+            raise ValueError(f"{name}: PNG without image data")
     if ihdr is None:
         raise ValueError(f"{name}: PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = ihdr
+    w, h, depth, ctype, _, filt, interlace = ihdr
+    if w <= 0 or h <= 0:
+        raise ValueError(f"{name}: PNG of {w}x{h} pixels")
     check_pixels(h, w, name)
     if ctype not in _PNG_CHANNELS:
         raise ValueError(f"{name}: PNG colour type {ctype}")
     if depth not in _PNG_DEPTHS[ctype]:
         raise ValueError(f"{name}: PNG bit depth {depth} for colour type "
                          f"{ctype}")
+    if filt:
+        raise ValueError(f"{name}: PNG filter method {filt}")
     if interlace not in (0, 1):
         raise ValueError(f"{name}: PNG interlace method {interlace}")
     if ctype == 3 and plte is None:
         raise ValueError(f"{name}: palette PNG without PLTE")
     ch = _PNG_CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
-    samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
-    off = 0
+    sizes = []
     for x0, y0, dx, dy in passes:
         pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-        if pw <= 0 or ph <= 0:
-            continue            # an empty pass has no rows at all
-        stride = -(-pw * ch * depth // 8)
+        if pw > 0 and ph > 0:           # an empty pass has no rows at all
+            sizes.append((x0, y0, dx, dy, pw, ph, -(-pw * ch * depth // 8)))
+    raw = np.frombuffer(_png_inflate(
+        data, pos, sum(ph * (st + 1) for *_, ph, st in sizes), name),
+        np.uint8)
+    samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy, pw, ph, stride in sizes:
         size = ph * (stride + 1)
-        if off + size > raw.size:
-            raise ValueError(f"{name}: truncated PNG image data")
         rows = raw[off:off + size].reshape(ph, stride + 1)
         off += size
         bpp = max(1, ch * depth // 8)
         sub = _samples(_unfilter(rows, ph, stride, bpp, name), pw, ch, depth)
         samples[y0::dy, x0::dx] = sub
     return _to_rgb(samples, ctype, depth, plte)
+
+
+_PNG_CID = re.compile(rb"\w\w\w\w")
+
+
+def _png_inflate(data: bytes, pos: int, size: int, name: str) -> bytes:
+    """The first ``size`` bytes of the zlib stream in the run of IDAT
+    chunks at ``pos``, read as PIL's loader reads them: chunk by chunk,
+    the next chunk's header only when more data is needed (a chunk that
+    is not IDAT ends the data); a stream that ends early or is corrupt
+    raises ValueError."""
+    z = zlib.decompressobj()
+    out = []
+    have = 0
+    while True:
+        (n,) = struct.unpack_from(">I", data, pos)
+        body = data[pos + 8:pos + 8 + n]
+        try:
+            part = z.decompress(body, size - have)
+        except zlib.error as e:
+            raise ValueError(f"{name}: broken PNG data stream ({e})") from e
+        out.append(part)
+        have += len(part)
+        if have >= size:
+            return b"".join(out)
+        if z.eof or len(body) < n:
+            raise ValueError(f"{name}: truncated PNG image data")
+        pos += 12 + n
+        if pos + 8 > len(data):
+            raise ValueError(f"{name}: truncated PNG image data")
+        tag = data[pos + 4:pos + 8]
+        if not _PNG_CID.match(tag):
+            raise ValueError(f"{name}: broken PNG file (chunk {tag!r})")
+        if tag != b"IDAT":
+            raise ValueError(f"{name}: truncated PNG image data")
 
 
 def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
@@ -397,24 +465,51 @@ _BMP_MASKS = {
 
 def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
     """Decode a BMP to uint8 [H, W, 3], bit for bit PIL's convert("RGB"):
-    BI_RGB at 1, 4, 8, 16 (X1R5G5B5), 24 and 32 bits; RLE8 and RLE4 (PIL's
-    Python decoder: end-of-line, end-of-bitmap, delta and absolute runs);
-    BI_BITFIELDS at 16 (565, 555), 24 and 32 bits with the masks PIL
-    lists. A palette of the grey ramp is dropped (PIL's mode L: an index
-    is its grey level; at 1 and 4 bits PIL memory-maps the file and reads
-    a byte a pixel, as load_image's path gives it). Rows bottom-up unless
-    the height is negative. The
-    12-byte OS/2 1.x header (BGR palette entries), BITMAPINFOHEADER, the
-    64-byte OS/2 2.x header and the V2-V5 extensions. What PIL refuses
-    raises ValueError naming the file."""
+    the 14-byte file header, then the bitmap (_bitmap) at the pixel offset
+    it gives (0: right after the palette)."""
     if len(data) < 18:
         raise ValueError(f"{name}: truncated BMP header")
     (offset,) = struct.unpack("<I", data[10:14])
-    (hsize,) = struct.unpack("<I", data[14:18])
-    head = data[18:14 + hsize]
-    if len(head) < hsize - 4:
-        raise ValueError(f"{name}: truncated BMP header")
-    pos = 14 + hsize                    # where PIL reads on from
+    return _bitmap(data, 14, offset, name)
+
+
+def decode_dib(data: bytes, name: str = "<dib>") -> np.ndarray:
+    """Decode a DIB (a BMP without its file header, PIL's DibImageFile) to
+    uint8 [H, W, 3]: the bitmap at 0, its pixels right after its header
+    and palette, as PIL computes the offset."""
+    return _bitmap(data, 0, 0, name)
+
+
+def decode_cur(data: bytes, name: str = "<cur>") -> np.ndarray:
+    """Decode a Windows cursor (PIL's CurImagePlugin) to uint8 [H, W, 3]:
+    the first entry, replaced by a later one only where both its width
+    and its height byte are strictly larger (a 0 byte is 0), its bitmap at
+    the entry's offset (at 0: where the directory ends, as PIL reads on
+    from there), the bitmap's height halved (the AND mask left out)."""
+    from gpupathtracer_tpu_torch.utils.identify import cur_bitmap_at
+    try:
+        at = cur_bitmap_at(data)
+    except Exception as e:
+        raise ValueError(f"{name}: PIL does not read this cursor ({e})") \
+            from e
+    return _bitmap(data, at, 0, name, halve=True)
+
+
+def bitmap_header(data: bytes, at: int, offset: int) -> dict:
+    """What PIL's BmpImageFile._bitmap reads when it opens the bitmap whose
+    header starts at ``at`` (``offset``: the file header's pixel offset,
+    0 for DIB, CUR and ICO frames): size, depth, compression, masks,
+    palette, pixel offset. Raises identify.Refused where PIL's _open
+    stops, identify.PassOn (or IndexError, struct.error) where it passes
+    the file on to the next plugin."""
+    from gpupathtracer_tpu_torch.utils.identify import PassOn, Refused
+    if len(data) < at + 4:
+        raise PassOn("no BMP header size")
+    (hsize,) = struct.unpack_from("<I", data, at)
+    head = data[at + 4:at + hsize]
+    if hsize > 4 and len(head) < hsize - 4:
+        raise Refused("Truncated File Read")
+    pos = at + hsize                    # where PIL reads on from
     direction = -1
     masks = None
     if hsize == 12:
@@ -435,36 +530,80 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
                 masks = struct.unpack(f"<{n}I", head[36:36 + 4 * n])
                 masks += (0,) * (4 - n)
             else:
-                masks = struct.unpack("<3I", data[pos:pos + 12]) + (0,)
+                if len(data) < pos + 12:
+                    raise PassOn("BMP bit field masks cut short")
+                masks = struct.unpack_from("<3I", data, pos) + (0,)
                 pos += 12
     else:
-        raise ValueError(f"{name}: BMP header of {hsize} bytes (PIL "
-                         f"refuses it)")
-    if w <= 0 or h <= 0 or w >= 2 ** 31:
-        raise ValueError(f"{name}: BMP of {w}x{h} pixels")
-    check_pixels(h, w, name)
+        raise Refused(f"BMP header of {hsize} bytes")
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
     if bits not in (1, 4, 8, 16, 24, 32):
-        raise ValueError(f"{name}: BMP of {bits} bits (PIL refuses it)")
+        raise Refused(f"BMP of {bits} bits")
     if comp == 3:
         key = (bits, masks if bits == 32 else masks[:3])
         if key not in _BMP_MASKS:
-            raise ValueError(f"{name}: BMP bit field layout {masks} (PIL "
-                             f"refuses it)")
+            raise Refused(f"BMP bit field layout {masks}")
     elif comp not in (0, 1, 2):
-        raise ValueError(f"{name}: BMP compression {comp} (PIL refuses it)")
-    pal = grey = None
+        raise Refused(f"BMP compression {comp}")
+    table = b""
     if bits <= 8:
         if not 0 < colors <= 65536:
-            raise ValueError(f"{name}: BMP palette of {colors} colours")
+            raise Refused(f"BMP palette of {colors} colours")
         table = data[pos:pos + padding * colors]
+        pos += len(table)
+    if w <= 0 or h <= 0:
+        raise PassOn(f"BMP of {w}x{h} pixels")
+    return dict(w=w, h=h, bits=bits, comp=comp, masks=masks, colors=colors,
+                padding=padding, table=table, direction=direction,
+                offset=offset or pos)
+
+
+def _bitmap(data: bytes, at: int, offset: int, name: str,
+            halve: bool = False, mapped: bool = True) -> np.ndarray:
+    """The bitmap whose header starts at ``at`` (PIL's
+    BmpImageFile._bitmap and its decoders), bit for bit PIL's
+    convert("RGB"): BI_RGB at 1, 4, 8, 16 (X1R5G5B5), 24 and 32 bits; RLE8
+    and RLE4 (PIL's Python decoder: end-of-line, end-of-bitmap, delta and
+    absolute runs); BI_BITFIELDS at 16 (565, 555), 24 and 32 bits with the
+    masks PIL lists. A palette of the grey ramp is dropped (PIL's mode L:
+    an index is its grey level). Rows bottom-up unless the height is
+    negative. The 12-byte OS/2 1.x header (BGR palette entries),
+    BITMAPINFOHEADER, the 64-byte OS/2 2.x header and the V2-V5
+    extensions. ``halve``: the height halved, as CUR and ICO read it.
+    ``mapped``: PIL opened the file by its path and memory-maps it where
+    its raw mode is the image's (mode L at 1 and 4 bits then reads a byte
+    a pixel from each row's start; an ICO frame is read from a stream).
+    The last row needs no padding (PIL's raw decoder stops before it).
+    What PIL refuses raises ValueError naming the file."""
+    from gpupathtracer_tpu_torch.utils.identify import PassOn, Refused
+    try:
+        hd = bitmap_header(data, at, offset)
+    except (PassOn, Refused, IndexError, struct.error) as e:
+        raise ValueError(f"{name}: PIL does not read this bitmap ({e})") \
+            from e
+    w, h, bits, comp = hd["w"], hd["h"], hd["bits"], hd["comp"]
+    masks, colors, padding = hd["masks"], hd["colors"], hd["padding"]
+    direction, offset, table = hd["direction"], hd["offset"], hd["table"]
+    check_pixels(h, w, name)
+    if w >= 2 ** 31:
+        raise ValueError(f"{name}: BMP of {w}x{h} pixels")
+    if halve:
+        h //= 2
+        if h <= 0:
+            raise ValueError(f"{name}: a bitmap of one row under its mask")
+    pal = grey = None
+    if bits <= 8:
+        # PIL's test: each entry's first three bytes the ramp's (a short
+        # palette is not grey).
+        ramp = np.array([0, 255] if colors == 2 else range(colors)) & 255
+        full = np.frombuffer(table.ljust(padding * colors, b"\0"),
+                             np.uint8).reshape(colors, padding)
+        grey = len(table) >= padding * (colors - 1) + 3 and bool(
+            (full[:, :3] == ramp[:, None]).all())
         ent = np.frombuffer(table[:len(table) // padding * padding],
                             np.uint8).reshape(-1, padding)[:, 2::-1]
-        ramp = np.array([0, 255] if colors == 2 else range(colors)) & 255
-        grey = len(ent) >= colors and bool(
-            (ent[:colors] == ramp[:, None]).all())
         pal = np.zeros((256, 3), np.uint8)
         pal[:min(len(ent), 256)] = ent[:256]
     if comp in (1, 2):
@@ -479,24 +618,35 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
             rows = rows[::-1]
         return np.repeat(rows[..., None], 3, axis=2) if grey else pal[rows]
     stride = ((w * bits + 31) >> 3) & ~3
-    if offset + stride * h > len(data):
-        raise ValueError(f"{name}: truncated BMP image data")
     if grey and colors != 2 and bits < 8:
-        # PIL's mode L with raw mode L: it memory-maps the file and reads a
-        # row as w bytes from each row's start, one byte a pixel (its raw
-        # decoder, from bytes in memory, refuses the stride instead).
-        # Past the end of the file the map reads zeros up to its last page.
+        # PIL's mode L with raw mode L: memory-mapped, a row is w bytes
+        # from each row's start, one byte a pixel (past the end of the
+        # file the map reads zeros up to its last page); from a stream,
+        # or where the map is short, the raw decoder reads the same bytes
+        # and refuses a stride shorter than w.
         end = offset + stride * (h - 1) + w
-        if end > -(-len(data) // 4096) * 4096:
-            raise ValueError(f"{name}: BMP rows past the end of the file")
+        if mapped and offset + stride * h <= len(data):
+            if end > -(-len(data) // 4096) * 4096:
+                raise ValueError(f"{name}: BMP rows past the end of the "
+                                 f"file")
+        elif w > stride:
+            raise ValueError(f"{name}: BMP rows of {w} grey bytes in a "
+                             f"stride of {stride} (PIL's raw decoder "
+                             f"refuses it)")
+        elif end > len(data):
+            raise ValueError(f"{name}: truncated BMP image data")
         starts = offset + stride * np.arange(h)
         if direction == -1:
             starts = starts[::-1]
         buf = np.frombuffer(data.ljust(end, b"\0"), np.uint8)
         g = buf[starts[:, None] + np.arange(w)]
         return np.repeat(g[..., None], 3, axis=2)
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h,
-                                                                     stride)
+    row_bits = 1 if grey and colors == 2 else bits
+    row_bytes = (w * row_bits + 7) // 8
+    if offset + stride * (h - 1) + row_bytes > len(data):
+        raise ValueError(f"{name}: truncated BMP image data")
+    rows = np.frombuffer(data.ljust(offset + stride * h, b"\0"), np.uint8,
+                         stride * h, offset).reshape(h, stride)
     if direction == -1:
         rows = rows[::-1]
     if bits <= 8:

@@ -685,6 +685,8 @@ def write_unread(folder) -> dict:
         f.write(b"RIFF\x24\0\0\0WEBPVP8 " + b"\0" * 32)
     out["photo.ppm"] = os.path.join(folder, "photo.ppm")
     Image.fromarray(rgb).save(out["photo.ppm"], "PPM")
+    out["photo.xbm"] = os.path.join(folder, "photo.xbm")
+    Image.fromarray(rgb).convert("1").save(out["photo.xbm"], "XBM")
     return out
 
 
@@ -695,25 +697,26 @@ def write_unread(folder) -> dict:
 # behind it, which libwebp refuses; since the fourth image slice, DCT
 # data under a lossless SOF3 header, whose scan libjpeg refuses),
 # ValueError naming the file, skipped by both atlas builders; "raise"
-# stays unread (ROADMAP.md C6: a PPM), NotImplementedError naming the
+# stays unread (ROADMAP.md C6: an XBM), NotImplementedError naming the
 # file, which the atlas builder lets through. The SOF9 relabel of a
 # baseline file is read as PIL reads it (Huffman data decoded as
-# arithmetic) since the fourth image slice.
+# arithmetic) since the fourth image slice; the PPM is read since the
+# fifth.
 UNREAD = {"cmyk.jpg": "same", "arith.jpg": "same", "lossless.jpg": "skip",
           "sky.exr": "skip", "anim.gif": "same", "photo.tif": "same",
-          "photo.webp": "skip", "photo.ppm": "raise"}
+          "photo.webp": "skip", "photo.ppm": "same", "photo.xbm": "raise"}
 
 
 @pytest.mark.parametrize("name", ["cmyk.jpg", "arith.jpg", "lossless.jpg",
                                   "sky.exr", "anim.gif", "photo.tif",
-                                  "photo.webp", "photo.ppm"])
+                                  "photo.webp", "photo.ppm", "photo.xbm"])
 def test_unread_formats_raise(tmp_path, name):
-    """A CMYK JPEG, an arithmetic-coded (SOF9) JPEG, a GIF and a TIFF read
-    bitwise as the JAX package reads them, also through the atlas
+    """A CMYK JPEG, an arithmetic-coded (SOF9) JPEG, a GIF, a TIFF and a
+    PPM read bitwise as the JAX package reads them, also through the atlas
     builder; an EXR (no PIL plugin reads it), a WebP header without a
     frame and a lossless (SOF3) header over DCT data (PIL cannot load
     either) raise ValueError naming the file and both atlas builders skip
-    them; a PPM still raises NotImplementedError naming the file, also
+    them; an XBM still raises NotImplementedError naming the file, also
     through the atlas builder (which skips only what PIL cannot read)."""
     path = write_unread(tmp_path)[name]
     kind = UNREAD[name]

@@ -101,6 +101,16 @@ for k in webp:
     held += (hashlib.sha256(px.tobytes()).hexdigest()
              == manifest[k]["pixels_sha256"])
 print("WEBP", len(webp), held)
+# The simple formats' fixtures (PNM, QOI, ICO, CUR, SGI, PCX, DIB) too.
+simple = [k for k, e in sorted(manifest.items()) if e["format"] in (
+    "PPM", "QOI", "ICO", "CUR", "SGI", "PCX", "DIB")]
+held = 0
+for k in simple:
+    with open(os.path.join(fixtures, manifest[k]["file"]), "rb") as f:
+        px = port_io.decode_image(f.read(), k)
+    held += (hashlib.sha256(px.tobytes()).hexdigest()
+             == manifest[k]["pixels_sha256"])
+print("SIMPLE", len(simple) > 20, len(simple) - held)
 # The treelet-sorted bounce traversal, with the sort forced on at 16x16.
 import math
 from gpupathtracer_tpu_torch.config import CameraConfig, RenderConfig
@@ -239,6 +249,7 @@ def test_port_renders_without_jax_or_pil(tmp_path):
     assert ("JPEGTOWN ['bricks.jpg', 'checker.jpg', 'foliage.jpg', "
             "'roof.jpg']") in proc.stdout
     assert "WEBP 9 9" in proc.stdout
+    assert "SIMPLE True 0" in proc.stdout
     for out in outs + [wide, delta, str(tmp_path / "town" /
                                         "town_jpeg.png")]:
         img = _read_png(out)
@@ -270,7 +281,8 @@ def test_port_sources_never_import_the_jax_package():
             "debug.py", "cache.py", "packet_traverse.py", "comm.py",
             "mesh.py", "partition.py", "launch.py",
             "torch_partition_bench.py", "torch_dist_ranks.py",
-            "webp.py"} <= names
+            "webp.py", "pnm.py", "qoi.py", "ico.py", "sgi.py",
+            "pcx.py"} <= names
     assert len(paths) > 30
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)

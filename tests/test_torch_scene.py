@@ -195,9 +195,9 @@ def test_unported_inputs_raise(tmp_path):
     # since the second image slice; cube faces of a WebP header with no
     # frame behind it: ValueError naming the file since the WebP slice
     # (PIL cannot open it either); arithmetic-coded JPEG faces read
-    # bitwise as the JAX package's since the fourth image slice, and
-    # faces of a format that stays unread (PPM) raise NotImplementedError
-    # naming the file.
+    # bitwise as the JAX package's since the fourth image slice, PPM
+    # faces since the fifth, and faces of a format that stays unread
+    # (XBM) raise NotImplementedError naming the file.
     from test_torch_images import write_unread
 
     jpg = tmp_path / "sky.jpg"
@@ -219,8 +219,13 @@ def test_unported_inputs_raise(tmp_path):
     want = np.asarray(jax_envmap.load_environment(spec).image)
     assert got.tobytes() == want.tobytes()
     (tmp_path / "ppm_faces.txt").write_text("photo.ppm\n" * 6)
-    with pytest.raises(NotImplementedError, match="photo.ppm"):
-        envmap.environment_image(str(tmp_path / "ppm_faces.txt"))
+    spec = str(tmp_path / "ppm_faces.txt")
+    got = envmap.environment_image(spec)
+    want = np.asarray(jax_envmap.load_environment(spec).image)
+    assert got.tobytes() == want.tobytes()
+    (tmp_path / "xbm_faces.txt").write_text("photo.xbm\n" * 6)
+    with pytest.raises(NotImplementedError, match="photo.xbm"):
+        envmap.environment_image(str(tmp_path / "xbm_faces.txt"))
     # Node rows hold 2 to 16 children (wide_arity 16 loads since the
     # kernels take the table's arity).
     with pytest.raises(ValueError):

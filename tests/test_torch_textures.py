@@ -163,9 +163,9 @@ def test_unread_images_raise_and_name_the_file(tmp_path):
     plugin reads, raises ValueError naming the file and both atlas
     builders skip it, and so does DCT data under a lossless JPEG header
     (libjpeg refuses its scan); an arithmetic-coded JPEG reads bitwise
-    since the fourth image slice; what stays unread (a PPM: ROADMAP.md C6)
-    raises NotImplementedError naming the file, and the atlas builder lets
-    it through instead of skipping the map."""
+    since the fourth image slice, a PPM since the fifth; what stays unread
+    (an XBM: ROADMAP.md C6) raises NotImplementedError naming the file,
+    and build_atlas lets it through instead of skipping the map."""
     from test_torch_images import write_unread
 
     jpg = tmp_path / "a.jpg"
@@ -178,7 +178,7 @@ def test_unread_images_raise_and_name_the_file(tmp_path):
                                  interlace=1))
     unread = write_unread(tmp_path)
     read = [jpg.name, deep.name, laced.name, "cmyk.jpg", "anim.gif",
-            "arith.jpg"]
+            "arith.jpg", "photo.ppm"]
     for name in read:
         path = str(tmp_path / name)
         assert io.load_image(path).tobytes() == \
@@ -186,12 +186,12 @@ def test_unread_images_raise_and_name_the_file(tmp_path):
     skipped = ["sky.exr", "lossless.jpg"]
     got = textures.build_atlas(read + skipped, str(tmp_path))
     want = jax_textures.build_atlas(read + skipped, str(tmp_path))
-    assert got[2] == want[2] and len(got[2]) == 6
+    assert got[2] == want[2] and len(got[2]) == 7
     assert got[0].tobytes() == want[0].tobytes()
     for name in skipped:
         with pytest.raises(ValueError, match=name):
             io.load_image(unread[name])
-    for name in ("photo.ppm",):
+    for name in ("photo.xbm",):
         with pytest.raises(NotImplementedError, match=name):
             io.load_image(unread[name])
         with pytest.raises(NotImplementedError, match=name):

@@ -9,8 +9,9 @@ decoded pixels.
 Needs Pillow, so it runs where the JAX package's tests run, never on the
 card's machine; the port reads the files without it (utils/io.py
 decode_image) and tests/test_torch_images.py, chip_smoke.py phase 20 (the
-JPEGs), phase 21 (the rest but WebP) and phase 22 (the WebP files) hold its
-decodes to the PNGs. The files:
+JPEGs), phase 21 (the rest but WebP and the simple formats), phase 22 (the
+WebP files) and phase 24 (the simple formats) hold its decodes to the
+PNGs. The files:
 
 - JPEG, PIL's encoder: the generated town's four 128x128 maps
   (scene/samplegen.py), one encoding each: checker baseline 4:4:4 at q95,
@@ -34,13 +35,19 @@ decodes to the PNGs. The files:
   ALPH), an animation whose 96x80 lossy first frame sits at (8, 16) on a
   128x128 canvas (PIL's decode: black around it), and two lossy files by
   libwebp's advanced encoder, which PIL's options do not reach: foliage
-  with the simple loop filter, bricks in eight token partitions.
+  with the simple loop filter, bricks in eight token partitions;
+- the simple formats: the town's maps as checker P6 PPM and bricks QOI
+  (PIL), roof run-length SGI and foliage 3-plane PCX (PIL), and small
+  files of every PNM, PFM, QOI, ICO, CUR, SGI, PCX and DIB variant (the
+  plain PNMs, run-length SGIs, planar PCXs, CURs and hand-made ICO
+  directories by the writers below).
 
 The writers of the containers PIL does not write (DDS headers, GIF, TIFF
 with tiles, planar configuration 2, predictors, big-endian and BigTIFF,
-PSD, WebP chunks and animations) live here too;
-tests/test_torch_image_formats.py and tests/test_torch_webp.py build their
-cases with them.
+PSD, WebP chunks and animations, plain PNM, run-length SGI, planar PCX,
+CUR and ICO directories) live here too; tests/test_torch_image_formats.py,
+tests/test_torch_webp.py and tests/test_torch_simple_formats.py build
+their cases with them.
 
 The PNGs use filters None, Sub and Up only (the port unfilters those
 without a per-byte loop), chosen per row by the smallest sum of absolute
@@ -1414,6 +1421,7 @@ def other_fixtures(twins: dict) -> dict:
                         {"JPEG": "the CMYK file, Adobe transform 2 (YCCK)"}),
         **webp_fixtures(t),
         **jpeg_rest_fixtures(t),
+        **simple_fixtures(t),
     }
 
 
@@ -1454,6 +1462,343 @@ def webp_fixtures(t: dict) -> dict:
             t["bricks"], quality=70.0, method=2, partitions=3, segments=4),
             None, {"WEBP": "lossy, eight token partitions (libwebp)"}),
     })
+    return out
+
+
+# --- the simple formats PIL does not write: plain PNM, SGI RLE, PCX planes,
+# --- CUR and ICO directories --------------------------------------------------
+
+def write_pnm(magic: bytes, px: np.ndarray, maxval: int = 255,
+              comments: bool = False, per_line: int = 7,
+              scale: float = -1.0) -> bytes:
+    """A PNM / PFM file of ``px`` ([h, w] or [h, w, c] samples; 0/1 bits
+    for P1 and P4, 1 black): plain (P1-P3) as decimal tokens,
+    ``per_line`` a line (P1 without spaces), binary as bytes (two a
+    sample, big-endian, from maxval 256 on), Pf as float32 rows bottom up
+    (little-endian for a negative scale). ``comments``: a ``#`` comment
+    between the header's tokens, one inside the height token and one
+    among the data's lines."""
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    c = b"#c\n" if comments else b""
+    head = magic + b"\n" + c + b"%d " % w
+    head += (b"%d%s%d" % (h // 10, c, h % 10)) if comments and h >= 10 \
+        else b"%d" % h
+    if magic in (b"P1", b"P4"):
+        head += b"\n"
+    elif magic == b"Pf":
+        head += b"\n" + c + repr(scale).encode() + b"\n"
+    else:
+        head += b"\n" + c + b"%d\n" % maxval
+    flat = px.reshape(-1)
+    if magic == b"P1":
+        lines = [b"".join(b"%d" % v for v in flat[i:i + per_line])
+                 for i in range(0, len(flat), per_line)]
+    elif magic in (b"P2", b"P3"):
+        lines = [b" ".join(b"%d" % v for v in flat[i:i + per_line])
+                 for i in range(0, len(flat), per_line)]
+    if magic in (b"P1", b"P2", b"P3"):
+        if comments and len(lines) > 2:
+            lines.insert(2, b"# a comment among the samples")
+        return head + b"\n".join(lines) + b"\n"
+    if magic == b"P4":
+        return head + np.packbits(px.astype(np.uint8), axis=1).tobytes()
+    if magic == b"Pf":
+        order = "<" if scale < 0 else ">"
+        return head + px[::-1].astype(order + "f4").tobytes()
+    dtype = ">u2" if maxval > 255 else np.uint8
+    return head + flat.astype(dtype).tobytes()
+
+
+def sgi_rle_row(samples: np.ndarray, bpc: int) -> bytes:
+    """One channel of one row as SGI run-length chunks: runs of 3 or more
+    equal samples, copies of the rest (at most 127 a chunk), then the 0
+    terminator; at bpc 2 each atom is two bytes, the count in the low."""
+    vals = [int(v) for v in samples]
+    atom = (lambda v: bytes([v])) if bpc == 1 else (
+        lambda v: struct.pack(">H", v))
+    out, i, lit = bytearray(), 0, []
+
+    def flush():
+        while lit:
+            part = lit[:127]
+            del lit[:127]
+            out.extend(atom(0x80 | len(part)))
+            for v in part:
+                out.extend(atom(v))
+
+    while i < len(vals):
+        j = i
+        while j < len(vals) and vals[j] == vals[i] and j - i < 127:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out.extend(atom(j - i) + atom(vals[i]))
+            i = j
+        else:
+            lit.append(vals[i])
+            i += 1
+    flush()
+    return bytes(out + atom(0))
+
+
+def write_sgi(px: np.ndarray, bpc: int = 1, rle: bool = True,
+              dimension: int = None, rows=None, lengths=None) -> bytes:
+    """An SGI file of ``px`` ([h, w] grey or [h, w, 3 | 4]; uint8, or
+    16-bit samples at bpc 2): raw planes, or run-length rows behind their
+    start and length tables (channel-major, bottom row first), each row's
+    chunks stored once. ``rows``: the chunks of row (y, c) instead of its
+    samples' encoding (dict of (y, c) -> bytes); ``lengths``: the length
+    table's entry of row (y, c) instead of its chunks' byte count."""
+    px = np.asarray(px)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, z = px.shape
+    dim = dimension or (3 if z > 1 else (1 if h == 1 else 2))
+    head = struct.pack(">hBBHHHHii4s80si404s", 474, int(rle), bpc, dim, w, h,
+                       z, 0, 255 if bpc == 1 else 65535, b"",
+                       b"fixture", 0, b"")
+    planes = px[::-1].transpose(2, 0, 1)       # [z, rows bottom up, w]
+    if not rle:
+        dtype = ">u2" if bpc == 2 else np.uint8
+        return head + planes.astype(dtype).tobytes()
+    data, starts, lens = bytearray(), [], []
+    base = 512 + 8 * h * z
+    for c in range(z):
+        for y in range(h):
+            row = (rows or {}).get((y, c))
+            if row is None:
+                row = sgi_rle_row(planes[c, y], bpc)
+            starts.append(base + len(data))
+            lens.append((lengths or {}).get((y, c), len(row)))
+            data += row
+    return (head + struct.pack(f">{h * z}I", *starts)
+            + struct.pack(f">{h * z}I", *lens) + bytes(data))
+
+
+def pcx_rle(line: bytes) -> bytes:
+    """One PCX line run-length coded (runs of 2 or more, and any byte of
+    the two top bits set, as a 0xC0 | count pair; runs within the
+    line)."""
+    out, i = bytearray(), 0
+    while i < len(line):
+        j = i
+        while j < len(line) and line[j] == line[i] and j - i < 63:
+            j += 1
+        if j - i >= 2 or line[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i), line[i]])
+            i = j
+        else:
+            out.append(line[i])
+            i += 1
+    return bytes(out)
+
+
+def write_pcx(planes: np.ndarray, bits: int, version: int = 5,
+              palette=None, stride: int = None, tail=None,
+              box=(0, 0)) -> bytes:
+    """A PCX file: ``planes`` [nplanes, h, w] of samples (0/1 at 1 bit),
+    each line the planes one after another, each plane ``stride`` bytes
+    (default: (w * bits + 7) // 8 made even) and written in the header,
+    run-length coded line by line. ``palette``: the header's 16 colours
+    (1 bit in 2 or 4 planes); ``tail``: the 256 colours after the 0x0C
+    marker (8 bits, 1 plane)."""
+    planes = np.asarray(planes)
+    n, h, w = planes.shape
+    base = (w * bits + 7) // 8
+    stride = stride or base + base % 2
+    head = bytearray(128)
+    head[0:4] = bytes([10, version, 1, bits])
+    x0, y0 = box
+    head[4:12] = struct.pack("<4H", x0, y0, x0 + w - 1, y0 + h - 1)
+    head[12:16] = struct.pack("<2H", 72, 72)
+    if palette is not None:
+        head[16:64] = np.asarray(palette, np.uint8).reshape(-1)[:48].tobytes()
+    head[65] = n
+    head[66:68] = struct.pack("<H", stride)
+    head[68:70] = struct.pack("<H", 1)
+    body = bytearray()
+    for y in range(h):
+        line = b""
+        for p in range(n):
+            row = planes[p, y].astype(np.uint8)
+            rb = np.packbits(row).tobytes() if bits == 1 else row.tobytes()
+            line += rb.ljust(stride, b"\0")
+        body += pcx_rle(line)
+    if tail is not None:
+        body += b"\x0c" + np.asarray(tail, np.uint8).reshape(-1).tobytes()
+    return bytes(head) + bytes(body)
+
+
+def icon_bitmap(px: np.ndarray, bits: int, palette=None,
+                and_mask: np.ndarray = None) -> bytes:
+    """An icon's bitmap frame: BITMAPINFOHEADER at twice the height, the
+    palette, the XOR rows bottom up (``px`` RGB at 24 or 32 bits, indices
+    below), then the AND mask (1 bit, rows padded to 32 bits)."""
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    colors = len(palette) if palette is not None else 0
+    head = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0, 0,
+                       colors, 0)
+    pal = b"".join(bytes([b, g, r, 0]) for r, g, b in (
+        palette if palette is not None else ()))
+    rows = b""
+    for r in px[::-1]:
+        if bits >= 24:
+            rb = r[:, 2::-1].tobytes() if bits == 24 else np.concatenate(
+                [r[:, 2::-1], np.full((w, 1), 255, np.uint8)], 1).tobytes()
+        elif bits < 8:
+            b = (r[:, None] >> np.arange(bits - 1, -1, -1)) & 1
+            rb = np.packbits(b.astype(np.uint8).reshape(-1)).tobytes()
+        else:
+            rb = r.astype(np.uint8).tobytes()
+        rows += rb + b"\0" * (-len(rb) % 4)
+    mask = np.zeros((h, w), np.uint8) if and_mask is None else and_mask
+    mrows = b""
+    for r in mask[::-1]:
+        rb = np.packbits(r.astype(np.uint8)).tobytes()
+        mrows += rb + b"\0" * (-len(rb) % 4)
+    return head + pal + rows + mrows
+
+
+def write_icon(frames, kind: int = 1) -> bytes:
+    """An ICO (``kind`` 1) or CUR (2) file: ``frames`` a list of (frame
+    bytes, width byte, height byte, colours byte, planes or hotspot x,
+    bpp or hotspot y), the directory in that order, the frames after
+    it."""
+    head = struct.pack("<HHH", 0, kind, len(frames))
+    off = 6 + 16 * len(frames)
+    dir_, body = b"", b""
+    for data, wb, hb, nc, planes, bpp in frames:
+        dir_ += struct.pack("<BBBBHHII", wb, hb, nc, 0, planes, bpp,
+                            len(data), off + len(body))
+        body += data
+    return head + dir_ + body
+
+
+def simple_fixtures(t: dict) -> dict:
+    """The simple formats: the town's four maps as lossless re-encodings of
+    their PNG twins (checker as binary PPM and bricks as QOI, both PIL's;
+    roof as run-length SGI and foliage as 3-plane PCX, PCX by PIL), and
+    small files of each mode and depth, by PIL where it writes them, else
+    by the writers above."""
+    from PIL import Image
+    rng = np.random.RandomState(22)
+    b32, r32 = t["bricks"][:32, :32], t["bricks"][64:96, 40:72]
+    f24, c21 = t["foliage"][8:32, 16:40], t["foliage"][40:57, 60:81]
+    g32 = b32[..., 1]
+    rgba = np.concatenate([b32, r32[..., :1]], -1)
+    pal16 = rng.randint(0, 256, (16, 3))
+    ico = lambda img, **kw: _pil(img, "ICO", **kw)  # noqa: E731
+    out = {
+        "checker_ppm": ("checker.ppm", _pil(t["checker"], "PPM"),
+                        "checker.png", {"PPM": "P6, maxval 255 (PIL)"}),
+        "bricks_qoi": ("bricks.qoi", _pil(t["bricks"], "QOI"), "bricks.png",
+                       {"QOI": "RGB (PIL)"}),
+        "roof_sgi": ("roof.sgi", write_sgi(t["roof"]), "roof.png",
+                     {"SGI": "run-length, 8 bits, 3 channels"}),
+        "foliage_pcx": ("foliage.pcx", _pil(t["foliage"], "PCX"),
+                        "foliage.png", {"PCX": "8 bits, 3 planes (PIL)"}),
+        "pbm_raw": ("pbm_raw.pbm", _pil(Image.fromarray(g32).convert("1"),
+                                        "PPM"), None, {"PPM": "P4 (PIL)"}),
+        "pbm_plain": ("pbm_plain.pbm", write_pnm(b"P1", (g32 > 120).astype(
+            int), comments=True), None, {"PPM": "P1 with comments"}),
+        "pgm_plain": ("pgm_plain.pgm", write_pnm(
+            b"P2", np.arange(32 * 32).reshape(32, 32) % 1001, maxval=1000,
+            comments=True), None,
+            {"PPM": "P2, maxval 1000 (values 0-1000: halves round to even)"}),
+        "pgm2": ("pgm2.pgm", write_pnm(b"P5", rng.randint(0, 3, (16, 24)),
+                                       maxval=2), None,
+                 {"PPM": "P5, maxval 2 (1 reads 128)"}),
+        "pgm16": ("pgm16.pgm", write_pnm(b"P5", g32.astype(int) % 3,
+                                         maxval=300), None,
+                  {"PPM": "P5, maxval 300: mode I (1 is 218), clipped at "
+                          "255"}),
+        "pgm65535": ("pgm65535.pgm", _pil(Image.fromarray(
+            g32.astype(np.int32) * 129, "I"), "PPM"), None,
+            {"PPM": "P5, maxval 65535 (PIL): clipped at 255"}),
+        "ppm_plain": ("ppm_plain.ppm", write_pnm(b"P3", f24.astype(int) * 257,
+                                                 maxval=65535), None,
+                      {"PPM": "P3, maxval 65535"}),
+        "ppm1000": ("ppm1000.ppm", write_pnm(b"P6", r32.astype(int) * 4 - 20,
+                                             maxval=1000), None,
+                    {"PPM": "P6, maxval 1000: two bytes a sample, past "
+                            "maxval clipped"}),
+        "pfm_grey": ("pfm_grey.pfm", _pil(Image.fromarray(
+            g32.astype(np.float32) * 1.25 - 30.5, "F"), "PPM"), None,
+            {"PPM": "Pf, little-endian (PIL): truncated and clipped"}),
+        "pfm_be": ("pfm_be.pfm", write_pnm(b"Pf", rng.uniform(
+            -2, 2, (12, 20)) * 100, scale=1.0), None,
+            {"PPM": "Pf, big-endian"}),
+        "p0cmyk": ("p0cmyk.pam", write_pnm(b"P0CMYK", rng.randint(
+            0, 256, (16, 16, 4))), None, {"PPM": "P0CMYK"}),
+        "pyrgba": ("pyrgba.ppm", write_pnm(b"PyRGBA", rgba, maxval=255),
+                   None, {"PPM": "PyRGBA (PIL's test format)"}),
+        "pycmyk": ("pycmyk.ppm", write_pnm(b"PyCMYK", rng.randint(
+            0, 1024, (8, 12, 4)), maxval=1023), None,
+            {"PPM": "PyCMYK, maxval 1023"}),
+        "qoi_rgba": ("qoi_rgba.qoi", _pil(rgba, "QOI"), None,
+                     {"QOI": "RGBA (PIL)"}),
+        "ico_png": ("ico_png.ico", ico(t["foliage"][:64, :64],
+                                       sizes=[(16, 16), (32, 32), (48, 48)]),
+                    None, {"ICO": "PNG frames 16, 32, 48 (PIL)"}),
+        **{f"ico_bmp{b}": (f"ico_bmp{b}.ico", ico(
+            img, bitmap_format="bmp", sizes=[(16, 16), (32, 32)]), None,
+            {"ICO": f"bitmap frames 16 and 32, {what} (PIL)"})
+           for b, img, what in (
+               (1, Image.fromarray(g32).convert("1"), "1 bit"),
+               ("8", Image.fromarray(b32).quantize(
+                   40, dither=Image.Dither.NONE), "8-bit palette"),
+               ("8g", Image.fromarray(g32), "8-bit grey"),
+               (24, Image.fromarray(b32), "24 bits"),
+               (32, Image.fromarray(rgba), "32 bits"))},
+        "ico_tied": ("ico_tied.ico", write_icon([
+            (icon_bitmap(r32[:16, :16], 24), 16, 16, 0, 1, 24),
+            (icon_bitmap(g32[:16, :16] % 16, 4, palette=pal16), 16, 16, 16,
+             1, 0)]), None,
+            {"ICO": "two 16x16 entries: the 4-bit one (bpp 0, 16 colours) "
+                    "sorts first"}),
+        "ico_zero": ("ico_zero.ico", write_icon([
+            (icon_bitmap(r32, 24), 32, 32, 0, 1, 24),
+            (icon_bitmap(f24, 24), 0, 0, 0, 1, 24)]), None,
+            {"ICO": "a 0 byte is 256: the 24x24 frame of a 256x256 entry"}),
+        "cur": ("cursor.cur", write_icon([
+            (icon_bitmap(r32[:16, :12], 24), 12, 16, 0, 3, 4),
+            (icon_bitmap(b32[:24, :16], 24), 16, 24, 0, 5, 5),
+            (icon_bitmap(f24, 24), 24, 0, 0, 7, 7)], kind=2), None,
+            {"CUR": "three cursors: the 16x24 one picked (24x0 is not "
+                    "larger)"}),
+        "sgi_raw": ("sgi_raw.rgb", _pil(f24, "SGI"), None,
+                    {"SGI": "raw, 8 bits, 3 channels (PIL)"}),
+        "sgi_raw16": ("sgi_raw16.sgi", _pil(r32, "SGI", bpc=2), None,
+                      {"SGI": "raw, 16 bits (PIL)"}),
+        "sgi_grey": ("sgi_grey.bw", _pil(g32, "SGI"), None,
+                     {"SGI": "raw, 8 bits, grey (PIL)"}),
+        "sgi_rle16": ("sgi_rle16.sgi", write_sgi(
+            rgba.astype(np.uint16) * 257 + rng.randint(0, 256, rgba.shape),
+            bpc=2), None, {"SGI": "run-length, 16 bits, 4 channels"}),
+        "pcx_1": ("pcx_1.pcx", _pil(Image.fromarray(g32).convert("1"), "PCX"),
+                  None, {"PCX": "1 bit (PIL)"}),
+        "pcx_l": ("pcx_l.pcx", _pil(g32, "PCX"), None,
+                  {"PCX": "8-bit grey (PIL)"}),
+        "pcx_p": ("pcx_p.pcx", _pil(Image.fromarray(f24).quantize(
+            40, dither=Image.Dither.NONE), "PCX"), None,
+            {"PCX": "8-bit palette (PIL)"}),
+        "pcx_planes2": ("pcx_planes2.pcx", write_pcx(
+            rng.randint(0, 2, (2, 9, 21)), 1, palette=pal16, stride=4), None,
+            {"PCX": "1 bit, 2 planes, header stride 4 (PIL's: 4)"}),
+        "pcx_planes4": ("pcx_planes4.pcx", write_pcx(
+            rng.randint(0, 2, (4, 11, 13)), 1, palette=pal16, stride=3),
+            None, {"PCX": "1 bit, 4 planes, header stride 3 (PIL's: 2)"}),
+        "pcx_odd": ("pcx_odd.pcx", write_pcx(
+            c21.transpose(2, 0, 1), 8, stride=21), None,
+            {"PCX": "8 bits, 3 planes, 21 wide, stride 21"}),
+        "dib24": ("dib24.dib", _pil(f24, "BMP")[14:], None,
+                  {"DIB": "24 bits (PIL's BMP without its file header)"}),
+        "dib8": ("dib8.dib", _pil(Image.fromarray(b32).quantize(
+            50, dither=Image.Dither.NONE), "BMP")[14:], None,
+            {"DIB": "8-bit palette (PIL's BMP without its file header)"}),
+    }
     return out
 
 
