@@ -341,6 +341,18 @@ nvcc and g++. Phases, each of which raises on failure:
      phase 24 runs alone); B1's launches of (b) are counted in the kernels
      line. ``python3 chip_smoke.py --phase24`` runs phase 24 alone (no
      result line).
+ 25. (after phase 24) the rest of TIFF (ROADMAP.md C6): (a) every
+     committed fixture of the sixth image slice (CCITT, ZSTD, ThunderScan,
+     old-style LZW, fill order 2, orientations 2-8, 12-bit, signed and
+     32-bit grey, planar 16-bit, YCbCr, Lab and a Lab PSD) decoded
+     bitwise its PNG twin and the manifest's pixel sha256, host ms (median
+     of 5) and MPix/s a fixture beside its twin's PNG decode; (b) the
+     generated town at 1280x720, 4 mip levels, 1 spp through the CLI, its
+     .mtl on ZSTD TIFFs of phase 20's PNG twins (predictor 2; roof stored
+     transposed under Orientation 6): the film bitwise phase 20b's
+     PNG-twin film (rendered here too when phase 25 runs alone); B1's
+     launches of (b) are counted in the kernels line. ``python3
+     chip_smoke.py --phase25`` runs phase 25 alone (no result line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2140,18 +2152,21 @@ def build_kernels() -> None:
         _, log = cuda_build.build(*job)
         return time.perf_counter() - t0, log
 
-    def host_build(module):
-        # Phase 20's JPEG decoder, the codecs of phases 21 and 24 and
-        # phase 22's WebP decoders (g++), beside the nvcc builds.
+    def host_build(load):
+        # Phase 20's JPEG decoder, the codecs of phases 21 and 24, phase
+        # 22's WebP decoders and phase 25's CCITT / ThunderScan and ZSTD
+        # decoders (g++), beside the nvcc builds.
         t0 = time.perf_counter()
-        module._load()
+        load()
         return time.perf_counter() - t0
 
-    from gpupathtracer_tpu_torch.utils import codecs, jpeg, webp
-    with ThreadPoolExecutor(len(jobs) + 3) as pool:
-        jpeg_secs = pool.submit(host_build, jpeg)
-        codecs_secs = pool.submit(host_build, codecs)
-        webp_secs = pool.submit(host_build, webp)
+    from gpupathtracer_tpu_torch.utils import codecs, jpeg, webp, zstd
+    with ThreadPoolExecutor(len(jobs) + 5) as pool:
+        jpeg_secs = pool.submit(host_build, jpeg._load)
+        codecs_secs = pool.submit(host_build, codecs._load)
+        webp_secs = pool.submit(host_build, webp._load)
+        fax_secs = pool.submit(host_build, codecs._load_fax)
+        zstd_secs = pool.submit(host_build, zstd._load)
         for (name, defines), (secs, log) in zip(jobs, pool.map(one, jobs)):
             print(f"[build] {os.path.relpath(cuda_build.source(name), ROOT)}"
                   + (f" {' '.join(defines)}" if defines else "")
@@ -2167,6 +2182,10 @@ def build_kernels() -> None:
               f"(g++): {codecs_secs.result():.2f} s")
         print(f"[build] gpupathtracer_tpu_torch/utils/webp_cpp/webp.cpp "
               f"(g++): {webp_secs.result():.2f} s")
+        print(f"[build] gpupathtracer_tpu_torch/utils/fax_cpp/fax.cpp "
+              f"(g++): {fax_secs.result():.2f} s")
+        print(f"[build] gpupathtracer_tpu_torch/utils/zstd_cpp/zstd.cpp "
+              f"(g++): {zstd_secs.result():.2f} s")
     hgmma = _sass_count(cuda_build.build("roofline")[0], "mxu_wgmma_kernel",
                         "HGMMA")
     print(f"[build] HGMMA instructions in the SASS of each mxu_wgmma_kernel "
@@ -4509,13 +4528,14 @@ def hold_fixtures(tag: str, names, smi: str) -> None:
 
 
 def _fixtures_of(formats) -> list:
-    """The manifest's fixtures beside phase 20's and phase 23's JPEGs whose
-    format is in ``formats`` (None: every format but WebP and phase 24's
-    simple formats)."""
+    """The manifest's fixtures beside phase 20's and phase 23's JPEGs and
+    phase 25's TIFFs whose format is in ``formats`` (None: every format but
+    WebP and phase 24's simple formats)."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     return sorted(n for n, e in manifest.items()
                   if n not in PHASE20_FIXTURES + PHASE23_FIXTURES
+                  + PHASE25_FIXTURES
                   and (e["format"] in formats if formats
                        else e["format"] not in ("WEBP",) + PHASE24_FORMATS))
 
@@ -4534,7 +4554,7 @@ def decode_formats(smi: str) -> None:
 
 
 def render_town_maps(tmp: str, town: str, smi: str, tag: str,
-                     exts: dict) -> None:
+                     exts: dict, label: str = None) -> None:
     """The town with each map ``name`` replaced by the fixture
     ``name.ext`` (or by the fixture file an ``exts`` value names; each
     decodes to its map's PNG twin), bitwise phase 20b's film on the PNG
@@ -4571,6 +4591,7 @@ def render_town_maps(tmp: str, town: str, smi: str, tag: str,
     if any("." in v for v in exts.values()):
         maps = "JPEG " + " / ".join(sorted(set(
             v.split(".")[0].split("_")[-1] for v in exts.values())))
+    maps = label or maps
     if a.tobytes() != b.tobytes():
         raise AssertionError(f"[{tag}] the town film on {maps} maps is not "
                              f"bitwise its film on the PNG twins")
@@ -4778,6 +4799,50 @@ def source_of(key: str) -> str:
     return SOURCES[_base_key(key)[0]]
 
 
+# --- phase 25: the rest of TIFF (C6) -----------------------------------------
+
+# Phase 25a's fixtures (tools/torch_image_fixtures.py tiff_rest_fixtures).
+PHASE25_FIXTURES = (
+    "checker_zstd", "bricks_zstd", "roof_zstd", "foliage_zstd", "fax_g3",
+    "fax_g4", "fax_mh", "fax_raw16", "fax_t4_2d", "fax_t6_fo2",
+    "fax_t6_tiles", "thunderscan", "thunderscan_fo2", "lzw_old",
+    "zstd_blocks", "zstd_fo2", "fo2_rgb", "fo2_grey2", "fo2_i16",
+    "fo2_palette", *(f"orient{o}" for o in range(2, 9)), "grey12", "int16s",
+    "int32s", "uint32", "planar16", "ycbcr22", "ycbcr41", "lab", "lab_psd")
+# The town's maps as ZSTD TIFFs of phase 20's PNG twins (predictor 2; roof
+# stored transposed under Orientation 6).
+TOWN_ZSTD = {"checker": "checker_zstd.tif", "bricks": "bricks_zstd.tif",
+             "roof": "roof_zstd.tif", "foliage": "foliage_zstd.tif"}
+
+
+def decode_tiff_rest(smi: str) -> None:
+    """Phase 25a: the CCITT / ThunderScan and ZSTD libraries' loads, then
+    every fixture of the sixth image slice bitwise its PNG twin and the
+    manifest's sha256."""
+    from gpupathtracer_tpu_torch.utils import codecs, zstd
+
+    t0 = time.perf_counter()
+    codecs._load_fax()
+    zstd._load()
+    print(f"[25a] the CCITT / ThunderScan and ZSTD libraries loaded in "
+          f"{time.perf_counter() - t0:.2f} s (g++ at first use; the smoke "
+          f"builds them in phase 2)")
+    hold_fixtures("25a", PHASE25_FIXTURES, smi)
+
+
+def render_tiff_rest_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 25b: the town on ZSTD TIFF maps with predictor 2, one stored
+    transposed under an Orientation tag, bitwise phase 20b's film on the
+    PNG twins."""
+    render_town_maps(tmp, town, smi, "25b", TOWN_ZSTD,
+                     label="ZSTD TIFF (predictor 2, one under Orientation 6)")
+
+
+def phase25_alone(device, smi: str, stamp) -> int:
+    return _phase_alone(25, "TIFF rest path", decode_tiff_rest,
+                        render_tiff_rest_path, smi, stamp)
+
+
 def replaces_of(key: str) -> str:
     base, arity, roots = _base_key(key)
     return REPLACES[base] + (f" (arity={arity})" if arity else "") + (
@@ -4821,6 +4886,8 @@ def main() -> int:
         return phase23_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase24"]:
         return phase24_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase25"]:
+        return phase25_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -4989,6 +5056,11 @@ def main() -> int:
             "simple formats path", ("trace_closest", "trace_anyhit"),
             lambda: render_simple_path(tmp, town, smi)))
         stamp("phase 24")
+        decode_tiff_rest(smi)
+        new_paths.append(_drive(
+            "TIFF rest path", ("trace_closest", "trace_anyhit"),
+            lambda: render_tiff_rest_path(tmp, town, smi)))
+        stamp("phase 25")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -5018,8 +5090,9 @@ def main() -> int:
         # summed over their ranks, phase 20's JPEG-map and JPEG-sky
         # films and their PNG twins, phase 21's town on TIFF / PSD / DDS /
         # BMP maps, phase 22's on WebP maps, phase 23's on arithmetic
-        # and lossless JPEG maps and phase 24's on PPM / QOI / SGI / PCX
-        # maps; at arity 16 the 16-wide film;
+        # and lossless JPEG maps, phase 24's on PPM / QOI / SGI / PCX
+        # maps and phase 25's on ZSTD TIFF maps; at arity 16 the 16-wide
+        # film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

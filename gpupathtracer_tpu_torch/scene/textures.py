@@ -55,11 +55,12 @@ def build_atlas(paths: List[str], base_dir: str = ".",
         try:
             img = load_image(full)
         except NotImplementedError:
-            # A format PIL reads and the port does not yet (JPEG 2000, AVIF,
-            # ...: ROADMAP.md C6) raises: skipping it would render what the
-            # JAX package, which reads it through PIL, does not. Bytes PIL
-            # cannot read raise ValueError and are skipped below, as JAX
-            # skips them.
+            # A format PIL reads and the port does not yet (old-style JPEG
+            # TIFF, JPEG 2000, AVIF, ...: ROADMAP.md C6) raises: skipping it
+            # would render what the JAX package, which reads it through
+            # PIL, does not. Bytes PIL cannot read (LERC, WebP or SGILog
+            # TIFFs among them) raise ValueError and are skipped below, as
+            # JAX skips them.
             raise
         except Exception:
             continue

@@ -1,7 +1,8 @@
-"""ctypes binding for utils/codecs_cpp/codecs.cpp (built with g++ at first
-use, utils/native.py): the BCn block decoders of DDS, GIF's and TIFF's LZW,
-PackBits, and the byte-serial decoders of QOI, SGI's run-length rows and
-PCX's run-length lines. Corrupt or short input raises ValueError naming the
+"""ctypes bindings for utils/codecs_cpp/codecs.cpp and utils/fax_cpp/fax.cpp
+(built with g++ at first use, utils/native.py): the BCn block decoders of
+DDS, GIF's and TIFF's LZW, PackBits, the byte-serial decoders of QOI, SGI's
+run-length rows and PCX's run-length lines, and TIFF's CCITT, ThunderScan
+and old-style LZW strips. Corrupt or short input raises ValueError naming the
 file."""
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import numpy as np
 from gpupathtracer_tpu_torch.utils import native
 
 _SRC = os.path.join(os.path.dirname(__file__), "codecs_cpp", "codecs.cpp")
+_FAX_SRC = os.path.join(os.path.dirname(__file__), "fax_cpp", "fax.cpp")
 _lib: Optional[ctypes.CDLL] = None
+_fax_lib: Optional[ctypes.CDLL] = None
 
 # gpt_bcn_decode's formats.
 BC1, BC2, BC3, BC4, BC5, BC5S, BC6H, BC6HS, BC7 = range(1, 10)
@@ -47,6 +50,68 @@ def _load() -> ctypes.CDLL:
             f.restype, f.argtypes = res, args
         _lib = lib
     return _lib
+
+
+def _load_fax() -> ctypes.CDLL:
+    global _fax_lib
+    if _fax_lib is None:
+        lib = native.load(_FAX_SRC, "fax")
+        lib.gpt_fax.restype = _I64
+        lib.gpt_fax.argtypes = [ctypes.c_char_p, _I64, _I32, _I32, _I64, _I32,
+                                _P, _I64, _I64, _P, _I64, _P]
+        lib.gpt_thunderscan.restype = _I64
+        lib.gpt_thunderscan.argtypes = [ctypes.c_char_p, _I64, _I32, _P, _I64]
+        lib.gpt_lzw_compat.restype = _I64
+        lib.gpt_lzw_compat.argtypes = [ctypes.c_char_p, _I64, _P, _I64]
+        _fax_lib = lib
+    return _fax_lib
+
+
+# gpt_fax's modes: compression 2, 32771, 3 (1-D and 2-D) and 4.
+FAX_RLE, FAX_RLEW, FAX_G3, FAX_G3_2D, FAX_G4 = range(1, 6)
+
+
+def fax_runs(width: int, two_d: bool) -> np.ndarray:
+    """libtiff's state for an image's CCITT strips: its run arrays for rows
+    of ``width`` pixels (two rows of nruns entries, zeroed once an image)
+    and, last, the flag of a T.4 image found without EOLs."""
+    nruns = -(-(width + 1) // 32) * 32 * (2 if two_d else 1)
+    return np.zeros(2 * nruns + 1, np.uint32)
+
+
+def fax(data: bytes, mode: int, fill_order: int, file_off: int, width: int,
+        rows: int, rowbytes: int, runs: np.ndarray) -> tuple:
+    """One CCITT strip or tile -> (rows * rowbytes bytes, rows filled): the
+    rows a T.6 strip leaves undecoded after its end stay zero. ValueError
+    where libtiff fails the strip."""
+    out = np.zeros(rows * rowbytes, np.uint8)
+    nruns = (len(runs) - 1) // 2
+    n = _load_fax().gpt_fax(data, len(data), mode, fill_order, file_off,
+                            width, out.ctypes.data, rows, rowbytes,
+                            runs.ctypes.data, nruns,
+                            runs[2 * nruns:].ctypes.data)
+    if n < 0:
+        raise ValueError("corrupt CCITT data")
+    return out.tobytes(), int(n)
+
+
+def thunderscan(data: bytes, width: int, rows: int) -> bytes:
+    """One ThunderScan strip -> rows of (width + 1) // 2 bytes (4-bit
+    pixels); ValueError where a row has not enough or too much data."""
+    out = np.zeros(rows * ((width + 1) // 2), np.uint8)
+    if _load_fax().gpt_thunderscan(data, len(data), width, out.ctypes.data,
+                                   rows) < 0:
+        raise ValueError("corrupt ThunderScan data")
+    return out.tobytes()
+
+
+def tiff_lzw_compat(data: bytes, size: int) -> bytes:
+    """One old-style (LSB-first) TIFF LZW strip or tile -> ``size`` bytes;
+    ValueError where libtiff's LZWDecodeCompat fails."""
+    out = np.zeros(size, np.uint8)
+    if _load_fax().gpt_lzw_compat(data, len(data), out.ctypes.data, size):
+        raise ValueError("corrupt old-style LZW data")
+    return out.tobytes()
 
 
 def bcn(blocks: bytes, w: int, h: int, fmt: int, name: str) -> np.ndarray:

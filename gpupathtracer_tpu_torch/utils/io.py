@@ -68,18 +68,21 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
     jpeg.py: every process PIL reads, Huffman or arithmetic coded and
     lossless, 1, 3 or 4 components), BMP (raw,
     RLE4, RLE8, bit fields; Windows and OS/2 headers) and its bitmap as
-    DIB and CUR, TGA, GIF (utils/gif.py), TIFF (utils/tiff.py), DDS
-    (utils/dds.py: BC1-BC7), PSD (utils/psd.py), WebP (utils/webp.py:
-    lossless, lossy with its alpha, extended and animated files' first
-    frame), PNM and PFM (utils/pnm.py: P1-P6, P0CMYK, Pf and PIL's Py*),
-    QOI (utils/qoi.py), ICO (utils/ico.py: PNG and bitmap frames), SGI
-    (utils/sgi.py: raw and run-length, 8 and 16 bits) and PCX (utils/
-    pcx.py). A format PIL reads and the port does not yet read (JPEG
-    2000, AVIF, XBM, IM, ...; ROADMAP.md C6) raises NotImplementedError
-    naming the file and the format. Bytes PIL cannot open or cannot load
-    (no plugin accepts them, a corrupt or truncated file, the stub
-    plugins) raise ValueError naming the file: build_atlas skips
-    such a map, as the JAX package's does."""
+    DIB and CUR, TGA, GIF (utils/gif.py), TIFF (utils/tiff.py: every
+    compression the held PIL reads but old-style JPEG, CCITT and ZSTD
+    among them; fill order 2, orientations, YCbCr and Lab), DDS
+    (utils/dds.py: BC1-BC7), PSD (utils/psd.py, Lab too), WebP
+    (utils/webp.py: lossless, lossy with its alpha, extended and animated
+    files' first frame), PNM and PFM (utils/pnm.py: P1-P6, P0CMYK, Pf and
+    PIL's Py*), QOI (utils/qoi.py), ICO (utils/ico.py: PNG and bitmap
+    frames), SGI (utils/sgi.py: raw and run-length, 8 and 16 bits) and PCX
+    (utils/pcx.py). A format PIL reads and the port does not yet read
+    (JPEG 2000, AVIF, XBM, IM, old-style JPEG in TIFF, ...; ROADMAP.md C6)
+    raises NotImplementedError naming the file and the format. Bytes PIL
+    cannot open or cannot load (no plugin accepts them, a corrupt or
+    truncated file, the stub plugins, TIFFs of LERC, WebP or SGILog
+    compression) raise ValueError naming the file: build_atlas skips such
+    a map, as the JAX package's does."""
     from gpupathtracer_tpu_torch.utils.identify import CANNOT_LOAD, identify
 
     fmt = identify(data, name)

@@ -1,6 +1,6 @@
 """Builds the image decoders' C++ sources (utils/jpeg_cpp/jpeg.cpp,
-utils/codecs_cpp/codecs.cpp, utils/webp_cpp/webp.cpp) with g++ at first
-use into the package's ``_build/`` directory, keyed by the source's and
+utils/codecs_cpp/codecs.cpp, utils/webp_cpp/webp.cpp, utils/fax_cpp/fax.cpp,
+utils/zstd_cpp/zstd.cpp) with g++ at first use into the package's ``_build/`` directory, keyed by the source's and
 the flags' hash, and loads them through ctypes. There is no fallback: a
 failed build raises."""
 

@@ -14,8 +14,7 @@
   where PIL reads it.
 
 What PIL refuses (a depth or mode it does not list, fewer channels than
-the mode needs, truncated data) raises ValueError naming the file; Lab
-files, which PIL reads, raise NotImplementedError (ROADMAP.md C6).
+the mode needs, truncated data) raises ValueError naming the file.
 """
 
 from __future__ import annotations
@@ -52,9 +51,6 @@ def decode_psd(data: bytes, name: str = "<psd>") -> np.ndarray:
         raise ValueError(f"{name}: PSD with too few channels")
     if mode == "RGB" and nch == 4:
         channels = 4                      # PIL's RGBA: the alpha is read
-    if mode == "LAB":
-        raise NotImplementedError(f"{name}: a Lab PSD (not read: ROADMAP.md "
-                                  f"C6)")
     if w <= 0 or h <= 0:
         raise ValueError(f"{name}: a PSD of {w}x{h} pixels")
     check_pixels(h, w, name)
@@ -104,4 +100,9 @@ def decode_psd(data: bytes, name: str = "<psd>") -> np.ndarray:
         return pal[planes[0]]
     if mode == "CMYK":
         return cmyk_to_rgb(255 - np.stack(planes[:4], -1))
+    if mode == "LAB":
+        from gpupathtracer_tpu_torch.utils.lab import lab_to_rgb
+        # PIL's A and B raw modes flip the top bit of a and b.
+        return lab_to_rgb(np.stack(planes[:3], -1) ^ np.array(
+            [0, 128, 128], np.uint8))
     return np.stack(planes[:3], -1)

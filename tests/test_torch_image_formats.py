@@ -329,9 +329,9 @@ def test_tiff_ycbcr_jpeg(folder, sub):
 @pytest.mark.parametrize("comp,what", [("group4", "CCITT Group 4"),
                                        ("zstd", "ZSTD")])
 def test_tiff_unread_compressions_raise(folder, comp, what):
-    """CCITT Group 4 and ZSTD (no zstd in Python 3.12's standard library)
-    stay unread: PIL reads them, the port raises NotImplementedError
-    naming the file and the compression (ROADMAP.md C6)."""
+    """CCITT Group 4 and ZSTD (no zstd in Python 3.12's standard library),
+    unread before the sixth image slice: PIL reads them, and the port's
+    load is now bitwise the JAX package's (utils/fax_cpp, utils/zstd_cpp)."""
     px = _photo(16, 24, 13)
     im = Image.fromarray(px).convert("1" if comp == "group4" else "RGB")
     buf = _bio.BytesIO()
@@ -339,10 +339,9 @@ def test_tiff_unread_compressions_raise(folder, comp, what):
     path = os.path.join(str(folder), f"unread_{comp}.tif")
     with open(path, "wb") as f:
         f.write(buf.getvalue())
-    assert jax_io.load_image(path).shape == (16, 24, 3)
-    with pytest.raises(NotImplementedError, match=f"unread_{comp}.tif.*"
-                       f"{what}"):
-        io.load_image(path)
+    want = jax_io.load_image(path)
+    assert want.shape == (16, 24, 3)
+    assert io.load_image(path).tobytes() == want.tobytes(), what
 
 
 # --- GIF ---------------------------------------------------------------------
@@ -452,15 +451,16 @@ def test_psd(folder, rle):
 
 
 def test_psd_lab_stays_unread(folder):
-    """A Lab PSD, which PIL reads, raises NotImplementedError naming the
-    file (ROADMAP.md C6)."""
+    """A Lab PSD, which PIL reads (and which stayed unread before the sixth
+    image slice), decodes bitwise the JAX package's load: PIL's LittleCMS
+    Lab -> sRGB transform (utils/lab.py)."""
     planes = [_smooth(5, 6, 1, i)[..., 0] for i in range(3)]
     path = os.path.join(str(folder), "lab.psd")
     with open(path, "wb") as f:
         f.write(W.write_psd(planes, 9))
-    assert jax_io.load_image(path).shape == (5, 6, 3)
-    with pytest.raises(NotImplementedError, match="lab.psd"):
-        io.load_image(path)
+    want = jax_io.load_image(path)
+    assert want.shape == (5, 6, 3)
+    assert io.load_image(path).tobytes() == want.tobytes()
 
 
 # --- four-component JPEG -----------------------------------------------------
@@ -769,11 +769,10 @@ def test_bytes_no_plugin_reads_are_value_errors(folder):
 def test_formats_pil_reads_and_the_port_does_not(folder, fmt, ext):
     """A file PIL writes and reads in a format the port does not read
     raises NotImplementedError naming the file and the format
-    (ROADMAP.md C6); the format is the one PIL's Image.open picks (a TIFF
-    with CCITT compression stands for the formats a reader of the port
-    leaves out). Since the fifth image slice PPM, ICO, QOI, PCX, SGI and
-    DIB (a BMP without its file header) are read, bitwise the JAX
-    package's; XBM, JPEG 2000, IM and the CCITT TIFF stay unread."""
+    (ROADMAP.md C6); the format is the one PIL's Image.open picks. Since
+    the fifth image slice PPM, ICO, QOI, PCX, SGI and DIB (a BMP without
+    its file header) are read, bitwise the JAX package's, and since the
+    sixth the CCITT TIFF; XBM, JPEG 2000 and IM stay unread."""
     px = _photo(16, 16, 20)
     im = Image.fromarray(px)
     buf = _bio.BytesIO()
@@ -793,7 +792,7 @@ def test_formats_pil_reads_and_the_port_does_not(folder, fmt, ext):
     with open(path, "wb") as f:
         f.write(data)
     assert jax_io.load_image(path).shape == (16, 16, 3)
-    if fmt in ("PPM", "ICO", "QOI", "PCX", "SGI", "DIB"):
+    if fmt in ("PPM", "ICO", "QOI", "PCX", "SGI", "DIB", "TIFF"):
         assert io.load_image(path).tobytes() == \
             jax_io.load_image(path).tobytes()
         return

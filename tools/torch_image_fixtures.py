@@ -248,12 +248,21 @@ def write_gif(screen, index: np.ndarray, pos=(0, 0), gct=None, lct=None,
     return bytes(out)
 
 
-def lzw_tiff(data: bytes) -> bytes:
-    """TIFF LZW (MSB first, early change) of one strip."""
+def lzw_tiff(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW (MSB first, early change) of one strip; ``compat``: the old
+    variant (LSB first, each width change a code later)."""
     out, acc, nacc, nbits = bytearray(), 0, 0, 9
 
     def emit(code):
         nonlocal acc, nacc
+        if compat:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nacc -= 8
+            return
         acc = (acc << nbits) | code
         nacc += nbits
         while nacc >= 8:
@@ -263,7 +272,7 @@ def lzw_tiff(data: bytes) -> bytes:
 
     def grow():
         nonlocal nbits
-        if nxt - 1 > (1 << nbits) - 2 and nbits < 12:
+        if nxt - 1 > (1 << nbits) - (1 if compat else 2) and nbits < 12:
             nbits += 1
 
     table = {bytes([i]): i for i in range(256)}
@@ -290,7 +299,7 @@ def lzw_tiff(data: bytes) -> bytes:
         grow()
     emit(257)
     if nacc:
-        out.append((acc << (8 - nacc)) & 255)
+        out.append(acc & 255 if compat else (acc << (8 - nacc)) & 255)
     return bytes(out)
 
 
@@ -337,7 +346,7 @@ def _tiff_rows(a: np.ndarray, bps: int, order: str, predictor: int):
             diff = planes.copy()
             diff[1:] = planes[1:] - planes[:-1]
             rows.append((diff & 255).astype(np.uint8).tobytes())
-        elif bps < 8:
+        elif bps < 8 or bps == 12:
             bits = ((flat[:, None] >> np.arange(bps - 1, -1, -1)) & 1)
             rows.append(np.packbits(bits.astype(np.uint8).reshape(-1))
                         .tobytes())
@@ -353,12 +362,17 @@ def write_tiff(arr: np.ndarray, photometric: int, bps: int = 8,
                order: str = "<", big: bool = False, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile=None,
                rows_per_strip: int = None, sample_format: int = None,
-               extra=(), colormap=None, jpeg=None, tags=()) -> bytes:
+               extra=(), colormap=None, jpeg=None, tags=(), encode=None,
+               fill_order: int = 1) -> bytes:
     """A one-IFD TIFF of ``arr`` [h, w] or [h, w, samples]: byte order
     ``order``, classic or BigTIFF, strips or ``tile`` (w, h) tiles,
     planar configuration 1 or 2, compression none, LZW, Deflate,
-    PackBits, LZMA, or JPEG (``jpeg(plane, x, y, w, h)`` gives each
-    strip's or tile's stream); ``tags`` adds (tag, (type, values))."""
+    PackBits, LZMA, CCITT (2, 3 1-D, 4, 32771), ThunderScan, ZSTD (the
+    libzstd Pillow bundles, level 3), or JPEG (``jpeg(plane, x, y, w,
+    h)`` gives each strip's or tile's stream); ``encode(rows, width)``
+    compresses a strip's or tile's row bytes in place of the codec named;
+    fill order 2 reverses the bits of every byte written (but JPEG's);
+    ``tags`` adds (tag, (type, values))."""
     arr = np.asarray(arr)
     if arr.ndim == 2:
         arr = arr[..., None]
@@ -381,12 +395,27 @@ def write_tiff(arr: np.ndarray, photometric: int, bps: int = 8,
             c[:sub.shape[0], :sub.shape[1]] = sub
             rows = _tiff_rows(c, bps, order, predictor)
             raw = b"".join(rows)
+            if encode is not None:
+                chunks.append(encode(rows, bw))
+                continue
             chunks.append({1: lambda: raw, 5: lambda: lzw_tiff(raw),
                            8: lambda: zlib.compress(raw, 6),
                            32946: lambda: zlib.compress(raw, 6),
                            32773: lambda: b"".join(packbits(r) for r in rows),
                            34925: lambda: lzma.compress(
-                               raw, format=lzma.FORMAT_XZ)}[compression]())
+                               raw, format=lzma.FORMAT_XZ),
+                           2: lambda: fax_encode(rows, bw, "mh"),
+                           32771: lambda: fax_encode(rows, bw, "mhw"),
+                           3: lambda: fax_encode(rows, bw, "t4"),
+                           4: lambda: fax_encode(rows, bw, "t6"),
+                           32809: lambda: thunderscan_encode(rows, bw),
+                           50000: lambda: zstd_compress(raw, 3)}[
+                               compression]())
+    if fill_order == 2:
+        rev = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
+                       np.uint8)
+        chunks = [c if jpeg is not None else
+                  rev[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
     head_len = 16 if big else 8
     data, offsets = bytearray(), []
     for c in chunks:
@@ -403,6 +432,8 @@ def write_tiff(arr: np.ndarray, photometric: int, bps: int = 8,
                         279: (4, [len(c) for c in chunks])})
     if predictor != 1:
         entries[317] = (3, [predictor])
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
     if sample_format:
         entries[339] = (3, [sample_format] * spp)
     if extra:
@@ -410,7 +441,7 @@ def write_tiff(arr: np.ndarray, photometric: int, bps: int = 8,
     if colormap is not None:
         entries[320] = (3, list(colormap))
     entries.update(dict(tags))
-    codes = {1: "B", 3: "H", 4: "I", 7: "B", 11: "f", 16: "Q"}
+    codes = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f", 16: "Q"}
     inline = 8 if big else 4
     base = head_len + len(data)
     ifd_len = (8 if big else 2) + (20 if big else 12) * len(entries) + inline
@@ -419,7 +450,7 @@ def write_tiff(arr: np.ndarray, photometric: int, bps: int = 8,
     for tag, (typ, vals) in sorted(entries.items()):
         payload = struct.pack(f"{order}{len(vals)}{codes[typ]}", *vals)
         ifd += struct.pack(order + ("HHQ" if big else "HHI"), tag, typ,
-                           len(vals))
+                           len(vals) // (2 if typ == 5 else 1))
         if len(payload) <= inline:
             ifd += payload.ljust(inline, b"\0")
         else:
@@ -431,6 +462,284 @@ def write_tiff(arr: np.ndarray, photometric: int, bps: int = 8,
     head = mark + (struct.pack(order + "HHHQ", 43, 8, 0, base) if big
                    else struct.pack(order + "HI", 42, base))
     return bytes(head + data + ifd + blob)
+
+
+# --- TIFF's CCITT, ThunderScan and ZSTD writers ------------------------------
+
+def _fax_codes() -> dict:
+    """The T.4 code tables, read out of utils/fax_cpp/fax.cpp (name ->
+    {run or mode parameter: code string})."""
+    import re
+    with open(os.path.join(REPO, "gpupathtracer_tpu_torch", "utils",
+                           "fax_cpp", "fax.cpp")) as f:
+        src = f.read()
+    out = {}
+    for name in ("kTermW", "kMakeUpW", "kTermB", "kMakeUpB", "kMakeUp",
+                 "kVR", "kVL"):
+        body = src[src.index(f"const Code {name}[]"):]
+        body = body[:body.index("};")]
+        out[name] = {int(v): c for c, v in
+                     re.findall(r'\{"([01]+)", (\d+)\}', body)}
+    return out
+
+
+def _fax_run(codes, run: int, black: bool) -> str:
+    term = codes["kTermB" if black else "kTermW"]
+    makeup = codes["kMakeUpB" if black else "kMakeUpW"]
+    bits = ""
+    while run > 2560:
+        bits += codes["kMakeUp"][2560]
+        run -= 2560
+    if run >= 64:
+        m = run // 64 * 64
+        bits += makeup[m] if m <= 1728 else codes["kMakeUp"][m]
+        run -= m
+    return bits + term[run]
+
+
+def _changes(row: np.ndarray) -> list:
+    """A row's changing elements: the positions where the colour changes
+    (white before the row), to black at even indices."""
+    r = np.concatenate([[0], row.astype(np.int8)])
+    return [int(p) for p in np.nonzero(np.diff(r))[0]]
+
+
+def _fax_2d(codes, row, ref) -> str:
+    """One row coded against the reference row (T.4 2-D / T.6): pass,
+    vertical and horizontal modes, a0 starting before the row."""
+    w = len(row)
+    a_ch, b_ch = _changes(row), _changes(ref)
+    bits, a0, colour = "", -1, 0
+    while a0 < w:
+        a1 = next((p for p in a_ch if p > a0), w)
+        # b1: right of a0 and a change to the colour opposite a0's.
+        i = next((i for i, p in enumerate(b_ch)
+                  if p > a0 and (i % 2 == 0) == (colour == 0)), len(b_ch))
+        b1 = b_ch[i] if i < len(b_ch) else w
+        b2 = b_ch[i + 1] if i + 1 < len(b_ch) else w
+        if b2 < a1:
+            bits += "0001"
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            d = a1 - b1
+            bits += "1" if d == 0 else (codes["kVR"][d] if d > 0
+                                        else codes["kVL"][-d])
+            a0, colour = a1, 1 - colour
+        else:
+            a2 = next((p for p in a_ch if p > a1), w)
+            bits += "001" + _fax_run(codes, a1 - max(a0, 0), colour == 1) + \
+                _fax_run(codes, a2 - a1, colour == 0)
+            a0 = a2
+    return bits
+
+
+def fax_encode(rows, width: int, kind: str, k: int = 0,
+               fill_bits: bool = False) -> bytes:
+    """CCITT rows (1 bit a pixel, MSB first; 1 = black) as "mh" (Modified
+    Huffman, rows byte-aligned: compression 2), "mhw" (16-bit aligned:
+    32771), "t4" (EOL before each row; ``k`` > 0: T.4 2-D, the tag bit
+    after each EOL, every k-th row 1-D; ``fill_bits``: each EOL ends on a
+    byte boundary) or "t6" (2-D against the row above, an all-white row
+    first, EOFB at the end)."""
+    codes = _fax_codes()
+    data = np.unpackbits(np.frombuffer(b"".join(rows), np.uint8)).reshape(
+        len(rows), -1)[:, :width]
+    bits = ""
+    ref = np.zeros(width, np.uint8)
+    for i, row in enumerate(data):
+        one_d = "".join(_fax_run(codes, run, colour == 1)
+                        for colour, run in _runs(row))
+        if kind in ("mh", "mhw"):
+            bits += one_d
+            align = 8 if kind == "mh" else 16
+            bits += "0" * (-len(bits) % align)
+        elif kind == "t4":
+            eol = "000000000001"
+            if fill_bits:
+                tail = 1 if k else 0
+                bits += "0" * (-(len(bits) + len(eol) + tail) % 8)
+            bits += eol
+            if k:
+                two_d = i % k != 0
+                bits += ("0" + _fax_2d(codes, row, ref)) if two_d else (
+                    "1" + one_d)
+            else:
+                bits += one_d
+        else:
+            bits += _fax_2d(codes, row, ref)
+        ref = row
+    if kind == "t6":
+        bits += "000000000001" * 2
+    elif kind == "t4":
+        bits += ("000000000001" + ("1" if k else "")) * 6
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def _runs(row):
+    """(colour, length) runs of a 0/1 row, a white one first (maybe 0)."""
+    out, colour, n = [], 0, 0
+    for v in row:
+        if v == colour:
+            n += 1
+        else:
+            out.append((colour, n))
+            colour, n = int(v), 1
+    out.append((colour, n))
+    if len(out) % 2 == 1:
+        out.append((1 - colour, 0))
+    return out
+
+
+def thunderscan_encode(rows, width: int) -> bytes:
+    """4-bit rows as ThunderScan codes: runs of the last pixel (never the
+    last code of a row), three 2-bit or two 3-bit deltas (a skip code fills
+    a short tail), raw pixels."""
+    out = bytearray()
+    d2 = {0: 0, 1: 1, -1: 3}
+    d3 = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    for r in rows:
+        px = np.unpackbits(np.frombuffer(r, np.uint8)).reshape(-1, 4)
+        px = (px @ np.array([8, 4, 2, 1]))[:width].tolist()
+        last, i = 0, 0
+        while i < width:
+            k = 0
+            while i + k < width and px[i + k] == last and k < 63:
+                k += 1
+            if k >= 2 and i + k < width:
+                out.append(k)
+                i += k
+                continue
+            deltas, cur = [], last
+            for j in range(i, min(i + 3, width)):
+                if px[j] - cur not in d2:
+                    break
+                deltas.append(d2[px[j] - cur])
+                cur = px[j]
+            if len(deltas) == 3 or (deltas and i + len(deltas) == width):
+                n = len(deltas)
+                deltas += [2] * (3 - n)
+                out.append(0x40 | deltas[0] << 4 | deltas[1] << 2 | deltas[2])
+                i += n
+                last = cur
+                continue
+            deltas, cur = [], last
+            for j in range(i, min(i + 2, width)):
+                if px[j] - cur not in d3:
+                    break
+                deltas.append(d3[px[j] - cur])
+                cur = px[j]
+            if len(deltas) == 2 or (deltas and i + 1 == width):
+                n = len(deltas)
+                deltas += [4] * (2 - n)
+                out.append(0x80 | deltas[0] << 3 | deltas[1])
+                i += n
+                last = cur
+                continue
+            out.append(0xC0 | px[i])
+            last = px[i]
+            i += 1
+    return bytes(out)
+
+
+def _libzstd():
+    """The libzstd Pillow bundles (this tool runs where Pillow is)."""
+    import ctypes
+    import glob
+
+    import PIL
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+        PIL.__file__)), "pillow.libs", "libzstd-*.so*"))
+    lib = ctypes.CDLL(libs[0])
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    lib.ZSTD_CCtx_setParameter.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int]
+    lib.ZSTD_compress2.restype = ctypes.c_size_t
+    lib.ZSTD_compress2.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_size_t, ctypes.c_void_p,
+                                   ctypes.c_size_t]
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def zstd_compress(data: bytes, level: int, checksum: bool = False,
+                  content_size: bool = True, window_log: int = 0) -> bytes:
+    """One Zstandard frame by libzstd: its level, the XXH64 checksum flag,
+    the content size in the header or not, a window log (0: the level's)."""
+    import ctypes
+    lib = _libzstd()
+    cctx = lib.ZSTD_createCCtx()
+    for param, value in ((100, level), (201, int(checksum)),
+                         (200, int(content_size)), (101, window_log)):
+        lib.ZSTD_CCtx_setParameter(cctx, param, value)
+    cap = lib.ZSTD_compressBound(len(data))
+    out = ctypes.create_string_buffer(cap)
+    n = lib.ZSTD_compress2(cctx, out, cap, data, len(data))
+    lib.ZSTD_freeCCtx(cctx)
+    if n > cap:
+        raise RuntimeError("ZSTD_compress2 failed")
+    return out.raw[:n]
+
+
+def lab_table(path: str) -> None:
+    """Write utils/lab_srgb.bin: the 33^3 x 3 16-bit table LittleCMS builds
+    for PIL's LAB -> RGB conversion (ImageCms: the built-in Lab profile
+    to sRGB, perceptual, PIL's LAB and RGB layouts), read out of the
+    transform's optimized pipeline in the LittleCMS Pillow bundles, and
+    checked against PIL's conversion of every LAB value."""
+    import ctypes
+    import glob
+
+    import PIL
+    from PIL import Image
+
+    from gpupathtracer_tpu_torch.utils import lab as port_lab
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+        PIL.__file__)), "pillow.libs", "liblcms2-*.so*"))
+    lib = ctypes.CDLL(libs[0])
+    for fn, res, args in (
+            ("cmsCreateLab2Profile", ctypes.c_void_p, [ctypes.c_void_p]),
+            ("cmsCreate_sRGBProfile", ctypes.c_void_p, []),
+            ("cmsCreateTransform", ctypes.c_void_p,
+             [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+              ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32]),
+            ("cmsPipelineGetPtrToFirstStage", ctypes.c_void_p,
+             [ctypes.c_void_p]),
+            ("cmsStageNext", ctypes.c_void_p, [ctypes.c_void_p]),
+            ("cmsStageType", ctypes.c_uint32, [ctypes.c_void_p]),
+            ("cmsStageData", ctypes.c_void_p, [ctypes.c_void_p])):
+        getattr(lib, fn).restype = res
+        getattr(lib, fn).argtypes = args
+    # PIL's formats: LAB as PT_LabV2, 3 bytes and a pad; RGB 3 and a pad.
+    fmt_lab = (30 << 16) | (1 << 7) | (3 << 3) | 1
+    fmt_rgb = (4 << 16) | (1 << 7) | (3 << 3) | 1
+    xf = lib.cmsCreateTransform(lib.cmsCreateLab2Profile(None), fmt_lab,
+                                lib.cmsCreate_sRGBProfile(), fmt_rgb, 0, 0)
+    # _cmsTRANSFORM: two formats, five function pointers and the 64-byte
+    # cache come before the optimized pipeline (LittleCMS 2.17).
+    lut = ctypes.cast(xf + 112, ctypes.POINTER(ctypes.c_void_p))[0]
+    stage = lib.cmsPipelineGetPtrToFirstStage(lut)
+    if lib.cmsStageType(stage) != int.from_bytes(b"clut", "big") or \
+            lib.cmsStageNext(stage):
+        raise RuntimeError("the transform is not one 16-bit table")
+    clut_data = lib.cmsStageData(stage)
+    tab = ctypes.cast(clut_data, ctypes.POINTER(ctypes.c_void_p))[0]
+    n = ctypes.cast(clut_data + 16, ctypes.POINTER(ctypes.c_uint32))[0]
+    table = np.ctypeslib.as_array(ctypes.cast(
+        tab, ctypes.POINTER(ctypes.c_uint16)), (n,)).astype("<u2")
+    with open(path, "wb") as f:
+        f.write(zlib.compress(table.tobytes(), 9))
+    port_lab._clut = None
+    g = np.arange(256, dtype=np.uint8)
+    lab = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+        4096, 4096, 3)
+    want = np.asarray(Image.frombytes("LAB", (4096, 4096), lab.tobytes())
+                      .convert("RGB"))
+    if port_lab.lab_to_rgb(lab).tobytes() != want.tobytes():
+        raise AssertionError("the table does not give PIL's conversion")
+    print(f"{path}: {n} entries, every LAB value bitwise PIL's")
 
 
 def split_jpeg(jpg: bytes) -> tuple:
@@ -1422,6 +1731,7 @@ def other_fixtures(twins: dict) -> dict:
         **webp_fixtures(t),
         **jpeg_rest_fixtures(t),
         **simple_fixtures(t),
+        **tiff_rest_fixtures(t),
     }
 
 
@@ -1467,6 +1777,195 @@ def webp_fixtures(t: dict) -> dict:
 
 # --- the simple formats PIL does not write: plain PNM, SGI RLE, PCX planes,
 # --- CUR and ICO directories --------------------------------------------------
+
+def ycbcr_units(rgb: np.ndarray, sh: int, sv: int) -> bytes:
+    """RGB [h, w, 3] as subsampled YCbCr data units (sh * sv luma samples,
+    then Cb and Cr, the block's means): any conversion serves, the file
+    holds what the units hold."""
+    h, w, _ = rgb.shape
+    f = rgb.astype(np.float64)
+    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    cb = 128 + (f[..., 2] - y) * 0.564
+    cr = 128 + (f[..., 0] - y) * 0.713
+    H, Wd = -(-h // sv) * sv, -(-w // sh) * sh
+    pad = lambda a: np.pad(a, ((0, H - h), (0, Wd - w)), mode="edge")  # noqa: E731
+    y, cb, cr = (np.clip(np.rint(pad(a)), 0, 255).astype(np.uint8)
+                 for a in (y, cb, cr))
+    units = []
+    for by in range(0, H, sv):
+        for bx in range(0, Wd, sh):
+            units.append(y[by:by + sv, bx:bx + sh].reshape(-1))
+            units.append([int(cb[by:by + sv, bx:bx + sh].mean()),
+                          int(cr[by:by + sv, bx:bx + sh].mean())])
+    return np.concatenate(units).astype(np.uint8).tobytes()
+
+
+# The town's maps as ZSTD TIFFs (chip_smoke.py phase 25b): file names, and
+# the Orientation a map is stored under (its pixels stored so that PIL's
+# exif_transpose gives the map).
+TOWN_ZSTD = {"checker": "checker_zstd.tif", "bricks": "bricks_zstd.tif",
+             "roof": "roof_zstd.tif", "foliage": "foliage_zstd.tif"}
+ROOF_ORIENTATION = 6
+
+
+def _untranspose(img: np.ndarray, orient: int) -> np.ndarray:
+    """The pixels to store so that PIL's exif_transpose of ``orient``
+    gives ``img``."""
+    return {2: lambda: img[:, ::-1], 3: lambda: img[::-1, ::-1],
+            4: lambda: img[::-1], 5: lambda: img.transpose(1, 0, 2),
+            6: lambda: img[:, ::-1].transpose(1, 0, 2),
+            7: lambda: img[::-1, ::-1].transpose(1, 0, 2),
+            8: lambda: img[::-1].transpose(1, 0, 2)}[orient]()
+
+
+def tiff_rest_fixtures(t: dict) -> dict:
+    """The TIFF files of the sixth image slice: the town's four maps as ZSTD
+    TIFFs with horizontal differencing (libzstd at levels 19 and 22, one
+    with its checksum and no content size, one by PIL's own writer, roof
+    stored transposed under Orientation 6), and small files of each CCITT
+    variant (PIL's Group 3, Group 4, Modified Huffman and 16-bit-aligned
+    writers; this tool's T.4 2-D with fill bits, T.6 in fill order 2 and
+    in tiles), ThunderScan, old-style LZW, ZSTD (a frame of several
+    blocks, fill order 2), fill order 2 raw and compressed, orientations
+    2-8, 12-bit, signed and unsigned 32-bit grey, a planar 16-bit raw
+    file, subsampled YCbCr, Lab, and a Lab PSD."""
+    from PIL import Image
+    rng = np.random.RandomState(23)
+    zs = lambda lvl, cs=False, fcs=True, wl=0: (  # noqa: E731
+        lambda rows, bw: zstd_compress(b"".join(rows), lvl, cs, fcs, wl))
+    roof = np.ascontiguousarray(_untranspose(t["roof"], ROOF_ORIENTATION))
+    foliage_buf = io.BytesIO()
+    Image.fromarray(t["foliage"]).save(foliage_buf, "TIFF",
+                                       compression="zstd")
+    y, x = np.mgrid[0:40, 0:48]
+    bilevel = (((x // 6 + y // 5) % 3 == 0) | (np.sin(x / 5.0) * np.cos(
+        y / 3.0) > 0.5)).astype(np.uint8)
+    bl = Image.fromarray(bilevel * 255).convert("1")
+    grey4 = np.clip(np.cumsum(rng.randint(-1, 2, (24, 37)), 1) + 8, 0,
+                    15).astype(np.uint8)
+    grey4[:, -1] = 15 - grey4[:, -1]
+    small = t["bricks"][40:64, 24:56]
+    smooth = (np.sin(np.arange(300)[None, :, None] / 17.0 + np.arange(3))
+              * 60 + np.arange(280)[:, None, None] * 0.4 + 60).astype(
+                  np.uint8)
+    g12 = rng.randint(0, 4096, (9, 14)).astype(np.uint16)
+    g12[0, :6] = [0, 100, 254, 255, 256, 4095]
+    s16 = rng.randint(-400, 400, (9, 14)).astype(np.int16).view(np.uint16)
+    s32 = rng.randint(-600, 600, (9, 14)).astype(np.int32).view(np.uint32)
+    u32 = rng.randint(0, 300, (9, 14)).astype(np.uint32)
+    u32[0, :3] = [2 ** 31, 2 ** 32 - 1, 2 ** 31 - 1]
+    p16 = (t["foliage"][:20, :18].astype(np.uint16) * 257
+           + rng.randint(0, 256, (20, 18, 3)).astype(np.uint16))
+    lab = small.copy()
+    units = lambda sh, sv: (lambda rows, bw: lzw_tiff(ycbcr_units(  # noqa
+        np.frombuffer(b"".join(rows), np.uint8).reshape(-1, bw, 3), sh,
+        sv)))
+    out = {
+        "checker_zstd": (TOWN_ZSTD["checker"], write_tiff(
+            t["checker"], 2, 8, compression=50000, predictor=2,
+            encode=zs(19)), "checker.png",
+            {"TIFF": "ZSTD level 19, predictor 2"}),
+        "bricks_zstd": (TOWN_ZSTD["bricks"], write_tiff(
+            t["bricks"], 2, 8, compression=50000, predictor=2,
+            rows_per_strip=48, encode=zs(22, True, False)), "bricks.png",
+            {"TIFF": "ZSTD level 22 with its checksum, no content size, "
+                     "predictor 2, strips of 48 rows"}),
+        "roof_zstd": (TOWN_ZSTD["roof"], write_tiff(
+            roof, 2, 8, compression=50000, predictor=2, encode=zs(3),
+            tags=[(274, (3, [ROOF_ORIENTATION]))]), "roof.png",
+            {"TIFF": f"ZSTD level 3, predictor 2, stored transposed under "
+                     f"Orientation {ROOF_ORIENTATION}"}),
+        "foliage_zstd": (TOWN_ZSTD["foliage"], foliage_buf.getvalue(),
+                         "foliage.png", {"TIFF": "ZSTD (PIL)"}),
+        "fax_g3": ("fax_g3.tif", _pil(bl, "TIFF", compression="group3"),
+                   None, {"TIFF": "CCITT T.4 1-D (PIL)"}),
+        "fax_g4": ("fax_g4.tif", _pil(bl, "TIFF", compression="group4"),
+                   None, {"TIFF": "CCITT T.6 (PIL)"}),
+        "fax_mh": ("fax_mh.tif", _pil(bl, "TIFF", compression="tiff_ccitt"),
+                   None, {"TIFF": "CCITT Modified Huffman (PIL)"}),
+        "fax_raw16": ("fax_raw16.tif", _pil(bl, "TIFF",
+                                            compression="tiff_raw_16"),
+                      None, {"TIFF": "CCITT Modified Huffman, 16-bit rows "
+                                     "(PIL; libtiff warns of a bad code "
+                                     "word and reads on)"}),
+        "fax_t4_2d": ("fax_t4_2d.tif", write_tiff(
+            bilevel, 0, 1, compression=3, tags=[(292, (4, [5]))],
+            encode=lambda rows, bw: fax_encode(rows, bw, "t4", k=4,
+                                               fill_bits=True)), None,
+            {"TIFF": "CCITT T.4 2-D, K = 4, fill bits"}),
+        "fax_t6_fo2": ("fax_t6_fo2.tif", write_tiff(
+            bilevel, 0, 1, compression=4, fill_order=2), None,
+            {"TIFF": "CCITT T.6, fill order 2"}),
+        "fax_t6_tiles": ("fax_t6_tiles.tif", write_tiff(
+            bilevel, 1, 1, compression=4, tile=(32, 16)), None,
+            {"TIFF": "CCITT T.6 in 32x16 tiles, photometric 1"}),
+        "thunderscan": ("thunderscan.tif", write_tiff(
+            grey4, 1, 4, compression=32809, rows_per_strip=10), None,
+            {"TIFF": "ThunderScan, 4-bit grey"}),
+        "thunderscan_fo2": ("thunderscan_fo2.tif", write_tiff(
+            grey4, 0, 4, compression=32809, fill_order=2), None,
+            {"TIFF": "ThunderScan, photometric 0, fill order 2"}),
+        "lzw_old": ("lzw_old.tif", write_tiff(
+            small, 2, 8, compression=5, predictor=2,
+            encode=lambda rows, bw: lzw_tiff(b"".join(rows), compat=True)),
+            None, {"TIFF": "old-style (LSB-first) LZW, predictor 2"}),
+        "zstd_blocks": ("zstd_blocks.tif", write_tiff(
+            smooth, 2, 8, compression=50000, encode=zs(1, True, True, 17)),
+            None, {"TIFF": "ZSTD level 1, window 2^17, a strip of several "
+                           "blocks"}),
+        "zstd_fo2": ("zstd_fo2.tif", write_tiff(
+            small, 2, 8, compression=50000, predictor=2, fill_order=2),
+            None, {"TIFF": "ZSTD, predictor 2, fill order 2"}),
+        "fo2_rgb": ("fo2_rgb.tif", write_tiff(small, 2, 8, fill_order=2),
+                    None, {"TIFF": "uncompressed RGB, fill order 2"}),
+        "fo2_grey2": ("fo2_grey2.tif", write_tiff(
+            grey4 // 4, 0, 2, fill_order=2), None,
+            {"TIFF": "uncompressed 2-bit grey, photometric 0, fill order 2"}),
+        "fo2_i16": ("fo2_i16.tif", write_tiff(
+            g12 * 3, 1, 16, fill_order=2), None,
+            {"TIFF": "uncompressed 16-bit grey, fill order 2"}),
+        "fo2_palette": ("fo2_palette.tif", write_tiff(
+            grey4, 3, 4, compression=5, fill_order=2,
+            colormap=list(rng.randint(0, 65536, 48))), None,
+            {"TIFF": "4-bit palette, LZW, fill order 2"}),
+        **{f"orient{o}": (f"orient{o}.tif", write_tiff(
+            small[:9, :13], 2, 8, compression=5 if o % 2 else 1,
+            tags=[(274, (3, [o]))]), None,
+            {"TIFF": f"Orientation {o}, " + ("LZW" if o % 2 else
+                                             "uncompressed")})
+           for o in range(2, 9)},
+        "grey12": ("grey12.tif", write_tiff(g12, 1, 12, compression=8),
+                   None, {"TIFF": "12-bit grey, Deflate"}),
+        "int16s": ("int16s.tif", write_tiff(
+            s16, 1, 16, order=">", compression=5, sample_format=2), None,
+            {"TIFF": "signed 16-bit grey, big-endian, LZW"}),
+        "int32s": ("int32s.tif", write_tiff(s32, 1, 32, sample_format=2),
+                   None, {"TIFF": "signed 32-bit grey"}),
+        "uint32": ("uint32.tif", write_tiff(u32, 1, 32, compression=50000),
+                   None, {"TIFF": "unsigned 32-bit grey, ZSTD"}),
+        "planar16": ("planar16.tif", write_tiff(p16, 2, 16, planar=2),
+                     None, {"TIFF": "uncompressed planar RGB at 16 bits "
+                                    "(PIL reads a byte a sample)"}),
+        "ycbcr22": ("ycbcr22.tif", write_tiff(
+            small[:23, :29], 6, 8, compression=5, rows_per_strip=8,
+            encode=units(2, 2), tags=[(530, (3, [2, 2]))]), None,
+            {"TIFF": "YCbCr 4:2:0, LZW (libtiff's RGBA interface)"}),
+        "ycbcr41": ("ycbcr41.tif", write_tiff(
+            small[:9, :13], 6, 8, compression=8, encode=lambda rows, bw:
+            zlib.compress(ycbcr_units(np.frombuffer(
+                b"".join(rows), np.uint8).reshape(-1, bw, 3), 4, 1)),
+            tags=[(530, (3, [4, 1])), (532, (5, [16, 1, 235, 1, 128, 1,
+                                                  240, 1, 128, 1, 240, 1]))]),
+            None, {"TIFF": "YCbCr 4:1:1, ReferenceBlackWhite 16-235, "
+                           "Deflate"}),
+        "lab": ("lab.tif", write_tiff(lab, 8, 8, compression=5), None,
+                {"TIFF": "CIE Lab, LZW"}),
+        "lab_psd": ("lab.psd", write_psd([lab[..., c] for c in range(3)],
+                                         9), None,
+                    {"PSD": "Lab, raw"}),
+    }
+    return out
+
 
 def write_pnm(magic: bytes, px: np.ndarray, maxval: int = 255,
               comments: bool = False, per_line: int = 7,
@@ -1887,9 +2386,16 @@ def main(argv=None) -> int:
     ap.add_argument("--time", action="store_true",
                     help="time the decodes of the fixtures in --out "
                          "instead of writing them")
+    ap.add_argument("--lab-table", action="store_true",
+                    help="write gpupathtracer_tpu_torch/utils/lab_srgb.bin "
+                         "(LittleCMS's Lab -> sRGB table) instead")
     args = ap.parse_args(argv)
     if args.time:
         time_decodes(args.out)
+        return 0
+    if args.lab_table:
+        lab_table(os.path.join(REPO, "gpupathtracer_tpu_torch", "utils",
+                               "lab_srgb.bin"))
         return 0
     os.makedirs(args.out, exist_ok=True)
     manifest, twins = {}, {}
