@@ -353,6 +353,21 @@ nvcc and g++. Phases, each of which raises on failure:
      PNG-twin film (rendered here too when phase 25 runs alone); B1's
      launches of (b) are counted in the kernels line. ``python3
      chip_smoke.py --phase25`` runs phase 25 alone (no result line).
+ 26. (after phase 25) JPEG 2000 and ICNS (ROADMAP.md C6): (a) every
+     committed fixture of the seventh image slice (J2K and JP2 files of
+     PIL's save options and modes, OpenJPEG's code-block styles, ROI, SOP
+     / EPH, tile-parts, TLM, POC, PPM / PPT, subsampling, 12 bits, edited
+     marker segments and JP2 boxes, a 1024x1024 JP2; ICNS of each element
+     kind) decoded bitwise its PNG twin and the manifest's pixel sha256,
+     host ms (median of 3) and MPix/s a fixture beside its twin's PNG
+     decode; (b) the generated town at 1280x720, 4 mip levels, 1 spp
+     through the CLI, its .mtl on lossless 5/3 re-encodings of phase 20's
+     PNG twins (checker and foliage as JP2, bricks as a tiled RPCL J2K,
+     roof as an ICNS whose JPEG 2000 element PIL picks): the film bitwise
+     phase 20b's PNG-twin film (rendered here too when phase 26 runs
+     alone); B1's launches of (b) are counted in the kernels line.
+     ``python3 chip_smoke.py --phase26`` runs phase 26 alone (no result
+     line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -2155,13 +2170,16 @@ def build_kernels() -> None:
     def host_build(load):
         # Phase 20's JPEG decoder, the codecs of phases 21 and 24, phase
         # 22's WebP decoders and phase 25's CCITT / ThunderScan and ZSTD
-        # decoders (g++), beside the nvcc builds.
+        # decoders and phase 26's JPEG 2000 decoder (g++), beside the nvcc
+        # builds.
         t0 = time.perf_counter()
         load()
         return time.perf_counter() - t0
 
-    from gpupathtracer_tpu_torch.utils import codecs, jpeg, webp, zstd
-    with ThreadPoolExecutor(len(jobs) + 5) as pool:
+    from gpupathtracer_tpu_torch.utils import codecs, jpeg, jpeg2000, webp, \
+        zstd
+    with ThreadPoolExecutor(len(jobs) + 6) as pool:
+        j2k_secs = pool.submit(host_build, jpeg2000._load)
         jpeg_secs = pool.submit(host_build, jpeg._load)
         codecs_secs = pool.submit(host_build, codecs._load)
         webp_secs = pool.submit(host_build, webp._load)
@@ -2186,6 +2204,8 @@ def build_kernels() -> None:
               f"(g++): {fax_secs.result():.2f} s")
         print(f"[build] gpupathtracer_tpu_torch/utils/zstd_cpp/zstd.cpp "
               f"(g++): {zstd_secs.result():.2f} s")
+        print(f"[build] gpupathtracer_tpu_torch/utils/j2k_cpp/j2k.cpp "
+              f"(g++): {j2k_secs.result():.2f} s")
     hgmma = _sass_count(cuda_build.build("roofline")[0], "mxu_wgmma_kernel",
                         "HGMMA")
     print(f"[build] HGMMA instructions in the SASS of each mxu_wgmma_kernel "
@@ -4481,11 +4501,11 @@ TOWN_FORMATS = {"checker": "tif", "bricks": "psd", "roof": "dds",
                 "foliage": "bmp"}
 
 
-def hold_fixtures(tag: str, names, smi: str) -> None:
+def hold_fixtures(tag: str, names, smi: str, repeats: int = 5) -> None:
     """Each named fixture of tests/golden/images decoded (the format as
     PIL's Image.open picks it) bitwise its PNG twin and the manifest's
-    pixel sha256, with host times (median of 5 decodes after one
-    warm-up)."""
+    pixel sha256, with host times (median of ``repeats`` decodes after
+    one warm-up)."""
     import hashlib
     import statistics
 
@@ -4507,7 +4527,7 @@ def hold_fixtures(tag: str, names, smi: str) -> None:
                           ("png", lambda: io.decode_png(png, name))):
             out = fn()
             ts = []
-            for _ in range(5):
+            for _ in range(repeats):
                 t0 = time.perf_counter()
                 fn()
                 ts.append(time.perf_counter() - t0)
@@ -4530,14 +4550,15 @@ def hold_fixtures(tag: str, names, smi: str) -> None:
 def _fixtures_of(formats) -> list:
     """The manifest's fixtures beside phase 20's and phase 23's JPEGs and
     phase 25's TIFFs whose format is in ``formats`` (None: every format but
-    WebP and phase 24's simple formats)."""
+    WebP, phase 24's simple formats and phase 26's JPEG 2000 and ICNS)."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     return sorted(n for n, e in manifest.items()
                   if n not in PHASE20_FIXTURES + PHASE23_FIXTURES
                   + PHASE25_FIXTURES
                   and (e["format"] in formats if formats
-                       else e["format"] not in ("WEBP",) + PHASE24_FORMATS))
+                       else e["format"] not in ("WEBP",) + PHASE24_FORMATS
+                       + PHASE26_FORMATS))
 
 
 def decode_formats(smi: str) -> None:
@@ -4843,6 +4864,46 @@ def phase25_alone(device, smi: str, stamp) -> int:
                         render_tiff_rest_path, smi, stamp)
 
 
+# --- phase 26: JPEG 2000 and ICNS (C6) ---------------------------------------
+
+PHASE26_FORMATS = ("JPEG2000", "ICNS")
+# The town's maps as lossless 5/3 re-encodings of phase 20's PNG twins; the
+# roof through an icon whose JPEG 2000 element PIL picks.
+TOWN_JPEG2000 = {"checker": "checker.jp2", "bricks": "bricks.j2k",
+                 "roof": "roof.icns", "foliage": "foliage.jp2"}
+
+
+def decode_jpeg2000(smi: str) -> None:
+    """Phase 26a: the JPEG 2000 library's load, then every JPEG 2000 and
+    ICNS fixture bitwise its PNG twin and the manifest's sha256."""
+    from gpupathtracer_tpu_torch.utils import jpeg2000
+
+    t0 = time.perf_counter()
+    jpeg2000._load()
+    print(f"[26a] the JPEG 2000 library loaded in "
+          f"{time.perf_counter() - t0:.2f} s (g++ at first use; the smoke "
+          f"builds it in phase 2)")
+    names = _fixtures_of(PHASE26_FORMATS)
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    formats = {manifest[n]["format"] for n in names}
+    if formats != set(PHASE26_FORMATS):
+        raise AssertionError(f"[26a] fixtures of {sorted(formats)} only")
+    hold_fixtures("26a", names, smi, repeats=3)
+
+
+def render_jpeg2000_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 26b: the town on lossless JP2 / J2K maps and an ICNS, bitwise
+    phase 20b's film on the PNG twins."""
+    render_town_maps(tmp, town, smi, "26b", TOWN_JPEG2000,
+                     label="JP2 / J2K / ICNS")
+
+
+def phase26_alone(device, smi: str, stamp) -> int:
+    return _phase_alone(26, "JPEG 2000 path", decode_jpeg2000,
+                        render_jpeg2000_path, smi, stamp)
+
+
 def replaces_of(key: str) -> str:
     base, arity, roots = _base_key(key)
     return REPLACES[base] + (f" (arity={arity})" if arity else "") + (
@@ -4888,6 +4949,8 @@ def main() -> int:
         return phase24_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase25"]:
         return phase25_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase26"]:
+        return phase26_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -5061,6 +5124,11 @@ def main() -> int:
             "TIFF rest path", ("trace_closest", "trace_anyhit"),
             lambda: render_tiff_rest_path(tmp, town, smi)))
         stamp("phase 25")
+        decode_jpeg2000(smi)
+        new_paths.append(_drive(
+            "JPEG 2000 path", ("trace_closest", "trace_anyhit"),
+            lambda: render_jpeg2000_path(tmp, town, smi)))
+        stamp("phase 26")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -5091,8 +5159,8 @@ def main() -> int:
         # films and their PNG twins, phase 21's town on TIFF / PSD / DDS /
         # BMP maps, phase 22's on WebP maps, phase 23's on arithmetic
         # and lossless JPEG maps, phase 24's on PPM / QOI / SGI / PCX
-        # maps and phase 25's on ZSTD TIFF maps; at arity 16 the 16-wide
-        # film;
+        # maps, phase 25's on ZSTD TIFF maps and phase 26's on JP2 / J2K /
+        # ICNS maps; at arity 16 the 16-wide film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

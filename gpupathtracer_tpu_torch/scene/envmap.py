@@ -5,11 +5,12 @@ Supported skybox specs (Renderer.cpp:236-325 grammar): "GENERATE COLOR
 WHITE|BLACK|r g b", equirectangular .hdr maps and image maps, and a .txt
 list of six cube faces (GL +X, -X, +Y, -Y, +Z, -Z), resampled to a
 lat-long image once at load. Images go through the port's decoders
-(utils/io.py ``load_image``: PNG, JPEG, BMP, TGA, GIF, TIFF, DDS, PSD and
-WebP, bitwise PIL's); a sky or face in a format PIL reads and the port does
-not (JPEG 2000, AVIF, ...: ROADMAP.md C6) raises NotImplementedError naming
-the file, and bytes PIL cannot read (an EXR: PIL has no EXR reader)
-raise ValueError naming it, as the JAX package's PIL raises.
+(utils/io.py ``load_image``: PNG, JPEG, BMP, TGA, GIF, TIFF, DDS, PSD,
+WebP, JPEG 2000, ICNS and the simple formats, bitwise PIL's); a sky or face
+in a format PIL reads and the port does not (AVIF, HTJ2K, ...: ROADMAP.md
+C6) raises NotImplementedError naming the file, and bytes PIL cannot read
+(an EXR: PIL has no EXR reader) raise ValueError naming it, as the JAX
+package's PIL raises.
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ def build_atlas(paths: List[str], base_dir: str = ".",
             img = load_image(full)
         except NotImplementedError:
             # A format PIL reads and the port does not yet (old-style JPEG
-            # TIFF, JPEG 2000, AVIF, ...: ROADMAP.md C6) raises: skipping it
+            # TIFF, HTJ2K, AVIF, ...: ROADMAP.md C6) raises: skipping it
             # would render what the JAX package, which reads it through
             # PIL, does not. Bytes PIL cannot read (LERC, WebP or SGILog
             # TIFFs among them) raise ValueError and are skipped below, as

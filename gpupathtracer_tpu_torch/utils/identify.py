@@ -10,10 +10,13 @@ PIL there, and so does an opened image with no mode or no pixels.
 ``identify`` returns the plugin's format name, and raises ValueError
 naming the file where PIL would fail to open it or where no plugin
 accepts it ("cannot identify image file"). The header checks are copied
-for the plugins the port reads (BMP, DIB, CUR, ICO, JPEG, PPM, PCX, PSD,
-QOI, SGI, TGA) and for those without an accept test (IM, IMT, IPTC, PCD,
-SPIDER); for the rest the accept test decides, and a few header checks of
-GBR and WMF are copied besides.
+for the plugins the port reads (BMP, DIB, CUR, ICO, JPEG, JPEG2000, ICNS,
+PPM, PCX, PSD, QOI, SGI, TGA), for those without an accept test (IM, IMT,
+IPTC, PCD, SPIDER), for the unread plugins BLP, DCX, FITS, FLI, FTEX,
+MCIDAS, MSP, PIXAR, SUN, XBM, XPM and XVTHUMB (so that junk behind their
+magic bytes is refused as PIL refuses it), and a few of GBR and WMF; for
+the rest (AVIF among them: its open is libavif's whole parse) the accept
+test decides.
 """
 
 from __future__ import annotations
@@ -477,38 +480,368 @@ def _probe_spider(d):
             or _spider_header(struct.unpack_from("<27f", d, 0)))
 
 
+def _probe_jpeg2000(d):
+    from gpupathtracer_tpu_torch.utils.jpeg2000 import probe
+    return probe(d)
+
+
+# --- the open-time checks of the plugins the port does not read -------------
+# Each copies the plugin's _open up to where PIL has opened the file, then
+# ImageFile's checks: a mode and a size above 0 (else SyntaxError, the
+# file passes on) and Image.open's decompression bomb limit. Errors that
+# ImageFile turns into SyntaxError (IndexError, TypeError, KeyError,
+# EOFError, struct.error) pass the file on; the others stop PIL.
+
+def _opened(mode, w, h):
+    from gpupathtracer_tpu_torch.utils.io import MAX_IMAGE_PIXELS
+    if not mode or w <= 0 or h <= 0:
+        raise PassOn("an image of no mode or no pixels")
+    if w * h > 2 * MAX_IMAGE_PIXELS:
+        raise Refused("decompression bomb")
+    return True
+
+
+def _unpack(fmt, d, o):
+    """struct.unpack_from on what a file read of the size gets."""
+    return struct.unpack(fmt, d[o:o + struct.calcsize(fmt)])
+
+
+class _Lines:
+    """readline over the bytes from `pos`."""
+
+    def __init__(self, d, pos):
+        self.d, self.pos = d, pos
+
+    def readline(self):
+        end = self.d.find(b"\n", self.pos)
+        end = len(self.d) if end < 0 else end + 1
+        line, self.pos = self.d[self.pos:end], end
+        return line
+
+
+def _int(v):
+    try:
+        return int(v)
+    except ValueError as e:
+        raise Refused(str(e)) from e
+
+
+def _probe_blp(d):
+    """BlpImagePlugin: the compression and alpha fields, then the size."""
+    if d[:4] == b"BLP1":
+        _unpack("<iI", d, 4)
+        w, h = _unpack("<II", d, 12)
+        _unpack("<i", d, 20)
+        return _opened("RGB", w, h)
+    _unpack("<i", d, 4)
+    _unpack("<bbb", d, 8)
+    w, h = _unpack("<II", d, 12)
+    return _opened("RGB", w, h)
+
+
+def _probe_dcx(d):
+    """DcxImagePlugin: the frame directory, then the first frame's
+    PcxImageFile._open at its offset."""
+    offsets = []
+    for i in range(1024):
+        (off,) = _unpack("<I", d, 4 + 4 * i)
+        if not off:
+            break
+        offsets.append(off)
+    if not offsets:
+        raise PassOn("attempt to seek outside sequence")
+    from gpupathtracer_tpu_torch.utils.pcx import pcx_header
+    if not _pcx(d[offsets[0]:offsets[0] + 16]):
+        raise PassOn("not a PCX file")
+    pcx_header(d[offsets[0]:])
+    return True
+
+
+def _probe_fits(d):
+    """FitsImagePlugin: 80-byte header cards up to END and past it to the
+    data unit, the size and mode from NAXIS* / BITPIX."""
+    headers, progress, decoder, pos, mode, size = {}, False, "", 0, None, None
+    while True:
+        card = d[pos:pos + 80]
+        pos += len(card)
+        if not card:
+            raise Refused("Truncated FITS file")
+        key = card[:8].strip()
+        if key in (b"SIMPLE", b"XTENSION"):
+            progress = True
+        elif headers and not progress:
+            break
+        elif key == b"END":
+            pos = -(-pos // 2880) * 2880
+            if not decoder:
+                decoder, mode, size = _fits_headers(headers)
+            progress = False
+            continue
+        if decoder:
+            continue
+        value = card[8:].split(b"/")[0].strip()
+        if value.startswith(b"="):
+            value = value[1:].strip()
+        if not headers and (not key.startswith(b"SIMPLE") or value != b"T"):
+            raise PassOn("Not a FITS file")
+        headers[key] = value
+    if not decoder:
+        raise Refused("No image data")
+    return _opened(mode, *size)
+
+
+def _fits_headers(h):
+    def size(prefix):
+        naxis = _int(h[prefix + b"NAXIS"])
+        if naxis == 0:
+            return None
+        if naxis == 1:
+            return 1, _int(h[prefix + b"NAXIS1"])
+        return _int(h[prefix + b"NAXIS1"]), _int(h[prefix + b"NAXIS2"])
+    prefix, decoder = b"", "raw"
+    if (h.get(b"XTENSION") == b"'BINTABLE'" and h.get(b"ZIMAGE") == b"T"
+            and h[b"ZCMPTYPE"] == b"'GZIP_1  '"):
+        size(prefix)
+        _int(h[b"BITPIX"])
+        prefix, decoder = b"Z", "fits_gzip"
+    sz = size(prefix)
+    if not sz:
+        return "", None, None
+    bits = _int(h[prefix + b"BITPIX"])
+    mode = {8: "L", 16: "I;16", 32: "I", -32: "F", -64: "F"}.get(bits)
+    return decoder, mode, sz
+
+
+def _probe_fli(d):
+    """FliImagePlugin: the 128-byte header's zero fields, the palette
+    chunk of the first frame, then seek(0) reads the frame's size."""
+    s = d[:128]
+    if not (_fli(s[:16]) and s[20:22] == b"\0" * 2 and s[42:80] == b"\0" * 38
+            and s[88:] == b"\0" * 40):
+        raise PassOn("not an FLI/FLC file")
+    w, h = _unpack("<HH", s, 8)
+    s = d[128:144]
+    at = 144
+    if _unpack("<H", s, 4)[0] == 0xF100:
+        at = 128 + _unpack("<I", s, 0)[0]
+        s = d[at:at + 16]
+        at += 16
+    if _unpack("<H", s, 4)[0] == 0xF1FA:
+        size = None
+        for _ in range(_unpack("<H", s, 6)[0]):
+            if size is not None:
+                at += size - 6
+                if at < 0:
+                    raise Refused("[Errno 22] Invalid argument")
+            s = d[at:at + 6]
+            at += len(s)
+            kind = _unpack("<H", s, 4)[0]
+            if kind in (4, 11):
+                at = _fli_palette(d, at)
+                break
+            size = _unpack("<I", s, 0)[0]
+            if not size:
+                break
+    if not d[128:132]:
+        raise PassOn("missing frame size")
+    _unpack("<I", d, 128)
+    return _opened("P", w, h)
+
+
+def _fli_palette(d, at):
+    i = 0
+    (count,) = _unpack("<H", d, at)
+    at += 2
+    for _ in range(count):
+        s = d[at:at + 2]
+        at += len(s)
+        i += s[0]
+        n = s[1] or 256
+        s = d[at:at + 3 * n]
+        at += len(s)
+        for k in range(0, len(s), 3):
+            s[k + 2]
+            if i >= 256:
+                raise PassOn("list assignment index out of range")
+            i += 1
+    return at
+
+
+def _probe_ftex(d):
+    """FtexImagePlugin: one format, seek to its mipmap and read its size;
+    DXT1 or uncompressed."""
+    _unpack("<i", d, 4)
+    w, h = _unpack("<2i", d, 8)
+    _, count = _unpack("<2i", d, 16)
+    if count != 1:
+        raise Refused("AssertionError (a multi-format FTEX file)")
+    fmt, where = _unpack("<2i", d, 24)
+    if where < 0:
+        raise Refused("[Errno 22] Invalid argument")
+    _unpack("<i", d, where)
+    if fmt not in (0, 1):
+        raise Refused(f"Invalid texture compression format: {fmt}")
+    return _opened("RGBA" if fmt == 0 else "RGB", w, h)
+
+
+def _probe_mcidas(d):
+    """McIdasImagePlugin: a 256-byte area directory of format 1, 2 or 4."""
+    if len(d) < 256:
+        raise PassOn("not an McIdas area file")
+    w = (0,) + struct.unpack_from(">64i", d, 0)
+    if w[11] not in (1, 2, 4):
+        raise PassOn("unsupported McIdas format")
+    return _opened("L", w[10], w[9])
+
+
+def _probe_msp(d):
+    """MspImagePlugin: the header's 16-bit words XOR to zero."""
+    s = d[:32]
+    checksum = 0
+    for i in range(0, 32, 2):
+        checksum ^= _unpack("<H", s, i)[0]
+    if checksum != 0:
+        raise PassOn("bad MSP checksum")
+    w, h = _unpack("<HH", s, 4)
+    return _opened("1", w, h)
+
+
+def _probe_pixar(d):
+    """PixarImagePlugin: 14-bit RGB, the only mode it names."""
+    s = d[:512]
+    h, w = _unpack("<HH", s, 416)
+    mode = _unpack("<HH", s, 424)
+    return _opened("RGB" if mode == (14, 2) else None, w, h)
+
+
+def _probe_sun(d):
+    """SunImagePlugin: depth 1, 4, 8, 24 or 32, an RGB palette of at most
+    1024 bytes, file types 0-5."""
+    s = d[:32]
+    w, h, depth, _, kind, ptype, plen = _unpack(">7I", s, 4)
+    if depth not in (1, 4, 8, 24, 32):
+        raise PassOn("Unsupported Mode/Bit Depth")
+    if plen:
+        if plen > 1024:
+            raise PassOn("Unsupported Color Palette Length")
+        if ptype != 1:
+            raise PassOn("Unsupported Palette Type")
+    if kind not in (0, 1, 2, 3, 4, 5):
+        raise PassOn("Unsupported Sun Raster file type")
+    return _opened("1", w, h)
+
+
+_XBM_HEAD = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    b"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    b"(?P<hotspot>"
+    b"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    b"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    b")?"
+    rb"[\000-\377]*_bits\[]")
+
+
+def _probe_xbm(d):
+    """XbmImagePlugin: the #define header in the first 512 bytes."""
+    m = _XBM_HEAD.match(d[:512])
+    if not m:
+        raise PassOn("not a XBM file")
+    return _opened("1", int(m.group("width")), int(m.group("height")))
+
+
+_XPM_HEAD = re.compile(b'"([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)')
+
+
+def _probe_xpm(d):
+    """XpmImagePlugin: the values line, then each colour line's "c" key."""
+    f = _Lines(d, 9)
+    while True:
+        line = f.readline()
+        if not line:
+            raise PassOn("broken XPM file")
+        m = _XPM_HEAD.match(line)
+        if m:
+            break
+    w, h, colours, bpp = (_int(m.group(k)) for k in (1, 2, 3, 4))
+    for _ in range(colours):
+        line = f.readline().rstrip()
+        s = line[bpp + 1:-2].split()
+        for i in range(0, len(s), 2):
+            if s[i] == b"c":
+                if i + 1 >= len(s):
+                    raise PassOn("list index out of range")
+                rgb = s[i + 1]
+                if rgb.startswith(b"#"):
+                    try:
+                        int(rgb[1:], 16)
+                    except ValueError as e:
+                        raise Refused(str(e)) from e
+                elif rgb != b"None":
+                    raise Refused("cannot read this XPM file")
+                break
+        else:
+            raise Refused("cannot read this XPM file")
+    return _opened("P", w, h)
+
+
+def _probe_xvthumb(d):
+    """XVThumbImagePlugin: comment lines, then "width height"."""
+    f = _Lines(d, 6)
+    f.readline()
+    while True:
+        s = f.readline()
+        if not s:
+            raise PassOn("Unexpected EOF reading XV thumbnail file")
+        if s[0] != 35:
+            break
+    fields = s.strip().split(maxsplit=2)[:2]
+    if len(fields) < 2:
+        raise Refused("not enough values to unpack")
+    return _opened("P", _int(fields[0]), _int(fields[1]))
+
+
+def _probe_icns(d):
+    from gpupathtracer_tpu_torch.utils.icns import probe
+    return probe(d)
+
+
 # (format, accept, probe) in Image.ID order.
 PLUGINS = (
     ("BMP", _bmp, _probe_bmp), ("DIB", _dib, _probe_dib),
     ("GIF", _gif, None), ("JPEG", _jpeg, _probe_jpeg),
     ("PPM", _ppm, _probe_ppm), ("PNG", _png, None),
-    ("AVIF", _avif, None), ("BLP", _starts(b"BLP1", b"BLP2"), None),
+    ("AVIF", _avif, None), ("BLP", _starts(b"BLP1", b"BLP2"), _probe_blp),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
     ("CUR", _starts(b"\0\0\2\0"), _probe_cur), ("PCX", _pcx, _probe_pcx),
-    ("DCX", _dcx, None), ("DDS", _starts(b"DDS "), None),
-    ("EPS", _eps, None), ("FITS", _starts(b"SIMPLE"), None),
-    ("FLI", _fli, None), ("FTEX", _starts(b"FTEX"), None),
+    ("DCX", _dcx, _probe_dcx), ("DDS", _starts(b"DDS "), None),
+    ("EPS", _eps, None), ("FITS", _starts(b"SIMPLE"), _probe_fits),
+    ("FLI", _fli, _probe_fli),
+    ("FTEX", _starts(b"FTEX"), _probe_ftex),
     ("GBR", _gbr, _probe_gbr), ("GRIB", _grib, None),
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", _starts(b"\xff\x4f\xff\x51",
-                         b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
-    ("ICNS", _starts(b"icns"), None),
+                         b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
+     _probe_jpeg2000),
+    ("ICNS", _starts(b"icns"), _probe_icns),
     ("ICO", _starts(b"\0\0\1\0"), _probe_ico),
     ("IM", _always, _probe_im), ("IMT", _always, _probe_imt),
     ("IPTC", _always, _probe_iptc),
-    ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None),
+    ("MCIDAS", _starts(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+     _probe_mcidas),
     ("MPEG", _starts(b"\x00\x00\x01\xb3"), None), ("TIFF", _tiff, None),
-    ("MSP", _starts(b"DanM", b"LinS"), None), ("PCD", _always, _probe_pcd),
-    ("PIXAR", _starts(b"\200\350\000\000"), None),
+    ("MSP", _starts(b"DanM", b"LinS"), _probe_msp),
+    ("PCD", _always, _probe_pcd),
+    ("PIXAR", _starts(b"\200\350\000\000"), _probe_pixar),
     ("PSD", _starts(b"8BPS"), _probe_psd),
     ("QOI", _starts(b"qoif"), _probe_qoi), ("SGI", _sgi, _probe_sgi),
     ("SPIDER", _always, _probe_spider),
-    ("SUN", _sun, None), ("TGA", _always, _probe_tga),
+    ("SUN", _sun, _probe_sun), ("TGA", _always, _probe_tga),
     ("WEBP", _webp, None),
     ("WMF", _starts(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"),
      _probe_wmf),
-    ("XBM", _xbm, None), ("XPM", _starts(b"/* XPM */"), None),
-    ("XVTHUMB", _starts(b"P7 332"), None),
+    ("XBM", _xbm, _probe_xbm),
+    ("XPM", _starts(b"/* XPM */"), _probe_xpm),
+    ("XVTHUMB", _starts(b"P7 332"), _probe_xvthumb),
 )
 
 
@@ -525,7 +858,8 @@ def identify(data: bytes, name: str = "<image>") -> str:
         except Refused as e:
             raise ValueError(f"{name}: PIL's {fmt} plugin refuses the file "
                              f"({e})") from e
-        except (PassOn, IndexError, struct.error):
+        except (PassOn, IndexError, TypeError, KeyError, EOFError,
+                struct.error):
             continue
     raise ValueError(f"{name}: no image format identifies the file (PIL: "
                      f"cannot identify image file; first bytes "

@@ -75,14 +75,16 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
     (utils/webp.py: lossless, lossy with its alpha, extended and animated
     files' first frame), PNM and PFM (utils/pnm.py: P1-P6, P0CMYK, Pf and
     PIL's Py*), QOI (utils/qoi.py), ICO (utils/ico.py: PNG and bitmap
-    frames), SGI (utils/sgi.py: raw and run-length, 8 and 16 bits) and PCX
-    (utils/pcx.py). A format PIL reads and the port does not yet read
-    (JPEG 2000, AVIF, XBM, IM, old-style JPEG in TIFF, ...; ROADMAP.md C6)
-    raises NotImplementedError naming the file and the format. Bytes PIL
-    cannot open or cannot load (no plugin accepts them, a corrupt or
-    truncated file, the stub plugins, TIFFs of LERC, WebP or SGILog
-    compression) raise ValueError naming the file: build_atlas skips such
-    a map, as the JAX package's does."""
+    frames), SGI (utils/sgi.py: raw and run-length, 8 and 16 bits), PCX
+    (utils/pcx.py), JPEG 2000 (utils/jpeg2000.py: J2K codestreams and JP2
+    files, every code-block style but HTJ2K's) and ICNS (utils/icns.py).
+    A format PIL reads and the port does not yet read (AVIF, XBM, IM,
+    old-style JPEG in TIFF, HTJ2K code-blocks, ...; ROADMAP.md C6) raises
+    NotImplementedError naming the file and the format. Bytes PIL cannot
+    open or cannot load (no plugin accepts them or a plugin's open-time
+    checks refuse them, a corrupt or truncated file, the stub plugins,
+    TIFFs of LERC, WebP or SGILog compression) raise ValueError naming the
+    file: build_atlas skips such a map, as the JAX package's does."""
     from gpupathtracer_tpu_torch.utils.identify import CANNOT_LOAD, identify
 
     fmt = identify(data, name)
@@ -100,8 +102,10 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
 def _readers() -> dict:
     from gpupathtracer_tpu_torch.utils.dds import decode_dds
     from gpupathtracer_tpu_torch.utils.gif import decode_gif
+    from gpupathtracer_tpu_torch.utils.icns import decode_icns
     from gpupathtracer_tpu_torch.utils.ico import decode_ico
     from gpupathtracer_tpu_torch.utils.jpeg import decode_jpeg
+    from gpupathtracer_tpu_torch.utils.jpeg2000 import decode_jpeg2000
     from gpupathtracer_tpu_torch.utils.pcx import decode_pcx
     from gpupathtracer_tpu_torch.utils.pnm import decode_ppm
     from gpupathtracer_tpu_torch.utils.psd import decode_psd
@@ -114,7 +118,8 @@ def _readers() -> dict:
             "DDS": decode_dds, "PSD": decode_psd, "WEBP": decode_webp,
             "PPM": decode_ppm, "QOI": decode_qoi, "DIB": decode_dib,
             "CUR": decode_cur, "ICO": decode_ico, "SGI": decode_sgi,
-            "PCX": decode_pcx}
+            "PCX": decode_pcx, "JPEG2000": decode_jpeg2000,
+            "ICNS": decode_icns}
 
 
 def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Builds the image decoders' C++ sources (utils/jpeg_cpp/jpeg.cpp,
 utils/codecs_cpp/codecs.cpp, utils/webp_cpp/webp.cpp, utils/fax_cpp/fax.cpp,
-utils/zstd_cpp/zstd.cpp) with g++ at first use into the package's ``_build/`` directory, keyed by the source's and
+utils/zstd_cpp/zstd.cpp, utils/j2k_cpp/j2k.cpp) with g++ at first use into
+the package's ``_build/`` directory, keyed by the source's and
 the flags' hash, and loads them through ctypes. There is no fallback: a
 failed build raises."""
 
@@ -11,8 +12,9 @@ import hashlib
 import os
 import subprocess
 
-# Integer code but for BC6H's half floats, which must round as PIL's
-# compiled core rounds them: no contraction of a multiply and an add.
+# Integer code but for BC6H's half floats and JPEG 2000's 9/7 wavelet and
+# ICT, which must round as PIL's compiled core and OpenJPEG's SSE code
+# round them: no contraction of a multiply and an add.
 FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
          "-ffp-contract=off")
 

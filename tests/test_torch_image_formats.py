@@ -771,8 +771,9 @@ def test_formats_pil_reads_and_the_port_does_not(folder, fmt, ext):
     raises NotImplementedError naming the file and the format
     (ROADMAP.md C6); the format is the one PIL's Image.open picks. Since
     the fifth image slice PPM, ICO, QOI, PCX, SGI and DIB (a BMP without
-    its file header) are read, bitwise the JAX package's, and since the
-    sixth the CCITT TIFF; XBM, JPEG 2000 and IM stay unread."""
+    its file header) are read, bitwise the JAX package's, since the sixth
+    the CCITT TIFF and since the seventh JPEG 2000; XBM and IM stay
+    unread."""
     px = _photo(16, 16, 20)
     im = Image.fromarray(px)
     buf = _bio.BytesIO()
@@ -792,7 +793,8 @@ def test_formats_pil_reads_and_the_port_does_not(folder, fmt, ext):
     with open(path, "wb") as f:
         f.write(data)
     assert jax_io.load_image(path).shape == (16, 16, 3)
-    if fmt in ("PPM", "ICO", "QOI", "PCX", "SGI", "DIB", "TIFF"):
+    if fmt in ("PPM", "ICO", "QOI", "PCX", "SGI", "DIB", "TIFF",
+               "JPEG2000"):
         assert io.load_image(path).tobytes() == \
             jax_io.load_image(path).tobytes()
         return

@@ -1732,6 +1732,10 @@ def other_fixtures(twins: dict) -> dict:
         **jpeg_rest_fixtures(t),
         **simple_fixtures(t),
         **tiff_rest_fixtures(t),
+        **{k: (f, d, tw, {"JPEG2000": e}) for k, (f, d, tw, e) in
+           jpeg2000_fixtures(t).items()},
+        **{k: (f, d, tw, {"ICNS": e}) for k, (f, d, tw, e) in
+           icns_fixtures(t).items()},
     }
 
 
@@ -2301,6 +2305,536 @@ def simple_fixtures(t: dict) -> dict:
     return out
 
 
+# --- JPEG 2000 and ICNS (the seventh image slice) ----------------------------
+
+def _openjpeg_lib():
+    """The OpenJPEG 2.5.4 that Pillow's wheel bundles (pillow.libs)."""
+    import ctypes
+    import glob
+
+    import PIL
+    base = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    return ctypes.CDLL(glob.glob(os.path.join(base, "libopenjp2-*.so*"))[0])
+
+
+# Byte offsets in OpenJPEG 2.5's opj_cparameters_t (x86-64), checked against
+# the defaults opj_set_default_encoder_parameters writes (_opj_offsets).
+_OPJ = dict(tile_size_on=0, cp_tdx=12, cp_tdy=16, cp_disto_alloc=20,
+            csty=48, poc=56, numpocs=4792, tcp_numlayers=4796,
+            tcp_rates=4800, numresolution=5600, mode=5612, irreversible=5616,
+            roi_compno=5620, roi_shift=5624, image_offset_x0=18188,
+            tp_on=18696, tp_flag=18697, tcp_mct=18698)
+_OPJ_POC = 148                          # sizeof(opj_poc_t)
+
+
+def _opj_offsets(lib) -> None:
+    import ctypes
+    par = ctypes.create_string_buffer(1 << 16)
+    lib.opj_set_default_encoder_parameters(par)
+    ints = lambda off, n: struct.unpack_from(f"<{n}i", par, off)  # noqa: E731
+    assert ints(_OPJ["numresolution"], 7) == (6, 64, 64, 0, 0, -1, 0)
+    assert ints(_OPJ["image_offset_x0"], 6) == (0, 0, 1, 1, -1, -1)
+    assert _OPJ["numpocs"] - _OPJ["poc"] == 32 * _OPJ_POC
+
+
+def _openjpeg_encode_here(spec: dict) -> bytes:
+    """One opj_encode of spec's planes with spec's opj_cparameters_t
+    fields (the work of ``--openjpeg-encode``)."""
+    import ctypes
+    import tempfile
+    lib = _openjpeg_lib()
+    _opj_offsets(lib)
+    planes = [np.asarray(p, np.int32) for p in spec["planes"]]
+    n = len(planes)
+    dx, dy = spec.get("dx", [1] * n), spec.get("dy", [1] * n)
+    h = max(p.shape[0] * dy[i] for i, p in enumerate(planes))
+    w = max(p.shape[1] * dx[i] for i, p in enumerate(planes))
+
+    class Cmpt(ctypes.Structure):
+        _fields_ = [(f, ctypes.c_uint32) for f in
+                    ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+    cm = (Cmpt * n)()
+    for i, p in enumerate(planes):
+        cm[i].dx, cm[i].dy = dx[i], dy[i]
+        cm[i].w, cm[i].h = p.shape[1], p.shape[0]
+        cm[i].prec = cm[i].bpp = spec.get("prec", 8)
+        cm[i].sgnd = spec.get("sgnd", 0)
+    lib.opj_image_create.restype = ctypes.c_void_p
+    img = lib.opj_image_create(n, cm, 1 if n >= 3 else 2)
+    (ctypes.c_uint32 * 4).from_address(img)[:] = [0, 0, w, h]
+    comps = ctypes.c_void_p.from_address(img + 24).value
+    for i, p in enumerate(planes):
+        data = ctypes.c_void_p.from_address(comps + 64 * i + 48).value
+        ctypes.memmove(data, np.ascontiguousarray(p).ctypes.data, p.size * 4)
+    par = ctypes.create_string_buffer(1 << 16)
+    lib.opj_set_default_encoder_parameters(par)
+    for k, v in spec.get("params", {}).items():
+        if k == "poc":                # (resno0, compno0, layno1, resno1,
+            for j, e in enumerate(v):   # compno1, progression) each
+                struct.pack_into("<5I", par, _OPJ["poc"] + _OPJ_POC * j,
+                                 *e[:5])
+                struct.pack_into("<i", par, _OPJ["poc"] + _OPJ_POC * j + 36,
+                                 e[5])
+            struct.pack_into("<I", par, _OPJ["numpocs"], len(v))
+        elif k in ("tp_flag", "tcp_mct", "tp_on"):
+            par[_OPJ[k]] = bytes([v])
+        else:
+            struct.pack_into("<i", par, _OPJ[k], v)
+    rates = spec.get("layers", [0])
+    struct.pack_into("<i", par, _OPJ["tcp_numlayers"], len(rates))
+    struct.pack_into(f"<{len(rates)}f", par, _OPJ["tcp_rates"], *rates)
+    struct.pack_into("<i", par, _OPJ["cp_disto_alloc"], 1)
+    lib.opj_create_compress.restype = ctypes.c_void_p
+    codec = ctypes.c_void_p(lib.opj_create_compress(2 if spec.get("jp2")
+                                                    else 0))
+    extra = spec.get("extra", [])
+    if extra:
+        arr = (ctypes.c_char_p * (len(extra) + 1))(
+            *[e.encode() for e in extra], None)
+        assert lib.opj_encoder_set_extra_options(codec, arr)
+    assert lib.opj_setup_encoder(codec, par, ctypes.c_void_p(img))
+    fd, path = tempfile.mkstemp()
+    os.close(fd)
+    lib.opj_stream_create_default_file_stream.restype = ctypes.c_void_p
+    st = ctypes.c_void_p(lib.opj_stream_create_default_file_stream(
+        path.encode(), 0))
+    ok = (lib.opj_start_compress(codec, ctypes.c_void_p(img), st)
+          and lib.opj_encode(codec, st) and lib.opj_end_compress(codec, st))
+    lib.opj_stream_destroy(st)
+    with open(path, "rb") as f:
+        out = f.read()
+    os.unlink(path)
+    assert ok, "opj_encode failed"
+    return out
+
+
+def openjpeg_encode(planes, **spec) -> bytes:
+    """A codestream (or with jp2=True a JP2 file) by the OpenJPEG encoder
+    that Pillow's wheel bundles, through ctypes: the code-block styles,
+    regions of interest, SOP / EPH, tile-parts, TLM, POC, subsampling and
+    precisions PIL's save options do not reach. ``spec`` holds dx, dy,
+    prec, sgnd, jp2, layers (rates), extra (opj_encoder_set_extra_options)
+    and params (opj_cparameters_t fields by name). Each encode runs in a
+    process of its own: the encoder's output estimate can overrun on small
+    code-blocks under TERMALL, so a process that writes past it dies
+    alone."""
+    import pickle
+    import subprocess
+    import tempfile
+    spec = dict(spec, planes=[np.asarray(p).tolist() for p in planes])
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = os.path.join(d, "spec"), os.path.join(d, "out")
+        with open(src, "wb") as f:
+            pickle.dump(spec, f)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--openjpeg-encode", src, dst], check=True)
+        with open(dst, "rb") as f:
+            return f.read()
+
+
+def _boxes(data: bytes, pos: int = 0, end: int = None) -> list:
+    """The boxes of a JP2 file (or of a superbox's body): [type, body]."""
+    end = len(data) if end is None else end
+    out = []
+    while pos < end:
+        n, t = struct.unpack_from(">I4s", data, pos)
+        n = n or end - pos
+        out.append([t, data[pos + 8:pos + n]])
+        pos += n
+    return out
+
+
+def _box(t: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body) + 8) + t + body
+
+
+def jp2_edit(data: bytes, header=None, colr=None) -> bytes:
+    """A JP2 file with jp2h's boxes replaced by ``header(boxes)`` and/or
+    colr's enumerated colour space set to ``colr``."""
+    out = b""
+    for t, body in _boxes(data):
+        if t == b"jp2h":
+            inner = _boxes(body)
+            if colr is not None:
+                for b in inner:
+                    if b[0] == b"colr":
+                        b[1] = b[1][:3] + struct.pack(">I", colr)
+            if header is not None:
+                inner = header(inner)
+            body = b"".join(_box(t2, b2) for t2, b2 in inner)
+        out += _box(t, body)
+    return out
+
+
+def j2k_main_header(cs: bytes) -> int:
+    """The offset of the first SOT in a codestream."""
+    pos = 2
+    while True:
+        m, n = struct.unpack_from(">HH", cs, pos)
+        if m == 0xFF90:
+            return pos
+        pos += 2 + n
+
+
+def j2k_insert(cs: bytes, *segments) -> bytes:
+    """The codestream with marker segments (marker, body) inserted at the
+    end of its main header."""
+    at = j2k_main_header(cs)
+    extra = b"".join(struct.pack(">HH", m, len(b) + 2) + b
+                     for m, b in segments)
+    return cs[:at] + extra + cs[at:]
+
+
+def j2k_cod_style(cs: bytes, style: int) -> bytes:
+    """The codestream with its main COD's code-block style byte set."""
+    pos = 2
+    while True:
+        m, n = struct.unpack_from(">HH", cs, pos)
+        if m == 0xFF52:
+            out = bytearray(cs)
+            out[pos + 4 + 8] = style    # Scod, SGcod (4), SPcod: D E F G
+            return bytes(out)
+        pos += 2 + n
+
+
+def j2k_packed(cs: bytes, where: str = "ppt") -> bytes:
+    """A codestream written with SOP and EPH markers, its packet headers
+    (each up to and with its EPH) moved into PPT segments, one run a
+    tile-part (``where="ppt"``), or into the main header's PPM segments
+    with an Nppm count a tile-part; SOP markers stay with the packet
+    bodies. (EPH ends a header: a header stuffs a 0 bit after each 0xFF,
+    and a body never holds 0xFF 0x91, so both split cleanly.)"""
+    main = j2k_main_header(cs)
+    pos, parts = main, []
+    while cs[pos:pos + 2] == b"\xff\x90":
+        psot = struct.unpack_from(">I", cs, pos + 6)[0]
+        end = pos + psot if psot else len(cs) - 2
+        sod = pos + 12
+        while cs[sod:sod + 2] != b"\xff\x93":
+            sod += 2 + struct.unpack_from(">H", cs, sod + 2)[0]
+        data, heads, bodies = cs[sod + 2:end], [], []
+        at = 0
+        while at < len(data):
+            assert data[at:at + 2] == b"\xff\x91"
+            eph = data.index(b"\xff\x92", at + 6) + 2
+            nxt = data.find(b"\xff\x91", eph)
+            nxt = len(data) if nxt < 0 else nxt
+            heads.append(data[at + 6:eph])
+            bodies.append(data[at:at + 6] + data[eph:nxt])
+            at = nxt
+        parts.append((cs[pos:pos + 12], cs[pos + 12:sod], b"".join(heads),
+                      b"".join(bodies)))
+        pos = end
+    seg = lambda m, z, d: struct.pack(">HHB", m, len(d) + 3, z) + d  # noqa
+    out = b""
+    zppt = {}
+    for sot, markers, heads, bodies in parts:
+        if where == "ppt":
+            tile = struct.unpack_from(">H", sot, 4)[0]
+            for k in range(0, len(heads), 65000):
+                z = zppt.get(tile, 0)
+                zppt[tile] = z + 1
+                markers += seg(0xFF61, z, heads[k:k + 65000])
+        body = markers + b"\xff\x93" + bodies
+        out += sot[:6] + struct.pack(">I", 12 + len(body)) + sot[10:] + body
+    head = cs[:main]
+    if where == "ppm":
+        stream = b"".join(struct.pack(">I", len(h)) + h for _, _, h, _ in
+                          parts)
+        head += b"".join(seg(0xFF60, z, stream[k:k + 65000]) for z, k in
+                         enumerate(range(0, len(stream), 65000)))
+    return head + out + cs[-2:]
+
+
+def _cs(jp2: bytes) -> bytes:
+    """A JP2 file's codestream."""
+    return next(b for t, b in _boxes(jp2) if t == b"jp2c")
+
+
+def jpeg2000_fixtures(t: dict) -> dict:
+    """The JPEG 2000 files: the town's four maps as lossless (5/3)
+    re-encodings of their PNG twins (checker and foliage as JP2, bricks as
+    a tiled RPCL codestream by PIL; roof through an ICNS, icns_fixtures)
+    and the 1024x1024 map's as a JP2 (a decode at a real texture size);
+    small files of each of PIL's save options and modes; OpenJPEG's own
+    encoder (openjpeg_encode) for each code-block style bit and mixes,
+    ROI, SOP / EPH, tile-parts, TLM, POC, 4:2:0 and 4:2:2 subsampling and
+    12 bits; and edits of PIL's files: COD's style byte, inserted RGN,
+    POC, COC and QCC segments, and JP2 boxes for sYCC, CMYK, pclr + cmap
+    and cdef."""
+    from PIL import Image
+    b48 = np.ascontiguousarray(t["bricks"][16:56, 8:56])
+    f48 = np.ascontiguousarray(t["foliage"][40:80, 32:80])
+    rgba = np.concatenate([b48, f48[..., :1]], -1)
+    grey = b48[..., 1]
+    pil = lambda img, **kw: _pil(img, "JPEG2000", **kw)  # noqa: E731
+    cs = lambda img, **kw: pil(img, no_jp2=True, **kw)  # noqa: E731
+    enc = lambda p, **kw: openjpeg_encode(  # noqa: E731
+        [p[..., c] for c in range(p.shape[-1])], **kw)
+    out = {
+        "checker_jp2": ("checker.jp2", pil(t["checker"]), "checker.png",
+                        "JP2, lossless 5/3 (PIL)"),
+        "map1024_jp2": ("map1024.jp2", pil(t["map1024"]), "map1024.png",
+                        "JP2, 1024x1024, lossless 5/3 (PIL)"),
+        "bricks_j2k": ("bricks.j2k", cs(t["bricks"], tile_size=(64, 64),
+                                         num_resolutions=3,
+                                         progression="RPCL"),
+                       "bricks.png", "J2K, 64x64 tiles, RPCL, 5/3 (PIL)"),
+        "foliage_jp2": ("foliage.jp2", pil(t["foliage"], codeblock_size=(
+            16, 16), precinct_size=(32, 32), progression="CPRL",
+            quality_layers=[40, 10, 0]), "foliage.png",
+            "JP2, precincts 32, 16x16 code-blocks, CPRL, three layers "
+            "(PIL)"),
+    }
+    opts = {
+        "irrev": dict(irreversible=True),
+        "irrev_rate": dict(irreversible=True, quality_layers=[30, 12]),
+        "irrev_db": dict(irreversible=True, quality_mode="dB",
+                         quality_layers=[30, 38]),
+        "mct0": dict(mct=0),
+        "offset": dict(tile_offset=(3, 2), tile_size=(20, 24),
+                       offset=(5, 7)),
+        "res1": dict(num_resolutions=1),
+        "cb4": dict(codeblock_size=(4, 4)),
+        "rlcp": dict(progression="RLCP", quality_layers=[20, 5]),
+        "pcrl": dict(progression="PCRL", precinct_size=(16, 16),
+                     num_resolutions=3),
+        "signed": dict(signed=True),
+        "comment_plt": dict(comment="a comment", plt=True),
+    }
+    for k, kw in opts.items():
+        out[f"j2k_{k}"] = (f"{k}.j2k", cs(b48, **kw), None,
+                           f"J2K, {kw} (PIL)")
+    for mode, img in (("l", grey), ("la", np.stack([grey, f48[..., 0]], -1)),
+                      ("rgba", rgba)):
+        im = Image.fromarray(img, {"l": "L", "la": "LA", "rgba": "RGBA"}[mode])
+        out[f"jp2_{mode}"] = (f"{mode}.jp2", pil(im), None,
+                              f"JP2, {mode.upper()} (PIL)")
+    out["jp2_rgba_irrev"] = ("rgba_irrev.jp2", pil(rgba, irreversible=True),
+                             None, "JP2, RGBA, 9/7 (PIL)")
+    i16 = Image.fromarray(grey.astype(np.uint16) * 37 % 4096)
+    out["jp2_i16"] = ("i16.jp2", pil(i16), None, "JP2, I;16 12 bits (PIL)")
+    # OpenJPEG's encoder: code-block styles, ROI, packet markers, tiles.
+    for style in (0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x3F, 0x05, 0x0B,
+                  0x22, 0x11):
+        out[f"style{style:02x}"] = (
+            f"style{style:02x}.j2k", enc(b48, params=dict(mode=style)), None,
+            f"J2K, code-block style {style:#04x} (OpenJPEG)")
+        if style != 0x04:               # 9/7 TERMALL alone overruns
+            out[f"style{style:02x}_97"] = (
+                f"style{style:02x}_97.j2k", enc(b48, layers=[30, 10],
+                                                params=dict(mode=style,
+                                                            irreversible=1)),
+                None, f"J2K, code-block style {style:#04x}, 9/7, two "
+                      f"layers (OpenJPEG)")
+    out["roi"] = ("roi.j2k", enc(b48, params=dict(roi_compno=0, roi_shift=5)),
+                  None, "J2K, RGN max-shift 5 on component 0 (OpenJPEG)")
+    out["roi_97"] = ("roi_97.j2k", enc(b48, params=dict(
+        roi_compno=2, roi_shift=9, irreversible=1)), None,
+        "J2K, RGN max-shift 9 on component 2, 9/7 (OpenJPEG)")
+    out["sop_eph"] = ("sop_eph.j2k", enc(b48, layers=[20, 0], params=dict(
+        csty=6)), None, "J2K, SOP and EPH, two layers (OpenJPEG)")
+    sopeph = enc(b48, layers=[30, 0], params=dict(
+        csty=6, tile_size_on=1, cp_tdx=32, cp_tdy=24, numresolution=3,
+        tp_on=1, tp_flag=ord("R")))
+    out["ppt"] = ("ppt.j2k", j2k_packed(sopeph, "ppt"), None,
+                  "J2K, packet headers in PPT segments, tiles and tile-parts "
+                  "(OpenJPEG's file, headers moved)")
+    out["ppm"] = ("ppm.j2k", j2k_packed(sopeph, "ppm"), None,
+                  "J2K, packet headers in PPM segments (OpenJPEG's file, "
+                  "headers moved)")
+    out["tileparts"] = ("tileparts.j2k", enc(b48, params=dict(
+        tile_size_on=1, cp_tdx=32, cp_tdy=24, numresolution=3, tp_on=1,
+        tp_flag=ord("R"))), None,
+        "J2K, 32x24 tiles, a tile-part a resolution (OpenJPEG)")
+    out["tileparts_l"] = ("tileparts_l.jp2", enc(
+        b48, jp2=True, layers=[40, 20, 0], params=dict(tp_on=1,
+                                                       tp_flag=ord("L"))),
+        None, "JP2, a tile-part a layer (OpenJPEG)")
+    out["tlm"] = ("tlm.j2k", enc(b48, extra=["TLM=YES"], params=dict(
+        tile_size_on=1, cp_tdx=24, cp_tdy=24, numresolution=3)), None,
+        "J2K, TLM (OpenJPEG)")
+    out["poc"] = ("poc.j2k", enc(b48, params=dict(poc=[(0, 0, 1, 2, 3, 1),
+                                                      (2, 0, 1, 6, 3, 4)])),
+                  None, "J2K, POC: RLCP to resolution 2, then CPRL "
+                        "(OpenJPEG)")
+    ycc = np.stack([grey, f48[..., 1], f48[..., 2]], -1)
+    out["sub420"] = ("sub420.j2k", openjpeg_encode(
+        [ycc[..., 0], ycc[::2, ::2, 1], ycc[::2, ::2, 2]], dx=[1, 2, 2],
+        dy=[1, 2, 2], params=dict(tcp_mct=0)), None,
+        "J2K, components 2 and 3 at 4:2:0 (Pillow reads it as sYCC; "
+        "OpenJPEG)")
+    out["sub422"] = ("sub422.j2k", openjpeg_encode(
+        [ycc[..., 0], ycc[:, ::2, 1], ycc[:, ::2, 2]], dx=[1, 2, 2],
+        params=dict(tcp_mct=0)), None,
+        "J2K, components 2 and 3 at 4:2:2 (OpenJPEG)")
+    out["prec12"] = ("prec12.j2k", openjpeg_encode(
+        [b48[..., c].astype(np.int32) * 13 for c in range(3)], prec=12),
+        None, "J2K, 12-bit RGB (OpenJPEG)")
+    # Edits of PIL's files.
+    base = cs(b48)
+    base97 = cs(b48, irreversible=True, quality_layers=[25])
+    for style in (0x01, 0x02, 0x08, 0x20, 0x28):
+        out[f"cod_style{style:02x}"] = (
+            f"cod_style{style:02x}.j2k", j2k_cod_style(base97, style), None,
+            f"J2K, PIL's 9/7 file with COD's style byte set to {style:#04x}")
+    out["rgn_insert"] = ("rgn_insert.j2k", j2k_insert(
+        base, (0xFF5E, bytes([1, 0, 2]))), None,
+        "J2K, PIL's file with an RGN segment (component 1, shift 2) inserted")
+    out["poc_insert"] = ("poc_insert.j2k", j2k_insert(
+        cs(b48, progression="RLCP"), (0xFF5F, bytes([0, 0, 0, 1, 6, 3, 0]))),
+        None, "J2K, PIL's RLCP file with a POC segment (LRCP over "
+              "everything) inserted")
+    out["coc_insert"] = ("coc_insert.j2k", j2k_insert(
+        base, (0xFF53, bytes([2, 0, 5, 4, 4, 0x08, 1]))), None,
+        "J2K, PIL's file with a COC segment (component 2: vertically "
+        "causal contexts) inserted")
+    out["qcc_insert"] = ("qcc_insert.j2k", j2k_insert(
+        base97, (0xFF5D, bytes([1, 0x42]) + struct.pack(">H", 0x4800))),
+        None, "J2K, PIL's 9/7 file with a scalar-derived QCC segment "
+              "(component 1) inserted")
+    rgb_jp2 = pil(b48)
+    out["sycc"] = ("sycc.jp2", jp2_edit(rgb_jp2, colr=18), None,
+                   "JP2, PIL's RGB file marked sYCC (colr 18)")
+    out["cmyk"] = ("cmyk.jp2", jp2_edit(pil(rgba), colr=12), None,
+                   "JP2, PIL's RGBA file marked CMYK (colr 12)")
+    rng = np.random.RandomState(24)
+    idx = (grey // 16).astype(np.uint8)
+
+    def pclr(npc, extra=()):
+        entries = rng.randint(0, 256, (16, npc)).astype(np.uint8)
+        body = struct.pack(">HB", 16, npc) + bytes([7] * npc) + \
+            entries.tobytes()
+        cmap = b"".join(struct.pack(">HBB", 0, 1, c) for c in range(npc))
+
+        def header(boxes):
+            for b in boxes:
+                if b[0] == b"colr":
+                    b[1] = b[1][:3] + struct.pack(">I", 16)
+            return boxes + [[b"pclr", body], [b"cmap", cmap], *extra]
+        return header
+    pal_src = pil(Image.fromarray(idx, "L"))
+    out["pclr"] = ("pclr.jp2", jp2_edit(pal_src, header=pclr(3)), None,
+                   "JP2, 4-bit indices with pclr (16 RGB entries) and cmap")
+    out["pclr_rgba"] = ("pclr_rgba.jp2", jp2_edit(pal_src, header=pclr(4)),
+                        None, "JP2, 4-bit indices with pclr (16 RGBA "
+                              "entries) and cmap")
+    la = pil(Image.fromarray(np.stack([idx, grey], -1), "LA"))
+    out["pclr_la"] = ("pclr_la.jp2", jp2_edit(la, header=pclr(3)), None,
+                      "JP2, indices and alpha with pclr (Pillow's PA)")
+    cdef = struct.pack(">H", 4) + b"".join(struct.pack(">HHH", c, t, a) for
+                                           c, t, a in ((0, 0, 3), (1, 0, 2),
+                                                       (2, 0, 1), (3, 1, 0)))
+    out["cdef"] = ("cdef.jp2", jp2_edit(pil(rgba), header=lambda b: [
+        x for x in b if x[0] != b"cdef"] + [[b"cdef", cdef]]), None,
+        "JP2, PIL's RGBA file, its cdef box replaced by one reversing the "
+        "colours")
+    return out
+
+
+def icns_fixtures(t: dict) -> dict:
+    """The ICNS files: the town's roof as a 128x128 icon whose ic07 element
+    is a lossless JPEG 2000 codestream beside its it32 run-length RGB and
+    t8mk mask (PIL reads the JPEG 2000 element), and one icon of each
+    element kind: is32 / il32 / ih32 run-length with their masks, il32
+    raw, a JP2 element (PIL's own writer, PNG elements up to 1024x1024,
+    is held in tests/test_torch_jpeg2000.py)."""
+    def icns(elems):                    # (type, size) block headers
+        body = b"".join(k + struct.pack(">I", len(d) + 8) + d
+                        for k, d in elems)
+        return b"icns" + struct.pack(">I", len(body) + 8) + body
+
+    def rgb32(px, t32=False):
+        data = b"".join(icns_rle(px[..., c].tobytes()) for c in range(3))
+        return b"\0\0\0\0" + data if t32 else data
+
+    roof = t["roof"]
+    out = {"roof_icns": ("roof.icns", icns([
+        (b"ic07", _pil(roof, "JPEG2000", no_jp2=True)),
+        (b"it32", rgb32(roof, True)), (b"t8mk", roof[..., 0].tobytes())]),
+        "roof.png", "ic07 lossless J2K beside it32 and t8mk")}
+    b = t["bricks"]
+    for n, tag, mk in ((16, b"is32", b"s8mk"), (32, b"il32", b"l8mk"),
+                       (48, b"ih32", b"h8mk")):
+        px = np.ascontiguousarray(b[:n, 8:8 + n])
+        out[f"icns_{tag.decode()}"] = (f"{tag.decode()}.icns", icns([
+            (tag, rgb32(px)), (mk, px[..., 1].tobytes())]), None,
+            f"{tag.decode()} run-length RGB with {mk.decode()}")
+    px = np.ascontiguousarray(t["foliage"][:32, :32])
+    out["icns_il32_raw"] = ("il32_raw.icns", icns([(b"il32", px.tobytes())]),
+                            None, "il32 raw RGB")
+    out["icns_jp2"] = ("jp2.icns", icns([
+        (b"icp6", _pil(t["foliage"][:64, 64:], "JPEG2000"))]), None,
+        "icp6 JP2 element")
+    return out
+
+
+def icns_rle(band: bytes) -> bytes:
+    """An icns band in the run-length code PIL's read_32 reads: runs of 3
+    to 130 as (n + 125, byte), else literals of 1 to 128 as (n - 1,
+    bytes)."""
+    out, i, n = bytearray(), 0, len(band)
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and band[j] == band[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i + 125, band[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (
+                j + 2 < n and band[j] == band[j + 1] == band[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + band[i:j]
+        i = j
+    return bytes(out)
+
+
+def ycbcr_table(path: str) -> None:
+    """Pillow's YCbCr -> RGB tables (ConvertYCbCr.c: R_Cr, G_Cb, G_Cr,
+    B_Cb, int16 at a scale of 2^6) as utils/ycbcr_rgb.bin, derived from
+    PIL's conversion of every (Y, Cb, Cr): R and B need only each entry's
+    value >> 6; G's two tables are fitted with the carries their sum shows
+    and checked over all 2^24 inputs."""
+    from PIL import Image
+    c = np.arange(256)
+    y, cb, cr = np.meshgrid(c, c, c, indexing="ij")
+    ycc = np.stack([y, cb, cr], -1).astype(np.uint8).reshape(4096, 4096, 3)
+    rgb = np.asarray(Image.frombytes("YCbCr", (4096, 4096), ycc.tobytes())
+                     .convert("RGB")).reshape(256, 256, 256, 3).astype(int)
+
+    def shift(ch, along_cr):           # each entry's value >> 6
+        k = []
+        for v in c:
+            col = rgb[:, 128, v, ch] if along_cr else rgb[:, v, 128, ch]
+            ys = np.nonzero((col > 0) & (col < 255))[0]
+            k.append(col[ys[0]] - ys[0])
+        return np.array(k)
+    kr, kb = shift(0, True), shift(2, False)
+    ka, kc = shift(1, False), shift(1, True)
+    g = rgb[..., 1]
+    valid = (g > 0) & (g < 255)
+    first = np.argmax(valid, axis=0)
+    kg = np.take_along_axis(g, first[None], 0)[0] - first
+    carry = kg - ka[:, None] - kc[None, :]
+    levels = np.unique(carry.sum(0))
+    rb = np.searchsorted(levels, carry.sum(0)) + 1
+    lo = np.array([rb[carry[i] == 1].min() if carry[i].any() else 64
+                   for i in range(256)])
+    ra = 64 - lo
+    tables = np.stack([kr * 64, ka * 64 + ra, kc * 64 + rb, kb * 64])
+    yy = y
+    r = np.clip(yy + (tables[0][cr] >> 6), 0, 255)
+    gg = np.clip(yy + ((tables[1][cb] + tables[2][cr]) >> 6), 0, 255)
+    bb = np.clip(yy + (tables[3][cb] >> 6), 0, 255)
+    assert (r == rgb[..., 0]).all() and (gg == rgb[..., 1]).all() and (
+        bb == rgb[..., 2]).all()
+    with open(path, "wb") as f:
+        f.write(tables.astype("<i2").tobytes())
+
+
 def _chunk(tag: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + tag + body
             + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
@@ -2386,12 +2920,28 @@ def main(argv=None) -> int:
     ap.add_argument("--time", action="store_true",
                     help="time the decodes of the fixtures in --out "
                          "instead of writing them")
+    ap.add_argument("--ycbcr-table", action="store_true",
+                    help="write gpupathtracer_tpu_torch/utils/ycbcr_rgb.bin "
+                         "(Pillow's YCbCr -> RGB tables) instead")
+    ap.add_argument("--openjpeg-encode", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--lab-table", action="store_true",
                     help="write gpupathtracer_tpu_torch/utils/lab_srgb.bin "
                          "(LittleCMS's Lab -> sRGB table) instead")
     args = ap.parse_args(argv)
     if args.time:
         time_decodes(args.out)
+        return 0
+    if args.openjpeg_encode:
+        import pickle
+        with open(args.openjpeg_encode[0], "rb") as f:
+            spec = pickle.load(f)
+        with open(args.openjpeg_encode[1], "wb") as f:
+            f.write(_openjpeg_encode_here(spec))
+        return 0
+    if args.ycbcr_table:
+        ycbcr_table(os.path.join(REPO, "gpupathtracer_tpu_torch", "utils",
+                                 "ycbcr_rgb.bin"))
         return 0
     if args.lab_table:
         lab_table(os.path.join(REPO, "gpupathtracer_tpu_torch", "utils",
