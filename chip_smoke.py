@@ -368,6 +368,24 @@ nvcc and g++. Phases, each of which raises on failure:
      alone); B1's launches of (b) are counted in the kernels line.
      ``python3 chip_smoke.py --phase26`` runs phase 26 alone (no result
      line).
+ 27. (after phase 26) the rest of JPEG 2000 and AVIF at open (ROADMAP.md
+     C6, C9): (a) every HTJ2K fixture (tools/torch_htj2k.py: 5/3 and 9/7,
+     cleanup, SigProp and MagRef passes, code-blocks of 8x8 to 64x64,
+     layers, tiles, vertically causal contexts, 1-4 components, a JP2) and
+     Part 2 fixture (OpenJPEG's opj_set_MCT files, MCT / MCC / MCO / CBD
+     segments in PIL's files) decoded bitwise its PNG twin and the
+     manifest's pixel sha256, host ms (median of 3) and MPix/s a fixture;
+     (b) the generated town at 1280x720, 4 mip levels, 1 spp through the
+     CLI, its .mtl on lossless re-encodings of phase 20's PNG twins
+     (checker and roof HTJ2K, bricks and foliage through an identity Part
+     2 transform): the film bitwise phase 20b's PNG-twin film (rendered
+     here too when phase 27 runs alone); B1's launches of (b) are counted
+     in the kernels line; (c) the committed AVIF set (PIL-written still,
+     alpha and animated files, their cuts and junk behind ftyp) named,
+     refused or passed on as PIL's recorded verdicts say, the AVIF ones
+     raising NotImplementedError naming the file, with host ms of each
+     open. ``python3 chip_smoke.py --phase27`` runs phase 27 alone (no
+     result line).
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel entry point (the counting variants are instantiations of theirs and
@@ -4548,14 +4566,15 @@ def hold_fixtures(tag: str, names, smi: str, repeats: int = 5) -> None:
 
 
 def _fixtures_of(formats) -> list:
-    """The manifest's fixtures beside phase 20's and phase 23's JPEGs and
-    phase 25's TIFFs whose format is in ``formats`` (None: every format but
-    WebP, phase 24's simple formats and phase 26's JPEG 2000 and ICNS)."""
+    """The manifest's fixtures beside phase 20's and phase 23's JPEGs,
+    phase 25's TIFFs and phase 27's JPEG 2000 files whose format is in
+    ``formats`` (None: every format but WebP, phase 24's simple formats and
+    phase 26's JPEG 2000 and ICNS)."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
     return sorted(n for n, e in manifest.items()
                   if n not in PHASE20_FIXTURES + PHASE23_FIXTURES
-                  + PHASE25_FIXTURES
+                  + PHASE25_FIXTURES and not _phase27_fixture(n)
                   and (e["format"] in formats if formats
                        else e["format"] not in ("WEBP",) + PHASE24_FORMATS
                        + PHASE26_FORMATS))
@@ -4904,6 +4923,86 @@ def phase26_alone(device, smi: str, stamp) -> int:
                         render_jpeg2000_path, smi, stamp)
 
 
+# --- phase 27: HTJ2K, Part 2 transforms, AVIF at open (C6, C9) --------------
+
+# Phase 27a's fixtures (tools/torch_image_fixtures.py jpeg2000_rest_fixtures).
+PHASE27_PREFIXES = ("ht_", "mct", "cbd")
+# The town's maps as lossless re-encodings of phase 20's PNG twins.
+TOWN_HT_MCT = {"checker": "checker_ht.j2k", "bricks": "bricks_mct.j2k",
+               "roof": "roof_ht.j2k", "foliage": "foliage_mct.j2k"}
+AVIF_SET = os.path.join(ROOT, "tests", "golden", "avif")
+
+
+def _phase27_fixture(name: str) -> bool:
+    return name.startswith(PHASE27_PREFIXES)
+
+
+def decode_jpeg2000_rest(smi: str) -> None:
+    """Phase 27a: every HTJ2K and Part 2 fixture bitwise its PNG twin and
+    the manifest's sha256."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        names = sorted(n for n in json.load(f) if _phase27_fixture(n))
+    if not any(n.startswith("ht_") for n in names) or not any(
+            n.startswith("mct") for n in names):
+        raise AssertionError(f"[27a] HTJ2K and Part 2 fixtures expected, "
+                             f"got {names}")
+    hold_fixtures("27a", names, smi, repeats=3)
+
+
+def render_jpeg2000_rest_path(tmp: str, town: str, smi: str) -> None:
+    """Phase 27b: the town on HTJ2K and Part 2 re-encodings of its
+    PNG-twin maps, bitwise phase 20b's film on the PNG twins."""
+    render_town_maps(tmp, town, smi, "27b", TOWN_HT_MCT,
+                     label="HTJ2K / Part 2 J2K")
+
+
+def check_avif_set(smi: str) -> None:
+    """Phase 27c: each committed AVIF file (PIL-written still, alpha and
+    animated files and their cuts and junk) named, refused or passed on
+    as the recorded verdicts of PIL's Image.open say, with host ms of the
+    parse; the AVIF ones raise NotImplementedError naming the file."""
+    import hashlib
+
+    from gpupathtracer_tpu_torch.utils import io
+    from gpupathtracer_tpu_torch.utils.identify import identify
+
+    with open(os.path.join(AVIF_SET, "verdicts.json")) as f:
+        verdicts = json.load(f)
+    cpu = _host_cpu()
+    for name, e in sorted(verdicts.items()):
+        with open(os.path.join(AVIF_SET, e["file"]), "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != e["sha256"]:
+            raise AssertionError(f"[27c] {name}: not the committed file")
+        t0 = time.perf_counter()
+        try:
+            got = identify(data, name)
+        except ValueError:
+            got = None
+        ms = (time.perf_counter() - t0) * 1e3
+        if got != e["pil"]:
+            raise AssertionError(f"[27c] {name}: the port says {got}, PIL "
+                                 f"{e['pil']}")
+        if got == "AVIF":
+            try:
+                io.decode_image(data, e["file"])
+            except NotImplementedError as err:
+                if e["file"] not in str(err):
+                    raise AssertionError(f"[27c] {name}: {err}") from err
+            else:
+                raise AssertionError(f"[27c] {name}: decoded")
+        print(f"[27c] {name} ({len(data)} B): {got or 'refused'} as PIL; "
+              f"open {ms:.3f} ms; host {cpu}; {smi}")
+
+
+def phase27_alone(device, smi: str, stamp) -> int:
+    def decode(smi):
+        decode_jpeg2000_rest(smi)
+        check_avif_set(smi)
+    return _phase_alone(27, "JPEG 2000 rest path", decode,
+                        render_jpeg2000_rest_path, smi, stamp)
+
+
 def replaces_of(key: str) -> str:
     base, arity, roots = _base_key(key)
     return REPLACES[base] + (f" (arity={arity})" if arity else "") + (
@@ -4951,6 +5050,8 @@ def main() -> int:
         return phase25_alone(device, smi, stamp)
     if sys.argv[1:] == ["--phase26"]:
         return phase26_alone(device, smi, stamp)
+    if sys.argv[1:] == ["--phase27"]:
+        return phase27_alone(device, smi, stamp)
     build_kernels()
     stamp("build")
 
@@ -5129,6 +5230,12 @@ def main() -> int:
             "JPEG 2000 path", ("trace_closest", "trace_anyhit"),
             lambda: render_jpeg2000_path(tmp, town, smi)))
         stamp("phase 26")
+        decode_jpeg2000_rest(smi)
+        new_paths.append(_drive(
+            "JPEG 2000 rest path", ("trace_closest", "trace_anyhit"),
+            lambda: render_jpeg2000_rest_path(tmp, town, smi)))
+        check_avif_set(smi)
+        stamp("phase 27")
     # The kernels line counts B1's launches on every path that drives it.
     for counts in new_paths:
         _add(launches, counts)
@@ -5159,8 +5266,9 @@ def main() -> int:
         # films and their PNG twins, phase 21's town on TIFF / PSD / DDS /
         # BMP maps, phase 22's on WebP maps, phase 23's on arithmetic
         # and lossless JPEG maps, phase 24's on PPM / QOI / SGI / PCX
-        # maps, phase 25's on ZSTD TIFF maps and phase 26's on JP2 / J2K /
-        # ICNS maps; at arity 16 the 16-wide film;
+        # maps, phase 25's on ZSTD TIFF maps, phase 26's on JP2 / J2K /
+        # ICNS maps and phase 27's on HTJ2K / Part 2 J2K maps; at arity 16
+        # the 16-wide film;
         # with roots the treelet film and the partition frames (any-hit
         # with roots: the partition frames alone); the kernel A/B entry
         # point for the schedules and the arities' B4, run_compact for the

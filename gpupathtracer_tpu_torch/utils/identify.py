@@ -14,9 +14,9 @@ for the plugins the port reads (BMP, DIB, CUR, ICO, JPEG, JPEG2000, ICNS,
 PPM, PCX, PSD, QOI, SGI, TGA), for those without an accept test (IM, IMT,
 IPTC, PCD, SPIDER), for the unread plugins BLP, DCX, FITS, FLI, FTEX,
 MCIDAS, MSP, PIXAR, SUN, XBM, XPM and XVTHUMB (so that junk behind their
-magic bytes is refused as PIL refuses it), and a few of GBR and WMF; for
-the rest (AVIF among them: its open is libavif's whole parse) the accept
-test decides.
+magic bytes is refused as PIL refuses it), for AVIF libavif's whole parse
+at open (utils/avif.py), and a few of GBR and WMF; for the rest the
+accept test decides.
 """
 
 from __future__ import annotations
@@ -800,6 +800,12 @@ def _probe_xvthumb(d):
     return _opened("P", _int(fields[0]), _int(fields[1]))
 
 
+def _probe_avif(d):
+    from gpupathtracer_tpu_torch.utils.avif import probe
+    probe(d)
+    return True
+
+
 def _probe_icns(d):
     from gpupathtracer_tpu_torch.utils.icns import probe
     return probe(d)
@@ -810,7 +816,7 @@ PLUGINS = (
     ("BMP", _bmp, _probe_bmp), ("DIB", _dib, _probe_dib),
     ("GIF", _gif, None), ("JPEG", _jpeg, _probe_jpeg),
     ("PPM", _ppm, _probe_ppm), ("PNG", _png, None),
-    ("AVIF", _avif, None), ("BLP", _starts(b"BLP1", b"BLP2"), _probe_blp),
+    ("AVIF", _avif, _probe_avif), ("BLP", _starts(b"BLP1", b"BLP2"), _probe_blp),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
     ("CUR", _starts(b"\0\0\2\0"), _probe_cur), ("PCX", _pcx, _probe_pcx),
     ("DCX", _dcx, _probe_dcx), ("DDS", _starts(b"DDS "), None),

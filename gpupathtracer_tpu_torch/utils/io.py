@@ -77,10 +77,13 @@ def decode_image(data: bytes, name: str = "<image>") -> np.ndarray:
     PIL's Py*), QOI (utils/qoi.py), ICO (utils/ico.py: PNG and bitmap
     frames), SGI (utils/sgi.py: raw and run-length, 8 and 16 bits), PCX
     (utils/pcx.py), JPEG 2000 (utils/jpeg2000.py: J2K codestreams and JP2
-    files, every code-block style but HTJ2K's) and ICNS (utils/icns.py).
-    A format PIL reads and the port does not yet read (AVIF, XBM, IM,
-    old-style JPEG in TIFF, HTJ2K code-blocks, ...; ROADMAP.md C6) raises
-    NotImplementedError naming the file and the format. Bytes PIL cannot
+    files, every code-block style, HTJ2K's among them, and Part 2's
+    component transform markers) and ICNS (utils/icns.py). A format PIL
+    reads and the port does not yet read (AVIF's AV1 payload, XBM, IM,
+    old-style JPEG in TIFF, ...; ROADMAP.md C6) raises
+    NotImplementedError naming the file and the format; an AVIF file is
+    first parsed as libavif parses it at open (utils/avif.py), so one PIL
+    refuses is ValueError. Bytes PIL cannot
     open or cannot load (no plugin accepts them or a plugin's open-time
     checks refuse them, a corrupt or truncated file, the stub plugins,
     TIFFs of LERC, WebP or SGILog compression) raise ValueError naming the

@@ -5,7 +5,10 @@
 // Pillow's image by its Jpeg2KDecode.c unpackers.
 //
 //   - Markers (j2k.c): SIZ, COD, COC, QCD, QCC, RGN, POC, TLM, PLM, PLT,
-//     PPM, PPT, CRG, COM, CAP, CPF in the main header, SOT / SOD
+//     PPM, PPT, CRG, COM, CAP, CPF, and Part 2's MCT, MCC, MCO and CBD
+//     (their records; COD refuses the array transform that would apply
+//     them, so MCO's DC level shifts and CBD's depths are what decodes
+//     differently) in the main header, SOT / SOD
 //     tile-parts, EOC; the checks OpenJPEG makes of each, its skip over
 //     unknown markers in the main header, and the order in which it
 //     decodes tiles. Packed packet headers: PPM's Nppm runs merged into
@@ -21,7 +24,9 @@
 //     at a segment's end, the raw (bypass) decoder, the three passes with
 //     reset, termall, vertically causal contexts and segmentation symbols,
 //     then ROI max-shift and the reconstruction (integer halving for 5/3,
-//     a float product by half the step size for 9/7).
+//     a float product by half the step size for 9/7). HTJ2K code-blocks
+//     (ht_dec.c): the cleanup pass's MEL, VLC, UVLC and MagSgn, the
+//     SigProp and MagRef passes, and OpenJPEG's checks of each block.
 //   - The inverse wavelets (dwt.c): OpenJPEG's 5/3 lifting with its
 //     one-pass boundary formulas, and its 9/7 in float with its constants,
 //     the "two_invK" scale of the high band and its order of operations
@@ -34,14 +39,10 @@
 //     through Pillow's own YCbCr -> RGB tables, read from Pillow's tile
 //     buffer as Pillow reads it (w / dx samples a row).
 //
-// Not read: HTJ2K code-blocks (code-block style bit 0x40) and the Part 2
-// multiple component transform markers (MCT, MCC, MCO, CBD) return codes
-// of their own.
-//
-// C interface (ctypes): gpt_j2k_info reads the main header; gpt_j2k_decode
-// decodes every tile into Pillow's image. Both return 0, or a negative
-// code with a message: -1 OpenJPEG or Pillow fails, -2 HTJ2K, -4 a Part 2
-// marker.
+// C interface (ctypes): gpt_j2k_set_ycbcr and gpt_j2k_set_ht_tables take
+// Pillow's YCbCr tables and OpenJPEG's HT VLC tables; gpt_j2k_info reads
+// the main header; gpt_j2k_decode decodes every tile into Pillow's image.
+// Both return 0, or -1 with a message where OpenJPEG or Pillow fails.
 
 #include <cmath>
 #include <cstdint>
@@ -51,7 +52,7 @@
 
 namespace {
 
-enum { kBroken = -1, kHTJ2K = -2, kPart2 = -4 };
+enum { kBroken = -1 };
 
 struct Error {
   int code;
@@ -152,6 +153,19 @@ struct POC {
 
 const int32_t kProgUnknown = -1;
 
+// Part 2's component transform records (opj_mct_data_t and
+// opj_simple_mcc_decorrelation_data_t): an MCC names its records by their
+// place in `mcts`, -1 for none.
+struct MctRec {
+  uint32_t index = 0, elem = 0;
+  std::vector<uint8_t> data;
+};
+
+struct MccRec {
+  uint32_t index = 0, nb_comps = 0;
+  int32_t deco = -1, offs = -1;
+};
+
 struct TCP {
   uint32_t csty = 0, numlayers = 0, mct = 0;
   int32_t prg = 0;
@@ -169,6 +183,12 @@ struct TCP {
   std::vector<bool> ppt_have;
   std::vector<uint8_t> ppt_data;
   uint32_t ppt_pos = 0, ppt_len = 0;
+  // MCT, MCC: the records read so far. `mcc_spare` is the slot past the
+  // last MCC: an MCC OpenJPEG stops reading with a warning leaves its
+  // fields there, and the next new MCC starts from them.
+  std::vector<MctRec> mcts;
+  std::vector<MccRec> mccs;
+  MccRec mcc_spare;
 };
 
 struct Comp {
@@ -290,7 +310,7 @@ struct Seg {
 struct Cblk {
   int32_t x0, y0, x1, y1;
   uint32_t numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0;
-  uint32_t real_num_segs = 0;
+  uint32_t real_num_segs = 0, mb = 0;
   std::vector<Seg> segs;
   std::vector<std::pair<uint32_t, uint32_t>> chunks;  // (offset, length)
 };
@@ -718,6 +738,741 @@ void decode_cblk(T1& t1, const Cblk& cb, const std::vector<uint8_t>& tile,
     buf[index + seg.len] = keep[0];
     buf[index + seg.len + 1] = keep[1];
     index += seg.len;
+  }
+}
+
+// --- HTJ2K code-blocks (ht_dec.c, opj_t1_ht_decode_cblk) --------------------
+//
+// The cleanup pass (MEL, VLC with the two context tables and the UVLC,
+// MagSgn) and the SigProp and MagRef passes below it, read as OpenJPEG
+// reads them: its bit readers (4 bytes at a time after a first 1-4 bytes
+// that depend on the data's address modulo 4, with their unstuffing), its
+// scan order, and its checks. The VLC tables (vlc_tbl0 for the first quad
+// row, vlc_tbl1 for the others) come in through gpt_j2k_set_ht_tables.
+
+uint16_t gVlc0[1024], gVlc1[1024];
+
+inline uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 |
+         uint32_t(p[3]) << 24;
+}
+
+// The decoder's pointers as offsets into the code-block's bytes, with the
+// address's residue modulo 4 (`base`) that sets how many bytes the first
+// reads take.
+struct HtMel {
+  const uint8_t* d;
+  int64_t pos;
+  uint64_t tmp = 0;
+  int bits = 0, size = 0, k = 0, num_runs = 0;
+  bool unstuff = false;
+  uint64_t runs = 0;
+
+  bool init(const uint8_t* data, int lcup, int scup, uint32_t base) {
+    d = data;
+    pos = lcup - scup;
+    size = scup - 1;
+    int num = 4 - int((base + uint32_t(pos)) & 3);
+    for (int i = 0; i < num; ++i) {
+      if (unstuff && d[pos] > 0x8F) return false;
+      uint64_t v = size > 0 ? d[pos] : 0xFF;
+      if (size == 1) v |= 0xF;
+      pos += size-- > 0;
+      int d_bits = 8 - unstuff;
+      tmp = (tmp << d_bits) | v;
+      bits += d_bits;
+      unstuff = (v & 0xFF) == 0xFF;
+    }
+    tmp <<= (64 - bits);
+    return true;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0xFFFFFFFFu;
+    if (size > 4) {
+      val = le32(d + pos);
+      pos += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        uint32_t v = d[pos++];
+        uint32_t m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+      uint32_t v = d[pos++];
+      v |= 0xF;
+      uint32_t m = ~(0xFFu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nb = 32 - unstuff;
+    uint32_t t = val & 0xFF;
+    bool us = (val & 0xFF) == 0xFF;
+    nb -= us;
+    t <<= (8 - us);
+    t |= (val >> 8) & 0xFF;
+    us = ((val >> 8) & 0xFF) == 0xFF;
+    nb -= us;
+    t <<= (8 - us);
+    t |= (val >> 16) & 0xFF;
+    us = ((val >> 16) & 0xFF) == 0xFF;
+    nb -= us;
+    t <<= (8 - us);
+    t |= (val >> 24) & 0xFF;
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= uint64_t(t) << (64 - nb - bits);
+    bits += nb;
+  }
+  void decode() {
+    static const int kExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      int eval = kExp[k];
+      int run;
+      if (tmp & (uint64_t(1) << 63)) {
+        run = ((1 << eval) - 1) << 1;
+        k = k + 1 < 12 ? k + 1 : 12;
+        tmp <<= 1;
+        bits -= 1;
+      } else {
+        run = int(tmp >> (63 - eval)) & ((1 << eval) - 1);
+        k = k - 1 > 0 ? k - 1 : 0;
+        tmp <<= eval + 1;
+        bits -= eval + 1;
+        run = (run << 1) + 1;
+      }
+      int at = num_runs * 7;
+      runs &= ~(uint64_t(0x3F) << at);
+      runs |= uint64_t(run) << at;
+      ++num_runs;
+    }
+  }
+  int get_run() {
+    if (num_runs == 0) decode();
+    int t = int(runs & 0x7F);
+    runs >>= 7;
+    --num_runs;
+    return t;
+  }
+};
+
+// VLC (rev_*) and MagRef (rev_*_mrp): backwards, unstuffing a 0x7F that
+// follows a byte above 0x8F.
+struct HtRev {
+  const uint8_t* d;
+  int64_t pos;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  int size = 0;
+  bool unstuff = false;
+
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0;
+    if (size > 3) {
+      val = le32(d + pos - 3);
+      pos -= 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        uint32_t v = d[pos--];
+        val |= v << i;
+        --size;
+        i -= 8;
+      }
+    }
+    uint32_t t = val >> 24;
+    uint32_t nb = 8u - ((unstuff && ((val >> 24) & 0x7F) == 0x7F) ? 1u : 0u);
+    bool us = (val >> 24) > 0x8F;
+    t |= ((val >> 16) & 0xFF) << nb;
+    nb += 8u - ((us && ((val >> 16) & 0x7F) == 0x7F) ? 1u : 0u);
+    us = ((val >> 16) & 0xFF) > 0x8F;
+    t |= ((val >> 8) & 0xFF) << nb;
+    nb += 8u - ((us && ((val >> 8) & 0x7F) == 0x7F) ? 1u : 0u);
+    us = ((val >> 8) & 0xFF) > 0x8F;
+    t |= (val & 0xFF) << nb;
+    nb += 8u - ((us && (val & 0x7F) == 0x7F) ? 1u : 0u);
+    us = (val & 0xFF) > 0x8F;
+    tmp |= uint64_t(t) << bits;
+    bits += nb;
+    unstuff = us;
+  }
+  void init_vlc(const uint8_t* data, int lcup, int scup, uint32_t base) {
+    d = data;
+    pos = lcup - 2;
+    size = scup - 2;
+    uint32_t v = d[pos--];
+    tmp = v >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (v | 0xF) > 0x8F;
+    int num = 1 + int((base + uint32_t(pos)) & 3);
+    int tnum = num < size ? num : size;
+    for (int i = 0; i < tnum; ++i) {
+      uint64_t b = d[pos--];
+      uint32_t d_bits = 8u - ((unstuff && (b & 0x7F) == 0x7F) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8F;
+    }
+    size -= tnum;
+    read();
+  }
+  void init_mrp(const uint8_t* data, int lcup, int len2, uint32_t base) {
+    d = data;
+    pos = int64_t(lcup) + len2 - 1;
+    size = len2;
+    unstuff = true;
+    int num = 1 + int((base + uint32_t(pos)) & 3);
+    for (int i = 0; i < num; ++i) {
+      uint64_t b = size-- > 0 ? d[pos--] : 0;
+      uint32_t d_bits = 8u - ((unstuff && (b & 0x7F) == 0x7F) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8F;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return uint32_t(tmp);
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+    return uint32_t(tmp);
+  }
+};
+
+// MagSgn (X = 0xFF after the data) and SigProp (X = 0): forwards,
+// unstuffing the bit after 0xFF.
+struct HtFwd {
+  const uint8_t* d;
+  int64_t pos;
+  uint64_t tmp = 0;
+  uint32_t bits = 0, x = 0;
+  bool unstuff = false;
+  int size = 0;
+
+  void read() {
+    uint32_t val;
+    if (size > 3) {
+      val = le32(d + pos);
+      pos += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = x != 0 ? 0xFFFFFFFFu : 0;
+      while (size > 0) {
+        uint32_t v = d[pos++];
+        uint32_t m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+    } else {
+      val = x != 0 ? 0xFFFFFFFFu : 0;
+    }
+    uint32_t nb = 8u - (unstuff ? 1u : 0u);
+    uint32_t t = val & 0xFF;
+    bool us = (val & 0xFF) == 0xFF;
+    t |= ((val >> 8) & 0xFF) << nb;
+    nb += 8u - (us ? 1u : 0u);
+    us = ((val >> 8) & 0xFF) == 0xFF;
+    t |= ((val >> 16) & 0xFF) << nb;
+    nb += 8u - (us ? 1u : 0u);
+    us = ((val >> 16) & 0xFF) == 0xFF;
+    t |= ((val >> 24) & 0xFF) << nb;
+    nb += 8u - (us ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= uint64_t(t) << bits;
+    bits += nb;
+  }
+  void init(const uint8_t* data, int64_t at, int sz, uint32_t fill,
+            uint32_t base) {
+    d = data;
+    pos = at;
+    size = sz;
+    x = fill;
+    int num = 4 - int((base + uint32_t(at)) & 3);
+    for (int i = 0; i < num; ++i) {
+      uint64_t b = size-- > 0 ? d[pos++] : x;
+      tmp |= b << bits;
+      bits += 8u - (unstuff ? 1u : 0u);
+      unstuff = (b & 0xFF) == 0xFF;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return uint32_t(tmp);
+  }
+  void advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// decode_init_uvlc / decode_noninit_uvlc: u + 1 for both quads of a pair.
+uint32_t uvlc(uint32_t vlc, uint32_t mode, bool initial, uint32_t* u) {
+  static const uint8_t dec[8] = {
+      3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5),
+      2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5),
+      3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+      2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+  uint32_t consumed = 0;
+  auto value = [&](uint32_t dd, uint32_t& v) {
+    uint32_t suffix = (dd >> 2) & 7;
+    consumed += suffix;
+    uint32_t r = (dd >> 5) + (v & ((1u << suffix) - 1));
+    v >>= suffix;
+    return r;
+  };
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t dd = dec[vlc & 7];
+    vlc >>= dd & 3;
+    consumed += dd & 3;
+    uint32_t v = value(dd, vlc);
+    u[0] = mode == 1 ? v + 1 : 1;
+    u[1] = mode == 1 ? 1 : v + 1;
+  } else if (mode == 3 && initial) {
+    uint32_t d1 = dec[vlc & 7];
+    vlc >>= d1 & 3;
+    consumed += d1 & 3;
+    if ((d1 & 3) > 2) {
+      u[1] = (vlc & 1) + 1 + 1;
+      ++consumed;
+      vlc >>= 1;
+      u[0] = value(d1, vlc) + 1;
+    } else {
+      uint32_t d2 = dec[vlc & 7];
+      vlc >>= d2 & 3;
+      consumed += d2 & 3;
+      u[0] = value(d1, vlc) + 1;
+      u[1] = value(d2, vlc) + 1;
+    }
+  } else if (mode == 3 || mode == 4) {
+    uint32_t d1 = dec[vlc & 7];
+    vlc >>= d1 & 3;
+    consumed += d1 & 3;
+    uint32_t d2 = dec[vlc & 7];
+    vlc >>= d2 & 3;
+    consumed += d2 & 3;
+    uint32_t add = mode == 4 ? 3 : 1;
+    u[0] = value(d1, vlc) + add;
+    u[1] = value(d2, vlc) + add;
+  }
+  return consumed;
+}
+
+inline uint32_t clz32(uint32_t v) { return v ? __builtin_clz(v) : 32; }
+
+// One code-block into `out` (w x h, OpenJPEG's sign-magnitude turned to
+// two's complement). `data` holds its chunks back to back; `base` is the
+// residue modulo 4 of the address OpenJPEG reads them at. Failures throw.
+void ht_decode_cblk(const Cblk& cb, const uint8_t* data, uint32_t cblk_len,
+                    uint32_t base, uint32_t roishift, uint32_t cblksty,
+                    std::vector<int32_t>& out) {
+  if (roishift != 0) fail("We do not support ROI in decoding HT codeblocks");
+  const int32_t width = cb.x1 - cb.x0, height = cb.y1 - cb.y0;
+  out.assign(size_t(width) * height, 0);
+  if (cb.mb == 0 || cb.chunks.empty()) return;
+  uint32_t zero_bplanes = (cb.mb + 1) - cb.numbps;
+  uint32_t num_passes = cb.numsegs > 0 ? cb.segs[0].real_num_passes : 0;
+  num_passes += cb.numsegs > 1 ? cb.segs[1].real_num_passes : 0;
+  uint32_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+  uint32_t lengths2 =
+      num_passes > 1 ? (cb.segs.size() > 1 ? cb.segs[1].len : 0) : 0;
+  const bool causal = (cblksty & CBLK_VSC) != 0;
+  if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // a warning
+  if (num_passes > 3)
+    fail("We do not support more than 3 coding passes in an HT codeblock");
+  if (cb.mb > 30) fail("32 bits are not enough to decode this codeblock");
+  if (zero_bplanes > cb.mb)
+    fail("Malformed HT codeblock: more zero bitplanes than bitplanes");
+  if (zero_bplanes == cb.mb && num_passes > 1) num_passes = 1;  // a warning
+  const uint32_t p = cb.numbps, zero_bplanes_p1 = zero_bplanes + 1;
+  if (lengths1 < 2 || lengths1 > cblk_len ||
+      uint64_t(lengths1) + lengths2 > cblk_len)
+    fail("Malformed HT codeblock. Invalid codeblock length values.");
+  const int lcup = int(lengths1);
+  const int scup = (int(data[lcup - 1]) << 4) + (data[lcup - 2] & 0xF);
+  if (scup < 2 || scup > lcup || scup > 4079)
+    fail("Malformed HT codeblock: 2 <= Scup <= min(Lcup, 4079) fails");
+  HtMel mel;
+  if (!mel.init(data, lcup, scup, base))
+    fail("Malformed HT codeblock. Incorrect MEL segment sequence.");
+  HtRev vlc, magref;
+  vlc.init_vlc(data, lcup, scup, base);
+  HtFwd magsgn, sigprop;
+  magsgn.init(data, 0, lcup - scup, 0xFF, base);
+  if (num_passes > 1)
+    sigprop.init(data, lengths1, int(lengths2), 0, base);
+  if (num_passes > 2) magref.init_mrp(data, lcup, int(lengths2), base);
+
+  const int32_t stride = width;
+  uint32_t* dd = reinterpret_cast<uint32_t*>(out.data());
+  const size_t mstr = size_t((width + 7) >> 3) + 1;
+  std::vector<uint32_t> sigbuf(4 * mstr + 8, 0);
+  uint32_t *sigma1 = sigbuf.data(), *sigma2 = sigma1 + mstr;
+  uint32_t *mbr1 = sigma2 + mstr, *mbr2 = mbr1 + mstr;
+  std::vector<uint8_t> line_state(size_t(width) + 16, 0);
+  uint8_t* lsp = line_state.data();
+  uint32_t* sip = sigma1;
+  uint32_t sip_shift = 0;
+
+  // One sample of the MagSgn: `ek` / `e1` the EMB bits of sample n.
+  auto sample = [&](uint32_t qinf, uint32_t U, int n, uint32_t* v_out) {
+    uint32_t ms_val = magsgn.fetch();
+    uint32_t m_n = U - ((qinf >> (12 + n)) & 1);
+    magsgn.advance(m_n);
+    uint32_t val = ms_val << 31;
+    uint32_t v_n = ms_val & ((1u << m_n) - 1);
+    v_n |= ((qinf >> (8 + n)) & 1) << m_n;
+    v_n |= 1;
+    *v_out = v_n;
+    return val | ((v_n + 2) << (p - 1));
+  };
+  auto check_locs = [&](const uint32_t* qinf, uint32_t locs) {
+    if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+      fail("Malformed HT codeblock. VLC code produces significant samples "
+           "outside the codeblock area.");
+  };
+  // The MagSgn of a quad pair at sp (rows sp[0], sp[stride]), line state
+  // at lsp; `initial` zeroes the line state as the first quad row does.
+  auto magsgn_pair = [&](const uint32_t* qinf, const uint32_t* U,
+                         uint32_t locs, uint32_t* sp, uint8_t*& ls,
+                         bool initial) {
+    for (int q = 0; q < 2; ++q) {
+      uint32_t v_n;
+      int sh = 4 * q;
+      if (qinf[q] & 0x10)
+        sp[0] = sample(qinf[q], U[q], 0, &v_n);
+      else if (locs & (0x1u << sh))
+        sp[0] = 0;
+      if (qinf[q] & 0x20) {
+        sp[stride] = sample(qinf[q], U[q], 1, &v_n);
+        uint32_t t = ls[0] & 0x7F;
+        v_n = 32 - clz32(v_n);
+        ls[0] = uint8_t(0x80 | (t > v_n ? t : v_n));
+      } else if (locs & (0x2u << sh)) {
+        sp[stride] = 0;
+      }
+      ++ls;
+      ++sp;
+      if (qinf[q] & 0x40)
+        sp[0] = sample(qinf[q], U[q], 2, &v_n);
+      else if (locs & (0x4u << sh))
+        sp[0] = 0;
+      if (initial) ls[0] = 0;
+      if (qinf[q] & 0x80) {
+        sp[stride] = sample(qinf[q], U[q], 3, &v_n);
+        ls[0] = uint8_t(0x80 | (32 - clz32(v_n)));
+      } else if (locs & (0x8u << sh)) {
+        sp[stride] = 0;
+      }
+      ++sp;
+    }
+  };
+
+  // the initial quad row
+  lsp[0] = 0;
+  int run = mel.get_run();
+  uint32_t qinf[2] = {0, 0}, c_q = 0;
+  uint32_t* sp = dd;
+  uint8_t* ls = lsp;
+  for (int32_t x = 0; x < width; x += 4) {
+    uint32_t U_q[2];
+    uint32_t vlc_val = vlc.fetch();
+    qinf[0] = gVlc0[(c_q << 7) | (vlc_val & 0x7F)];
+    if (c_q == 0) {
+      run -= 2;
+      qinf[0] = run == -1 ? qinf[0] : 0;
+      if (run < 0) run = mel.get_run();
+    }
+    c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xE0) >> 5);
+    vlc_val = vlc.advance(qinf[0] & 7);
+    *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+    qinf[1] = 0;
+    if (x + 2 < width) {
+      qinf[1] = gVlc0[(c_q << 7) | (vlc_val & 0x7F)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[1] = run == -1 ? qinf[1] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xE0) >> 5);
+      vlc_val = vlc.advance(qinf[1] & 7);
+    }
+    *sip |= ((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2)) << (4 + sip_shift);
+    sip += x & 7 ? 1 : 0;
+    sip_shift ^= 0x10;
+    uint32_t mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+    if (mode == 3) {
+      run -= 2;
+      mode += run == -1 ? 1 : 0;
+      if (run < 0) run = mel.get_run();
+    }
+    uint32_t consumed = uvlc(vlc_val, mode, true, U_q);
+    if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+      fail("Malformed HT codeblock. U_q is larger than zero bitplanes + 1");
+    vlc_val = vlc.advance(consumed);
+    uint32_t locs = 0xFF;
+    if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+    locs = height > 1 ? locs : (locs & 0x55);
+    check_locs(qinf, locs);
+    magsgn_pair(qinf, U_q, locs, sp, ls, true);
+    sp += 4;
+  }
+
+  // the other quad rows, with SigProp and MagRef a stripe behind
+  auto mrp_stripe = [&](uint32_t* cur_sig, uint32_t* dpp) {
+    uint32_t half = 1u << (p - 2);
+    for (int32_t i = 0; i < width; i += 8) {
+      uint32_t cwd = magref.fetch();
+      uint32_t sig = *cur_sig++;
+      uint32_t col_mask = 0xFu;
+      uint32_t* dp = dpp + i;
+      if (sig) {
+        for (int j = 0; j < 8; ++j, ++dp) {
+          if (sig & col_mask) {
+            uint32_t sample_mask = 0x11111111u & col_mask;
+            for (int r = 0; r < 4; ++r) {
+              if (sig & sample_mask) {
+                uint32_t sym = cwd & 1;
+                dp[r * stride] ^= (1 - sym) << (p - 1);
+                dp[r * stride] |= half;
+                cwd >>= 1;
+              }
+              sample_mask += sample_mask;
+            }
+          }
+          col_mask <<= 4;
+        }
+      }
+      magref.advance(uint32_t(__builtin_popcount(sig)));
+    }
+  };
+  auto mbr_stripe = [&](uint32_t* sig, uint32_t* mbr) {
+    uint32_t prev = 0;
+    for (int32_t i = 0; i < width; i += 8, ++mbr, ++sig) {
+      mbr[0] = sig[0];
+      mbr[0] |= prev >> 28;
+      mbr[0] |= sig[0] << 4;
+      mbr[0] |= sig[0] >> 4;
+      mbr[0] |= sig[1] << 28;
+      prev = sig[0];
+      uint32_t t = mbr[0], z = mbr[0];
+      z |= (t & 0x77777777u) << 1;
+      z |= (t & 0xEEEEEEEEu) >> 1;
+      mbr[0] = z & ~sig[0];
+    }
+  };
+  auto from_next = [&](uint32_t* cur_sig, uint32_t* cur_mbr,
+                       uint32_t* nxt_sig) {
+    uint32_t prev = 0;
+    for (int32_t i = 0; i < width;
+         i += 8, ++cur_mbr, ++cur_sig, ++nxt_sig) {
+      uint32_t t = nxt_sig[0];
+      t |= prev >> 28;
+      t |= nxt_sig[0] << 4;
+      t |= nxt_sig[0] >> 4;
+      t |= nxt_sig[1] << 28;
+      prev = nxt_sig[0];
+      if (!causal) cur_mbr[0] |= (t & 0x11111111u) << 3;
+      cur_mbr[0] &= ~cur_sig[0];
+    }
+  };
+  auto spp_stripe = [&](uint32_t* cur_sig, uint32_t* cur_mbr,
+                        uint32_t* nxt_sig, uint32_t* nxt_mbr, int32_t row,
+                        uint32_t pattern) {
+    uint32_t val = 3u << (p - 2);
+    for (int32_t i = 0; i < width;
+         i += 8, ++cur_sig, ++cur_mbr, ++nxt_sig, ++nxt_mbr) {
+      uint32_t mbr = *cur_mbr & pattern;
+      uint32_t new_sig = 0;
+      if (mbr) {
+        for (int32_t n = 0; n < 8; n += 4) {
+          uint32_t cwd = sigprop.fetch();
+          uint32_t cnt = 0;
+          uint32_t* dp = dd + size_t(row) * stride + i + n;
+          uint32_t col_mask = 0xFu << (4 * n);
+          uint32_t inv_sig = ~cur_sig[0] & pattern;
+          int32_t end = n + 4 + i < width ? n + 4 : width - i;
+          static const uint32_t prop[4] = {0x32u, 0x74u, 0xE8u, 0xC0u};
+          for (int32_t j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+            if ((col_mask & mbr) == 0) continue;
+            uint32_t sample_mask = 0x11111111u & col_mask;
+            for (int r = 0; r < 4; ++r) {
+              if (mbr & sample_mask) {
+                if (cwd & 1) {
+                  new_sig |= sample_mask;
+                  uint32_t t = prop[r] << (j * 4);
+                  mbr |= t & inv_sig;
+                }
+                cwd >>= 1;
+                ++cnt;
+              }
+              sample_mask += sample_mask;
+            }
+          }
+          if (new_sig & (0xFFFFu << (4 * n))) {
+            uint32_t* dq = dd + size_t(row) * stride + i + n;
+            uint32_t cm = 0xFu << (4 * n);
+            for (int32_t j = n; j < end; ++j, ++dq, cm <<= 4) {
+              if ((cm & new_sig) == 0) continue;
+              uint32_t sample_mask = 0x11111111u & cm;
+              for (int r = 0; r < 4; ++r) {
+                if (new_sig & sample_mask) {
+                  dq[r * stride] |= ((cwd & 1) << 31) | val;
+                  cwd >>= 1;
+                  ++cnt;
+                }
+                sample_mask += sample_mask;
+              }
+            }
+          }
+          sigprop.advance(cnt);
+          if (n == 4) {
+            uint32_t t = new_sig >> 28;
+            t |= ((t & 0xE) >> 1) | ((t & 7) << 1);
+            cur_mbr[1] |= t & ~cur_sig[1];
+          }
+        }
+      }
+      new_sig |= cur_sig[0];
+      uint32_t ux = (new_sig & 0x88888888u) >> 3;
+      uint32_t tx = ux | (ux << 4) | (ux >> 4);
+      if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+      nxt_mbr[0] |= tx & ~nxt_sig[0];
+      nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+    }
+  };
+
+  for (int32_t y = 2; y < height;) {
+    sip_shift ^= 0x2;
+    sip_shift &= 0xFFFFFFEFu;
+    sip = y & 0x4 ? sigma2 : sigma1;
+    ls = lsp;
+    uint8_t ls0 = ls[0];
+    ls[0] = 0;
+    sp = dd + size_t(y) * stride;
+    c_q = 0;
+    for (int32_t x = 0; x < width; x += 4) {
+      uint32_t U_q[2];
+      c_q |= ls0 >> 7;
+      c_q |= (ls[1] >> 5) & 0x4;
+      uint32_t vlc_val = vlc.fetch();
+      qinf[0] = gVlc1[(c_q << 7) | (vlc_val & 0x7F)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[0] = run == -1 ? qinf[0] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+      vlc_val = vlc.advance(qinf[0] & 7);
+      *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2))
+              << sip_shift;
+      qinf[1] = 0;
+      if (x + 2 < width) {
+        c_q |= ls[1] >> 7;
+        c_q |= (ls[2] >> 5) & 0x4;
+        qinf[1] = gVlc1[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[1] = run == -1 ? qinf[1] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[1] & 7);
+      }
+      *sip |= ((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2))
+              << (4 + sip_shift);
+      sip += x & 7 ? 1 : 0;
+      sip_shift ^= 0x10;
+      uint32_t mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+      uint32_t consumed = uvlc(vlc_val, mode, false, U_q);
+      vlc_val = vlc.advance(consumed);
+      if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
+        uint32_t E = ls0 & 0x7Fu;
+        E = E > (ls[1] & 0x7Fu) ? E : (ls[1] & 0x7Fu);
+        U_q[0] += E > 2 ? E - 2 : 0;
+      }
+      if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
+        uint32_t E = ls[1] & 0x7Fu;
+        E = E > (ls[2] & 0x7Fu) ? E : (ls[2] & 0x7Fu);
+        U_q[1] += E > 2 ? E - 2 : 0;
+      }
+      if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+        fail("Malformed HT codeblock. U_q is larger than bitplanes + 1");
+      ls0 = ls[2];
+      ls[1] = ls[2] = 0;
+      uint32_t locs = 0xFF;
+      if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+      locs = y + 2 <= height ? locs : (locs & 0x55);
+      check_locs(qinf, locs);
+      magsgn_pair(qinf, U_q, locs, sp, ls, false);
+      sp += 4;
+    }
+    y += 2;
+    if (num_passes > 1 && (y & 3) == 0) {
+      if (num_passes > 2)
+        mrp_stripe(y & 0x4 ? sigma1 : sigma2, dd + size_t(y - 4) * stride);
+      if (y >= 4)
+        mbr_stripe(y & 0x4 ? sigma1 : sigma2, y & 0x4 ? mbr1 : mbr2);
+      if (y >= 8) {
+        uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+        uint32_t* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+        uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+        uint32_t* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+        from_next(cur_sig, cur_mbr, nxt_sig);
+        spp_stripe(cur_sig, cur_mbr, nxt_sig, nxt_mbr, y - 8, 0xFFFFFFFFu);
+        memset(cur_sig, 0, mstr * 4);
+      }
+    }
+  }
+
+  if (num_passes > 1) {
+    if (num_passes > 2 && ((height & 3) == 1 || (height & 3) == 2))
+      mrp_stripe(height & 0x4 ? sigma2 : sigma1,
+                 dd + size_t(height & 0xFFFFFC) * stride);
+    if ((height & 3) == 1 || (height & 3) == 2)
+      mbr_stripe(height & 0x4 ? sigma2 : sigma1,
+                 height & 0x4 ? mbr2 : mbr1);
+    int32_t st = height;
+    st -= height > 6 ? (((height + 1) & 3) + 3) : height;
+    for (int32_t y = st; y < height; y += 4) {
+      uint32_t pattern = 0xFFFFFFFFu;
+      if (height - y == 3)
+        pattern = 0x77777777u;
+      else if (height - y == 2)
+        pattern = 0x33333333u;
+      else if (height - y == 1)
+        pattern = 0x11111111u;
+      uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+      uint32_t* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+      uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+      uint32_t* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+      if (height - y > 4) from_next(cur_sig, cur_mbr, nxt_sig);
+      spp_stripe(cur_sig, cur_mbr, nxt_sig, nxt_mbr, y, pattern);
+    }
+  }
+
+  for (size_t i = 0; i < out.size(); ++i) {
+    uint32_t v = dd[i];
+    int32_t m = int32_t(v & 0x7FFFFFFFu);
+    out[i] = (v & 0x80000000u) ? -m : m;
   }
 }
 
@@ -1279,6 +2034,153 @@ struct Decoder {
     tcp.ppt_markers.clear();
   }
 
+  // --- Part 2: MCT, MCC, MCO, CBD (opj_j2k_read_mct / _mcc / _mco / _cbd).
+  // OpenJPEG reads the records, but COD refuses the array transform
+  // (SGcod 2) that would apply their matrix, so what reaches the samples is
+  // MCO's DC level shifts (zeroed, then an offset record's) and CBD's
+  // precisions and signs. A warning returns early and the decode goes on.
+  void read_mct(const uint8_t* p, uint32_t size) {
+    TCP& tcp = tcp_here();
+    if (size < 2) fail("Error reading MCT marker");
+    if (be(p, 2) != 0) return;  // "mct data within multiple MCT records"
+    if (size <= 6) fail("Error reading MCT marker");
+    uint32_t imct = be(p + 2, 2), index = imct & 0xff;
+    size_t i = 0;
+    while (i < tcp.mcts.size() && tcp.mcts[i].index != index) ++i;
+    if (i == tcp.mcts.size()) tcp.mcts.emplace_back();
+    MctRec& rec = tcp.mcts[i];
+    rec.data.clear();
+    rec.index = index;
+    rec.elem = (imct >> 10) & 3;
+    if (be(p + 4, 2) != 0) return;  // "multiple MCT markers": no data
+    rec.data.assign(p + 6, p + size);
+  }
+
+  void read_mcc(const uint8_t* p, uint32_t size) {
+    TCP& tcp = tcp_here();
+    if (size < 2) fail("Error reading MCC marker");
+    if (be(p, 2) != 0) return;  // "multiple data spanning"
+    if (size < 7) fail("Error reading MCC marker");
+    uint32_t index = p[2];
+    size_t i = 0;
+    while (i < tcp.mccs.size() && tcp.mccs[i].index != index) ++i;
+    bool fresh = i == tcp.mccs.size();
+    MccRec& rec = fresh ? tcp.mcc_spare : tcp.mccs[i];
+    rec.index = index;
+    if (be(p + 3, 2) != 0) return;  // Ymcc: "multiple data spanning"
+    uint32_t ncoll = be(p + 5, 2);
+    if (ncoll > 1) return;          // "multiple collections"
+    const uint8_t* q = p + 7;
+    size -= 7;
+    for (uint32_t c = 0; c < ncoll; ++c) {
+      if (size < 3) fail("Error reading MCC marker");
+      if (q[0] != 1) return;        // not an array decorrelation
+      uint32_t n = be(q + 1, 2);
+      q += 3;
+      size -= 3;
+      uint32_t nb = 1 + (n >> 15);
+      rec.nb_comps = n & 0x7fff;
+      if (size < nb * rec.nb_comps + 2) fail("Error reading MCC marker");
+      size -= nb * rec.nb_comps + 2;
+      for (uint32_t j = 0; j < rec.nb_comps; ++j, q += nb)
+        if (be(q, int(nb)) != j) return;  // "indix shuffle"
+      n = be(q, 2);
+      q += 2;
+      nb = 1 + (n >> 15);
+      if ((n & 0x7fff) != rec.nb_comps) return;
+      if (size < nb * rec.nb_comps + 3) fail("Error reading MCC marker");
+      size -= nb * rec.nb_comps + 3;
+      for (uint32_t j = 0; j < rec.nb_comps; ++j, q += nb)
+        if (be(q, int(nb)) != j) return;
+      uint32_t t = be(q, 3);
+      q += 3;
+      rec.deco = rec.offs = -1;
+      for (int k = 0; k < 2; ++k) {
+        uint32_t want = k == 0 ? t & 0xff : (t >> 8) & 0xff;
+        if (want == 0) continue;
+        int32_t found = -1;
+        for (size_t j = 0; j < tcp.mcts.size() && found < 0; ++j)
+          if (tcp.mcts[j].index == want) found = int32_t(j);
+        if (found < 0) fail("Error reading MCC marker");
+        (k == 0 ? rec.deco : rec.offs) = found;
+      }
+    }
+    if (size != 0) fail("Error reading MCC marker");
+    if (fresh) {
+      tcp.mccs.push_back(rec);
+      tcp.mcc_spare = MccRec();
+    }
+  }
+
+  // opj_j2k_add_mct: the MCC `index` names, its arrays' sizes checked,
+  // its offsets as the DC level shifts.
+  void add_mct(TCP& tcp, uint32_t index) {
+    static const uint32_t kElemSize[4] = {2, 4, 4, 8};
+    const MccRec* rec = nullptr;
+    for (const MccRec& m : tcp.mccs)
+      if (m.index == index) {
+        rec = &m;
+        break;
+      }
+    if (!rec || rec->nb_comps != numcomps) return;
+    if (rec->deco >= 0) {
+      const MctRec& d = tcp.mcts[rec->deco];
+      if (d.data.size() != kElemSize[d.elem] * numcomps * numcomps)
+        fail("an MCT decorrelation array of the wrong size");
+    }
+    if (rec->offs >= 0) {
+      const MctRec& o = tcp.mcts[rec->offs];
+      uint32_t es = kElemSize[o.elem];
+      if (o.data.size() != es * numcomps)
+        fail("an MCT offset array of the wrong size");
+      for (uint32_t c = 0; c < numcomps; ++c) {
+        const uint8_t* e = o.data.data() + es * c;
+        int32_t v;
+        if (o.elem == 0) {
+          v = int32_t(be(e, 2));  // read unsigned, as OpenJPEG does
+        } else if (o.elem == 1) {
+          v = int32_t(be(e, 4));
+        } else {
+          double f;
+          if (o.elem == 2) {
+            uint32_t b = be(e, 4);
+            float g;
+            memcpy(&g, &b, 4);
+            f = g;
+          } else {
+            uint64_t b = uint64_t(be(e, 4)) << 32 | be(e + 4, 4);
+            memcpy(&f, &b, 8);
+          }
+          // cvttss2si / cvttsd2si: INT32_MIN where the value does not fit
+          v = (f > -2147483649.0 && f < 2147483648.0) ? int32_t(f)
+                                                      : INT32_MIN;
+        }
+        tcp.tccps[c].dc_level_shift = v;
+      }
+    }
+  }
+
+  void read_mco(const uint8_t* p, uint32_t size) {
+    TCP& tcp = tcp_here();
+    if (size < 1) fail("Error reading MCO marker");
+    uint32_t stages = p[0];
+    if (stages > 1) return;  // "multiple transformation stages"
+    if (size != stages + 1) fail("Error reading MCO marker");
+    for (uint32_t c = 0; c < numcomps; ++c) tcp.tccps[c].dc_level_shift = 0;
+    for (uint32_t i = 0; i < stages; ++i) add_mct(tcp, p[1 + i]);
+  }
+
+  void read_cbd(const uint8_t* p, uint32_t size) {
+    if (size != numcomps + 2 || be(p, 2) != numcomps)
+      fail("Crror reading CBD marker");
+    for (uint32_t c = 0; c < numcomps; ++c) {
+      comps[c].sgnd = (p[2 + c] >> 7) & 1;
+      comps[c].prec = (p[2 + c] & 0x7f) + 1u;
+      if (comps[c].prec > 31)
+        fail("Invalid values for comp: prec (OpenJPEG supports up to 31)");
+    }
+  }
+
   void read_marker(uint32_t id, const uint8_t* p, uint32_t size) {
     switch (id) {
       case M_SIZ: read_siz(p, size); break;
@@ -1299,8 +2201,10 @@ struct Decoder {
       case M_COM: case M_CAP: case M_CPF: break;
       case M_PPM: read_ppm(p, size); break;
       case M_PPT: read_ppt(p, size); break;
-      case M_MCT: case M_MCC: case M_MCO: case M_CBD:
-        fail("a Part 2 multiple component transform marker", kPart2);
+      case M_MCT: read_mct(p, size); break;
+      case M_MCC: read_mcc(p, size); break;
+      case M_MCO: read_mco(p, size); break;
+      case M_CBD: read_cbd(p, size); break;
       case M_SOT: read_sot(p, size); break;
       default: fail("Not sure how that happened.");
     }
@@ -1920,6 +2824,7 @@ struct Decoder {
           if (!cb.numsegs) {
             uint32_t i = 0;
             while (!tgt_decode(bio, pr.imsb, k, int32_t(i))) ++i;
+            cb.mb = uint32_t(band.numbps);
             cb.numbps = uint32_t(band.numbps) + 1 - i;
             cb.numlenbits = 3;
           }
@@ -2036,6 +2941,7 @@ struct Decoder {
     }
     // tier 1
     T1 t1;
+    std::vector<uint8_t> ht_buf;
     for (uint32_t c = 0; c < numcomps; ++c) {
       TileComp& tc = tcs[c];
       const TCCP& tccp = tcp.tccps[c];
@@ -2049,10 +2955,24 @@ struct Decoder {
           for (Prec& pr : band.precs) {
             for (Cblk& cb : pr.cblks) {
               if (cb.x1 < cb.x0 || cb.y1 < cb.y0) continue;
-              if ((tccp.cblksty & CBLK_HT) && cb.real_num_segs)
-                fail("HTJ2K code-blocks (Part 15)", kHTJ2K);
-              decode_cblk(t1, cb, tcp.data, band.bandno,
-                          uint32_t(tccp.roishift), tccp.cblksty);
+              if (tccp.cblksty & CBLK_HT) {
+                // One chunk is read in place in the tile's bytes (16-byte
+                // aligned), several from a copy of their own.
+                ht_buf.clear();
+                for (const auto& ch : cb.chunks)
+                  ht_buf.insert(ht_buf.end(), tcp.data.begin() + ch.first,
+                                tcp.data.begin() + ch.first + ch.second);
+                uint32_t base =
+                    cb.chunks.size() == 1 ? cb.chunks[0].first & 3 : 0;
+                ht_decode_cblk(cb, ht_buf.data(), uint32_t(ht_buf.size()),
+                               base, uint32_t(tccp.roishift), tccp.cblksty,
+                               t1.data);
+                t1.w = uint32_t(cb.x1 - cb.x0);
+                t1.h = uint32_t(cb.y1 - cb.y0);
+              } else {
+                decode_cblk(t1, cb, tcp.data, band.bandno,
+                            uint32_t(tccp.roishift), tccp.cblksty);
+              }
               int32_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
               if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
               if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -2376,6 +3296,12 @@ void put_msg(char* msg, int64_t cap, const std::string& m) {
 }  // namespace
 
 extern "C" {
+
+// OpenJPEG's HT VLC tables: vlc_tbl0 then vlc_tbl1, 1024 entries each.
+void gpt_j2k_set_ht_tables(const uint16_t* tables) {
+  memcpy(gVlc0, tables, sizeof gVlc0);
+  memcpy(gVlc1, tables + 1024, sizeof gVlc1);
+}
 
 // Pillow's YCbCr -> RGB tables (256 entries each: R_Cr, G_Cb, G_Cr, B_Cb).
 void gpt_j2k_set_ycbcr(const int16_t* tables) {

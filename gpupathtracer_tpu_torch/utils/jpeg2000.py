@@ -16,11 +16,11 @@
   OpenJPEG applies neither ``pclr`` nor ``cdef`` on Pillow's tile path:
   the samples come as they are, and a P image takes PIL's palette.
 - The codestream and Pillow's unpackers: utils/j2k_cpp/j2k.cpp (built
-  with g++ at first use, utils/native.py).
+  with g++ at first use, utils/native.py), HTJ2K code-blocks with
+  OpenJPEG's VLC tables from ht_vlc.bin, and the Part 2 component
+  transform markers (MCT, MCC, MCO, CBD) as OpenJPEG reads them.
 
-HTJ2K code-blocks and the Part 2 component transform markers raise
-NotImplementedError naming the file (ROADMAP.md C6); bytes PIL cannot
-open or load raise ValueError naming the file.
+Bytes PIL cannot open or load raise ValueError naming the file.
 Nothing here imports PIL or the JAX package.
 """
 
@@ -40,9 +40,6 @@ _lib: Optional[ctypes.CDLL] = None
 
 J2K_MAGIC = b"\xff\x4f\xff\x51"
 JP2_MAGIC = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
-
-_UNREAD = {-2: "HTJ2K code-blocks (Part 15)",
-           -4: "a Part 2 multiple component transform"}
 
 # OpenJPEG's colour spaces (opj_image_t.color_space).
 _UNKNOWN, _UNSPECIFIED, _SRGB, _GRAY, _SYCC, _EYCC, _CMYK = (-1, 0, 1, 2,
@@ -80,6 +77,16 @@ def ycbcr_tables() -> np.ndarray:
                                     "ycbcr_rgb.bin"), "<i2").reshape(4, 256)
 
 
+def ht_vlc_tables() -> np.ndarray:
+    """OpenJPEG's HTJ2K VLC tables (vlc_tbl0 for the first quad row,
+    vlc_tbl1 for the others; uint16 [2, 1024], each entry rho << 4 |
+    u_off << 3 | e_k << 12 | e_1 << 8 | codeword length), as ht_vlc.bin
+    holds them (tools/torch_image_fixtures.py --ht-vlc-table reads them
+    out of Pillow's OpenJPEG and checks that each is a prefix code)."""
+    return np.fromfile(os.path.join(os.path.dirname(__file__),
+                                    "ht_vlc.bin"), "<u2").reshape(2, 1024)
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -87,6 +94,8 @@ def _load() -> ctypes.CDLL:
         p, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
         lib.gpt_j2k_set_ycbcr.restype = None
         lib.gpt_j2k_set_ycbcr.argtypes = [p]
+        lib.gpt_j2k_set_ht_tables.restype = None
+        lib.gpt_j2k_set_ht_tables.argtypes = [p]
         lib.gpt_j2k_info.restype = ctypes.c_int
         lib.gpt_j2k_info.argtypes = [ctypes.c_char_p, i64, i64, u32, u32, p,
                                      ctypes.c_int, ctypes.c_char_p, i64]
@@ -96,6 +105,8 @@ def _load() -> ctypes.CDLL:
                                        ctypes.c_char_p, i64]
         tables = np.ascontiguousarray(ycbcr_tables(), np.int16)
         lib.gpt_j2k_set_ycbcr(tables.ctypes.data)
+        vlc = np.ascontiguousarray(ht_vlc_tables(), np.uint16)
+        lib.gpt_j2k_set_ht_tables(vlc.ctypes.data)
         _lib = lib
     return _lib
 
@@ -595,8 +606,7 @@ def _to_rgb(img: np.ndarray, mode: str, palette) -> np.ndarray:
 def decode_jpeg2000(data: bytes, name: str = "<jp2>") -> np.ndarray:
     """Decode a J2K codestream or a JP2 file to uint8 [H, W, 3], bit for bit
     PIL's ``convert("RGB")``. What PIL cannot open or load raises
-    ValueError naming the file; HTJ2K and Part 2 component transforms
-    raise NotImplementedError."""
+    ValueError naming the file."""
     from gpupathtracer_tpu_torch.utils.identify import PassOn, Refused
     try:
         codec, (w, h), mode, palette = pil_open(data)
@@ -665,9 +675,5 @@ def _check(rc: int, msg, name: str) -> None:
     if rc == 0:
         return
     why = msg.value.decode("latin-1")
-    if rc in _UNREAD:
-        raise NotImplementedError(
-            f"{name}: a JPEG 2000 file with {_UNREAD[rc]} (PIL reads it; "
-            f"the port does not: ROADMAP.md C6)")
     raise ValueError(f"{name}: OpenJPEG fails to decode this JPEG 2000 "
                      f"file ({why})")

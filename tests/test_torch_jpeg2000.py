@@ -310,25 +310,25 @@ def test_unread_plugins_still_open_what_pil_writes(folder, fmt, ext):
         io.load_image(path)
 
 
-# --- HTJ2K, the atlas, a sky -------------------------------------------------
+# --- HT code-blocks over Part 1 data, the atlas, a sky ----------------------
 
 def test_htj2k_raises_not_implemented(folder):
     """A codestream whose COD asks for HTJ2K code-blocks (style bit 0x40)
-    raises NotImplementedError naming the file and HTJ2K (ROADMAP.md
-    C6)."""
+    over PIL's Part 1 code-block data: the port reads it as OpenJPEG reads
+    HT code-blocks, bitwise PIL where PIL decodes it and ValueError naming
+    the file where PIL fails (ROADMAP.md C6: no JPEG 2000 file raises
+    NotImplementedError)."""
     data = W.j2k_cod_style(_pil_save(_photo(16, 16, 2), "JPEG2000",
                                      no_jp2=True), 0x40)
-    path = os.path.join(str(folder), "ht.j2k")
-    with open(path, "wb") as f:
-        f.write(data)
-    with pytest.raises(NotImplementedError, match="ht.j2k.*HTJ2K"):
-        io.load_image(path)
+    _hold(folder, "ht.j2k", data, pil_reads=None)
 
 
 def test_atlas_skips_what_pil_refuses_and_stops_on_htj2k(tmp_path):
-    """An OBJ's maps: a JP2, an ICNS, a J2K PIL refuses (truncated) and C9
-    junk: build_atlas's tables bitwise the JAX package's, the two skipped
-    by both; an HTJ2K map stops the port's atlas."""
+    """An OBJ's maps: a JP2, an ICNS, a J2K PIL refuses (truncated), C9
+    junk and an AVIF of junk behind its ftyp box (libavif refuses it at
+    open): build_atlas's tables bitwise the JAX package's, the three
+    skipped by both; a PIL-written AVIF, which the JAX package reads and
+    the port does not yet (ROADMAP.md C6), stops the port's atlas."""
     from gpupathtracer_tpu.scene import textures as jax_textures
 
     from gpupathtracer_tpu_torch.scene import textures
@@ -339,17 +339,21 @@ def test_atlas_skips_what_pil_refuses_and_stops_on_htj2k(tmp_path):
     (tmp_path / "cut.j2k").write_bytes(_pil_save(
         _photo(8, 8, 5), "JPEG2000", no_jp2=True)[:-20])
     (tmp_path / "junk.xbm").write_bytes(C9_JUNK["xbm"])
-    maps = ["a.jp2", "b.icns", "cut.j2k", "junk.xbm"]
+    avif = _pil_save(_photo(8, 8, 6), "AVIF")
+    (tmp_path / "junk.avif").write_bytes(avif[:32] + bytes(40))
+    maps = ["a.jp2", "b.icns", "cut.j2k", "junk.xbm", "junk.avif"]
     got = textures.build_atlas(maps, str(tmp_path), mip_levels=2)
     want = jax_textures.build_atlas(maps, str(tmp_path), mip_levels=2)
     assert got[2] == want[2] and len(got[2]) == 2
     for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert g.tobytes() == w.tobytes()
-    (tmp_path / "ht.j2k").write_bytes(W.j2k_cod_style(
-        _pil_save(_photo(8, 8, 6), "JPEG2000", no_jp2=True), 0x40))
-    with pytest.raises(NotImplementedError, match="HTJ2K"):
-        textures.build_atlas(maps + ["ht.j2k"], str(tmp_path), mip_levels=2)
+    (tmp_path / "photo.avif").write_bytes(avif)
+    jax_textures.build_atlas(maps + ["photo.avif"], str(tmp_path),
+                             mip_levels=2)
+    with pytest.raises(NotImplementedError, match="photo.avif"):
+        textures.build_atlas(maps + ["photo.avif"], str(tmp_path),
+                             mip_levels=2)
 
 
 def test_cube_sky_of_jp2_faces(tmp_path):

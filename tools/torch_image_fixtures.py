@@ -5,6 +5,8 @@ decoded pixels.
 
     python tools/torch_image_fixtures.py [--out tests/golden/images]
     python tools/torch_image_fixtures.py --time   # decode times, port and PIL
+    python tools/torch_image_fixtures.py --ht-vlc-table   # utils/ht_vlc.bin
+    python tools/torch_image_fixtures.py --avif-set   # tests/golden/avif
 
 Needs Pillow, so it runs where the JAX package's tests run, never on the
 card's machine; the port reads the files without it (utils/io.py
@@ -1736,6 +1738,8 @@ def other_fixtures(twins: dict) -> dict:
            jpeg2000_fixtures(t).items()},
         **{k: (f, d, tw, {"ICNS": e}) for k, (f, d, tw, e) in
            icns_fixtures(t).items()},
+        **{k: (f, d, tw, {"JPEG2000": e}) for k, (f, d, tw, e) in
+           jpeg2000_rest_fixtures(t).items()},
     }
 
 
@@ -2381,6 +2385,12 @@ def _openjpeg_encode_here(spec: dict) -> bytes:
             par[_OPJ[k]] = bytes([v])
         else:
             struct.pack_into("<i", par, _OPJ[k], v)
+    if "mct" in spec:                   # opj_set_MCT: Part 2's array
+        mat, shift = spec["mct"]        # transform, which sets 9/7
+        lib.opj_set_MCT(par, (ctypes.c_float * (n * n))(*mat),
+                        (ctypes.c_int32 * n)(*shift), ctypes.c_uint32(n))
+        struct.pack_into("<i", par, _OPJ["irreversible"],
+                         spec.get("params", {}).get("irreversible", 1))
     rates = spec.get("layers", [0])
     struct.pack_into("<i", par, _OPJ["tcp_numlayers"], len(rates))
     struct.pack_into(f"<{len(rates)}f", par, _OPJ["tcp_rates"], *rates)
@@ -2733,6 +2743,220 @@ def jpeg2000_fixtures(t: dict) -> dict:
     return out
 
 
+# --- the rest of JPEG 2000 and AVIF at open (the eighth image slice) ---------
+
+def htj2k():
+    """tools/torch_htj2k.py, the HTJ2K writer beside this tool."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_htj2k", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "torch_htj2k.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def j2k_cod_mct(cs: bytes, mct: int) -> bytes:
+    """The codestream with its main COD's SGcod (the component transform)
+    set: OpenJPEG writes 2 for its array transform and reads 0 or 1 only."""
+    pos = 2
+    while True:
+        m, n = struct.unpack_from(">HH", cs, pos)
+        if m == 0xFF52:
+            out = bytearray(cs)
+            out[pos + 8] = mct          # Scod, progression, layers (2), SGcod
+            return bytes(out)
+        pos += 2 + n
+
+
+def j2k_tile_insert(cs: bytes, *segments) -> bytes:
+    """The codestream with marker segments inserted into its first
+    tile-part header, Psot kept true."""
+    pos = j2k_main_header(cs)
+    body = b"".join(struct.pack(">HH", m, len(b) + 2) + b for m, b in segments)
+    out = bytearray(cs[:pos + 12]) + body + cs[pos + 12:]
+    psot = struct.unpack_from(">I", cs, pos + 6)[0]
+    if psot:
+        out[pos + 6:pos + 10] = struct.pack(">I", psot + len(body))
+    return bytes(out)
+
+
+def mct_segments(offsets, elem: int = 0, deco=None, index: int = 1) -> tuple:
+    """Part 2 marker segments (marker, body): an MCT offset record of
+    element type `elem` (0 int16, 1 int32, 2 float32, 3 float64), an
+    optional decorrelation record, an MCC naming them and an MCO."""
+    fmt = ">" + "hifd"[elem]
+    out = []
+    recs = [(index, 2, offsets)] + ([(index + 1, 1, deco)] if deco else [])
+    for idx, array_type, values in recs:
+        body = b"".join(struct.pack(fmt, v) for v in values)
+        out.append((0xFF74, struct.pack(">HHH", 0, idx | array_type << 8 |
+                                        elem << 10, 0) + body))
+    n = len(offsets)
+    tmcc = (index << 8) | ((index + 1) if deco else 0) | 1 << 16
+    out.append((0xFF75, struct.pack(">HBHHBH", 0, 7, 0, 1, 1, n) + bytes(
+        range(n)) + struct.pack(">H", n) + bytes(range(n)) + tmcc.to_bytes(
+        3, "big")))
+    out.append((0xFF77, bytes([1, 7])))   # one stage: the MCC above
+    return tuple(out)
+
+
+def jpeg2000_rest_fixtures(t: dict) -> dict:
+    """JPEG 2000 beyond Part 1: HTJ2K codestreams by tools/torch_htj2k.py
+    (5/3 and 9/7, the cleanup pass alone or with SigProp and MagRef,
+    code-blocks from 8x8 to 64x64, layers, tiles, vertically causal
+    contexts, 1-4 components, a JP2), Part 2 component transforms by
+    OpenJPEG's own encoder (opj_set_MCT, 3 and 4 components, reversible
+    and 9/7, with and without offsets; its COD's array transform edited to
+    one OpenJPEG reads) and MCT / MCC / MCO / CBD segments inserted into
+    PIL's files; and the town's four maps as lossless re-encodings of
+    their PNG twins (checker and roof HTJ2K, bricks and foliage through an
+    identity Part 2 transform whose offsets carry the DC level shift)."""
+    from PIL import Image
+    ht = htj2k()
+    b48 = np.ascontiguousarray(t["bricks"][16:56, 8:56])
+    f48 = np.ascontiguousarray(t["foliage"][40:80, 32:80])
+    rgba = np.concatenate([b48, f48[..., :1]], -1)
+    planes = lambda img: [img[..., c] for c in range(img.shape[-1])]  # noqa
+    enc = lambda img, **kw: openjpeg_encode(planes(img), **kw)  # noqa: E731
+    out = {}
+    for name, img, kw, what in (
+            ("53", b48, dict(levels=3), "5/3, the cleanup pass alone"),
+            ("97", b48, dict(levels=3, cblk=(5, 4), real=True, p=2,
+                             passes=3), "9/7, 32x16 code-blocks, cleanup + "
+                                        "SigProp + MagRef"),
+            ("spp", b48, dict(levels=2, p=2, passes=2),
+             "5/3, cleanup + SigProp"),
+            ("refine", f48[..., :3], dict(levels=2, cblk=(3, 3), p=2,
+                                          passes=3),
+             "5/3, 8x8 code-blocks, cleanup + SigProp + MagRef"),
+            ("cb64", f48[..., :3], dict(levels=1, cblk=(6, 6)),
+             "5/3, 64x64 code-blocks"),
+            ("cb32x8", b48, dict(levels=2, cblk=(5, 3), real=True,
+                                 steps=[1] * 7), "9/7, 32x8 code-blocks, "
+                                                 "steps of 1/2"),
+            ("layers", b48, dict(levels=2, cblk=(3, 3), layers=3,
+                                 late=True), "5/3, three layers (a "
+                                             "resolution's code-blocks a "
+                                             "layer)"),
+            ("tiles", f48[..., :3], dict(levels=2, tile=(16, 16), p=2,
+                                         passes=3),
+             "5/3, 16x16 tiles, three passes"),
+            ("vsc", b48, dict(levels=2, p=2, passes=3, style=0x48),
+             "5/3, vertically causal contexts, three passes"),
+            ("grey", b48[..., :1], dict(levels=3, cblk=(5, 5)),
+             "one component, 32x32 code-blocks"),
+            ("rgba", rgba, dict(levels=2, real=True, p=2, passes=3),
+             "four components, 9/7")):
+        out[f"ht_{name}"] = (f"ht_{name}.j2k", ht.write_codestream(
+            planes(img), **kw), None, f"J2K, HTJ2K {what} (tools/"
+                                      f"torch_htj2k.py)")
+    jp2 = _pil(b48, "JPEG2000")
+    cs = ht.write_codestream(planes(b48), levels=2, p=2, passes=3)
+    boxes = _boxes(jp2)
+    out["ht_jp2"] = ("ht.jp2", b"".join(_box(ty, cs if ty == b"jp2c" else b)
+                                        for ty, b in boxes), None,
+                     "JP2, PIL's boxes around an HTJ2K codestream")
+    mat3 = [1, 0.5, 0.25, 0, 1, 0.5, 0.25, 0, 1]
+    mat4 = [1, 0, 0.5, 0, 0, 1, 0, 0.25, 0.5, 0, 1, 0, 0, 0.25, 0, 1]
+    for name, img, mat, shift, irr, sgcod in (
+            ("mct3_rev_off", b48, mat3, [128, 10, -5], 0, 1),
+            ("mct3_irr", b48, mat3, [0, 0, 0], 1, 1),
+            ("mct4_rev", rgba, mat4, [128] * 4, 0, 0),
+            ("mct4_irr_off", rgba, mat4, [100, 0, -20, 7], 1, 1)):
+        out[name] = (f"{name}.j2k", j2k_cod_mct(enc(
+            img, mct=(mat, shift), params=dict(irreversible=irr)), sgcod),
+            None, f"J2K, {img.shape[-1]} components through opj_set_MCT "
+                  f"({'9/7' if irr else '5/3'}, offsets {shift}), COD's "
+                  f"array transform edited to {sgcod} (OpenJPEG)")
+    base = _pil(b48, "JPEG2000", no_jp2=True)
+    base97 = _pil(b48, "JPEG2000", no_jp2=True, irreversible=True)
+    for name, cs, segs, what in (
+            ("mct_int16", base, mct_segments([100, 140, 60]),
+             "int16 offsets"),
+            ("mct_float", base97, mct_segments([127.5, -3.75, 1e3], 2),
+             "float32 offsets, 9/7"),
+            ("mct_double", base, mct_segments([128.0, 64.0, -1e10], 3,
+                                              deco=[1.0] * 9),
+             "float64 offsets (one out of int range) and a decorrelation "
+             "matrix"),
+            ("mct_zero", base, ((0xFF77, bytes([0])),),
+             "an MCO of no stages (the DC level shifts zeroed)"),
+            ("cbd", base, ((0xFF78, struct.pack(">H", 3) + bytes(
+                [0x87, 0x06, 0x07])),),
+             "a CBD: component 0 signed, component 1 of 7 bits")):
+        out[name] = (f"{name}.j2k", j2k_insert(cs, *segs), None,
+                     f"J2K, PIL's file with Part 2 segments inserted: {what}")
+    tiled = _pil(b48, "JPEG2000", no_jp2=True, tile_size=(24, 24))
+    out["mct_tilepart"] = ("mct_tilepart.j2k", j2k_tile_insert(
+        tiled, *mct_segments([200, 128, 50])), None,
+        "J2K, PIL's tiled file, Part 2 segments in the first tile-part "
+        "header")
+    # The town's maps, lossless.
+    out["ht_checker"] = ("checker_ht.j2k", ht.write_codestream(
+        planes(t["checker"]), levels=4, cblk=(5, 5)), "checker.png",
+        "J2K, HTJ2K 5/3, 32x32 code-blocks (tools/torch_htj2k.py)")
+    out["ht_roof"] = ("roof_ht.j2k", ht.write_codestream(
+        planes(t["roof"]), levels=3, tile=(64, 64)), "roof.png",
+        "J2K, HTJ2K 5/3, 64x64 tiles (tools/torch_htj2k.py)")
+    ident = [1, 0, 0, 0, 1, 0, 0, 0, 1]
+    for name in ("bricks", "foliage"):
+        out[f"mct_{name}"] = (f"{name}_mct.j2k", j2k_cod_mct(enc(
+            t[name], mct=(ident, [128] * 3), params=dict(irreversible=0)),
+            0), f"{name}.png", "J2K, an identity opj_set_MCT transform "
+                               "whose offsets are the DC level shift, 5/3, "
+                               "COD's array transform edited to 0 "
+                               "(OpenJPEG)")
+    return out
+
+
+def _avif_times_zeroed(data: bytes) -> bytes:
+    """PIL's AVIF with the creation and modification times of its mvhd,
+    tkhd and mdhd boxes set to 0, so that the file is the same each run."""
+    out = bytearray(data)
+    for tag in (b"mvhd", b"tkhd", b"mdhd"):
+        at = out.find(tag)
+        while at >= 0:
+            wide = out[at + 4] == 1
+            n = 8 if wide else 4
+            out[at + 8:at + 8 + 2 * n] = bytes(2 * n)
+            at = out.find(tag, at + 4)
+    return bytes(out)
+
+
+def avif_fixtures(t: dict) -> dict:
+    """name -> bytes: AVIF files PIL writes (the town's roof as a still
+    image, foliage with alpha, an animation of two frames of bricks) and,
+    of each, the cuts and junk behind its ftyp box that libavif refuses at
+    open. They are held against PIL's Image.open, not decoded
+    (utils/avif.py)."""
+    from PIL import Image
+    rng = np.random.RandomState(25)
+    roof = Image.fromarray(t["roof"])
+    fol = Image.fromarray(np.concatenate(
+        [t["foliage"], t["checker"][..., :1]], -1))
+    bricks = Image.fromarray(t["bricks"])
+    files = {
+        "still": _pil(roof, "AVIF", quality=80),
+        "alpha": _pil(fol, "AVIF", quality=80),
+        "anim": _avif_times_zeroed(_pil(bricks, "AVIF", save_all=True,
+                                        append_images=[roof],
+                                        quality=60)),
+    }
+    out = {}
+    for name, d in files.items():
+        ftyp = struct.unpack_from(">I", d)[0]
+        mdat = d.find(b"mdat") - 4
+        out[name] = d
+        out[f"{name}_cut32z"] = d[:32] + bytes(40)
+        out[f"{name}_cut24"] = d[:24]
+        out[f"{name}_half"] = d[:len(d) // 2]
+        out[f"{name}_junk"] = d[:ftyp] + bytes(rng.randint(0, 256, 64)
+                                               .astype(np.uint8))
+        out[f"{name}_nomdat"] = d[:mdat]
+    return out
+
+
 def icns_fixtures(t: dict) -> dict:
     """The ICNS files: the town's roof as a 128x128 icon whose ic07 element
     is a lossless JPEG 2000 codestream beside its it32 run-length RGB and
@@ -2925,6 +3149,13 @@ def main(argv=None) -> int:
                          "(Pillow's YCbCr -> RGB tables) instead")
     ap.add_argument("--openjpeg-encode", nargs=2, metavar=("SPEC", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--ht-vlc-table", action="store_true",
+                    help="write gpupathtracer_tpu_torch/utils/ht_vlc.bin "
+                         "(OpenJPEG's HTJ2K VLC tables, read out of the "
+                         "OpenJPEG Pillow bundles) instead")
+    ap.add_argument("--avif-set", action="store_true",
+                    help="write tests/golden/avif (PIL-written AVIFs, their "
+                         "cuts and junk, PIL's verdicts) instead")
     ap.add_argument("--lab-table", action="store_true",
                     help="write gpupathtracer_tpu_torch/utils/lab_srgb.bin "
                          "(LittleCMS's Lab -> sRGB table) instead")
@@ -2942,6 +3173,21 @@ def main(argv=None) -> int:
     if args.ycbcr_table:
         ycbcr_table(os.path.join(REPO, "gpupathtracer_tpu_torch", "utils",
                                  "ycbcr_rgb.bin"))
+        return 0
+    if args.ht_vlc_table:
+        import glob
+
+        import PIL
+        lib = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+            PIL.__file__)), "pillow.libs", "libopenjp2-*.so*"))[0]
+        ht = htj2k()
+        with open(lib, "rb") as f:
+            tables = ht.find_vlc_tables(f.read())
+        with open(ht.VLC_BIN, "wb") as f:
+            f.write(tables)
+        return 0
+    if args.avif_set:
+        write_avif_set(os.path.join(REPO, "tests", "golden", "avif"))
         return 0
     if args.lab_table:
         lab_table(os.path.join(REPO, "gpupathtracer_tpu_torch", "utils",
@@ -2992,6 +3238,39 @@ def main(argv=None) -> int:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
+
+
+def write_avif_set(folder: str) -> None:
+    """avif_fixtures (of the JPEG fixtures' decodes) into ``folder`` with
+    verdicts.json: each file's sha256 and the format PIL's Image.open
+    gives it by its path (null where PIL fails)."""
+    import warnings
+
+    from PIL import Image
+    twins = {}
+    for name, (pixels, kw) in fixtures().items():
+        buf = io.BytesIO()
+        Image.fromarray(pixels).save(buf, "JPEG", **kw)
+        buf.seek(0)
+        twins[name] = np.asarray(Image.open(buf).convert("RGB"))
+    os.makedirs(folder, exist_ok=True)
+    verdicts = {}
+    for name, data in avif_fixtures(twins).items():
+        path = os.path.join(folder, f"{name}.avif")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fmt = Image.open(path).format
+        except Exception:
+            fmt = None
+        verdicts[name] = {"file": f"{name}.avif", "sha256": _sha(data),
+                          "pil": fmt}
+        print(f"avif/{name}: {len(data)} B, PIL: {fmt}")
+    with open(os.path.join(folder, "verdicts.json"), "w") as f:
+        json.dump(verdicts, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 if __name__ == "__main__":
